@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+drives the port's serving main path (minicpm-2b, full width, random weights
+from a seed) in three phases; any failure exits non-zero:
+
+1. the four paged-attention kernels against their plain PyTorch versions
+   (``repro_torch.kernels.ref``) on random inputs at minicpm-2b's shapes
+   and at one GQA shape (minitron-4b's heads), compared in f32 with
+   atol = rtol = 1.6e-2 (about two bf16 steps of the output), and timed
+   with CUDA events beside the plain version, the bound of the work and
+   ``scaled_dot_product_attention`` on the gathered dense view (a
+   yardstick the port never calls);
+2. the launcher, ``repro_torch.launch.serve.main``: 8 requests, 16 new
+   tokens, int8 KV (the plan's default for this frequency service);
+3. a request wave through ``ServiceRuntime`` with prompts of 6-200 tokens
+   and 40 new tokens each, once with int8 KV and once with bf16 KV, plus a
+   small-input check of the model's logits on the card against the same
+   model on the CPU (the plain versions).
+
+Launch counts are zeroed just before phase 2 and read just after phase 3.
+The last two lines are the card (``nvidia-smi``'s name and power limit)
+and ``{"ok": true, "device": ...}``; the line before them is the kernels'
+JSON record.  Without a card, or without the repository around it, the
+script fails before printing any result.
+"""
+import gc
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
+TOL = 1.6e-2
+SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+REPLACES = {
+    "paged_decode_attention": "src/repro/kernels/decode_attention.py:466",
+    "paged_decode_attention_quant":
+        "src/repro/kernels/decode_attention.py:581",
+    "paged_chunk_prefill_attention":
+        "src/repro/kernels/decode_attention.py:305",
+    "paged_chunk_prefill_attention_quant":
+        "src/repro/kernels/decode_attention.py:675",
+}
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def time_ms(fn, iters=10, reps=5):
+    """Median over ``reps`` of the mean time of ``iters`` launches (CUDA
+    events, after one warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def make_pools(gen, rng, *, B, nblk, bs, Hkv, D, lens, quant):
+    """A pool of B*nblk pages plus the trash page, each slot's table
+    holding shuffled pages for its blocks below ``lens`` and the trash page
+    past them."""
+    import torch
+    from repro_torch.kernels.quant import QuantPages, quantize
+    P1 = B * nblk + 1
+    pools = []
+    for _ in range(2):
+        x = torch.randn(P1, bs, Hkv, D, generator=gen, device="cuda")
+        pools.append(QuantPages(*quantize(x)) if quant
+                     else x.to(torch.bfloat16))
+        del x
+    phys = rng.permutation(P1 - 1).reshape(B, nblk)
+    used = -(-np.asarray(lens) // bs)
+    bt = np.where(np.arange(nblk)[None] < used[:, None], phys, P1 - 1)
+    return pools[0], pools[1], torch.from_numpy(bt.astype(np.int32)).cuda()
+
+
+def kv_bytes(keys, Hkv, D, quant):
+    """Bytes of K and V rows (plus int8 scales) for ``keys`` tokens."""
+    per = Hkv * D * (1 if quant else 2) + (Hkv * 4 if quant else 0)
+    return 2 * keys * per
+
+
+def bound(nbytes, flops):
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def dense_view(pages, tables):
+    """(B, Hkv, S, D) bf16 view gathered through the tables, for SDPA."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import QuantPages, dequantize
+    if isinstance(pages, QuantPages):
+        g = dequantize(ref.paged_gather_ref(pages.values, tables),
+                       ref.paged_gather_ref(pages.scales, tables),
+                       torch.bfloat16)
+    else:
+        g = ref.paged_gather_ref(pages, tables)
+    return g.transpose(1, 2).contiguous()
+
+
+def sdpa_fn(q, k, v, mask, Hq):
+    """SDPA over (B, H, L, D) with GQA heads repeated up front."""
+    import torch
+    import torch.nn.functional as F
+    rep = Hq // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def decode_case(gen, rng, *, B, Hq, Hkv, D, lens, quant, timed):
+    import torch
+    from repro_torch.kernels import ops, ref
+    bs, nblk = 32, 8
+    lens = np.asarray(lens, np.int32)
+    k, v, tables = make_pools(gen, rng, B=B, nblk=nblk, bs=bs, Hkv=Hkv,
+                              D=D, lens=lens, quant=quant)
+    q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    cl = torch.from_numpy(lens).cuda()
+    out = ops.paged_decode_attention(q, k, v, tables, cl)
+    want = ref.paged_decode_attention_ref(q.float(), k, v, tables, cl)
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs().max().item()
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    if not timed:
+        return {"max_abs_err": err}
+    S = nblk * bs
+    kd, vd = dense_view(k, tables), dense_view(v, tables)
+    mask = (torch.arange(S, device="cuda")[None] < cl[:, None])[:, None,
+                                                                 None]
+    # what this data needs: q and table entries of the slots that hold
+    # keys, their K/V once, every slot's length and output row
+    keys = int(lens.sum())
+    live = int((lens > 0).sum())
+    nbytes = (live * Hq * D * 2 + q.numel() * 2 + B * 4
+              + int((-(-lens // bs)).sum()) * 4
+              + kv_bytes(keys, Hkv, D, quant))
+    b_ms, b_by = bound(nbytes, 4 * D * Hq * keys)
+    rec = {"max_abs_err": err,
+           "ms": time_ms(lambda: ops.paged_decode_attention(
+               q, k, v, tables, cl)),
+           "plain_ms": time_ms(lambda: ref.paged_decode_attention_ref(
+               q, k, v, tables, cl), iters=2, reps=3),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(sdpa_fn(q[:, :, None], kd, vd, mask, Hq))}
+    return rec
+
+
+def chunk_case(gen, rng, *, B, T, Hq, Hkv, D, start, chunk_len, prefix_len,
+               quant, timed):
+    import torch
+    from repro_torch.kernels import ops, ref
+    bs, nblk = 32, 8
+    start = np.asarray(start, np.int32)
+    chunk_len = np.asarray(chunk_len, np.int32)
+    end = start + chunk_len
+    k, v, tables = make_pools(gen, rng, B=B, nblk=nblk, bs=bs, Hkv=Hkv,
+                              D=D, lens=np.maximum(end, 1), quant=quant)
+    q = torch.randn(B, T, Hq, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    st, cl = torch.from_numpy(start).cuda(), torch.from_numpy(
+        chunk_len).cuda()
+    out = ops.paged_chunk_attention(q, k, v, tables, st, cl,
+                                    prefix_len=prefix_len)
+    want = ref.paged_chunk_attention_ref(q.float(), k, v, tables, st, cl,
+                                         prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs().max().item()
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    if not timed:
+        return {"max_abs_err": err}
+    # what this data needs: per slot, the keys some live row can see (and
+    # their table entries), the visible (row, key) pairs, the live rows' q,
+    # every row's output and every slot's start and length
+    keys = pairs = entries = 0
+    for s, c in zip(start.tolist(), chunk_len.tolist()):
+        if c:
+            keys += s + c
+            entries += -(-(s + c) // bs)
+            pairs += sum(min(s + c, max(s + i + 1, prefix_len))
+                         for i in range(c))
+    nbytes = (int(chunk_len.sum()) * Hq * D * 2 + q.numel() * 2
+              + entries * 4 + 2 * B * 4 + kv_bytes(keys, Hkv, D, quant))
+    b_ms, b_by = bound(nbytes, 4 * D * Hq * pairs)
+    S = nblk * bs
+    kpos = torch.arange(S, device="cuda")
+    qpos = st[:, None] + torch.arange(T, device="cuda")[None]
+    vis = (kpos[None, None] <= qpos[..., None]) | (kpos < prefix_len)
+    vis &= kpos[None, None] < (st + cl)[:, None, None]
+    kd, vd = dense_view(k, tables), dense_view(v, tables)
+    rec = {"max_abs_err": err,
+           "ms": time_ms(lambda: ops.paged_chunk_attention(
+               q, k, v, tables, st, cl, prefix_len=prefix_len)),
+           "plain_ms": time_ms(lambda: ref.paged_chunk_attention_ref(
+               q, k, v, tables, st, cl, prefix_len=prefix_len), iters=3,
+               reps=3),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(sdpa_fn(q.transpose(1, 2), kd, vd,
+                                         vis[:, None], Hq))}
+    return rec
+
+
+def phase_kernels():
+    """Returns {kernel name: record} at minicpm-2b's main-path shapes, with
+    max_abs_err over every case of that kernel."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rng = np.random.default_rng(0)
+    minicpm = dict(Hq=36, Hkv=36, D=64)
+    gqa = dict(Hq=24, Hkv=8, D=128)
+    records = {}
+    # phase 3's decode: 512 slots (the plan's capacity), 32 live at their
+    # lengths half-way through generation, the other slots empty
+    path_lens = np.zeros(512, np.int64)
+    path_lens[:32] = np.linspace(6, 200, 32).astype(int) + 20
+    for quant in (False, True):
+        tag = "_quant" if quant else ""
+        rec = decode_case(gen, rng, B=512, lens=path_lens, quant=quant,
+                          timed=True, **minicpm)
+        # every slot live, ragged lengths over the slot budget crossing
+        # page boundaries, trash past each length
+        lens = rng.integers(1, 257, 512)
+        lens[:4] = (1, 32, 33, 256)
+        full = decode_case(gen, rng, B=512, lens=lens, quant=quant,
+                           timed=True, **minicpm)
+        print(f"  paged_decode_attention{tag}, all 512 slots live: {full}")
+        rec["gqa_err"] = max(full["max_abs_err"], decode_case(
+            gen, rng, B=64, lens=rng.integers(0, 257, 64), quant=quant,
+            timed=False, **gqa)["max_abs_err"])
+        records["paged_decode_attention" + tag] = rec
+        # chunked prefill: the path's shape (one slot, a 128-row bucket)
+        # timed; ragged slots with a dead row and a prefix checked
+        rec = chunk_case(gen, rng, B=1, T=128, start=[64], chunk_len=[128],
+                         prefix_len=0, quant=quant, timed=True, **minicpm)
+        errs = [rec["max_abs_err"]]
+        for shape in (minicpm, gqa):
+            for prefix_len in (0, 20):
+                errs.append(chunk_case(
+                    gen, rng, B=4, T=128, start=[0, 40, 100, 200],
+                    chunk_len=[128, 90, 0, 56], prefix_len=prefix_len,
+                    quant=quant, timed=False, **shape)["max_abs_err"])
+        rec["max_abs_err"] = max(errs)
+        records["paged_chunk_prefill_attention" + tag] = rec
+        torch.cuda.empty_cache()
+    for rec in records.values():
+        rec["max_abs_err"] = max(rec["max_abs_err"], rec.pop("gqa_err", 0.0))
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phases 2 and 3: the serving main path
+# ---------------------------------------------------------------------------
+
+def phase_launcher():
+    from repro_torch.launch import serve
+    rc = serve.main(["--archs", "minicpm-2b", "--requests", "8",
+                     "--max-new-tokens", "16"])
+    check(rc == 0, f"launcher exited {rc}")
+
+
+def wave(kv_dtype, n_requests=32, new_tokens=40):
+    import torch
+    from repro_torch.kernels import paged_attention
+    from repro_torch.launch.profile_step import wave_runtime
+    torch.cuda.reset_peak_memory_stats()
+    cfg, rt = wave_runtime(kv_dtype, n_requests, new_tokens)
+    launches0 = dict(paged_attention.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = rt.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(len(results) == n_requests,
+          f"{kv_dtype} wave served {len(results)}/{n_requests}")
+    toks = {r.rid: np.asarray(r.tokens) for r in results}
+    for t in toks.values():
+        check(len(t) == new_tokens and t.min() >= 0
+              and t.max() < cfg.vocab_size, "token ids out of range")
+    n_tok = sum(len(t) for t in toks.values())
+    grown = {k: paged_attention.launches[k] - launches0[k]
+             for k in paged_attention.launches}
+    print(f"phase 3 ({kv_dtype} KV): served {len(results)}/{n_requests}, "
+          f"{n_tok} tokens in {dt:.3f} s = {n_tok / dt:.1f} tok/s, "
+          f"{rt.decode_steps} decode steps, {rt.prefill_chunk_calls} "
+          f"prefill chunks, launches {grown}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, grown
+
+
+def small_input_check():
+    """The model on the card (CUDA kernels) against the same model and
+    weights on the CPU (plain versions): one ragged chunked-prefill call
+    and two decode steps at a reduced width with head dim 64, in bf16.
+    The two devices round bf16 matrix products differently, so logits
+    agree to 2**-6 of the largest logit's magnitude (about two bf16
+    steps there)."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.quant import QuantPages
+    from repro_torch.models import transformer
+    cfg = reduced(get_config("minicpm-2b"), head_dim=64)
+    params = transformer.init(3, cfg, "cpu")
+    B, nblk, bs = 2, 4, 32
+    P1 = B * nblk + 1
+    tables = torch.arange(B * nblk, dtype=torch.int32).reshape(B, nblk)
+    rng = np.random.default_rng(4)
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 32)))
+    errs = {}
+    for quant in (False, True):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_to(params, dev)
+            shape = (cfg.num_layers, P1, bs, cfg.num_kv_heads, cfg.head_dim)
+            if quant:
+                pools = {n: QuantPages(
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.ones(shape[:-1], device=dev)) for n in "kv"}
+            else:
+                pools = {n: torch.zeros(shape, dtype=torch.bfloat16,
+                                        device=dev) for n in "kv"}
+            bt = tables.to(dev)
+            cl = torch.tensor([32, 19], dtype=torch.int32, device=dev)
+            logits = []
+            lg, cache = transformer.prefill_chunk_paged(
+                p, cfg, {"tokens": chunk.to(dev)},
+                {**pools, "len": torch.zeros(B, dtype=torch.int32,
+                                             device=dev)}, bt,
+                chunk_len=cl, block_size=bs)
+            logits.append(lg.float().cpu())
+            live = torch.tensor([True, True], device=dev)
+            for step in range(2):
+                tok = torch.tensor([7 + step, 11 + step], device=dev)
+                lg, cache = transformer.decode_step_paged(
+                    p, cfg, tok, cache, bt, live, block_size=bs)
+                logits.append(lg.float().cpu())
+            outs[dev] = torch.stack(logits)
+        check(torch.isfinite(outs["cuda"]).all(), "non-finite logits")
+        err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+        tol = 2 ** -6 * outs["cpu"].abs().max().item()
+        check(err <= tol, f"card vs CPU logits differ by {err} > {tol}")
+        errs["int8" if quant else "bf16"] = (err, tol)
+    print(f"phase 3 small-input check: card vs CPU logits (max |diff|, "
+          f"tolerance) {errs}")
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False: this script "
+              "runs on the card", file=sys.stderr)
+        return 1
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} is missing: run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import build, paged_attention
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({build.BUILD_ROOT})")
+    for name, log in build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    print("phase 1: kernels against their plain versions "
+          f"(atol = rtol = {TOL})")
+    records = phase_kernels()
+    for name, rec in records.items():
+        print(f"  {name}: {rec}")
+
+    paged_attention.reset_launches()
+    print("phase 2: launcher, minicpm-2b full width")
+    phase_launcher()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 3: request wave, prompts of 6-200 tokens, 40 new each")
+    int8_toks, int8_grown = wave("int8")
+    bf16_toks, bf16_grown = wave("bf16")
+    launches = dict(paged_attention.launches)
+    check(int8_grown["paged_decode_attention_quant"] > 0
+          and int8_grown["paged_chunk_prefill_attention_quant"] > 0,
+          f"int8 wave did not launch the int8 kernels: {int8_grown}")
+    check(bf16_grown["paged_decode_attention"] > 0
+          and bf16_grown["paged_chunk_prefill_attention"] > 0,
+          f"bf16 wave did not launch the bf16 kernels: {bf16_grown}")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the path never launched: {launches}")
+    for kv, toks in (("int8", int8_toks), ("bf16", bf16_toks)):
+        print(f"phase 3 {kv} greedy tokens: "
+              + json.dumps([toks[r].tolist() for r in sorted(toks)]))
+    same = sum(int((int8_toks[r] == bf16_toks[r]).sum()) for r in int8_toks)
+    total = sum(len(t) for t in int8_toks.values())
+    print(f"phase 3 int8 vs bf16 greedy tokens: {same}/{total} positions "
+          f"agree ({same / total:.3f})")
+    small_input_check()
+
+    kernels = []
+    for name, rec in records.items():
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+                        "replaces": REPLACES[name],
+                        "launches": launches[name], **rec})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""Paged attention as the model calls it, dispatched by the tensor's device.
+
+A CUDA tensor goes to the hand-written kernel (``paged_attention``), a CPU
+tensor to its plain version (``ref``).  There is no other switch and no
+fallback: on the card a kernel launches or raises.  ``QuantPages`` pools
+select the int8 kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import paged_attention as pa
+from . import ref
+from .quant import QuantPages
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, cache_len, *,
+                           softmax_scale=None):
+    """One-token decode against one layer's page pools (P, bs, Hkv, D)
+    read through ``block_tables`` (B, nblk): q (B, Hq, D) attends to the
+    first ``cache_len[b]`` tokens of its slot.  Returns (B, Hq, D)."""
+    if q.device.type != "cuda":
+        return ref.paged_decode_attention_ref(
+            q, k_pages, v_pages, block_tables, cache_len,
+            softmax_scale=softmax_scale)
+    lens = ref.per_slot(cache_len, q.shape[0], q.device)
+    if isinstance(k_pages, QuantPages):
+        return pa.paged_decode_attention_quant(
+            q, k_pages.values, v_pages.values, k_pages.scales,
+            v_pages.scales, block_tables, lens, softmax_scale=softmax_scale)
+    return pa.paged_decode_attention(q, k_pages, v_pages, block_tables, lens,
+                                     softmax_scale=softmax_scale)
+
+
+def paged_chunk_attention(q, k_pages, v_pages, block_tables, start,
+                          chunk_len, *, prefix_len: int = 0,
+                          softmax_scale=None):
+    """Chunked-prefill attention against one layer's page pools, which
+    already hold the chunk's own K/V: row i of q (B, T, Hq, D) sits at
+    position ``start[b] + i`` and is real iff ``i < chunk_len[b]``.
+    Returns (B, T, Hq, D), zeros in the rows past ``chunk_len``."""
+    if q.device.type != "cuda":
+        return ref.paged_chunk_attention_ref(
+            q, k_pages, v_pages, block_tables, start, chunk_len,
+            prefix_len=prefix_len, softmax_scale=softmax_scale)
+    B = q.shape[0]
+    start = ref.per_slot(start, B, q.device)
+    chunk_len = ref.per_slot(chunk_len, B, q.device)
+    if isinstance(k_pages, QuantPages):
+        return pa.paged_chunk_prefill_attention_quant(
+            q, k_pages.values, v_pages.values, k_pages.scales,
+            v_pages.scales, block_tables, start, chunk_len,
+            prefix_len=prefix_len, softmax_scale=softmax_scale)
+    return pa.paged_chunk_prefill_attention(
+        q, k_pages, v_pages, block_tables, start, chunk_len,
+        prefix_len=prefix_len, softmax_scale=softmax_scale)
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tables, start,
+                           chunk_len, *, prefix_len: int = 0,
+                           softmax_scale=None):
+    """Speculative-decoding k-token verify: the same kernels as
+    ``paged_chunk_attention``, with ``chunk_len`` a per-slot (B,) vector
+    that is T for slots speculating this round and 0 for every other row.
+    A zero-length row sees no key, so its output is zeros (the verifier
+    masks it) and its K/V writes were routed to the trash page upstream."""
+    chunk_len = torch.as_tensor(chunk_len, dtype=torch.int32,
+                                device=q.device)
+    if chunk_len.ndim != 1:
+        raise ValueError(
+            f"paged_verify_attention requires a per-slot (B,) chunk_len "
+            f"vector (0 = row not speculating), got shape "
+            f"{tuple(chunk_len.shape)}")
+    return paged_chunk_attention(q, k_pages, v_pages, block_tables, start,
+                                 chunk_len, prefix_len=prefix_len,
+                                 softmax_scale=softmax_scale)

@@ -1,0 +1,141 @@
+"""Plain PyTorch versions of the paged-attention kernels.
+
+Fully materialized math with the reference package's semantics
+(``kernels/ref.py`` and the paged helpers of ``kernels/decode_attention.py``).
+The CPU path runs these; on the card they are only the yardstick the CUDA
+kernels are held against, never the main path.
+
+Shapes: q (B, Hq, D) for decode, (B, T, Hq, D) for a chunk; caches
+(B, S, Hkv, D) with Hq % Hkv == 0 (GQA: query head h reads kv head
+h // (Hq // Hkv)).  Rows that see no key produce zeros.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .quant import QuantPages, dequantize
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def per_slot(x, B: int, device) -> torch.Tensor:
+    """A scalar or (B,) int -> contiguous (B,) int32 tensor on ``device``."""
+    x = torch.as_tensor(x, dtype=torch.int32, device=device)
+    return x.expand(B).contiguous() if x.ndim == 0 else x.contiguous()
+
+
+def decode_attention_ref(q, k_cache, v_cache, cache_len, *,
+                         window: Optional[int] = None, softmax_scale=None):
+    """Single-token decode attention against a (B, S, Hkv, D) cache: the
+    new token attends to positions [0, cache_len) (optionally only the last
+    ``window`` of them).  q: (B, Hq, D) -> (B, Hq, D)."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    cache_len = per_slot(cache_len, B, q.device)
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * scale
+    kpos = torch.arange(S, device=q.device)[None]
+    valid = kpos < cache_len[:, None]
+    if window is not None:
+        valid = valid & (kpos >= cache_len[:, None] - window)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    out = torch.where(valid.any(-1)[:, None, None, None], out, 0.0)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def chunk_attention_ref(q, k_cache, v_cache, start, chunk_len, *,
+                        prefix_len: int = 0, softmax_scale=None):
+    """Chunked-prefill attention: T query rows at absolute positions
+    ``start + i`` against a (B, S, Hkv, D) cache that already holds the
+    chunk's own K/V.  A key at kp is visible to row i iff
+        (kp <= start + i  or  kp < prefix_len)
+    and kp < start + chunk_len and i < chunk_len.  Rows that see nothing
+    (i >= chunk_len) are zeros.  q: (B, T, Hq, D) -> (B, T, Hq, D)."""
+    B, T, Hq, D = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    dev = q.device
+    start = per_slot(start, B, dev)
+    chunk_len = per_slot(chunk_len, B, dev)
+    rows = torch.arange(T, device=dev)
+    qpos = start[:, None] + rows[None]                      # (B, T)
+    kpos = torch.arange(S, device=dev)[None, None]          # (1, 1, S)
+    ok = kpos <= qpos[..., None]
+    if prefix_len:
+        ok = ok | (kpos < prefix_len)
+    ok = ok & (kpos < (start + chunk_len)[:, None, None])
+    ok = ok & (rows[None, :, None] < chunk_len[:, None, None])
+    qg = q.reshape(B, T, Hkv, G, D).float()
+    s = torch.einsum("blhgd,bshd->bhgls", qg, k_cache.float()) * scale
+    s = torch.where(ok[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgls,bshd->blhgd", p, v_cache.float())
+    any_visible = ok.any(dim=-1)[:, :, None, None, None]
+    out = torch.where(any_visible, out, 0.0)
+    return out.reshape(B, T, Hq, D).to(q.dtype)
+
+
+def paged_gather_ref(pages, block_tables):
+    """Dense gather: pages (P, bs, *rest) + tables (B, nblk) -> contiguous
+    (B, nblk*bs, *rest).  ``rest`` is (Hkv, D) for value pools and (Hkv,)
+    for the int8 pools' scale siblings."""
+    B, nblk = block_tables.shape
+    _, bs, *rest = pages.shape
+    g = pages[block_tables.long()]                 # (B, nblk, bs, *rest)
+    return g.reshape(B, nblk * bs, *rest)
+
+
+def mask_block_tables(block_tables, valid_len, block_size: int, trash: int):
+    """Route every table entry wholly past ``valid_len`` to the ``trash``
+    block before a gather, so the gather streams up-to-len rows plus one
+    hot page instead of each slot's full pool (masked positions never
+    survive the softmax, so outputs are unchanged)."""
+    B, nblk = block_tables.shape
+    starts = torch.arange(nblk, dtype=torch.int32,
+                          device=block_tables.device)[None] * block_size
+    valid_len = per_slot(valid_len, B, block_tables.device)
+    return torch.where(starts < valid_len[:, None], block_tables,
+                       torch.full_like(block_tables, trash))
+
+
+def _gather_pool(pages, block_tables, valid_len):
+    """One pool's dense (B, nblk*bs, Hkv, D) view through a length-masked
+    table; a ``QuantPages`` pool gathers values and scales through the same
+    table and dequantizes to f32 (what the int8 kernels do in registers)."""
+    bs, trash = pages.shape[1], pages.shape[0] - 1
+    bt = mask_block_tables(block_tables, valid_len, bs, trash)
+    if isinstance(pages, QuantPages):
+        return dequantize(paged_gather_ref(pages.values, bt),
+                          paged_gather_ref(pages.scales, bt))
+    return paged_gather_ref(pages, bt)
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, cache_len,
+                               *, softmax_scale=None):
+    """Plain version of the paged decode kernels (bf16 or ``QuantPages``
+    pools): gather each slot's rows, then ``decode_attention_ref``."""
+    k = _gather_pool(k_pages, block_tables, cache_len)
+    v = _gather_pool(v_pages, block_tables, cache_len)
+    return decode_attention_ref(q, k, v, cache_len,
+                                softmax_scale=softmax_scale)
+
+
+def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, start,
+                              chunk_len, *, prefix_len: int = 0,
+                              softmax_scale=None):
+    """Plain version of the paged chunked-prefill kernels: gather each
+    slot's rows below ``start + chunk_len``, then ``chunk_attention_ref``."""
+    B = q.shape[0]
+    end = per_slot(start, B, q.device) + per_slot(chunk_len, B, q.device)
+    k = _gather_pool(k_pages, block_tables, end)
+    v = _gather_pool(v_pages, block_tables, end)
+    return chunk_attention_ref(q, k, v, start, chunk_len,
+                               prefix_len=prefix_len,
+                               softmax_scale=softmax_scale)

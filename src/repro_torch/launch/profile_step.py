@@ -1,0 +1,98 @@
+"""Where a serving step's time goes on the card.
+
+``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phase 3:
+minicpm-2b at full width, with prompts of 6-200 tokens.  ``main`` serves
+it and profiles two windows of engine steps with ``torch.profiler``: the
+first steps, which mix chunked prefill and decode, and later decode-only
+steps.  For each window it prints the host wall time per step (ending in a
+device synchronize), the device time per step (the sum of the CUDA
+kernels' own times), the device's idle share, the number of kernel
+launches per step, and the kernels that take the most device time.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --kv-dtype int8
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.launch.serve import plan_for
+from repro_torch.models import transformer
+from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+
+
+def wave_runtime(kv_dtype: str, n_requests: int = 32, new_tokens: int = 40,
+                 device="cuda"):
+    """A full-width minicpm-2b ``ServiceRuntime`` (random weights from seed
+    1) with ``n_requests`` prompts of 6-200 tokens, spread evenly, already
+    submitted.  Returns (cfg, runtime)."""
+    cfg = get_config("minicpm-2b")
+    device = resolve_device(device)
+    rt = ServiceRuntime(cfg, transformer.init(1, cfg, device),
+                        plan_for(cfg, kv_dtype), device=device)
+    rng = np.random.default_rng(2)
+    for rid, n in enumerate(np.linspace(6, 200, n_requests).astype(int)):
+        rt.submit(GenerationRequest(
+            rid=rid, tokens=rng.integers(0, cfg.vocab_size, n).astype(
+                np.int32), max_new_tokens=new_tokens, stream=rid))
+    return cfg, rt
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _window(rt, steps: int, label: str, top: int) -> None:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            rt.step(max_wait_s=0.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    print(f"{label}: {steps} steps, wall {wall_ms:.3f} ms/step, device "
+          f"{dev_ms:.3f} ms/step, idle share "
+          f"{1 - dev_ms / wall_ms:.3f}, {launches:.0f} kernels/step")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
+        print(f"  {_device_us(e) / 1e3 / steps:9.4f} ms/step "
+              f"{e.count / steps:7.1f}/step  {e.key[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kv-dtype", choices=("int8", "bf16"), default="int8")
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--max-new-tokens", type=int, default=40)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--top", type=int, default=8)
+    args = ap.parse_args(argv)
+    _, rt = wave_runtime(args.kv_dtype, args.requests, args.max_new_tokens)
+    # max_wait_s=0: the MF composer flushes partial frame groups at once,
+    # as drain() does
+    rt.step(max_wait_s=0.0)                     # first admission + warm-up
+    print(f"minicpm-2b, {args.kv_dtype} KV, {args.requests} requests, "
+          f"{torch.cuda.get_device_name(0)}")
+    _window(rt, args.steps, "prefill+decode window", args.top)
+    while any(s.prefilling for g in rt.groups.values() for s in g.slots):
+        rt.step(max_wait_s=0.0)
+    _window(rt, args.steps, "decode-only window", args.top)
+    rt.drain()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

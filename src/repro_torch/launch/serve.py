@@ -1,0 +1,197 @@
+"""Serving launcher for one server: plan each service with the EPARA
+allocator, deploy one ``ServiceRuntime`` per arch, submit requests, drain.
+
+On the card the services run at their full config; with ``--device cpu``
+they run ``reduced(full)``, as the reference's CPU data plane does.  The
+plan is computed for the allocator's default ``GPUSpec`` (the reference's
+target hardware), so it matches the reference's plan.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+import zlib
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.core.allocator import allocate
+from repro_torch.core.categories import GPUSpec, Sensitivity, ServiceSpec
+from repro_torch.device import resolve_device
+from repro_torch.kernels import paged_attention
+from repro_torch.models.registry import model_api
+from repro_torch.serving.engine import (EparaServingEngine,
+                                        GenerationRequest, ServiceRuntime)
+
+PREFIX_CACHEABLE_FAMILIES = ("dense", "moe")
+
+# reference flags that are accepted but only at their defaults: the value
+# that would need an unported part names the ROADMAP.md item porting it
+_ITEM_MULTI_SERVER = "ROADMAP.md Queue 1 item 6 (multi-server control plane)"
+_ITEM_DENSE = "ROADMAP.md Queue 1 item 11 (sync and dense oracle paths)"
+_UNPORTED_FLAGS = (
+    ("servers", 1, _ITEM_MULTI_SERVER),
+    ("mode", "continuous", _ITEM_DENSE),
+    ("kvcache_impl", "paged", _ITEM_DENSE),
+    ("no_chunked_prefill", False, _ITEM_DENSE),
+    ("prefix_cache", -1, "ROADMAP.md Queue 1 item 2 (radix prefix cache)"),
+    ("admission_policy", "fifo", "ROADMAP.md Queue 1 item 3 (SDF admission)"),
+    ("no_preempt", False, "ROADMAP.md Queue 1 item 3 (SDF admission)"),
+    ("deadline_s", 0.0, "ROADMAP.md Queue 1 item 3 (SDF admission)"),
+    ("speculate", -1, "ROADMAP.md Queue 1 item 4 (speculation and forks)"),
+    ("draft_arch", "", "ROADMAP.md Queue 1 item 4 (speculation and forks)"),
+    ("n_samples", 1, "ROADMAP.md Queue 1 item 4 (speculation and forks)"),
+    ("trace_out", "", "ROADMAP.md Queue 1 item 5 (observability)"),
+    ("metrics_out", "", "ROADMAP.md Queue 1 item 5 (observability)"),
+    ("calibrate_out", "", "ROADMAP.md Queue 1 item 5 (observability)"),
+    ("fault_spec", "", _ITEM_MULTI_SERVER),
+    ("chaos_seed", -1, _ITEM_MULTI_SERVER),
+    ("chaos_horizon_s", 20.0, _ITEM_MULTI_SERVER),
+    ("retry_timeout_s", 8.0, _ITEM_MULTI_SERVER),
+    ("retry_max_attempts", 4, _ITEM_MULTI_SERVER),
+    ("pjit_decode", False, "ROADMAP.md Queue 1 item 13 (launch tooling)"),
+)
+
+
+def service_spec_for(cfg) -> ServiceSpec:
+    return ServiceSpec(
+        name=cfg.name,
+        flops_per_request=2.0 * cfg.active_param_count() * 64,
+        weights_bytes=cfg.param_count() * 2.0,
+        vram_bytes=cfg.param_count() * 2.0 * 1.5 + 5e8,
+        sensitivity=Sensitivity(cfg.epara_sensitivity),
+        slo_latency_s=2.0, slo_fps=20.0 if
+        cfg.epara_sensitivity == "frequency" else 0.0,
+        arch=cfg.name, stateful=cfg.family in ("ssm", "hybrid"),
+        prefix_cacheable=cfg.family in PREFIX_CACHEABLE_FAMILIES)
+
+
+def plan_for(full, kv_dtype=-1):
+    """The allocator's plan for config ``full`` on the default ``GPUSpec``,
+    with ``kv_dtype`` (-1 = the category's choice) and the prefix cache
+    off: it is not ported, so its category default becomes 0."""
+    return dataclasses.replace(allocate(service_spec_for(full), GPUSpec()),
+                               prefix_cache=0, kv_dtype=kv_dtype)
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--archs", default="minicpm-2b")
+    ap.add_argument("--requests", type=int, default=24)
+    ap.add_argument("--max-new-tokens", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-seq-len", type=int, default=256,
+                    help="per-slot token budget the paged arena is sized "
+                         "for (prompt + max_new_tokens)")
+    ap.add_argument("--block-size", type=int, default=32,
+                    help="paged-arena block size in tokens")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunk bucket size in tokens (0 = the plan's "
+                         "category-derived default)")
+    ap.add_argument("--kv-dtype", default="auto",
+                    help="paged-KV pool precision: 'auto' = the plan's "
+                         "category-derived choice, or 'bf16'/'int8'")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default, full configs) or 'cpu' (reduced "
+                         "configs)")
+    # accepted for the reference's command lines; see _UNPORTED_FLAGS
+    ap.add_argument("--servers", type=int, default=1)
+    ap.add_argument("--mode", default="continuous")
+    ap.add_argument("--kvcache-impl", default="paged")
+    ap.add_argument("--no-chunked-prefill", action="store_true")
+    ap.add_argument("--prefix-cache", type=int, default=-1)
+    ap.add_argument("--admission-policy", default="fifo")
+    ap.add_argument("--no-preempt", action="store_true")
+    ap.add_argument("--deadline-s", type=float, default=0.0)
+    ap.add_argument("--speculate", type=int, default=-1)
+    ap.add_argument("--draft-arch", default="")
+    ap.add_argument("--n-samples", type=int, default=1)
+    ap.add_argument("--trace-out", default="")
+    ap.add_argument("--metrics-out", default="")
+    ap.add_argument("--calibrate-out", default="")
+    ap.add_argument("--fault-spec", default="")
+    ap.add_argument("--chaos-seed", type=int, default=-1)
+    ap.add_argument("--chaos-horizon-s", type=float, default=20.0)
+    ap.add_argument("--retry-timeout-s", type=float, default=8.0)
+    ap.add_argument("--retry-max-attempts", type=int, default=4)
+    ap.add_argument("--pjit-decode", action="store_true")
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    for name, default, item in _UNPORTED_FLAGS:
+        value = getattr(args, name)
+        if value != default:
+            flag = "--" + name.replace("_", "-")
+            ap.error(f"{flag}={value!r} is not ported to repro_torch yet "
+                     f"({item}); only {default!r} is")
+    if args.block_size < 1:
+        ap.error(f"--block-size must be positive, got {args.block_size}")
+    if args.prefill_chunk < 0 or (args.prefill_chunk
+                                  and args.prefill_chunk % args.block_size):
+        ap.error(f"--prefill-chunk must be 0 (category default) or a "
+                 f"positive multiple of --block-size={args.block_size}, "
+                 f"got {args.prefill_chunk}")
+    if args.kv_dtype not in ("auto", "bf16", "int8"):
+        ap.error(f"--kv-dtype must be auto (category default), bf16 or "
+                 f"int8, got {args.kv_dtype!r}")
+    arch_ids = [a.strip() for a in args.archs.split(",")]
+    for a in arch_ids:
+        if a not in ARCH_IDS:
+            ap.error(f"unknown arch {a!r}; known: {ARCH_IDS}")
+    device = resolve_device(args.device)
+    kv_dtype = -1 if args.kv_dtype == "auto" else args.kv_dtype
+
+    engine = EparaServingEngine()
+    cfgs = {}
+    print("EPARA plans:")
+    for a in arch_ids:
+        full = get_config(a)
+        cfg = full if device.type == "cuda" else reduced(full)
+        cfgs[a] = cfg
+        plan = plan_for(full, kv_dtype)
+        print(f"  {a:20s} {plan.category} mp={plan.mp} bs={plan.bs} "
+              f"mt={plan.mt} mf={plan.mf} dp={plan.dp} "
+              f"kv={plan.resolved_kv_dtype()}")
+        params = model_api(cfg).init(zlib.crc32(a.encode()) + args.seed,
+                                     cfg, device)
+        engine.deploy(a, ServiceRuntime(
+            cfg, params, plan, max_seq_len=args.max_seq_len,
+            block_size=args.block_size,
+            prefill_chunk=(args.prefill_chunk or None), device=device))
+
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        svc = arch_ids[i % len(arch_ids)]
+        rng.integers(0, args.servers)    # the reference's entry-server draw
+        prompt = rng.integers(0, cfgs[svc].vocab_size, size=6).astype(
+            np.int32)
+        engine.submit(svc, GenerationRequest(
+            rid=i, tokens=prompt, max_new_tokens=args.max_new_tokens,
+            stream=i))
+    launches0 = dict(paged_attention.launches)
+    t0 = time.monotonic()
+    results = engine.drain()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.monotonic() - t0
+    toks = sum(len(r.tokens) for r in results)
+    steps = sum(rt.decode_steps for rt in engine.runtimes.values())
+    chunks = sum(rt.prefill_chunk_calls for rt in engine.runtimes.values())
+    print(f"served {len(results)}/{args.requests} requests, {toks} tokens "
+          f"in {dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s, {steps} fused "
+          f"decode steps, {chunks} prefill chunks, device={device})")
+    print("kernel launches: " + ", ".join(
+        f"{k}={v - launches0[k]}"
+        for k, v in paged_attention.launches.items()))
+    return 0 if len(results) == args.requests else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

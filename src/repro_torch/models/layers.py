@@ -1,0 +1,314 @@
+"""Shared neural-net layers of the dense decoder.
+
+Plain functions on tensors: params are nested dicts of tensors in the
+reference package's layouts (weights ``(in, out)``, so ``linear`` is
+``x @ w``), and every forward takes (params, cfg, ...).  Paged attention
+goes through ``repro_torch.kernels.ops``, which runs the CUDA kernels for
+tensors on the card and their plain versions on the CPU.
+
+Unlike the reference, page pools are updated in place: ``paged_insert_rows``
+writes the new rows into the pool it is given and returns that same pool.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.quant import QuantPages, quantize
+
+from .config import ModelConfig
+
+
+# ---------------------------------------------------------------------------
+# initializers / primitives
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Normal(0, 1) * scale (default fan_in ** -0.5), drawn in f32 on the
+    generator's device and cast to ``dtype``."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else fan_in ** -0.5
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def rms_norm(x, w, eps: float):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.float()).to(x.dtype)
+
+
+def layer_norm(x, w, b, eps: float):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * w.float() + b.float()).to(x.dtype)
+
+
+def init_norm(cfg: ModelConfig, device, dim: Optional[int] = None):
+    d = dim or cfg.d_model
+    p = {"w": torch.ones((d,), dtype=cfg.weight_dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros((d,), dtype=cfg.weight_dtype, device=device)
+    return p
+
+
+def apply_norm(p, cfg: ModelConfig, x):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"], cfg.rms_eps)
+    return rms_norm(x, p["w"], cfg.rms_eps)
+
+
+def linear(x, w, b=None):
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta: float):
+    """x: (..., L, H, D) rotated by ``positions`` (broadcastable to (..., L))."""
+    D = x.shape[-1]
+    half = D // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    ang = positions[..., None].float() * freqs            # (..., L, half)
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig):
+    d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.num_heads, \
+        cfg.num_kv_heads
+    dt, dev = cfg.weight_dtype, gen.device
+    if cfg.fused_projections:
+        p = {"wqkv": dense_init(gen, (d, (nq + 2 * nkv) * hd), dt),
+             "wo": dense_init(gen, (nq * hd, d), dt)}
+        if cfg.qkv_bias:
+            p["bqkv"] = torch.zeros(((nq + 2 * nkv) * hd,), dtype=dt,
+                                    device=dev)
+        return p
+    p = {"wq": dense_init(gen, (d, nq * hd), dt),
+         "wk": dense_init(gen, (d, nkv * hd), dt),
+         "wv": dense_init(gen, (d, nkv * hd), dt),
+         "wo": dense_init(gen, (nq * hd, d), dt)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+            p[name] = torch.zeros((n * hd,), dtype=dt, device=dev)
+    return p
+
+
+def _split_qkv_flat(cfg: ModelConfig, qkv):
+    hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = qkv[..., :nq * hd]
+    k = qkv[..., nq * hd:(nq + nkv) * hd]
+    v = qkv[..., (nq + nkv) * hd:]
+    return q, k, v
+
+
+def _project_qkv(p, cfg: ModelConfig, x):
+    """x (B, L, d) -> q (B, L, Hq, D), k and v (B, L, Hkv, D)."""
+    B, L = x.shape[:2]
+    if "wqkv" in p:
+        q, k, v = _split_qkv_flat(cfg, linear(x, p["wqkv"], p.get("bqkv")))
+    else:
+        q = linear(x, p["wq"], p.get("bq"))
+        k = linear(x, p["wk"], p.get("bk"))
+        v = linear(x, p["wv"], p.get("bv"))
+    q = q.reshape(B, L, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def paged_insert_rows(pages, rows, block_tables, positions, valid, *,
+                      block_size: int):
+    """Scatter per-slot K/V rows straight into a page pool, in place.
+
+    pages: one layer's physical pool (P, block_size, Hkv, D) whose LAST page
+    is the arena's reserved trash block; rows: (B, T, Hkv, D) new cache
+    rows; positions: (B, T) absolute token positions; valid: (B, T) bool.
+    Invalid rows (dead slots, chunk padding) land in the trash page, so the
+    scatter is branch-free.  A ``QuantPages`` pool quantizes the rows on
+    insert: int8 values and their f32 scales land through the same flat
+    index, so the pool only ever holds quantized blocks.  Returns ``pages``
+    (the same object, updated)."""
+    if isinstance(pages, QuantPages):
+        qrows, srows = quantize(rows)
+        paged_insert_rows(pages.values, qrows, block_tables, positions,
+                          valid, block_size=block_size)
+        paged_insert_rows(pages.scales, srows, block_tables, positions,
+                          valid, block_size=block_size)
+        return pages
+    P = pages.shape[0]
+    nblk = block_tables.shape[1]
+    pos = positions.long().clamp(0, nblk * block_size - 1)
+    blk = torch.gather(block_tables.long(), 1, pos // block_size)
+    flat = blk * block_size + pos % block_size
+    flat = torch.where(valid, flat, torch.full_like(flat,
+                                                    (P - 1) * block_size))
+    B, T = rows.shape[:2]
+    pf = pages.view(P * block_size, *pages.shape[2:])
+    pf[flat.reshape(-1)] = rows.reshape(B * T, *rows.shape[2:]).to(
+        pages.dtype)
+    return pages
+
+
+def _no_paged_ring(window, total_tokens: int) -> None:
+    if window is not None and window < total_tokens:
+        raise NotImplementedError(
+            "paged-native attention does not support ring (sliding-window) "
+            "cache layouts (ROADMAP.md Queue 1 item 11, dense-cache paths)")
+
+
+def attention_decode_paged(p, cfg: ModelConfig, x_t, k_pages, v_pages,
+                           block_tables, lens, live, *, block_size: int,
+                           window=None):
+    """One-token decode against one layer's paged KV.
+
+    x_t: (B, d); pages (P, block_size, Hkv, D) read through
+    ``block_tables`` (B, nblk); ``lens`` (B,) counts tokens already cached
+    (the new token is written at position ``lens``).  Only each live slot's
+    new K/V row is written, in place; attention reads K/V in place through
+    ``ops.paged_decode_attention``.  Dead slots attend to no key (length 0)
+    and their rows come out zero: unlike the reference, which attends them
+    over their stale length, nothing reads K/V for an output that is thrown
+    away.  Returns (out (B, d), k_pages, v_pages)."""
+    B = x_t.shape[0]
+    _no_paged_ring(window, block_tables.shape[1] * block_size)
+    q, k_t, v_t = _project_qkv(p, cfg, x_t[:, None])
+    lens = lens.to(torch.int32)
+    q = rope(q, lens[:, None], cfg.rope_theta)
+    k_t = rope(k_t, lens[:, None], cfg.rope_theta)
+    live = live.bool()
+    paged_insert_rows(k_pages, k_t, block_tables, lens[:, None],
+                      live[:, None], block_size=block_size)
+    paged_insert_rows(v_pages, v_t, block_tables, lens[:, None],
+                      live[:, None], block_size=block_size)
+    out = ops.paged_decode_attention(q[:, 0].contiguous(), k_pages, v_pages,
+                                     block_tables,
+                                     torch.where(live, lens + 1, 0))
+    out = out.reshape(B, cfg.num_heads * cfg.head_dim)
+    return linear(out, p["wo"]), k_pages, v_pages
+
+
+def attention_chunk_paged(p, cfg: ModelConfig, x, k_pages, v_pages,
+                          block_tables, cache_len, chunk_len, *,
+                          block_size: int, window=None):
+    """Chunked-prefill attention against one layer's paged KV: write a
+    right-padded T-token chunk (only the first ``chunk_len`` rows real) at
+    positions ``cache_len + i`` into the pages, in place, then attend
+    through the block table via ``ops.paged_chunk_attention``."""
+    B, T, _ = x.shape
+    _no_paged_ring(window, block_tables.shape[1] * block_size)
+    q, k_t, v_t = _project_qkv(p, cfg, x)
+    dev = x.device
+    cache_len = torch.as_tensor(cache_len, dtype=torch.int32, device=dev)
+    if cache_len.ndim == 0:
+        cache_len = cache_len.expand(B)
+    chunk_len = torch.as_tensor(chunk_len, dtype=torch.int32, device=dev)
+    if chunk_len.ndim == 0:
+        chunk_len = chunk_len.expand(B)
+    rows = torch.arange(T, device=dev)
+    positions = cache_len[:, None] + rows[None]              # (B, T)
+    q = rope(q, positions, cfg.rope_theta)
+    k_t = rope(k_t, positions, cfg.rope_theta)
+    valid = rows[None] < chunk_len[:, None]
+    paged_insert_rows(k_pages, k_t, block_tables, positions, valid,
+                      block_size=block_size)
+    paged_insert_rows(v_pages, v_t, block_tables, positions, valid,
+                      block_size=block_size)
+    out = ops.paged_chunk_attention(q.contiguous(), k_pages, v_pages,
+                                    block_tables, cache_len, chunk_len)
+    out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
+    return linear(out, p["wo"]), k_pages, v_pages
+
+
+def take_chunk_last(x, chunk_len):
+    """x: (B, T, ...) right-padded chunk activations -> the row at
+    ``chunk_len - 1`` per slot (the last real token's hidden state, whose
+    logits seed sampling when the chunk completes a prompt)."""
+    B, T = x.shape[:2]
+    cl = torch.as_tensor(chunk_len, dtype=torch.long, device=x.device)
+    if cl.ndim == 0:
+        cl = cl.expand(B)
+    idx = (cl - 1).clamp(0, T - 1)
+    return x[torch.arange(B, device=x.device), idx]
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig):
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.weight_dtype
+    if cfg.activation in ("swiglu", "geglu"):
+        if cfg.fused_projections:
+            return {"w_gateup": dense_init(gen, (d, 2 * f), dt),
+                    "w_down": dense_init(gen, (f, d), dt)}
+        return {"w_gate": dense_init(gen, (d, f), dt),
+                "w_up": dense_init(gen, (d, f), dt),
+                "w_down": dense_init(gen, (f, d), dt)}
+    return {"w_up": dense_init(gen, (d, f), dt),
+            "w_down": dense_init(gen, (f, d), dt)}
+
+
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(p, cfg: ModelConfig, x):
+    if "w_gateup" in p:
+        gu = linear(x, p["w_gateup"])
+        f = gu.shape[-1] // 2
+        act = F.silu if cfg.activation == "swiglu" else _gelu
+        h = act(gu[..., :f]) * gu[..., f:]
+    elif cfg.activation == "swiglu":
+        h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
+    elif cfg.activation == "geglu":
+        h = _gelu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
+    else:  # gelu_mlp
+        h = _gelu(linear(x, p["w_up"]))
+    return linear(h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator, cfg: ModelConfig):
+    p = {"embedding": dense_init(gen, (cfg.vocab_size, cfg.d_model),
+                                 cfg.weight_dtype, scale=1.0)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                  cfg.weight_dtype)
+    return p
+
+
+def embed(p, cfg: ModelConfig, tokens):
+    return p["embedding"][tokens.long()]
+
+
+def unembed(p, cfg: ModelConfig, h):
+    if cfg.tie_embeddings:
+        return h @ p["embedding"].T
+    return h @ p["unembed"]

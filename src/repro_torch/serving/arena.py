@@ -1,0 +1,245 @@
+"""Paged KV arena: fixed-capacity, block-table cache store for the slot
+engine (the port of the reference package's ``serving/arena.py``).
+
+* The token axis is paged: every KV sequence leaf is stored as physical
+  blocks of ``block_size`` tokens in a shared pool
+  ``(layers, pool_blocks + 1, block_size, Hkv, D)``, and each slot owns a
+  row of a ``(capacity, blocks_per_slot)`` block table mapping logical to
+  physical block.  The pool's LAST block is reserved trash: it absorbs
+  writes from unoccupied slots and padding rows, so the fused step needs no
+  branches.
+* Admission is an ``alloc`` (pages are written later, chunk by chunk);
+  eviction is a free-list operation with no device work.
+* The decode step always runs at the full static shape ``(capacity, ...)``
+  with an occupancy mask.
+* ``kv_dtype="int8"`` stores floating pools as ``QuantPages`` (int8 values
+  plus one f32 scale per token and head, travelling with the blocks).
+
+Host bookkeeping (free lists, block tables, occupancy) is numpy with the
+reference's semantics.  Device state is ``pages`` (one pool per paged
+leaf) and ``lens`` ``(capacity,)`` int32; the model steps update the pools
+in place, so ``pages`` is never re-bound.
+
+Not ported yet (``ROADMAP.md`` Queue 1 item 1): cross-slot block sharing
+(refcounts, ``register``, the idle LRU), copy-on-write and block-table
+parking.  Families with fixed per-slot state leaves (SSM, hybrid, audio)
+are not ported either.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.quant import QuantPages
+
+_LEN, _PAGED = "len", "paged"
+
+VALID_KV_DTYPES = ("bf16", "int8")
+
+
+def _is_len_leaf(t: torch.Tensor) -> bool:
+    return t.ndim <= 1 and not t.dtype.is_floating_point
+
+
+class KVArena:
+    """Fixed-capacity paged cache arena for one DP replica group."""
+
+    def __init__(self, cfg, init_cache: Callable, *, capacity: int,
+                 max_seq_len: int, block_size: int = 32,
+                 pool_blocks: Optional[int] = None, dtype=None,
+                 kv_dtype: str = "bf16", device=None):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if kv_dtype not in VALID_KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {VALID_KV_DTYPES}, "
+                             f"got {kv_dtype!r}")
+        # "bf16" = keep the family's native KV dtype (the model config's
+        # compute dtype, f32 in the toy configs); "int8" = QuantPages pools
+        self.kv_dtype = kv_dtype
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.capacity = int(capacity)
+        self.block_size = int(block_size)
+        self.blocks_per_slot = max(1, math.ceil(max_seq_len / block_size))
+        self.slot_tokens = self.blocks_per_slot * self.block_size  # S_max
+        self.pool_blocks = (self.capacity * self.blocks_per_slot
+                            if pool_blocks is None else int(pool_blocks))
+        if self.pool_blocks < self.blocks_per_slot:
+            raise ValueError("pool smaller than one slot's block budget")
+        self.trash_block = self.pool_blocks       # reserved garbage block
+
+        # -- classify the family's cache layout: probe init_cache on the
+        # meta device (no allocation) at two max_len values; the leaf axes
+        # that grow are sequence axes and get paged.  Leaves are taken in
+        # sorted key order, the order the reference's pytree flatten uses.
+        probe = lambda s: init_cache(cfg, 1, s, dtype, device="meta")
+        lo, hi = probe(self.slot_tokens), probe(self.slot_tokens
+                                               + self.block_size)
+        self._keys: List[str] = sorted(lo)
+        self._tags: List[str] = []
+        paged_shapes: List[Tuple[Tuple[int, ...], torch.dtype]] = []
+        for key in self._keys:
+            a, b = lo[key], hi[key]
+            if _is_len_leaf(a):
+                self._tags.append(_LEN)
+                continue
+            grown = [d for d in range(a.ndim) if a.shape[d] != b.shape[d]]
+            if not grown:
+                raise NotImplementedError(
+                    f"cache leaf {key!r} {tuple(a.shape)} is fixed per-slot "
+                    f"state; state-carrying families are not ported yet "
+                    f"(ROADMAP.md Queue 1 item 10)")
+            if grown != [2] or a.ndim < 3 or a.shape[1] != 1:
+                raise ValueError(
+                    f"paged leaf must grow only along axis 2 (layers, "
+                    f"batch, seq, ...); got {tuple(a.shape)} vs "
+                    f"{tuple(b.shape)}")
+            if a.shape[2] != self.slot_tokens:
+                raise ValueError(f"seq axis {a.shape[2]} != arena "
+                                 f"slot_tokens {self.slot_tokens}")
+            self._tags.append(_PAGED)
+            paged_shapes.append((tuple(a.shape), a.dtype))
+
+        # -- device state ------------------------------------------------
+        P1 = self.pool_blocks + 1                 # +1 trash block
+        dev = self.device
+        self.pages: List[Any] = []
+        quantized: List[bool] = []
+        for (A0, _, _, *rest), dt in paged_shapes:
+            quant = (self.kv_dtype == "int8" and len(rest) >= 1
+                     and dt.is_floating_point)
+            quantized.append(quant)
+            if quant:
+                self.pages.append(QuantPages(
+                    torch.zeros((A0, P1, self.block_size, *rest),
+                                dtype=torch.int8, device=dev),
+                    torch.zeros((A0, P1, self.block_size, *rest[:-1]),
+                                dtype=torch.float32, device=dev)))
+            else:
+                self.pages.append(torch.zeros(
+                    (A0, P1, self.block_size, *rest), dtype=dt, device=dev))
+        self.lens = torch.zeros((self.capacity,), dtype=torch.int32,
+                                device=dev)
+
+        # -- host bookkeeping --------------------------------------------
+        self._block_tables = np.full(
+            (self.capacity, self.blocks_per_slot), self.trash_block,
+            np.int32)
+        self._free_slots: List[int] = list(range(self.capacity))
+        self._free_blocks: List[int] = list(range(self.pool_blocks))
+        self._slot_blocks: Dict[int, List[int]] = {}
+        self._occ = np.zeros((self.capacity,), bool)
+        self._tables_dev: Optional[torch.Tensor] = None
+        self._occ_dev: Optional[torch.Tensor] = None
+
+        # bytes one cache token occupies across all paged leaves; a
+        # quantized leaf counts 1 byte per value plus its f32 row scale
+        self.token_bytes = 0
+        for ((A0, _, _, *rest), dt), q in zip(paged_shapes, quantized):
+            n = int(np.prod([A0, *rest]))
+            if q:
+                self.token_bytes += n + int(np.prod([A0, *rest[:-1]])) * 4
+            else:
+                self.token_bytes += n * dt.itemsize
+
+    # ------------------------------------------------------------------
+    # allocator surface
+    # ------------------------------------------------------------------
+    def blocks_for(self, total_tokens: int) -> int:
+        return max(1, math.ceil(total_tokens / self.block_size))
+
+    def can_alloc(self, total_tokens: int) -> bool:
+        return (bool(self._free_slots)
+                and self.blocks_for(total_tokens) <= len(self._free_blocks)
+                and total_tokens <= self.slot_tokens)
+
+    def alloc(self, total_tokens: int, slot: Optional[int] = None) -> int:
+        """Claim a slot and its token blocks for a request whose lifetime
+        needs ``total_tokens`` (prompt + generation budget)."""
+        if total_tokens > self.slot_tokens:
+            raise ValueError(
+                f"request needs {total_tokens} tokens > arena slot budget "
+                f"{self.slot_tokens} (raise max_seq_len)")
+        n = self.blocks_for(total_tokens)
+        if len(self._free_blocks) < n:
+            raise RuntimeError("arena out of blocks")
+        if slot is None:
+            if not self._free_slots:
+                raise RuntimeError("arena out of slots")
+            slot = self._free_slots.pop(0)
+        else:
+            self._free_slots.remove(slot)
+        blocks = [self._free_blocks.pop(0) for _ in range(n)]
+        self._slot_blocks[slot] = blocks
+        row = np.full((self.blocks_per_slot,), self.trash_block, np.int32)
+        row[:n] = blocks
+        self._block_tables[slot] = row
+        self._occ[slot] = True
+        self._tables_dev = self._occ_dev = None
+        return slot
+
+    def reset_len(self, slot: int) -> None:
+        """Zero a slot's device-side length: chunked admissions call this
+        after ``alloc`` so the first chunk starts at 0, not at the previous
+        tenant's length."""
+        self.set_len(slot, 0)
+
+    def set_len(self, slot: int, n: int) -> None:
+        self.lens[slot] = n
+
+    def free(self, slot: int) -> None:
+        """Release a slot: pure free-list bookkeeping, zero device work."""
+        if not self._occ[slot]:
+            return
+        self._free_blocks.extend(self._slot_blocks.pop(slot))
+        self._block_tables[slot] = self.trash_block
+        self._occ[slot] = False
+        self._free_slots.append(slot)
+        self._tables_dev = self._occ_dev = None
+
+    def block_tables(self) -> np.ndarray:
+        """(capacity, blocks_per_slot) logical->physical block map."""
+        return self._block_tables.copy()
+
+    def occupancy(self) -> np.ndarray:
+        return self._occ.copy()
+
+    def device_block_tables(self) -> torch.Tensor:
+        """Device copy of the block table, re-uploaded only after an alloc
+        or free."""
+        if self._tables_dev is None:
+            self._tables_dev = torch.from_numpy(self._block_tables).to(
+                self.device)
+        return self._tables_dev
+
+    def device_occupancy(self) -> torch.Tensor:
+        if self._occ_dev is None:
+            self._occ_dev = torch.from_numpy(self._occ).to(self.device)
+        return self._occ_dev
+
+    @property
+    def live(self) -> int:
+        return int(self._occ.sum())
+
+    def chunk_bytes(self, n_tokens: int) -> int:
+        """Bytes one chunked-prefill call writes: exactly the chunk's token
+        rows."""
+        return n_tokens * self.token_bytes
+
+    # ------------------------------------------------------------------
+    # cache dict <-> pools
+    # ------------------------------------------------------------------
+    def assemble(self, pages, lens: torch.Tensor) -> Dict[str, Any]:
+        """The family's cache dict over the page pools, with per-slot
+        lengths ``lens``."""
+        it = iter(pages)
+        return {key: lens if tag == _LEN else next(it)
+                for key, tag in zip(self._keys, self._tags)}
+
+    def disassemble(self, cache: Dict[str, Any]) -> List[Any]:
+        return [cache[key] for key, tag in zip(self._keys, self._tags)
+                if tag == _PAGED]

@@ -1,0 +1,579 @@
+"""Live serving engine: continuous-batching decode over persistent slots,
+driven by an EPARA ``ParallelPlan`` (the port of the reference package's
+``serving/engine.py``, continuous paged-native path).
+
+``ServiceRuntime`` owns one service's params and its DP replica groups,
+each with a fixed-capacity paged ``KVArena``.  Each ``step()``:
+
+  (a) evicts slots whose request hit EOS or its own ``max_new_tokens``
+      (a free-list operation);
+  (b) admits queued requests from the BS/MF composer into the free slots
+      (``compose(limit=free)``), each an arena ``alloc``;
+  (b2) advances chunked prefill: in-progress prompts are split into
+      bucket-sized chunks written straight into the page pools through the
+      slot's block-table row, at most ``prefill_chunk`` tokens per group
+      per step, so a long prompt never stalls live decode slots for more
+      than one chunk;
+  (c) runs one fused ``decode_step_paged`` over every slot at the arena's
+      static capacity, with per-slot lengths and an occupancy mask, then
+      greedy sampling.
+
+Ported so far: ``mode="continuous"``, ``kvcache_impl="paged"``,
+paged-native steps, chunked prefill, FIFO admission, greedy sampling.
+Constructor arguments that ask for anything else raise, naming the
+``ROADMAP.md`` item that ports it.  The plan's category default for the
+radix prefix cache is treated as 0 (disabled): the prefix cache is not
+ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.allocator import DPGroupRouter, ParallelPlan
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import ModelApi, model_api
+
+from .arena import KVArena
+from .batching import QueuedItem, make_composer
+from .sampler import SamplerConfig, sample_per_slot
+
+DEFAULT_MAX_SEQ_LEN = 256
+DEFAULT_BLOCK_SIZE = 32
+
+
+@dataclasses.dataclass
+class GenerationRequest:
+    rid: int
+    tokens: np.ndarray               # prompt (L,) int32
+    max_new_tokens: int = 16
+    stream: int = 0
+    eos_token: Optional[int] = None  # evict the slot early on this token
+    seed: Optional[int] = None       # sampling stream seed (None -> rid)
+    n_samples: int = 1               # > 1 (n-way forks) is not ported yet
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    rid: int
+    tokens: np.ndarray               # generated ids (n,)
+    prefill_s: float                 # this request's own prefill wall time
+    decode_s: float                  # first token -> finish wall time
+    group: int
+    admitted_s: float = 0.0          # logical clock at admission
+    finished_s: float = 0.0          # logical clock at eviction
+    decode_steps: int = 0            # fused steps this request took part in
+
+
+@dataclasses.dataclass
+class StepStats:
+    """One scheduling round's telemetry (the fields this path fills)."""
+    results: List[GenerationResult]
+    now: float = 0.0
+    admitted: int = 0                # requests admitted this step
+    evicted: int = 0                 # slots released this step
+    in_flight: int = 0               # occupied slots after the step
+    pending: int = 0                 # queued requests after the step
+    queue_time_s: float = 0.0        # est. wait for a new arrival
+    chunk_write_bytes: int = 0       # cache bytes written by chunked prefill
+    decode_steps: int = 0            # fused decode invocations this step
+    prefill_chunk_tokens: int = 0    # prompt tokens prefilled this step
+
+
+class _Slot:
+    """One in-flight request occupying a decode slot (``slot_id`` is its
+    arena slot, its row in the block table).  It starts with
+    ``prefilling=True`` while ``consumed`` prompt tokens are written chunk
+    by chunk, and flips into decoding via ``begin_decode`` when the final
+    chunk's logits yield the first token."""
+    __slots__ = ("req", "emitted", "done", "prefill_s", "admit_wall",
+                 "decode_start_wall", "finish_wall", "admitted_s", "steps",
+                 "slot_id", "prefilling", "consumed")
+
+    def __init__(self, req: GenerationRequest, admit_wall: float,
+                 admitted_s: float, slot_id: int):
+        self.req = req
+        self.prefill_s = 0.0
+        self.admit_wall = admit_wall
+        self.decode_start_wall = admit_wall
+        self.finish_wall = 0.0
+        self.admitted_s = admitted_s
+        self.steps = 0
+        self.slot_id = slot_id
+        self.consumed = 0                   # prompt tokens prefilled so far
+        self.prefilling = True
+        self.emitted: List[int] = []
+        self.done = False
+
+    def begin_decode(self, first_token: int, wall: float) -> None:
+        """First token sampled: prefill completed at ``wall``."""
+        self.prefilling = False
+        self.emitted = [first_token]
+        self.decode_start_wall = wall
+        self.done = (len(self.emitted) >= self.req.max_new_tokens
+                     or (self.req.eos_token is not None
+                         and first_token == self.req.eos_token))
+        if self.done:
+            self.finish_wall = wall
+
+    def push(self, token: int) -> None:
+        self.emitted.append(token)
+        if (len(self.emitted) >= self.req.max_new_tokens
+                or (self.req.eos_token is not None
+                    and token == self.req.eos_token)):
+            self.done = True
+            self.finish_wall = time.perf_counter()
+
+
+class _GroupState:
+    """Persistent in-flight state of one DP replica group."""
+    __slots__ = ("slots", "arena")
+
+    def __init__(self):
+        self.arena: Optional[KVArena] = None
+        self.slots: List[_Slot] = []
+
+    @property
+    def live(self) -> int:
+        return len(self.slots)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
+        f"{item})")
+
+
+class ServiceRuntime:
+    """One deployed service: params + plan + DP groups of decode slots.
+
+    ``params`` must lie on ``device`` (the card unless ``"cpu"``)."""
+
+    def __init__(self, cfg: ModelConfig, params, plan: ParallelPlan, *,
+                 sampler: SamplerConfig = SamplerConfig(),
+                 mode: str = "continuous", kvcache_impl: str = "paged",
+                 max_seq_len: int = DEFAULT_MAX_SEQ_LEN,
+                 block_size: int = DEFAULT_BLOCK_SIZE,
+                 pool_blocks: Optional[int] = None,
+                 chunked_prefill: Optional[bool] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: Optional[Any] = None,
+                 paged_native: Optional[bool] = None,
+                 admission_policy: Optional[str] = None,
+                 draft_params=None, draft_cfg: Optional[ModelConfig] = None,
+                 speculate: Optional[int] = None, device=None):
+        if mode != "continuous":
+            raise _not_ported(f"mode={mode!r}", "item 11 (sync and dense "
+                              "oracle paths)")
+        if kvcache_impl != "paged":
+            raise _not_ported(f"kvcache_impl={kvcache_impl!r}",
+                              "item 11 (sync and dense oracle paths)")
+        if chunked_prefill is False or paged_native is False:
+            raise _not_ported("one-shot prefill and the dense-view step",
+                              "item 11 (sync and dense oracle paths)")
+        if (prefix_cache not in (None, 0, False)
+                or plan.prefix_cache > 0):
+            raise _not_ported("the radix prefix cache", "item 2")
+        if (admission_policy or plan.admission) != "fifo":
+            raise _not_ported("admission policy "
+                              f"{admission_policy or plan.admission!r}",
+                              "item 3")
+        if (draft_params is not None or draft_cfg is not None
+                or (speculate or 0) > 0 or plan.speculate > 0):
+            raise _not_ported("speculative decoding", "item 4")
+        if sampler.temperature > 0.0:
+            raise _not_ported("stochastic sampling", "item 7")
+        self.device = resolve_device(device)
+        leaf = params["embed"]["embedding"]
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params lie on {leaf.device}, runtime device "
+                             f"is {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.plan = plan
+        self.kv_dtype = plan.resolved_kv_dtype()
+        self.max_seq_len = max_seq_len
+        self.block_size = block_size
+        self.pool_blocks = pool_blocks
+        self.sampler = sampler
+        self.api: ModelApi = model_api(cfg)
+        self.router = DPGroupRouter(plan)
+        self.composer = make_composer(plan)
+        self.groups: Dict[int, _GroupState] = {
+            g: _GroupState() for g in range(max(1, plan.dp))}
+        self.decode_steps = 0        # fused decode invocations (all groups)
+        self.chunk_write_bytes = 0   # fresh rows appended by chunked prefill
+        self.prefill_chunk_calls = 0  # chunk invocations (all groups)
+        self.prefill_tokens_computed = 0  # prompt tokens run through prefill
+        self._service_ewma_s = 0.0   # EWMA of per-request service time
+        if (cfg.sliding_window is not None
+                and cfg.sliding_window < self.slot_token_budget):
+            raise _not_ported("ring (sliding-window) cache layouts",
+                              "item 11 (sync and dense oracle paths)")
+
+        explicit_chunk = (prefill_chunk if prefill_chunk is not None
+                          else (plan.prefill_chunk or None))
+        if explicit_chunk is not None:
+            chunk = int(explicit_chunk)
+            if chunk <= 0 or chunk % block_size:
+                raise ValueError(
+                    f"prefill_chunk must be a positive multiple of "
+                    f"block_size={block_size}, got {chunk}")
+        else:
+            chunk = plan.prefill_chunk_tokens(block_size)
+        self.prefill_chunk_tokens = min(chunk, self.slot_token_budget)
+        self.chunk_buckets = self._derive_buckets(self.prefill_chunk_tokens)
+
+    @property
+    def slot_token_budget(self) -> int:
+        """Cache tokens one arena slot can hold (block-rounded
+        ``max_seq_len``); a request's prompt + max_new must fit."""
+        blocks = max(1, -(-self.max_seq_len // self.block_size))
+        return blocks * self.block_size
+
+    def _derive_buckets(self, chunk: int):
+        """Static chunk shapes: power-of-two multiples of ``block_size`` up
+        to the category's chunk size.  The smallest bucket is always one
+        block, so a final partial chunk never overshoots the slot budget."""
+        buckets, b = [], self.block_size
+        while b < chunk:
+            buckets.append(b)
+            b *= 2
+        buckets.append(chunk)
+        return tuple(sorted(set(buckets)))
+
+    def _pick_bucket(self, remaining: int,
+                     budget: Optional[int] = None) -> Optional[int]:
+        """Largest bucket that fits the remaining prompt, else the smallest
+        (one-block) bucket for the final partial chunk, never exceeding
+        the step's remaining token ``budget`` (None when the budget cannot
+        afford even the smallest bucket: the chunk waits a step)."""
+        affordable = (self.chunk_buckets if budget is None else
+                      [b for b in self.chunk_buckets if b <= budget])
+        if not affordable:
+            return None
+        for b in reversed(affordable):
+            if b <= remaining:
+                return b
+        return affordable[0]
+
+    # -- queue ------------------------------------------------------------
+    def submit(self, req: GenerationRequest, now: float = 0.0) -> None:
+        if req.n_samples > 1:
+            raise _not_ported("n-way parallel sampling", "item 4")
+        total = len(req.tokens) + req.max_new_tokens
+        if total > self.slot_token_budget:
+            raise ValueError(
+                f"request {req.rid} needs {total} cache tokens > per-slot "
+                f"budget {self.slot_token_budget}; raise max_seq_len")
+        self.composer.add(QueuedItem(payload=req, stream=req.stream,
+                                     enqueued_s=now, rid=req.rid))
+
+    def pending(self) -> int:
+        return len(self.composer)
+
+    def in_flight(self) -> int:
+        return sum(g.live for g in self.groups.values())
+
+    def total_slots(self) -> int:
+        return self.plan.max_in_flight * len(self.groups)
+
+    def _req_seed(self, req: GenerationRequest) -> int:
+        return req.rid if req.seed is None else int(req.seed)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _note_service_time(self, res: GenerationResult) -> None:
+        t = max(1e-6, res.prefill_s + max(0.0, res.decode_s))
+        self._service_ewma_s = (t if self._service_ewma_s == 0.0
+                                else 0.8 * self._service_ewma_s + 0.2 * t)
+
+    def queue_time_estimate(self) -> float:
+        """Expected wait before a newly queued request starts decoding:
+        queued request waves plus the chunked-prefill backlog (queued and
+        admitted-but-unconsumed prompt tokens drain at most one chunk
+        budget per group per step)."""
+        if self._service_ewma_s <= 0.0:
+            return 0.0
+        waves = self.pending() / max(1, self.total_slots())
+        backlog = (self.composer.pending_prefill_tokens()
+                   + sum(len(s.req.tokens) - s.consumed
+                         for g in self.groups.values() for s in g.slots
+                         if s.prefilling))
+        chunk_steps = backlog / (self.prefill_chunk_tokens
+                                 * max(1, len(self.groups)))
+        waves += chunk_steps / max(1, self.total_slots())
+        return waves * self._service_ewma_s
+
+    # ------------------------------------------------------------------
+    # continuous mode: slot admit / chunked prefill / fused decode / evict
+    # ------------------------------------------------------------------
+    def _free_slots(self) -> int:
+        return sum(max(0, self.plan.bs - g.live)
+                   for g in self.groups.values())
+
+    def _evict(self, group: int, state: _GroupState,
+               now: float) -> List[GenerationResult]:
+        """(a) Release every slot whose request finished."""
+        if not any(s.done for s in state.slots):
+            return []
+        results = []
+        for s in state.slots:
+            if not s.done:
+                continue
+            res = GenerationResult(
+                rid=s.req.rid, tokens=np.asarray(s.emitted, np.int32),
+                prefill_s=s.prefill_s,
+                decode_s=max(0.0, s.finish_wall - s.decode_start_wall),
+                group=group, admitted_s=s.admitted_s, finished_s=now,
+                decode_steps=s.steps)
+            results.append(res)
+            self._note_service_time(res)
+            state.arena.free(s.slot_id)
+        state.slots = [s for s in state.slots if not s.done]
+        return results
+
+    def _ensure_arena(self, state: _GroupState) -> KVArena:
+        if state.arena is None:
+            state.arena = KVArena(
+                self.cfg, self.api.init_cache,
+                capacity=self.plan.max_in_flight,
+                max_seq_len=self.max_seq_len, block_size=self.block_size,
+                pool_blocks=self.pool_blocks, kv_dtype=self.kv_dtype,
+                device=self.device)
+        return state.arena
+
+    def _admit_one(self, req: GenerationRequest, state: _GroupState,
+                   now: float) -> bool:
+        """(b) Claim a slot: just an arena ``alloc``; the prompt is
+        prefilled chunk by chunk in (b2).  False when the arena is out of
+        blocks (the caller requeues)."""
+        arena = self._ensure_arena(state)
+        total = len(req.tokens) + req.max_new_tokens
+        if total > arena.slot_tokens:
+            raise ValueError(
+                f"request {req.rid} needs {total} tokens > per-slot "
+                f"budget {arena.slot_tokens}; raise max_seq_len")
+        if not arena.can_alloc(total):
+            return False
+        slot_id = arena.alloc(total)
+        arena.reset_len(slot_id)
+        state.slots.append(_Slot(req, admit_wall=time.perf_counter(),
+                                 admitted_s=now, slot_id=slot_id))
+        return True
+
+    def _route_admission(self, item: QueuedItem) -> Optional[int]:
+        """A DP group with a free slot."""
+        g = self.router.route(session=item.stream)
+        if self.groups[g].live < self.plan.bs:
+            return g
+        for alt, state in self.groups.items():
+            if state.live < self.plan.bs:
+                return alt
+        return None
+
+    def _admit(self, now: float, max_wait_s: float) -> int:
+        free = self._free_slots()
+        if free <= 0 or not len(self.composer):
+            return 0
+        composed = self.composer.compose(limit=free, now=now,
+                                         max_wait_s=max_wait_s)
+        if composed is None:
+            return 0
+        admitted = 0
+        unplaced = []
+        for item in composed.items:
+            g = self._route_admission(item)
+            if g is None or not self._admit_one(item.payload,
+                                                self.groups[g], now):
+                unplaced.append(item)
+                continue
+            admitted += 1
+        for item in reversed(unplaced):   # push_front in reverse keeps FIFO
+            self.composer.push_front(item)
+        return admitted
+
+    def _run_chunk(self, arena: KVArena, s: _Slot, T: int):
+        """Advance one slot's prefill by one ``T``-bucket chunk; returns
+        the chunk's logits (only the final chunk's are consumed)."""
+        rem = len(s.req.tokens) - s.consumed
+        n_valid = min(rem, T)
+        toks = np.zeros((1, T), np.int32)
+        toks[0, :n_valid] = s.req.tokens[s.consumed:s.consumed + n_valid]
+        dev = self.device
+        sid = s.slot_id
+        cache = arena.assemble(arena.pages, arena.lens[sid:sid + 1])
+        logits, new_cache = self.api.prefill_chunk_paged(
+            self.params, self.cfg, {"tokens": torch.from_numpy(toks).to(dev)},
+            cache,
+            torch.from_numpy(arena._block_tables[sid:sid + 1]).to(dev),
+            chunk_len=torch.tensor([n_valid], dtype=torch.int32, device=dev),
+            block_size=arena.block_size)
+        arena.lens[sid] = new_cache["len"][0]
+        s.consumed += n_valid
+        self.prefill_chunk_calls += 1
+        self.prefill_tokens_computed += n_valid
+        self.chunk_write_bytes += arena.chunk_bytes(n_valid)
+        return logits, n_valid
+
+    def _prefill_chunks(self, state: _GroupState) -> int:
+        """(b2) Advance in-progress prefills, at most ``prefill_chunk``
+        tokens per group per step.  The final chunk's logits seed the
+        request's first sampled token."""
+        if state.arena is None:
+            return 0
+        budget = self.prefill_chunk_tokens
+        done_tokens = 0
+        for s in state.slots:
+            if budget <= 0:
+                break
+            while s.prefilling and budget > 0:
+                T = self._pick_bucket(len(s.req.tokens) - s.consumed,
+                                      budget)
+                if T is None:        # budget can't afford another bucket
+                    budget = 0
+                    break
+                t0 = time.perf_counter()
+                logits, n_valid = self._run_chunk(state.arena, s, T)
+                budget -= T
+                done_tokens += n_valid
+                if s.consumed >= len(s.req.tokens):
+                    first = int(sample_per_slot(
+                        logits, [self._req_seed(s.req)], [0], [0],
+                        self.sampler)[0])
+                    t1 = time.perf_counter()
+                    s.prefill_s += t1 - t0
+                    s.begin_decode(first, t1)
+                else:
+                    self._sync()
+                    s.prefill_s += time.perf_counter() - t0
+        return done_tokens
+
+    def _decode_group_paged(self, state: _GroupState) -> None:
+        """(c) One fused decode step over every occupied slot."""
+        arena = state.arena
+        cap = arena.capacity
+        tokens = np.zeros((cap,), np.int32)
+        live = np.zeros((cap,), bool)
+        seeds = np.zeros((cap,), np.uint32)
+        offs = np.zeros((cap,), np.uint32)
+        for s in state.slots:
+            if s.done or s.prefilling:
+                continue
+            sid = s.slot_id
+            tokens[sid] = s.emitted[-1]
+            live[sid] = True
+            seeds[sid] = np.uint32(self._req_seed(s.req) & 0xFFFFFFFF)
+            offs[sid] = len(s.emitted)
+        if not live.any():
+            return
+        dev = self.device
+        live_dev = torch.from_numpy(live).to(dev)
+        cache = arena.assemble(arena.pages, arena.lens)
+        logits, new_cache = self.api.decode_step_paged(
+            self.params, self.cfg, torch.from_numpy(tokens).to(dev), cache,
+            arena.device_block_tables(), live_dev,
+            block_size=arena.block_size)
+        arena.lens = new_cache["len"]
+        toks = sample_per_slot(
+            logits, seeds, np.zeros((cap,), np.uint32), offs, self.sampler,
+            live=live_dev, occupancy=arena.device_occupancy()).cpu().numpy()
+        self.decode_steps += 1
+        for slot in state.slots:
+            if slot.done or slot.prefilling or not live[slot.slot_id]:
+                continue
+            slot.steps += 1
+            slot.push(int(toks[slot.slot_id]))
+
+    def step(self, now: float = 0.0,
+             max_wait_s: float = float("inf")) -> StepStats:
+        """Advance the data plane by one scheduling round: evict, admit,
+        chunked prefill, one fused decode step."""
+        chunkw0, steps0 = self.chunk_write_bytes, self.decode_steps
+        results: List[GenerationResult] = []
+        for group, state in self.groups.items():
+            results.extend(self._evict(group, state, now))
+        admitted = self._admit(now, max_wait_s)
+        chunk_tokens = 0
+        for state in self.groups.values():
+            chunk_tokens += self._prefill_chunks(state)
+            if state.slots:
+                self._decode_group_paged(state)
+        return StepStats(
+            results=results, now=now, admitted=admitted,
+            evicted=len(results), in_flight=self.in_flight(),
+            pending=self.pending(),
+            queue_time_s=self.queue_time_estimate(),
+            chunk_write_bytes=self.chunk_write_bytes - chunkw0,
+            decode_steps=self.decode_steps - steps0,
+            prefill_chunk_tokens=chunk_tokens)
+
+    def drain(self, now: float = 0.0,
+              max_wait_s: float = 0.0) -> List[GenerationResult]:
+        """Step until queue and slots are empty; returns all results."""
+        out: List[GenerationResult] = []
+        while self.pending() or self.in_flight():
+            before = (self.pending(), self.in_flight(), self.decode_steps,
+                      self.prefill_chunk_calls)
+            stats = self.step(now=now, max_wait_s=max_wait_s)
+            out.extend(stats.results)
+            if (self.pending(), self.in_flight(), self.decode_steps,
+                    self.prefill_chunk_calls) == before \
+                    and not stats.results:
+                break            # no progress possible (e.g. empty compose)
+        return out
+
+
+class EparaServingEngine:
+    """Multi-service front door: submits requests to ServiceRuntimes by
+    service name.  The per-service ``StepStats`` of the latest round are
+    kept in ``last_stats``."""
+
+    def __init__(self):
+        self.runtimes: Dict[str, ServiceRuntime] = {}
+        self.last_stats: Dict[str, StepStats] = {}
+        self._results: List[GenerationResult] = []
+
+    def deploy(self, name: str, runtime: ServiceRuntime) -> None:
+        self.runtimes[name] = runtime
+
+    def submit(self, service: str, req: GenerationRequest,
+               now: float = 0.0) -> None:
+        self.runtimes[service].submit(req, now)
+
+    def step(self, now: float = 0.0,
+             max_wait_s: float = 0.0) -> List[GenerationResult]:
+        """One scheduling round across every deployed runtime."""
+        out: List[GenerationResult] = []
+        for name, rt in self.runtimes.items():
+            stats = rt.step(now=now, max_wait_s=max_wait_s)
+            self.last_stats[name] = stats
+            out.extend(stats.results)
+        self._results.extend(out)
+        return out
+
+    def drain(self, now: float = 0.0,
+              max_wait_s: float = 0.0) -> List[GenerationResult]:
+        """Step every runtime round-robin until none can make progress."""
+        out: List[GenerationResult] = []
+        progress = True
+        while progress:
+            progress = False
+            for name, rt in self.runtimes.items():
+                if not (rt.pending() or rt.in_flight()):
+                    continue
+                stats = rt.step(now=now, max_wait_s=max_wait_s)
+                self.last_stats[name] = stats
+                out.extend(stats.results)
+                if (stats.results or stats.admitted or stats.decode_steps
+                        or stats.prefill_chunk_tokens):
+                    progress = True
+        self._results.extend(out)
+        return out

@@ -1,0 +1,102 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Skips on a machine without an NVIDIA GPU (the kernels have no CPU mode).
+This file imports neither JAX nor ``conftest`` (which imports JAX), so a
+machine with a card and without JAX runs it with
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Outputs are compared in f32 with atol = rtol = 1.6e-2, about two bf16
+steps of the output: the kernels read bf16 (or int8) K/V and write bf16,
+and sum in another order than the plain version.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build, ops, paged_attention, ref
+from repro_torch.kernels.quant import QuantPages, quantize
+
+TOL = 1.6e-2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernels have no "
+                    "CPU mode)")
+    return torch.device("cuda")
+
+
+def _pools(gen, *, B, nblk, bs, Hkv, D, lens, quant):
+    P1 = B * nblk + 1
+    pools = []
+    for _ in range(2):
+        x = torch.randn(P1, bs, Hkv, D, generator=gen, device=gen.device)
+        pools.append(QuantPages(*quantize(x)) if quant
+                     else x.to(torch.bfloat16))
+    rng = np.random.default_rng(0)
+    phys = rng.permutation(P1 - 1).reshape(B, nblk)
+    used = -(-np.asarray(lens) // bs)
+    bt = np.where(np.arange(nblk)[None] < used[:, None], phys, P1 - 1)
+    return (pools[0], pools[1],
+            torch.from_numpy(bt.astype(np.int32)).to(gen.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("heads", [(36, 36, 64), (24, 8, 128)],
+                         ids=["minicpm", "gqa"])
+def test_cuda_kernels_match_plain(cuda_device, quant, heads):
+    Hq, Hkv, D = heads
+    B, nblk, bs = 4, 8, 32
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(0)
+    lens = (1, 45, 200, 256)        # in, across and at page boundaries
+    k, v, tables = _pools(gen, B=B, nblk=nblk, bs=bs, Hkv=Hkv, D=D,
+                          lens=lens, quant=quant)
+    before = dict(paged_attention.launches)
+    q = torch.randn(B, Hq, D, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = ops.paged_decode_attention(q, k, v, tables, cache_len)
+    want = ref.paged_decode_attention_ref(q.float(), k, v, tables,
+                                          cache_len)
+    torch.testing.assert_close(got.float(), want, atol=TOL, rtol=TOL)
+    T = 40
+    qc = torch.randn(B, T, Hq, D, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    start = torch.tensor((0, 5, 160, 216), dtype=torch.int32,
+                         device=cuda_device)
+    cl = torch.tensor((1, 40, 0, 40), dtype=torch.int32, device=cuda_device)
+    for prefix_len in (0, 20):
+        got = ops.paged_chunk_attention(qc, k, v, tables, start, cl,
+                                        prefix_len=prefix_len)
+        want = ref.paged_chunk_attention_ref(qc.float(), k, v, tables,
+                                             start, cl,
+                                             prefix_len=prefix_len)
+        torch.testing.assert_close(got.float(), want, atol=TOL, rtol=TOL)
+        assert not got[2].any()                   # the dead slot: zeros
+    torch.cuda.synchronize()
+    kind = "_quant" if quant else ""
+    after = paged_attention.launches
+    assert after["paged_decode_attention" + kind] \
+        == before["paged_decode_attention" + kind] + 1
+    assert after["paged_chunk_prefill_attention" + kind] \
+        == before["paged_chunk_prefill_attention" + kind] + 2
+    print({n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+           for n, log in build.build_log.items()})
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(2, 4, 96, dtype=torch.bfloat16, device=cuda_device)
+    pages = torch.zeros(5, 32, 4, 96, dtype=torch.bfloat16,
+                        device=cuda_device)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=cuda_device)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_attention.paged_decode_attention(q, pages, pages, bt, lens)
+    with pytest.raises(ValueError, match="bf16"):
+        paged_attention.paged_decode_attention(q.float(), pages, pages, bt,
+                                               lens)

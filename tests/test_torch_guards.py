@@ -1,0 +1,130 @@
+"""Guards of the PyTorch port's boundaries: it imports neither JAX nor the
+reference package, its entry points never fall back quietly to the CPU,
+and its CUDA kernel wrappers take CUDA tensors only."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import toy_config
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = list(_modules())
+    assert "repro_torch.serving.engine" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_sources_import_neither_jax_nor_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path}:{node.lineno} imports {name}"
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    """Without ``device="cpu"`` every entry point wants the card; where
+    there is none it raises instead of running on the CPU."""
+    from repro_torch import bridge
+    from repro_torch.core.allocator import ParallelPlan
+    from repro_torch.core.categories import Sensitivity, TaskCategory
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serving.arena import KVArena
+    from repro_torch.serving.engine import ServiceRuntime
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(**{f: getattr(toy_config(), f)
+                         for f in ModelConfig.__dataclass_fields__})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init(0, cfg)
+    params = transformer.init(0, cfg, device="cpu")
+    plan = ParallelPlan(service="toy",
+                        category=TaskCategory(Sensitivity.LATENCY, False),
+                        bs=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServiceRuntime(cfg, params, plan)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KVArena(cfg, transformer.init_cache, capacity=2, max_seq_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bridge.params_from_jax({"w": np.ones((2, 2), np.float32)}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "1"])
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels import paged_attention as pa
+    before = dict(pa.launches)
+    q = torch.zeros(2, 4, 64, dtype=torch.bfloat16)
+    pages = torch.zeros(5, 32, 4, 64, dtype=torch.bfloat16)
+    qp = torch.zeros(5, 32, 4, 64, dtype=torch.int8)
+    sc = torch.ones(5, 32, 4)
+    bt = torch.zeros(2, 2, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    qc = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)
+    calls = [
+        lambda: pa.paged_decode_attention(q, pages, pages, bt, lens),
+        lambda: pa.paged_decode_attention_quant(q, qp, qp, sc, sc, bt, lens),
+        lambda: pa.paged_chunk_prefill_attention(qc, pages, pages, bt, lens,
+                                                 lens),
+        lambda: pa.paged_chunk_prefill_attention_quant(qc, qp, qp, sc, sc,
+                                                       bt, lens, lens),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    assert pa.launches == before
+
+
+def test_chip_smoke_refuses_to_run_without_the_card(tmp_path):
+    """In a directory that holds nothing else of the repository, and (on a
+    machine without a card) in the repository itself, the script fails and
+    prints no result line."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    cases = [(alone, tmp_path)]
+    if not torch.cuda.is_available():
+        cases.append((ROOT / "chip_smoke.py", ROOT))
+    for script, cwd in cases:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
