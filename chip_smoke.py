@@ -6,24 +6,34 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's serving main path (minicpm-2b, full width, random weights
-from a seed) in three phases; any failure exits non-zero:
+drives the port's serving paths (minicpm-2b and mamba2-2.7b, full width,
+random weights from a seed) in four phases; any failure exits non-zero:
 
-1. the four paged-attention kernels against their plain PyTorch versions
-   (``repro_torch.kernels.ref``) on random inputs at minicpm-2b's shapes
-   and at one GQA shape (minitron-4b's heads), compared in f32 with
+1. the kernels against their plain PyTorch versions
+   (``repro_torch.kernels.ref``) on random inputs, compared in f32 with
    atol = rtol = 1.6e-2 (about two bf16 steps of the output), and timed
-   with CUDA events beside the plain version, the bound of the work and
-   ``scaled_dot_product_attention`` on the gathered dense view (a
-   yardstick the port never calls);
+   (kernel and library: CUDA-graph replay, so the host cannot pace the
+   launches; plain versions: CUDA events) beside the plain version and the
+   bound of the work:
+   the four paged-attention kernels at minicpm-2b's shapes and at one GQA
+   shape (minitron-4b's heads), beside ``scaled_dot_product_attention`` on
+   the gathered dense view (a yardstick the port never calls); the SSD
+   scan at mamba2-2.7b's chunk-call shapes (80 heads, P = 64, N = 128, one
+   group), its f32 final state held to atol = rtol = 1e-3 of its largest
+   magnitude (no single PyTorch call computes the scan);
 2. the launcher, ``repro_torch.launch.serve.main``: 8 requests, 16 new
    tokens, int8 KV (the plan's default for this frequency service);
 3. a request wave through ``ServiceRuntime`` with prompts of 6-200 tokens
-   and 40 new tokens each, once with int8 KV and once with bf16 KV, plus a
-   small-input check of the model's logits on the card against the same
-   model on the CPU (the plain versions).
+   and 40 new tokens each, once with int8 KV and once with bf16 KV;
+4. the same wave through mamba2-2.7b's state path at 128 slots (the
+   allocator's own ``user_bs``: its default 512 slots of SSD state would
+   take 86 GB);
 
-Launch counts are zeroed just before phase 2 and read just after phase 3.
+and a small-input check of each model's logits on the card against the
+same model on the CPU (the plain versions).
+
+The paged-attention launch counts are zeroed just before phase 2 and read
+just after phase 3; the SSD scan's just before and after phase 4.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -42,7 +52,11 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 TOL = 1.6e-2
-SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+SSD_STATE_TOL = 1e-3
+RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:466",
     "paged_decode_attention_quant":
@@ -51,6 +65,7 @@ REPLACES = {
         "src/repro/kernels/decode_attention.py:305",
     "paged_chunk_prefill_attention_quant":
         "src/repro/kernels/decode_attention.py:675",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:85",
 }
 
 
@@ -61,7 +76,9 @@ def check(cond, msg):
 
 def time_ms(fn, iters=10, reps=5):
     """Median over ``reps`` of the mean time of ``iters`` launches (CUDA
-    events, after one warm-up call)."""
+    events, after one warm-up call).  Launches shorter than the host's
+    time to issue them are paced by the host: ``graph_ms`` is the device's
+    own time."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -75,6 +92,32 @@ def time_ms(fn, iters=10, reps=5):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
+
+
+def graph_ms(fn, iters=20, reps=5):
+    """The device's time per launch: ``iters`` launches captured in one
+    CUDA graph, replayed between CUDA events ``reps`` times; the median.
+    The host issues one replay, so it cannot pace the launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -165,13 +208,14 @@ def decode_case(gen, rng, *, B, Hq, Hkv, D, lens, quant, timed):
               + int((-(-lens // bs)).sum()) * 4
               + kv_bytes(keys, Hkv, D, quant))
     b_ms, b_by = bound(nbytes, 4 * D * Hq * keys)
-    rec = {"max_abs_err": err,
-           "ms": time_ms(lambda: ops.paged_decode_attention(
-               q, k, v, tables, cl)),
+    kernel = lambda: ops.paged_decode_attention(q, k, v, tables, cl)
+    rec = {"max_abs_err": err, "ms": graph_ms(kernel),
+           "host_paced_ms": time_ms(kernel),
            "plain_ms": time_ms(lambda: ref.paged_decode_attention_ref(
                q, k, v, tables, cl), iters=2, reps=3),
            "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": time_ms(sdpa_fn(q[:, :, None], kd, vd, mask, Hq))}
+           "library_ms": graph_ms(sdpa_fn(q[:, :, None], kd, vd, mask,
+                                          Hq))}
     return rec
 
 
@@ -217,15 +261,70 @@ def chunk_case(gen, rng, *, B, T, Hq, Hkv, D, start, chunk_len, prefix_len,
     vis = (kpos[None, None] <= qpos[..., None]) | (kpos < prefix_len)
     vis &= kpos[None, None] < (st + cl)[:, None, None]
     kd, vd = dense_view(k, tables), dense_view(v, tables)
-    rec = {"max_abs_err": err,
-           "ms": time_ms(lambda: ops.paged_chunk_attention(
-               q, k, v, tables, st, cl, prefix_len=prefix_len)),
+    kernel = lambda: ops.paged_chunk_attention(q, k, v, tables, st, cl,
+                                               prefix_len=prefix_len)
+    rec = {"max_abs_err": err, "ms": graph_ms(kernel),
+           "host_paced_ms": time_ms(kernel),
            "plain_ms": time_ms(lambda: ref.paged_chunk_attention_ref(
                q, k, v, tables, st, cl, prefix_len=prefix_len), iters=3,
                reps=3),
            "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": time_ms(sdpa_fn(q.transpose(1, 2), kd, vd,
-                                         vis[:, None], Hq))}
+           "library_ms": graph_ms(sdpa_fn(q.transpose(1, 2), kd, vd,
+                                          vis[:, None], Hq))}
+    return rec
+
+
+def ssd_case(gen, *, Bb, L, H=80, P=64, G=1, N=128, chunk=256, timed):
+    """The SSD scan on x, B and C sliced from one projection (as the model
+    passes them) with a nonzero initial state."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    proj = rand(Bb, L, H * P + 2 * G * N).to(torch.bfloat16)
+    x = proj[..., :H * P].reshape(Bb, L, H, P)
+    Bm = proj[..., H * P:H * P + G * N].reshape(Bb, L, G, N)
+    Cm = proj[..., H * P + G * N:].reshape(Bb, L, G, N)
+    dt = F.softplus(rand(Bb, L, H) - 2.0)
+    A = -torch.exp(rand(H) * 0.5)
+    D = rand(H)
+    h0 = rand(Bb, H, P, N)
+    run = lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk,
+                               initial_state=h0)
+    plain = lambda: ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                        initial_state=h0)
+    y, h = run()
+    wy, wh = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(),
+                                 D, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+          "ssd_scan: non-finite output")
+    err = (y.float() - wy).abs().max().item()
+    torch.testing.assert_close(y.float(), wy, atol=TOL, rtol=TOL)
+    scale = wh.abs().max().item()
+    torch.testing.assert_close(h, wh, atol=SSD_STATE_TOL * scale,
+                               rtol=SSD_STATE_TOL)
+    rec = {"max_abs_err": err,
+           "state_max_rel_err": (h - wh).abs().max().item() / scale}
+    if not timed:
+        return rec
+    # what the function needs: x, dt, B, C, A, D and the initial state
+    # read once, y and the final state written once; per chunk of q
+    # tokens, C.B and M.x over the q(q+1)/2 causal pairs, C.h and the
+    # state update over q*P*N each, 2 flops a multiply-add
+    Q = min(chunk, max(8, L))
+    pairs = qpn = 0
+    for c0 in range(0, L, Q):
+        q = min(Q, L - c0)
+        pairs += q * (q + 1) // 2
+        qpn += 2 * q * P * N
+    flops = 2 * Bb * H * (pairs * (N + P) + qpn)
+    nbytes = (Bb * L * (2 * H * P * 2 + H * 4 + 2 * G * N * 2)
+              + 2 * Bb * H * P * N * 4 + 2 * H * 4)
+    b_ms, b_by = bound(nbytes, flops)
+    rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
+                "plain_ms": time_ms(plain, iters=3, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     return rec
 
 
@@ -274,6 +373,17 @@ def phase_kernels():
         torch.cuda.empty_cache()
     for rec in records.values():
         rec["max_abs_err"] = max(rec["max_abs_err"], rec.pop("gqa_err", 0.0))
+    # SSD scan at mamba2-2.7b's chunk-call shapes: one slot, a 32- and a
+    # 128-token bucket (one chunk each); the timed record is the 128 one.
+    # Then two slots of 300 tokens in chunks of 256: two chunks, the second
+    # ragged
+    short = ssd_case(gen, Bb=1, L=32, timed=True)
+    print(f"  ssd_scan, one slot, 32 tokens: {short}")
+    rec = ssd_case(gen, Bb=1, L=128, timed=True)
+    long = ssd_case(gen, Bb=2, L=300, timed=False)
+    for key in ("max_abs_err", "state_max_rel_err"):
+        rec[key] = max(rec[key], short[key], long[key])
+    records["ssd_scan"] = rec
     return records
 
 
@@ -320,13 +430,60 @@ def wave(kv_dtype, n_requests=32, new_tokens=40):
     return toks, grown
 
 
+def wave_mamba2(n_requests=32, new_tokens=40):
+    """Phase 4: the request wave through mamba2-2.7b's state path."""
+    import torch
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.profile_step import wave_runtime
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    cfg, rt = wave_runtime(-1, n_requests, new_tokens, arch="mamba2-2.7b")
+    mem_weights = torch.cuda.memory_allocated()
+    check(rt.plan.max_in_flight == 128 and rt.plan.sticky,
+          f"unexpected mamba2-2.7b plan {rt.plan}")
+    ssd_scan.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = rt.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = ssd_scan.launches["ssd_scan"]
+    check(len(results) == n_requests,
+          f"mamba2-2.7b wave served {len(results)}/{n_requests}")
+    for r in results:
+        t = np.asarray(r.tokens)
+        check(len(t) == new_tokens and t.min() >= 0
+              and t.max() < cfg.vocab_size, "token ids out of range")
+    arena = rt.groups[0].arena
+    # layer by layer: isfinite over a whole 21.5 GB stack would allocate
+    # more than the stack itself
+    check(all(bool(torch.isfinite(layer).all()) for st in arena.state
+              for layer in st), "non-finite SSM state")
+    check(launches > 0, "the mamba2-2.7b wave never launched ssd_scan")
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"phase 4 (mamba2-2.7b, {arena.capacity} slots, "
+          f"{arena.state_slot_bytes / 1e6:.1f} MB of state a slot): served "
+          f"{len(results)}/{n_requests}, {n_tok} tokens in {dt:.3f} s = "
+          f"{n_tok / dt:.1f} tok/s, {rt.decode_steps} decode steps, "
+          f"{rt.prefill_chunk_calls} prefill chunks, ssd_scan launches "
+          f"{launches}, memory (GB) before {mem0 / 1e9:.2f}, with weights "
+          f"{mem_weights / 1e9:.2f}, after "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f}, peak {peak / 1e9:.2f}")
+    del rt, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def small_input_check():
-    """The model on the card (CUDA kernels) against the same model and
-    weights on the CPU (plain versions): one ragged chunked-prefill call
-    and two decode steps at a reduced width with head dim 64, in bf16.
-    The two devices round bf16 matrix products differently, so logits
-    agree to 2**-6 of the largest logit's magnitude (about two bf16
-    steps there)."""
+    """The models on the card (CUDA kernels) against the same models and
+    weights on the CPU (plain versions), in bf16 at a reduced width: one
+    ragged chunked-prefill call and two decode steps each, for minicpm-2b
+    (head dim 64, bf16 and int8 pools) and mamba2-2.7b (P = N = 16).  The
+    two devices round bf16 matrix products differently, so logits agree to
+    2**-6 of the largest logit's magnitude (about two bf16 steps
+    there)."""
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels.quant import QuantPages
@@ -367,13 +524,52 @@ def small_input_check():
                     p, cfg, tok, cache, bt, live, block_size=bs)
                 logits.append(lg.float().cpu())
             outs[dev] = torch.stack(logits)
-        check(torch.isfinite(outs["cuda"]).all(), "non-finite logits")
-        err = (outs["cuda"] - outs["cpu"]).abs().max().item()
-        tol = 2 ** -6 * outs["cpu"].abs().max().item()
-        check(err <= tol, f"card vs CPU logits differ by {err} > {tol}")
-        errs["int8" if quant else "bf16"] = (err, tol)
-    print(f"phase 3 small-input check: card vs CPU logits (max |diff|, "
+        errs["int8" if quant else "bf16"] = compare_logits(outs)
+    errs["mamba2"] = compare_logits(small_mamba2())
+    print(f"small-input check: card vs CPU logits (max |diff|, "
           f"tolerance) {errs}")
+
+
+def compare_logits(outs):
+    import torch
+    check(bool(torch.isfinite(outs["cuda"]).all()), "non-finite logits")
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    tol = 2 ** -6 * outs["cpu"].abs().max().item()
+    check(err <= tol, f"card vs CPU logits differ by {err} > {tol}")
+    return err, tol
+
+
+def small_mamba2():
+    """reduced(mamba2-2.7b) in bf16 on both devices: a ragged chunk of 32
+    then two decode steps; returns the stacked logits per device."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import ssm
+    cfg = reduced(get_config("mamba2-2.7b"))
+    params = ssm.init(5, cfg, "cpu")
+    B = 2
+    chunk = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (B, 32)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, dev)
+        cache = ssm.init_cache(cfg, B, 64, device=dev)
+        cache["len"] = torch.zeros(B, dtype=torch.int32, device=dev)
+        before = ssd_scan.launches["ssd_scan"]
+        lg, cache = ssm.prefill_chunk(
+            p, cfg, {"tokens": chunk.to(dev)}, cache,
+            chunk_len=torch.tensor([32, 19], dtype=torch.int32, device=dev))
+        if dev == "cuda":
+            check(ssd_scan.launches["ssd_scan"] == before + cfg.num_layers,
+                  "the card's chunk did not run the ssd_scan kernel")
+        logits = [lg.float().cpu()]
+        for step in range(2):
+            tok = torch.tensor([7 + step, 11 + step], device=dev)
+            lg, cache = ssm.decode_step(p, cfg, tok, cache)
+            logits.append(lg.float().cpu())
+        outs[dev] = torch.stack(logits)
+    return outs
 
 
 def tree_to(tree, dev):
@@ -394,7 +590,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
-    from repro_torch.kernels import build, paged_attention
+    from repro_torch.kernels import build, paged_attention, ssd_scan
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -418,6 +614,7 @@ def main() -> int:
         print(f"  {name}: {rec}")
 
     paged_attention.reset_launches()
+    ssd_scan.reset_launches()
     print("phase 2: launcher, minicpm-2b full width")
     phase_launcher()
     gc.collect()
@@ -441,13 +638,19 @@ def main() -> int:
     total = sum(len(t) for t in int8_toks.values())
     print(f"phase 3 int8 vs bf16 greedy tokens: {same}/{total} positions "
           f"agree ({same / total:.3f})")
+    print("phase 4: request wave, mamba2-2.7b full width, 128 slots")
+    launches["ssd_scan"] = wave_mamba2()
     small_input_check()
 
     kernels = []
     for name, rec in records.items():
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+        source = SOURCES["ssd_scan" if name == "ssd_scan"
+                         else "paged_attention"]
+        kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": REPLACES[name],
-                        "launches": launches[name], **rec})
+                        "launches": launches[name],
+                        **{k: rec[k] for k in RECORD_KEYS}})
+    check(len(kernels) == 5, f"expected five kernels, got {len(kernels)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

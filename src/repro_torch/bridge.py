@@ -23,19 +23,27 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+_NP_TO_TORCH = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                "float32": torch.float32, "float64": torch.float64}
+
+
 def params_from_jax(np_tree, cfg: ModelConfig, device=None):
     """A nested dict of numpy arrays -> the same dict of torch tensors on
-    ``device`` (the card unless ``"cpu"``).  Checks that every leaf has the
-    config's weight dtype."""
+    ``device`` (the card unless ``"cpu"``).  Each leaf keeps the reference
+    array's own dtype: most follow the config's weight dtype, but some are
+    float32 whatever it is (Mamba-2's ``A_log``, ``dt_bias`` and ``D``).
+    A floating leaf whose dtype did not survive the crossing raises."""
     dev = resolve_device(device)
 
     def convert(node, path):
         if isinstance(node, dict):
             return {k: convert(v, f"{path}/{k}") for k, v in node.items()}
-        t = _tensor(np.asarray(node), dev)
-        if t.dtype != cfg.weight_dtype:
-            raise ValueError(f"{path}: dtype {t.dtype}, config "
-                             f"{cfg.name!r} wants {cfg.weight_dtype}")
+        a = np.asarray(node)
+        t = _tensor(a, dev)
+        want = _NP_TO_TORCH.get(a.dtype.name)
+        if t.dtype.is_floating_point and t.dtype != want:
+            raise ValueError(f"{path} of {cfg.name!r}: reference dtype "
+                             f"{a.dtype.name} became {t.dtype}")
         return t
 
     return convert(np_tree, "")

@@ -1,9 +1,9 @@
-"""Paged attention as the model calls it, dispatched by the tensor's device.
+"""The kernels as the models call them, dispatched by the tensor's device.
 
-A CUDA tensor goes to the hand-written kernel (``paged_attention``), a CPU
-tensor to its plain version (``ref``).  There is no other switch and no
-fallback: on the card a kernel launches or raises.  ``QuantPages`` pools
-select the int8 kernels.
+A CUDA tensor goes to the hand-written kernel (``paged_attention``,
+``ssd_scan``), a CPU tensor to its plain version (``ref``).  There is no
+other switch and no fallback: on the card a kernel launches or raises.
+``QuantPages`` pools select the int8 attention kernels.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 
 from . import paged_attention as pa
 from . import ref
+from . import ssd_scan as ssd
 from .quant import QuantPages
 
 
@@ -74,3 +75,23 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, start,
     return paged_chunk_attention(q, k_pages, v_pages, block_tables, start,
                                  chunk_len, prefix_len=prefix_len,
                                  softmax_scale=softmax_scale)
+
+
+def ssd_scan(x, dt, A, B, C, D=None, *, chunk: int = 128,
+             initial_state=None):
+    """Mamba-2 SSD chunked scan: x (Bb, L, H, P); dt (Bb, L, H) f32; A (H,)
+    f32; B, C (Bb, L, G, N); D (H,) f32 or None; initial_state
+    (Bb, H, P, N) f32 or None.  Returns (y (Bb, L, H, P), final state
+    (Bb, H, P, N) f32)."""
+    if x.device.type != "cuda":
+        return ref.ssd_chunked_ref(x, dt, A, B, C, D, chunk=chunk,
+                                   initial_state=initial_state)
+    return ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk,
+                        initial_state=initial_state)
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, D=None):
+    """One recurrent SSD step, updating the f32 ``state`` in place.  It is
+    elementwise-dominated, and the reference has no kernel for it either:
+    plain PyTorch on every device.  Returns (y_t, state)."""
+    return ref.ssd_decode_step_ref(state, x_t, dt_t, A, B_t, C_t, D)

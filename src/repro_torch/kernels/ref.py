@@ -1,12 +1,14 @@
-"""Plain PyTorch versions of the paged-attention kernels.
+"""Plain PyTorch versions of the kernels: paged attention and the Mamba-2
+SSD scan, plus the SSD decode step, which has no kernel.
 
 Fully materialized math with the reference package's semantics
 (``kernels/ref.py`` and the paged helpers of ``kernels/decode_attention.py``).
 The CPU path runs these; on the card they are only the yardstick the CUDA
-kernels are held against, never the main path.
+kernels are held against, never the main path (except
+``ssd_decode_step_ref``, which runs on both).
 
-Shapes: q (B, Hq, D) for decode, (B, T, Hq, D) for a chunk; caches
-(B, S, Hkv, D) with Hq % Hkv == 0 (GQA: query head h reads kv head
+Attention shapes: q (B, Hq, D) for decode, (B, T, Hq, D) for a chunk;
+caches (B, S, Hkv, D) with Hq % Hkv == 0 (GQA: query head h reads kv head
 h // (Hq // Hkv)).  Rows that see no key produce zeros.
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .quant import QuantPages, dequantize
 
@@ -139,3 +142,86 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, start,
     return chunk_attention_ref(q, k, v, start, chunk_len,
                                prefix_len=prefix_len,
                                softmax_scale=softmax_scale)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality)
+# ---------------------------------------------------------------------------
+
+def ssd_chunked_ref(x, dt, A, B, C, D=None, *, chunk: int = 128,
+                    initial_state=None):
+    """Chunked SSD scan: the intra-chunk quadratic part plus the
+    inter-chunk state recurrence, in f32.
+
+    x (Bb, L, H, P); dt (Bb, L, H); A (H,); B, C (Bb, L, G, N) with H % G
+    == 0 (head h reads group h // (H // G)); D (H,) or None; initial_state
+    (Bb, H, P, N) or None.  Padded tail steps get dt = 0, an identity step.
+    Returns (y (Bb, L, H, P) in x's dtype, final state (Bb, H, P, N) f32).
+    """
+    Bb, L, H, P = x.shape
+    G, N = B.shape[2:]
+    rep = H // G
+    Q = min(chunk, L)
+    nC = -(-L // Q)
+    pad = nC * Q - L
+
+    def padt(a):                        # zero-pad the time axis (1)
+        return F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
+
+    xc = padt(x.float()).reshape(Bb, nC, Q, H, P)
+    dtc = padt(dt.float()).reshape(Bb, nC, Q, H)
+    Bc = padt(B.float().repeat_interleave(rep, dim=2)).reshape(
+        Bb, nC, Q, H, N)
+    Cc = padt(C.float().repeat_interleave(rep, dim=2)).reshape(
+        Bb, nC, Q, H, N)
+    cum = torch.cumsum(dtc * A.float()[None, None, None], dim=2)
+    h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    ys = []
+    for c in range(nC):
+        xq, dtq, Bq, Cq, cq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c], \
+            cum[:, c]
+        # intra-chunk: M[t,s] = exp(cum_t - cum_s) * (C_t . B_s) * dt_s
+        decay = torch.exp(cq[:, :, None] - cq[:, None])     # (Bb, t, s, H)
+        decay = torch.where(tri[None, :, :, None], decay, 0.0)
+        cb = torch.einsum("bthn,bshn->btsh", Cq, Bq)
+        M = decay * cb * dtq[:, None]
+        y_intra = torch.einsum("btsh,bshp->bthp", M, xq)
+        # inter-chunk: the carried state's contribution
+        y_inter = torch.einsum("bthn,bhpn->bthp", Cq, h) \
+            * torch.exp(cq)[..., None]
+        # chunk state: sum_s exp(cum_last - cum_s) dt_s x_s B_s^T
+        last = cq[:, -1][:, None]                            # (Bb, 1, H)
+        w = torch.exp(last - cq) * dtq                       # (Bb, Q, H)
+        S = torch.einsum("bshp,bshn->bhpn", xq * w[..., None], Bq)
+        h = h * torch.exp(last[:, 0])[..., None, None] + S
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)[:, :L]
+    if D is not None:
+        y = y + x.float() * D.float()[None, None, :, None]
+    return y.to(x.dtype), h
+
+
+def ssd_decode_step_ref(state, x_t, dt_t, A, B_t, C_t, D=None):
+    """One recurrent SSD step, the state updated IN PLACE: unlike the
+    reference's functional step this allocates no second state (at 128
+    slots of mamba2-2.7b one layer's state is 335 MB).
+
+    state (Bb, H, P, N) f32; x_t (Bb, H, P); dt_t (Bb, H); B_t, C_t
+    (Bb, G, N).  A slot with dt = 0 keeps its state exactly (exp(0) = 1,
+    and it adds 0).  Returns (y_t (Bb, H, P) in x_t's dtype, state)."""
+    if state.dtype != torch.float32:
+        raise ValueError(f"the SSD state must be f32, got {state.dtype}")
+    H = state.shape[1]
+    rep = H // B_t.shape[1]
+    Bh = B_t.float().repeat_interleave(rep, dim=1)           # (Bb, H, N)
+    Ch = C_t.float().repeat_interleave(rep, dim=1)
+    xf, dtf = x_t.float(), dt_t.float()
+    dA = torch.exp(dtf * A.float()[None])
+    state.mul_(dA[..., None, None]).addcmul_(
+        (xf * dtf[..., None])[..., None], Bh[:, :, None])
+    y = torch.matmul(state, Ch[..., None])[..., 0]
+    if D is not None:
+        y = y + xf * D.float()[None, :, None]
+    return y.to(x_t.dtype), state

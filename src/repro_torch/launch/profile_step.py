@@ -1,15 +1,17 @@
 """Where a serving step's time goes on the card.
 
-``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phase 3:
-minicpm-2b at full width, with prompts of 6-200 tokens.  ``main`` serves
-it and profiles two windows of engine steps with ``torch.profiler``: the
-first steps, which mix chunked prefill and decode, and later decode-only
-steps.  For each window it prints the host wall time per step (ending in a
-device synchronize), the device time per step (the sum of the CUDA
-kernels' own times), the device's idle share, the number of kernel
-launches per step, and the kernels that take the most device time.
+``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phases 3
+and 4: one arch at full width (minicpm-2b or mamba2-2.7b), with prompts of
+6-200 tokens.  ``main`` serves it and profiles two windows of engine steps
+with ``torch.profiler``: the first steps, which mix chunked prefill and
+decode, and later decode-only steps.  For each window it prints the host
+wall time per step (ending in a device synchronize), the device time per
+step (the sum of the CUDA kernels' own times), the device's idle share,
+the number of kernel launches per step, and the kernels that take the
+most device time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --kv-dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --arch mamba2-2.7b
 """
 from __future__ import annotations
 
@@ -23,19 +25,27 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import plan_for
-from repro_torch.models import transformer
+from repro_torch.models.registry import model_api
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 
 
-def wave_runtime(kv_dtype: str, n_requests: int = 32, new_tokens: int = 40,
-                 device="cuda"):
-    """A full-width minicpm-2b ``ServiceRuntime`` (random weights from seed
-    1) with ``n_requests`` prompts of 6-200 tokens, spread evenly, already
-    submitted.  Returns (cfg, runtime)."""
-    cfg = get_config("minicpm-2b")
+# slots the card holds at full width, where the plan's do not fit: the
+# allocator plans mamba2-2.7b at 512 slots of 167.8 MB of f32 SSD state
+# (86 GB), so the wave asks it for 128 (21.5 GB)
+WAVE_BS = {"mamba2-2.7b": 128}
+
+
+def wave_runtime(kv_dtype, n_requests: int = 32, new_tokens: int = 40,
+                 device="cuda", arch: str = "minicpm-2b"):
+    """A full-width ``ServiceRuntime`` of ``arch`` (random weights from
+    seed 1) with ``n_requests`` prompts of 6-200 tokens, spread evenly,
+    already submitted.  ``kv_dtype`` is the plan's (-1 = the category's
+    choice).  Returns (cfg, runtime)."""
+    cfg = get_config(arch)
     device = resolve_device(device)
-    rt = ServiceRuntime(cfg, transformer.init(1, cfg, device),
-                        plan_for(cfg, kv_dtype), device=device)
+    rt = ServiceRuntime(cfg, model_api(cfg).init(1, cfg, device),
+                        plan_for(cfg, kv_dtype, WAVE_BS.get(arch)),
+                        device=device)
     rng = np.random.default_rng(2)
     for rid, n in enumerate(np.linspace(6, 200, n_requests).astype(int)):
         rt.submit(GenerationRequest(
@@ -74,18 +84,21 @@ def _window(rt, steps: int, label: str, top: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=("minicpm-2b", "mamba2-2.7b"),
+                    default="minicpm-2b")
     ap.add_argument("--kv-dtype", choices=("int8", "bf16"), default="int8")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-new-tokens", type=int, default=40)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args(argv)
-    _, rt = wave_runtime(args.kv_dtype, args.requests, args.max_new_tokens)
+    _, rt = wave_runtime(args.kv_dtype, args.requests, args.max_new_tokens,
+                         arch=args.arch)
     # max_wait_s=0: the MF composer flushes partial frame groups at once,
     # as drain() does
     rt.step(max_wait_s=0.0)                     # first admission + warm-up
-    print(f"minicpm-2b, {args.kv_dtype} KV, {args.requests} requests, "
-          f"{torch.cuda.get_device_name(0)}")
+    print(f"{args.arch}, {args.kv_dtype} KV, {args.requests} requests, "
+          f"{rt.plan.max_in_flight} slots, {torch.cuda.get_device_name(0)}")
     _window(rt, args.steps, "prefill+decode window", args.top)
     while any(s.prefilling for g in rt.groups.values() for s in g.slots):
         rt.step(max_wait_s=0.0)

@@ -7,6 +7,12 @@ plan is computed for the allocator's default ``GPUSpec`` (the reference's
 target hardware), so it matches the reference's plan.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b
+
+``--archs`` also takes mamba2-2.7b (the reference's default pair is
+``minicpm-2b,mamba2-2.7b``).  At full width mamba2-2.7b's plan (512
+slots of 167.8 MB of SSD state each) does not fit one 80 GB card, so on
+the card it runs at 128 slots through ``chip_smoke.py``, which asks
+``plan_for`` for them.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.core.allocator import allocate
 from repro_torch.core.categories import GPUSpec, Sensitivity, ServiceSpec
 from repro_torch.device import resolve_device
-from repro_torch.kernels import paged_attention
+from repro_torch.kernels import paged_attention, ssd_scan
 from repro_torch.models.registry import model_api
 from repro_torch.serving.engine import (EparaServingEngine,
                                         GenerationRequest, ServiceRuntime)
@@ -70,12 +76,18 @@ def service_spec_for(cfg) -> ServiceSpec:
         prefix_cacheable=cfg.family in PREFIX_CACHEABLE_FAMILIES)
 
 
-def plan_for(full, kv_dtype=-1):
+def plan_for(full, kv_dtype=-1, bs=None):
     """The allocator's plan for config ``full`` on the default ``GPUSpec``,
-    with ``kv_dtype`` (-1 = the category's choice) and the prefix cache
-    off: it is not ported, so its category default becomes 0."""
-    return dataclasses.replace(allocate(service_spec_for(full), GPUSpec()),
-                               prefix_cache=0, kv_dtype=kv_dtype)
+    with ``kv_dtype`` (-1 = the category's choice), the prefix cache off
+    (it is not ported, so its category default becomes 0), and ``bs``
+    slots if given (the allocator's own ``user_bs``; None = its profile)."""
+    return dataclasses.replace(
+        allocate(service_spec_for(full), GPUSpec(), user_bs=bs),
+        prefix_cache=0, kv_dtype=kv_dtype)
+
+
+def _launch_counts():
+    return {**paged_attention.launches, **ssd_scan.launches}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -175,7 +187,7 @@ def main(argv=None) -> int:
         engine.submit(svc, GenerationRequest(
             rid=i, tokens=prompt, max_new_tokens=args.max_new_tokens,
             stream=i))
-    launches0 = dict(paged_attention.launches)
+    launches0 = _launch_counts()
     t0 = time.monotonic()
     results = engine.drain()
     if device.type == "cuda":
@@ -188,8 +200,7 @@ def main(argv=None) -> int:
           f"in {dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s, {steps} fused "
           f"decode steps, {chunks} prefill chunks, device={device})")
     print("kernel launches: " + ", ".join(
-        f"{k}={v - launches0[k]}"
-        for k, v in paged_attention.launches.items()))
+        f"{k}={v - launches0[k]}" for k, v in _launch_counts().items()))
     return 0 if len(results) == args.requests else 1
 
 

@@ -1,14 +1,14 @@
 """Model family registry: maps ``ModelConfig.family`` to the model API.
 
-Only the dense family is ported so far; the others raise, naming the
-``ROADMAP.md`` item that ports them.
+The dense and SSM families are ported so far; the others raise, naming
+the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
-from . import transformer
+from . import ssm, transformer
 from .config import ModelConfig
 
 
@@ -17,28 +17,40 @@ class ModelApi:
     init: Callable
     logits_fn: Callable
     init_cache: Callable
+    # state-path entry points: the cache's leaves are per-slot state (or
+    # dense sequence leaves) that the serving arena hands over by slot;
+    # ``None`` where not ported (the dense family's: ROADMAP.md Queue 1
+    # item 11)
+    prefill_chunk: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
     # paged-native entry points: the cache's sequence leaves are the
-    # serving arena's page pools read through a block table
-    decode_step_paged: Callable
-    prefill_chunk_paged: Callable
+    # serving arena's page pools read through a block table; ``None`` for
+    # pure-SSM families, whose cache is all per-slot state
+    decode_step_paged: Optional[Callable] = None
+    prefill_chunk_paged: Optional[Callable] = None
 
 
-_DENSE = ModelApi(transformer.init, transformer.logits_fn,
-                  transformer.init_cache, transformer.decode_step_paged,
-                  transformer.prefill_chunk_paged)
+_FAMILIES = {
+    "dense": ModelApi(transformer.init, transformer.logits_fn,
+                      transformer.init_cache,
+                      decode_step_paged=transformer.decode_step_paged,
+                      prefill_chunk_paged=transformer.prefill_chunk_paged),
+    "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache,
+                    prefill_chunk=ssm.prefill_chunk,
+                    decode_step=ssm.decode_step),
+}
 
 _NOT_PORTED = {
     "moe": "ROADMAP.md Queue 1 item 8 (MoE)",
     "vlm": "ROADMAP.md Queue 1 item 9 (VLM and audio)",
     "audio": "ROADMAP.md Queue 1 item 9 (VLM and audio)",
-    "ssm": "ROADMAP.md Queue 1 item 10 (SSM and hybrid)",
-    "hybrid": "ROADMAP.md Queue 1 item 10 (SSM and hybrid)",
+    "hybrid": "ROADMAP.md Queue 1 item 10 (hybrid)",
 }
 
 
 def family_api(family: str) -> ModelApi:
-    if family == "dense":
-        return _DENSE
+    if family in _FAMILIES:
+        return _FAMILIES[family]
     if family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {family!r} is not ported to repro_torch yet: "

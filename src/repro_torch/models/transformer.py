@@ -20,10 +20,10 @@ from . import layers
 from .config import ModelConfig
 
 
-def _layer(tree, i: int):
+def layer_params(tree, i: int):
     """Layer ``i`` of a stacked parameter tree (views, no copies)."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
+        return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
 
 
@@ -35,9 +35,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig):
             "mlp": layers.init_mlp(gen, cfg)}
 
 
-def _stack(trees):
+def stack_layers(trees):
+    """Stack per-layer parameter trees along a new leading axis."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+        return {k: stack_layers([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
 
 
@@ -50,8 +51,8 @@ def init(seed: int, cfg: ModelConfig, device=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     return {"embed": layers.init_embedding(gen, cfg),
-            "blocks": _stack([init_block(gen, cfg)
-                              for _ in range(cfg.num_layers)]),
+            "blocks": stack_layers([init_block(gen, cfg)
+                                    for _ in range(cfg.num_layers)]),
             "ln_f": layers.init_norm(cfg, dev)}
 
 
@@ -87,7 +88,7 @@ def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
                             device=x.device).reshape(-1)
     k_all, v_all = cache["k"], cache["v"]
     for i in range(cfg.num_layers):
-        lp = _layer(params["blocks"], i)
+        lp = layer_params(params["blocks"], i)
         xn = layers.apply_norm(lp["ln1"], cfg, x)
         h, _, _ = layers.attention_chunk_paged(
             lp["attn"], cfg, xn, k_all[i], v_all[i], block_tables, start,
@@ -113,7 +114,7 @@ def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
     x = layers.embed(params["embed"], cfg, token).to(cfg.compute_dtype)
     k_all, v_all = cache["k"], cache["v"]
     for i in range(cfg.num_layers):
-        lp = _layer(params["blocks"], i)
+        lp = layer_params(params["blocks"], i)
         xn = layers.apply_norm(lp["ln1"], cfg, x)
         h, _, _ = layers.attention_decode_paged(
             lp["attn"], cfg, xn, k_all[i], v_all[i], block_tables, lens,

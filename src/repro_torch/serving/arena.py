@@ -8,6 +8,9 @@ engine (the port of the reference package's ``serving/arena.py``).
   physical block.  The pool's LAST block is reserved trash: it absorbs
   writes from unoccupied slots and padding rows, so the fused step needs no
   branches.
+* A cache leaf that does not grow with ``max_len`` is per-slot state (the
+  SSM family's conv tail and SSD state): it is kept as one row per slot,
+  ``(layers, capacity, ...)`` in the leaf's own dtype, and never quantized.
 * Admission is an ``alloc`` (pages are written later, chunk by chunk);
   eviction is a free-list operation with no device work.
 * The decode step always runs at the full static shape ``(capacity, ...)``
@@ -17,13 +20,13 @@ engine (the port of the reference package's ``serving/arena.py``).
 
 Host bookkeeping (free lists, block tables, occupancy) is numpy with the
 reference's semantics.  Device state is ``pages`` (one pool per paged
-leaf) and ``lens`` ``(capacity,)`` int32; the model steps update the pools
-in place, so ``pages`` is never re-bound.
+leaf), ``state`` (one tensor per state leaf) and ``lens`` ``(capacity,)``
+int32; the model steps update pools and state in place, so ``pages`` and
+``state`` are never re-bound.
 
 Not ported yet (``ROADMAP.md`` Queue 1 item 1): cross-slot block sharing
 (refcounts, ``register``, the idle LRU), copy-on-write and block-table
-parking.  Families with fixed per-slot state leaves (SSM, hybrid, audio)
-are not ported either.
+parking.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.quant import QuantPages
 
-_LEN, _PAGED = "len", "paged"
+_LEN, _PAGED, _STATE = "len", "paged", "state"
 
 VALID_KV_DTYPES = ("bf16", "int8")
 
@@ -74,14 +77,16 @@ class KVArena:
 
         # -- classify the family's cache layout: probe init_cache on the
         # meta device (no allocation) at two max_len values; the leaf axes
-        # that grow are sequence axes and get paged.  Leaves are taken in
-        # sorted key order, the order the reference's pytree flatten uses.
+        # that grow are sequence axes and get paged, a leaf with none is
+        # per-slot state.  Leaves are taken in sorted key order, the order
+        # the reference's pytree flatten uses.
         probe = lambda s: init_cache(cfg, 1, s, dtype, device="meta")
         lo, hi = probe(self.slot_tokens), probe(self.slot_tokens
                                                + self.block_size)
         self._keys: List[str] = sorted(lo)
         self._tags: List[str] = []
         paged_shapes: List[Tuple[Tuple[int, ...], torch.dtype]] = []
+        state_shapes: List[Tuple[Tuple[int, ...], torch.dtype]] = []
         for key in self._keys:
             a, b = lo[key], hi[key]
             if _is_len_leaf(a):
@@ -89,10 +94,12 @@ class KVArena:
                 continue
             grown = [d for d in range(a.ndim) if a.shape[d] != b.shape[d]]
             if not grown:
-                raise NotImplementedError(
-                    f"cache leaf {key!r} {tuple(a.shape)} is fixed per-slot "
-                    f"state; state-carrying families are not ported yet "
-                    f"(ROADMAP.md Queue 1 item 10)")
+                if a.ndim < 2 or a.shape[1] != 1:
+                    raise ValueError(f"state leaf {key!r} {tuple(a.shape)} "
+                                     f"lacks a batch axis at 1")
+                self._tags.append(_STATE)
+                state_shapes.append((tuple(a.shape), a.dtype))
+                continue
             if grown != [2] or a.ndim < 3 or a.shape[1] != 1:
                 raise ValueError(
                     f"paged leaf must grow only along axis 2 (layers, "
@@ -122,6 +129,9 @@ class KVArena:
             else:
                 self.pages.append(torch.zeros(
                     (A0, P1, self.block_size, *rest), dtype=dt, device=dev))
+        self.state: List[torch.Tensor] = [
+            torch.zeros((A0, self.capacity, *rest), dtype=dt, device=dev)
+            for (A0, _, *rest), dt in state_shapes]
         self.lens = torch.zeros((self.capacity,), dtype=torch.int32,
                                 device=dev)
 
@@ -145,6 +155,10 @@ class KVArena:
                 self.token_bytes += n + int(np.prod([A0, *rest[:-1]])) * 4
             else:
                 self.token_bytes += n * dt.itemsize
+        # and the fixed per-slot state footprint
+        self.state_slot_bytes = sum(
+            int(np.prod([A0, *rest])) * dt.itemsize
+            for (A0, _, *rest), dt in state_shapes)
 
     # ------------------------------------------------------------------
     # allocator surface
@@ -225,21 +239,45 @@ class KVArena:
     def live(self) -> int:
         return int(self._occ.sum())
 
+    def slot_bytes(self, prompt_len: int) -> int:
+        """Bytes a one-shot admission writes: the prompt's pages (whole
+        blocks) plus the slot's fixed state."""
+        blocks = self.blocks_for(max(1, prompt_len))
+        return (blocks * self.block_size * self.token_bytes
+                + self.state_slot_bytes)
+
     def chunk_bytes(self, n_tokens: int) -> int:
         """Bytes one chunked-prefill call writes: exactly the chunk's token
-        rows."""
-        return n_tokens * self.token_bytes
+        rows plus the slot's fixed state row."""
+        return n_tokens * self.token_bytes + self.state_slot_bytes
 
     # ------------------------------------------------------------------
-    # cache dict <-> pools
+    # per-slot state
     # ------------------------------------------------------------------
-    def assemble(self, pages, lens: torch.Tensor) -> Dict[str, Any]:
-        """The family's cache dict over the page pools, with per-slot
-        lengths ``lens``."""
-        it = iter(pages)
-        return {key: lens if tag == _LEN else next(it)
+    def slot_state(self, slot: int) -> List[torch.Tensor]:
+        """Views ``(layers, 1, ...)`` of one slot's state rows: a step that
+        writes into them writes into the arena."""
+        return [s[:, slot:slot + 1] for s in self.state]
+
+    def zero_state(self, slot: int) -> None:
+        """Fresh state for a slot's first chunk, so a reused slot does not
+        carry its previous tenant's recurrence."""
+        for s in self.state:
+            s[:, slot].zero_()
+
+    # ------------------------------------------------------------------
+    # cache dict <-> pools and state
+    # ------------------------------------------------------------------
+    def assemble(self, pages, state, lens: torch.Tensor) -> Dict[str, Any]:
+        """The family's cache dict over the page pools and state tensors,
+        with per-slot lengths ``lens``."""
+        its = {_PAGED: iter(pages), _STATE: iter(state)}
+        return {key: lens if tag == _LEN else next(its[tag])
                 for key, tag in zip(self._keys, self._tags)}
 
-    def disassemble(self, cache: Dict[str, Any]) -> List[Any]:
-        return [cache[key] for key, tag in zip(self._keys, self._tags)
-                if tag == _PAGED]
+    def disassemble(self, cache: Dict[str, Any]
+                    ) -> Tuple[List[Any], List[torch.Tensor]]:
+        """The cache dict's (page pools, state tensors)."""
+        pick = lambda t: [cache[key] for key, tag in
+                          zip(self._keys, self._tags) if tag == t]
+        return pick(_PAGED), pick(_STATE)

@@ -14,12 +14,21 @@ each with a fixed-capacity paged ``KVArena``.  Each ``step()``:
       slot's block-table row, at most ``prefill_chunk`` tokens per group
       per step, so a long prompt never stalls live decode slots for more
       than one chunk;
-  (c) runs one fused ``decode_step_paged`` over every slot at the arena's
-      static capacity, with per-slot lengths and an occupancy mask, then
-      greedy sampling.
+  (c) runs one fused decode step over every slot at the arena's static
+      capacity, with per-slot lengths and an occupancy mask, then greedy
+      sampling.
+
+Two kinds of step, picked by the family as in the reference: attention
+families run paged-native (``prefill_chunk_paged``/``decode_step_paged``
+against the page pools), and pure-SSM families, which have no paged-native
+step, take the state path (``prefill_chunk``/``decode_step`` over the
+arena's per-slot state rows; the first chunk of a request starts from
+zeroed state).  Stateful plans (``plan.sticky``) pin each session to one DP
+group from its admission until its last request leaves.
 
 Ported so far: ``mode="continuous"``, ``kvcache_impl="paged"``,
-paged-native steps, chunked prefill, FIFO admission, greedy sampling.
+paged-native and state steps, chunked prefill, FIFO admission, greedy
+sampling, sticky DP sessions.
 Constructor arguments that ask for anything else raise, naming the
 ``ROADMAP.md`` item that ports it.  The plan's category default for the
 radix prefix cache is treated as 0 (disabled): the prefix cache is not
@@ -176,6 +185,15 @@ class ServiceRuntime:
         if chunked_prefill is False or paged_native is False:
             raise _not_ported("one-shot prefill and the dense-view step",
                               "item 11 (sync and dense oracle paths)")
+        self.api: ModelApi = model_api(cfg)
+        # attention families step paged-native; pure-SSM families have no
+        # paged-native step and take the state path
+        self.native = self.api.decode_step_paged is not None
+        if paged_native and not self.native:
+            raise ValueError(
+                f"paged_native requires a family with paged-native entry "
+                f"points, not {cfg.family!r}: pure-SSM families keep the "
+                f"state path")
         if (prefix_cache not in (None, 0, False)
                 or plan.prefix_cache > 0):
             raise _not_ported("the radix prefix cache", "item 2")
@@ -201,7 +219,6 @@ class ServiceRuntime:
         self.block_size = block_size
         self.pool_blocks = pool_blocks
         self.sampler = sampler
-        self.api: ModelApi = model_api(cfg)
         self.router = DPGroupRouter(plan)
         self.composer = make_composer(plan)
         self.groups: Dict[int, _GroupState] = {
@@ -210,6 +227,7 @@ class ServiceRuntime:
         self.chunk_write_bytes = 0   # fresh rows appended by chunked prefill
         self.prefill_chunk_calls = 0  # chunk invocations (all groups)
         self.prefill_tokens_computed = 0  # prompt tokens run through prefill
+        self._session_refs: Dict[int, int] = {}  # sticky session -> requests
         self._service_ewma_s = 0.0   # EWMA of per-request service time
         if (cfg.sliding_window is not None
                 and cfg.sliding_window < self.slot_token_budget):
@@ -271,6 +289,9 @@ class ServiceRuntime:
             raise ValueError(
                 f"request {req.rid} needs {total} cache tokens > per-slot "
                 f"budget {self.slot_token_budget}; raise max_seq_len")
+        if self.plan.sticky and req.stream:
+            self._session_refs[req.stream] = \
+                self._session_refs.get(req.stream, 0) + 1
         self.composer.add(QueuedItem(payload=req, stream=req.stream,
                                      enqueued_s=now, rid=req.rid))
 
@@ -337,8 +358,21 @@ class ServiceRuntime:
             results.append(res)
             self._note_service_time(res)
             state.arena.free(s.slot_id)
+            self._release_session(s.req)
         state.slots = [s for s in state.slots if not s.done]
         return results
+
+    def _release_session(self, req: GenerationRequest) -> None:
+        """Drop a sticky session's group pin once no request of it is
+        queued or in flight."""
+        if not (self.plan.sticky and req.stream):
+            return
+        left = self._session_refs.get(req.stream, 1) - 1
+        if left <= 0:
+            self._session_refs.pop(req.stream, None)
+            self.router.release(req.stream)
+        else:
+            self._session_refs[req.stream] = left
 
     def _ensure_arena(self, state: _GroupState) -> KVArena:
         if state.arena is None:
@@ -370,10 +404,13 @@ class ServiceRuntime:
         return True
 
     def _route_admission(self, item: QueuedItem) -> Optional[int]:
-        """A DP group with a free slot."""
+        """A DP group with a free slot; a sticky session must land on its
+        pinned group or wait."""
         g = self.router.route(session=item.stream)
         if self.groups[g].live < self.plan.bs:
             return g
+        if self.plan.sticky and item.stream:
+            return None          # session pinned to a full group: requeue
         for alt, state in self.groups.items():
             if state.live < self.plan.bs:
                 return alt
@@ -402,20 +439,31 @@ class ServiceRuntime:
 
     def _run_chunk(self, arena: KVArena, s: _Slot, T: int):
         """Advance one slot's prefill by one ``T``-bucket chunk; returns
-        the chunk's logits (only the final chunk's are consumed)."""
+        the chunk's logits (only the final chunk's are consumed).  The
+        steps write the chunk's K/V rows and the slot's state rows into
+        the arena in place."""
         rem = len(s.req.tokens) - s.consumed
         n_valid = min(rem, T)
         toks = np.zeros((1, T), np.int32)
         toks[0, :n_valid] = s.req.tokens[s.consumed:s.consumed + n_valid]
         dev = self.device
         sid = s.slot_id
-        cache = arena.assemble(arena.pages, arena.lens[sid:sid + 1])
-        logits, new_cache = self.api.prefill_chunk_paged(
-            self.params, self.cfg, {"tokens": torch.from_numpy(toks).to(dev)},
-            cache,
-            torch.from_numpy(arena._block_tables[sid:sid + 1]).to(dev),
-            chunk_len=torch.tensor([n_valid], dtype=torch.int32, device=dev),
-            block_size=arena.block_size)
+        if s.consumed == 0:
+            # a FIRST chunk (start == 0) must see fresh per-slot state, not
+            # the slot's previous tenant's
+            arena.zero_state(sid)
+        cache = arena.assemble(arena.pages, arena.slot_state(sid),
+                               arena.lens[sid:sid + 1])
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        chunk_len = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+        if self.native:
+            logits, new_cache = self.api.prefill_chunk_paged(
+                self.params, self.cfg, batch, cache,
+                torch.from_numpy(arena._block_tables[sid:sid + 1]).to(dev),
+                chunk_len=chunk_len, block_size=arena.block_size)
+        else:
+            logits, new_cache = self.api.prefill_chunk(
+                self.params, self.cfg, batch, cache, chunk_len=chunk_len)
         arena.lens[sid] = new_cache["len"][0]
         s.consumed += n_valid
         self.prefill_chunk_calls += 1
@@ -456,7 +504,7 @@ class ServiceRuntime:
                     s.prefill_s += time.perf_counter() - t0
         return done_tokens
 
-    def _decode_group_paged(self, state: _GroupState) -> None:
+    def _decode_group(self, state: _GroupState) -> None:
         """(c) One fused decode step over every occupied slot."""
         arena = state.arena
         cap = arena.capacity
@@ -476,11 +524,18 @@ class ServiceRuntime:
             return
         dev = self.device
         live_dev = torch.from_numpy(live).to(dev)
-        cache = arena.assemble(arena.pages, arena.lens)
-        logits, new_cache = self.api.decode_step_paged(
-            self.params, self.cfg, torch.from_numpy(tokens).to(dev), cache,
-            arena.device_block_tables(), live_dev,
-            block_size=arena.block_size)
+        tokens_dev = torch.from_numpy(tokens).to(dev)
+        cache = arena.assemble(arena.pages, arena.state, arena.lens)
+        # both steps commit only live slots: dead slots keep their state
+        # and their length
+        if self.native:
+            logits, new_cache = self.api.decode_step_paged(
+                self.params, self.cfg, tokens_dev, cache,
+                arena.device_block_tables(), live_dev,
+                block_size=arena.block_size)
+        else:
+            logits, new_cache = self.api.decode_step(
+                self.params, self.cfg, tokens_dev, cache, live=live_dev)
         arena.lens = new_cache["len"]
         toks = sample_per_slot(
             logits, seeds, np.zeros((cap,), np.uint32), offs, self.sampler,
@@ -505,7 +560,7 @@ class ServiceRuntime:
         for state in self.groups.values():
             chunk_tokens += self._prefill_chunks(state)
             if state.slots:
-                self._decode_group_paged(state)
+                self._decode_group(state)
         return StepStats(
             results=results, now=now, admitted=admitted,
             evicted=len(results), in_flight=self.in_flight(),

@@ -8,13 +8,15 @@ machine with a card and without JAX runs it with
 
 Outputs are compared in f32 with atol = rtol = 1.6e-2, about two bf16
 steps of the output: the kernels read bf16 (or int8) K/V and write bf16,
-and sum in another order than the plain version.
+and sum in another order than the plain version.  The SSD scan's f32
+final state is held to atol = rtol = 1e-3 of its largest magnitude (f32
+sums in another order over up to 256-token chunks).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, ops, paged_attention, ref
+from repro_torch.kernels import build, ops, paged_attention, ref, ssd_scan
 from repro_torch.kernels.quant import QuantPages, quantize
 
 TOL = 1.6e-2
@@ -100,3 +102,36 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="bf16"):
         paged_attention.paged_decode_attention(q.float(), pages, pages, bt,
                                                lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ssd_scan.SHAPES, ids=lambda s: f"P{s[0]}N{s[1]}")
+@pytest.mark.parametrize("L,chunk", [(5, 256), (300, 256), (70, 32)])
+def test_cuda_ssd_scan_matches_plain(cuda_device, shape, L, chunk):
+    """Strided x, B and C (slices of one wider projection, as the model
+    passes them), two groups, an initial state; L shorter than 8, two
+    chunks with a ragged tail, and several small chunks."""
+    P, N = shape
+    Bb, H, G = 2, 4, 2
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
+    width = H * P + 2 * G * N + 6
+    proj = rand(Bb, L, width).to(torch.bfloat16)
+    x = proj[..., :H * P].reshape(Bb, L, H, P)
+    Bm = (proj[..., H * P:H * P + G * N] * 0.3).reshape(Bb, L, G, N)
+    Cm = (proj[..., H * P + G * N:H * P + 2 * G * N] * 0.3).reshape(
+        Bb, L, G, N)
+    dt = torch.nn.functional.softplus(rand(Bb, L, H)) * 0.5
+    A = -torch.exp(rand(H) * 0.5)
+    D = rand(H)
+    h0 = rand(Bb, H, P, N)
+    before = ssd_scan.launches["ssd_scan"]
+    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=h0)
+    wy, wh = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(),
+                                 D, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches["ssd_scan"] == before + 1
+    torch.testing.assert_close(y.float(), wy, atol=TOL, rtol=TOL)
+    scale = wh.abs().max().item()
+    torch.testing.assert_close(h, wh, atol=1e-3 * scale, rtol=1e-3)

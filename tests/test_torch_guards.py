@@ -2,6 +2,7 @@
 reference package, its entry points never fall back quietly to the CPU,
 and its CUDA kernel wrappers take CUDA tensors only."""
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -66,7 +67,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from repro_torch.core.allocator import ParallelPlan
     from repro_torch.core.categories import Sensitivity, TaskCategory
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
+    from repro_torch.models import ssm, transformer
     from repro_torch.models.config import ModelConfig
     from repro_torch.serving.arena import KVArena
     from repro_torch.serving.engine import ServiceRuntime
@@ -75,6 +76,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
                          for f in ModelConfig.__dataclass_fields__})
     with pytest.raises(RuntimeError, match="CUDA"):
         transformer.init(0, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ssm.init(0, dataclasses.replace(cfg, family="ssm", ssm_state=16,
+                                        ssm_headdim=16))
     params = transformer.init(0, cfg, device="cpu")
     plan = ParallelPlan(service="toy",
                         category=TaskCategory(Sensitivity.LATENCY, False),
@@ -91,7 +95,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 def test_cuda_wrappers_reject_cpu_tensors():
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ssd
     before = dict(pa.launches)
+    ssd_before = dict(ssd.launches)
     q = torch.zeros(2, 4, 64, dtype=torch.bfloat16)
     pages = torch.zeros(5, 32, 4, 64, dtype=torch.bfloat16)
     qp = torch.zeros(5, 32, 4, 64, dtype=torch.int8)
@@ -106,11 +112,16 @@ def test_cuda_wrappers_reject_cpu_tensors():
                                                  lens),
         lambda: pa.paged_chunk_prefill_attention_quant(qc, qp, qp, sc, sc,
                                                        bt, lens, lens),
+        lambda: ssd.ssd_scan(torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16),
+                             torch.zeros(1, 8, 2), torch.zeros(2),
+                             torch.zeros(1, 8, 1, 16, dtype=torch.bfloat16),
+                             torch.zeros(1, 8, 1, 16, dtype=torch.bfloat16)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
     assert pa.launches == before
+    assert ssd.launches == ssd_before
 
 
 def test_chip_smoke_refuses_to_run_without_the_card(tmp_path):

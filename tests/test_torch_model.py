@@ -275,9 +275,10 @@ def test_bf16_steps_match_reference():
         np.testing.assert_allclose(g[1:], w[1:], atol=6e-2, rtol=0)
 
 
-def test_registry_dense_only():
+def test_registry_unported_families_raise():
     assert model_api(toy_config()) is not None
-    for fam in ("moe", "ssm", "hybrid", "audio", "vlm"):
+    assert model_api(_mirror(toy_config(family="ssm"))) is not None
+    for fam in ("moe", "hybrid", "audio", "vlm"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             model_api(_mirror(toy_config(family=fam)))
 
