@@ -6,8 +6,9 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's serving paths (minicpm-2b and mamba2-2.7b, full width,
-random weights from a seed) in four phases; any failure exits non-zero:
+drives the port's serving paths (minicpm-2b, mamba2-2.7b and
+whisper-large-v3, full width, random weights from a seed) in five phases;
+any failure exits non-zero:
 
 1. the kernels against their plain PyTorch versions
    (``repro_torch.kernels.ref``) on random inputs, compared in f32 with
@@ -20,7 +21,13 @@ random weights from a seed) in four phases; any failure exits non-zero:
    the gathered dense view (a yardstick the port never calls); the SSD
    scan at mamba2-2.7b's chunk-call shapes (80 heads, P = 64, N = 128, one
    group), its f32 final state held to atol = rtol = 1e-3 of its largest
-   magnitude (no single PyTorch call computes the scan);
+   magnitude (no single PyTorch call computes the scan); flash attention
+   at whisper-large-v3's encoder shape (1500 x 1500, 20 heads, D = 64) and
+   cross-attention chunk shape (128 rows x 1500 keys) and one small case
+   per mask option, its f32 log-sum-exp held to atol = rtol = 1e-3; dense
+   decode attention at the cross-attention decode shape (128 slots, 1500
+   keys, 20 heads), 32 and 128 slots live, and a windowed GQA case; both
+   beside ``scaled_dot_product_attention`` on the same tensors;
 2. the launcher, ``repro_torch.launch.serve.main``: 8 requests, 16 new
    tokens, int8 KV (the plan's default for this frequency service);
 3. a request wave through ``ServiceRuntime`` with prompts of 6-200 tokens
@@ -28,12 +35,17 @@ random weights from a seed) in four phases; any failure exits non-zero:
 4. the same wave through mamba2-2.7b's state path at 128 slots (the
    allocator's own ``user_bs``: its default 512 slots of SSD state would
    take 86 GB);
+5. the same wave through whisper-large-v3's encoder-decoder path at 128
+   slots (its default 512 slots of cross K/V would take 125.8 GB), each
+   request with seeded random frame embeddings, int8 self-attention KV;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions).
 
 The paged-attention launch counts are zeroed just before phase 2 and read
-just after phase 3; the SSD scan's just before and after phase 4.
+just after phase 3; the SSD scan's just before and after phase 4; every
+count again just before phase 5, and flash and decode attention's read
+just after it.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -53,8 +65,12 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 TOL = 1.6e-2
 SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
-           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "decode_attention":
+               "src/repro_torch/kernels/csrc/decode_attention.cu"}
 SSD_STATE_TOL = 1e-3
+LSE_TOL = 1e-3
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 REPLACES = {
@@ -66,6 +82,8 @@ REPLACES = {
     "paged_chunk_prefill_attention_quant":
         "src/repro/kernels/decode_attention.py:675",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:85",
+    "flash_attention": "src/repro/kernels/flash_attention.py:108",
+    "decode_attention": "src/repro/kernels/decode_attention.py:92",
 }
 
 
@@ -328,6 +346,147 @@ def ssd_case(gen, *, Bb, L, H=80, P=64, G=1, N=128, chunk=256, timed):
     return rec
 
 
+def flash_case(gen, *, B, Lq, Lk, Hq, Hkv, D, timed, **mask):
+    """Flash attention on q, k, v of the model's layout (B, L, H, D), out
+    and lse against the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = rand(B, Lq, Hq, D), rand(B, Lk, Hkv, D), rand(B, Lk, Hkv, D)
+    run = lambda: flash_attention.flash_attention(q, k, v, **mask)
+    plain = lambda: ref.flash_attention_ref(q, k, v, **mask)
+    out, lse = run()
+    want, want_lse = ref.flash_attention_ref(q.float(), k.float(),
+                                             v.float(), **mask)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
+          "flash_attention: non-finite output")
+    err = (out.float() - want).abs().max().item()
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=LSE_TOL)
+    lse_err = (lse - want_lse).abs().max().item()
+    rec = {"max_abs_err": err, "lse_max_abs_err": lse_err}
+    if not timed:
+        return rec
+    check(not mask.get("causal", True), "only unmasked cases are timed")
+    # what the function needs: q, k, v read once, out and lse written
+    # once; 4*D flops for each (row, key) pair of each query head
+    pairs = B * Hq * Lq * Lk
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
+        + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, 4 * D * pairs)
+    rep = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
+    rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
+                "plain_ms": time_ms(plain, iters=2, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": graph_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt))})
+    return rec
+
+
+def dense_decode_case(gen, *, B, S, Hq, Hkv, D, lens, timed, window=None):
+    """Dense decode attention against the plain version, on caches laid
+    out as the model's cross K/V state (B, S, Hkv, D)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, ref
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = rand(B, Hq, D), rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+    cl = torch.as_tensor(np.asarray(lens, np.int32)).cuda()
+    run = lambda: decode_attention.decode_attention(q, k, v, cl,
+                                                    window=window)
+    out = run()
+    want = ref.decode_attention_ref(q.float(), k.float(), v.float(), cl,
+                                    window=window)
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs().max().item()
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    check(not out[cl == 0].any(), "decode_attention: an empty slot's row "
+          "is not zero")
+    rec = {"max_abs_err": err}
+    if not timed:
+        return rec
+    check(window is None, "only unwindowed cases are timed")
+    # what this data needs: q of the slots with keys, their visible K/V
+    # rows once, every slot's length and output row
+    keys = int(np.minimum(np.asarray(lens), S).sum())
+    live = int((np.asarray(lens) > 0).sum())
+    nbytes = (live * Hq * D * 2 + B * 4 + q.numel() * 2
+              + 2 * keys * Hkv * D * 2)
+    b_ms, b_by = bound(nbytes, 4 * D * Hq * keys)
+    mask = (torch.arange(S, device="cuda")[None] < cl[:, None])[:, None,
+                                                                 None]
+    rep = Hq // Hkv
+    kt = k.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
+    vt = v.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
+    rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
+                "plain_ms": time_ms(lambda: ref.decode_attention_ref(
+                    q, k, v, cl), iters=2, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": graph_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], kt, vt, attn_mask=mask))})
+    return rec
+
+
+def whisper_kernels(gen):
+    """Records of flash and decode attention at whisper-large-v3's
+    main-path shapes; max_abs_err over every case of the kernel."""
+    import torch
+    whisper = dict(Hq=20, Hkv=20, D=64)
+    records = {}
+    # the encoder's self-attention (the record) and a decoder chunk's
+    # cross-attention, a 128-row bucket against the 1500 frames
+    rec = flash_case(gen, B=1, Lq=1500, Lk=1500, causal=False, timed=True,
+                     **whisper)
+    cross = flash_case(gen, B=1, Lq=128, Lk=1500, causal=False, timed=True,
+                       **whisper)
+    print(f"  flash_attention, cross-attention chunk shape: {cross}")
+    errs, lse_errs = [rec["max_abs_err"], cross["max_abs_err"]], \
+        [rec["lse_max_abs_err"], cross["lse_max_abs_err"]]
+    small = dict(B=2, Lq=100, Lk=100, Hq=4, Hkv=4, D=64)
+    cases = [
+        dict(small, causal=True),
+        dict(small, causal=True, window=17),
+        dict(small, causal=True, prefix_len=70),
+        dict(small, causal=True, window=9, prefix_len=30),
+        dict(small, Lq=33, Lk=200, causal=True, q_offset=150, kv_len=170),
+        dict(small, Hq=8, Hkv=2, causal=True),
+        dict(small, Lq=70, Lk=150, D=128, causal=False),
+        dict(small, Lq=70, Lk=150, D=256, Hkv=2, causal=True),
+        dict(small, Lq=40, Lk=30, causal=True, window=4, kv_len=10),
+    ]
+    for case in cases:
+        r = flash_case(gen, timed=False, **case)
+        errs.append(r["max_abs_err"])
+        lse_errs.append(r["lse_max_abs_err"])
+    rec["max_abs_err"], rec["lse_max_abs_err"] = max(errs), max(lse_errs)
+    records["flash_attention"] = rec
+    # phase 5's cross-attention decode: 128 slots, 32 live at the
+    # encoder's 1500 keys (dead slots get length 0), then every slot live
+    lens = np.zeros(128, np.int64)
+    lens[:32] = 1500
+    rec = dense_decode_case(gen, B=128, S=1500, lens=lens, timed=True,
+                            **whisper)
+    full = dense_decode_case(gen, B=128, S=1500, lens=np.full(128, 1500),
+                             timed=True, **whisper)
+    print(f"  decode_attention, all 128 slots live: {full}")
+    gqa = dense_decode_case(gen, B=16, S=700, Hq=32, Hkv=8, D=128,
+                            lens=np.linspace(0, 700, 16).astype(int),
+                            window=100, timed=False)
+    rec["max_abs_err"] = max(rec["max_abs_err"], full["max_abs_err"],
+                             gqa["max_abs_err"])
+    records["decode_attention"] = rec
+    torch.cuda.empty_cache()
+    return records
+
+
 def phase_kernels():
     """Returns {kernel name: record} at minicpm-2b's main-path shapes, with
     max_abs_err over every case of that kernel."""
@@ -384,6 +543,7 @@ def phase_kernels():
     for key in ("max_abs_err", "state_max_rel_err"):
         rec[key] = max(rec[key], short[key], long[key])
     records["ssd_scan"] = rec
+    records.update(whisper_kernels(gen))
     return records
 
 
@@ -476,11 +636,78 @@ def wave_mamba2(n_requests=32, new_tokens=40):
     return launches
 
 
+def wave_whisper(n_requests=32, new_tokens=40):
+    """Phase 5: the request wave through whisper-large-v3's encoder-decoder
+    path; every launch count is zeroed just before it and read just after.
+    Returns the counts."""
+    import torch
+    from repro_torch.launch.profile_step import wave_runtime
+    from repro_torch.launch.serve import launch_counts
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    cfg, rt = wave_runtime(-1, n_requests, new_tokens,
+                           arch="whisper-large-v3")
+    mem_weights = torch.cuda.memory_allocated()
+    check(rt.plan.max_in_flight == 128 and rt.kv_dtype == "int8",
+          f"unexpected whisper-large-v3 plan {rt.plan}")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = rt.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(results) == n_requests,
+          f"whisper-large-v3 wave served {len(results)}/{n_requests}")
+    for r in results:
+        t = np.asarray(r.tokens)
+        check(len(t) == new_tokens and t.min() >= 0
+              and t.max() < cfg.vocab_size, "token ids out of range")
+    arena = rt.groups[0].arena
+    check(arena.state_slot_bytes == 245_760_000,
+          f"cross K/V state is {arena.state_slot_bytes} B a slot")
+    # layer by layer: isfinite over a whole 15.7 GB stack would allocate
+    # more than the stack itself
+    check(all(bool(torch.isfinite(layer).all()) for st in arena.state
+              for layer in st), "non-finite cross K/V state")
+    for name in ("flash_attention", "decode_attention",
+                 "paged_decode_attention_quant",
+                 "paged_chunk_prefill_attention_quant"):
+        check(launches[name] > 0,
+              f"the whisper-large-v3 wave never launched {name}: {launches}")
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"phase 5 (whisper-large-v3, {arena.capacity} slots, "
+          f"{arena.state_slot_bytes / 1e6:.2f} MB of cross K/V a slot, "
+          f"{rt.kv_dtype} KV): served {len(results)}/{n_requests}, {n_tok} "
+          f"tokens in {dt:.3f} s = {n_tok / dt:.1f} tok/s, "
+          f"{rt.decode_steps} decode steps, {rt.prefill_chunk_calls} "
+          f"prefill chunks, launches {launches}, memory (GB) before "
+          f"{mem0 / 1e9:.2f}, with weights {mem_weights / 1e9:.2f}, after "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f}, peak {peak / 1e9:.2f}")
+    print("phase 5 greedy tokens: " + json.dumps(
+        [np.asarray(r.tokens).tolist() for r in
+         sorted(results, key=lambda r: r.rid)]))
+    del rt, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def reset_launches():
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_attention, ssd_scan)
+    for mod in (paged_attention, ssd_scan, flash_attention,
+                decode_attention):
+        mod.reset_launches()
+
+
 def small_input_check():
     """The models on the card (CUDA kernels) against the same models and
     weights on the CPU (plain versions), in bf16 at a reduced width: one
     ragged chunked-prefill call and two decode steps each, for minicpm-2b
-    (head dim 64, bf16 and int8 pools) and mamba2-2.7b (P = N = 16).  The
+    (head dim 64, bf16 and int8 pools), mamba2-2.7b (P = N = 16) and
+    whisper-large-v3 (head dim 64, encoder_len 64, int8 pools).  The
     two devices round bf16 matrix products differently, so logits agree to
     2**-6 of the largest logit's magnitude (about two bf16 steps
     there)."""
@@ -526,6 +753,7 @@ def small_input_check():
             outs[dev] = torch.stack(logits)
         errs["int8" if quant else "bf16"] = compare_logits(outs)
     errs["mamba2"] = compare_logits(small_mamba2())
+    errs["whisper"] = compare_logits(small_whisper())
     print(f"small-input check: card vs CPU logits (max |diff|, "
           f"tolerance) {errs}")
 
@@ -572,6 +800,60 @@ def small_mamba2():
     return outs
 
 
+def small_whisper():
+    """reduced(whisper-large-v3) with head dim 64 in bf16 on both devices:
+    a ragged first chunk of 32 with frame embeddings (encoder, cross K/V
+    projection, cross-attention chunk), then two decode steps over int8
+    pools; returns the stacked logits per device."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels.quant import QuantPages
+    from repro_torch.models import encdec
+    cfg = reduced(get_config("whisper-large-v3"), head_dim=64)
+    params = encdec.init(7, cfg, "cpu")
+    B, nblk, bs = 2, 4, 32
+    rng = np.random.default_rng(8)
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 32)))
+    emb = torch.from_numpy(rng.standard_normal(
+        (B, cfg.encoder_len, cfg.d_model), dtype=np.float32))
+    tables = torch.arange(B * nblk, dtype=torch.int32).reshape(B, nblk)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, dev)
+        cache = encdec.init_cache(cfg, B, 1, device=dev)
+        shape = (cfg.num_layers, B * nblk + 1, bs, cfg.num_kv_heads,
+                 cfg.head_dim)
+        for n in "kv":
+            cache[n] = QuantPages(
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.ones(shape[:-1], device=dev))
+        cache["len"] = torch.zeros(B, dtype=torch.int32, device=dev)
+        bt = tables.to(dev)
+        before = (flash_attention.launches["flash_attention"],
+                  decode_attention.launches["decode_attention"])
+        lg, cache = encdec.prefill_chunk_paged(
+            p, cfg, {"tokens": chunk.to(dev), "embeddings": emb.to(dev)},
+            cache, bt, chunk_len=torch.tensor([32, 19], dtype=torch.int32,
+                                              device=dev), block_size=bs)
+        logits = [lg.float().cpu()]
+        live = torch.tensor([True, True], device=dev)
+        for step in range(2):
+            tok = torch.tensor([7 + step, 11 + step], device=dev)
+            lg, cache = encdec.decode_step_paged(p, cfg, tok, cache, bt,
+                                                 live, block_size=bs)
+            logits.append(lg.float().cpu())
+        if dev == "cuda":
+            layers = cfg.encoder_layers + cfg.num_layers
+            check((flash_attention.launches["flash_attention"],
+                   decode_attention.launches["decode_attention"])
+                  == (before[0] + layers, before[1] + 2 * cfg.num_layers),
+                  "the card's whisper steps did not run the flash and "
+                  "decode attention kernels")
+        outs[dev] = torch.stack(logits)
+    return outs
+
+
 def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
@@ -590,7 +872,7 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
-    from repro_torch.kernels import build, paged_attention, ssd_scan
+    from repro_torch.kernels import build, paged_attention
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -613,8 +895,7 @@ def main() -> int:
     for name, rec in records.items():
         print(f"  {name}: {rec}")
 
-    paged_attention.reset_launches()
-    ssd_scan.reset_launches()
+    reset_launches()
     print("phase 2: launcher, minicpm-2b full width")
     phase_launcher()
     gc.collect()
@@ -640,17 +921,20 @@ def main() -> int:
           f"agree ({same / total:.3f})")
     print("phase 4: request wave, mamba2-2.7b full width, 128 slots")
     launches["ssd_scan"] = wave_mamba2()
+    print("phase 5: request wave, whisper-large-v3 full width, 128 slots")
+    whisper_launches = wave_whisper()
+    for name in ("flash_attention", "decode_attention"):
+        launches[name] = whisper_launches[name]
     small_input_check()
 
     kernels = []
     for name, rec in records.items():
-        source = SOURCES["ssd_scan" if name == "ssd_scan"
-                         else "paged_attention"]
+        source = SOURCES[name if name in SOURCES else "paged_attention"]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": REPLACES[name],
                         "launches": launches[name],
                         **{k: rec[k] for k in RECORD_KEYS}})
-    check(len(kernels) == 5, f"expected five kernels, got {len(kernels)}")
+    check(len(kernels) == 7, f"expected seven kernels, got {len(kernels)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

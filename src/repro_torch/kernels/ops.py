@@ -1,18 +1,58 @@
 """The kernels as the models call them, dispatched by the tensor's device.
 
 A CUDA tensor goes to the hand-written kernel (``paged_attention``,
-``ssd_scan``), a CPU tensor to its plain version (``ref``).  There is no
-other switch and no fallback: on the card a kernel launches or raises.
+``flash_attention``, ``decode_attention``, ``ssd_scan``), a CPU tensor to
+its plain version (``ref``).  There is no other switch and no fallback: on
+the card a kernel launches or raises.
 ``QuantPages`` pools select the int8 attention kernels.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from . import decode_attention as da
+from . import flash_attention as fa
 from . import paged_attention as pa
 from . import ref
 from . import ssd_scan as ssd
 from .quant import QuantPages
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, prefix_len: int = 0,
+                    q_offset: int = 0, kv_len: Optional[int] = None,
+                    softmax_scale=None):
+    """Full (prefill, encoder or cross) attention, forward only: q
+    (B, Lq, Hq, D) against k, v (B, Lk, Hkv, D) with the reference flash
+    kernel's masks (see ``ref.flash_attention_ref``).  Returns
+    (B, Lq, Hq, D).  Raises where autograd would record a graph: the
+    backward is not ported, and a silent detach would train nothing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention is forward-only in repro_torch: its backward "
+            "(training) is ROADMAP.md Queue 1 item 12 and Queue 2 item 10")
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len,
+              q_offset=q_offset, kv_len=kv_len, softmax_scale=softmax_scale)
+    if q.device.type != "cuda":
+        return ref.flash_attention_ref(q, k, v, **kw)[0]
+    return fa.flash_attention(q, k, v, **kw)[0]
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     window: Optional[int] = None, softmax_scale=None):
+    """Single-token decode against dense (B, S, Hkv, D) caches: q
+    (B, Hq, D) attends to the first ``cache_len[b]`` keys of its slot (the
+    last ``window`` of them when set); ``cache_len`` is a scalar or (B,).
+    A slot of length 0 gets zeros.  Returns (B, Hq, D)."""
+    if q.device.type != "cuda":
+        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                        window=window,
+                                        softmax_scale=softmax_scale)
+    return da.decode_attention(q, k_cache, v_cache,
+                               ref.per_slot(cache_len, q.shape[0], q.device),
+                               window=window, softmax_scale=softmax_scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, cache_len, *,

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the kernels: paged attention and the Mamba-2
-SSD scan, plus the SSD decode step, which has no kernel.
+"""Plain PyTorch versions of the kernels: flash attention (forward), dense
+and paged attention, and the Mamba-2 SSD scan, plus the SSD decode step,
+which has no kernel.
 
 Fully materialized math with the reference package's semantics
-(``kernels/ref.py`` and the paged helpers of ``kernels/decode_attention.py``).
+(``kernels/ref.py``, ``kernels/flash_attention.py`` and the paged helpers
+of ``kernels/decode_attention.py``).
 The CPU path runs these; on the card they are only the yardstick the CUDA
 kernels are held against, never the main path (except
 ``ssd_decode_step_ref``, which runs on both).
@@ -27,6 +29,46 @@ def per_slot(x, B: int, device) -> torch.Tensor:
     """A scalar or (B,) int -> contiguous (B,) int32 tensor on ``device``."""
     x = torch.as_tensor(x, dtype=torch.int32, device=device)
     return x.expand(B).contiguous() if x.ndim == 0 else x.contiguous()
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, prefix_len: int = 0,
+                        q_offset: int = 0, kv_len: Optional[int] = None,
+                        softmax_scale=None):
+    """Full attention with the mask of the reference's flash kernel, and
+    its log-sum-exp.  q (B, Lq, Hq, D), k and v (B, Lk, Hkv, D).
+
+    Row i sits at position ``q_offset + i``; a key at kpos is visible iff
+    kpos < kv_len and, when ``causal``, kpos <= qpos (and kpos > qpos -
+    window when a window is set) or kpos < prefix_len.  A row that sees
+    nothing gets out = 0 and lse = -NEG_INF.  Returns (out (B, Lq, Hq, D)
+    in q's dtype, lse (B, Lq, Hq) f32)."""
+    B, Lq, Hq, D = q.shape
+    _, Lk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    kv_len = Lk if kv_len is None else kv_len
+    qpos = q_offset + torch.arange(Lq, device=q.device)[:, None]
+    kpos = torch.arange(Lk, device=q.device)[None]
+    ok = kpos < kv_len
+    if causal:
+        vis = kpos <= qpos
+        if window is not None:
+            vis = vis & (kpos > qpos - window)
+        if prefix_len:
+            vis = vis | (kpos < prefix_len)
+        ok = ok & vis                                        # (Lq, Lk)
+    qg = q.reshape(B, Lq, Hkv, G, D).float()
+    s = torch.einsum("blhgd,bshd->bhgls", qg, k.float()) * scale
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * ok
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhgls,bshd->blhgd", p, v.float())
+    out = out / l.clamp_min(1e-37).permute(0, 3, 1, 2)[..., None]
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-37)), -NEG_INF)
+    return (out.reshape(B, Lq, Hq, D).to(q.dtype),
+            lse.permute(0, 3, 1, 2).reshape(B, Lq, Hq))
 
 
 def decode_attention_ref(q, k_cache, v_cache, cache_len, *,

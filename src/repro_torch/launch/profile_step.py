@@ -1,17 +1,20 @@
 """Where a serving step's time goes on the card.
 
-``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phases 3
-and 4: one arch at full width (minicpm-2b or mamba2-2.7b), with prompts of
-6-200 tokens.  ``main`` serves it and profiles two windows of engine steps
-with ``torch.profiler``: the first steps, which mix chunked prefill and
-decode, and later decode-only steps.  For each window it prints the host
-wall time per step (ending in a device synchronize), the device time per
-step (the sum of the CUDA kernels' own times), the device's idle share,
-the number of kernel launches per step, and the kernels that take the
-most device time.
+``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phases 3,
+4 and 5: one arch at full width (minicpm-2b, mamba2-2.7b or
+whisper-large-v3, whose requests also carry seeded random frame
+embeddings), with prompts of 6-200 tokens.  ``main`` serves it and
+profiles two windows of engine steps with ``torch.profiler``: the first
+steps, which mix chunked prefill and decode, and later decode-only steps.
+For each window it prints the host wall time per step (ending in a device
+synchronize), the device time per step (the sum of the CUDA kernels' own
+times), the device's idle share, the number of kernel launches per step,
+and the kernels that take the most device time.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --kv-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch mamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch whisper-large-v3
 """
 from __future__ import annotations
 
@@ -31,26 +34,35 @@ from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 
 # slots the card holds at full width, where the plan's do not fit: the
 # allocator plans mamba2-2.7b at 512 slots of 167.8 MB of f32 SSD state
-# (86 GB), so the wave asks it for 128 (21.5 GB)
-WAVE_BS = {"mamba2-2.7b": 128}
+# (86 GB) and whisper-large-v3 at 512 slots of 245.76 MB of bf16 cross K/V
+# (125.8 GB), so the wave asks each for 128 (21.5 GB and 31.5 GB)
+WAVE_BS = {"mamba2-2.7b": 128, "whisper-large-v3": 128}
+ARCHS = ("minicpm-2b", "mamba2-2.7b", "whisper-large-v3")
 
 
 def wave_runtime(kv_dtype, n_requests: int = 32, new_tokens: int = 40,
                  device="cuda", arch: str = "minicpm-2b"):
     """A full-width ``ServiceRuntime`` of ``arch`` (random weights from
     seed 1) with ``n_requests`` prompts of 6-200 tokens, spread evenly,
-    already submitted.  ``kv_dtype`` is the plan's (-1 = the category's
-    choice).  Returns (cfg, runtime)."""
+    already submitted; audio requests carry standard-normal frame
+    embeddings drawn from seed 1.  ``kv_dtype`` is the plan's (-1 = the
+    category's choice).  Returns (cfg, runtime)."""
     cfg = get_config(arch)
     device = resolve_device(device)
     rt = ServiceRuntime(cfg, model_api(cfg).init(1, cfg, device),
                         plan_for(cfg, kv_dtype, WAVE_BS.get(arch)),
                         device=device)
     rng = np.random.default_rng(2)
+    frames = np.random.default_rng(1)
     for rid, n in enumerate(np.linspace(6, 200, n_requests).astype(int)):
+        extras = None
+        if cfg.family == "audio":
+            extras = {"embeddings": frames.standard_normal(
+                (cfg.encoder_len, cfg.d_model), dtype=np.float32)}
         rt.submit(GenerationRequest(
             rid=rid, tokens=rng.integers(0, cfg.vocab_size, n).astype(
-                np.int32), max_new_tokens=new_tokens, stream=rid))
+                np.int32), max_new_tokens=new_tokens, stream=rid,
+            extras=extras))
     return cfg, rt
 
 
@@ -84,8 +96,7 @@ def _window(rt, steps: int, label: str, top: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=("minicpm-2b", "mamba2-2.7b"),
-                    default="minicpm-2b")
+    ap.add_argument("--arch", choices=ARCHS, default="minicpm-2b")
     ap.add_argument("--kv-dtype", choices=("int8", "bf16"), default="int8")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-new-tokens", type=int, default=40)

@@ -9,10 +9,13 @@ target hardware), so it matches the reference's plan.
   PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b
 
 ``--archs`` also takes mamba2-2.7b (the reference's default pair is
-``minicpm-2b,mamba2-2.7b``).  At full width mamba2-2.7b's plan (512
-slots of 167.8 MB of SSD state each) does not fit one 80 GB card, so on
-the card it runs at 128 slots through ``chip_smoke.py``, which asks
-``plan_for`` for them.
+``minicpm-2b,mamba2-2.7b``) and whisper-large-v3, whose requests carry
+zero frame embeddings, as the reference's do.  At full width neither plan
+fits one 80 GB card: the allocator plans both at 512 slots, and a slot
+holds 167.8 MB of SSD state (mamba2-2.7b, 86 GB in all) or 245.76 MB of
+cross-attention K/V (whisper-large-v3, 125.8 GB).  On the card they run at
+128 slots through ``chip_smoke.py``, which asks ``plan_for`` for them; on
+the CPU the reduced configs serve at the plan's slots.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.core.allocator import allocate
 from repro_torch.core.categories import GPUSpec, Sensitivity, ServiceSpec
 from repro_torch.device import resolve_device
-from repro_torch.kernels import paged_attention, ssd_scan
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 paged_attention, ssd_scan)
 from repro_torch.models.registry import model_api
 from repro_torch.serving.engine import (EparaServingEngine,
                                         GenerationRequest, ServiceRuntime)
@@ -86,8 +90,9 @@ def plan_for(full, kv_dtype=-1, bs=None):
         prefix_cache=0, kv_dtype=kv_dtype)
 
 
-def _launch_counts():
-    return {**paged_attention.launches, **ssd_scan.launches}
+def launch_counts():
+    return {**paged_attention.launches, **flash_attention.launches,
+            **decode_attention.launches, **ssd_scan.launches}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -182,12 +187,16 @@ def main(argv=None) -> int:
     for i in range(args.requests):
         svc = arch_ids[i % len(arch_ids)]
         rng.integers(0, args.servers)    # the reference's entry-server draw
-        prompt = rng.integers(0, cfgs[svc].vocab_size, size=6).astype(
-            np.int32)
+        cfg = cfgs[svc]
+        prompt = rng.integers(0, cfg.vocab_size, size=6).astype(np.int32)
+        extras = None
+        if cfg.family == "audio":
+            extras = {"embeddings": np.zeros((cfg.encoder_len, cfg.d_model),
+                                             np.float32)}
         engine.submit(svc, GenerationRequest(
             rid=i, tokens=prompt, max_new_tokens=args.max_new_tokens,
-            stream=i))
-    launches0 = _launch_counts()
+            stream=i, extras=extras))
+    launches0 = launch_counts()
     t0 = time.monotonic()
     results = engine.drain()
     if device.type == "cuda":
@@ -200,7 +209,7 @@ def main(argv=None) -> int:
           f"in {dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s, {steps} fused "
           f"decode steps, {chunks} prefill chunks, device={device})")
     print("kernel launches: " + ", ".join(
-        f"{k}={v - launches0[k]}" for k, v in _launch_counts().items()))
+        f"{k}={v - launches0[k]}" for k, v in launch_counts().items()))
     return 0 if len(results) == args.requests else 1
 
 

@@ -1,16 +1,17 @@
-"""Shared neural-net layers of the dense decoder.
+"""Shared neural-net layers of the dense decoder and the encoder-decoder.
 
 Plain functions on tensors: params are nested dicts of tensors in the
 reference package's layouts (weights ``(in, out)``, so ``linear`` is
-``x @ w``), and every forward takes (params, cfg, ...).  Paged attention
-goes through ``repro_torch.kernels.ops``, which runs the CUDA kernels for
-tensors on the card and their plain versions on the CPU.
+``x @ w``), and every forward takes (params, cfg, ...).  Attention (paged,
+full and cross) goes through ``repro_torch.kernels.ops``, which runs the
+CUDA kernels for tensors on the card and their plain versions on the CPU.
 
 Unlike the reference, page pools are updated in place: ``paged_insert_rows``
 writes the new rows into the pool it is given and returns that same pool.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -91,15 +92,33 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(length: int, d: int, device=None):
+    """Whisper-style sinusoidal positional embedding table (length, d)."""
+    return sinusoid_at(torch.arange(length, device=device), d)
+
+
+def sinusoid_at(pos, d: int):
+    """Sinusoidal embedding at per-slot positions, in f32: pos (B,) ->
+    (B, d), so requests at different depths share one fused step."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=pos.device) / (half - 1))
+    ang = pos.float()[:, None] * freqs[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig):
+def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
+                   cross: bool = False):
+    """Self-attention projections, or with ``cross`` the separate q/k/v
+    projections of a cross-attention (k and v read the encoder memory)."""
     d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.num_heads, \
         cfg.num_kv_heads
     dt, dev = cfg.weight_dtype, gen.device
-    if cfg.fused_projections:
+    if cfg.fused_projections and not cross:
         p = {"wqkv": dense_init(gen, (d, (nq + 2 * nkv) * hd), dt),
              "wo": dense_init(gen, (nq * hd, d), dt)}
         if cfg.qkv_bias:
@@ -124,19 +143,32 @@ def _split_qkv_flat(cfg: ModelConfig, qkv):
     return q, k, v
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
-    """x (B, L, d) -> q (B, L, Hq, D), k and v (B, L, Hkv, D)."""
-    B, L = x.shape[:2]
+def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
+    """x (B, Lq, d) -> q (B, Lq, Hq, D); k and v (B, Lk, Hkv, D) from
+    ``kv_x`` (B, Lk, d) when given (cross-attention), else from x."""
+    B, Lq = x.shape[:2]
+    kv_x = x if kv_x is None else kv_x
+    Lk = kv_x.shape[1]
     if "wqkv" in p:
         q, k, v = _split_qkv_flat(cfg, linear(x, p["wqkv"], p.get("bqkv")))
     else:
         q = linear(x, p["wq"], p.get("bq"))
-        k = linear(x, p["wk"], p.get("bk"))
-        v = linear(x, p["wv"], p.get("bv"))
-    q = q.reshape(B, L, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, L, cfg.num_kv_heads, cfg.head_dim)
+        k = linear(kv_x, p["wk"], p.get("bk"))
+        v = linear(kv_x, p["wv"], p.get("bv"))
+    q = q.reshape(B, Lq, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, Lk, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, Lk, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
+
+
+def attention(p, cfg: ModelConfig, x, *, causal: bool = True, kv_x=None):
+    """Full attention without rope (the encoder-decoder's) through
+    ``ops.flash_attention``; ``kv_x`` (B, Lk, d) makes it cross-attention.
+    Returns (B, Lq, d)."""
+    B, Lq, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, kv_x)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    return linear(out.reshape(B, Lq, cfg.num_heads * cfg.head_dim), p["wo"])
 
 
 def paged_insert_rows(pages, rows, block_tables, positions, valid, *,
@@ -181,7 +213,7 @@ def _no_paged_ring(window, total_tokens: int) -> None:
 
 def attention_decode_paged(p, cfg: ModelConfig, x_t, k_pages, v_pages,
                            block_tables, lens, live, *, block_size: int,
-                           window=None):
+                           window=None, use_rope: bool = True):
     """One-token decode against one layer's paged KV.
 
     x_t: (B, d); pages (P, block_size, Hkv, D) read through
@@ -196,8 +228,9 @@ def attention_decode_paged(p, cfg: ModelConfig, x_t, k_pages, v_pages,
     _no_paged_ring(window, block_tables.shape[1] * block_size)
     q, k_t, v_t = _project_qkv(p, cfg, x_t[:, None])
     lens = lens.to(torch.int32)
-    q = rope(q, lens[:, None], cfg.rope_theta)
-    k_t = rope(k_t, lens[:, None], cfg.rope_theta)
+    if use_rope:
+        q = rope(q, lens[:, None], cfg.rope_theta)
+        k_t = rope(k_t, lens[:, None], cfg.rope_theta)
     live = live.bool()
     paged_insert_rows(k_pages, k_t, block_tables, lens[:, None],
                       live[:, None], block_size=block_size)
@@ -212,7 +245,8 @@ def attention_decode_paged(p, cfg: ModelConfig, x_t, k_pages, v_pages,
 
 def attention_chunk_paged(p, cfg: ModelConfig, x, k_pages, v_pages,
                           block_tables, cache_len, chunk_len, *,
-                          block_size: int, window=None):
+                          block_size: int, window=None,
+                          use_rope: bool = True):
     """Chunked-prefill attention against one layer's paged KV: write a
     right-padded T-token chunk (only the first ``chunk_len`` rows real) at
     positions ``cache_len + i`` into the pages, in place, then attend
@@ -229,8 +263,9 @@ def attention_chunk_paged(p, cfg: ModelConfig, x, k_pages, v_pages,
         chunk_len = chunk_len.expand(B)
     rows = torch.arange(T, device=dev)
     positions = cache_len[:, None] + rows[None]              # (B, T)
-    q = rope(q, positions, cfg.rope_theta)
-    k_t = rope(k_t, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k_t = rope(k_t, positions, cfg.rope_theta)
     valid = rows[None] < chunk_len[:, None]
     paged_insert_rows(k_pages, k_t, block_tables, positions, valid,
                       block_size=block_size)

@@ -1,14 +1,14 @@
 """Model family registry: maps ``ModelConfig.family`` to the model API.
 
-The dense and SSM families are ported so far; the others raise, naming
-the ``ROADMAP.md`` item that ports them.
+The dense, SSM and audio (encoder-decoder) families are ported so far;
+the others raise, naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from . import ssm, transformer
+from . import encdec, ssm, transformer
 from .config import ModelConfig
 
 
@@ -38,12 +38,14 @@ _FAMILIES = {
     "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache,
                     prefill_chunk=ssm.prefill_chunk,
                     decode_step=ssm.decode_step),
+    "audio": ModelApi(encdec.init, encdec.logits_fn, encdec.init_cache,
+                      decode_step_paged=encdec.decode_step_paged,
+                      prefill_chunk_paged=encdec.prefill_chunk_paged),
 }
 
 _NOT_PORTED = {
     "moe": "ROADMAP.md Queue 1 item 8 (MoE)",
-    "vlm": "ROADMAP.md Queue 1 item 9 (VLM and audio)",
-    "audio": "ROADMAP.md Queue 1 item 9 (VLM and audio)",
+    "vlm": "ROADMAP.md Queue 1 item 9 (VLM)",
     "hybrid": "ROADMAP.md Queue 1 item 10 (hybrid)",
 }
 

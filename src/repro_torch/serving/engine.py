@@ -22,9 +22,12 @@ Two kinds of step, picked by the family as in the reference: attention
 families run paged-native (``prefill_chunk_paged``/``decode_step_paged``
 against the page pools), and pure-SSM families, which have no paged-native
 step, take the state path (``prefill_chunk``/``decode_step`` over the
-arena's per-slot state rows; the first chunk of a request starts from
-zeroed state).  Stateful plans (``plan.sticky``) pin each session to one DP
-group from its admission until its last request leaves.
+arena's per-slot state rows).  The first chunk of a request starts from
+zeroed state rows; for the audio family it also carries the request's
+frame embeddings (``extras["embeddings"]``), from which the
+encoder-decoder projects the slot's cross-attention K/V state.  Stateful
+plans (``plan.sticky``) pin each session to one DP group from its
+admission until its last request leaves.
 
 Ported so far: ``mode="continuous"``, ``kvcache_impl="paged"``,
 paged-native and state steps, chunked prefill, FIFO admission, greedy
@@ -62,6 +65,7 @@ class GenerationRequest:
     tokens: np.ndarray               # prompt (L,) int32
     max_new_tokens: int = 16
     stream: int = 0
+    extras: Optional[Dict[str, Any]] = None   # e.g. frame embeddings
     eos_token: Optional[int] = None  # evict the slot early on this token
     seed: Optional[int] = None       # sampling stream seed (None -> rid)
     n_samples: int = 1               # > 1 (n-way forks) is not ported yet
@@ -284,7 +288,16 @@ class ServiceRuntime:
     def submit(self, req: GenerationRequest, now: float = 0.0) -> None:
         if req.n_samples > 1:
             raise _not_ported("n-way parallel sampling", "item 4")
-        total = len(req.tokens) + req.max_new_tokens
+        if self.cfg.family == "audio":
+            want = (self.cfg.encoder_len, self.cfg.d_model)
+            emb = (req.extras or {}).get("embeddings")
+            if emb is None or tuple(np.shape(emb)) != want:
+                raise ValueError(
+                    f"audio request {req.rid} needs extras['embeddings'] of "
+                    f"shape {want}, got "
+                    f"{None if emb is None else tuple(np.shape(emb))}")
+        total = (len(req.tokens) + self._extra_cache_tokens()
+                 + req.max_new_tokens)
         if total > self.slot_token_budget:
             raise ValueError(
                 f"request {req.rid} needs {total} cache tokens > per-slot "
@@ -303,6 +316,11 @@ class ServiceRuntime:
 
     def total_slots(self) -> int:
         return self.plan.max_in_flight * len(self.groups)
+
+    def _extra_cache_tokens(self) -> int:
+        """Cache positions a request takes beyond its text prompt: the VLM
+        family's image prefix (0 for every family ported so far)."""
+        return self.cfg.prefix_len if self.cfg.family == "vlm" else 0
 
     def _req_seed(self, req: GenerationRequest) -> int:
         return req.rid if req.seed is None else int(req.seed)
@@ -390,7 +408,8 @@ class ServiceRuntime:
         prefilled chunk by chunk in (b2).  False when the arena is out of
         blocks (the caller requeues)."""
         arena = self._ensure_arena(state)
-        total = len(req.tokens) + req.max_new_tokens
+        total = (len(req.tokens) + self._extra_cache_tokens()
+                 + req.max_new_tokens)
         if total > arena.slot_tokens:
             raise ValueError(
                 f"request {req.rid} needs {total} tokens > per-slot "
@@ -448,13 +467,17 @@ class ServiceRuntime:
         toks[0, :n_valid] = s.req.tokens[s.consumed:s.consumed + n_valid]
         dev = self.device
         sid = s.slot_id
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
         if s.consumed == 0:
             # a FIRST chunk (start == 0) must see fresh per-slot state, not
-            # the slot's previous tenant's
+            # the slot's previous tenant's; the enc-dec's first chunk also
+            # runs the encoder over the request's frame embeddings
             arena.zero_state(sid)
+            if self.cfg.family == "audio":
+                batch["embeddings"] = torch.from_numpy(np.asarray(
+                    s.req.extras["embeddings"])[None]).to(dev)
         cache = arena.assemble(arena.pages, arena.slot_state(sid),
                                arena.lens[sid:sid + 1])
-        batch = {"tokens": torch.from_numpy(toks).to(dev)}
         chunk_len = torch.tensor([n_valid], dtype=torch.int32, device=dev)
         if self.native:
             logits, new_cache = self.api.prefill_chunk_paged(

@@ -10,16 +10,20 @@ Outputs are compared in f32 with atol = rtol = 1.6e-2, about two bf16
 steps of the output: the kernels read bf16 (or int8) K/V and write bf16,
 and sum in another order than the plain version.  The SSD scan's f32
 final state is held to atol = rtol = 1e-3 of its largest magnitude (f32
-sums in another order over up to 256-token chunks).
+sums in another order over up to 256-token chunks).  Flash attention's
+f32 log-sum-exp is held to 1e-3 of its magnitude (atol = rtol = 1e-3;
+rows that see nothing must hold -NEG_INF).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, ops, paged_attention, ref, ssd_scan
+from repro_torch.kernels import (build, decode_attention, flash_attention,
+                                 ops, paged_attention, ref, ssd_scan)
 from repro_torch.kernels.quant import QuantPages, quantize
 
 TOL = 1.6e-2
+LSE_TOL = 1e-3
 
 
 @pytest.fixture
@@ -135,3 +139,69 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, shape, L, chunk):
     torch.testing.assert_close(y.float(), wy, atol=TOL, rtol=TOL)
     scale = wh.abs().max().item()
     torch.testing.assert_close(h, wh, atol=1e-3 * scale, rtol=1e-3)
+
+
+FLASH_CASES = {
+    # id: ((B, Lq, Lk, Hq, Hkv, D), mask options)
+    "encoder_like": ((1, 150, 150, 4, 4, 64), dict(causal=False)),
+    "cross_chunk": ((1, 40, 150, 4, 4, 64), dict(causal=False)),
+    "causal_gqa": ((2, 100, 100, 8, 2, 64), dict(causal=True)),
+    "window_prefix": ((1, 130, 130, 4, 2, 128),
+                      dict(causal=True, window=17, prefix_len=70)),
+    "q_offset_kv_len": ((1, 33, 200, 4, 4, 128),
+                        dict(causal=True, q_offset=150, kv_len=170)),
+    "masked_rows_d256": ((1, 70, 60, 2, 2, 256),
+                         dict(causal=True, window=5, kv_len=20)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_cuda_flash_attention_matches_plain(cuda_device, case):
+    """q, k and v sliced from one (B, L, 3, H, D) tensor (strided, as a
+    fused projection would give them), every mask option, GQA, D = 64,
+    128 and 256, rows that see nothing."""
+    (B, Lq, Lk, Hq, Hkv, D), kw = FLASH_CASES[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(2)
+    q = torch.randn(B, Lq, 2, Hq, D, generator=gen, device=cuda_device).to(
+        torch.bfloat16)[:, :, 1]
+    kv = torch.randn(B, Lk, 2, Hkv, D, generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    before = flash_attention.launches["flash_attention"]
+    out, lse = flash_attention.flash_attention(q, k, v, **kw)
+    want, want_lse = ref.flash_attention_ref(q.float(), k.float(),
+                                             v.float(), **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["flash_attention"] == before + 1
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cross", "gqa_window", "d128", "d256"])
+def test_cuda_decode_attention_matches_plain(cuda_device, case):
+    """Ragged lengths with empty slots (zeros), a window, GQA, and each
+    head dim, against caches sliced from a wider tensor."""
+    B, S, Hq, Hkv, D, window = {
+        "cross": (8, 1500, 20, 20, 64, None),
+        "gqa_window": (6, 300, 32, 4, 128, 40),
+        "d128": (5, 77, 16, 16, 128, None),
+        "d256": (4, 90, 16, 2, 256, None)}[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    q = torch.randn(B, Hq, D, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    kv = torch.randn(B, S, 2, Hkv, D, generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    lens = torch.linspace(0, S, B, device=cuda_device).to(torch.int32)
+    before = decode_attention.launches["decode_attention"]
+    out = decode_attention.decode_attention(q, k, v, lens, window=window)
+    want = ref.decode_attention_ref(q.float(), k.float(), v.float(), lens,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches["decode_attention"] == before + 1
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    assert not out[lens == 0].any()

@@ -124,6 +124,57 @@ def test_cuda_wrappers_reject_cpu_tensors():
     assert ssd.launches == ssd_before
 
 
+def test_attention_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    before = {**fa.launches, **da.launches}
+    q4 = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    q3 = torch.zeros(2, 4, 64, dtype=torch.bfloat16)
+    cache = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention(q4, q4, q4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        da.decode_attention(q3, cache, cache,
+                            torch.ones(2, dtype=torch.int32))
+    assert {**fa.launches, **da.launches} == before
+
+
+def test_flash_attention_refuses_inputs_that_require_grad():
+    """The backward is not ported: asking for a gradient raises, naming
+    the items that port it, instead of detaching quietly; without a graph
+    (``no_grad``) the forward runs."""
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 8, 2, 16, requires_grad=True)
+    k = torch.randn(1, 8, 2, 16)
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1 item 12 and Queue 2 item 10"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        ops.flash_attention(k, k, q)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, k).shape == (1, 8, 2, 16)
+
+
+@pytest.mark.parametrize("family,item", [("vlm", "item 9"),
+                                         ("moe", "item 8"),
+                                         ("hybrid", "item 10")])
+def test_unported_families_name_their_item(family, item):
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.registry import model_api
+    cfg = ModelConfig(**{f: getattr(toy_config(family=family), f)
+                         for f in ModelConfig.__dataclass_fields__})
+    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+        model_api(cfg)
+
+
+def test_encdec_init_refuses_cpu_fallback(monkeypatch):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import encdec
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encdec.init(0, reduced(get_config("whisper-large-v3")))
+
+
 def test_chip_smoke_refuses_to_run_without_the_card(tmp_path):
     """In a directory that holds nothing else of the repository, and (on a
     machine without a card) in the repository itself, the script fails and
