@@ -6,8 +6,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the port's serving paths (minicpm-2b, mamba2-2.7b and
-whisper-large-v3, full width, random weights from a seed) in five phases;
+drives the port's serving paths (minicpm-2b, mamba2-2.7b, whisper-large-v3
+and mixtral-8x7b, full width, random weights from a seed) in six phases;
 any failure exits non-zero:
 
 1. the kernels against their plain PyTorch versions
@@ -27,7 +27,13 @@ any failure exits non-zero:
    per mask option, its f32 log-sum-exp held to atol = rtol = 1e-3; dense
    decode attention at the cross-attention decode shape (128 slots, 1500
    keys, 20 heads), 32 and 128 slots live, and a windowed GQA case; both
-   beside ``scaled_dot_product_attention`` on the same tensors;
+   beside ``scaled_dot_product_attention`` on the same tensors; the
+   grouped GEMM at mixtral-8x7b's decode shapes ((8, 512, 4096) @
+   (8, 4096, 14336) and its down projection) and chunk shape (20 rows an
+   expert), its bf16 output held to the f32 product of the same operands,
+   beside ``torch.bmm`` on the same tensors, and at three odd shapes
+   (ragged tiles, C = 1); and the bf16 paged decode kernel at mixtral's
+   attention shape (512 slots, 32 live, 32 heads over 8 KV heads, D = 128);
 2. the launcher, ``repro_torch.launch.serve.main``: 8 requests, 16 new
    tokens, int8 KV (the plan's default for this frequency service);
 3. a request wave through ``ServiceRuntime`` with prompts of 6-200 tokens
@@ -38,6 +44,10 @@ any failure exits non-zero:
 5. the same wave through whisper-large-v3's encoder-decoder path at 128
    slots (its default 512 slots of cross K/V would take 125.8 GB), each
    request with seeded random frame embeddings, int8 self-attention KV;
+6. the same wave through mixtral-8x7b's MoE path at the plan's 512 slots
+   and bf16 KV, at full width and 16 of its 32 layers (all 32 layers'
+   bf16 weights, 93.4 GB, do not fit the card; 16 take 46.96 GB), the
+   expert FFN through the grouped GEMM kernel, capacity factor 1.25;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions).
@@ -45,7 +55,8 @@ same model on the CPU (the plain versions).
 The paged-attention launch counts are zeroed just before phase 2 and read
 just after phase 3; the SSD scan's just before and after phase 4; every
 count again just before phase 5, and flash and decode attention's read
-just after it.
+just after it; every count again just before phase 6, and the grouped
+GEMM's read just after it.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -68,7 +79,8 @@ SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "decode_attention":
-               "src/repro_torch/kernels/csrc/decode_attention.cu"}
+               "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu"}
 SSD_STATE_TOL = 1e-3
 LSE_TOL = 1e-3
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -84,6 +96,7 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:85",
     "flash_attention": "src/repro/kernels/flash_attention.py:108",
     "decode_attention": "src/repro/kernels/decode_attention.py:92",
+    "grouped_matmul": "src/repro/kernels/moe_gemm.py:41",
 }
 
 
@@ -487,6 +500,82 @@ def whisper_kernels(gen):
     return records
 
 
+def gmm_case(gen, *, E, C, K, N, timed):
+    """The grouped GEMM on bf16 operands against the plain version on their
+    f32 copies (what the kernel sums before its one rounding to bf16)."""
+    import torch
+    from repro_torch.kernels import grouped_matmul, ref
+    lhs = torch.randn(E, C, K, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    rhs = torch.randn(E, K, N, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    run = lambda: grouped_matmul.grouped_matmul(lhs, rhs)
+    out = run()
+    want = ref.grouped_matmul_ref(lhs.float(), rhs.float())
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "grouped_matmul: non-finite output")
+    err = (out.float() - want).abs().max().item()
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    rec = {"max_abs_err": err, "out_max_abs": want.abs().max().item()}
+    del out, want
+    if not timed:
+        return rec
+    # what the function needs: both operands read once, the output written
+    # once; 2 flops a multiply-add over every (expert, row, column, k)
+    flops = 2 * E * C * K * N
+    nbytes = 2 * (lhs.numel() + rhs.numel() + E * C * N)
+    b_ms, b_by = bound(nbytes, flops)
+    rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
+                "plain_ms": time_ms(lambda: ref.grouped_matmul_ref(
+                    lhs, rhs), iters=2, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": graph_ms(lambda: torch.bmm(lhs, rhs))})
+    return rec
+
+
+def mixtral_kernels(gen, rng):
+    """The grouped GEMM's record at mixtral-8x7b's decode shape (every slot
+    its own routing group: 512 rows an expert, gate/up projection), with
+    max_abs_err over every case; and the bf16 paged decode and chunk
+    kernels at mixtral's attention shapes, whose errors join those
+    kernels' records."""
+    import torch
+    rec = gmm_case(gen, E=8, C=512, K=4096, N=14336, timed=True)
+    errs = [rec["max_abs_err"]]
+    for name, shape in (("decode down projection", (8, 512, 14336, 4096)),
+                        ("chunk, 20 rows an expert", (8, 20, 4096, 14336))):
+        E, C, K, N = shape
+        r = gmm_case(gen, E=E, C=C, K=K, N=N, timed=True)
+        print(f"  grouped_matmul, {name} {shape}: {r}")
+        errs.append(r["max_abs_err"])
+        torch.cuda.empty_cache()
+    for E, C, K, N in ((4, 50, 70, 33), (8, 10, 200, 16), (4, 1, 256, 384)):
+        errs.append(gmm_case(gen, E=E, C=C, K=K, N=N,
+                             timed=False)["max_abs_err"])
+    rec["max_abs_err"] = max(errs)
+    torch.cuda.empty_cache()
+    # phase 6's decode attention: 512 slots, 32 live half-way through
+    # generation, GQA 32 heads over 8 KV heads, D = 128
+    lens = np.zeros(512, np.int64)
+    lens[:32] = np.linspace(6, 200, 32).astype(int) + 20
+    attn = decode_case(gen, rng, B=512, lens=lens, quant=False, timed=True,
+                       Hq=32, Hkv=8, D=128)
+    print(f"  paged_decode_attention, mixtral-8x7b shape (512 slots, 32 "
+          f"live, 32/8 heads, D = 128): {attn}")
+    # phase 6's chunked prefill: one slot a call, a 64-row bucket timed and
+    # a ragged 32-row one checked, same heads
+    mixtral = dict(Hq=32, Hkv=8, D=128, prefix_len=0, quant=False)
+    chunk = chunk_case(gen, rng, B=1, T=64, start=[64], chunk_len=[64],
+                       timed=True, **mixtral)
+    print(f"  paged_chunk_prefill_attention, mixtral-8x7b shape (one slot, "
+          f"64 rows, 32/8 heads, D = 128): {chunk}")
+    chunk_err = max(chunk["max_abs_err"], chunk_case(
+        gen, rng, B=1, T=32, start=[0], chunk_len=[19], timed=False,
+        **mixtral)["max_abs_err"])
+    torch.cuda.empty_cache()
+    return rec, attn["max_abs_err"], chunk_err
+
+
 def phase_kernels():
     """Returns {kernel name: record} at minicpm-2b's main-path shapes, with
     max_abs_err over every case of that kernel."""
@@ -544,6 +633,11 @@ def phase_kernels():
         rec[key] = max(rec[key], short[key], long[key])
     records["ssd_scan"] = rec
     records.update(whisper_kernels(gen))
+    records["grouped_matmul"], attn_err, chunk_err = mixtral_kernels(gen,
+                                                                    rng)
+    for name, e in (("paged_decode_attention", attn_err),
+                    ("paged_chunk_prefill_attention", chunk_err)):
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], e)
     return records
 
 
@@ -694,11 +788,85 @@ def wave_whisper(n_requests=32, new_tokens=40):
     return launches
 
 
+def wave_mixtral(n_requests=32, new_tokens=40):
+    """Phase 6: the request wave through mixtral-8x7b's MoE path at 16 of
+    its 32 layers; every launch count is zeroed just before it and read
+    just after.  Returns the counts."""
+    import torch
+    from repro_torch.launch.profile_step import wave_runtime
+    from repro_torch.launch.serve import launch_counts
+    from repro_torch.models import moe
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    cfg, rt = wave_runtime(-1, n_requests, new_tokens, arch="mixtral-8x7b")
+    mem_weights = torch.cuda.memory_allocated()
+    check((cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_experts,
+           cfg.moe_capacity_factor) == (16, 4096, 14336, 8, 1.25)
+          and rt.plan.max_in_flight == 512 and rt.kv_dtype == "bf16",
+          f"unexpected mixtral-8x7b wave {cfg} {rt.plan}")
+    stats = moe.MOE_DROP_STATS
+    stats.flush()
+    drop0, assigned0 = stats.dropped, stats.assigned
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, step_drops = [], []
+    for _ in range(10_000):
+        if not (rt.pending() or rt.in_flight()):
+            break
+        st = rt.step(max_wait_s=0.0)
+        results.extend(st.results)
+        step_drops.append(st.moe_dropped_tokens)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(results) == n_requests,
+          f"mixtral-8x7b wave served {len(results)}/{n_requests}")
+    for r in results:
+        t = np.asarray(r.tokens)
+        check(len(t) == new_tokens and t.min() >= 0
+              and t.max() < cfg.vocab_size, "token ids out of range")
+    calls = rt.decode_steps + rt.prefill_chunk_calls
+    check(launches["grouped_matmul"] == 3 * cfg.num_layers * calls,
+          f"grouped_matmul launched {launches['grouped_matmul']} times, "
+          f"not 3 a layer in each of {calls} steps and chunks")
+    for name in ("grouped_matmul", "paged_decode_attention",
+                 "paged_chunk_prefill_attention"):
+        check(launches[name] > 0,
+              f"the mixtral-8x7b wave never launched {name}: {launches}")
+    arena = rt.groups[0].arena
+    check(all(bool(torch.isfinite(layer).all()) for pool in arena.pages
+              for layer in pool), "non-finite K/V pools")
+    dropped = stats.dropped - drop0
+    assigned = stats.assigned - assigned0
+    check(dropped == sum(step_drops), "per-step drops do not add up")
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"phase 6 (mixtral-8x7b, {cfg.num_layers} of 32 layers, "
+          f"{arena.capacity} slots, {rt.kv_dtype} KV): served "
+          f"{len(results)}/{n_requests}, {n_tok} tokens in {dt:.3f} s = "
+          f"{n_tok / dt:.1f} tok/s, {rt.decode_steps} decode steps, "
+          f"{rt.prefill_chunk_calls} prefill chunks, launches {launches}, "
+          f"expert-capacity drops {dropped:.0f} of {assigned:.0f} "
+          f"assignments ({dropped / max(assigned, 1.0):.4f}), memory (GB) "
+          f"before {mem0 / 1e9:.2f}, with weights {mem_weights / 1e9:.2f}, "
+          f"after {torch.cuda.memory_allocated() / 1e9:.2f}, peak "
+          f"{peak / 1e9:.2f}")
+    print("phase 6 greedy tokens: " + json.dumps(
+        [np.asarray(r.tokens).tolist() for r in
+         sorted(results, key=lambda r: r.rid)]))
+    del rt, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def reset_launches():
     from repro_torch.kernels import (decode_attention, flash_attention,
-                                     paged_attention, ssd_scan)
+                                     grouped_matmul, paged_attention,
+                                     ssd_scan)
     for mod in (paged_attention, ssd_scan, flash_attention,
-                decode_attention):
+                decode_attention, grouped_matmul):
         mod.reset_launches()
 
 
@@ -706,8 +874,10 @@ def small_input_check():
     """The models on the card (CUDA kernels) against the same models and
     weights on the CPU (plain versions), in bf16 at a reduced width: one
     ragged chunked-prefill call and two decode steps each, for minicpm-2b
-    (head dim 64, bf16 and int8 pools), mamba2-2.7b (P = N = 16) and
-    whisper-large-v3 (head dim 64, encoder_len 64, int8 pools).  The
+    (head dim 64, bf16 and int8 pools), mamba2-2.7b (P = N = 16),
+    whisper-large-v3 (head dim 64, encoder_len 64, int8 pools) and
+    mixtral-8x7b (head dim 64, 4 experts, bf16 pools), and one MoE layer
+    of it with a random router.  The
     two devices round bf16 matrix products differently, so logits agree to
     2**-6 of the largest logit's magnitude (about two bf16 steps
     there)."""
@@ -754,6 +924,12 @@ def small_input_check():
         errs["int8" if quant else "bf16"] = compare_logits(outs)
     errs["mamba2"] = compare_logits(small_mamba2())
     errs["whisper"] = compare_logits(small_whisper())
+    # phase 6's runtime turned the process-wide drop counter on; these
+    # direct calls switch devices outside any step and read no drops
+    from repro_torch.models import moe
+    moe.enable_drop_counter(False)
+    errs["mixtral"] = compare_logits(small_mixtral())
+    errs["mixtral_moe_layer"] = compare_logits(small_moe_layer())
     print(f"small-input check: card vs CPU logits (max |diff|, "
           f"tolerance) {errs}")
 
@@ -854,6 +1030,88 @@ def small_whisper():
     return outs
 
 
+def small_mixtral():
+    """reduced(mixtral-8x7b) with head dim 64 in bf16 on both devices: a
+    ragged chunk of 32 (each slot its own routing group of capacity 20)
+    then two decode steps over bf16 pools; returns the stacked logits per
+    device.  The router's weights are zeros, so every router probability
+    is exactly 1/4 on both devices and both route each token to experts 0
+    and 1 (the lowest index wins a tie): the two devices' bf16 roundings,
+    which differ, cannot flip an argmax that a random router leaves within
+    their noise.  The capacity drops 12 of each group's 32 first and 32
+    second choices, so the drop path runs too; routing with random
+    weights is held to the reference in tests/test_torch_moe.py and runs
+    at full size in phase 6."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import grouped_matmul
+    from repro_torch.models import moe
+    cfg = reduced(get_config("mixtral-8x7b"), head_dim=64)
+    params = moe.init(9, cfg, "cpu")
+    params["blocks"]["moe"]["router"].zero_()
+    B, nblk, bs = 2, 2, 32                 # 64 tokens a slot: the window
+    chunk = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (B, 32)))
+    tables = torch.arange(B * nblk, dtype=torch.int32).reshape(B, nblk)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, dev)
+        shape = (cfg.num_layers, B * nblk + 1, bs, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache = {n: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+                 for n in "kv"}
+        cache["len"] = torch.zeros(B, dtype=torch.int32, device=dev)
+        bt = tables.to(dev)
+        before = grouped_matmul.launches["grouped_matmul"]
+        lg, cache = moe.prefill_chunk_paged(
+            p, cfg, {"tokens": chunk.to(dev)}, cache, bt,
+            chunk_len=torch.tensor([32, 19], dtype=torch.int32, device=dev),
+            block_size=bs)
+        logits = [lg.float().cpu()]
+        live = torch.tensor([True, True], device=dev)
+        for step in range(2):
+            tok = torch.tensor([7 + step, 11 + step], device=dev)
+            lg, cache = moe.decode_step_paged(p, cfg, tok, cache, bt, live,
+                                              block_size=bs)
+            logits.append(lg.float().cpu())
+        if dev == "cuda":
+            check(grouped_matmul.launches["grouped_matmul"]
+                  == before + 3 * 3 * cfg.num_layers,
+                  "the card's mixtral steps did not run the grouped GEMM "
+                  "kernel")
+        outs[dev] = torch.stack(logits)
+    return outs
+
+
+def small_moe_layer():
+    """Layer 0's MoE FFN of the same reduced(mixtral-8x7b), with its random
+    router, on the same bf16 input on both devices: two routing groups of
+    32 tokens, capacity 20.  The router's f32 products differ by float
+    noise only, and on this input (seed 15) every token's first, second
+    and third router probabilities lie more than 0.008 apart, so the
+    devices route alike; 2 assignments are dropped on both.  Returns the
+    outputs per device."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import moe
+    cfg = reduced(get_config("mixtral-8x7b"), head_dim=64)
+    params = moe.init(9, cfg, "cpu")
+    layer = {k: v[0] for k, v in params["blocks"]["moe"].items()}
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (2, 32, cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    outs, drops = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(layer, dev)
+        probs = torch.softmax(x.to(dev).float() @ p["router"].float(), -1)
+        drops[dev] = moe._top_k_dispatch(probs, cfg.experts_per_token,
+                                         20)[2].item()
+        y, _ = moe.moe_mlp(p, cfg, x.to(dev))
+        outs[dev] = y.float().cpu()
+    check(drops["cpu"] == drops["cuda"] == 2,
+          f"MoE layer drops differ across devices: {drops}")
+    return outs
+
+
 def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
@@ -925,6 +1183,9 @@ def main() -> int:
     whisper_launches = wave_whisper()
     for name in ("flash_attention", "decode_attention"):
         launches[name] = whisper_launches[name]
+    print("phase 6: request wave, mixtral-8x7b full width, 16 of 32 layers, "
+          "512 slots")
+    launches["grouped_matmul"] = wave_mixtral()["grouped_matmul"]
     small_input_check()
 
     kernels = []
@@ -934,7 +1195,10 @@ def main() -> int:
                         "replaces": REPLACES[name],
                         "launches": launches[name],
                         **{k: rec[k] for k in RECORD_KEYS}})
-    check(len(kernels) == 7, f"expected seven kernels, got {len(kernels)}")
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
+    check(len(kernels) == 8, f"expected eight kernels, got {len(kernels)}")
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel of the main paths never launched: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """The kernels as the models call them, dispatched by the tensor's device.
 
 A CUDA tensor goes to the hand-written kernel (``paged_attention``,
-``flash_attention``, ``decode_attention``, ``ssd_scan``), a CPU tensor to
-its plain version (``ref``).  There is no other switch and no fallback: on
-the card a kernel launches or raises.
+``flash_attention``, ``decode_attention``, ``ssd_scan``,
+``grouped_matmul``), a CPU tensor to its plain version (``ref``).  There
+is no other switch and no fallback: on the card a kernel launches or
+raises.
 ``QuantPages`` pools select the int8 attention kernels.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from . import decode_attention as da
 from . import flash_attention as fa
+from . import grouped_matmul as gmm
 from . import paged_attention as pa
 from . import ref
 from . import ssd_scan as ssd
@@ -135,3 +137,11 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, D=None):
     elementwise-dominated, and the reference has no kernel for it either:
     plain PyTorch on every device.  Returns (y_t, state)."""
     return ref.ssd_decode_step_ref(state, x_t, dt_t, A, B_t, C_t, D)
+
+
+def grouped_matmul(lhs, rhs):
+    """The expert FFN's grouped GEMM after capacity dispatch: lhs
+    (E, C, K) @ rhs (E, K, N) -> (E, C, N) in lhs's dtype, summed in f32."""
+    if lhs.device.type != "cuda":
+        return ref.grouped_matmul_ref(lhs, rhs)
+    return gmm.grouped_matmul(lhs, rhs)

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the kernels: flash attention (forward), dense
-and paged attention, and the Mamba-2 SSD scan, plus the SSD decode step,
-which has no kernel.
+and paged attention, the Mamba-2 SSD scan and the grouped (per-expert)
+GEMM, plus the SSD decode step, which has no kernel.
 
 Fully materialized math with the reference package's semantics
 (``kernels/ref.py``, ``kernels/flash_attention.py`` and the paged helpers
@@ -267,3 +267,13 @@ def ssd_decode_step_ref(state, x_t, dt_t, A, B_t, C_t, D=None):
     if D is not None:
         y = y + xf * D.float()[None, :, None]
     return y.to(x_t.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# grouped (per-expert) matmul
+# ---------------------------------------------------------------------------
+
+def grouped_matmul_ref(lhs, rhs):
+    """(E, C, K) @ (E, K, N) -> (E, C, N) in lhs's dtype, summed in f32."""
+    out = torch.einsum("eck,ekn->ecn", lhs.float(), rhs.float())
+    return out.to(lhs.dtype)

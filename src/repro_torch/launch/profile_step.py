@@ -1,10 +1,10 @@
 """Where a serving step's time goes on the card.
 
-``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phases 3,
-4 and 5: one arch at full width (minicpm-2b, mamba2-2.7b or
-whisper-large-v3, whose requests also carry seeded random frame
-embeddings), with prompts of 6-200 tokens.  ``main`` serves it and
-profiles two windows of engine steps with ``torch.profiler``: the first
+``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phases 3
+to 6: one arch at full width (minicpm-2b, mamba2-2.7b, whisper-large-v3,
+whose requests also carry seeded random frame embeddings, or mixtral-8x7b
+at 16 of its 32 layers), with prompts of 6-200 tokens.  ``main`` serves it
+and profiles two windows of engine steps with ``torch.profiler``: the first
 steps, which mix chunked prefill and decode, and later decode-only steps.
 For each window it prints the host wall time per step (ending in a device
 synchronize), the device time per step (the sum of the CUDA kernels' own
@@ -15,10 +15,13 @@ and the kernels that take the most device time.
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch mamba2-2.7b
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
       --arch whisper-large-v3
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch mixtral-8x7b
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -37,7 +40,11 @@ from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 # (86 GB) and whisper-large-v3 at 512 slots of 245.76 MB of bf16 cross K/V
 # (125.8 GB), so the wave asks each for 128 (21.5 GB and 31.5 GB)
 WAVE_BS = {"mamba2-2.7b": 128, "whisper-large-v3": 128}
-ARCHS = ("minicpm-2b", "mamba2-2.7b", "whisper-large-v3")
+# layers the card holds at full width where the full depth does not fit:
+# mixtral-8x7b's 32 layers of bf16 weights take 93.4 GB, its first 16 (the
+# only cut) 46.96 GB, beside 8.59 GB of bf16 KV at the plan's 512 slots
+WAVE_LAYERS = {"mixtral-8x7b": 16}
+ARCHS = ("minicpm-2b", "mamba2-2.7b", "whisper-large-v3", "mixtral-8x7b")
 
 
 def wave_runtime(kv_dtype, n_requests: int = 32, new_tokens: int = 40,
@@ -46,11 +53,15 @@ def wave_runtime(kv_dtype, n_requests: int = 32, new_tokens: int = 40,
     seed 1) with ``n_requests`` prompts of 6-200 tokens, spread evenly,
     already submitted; audio requests carry standard-normal frame
     embeddings drawn from seed 1.  ``kv_dtype`` is the plan's (-1 = the
-    category's choice).  Returns (cfg, runtime)."""
-    cfg = get_config(arch)
+    category's choice).  The plan is the full config's; the weights are cut
+    to ``WAVE_LAYERS`` where that names the arch.  Returns (cfg,
+    runtime)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=WAVE_LAYERS.get(
+        arch, full.num_layers))
     device = resolve_device(device)
     rt = ServiceRuntime(cfg, model_api(cfg).init(1, cfg, device),
-                        plan_for(cfg, kv_dtype, WAVE_BS.get(arch)),
+                        plan_for(full, kv_dtype, WAVE_BS.get(arch)),
                         device=device)
     rng = np.random.default_rng(2)
     frames = np.random.default_rng(1)
@@ -97,18 +108,24 @@ def _window(rt, steps: int, label: str, top: int) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, default="minicpm-2b")
-    ap.add_argument("--kv-dtype", choices=("int8", "bf16"), default="int8")
+    ap.add_argument("--kv-dtype", choices=("auto", "int8", "bf16"),
+                    default="auto",
+                    help="paged-KV precision: 'auto' = the plan's category "
+                         "choice (int8 for minicpm-2b and whisper-large-v3, "
+                         "bf16 for mixtral-8x7b)")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-new-tokens", type=int, default=40)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args(argv)
-    _, rt = wave_runtime(args.kv_dtype, args.requests, args.max_new_tokens,
+    kv_dtype = -1 if args.kv_dtype == "auto" else args.kv_dtype
+    _, rt = wave_runtime(kv_dtype, args.requests, args.max_new_tokens,
                          arch=args.arch)
     # max_wait_s=0: the MF composer flushes partial frame groups at once,
     # as drain() does
     rt.step(max_wait_s=0.0)                     # first admission + warm-up
-    print(f"{args.arch}, {args.kv_dtype} KV, {args.requests} requests, "
+    print(f"{args.arch}, {rt.kv_dtype} KV, {rt.cfg.num_layers} layers, "
+          f"{args.requests} requests, "
           f"{rt.plan.max_in_flight} slots, {torch.cuda.get_device_name(0)}")
     _window(rt, args.steps, "prefill+decode window", args.top)
     while any(s.prefilling for g in rt.groups.values() for s in g.slots):

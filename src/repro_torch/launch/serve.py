@@ -16,6 +16,15 @@ holds 167.8 MB of SSD state (mamba2-2.7b, 86 GB in all) or 245.76 MB of
 cross-attention K/V (whisper-large-v3, 125.8 GB).  On the card they run at
 128 slots through ``chip_smoke.py``, which asks ``plan_for`` for them; on
 the CPU the reduced configs serve at the plan's slots.
+
+It takes the MoE archs mixtral-8x7b and grok-1-314b too.  Their full
+configs' bf16 weights (93.4 GB and 633 GB) do not fit one card, so on the
+card the launcher refuses them before allocating anything;
+``chip_smoke.py`` serves mixtral-8x7b at 16 of its 32 layers.  On the CPU
+the reduced configs serve.  reduced(mixtral-8x7b) has a 64-token sliding
+window: a slot budget over it (the default ``--max-seq-len`` is 256) would
+need a ring cache layout, which is not ported (ROADMAP.md Queue 1 item
+11), so serve it with ``--max-seq-len 64``.
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ from repro_torch.core.allocator import allocate
 from repro_torch.core.categories import GPUSpec, Sensitivity, ServiceSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import (decode_attention, flash_attention,
-                                 paged_attention, ssd_scan)
+                                 grouped_matmul, paged_attention, ssd_scan)
 from repro_torch.models.registry import model_api
 from repro_torch.serving.engine import (EparaServingEngine,
                                         GenerationRequest, ServiceRuntime)
@@ -92,7 +101,8 @@ def plan_for(full, kv_dtype=-1, bs=None):
 
 def launch_counts():
     return {**paged_attention.launches, **flash_attention.launches,
-            **decode_attention.launches, **ssd_scan.launches}
+            **decode_attention.launches, **ssd_scan.launches,
+            **grouped_matmul.launches}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -164,6 +174,18 @@ def main(argv=None) -> int:
             ap.error(f"unknown arch {a!r}; known: {ARCH_IDS}")
     device = resolve_device(args.device)
     kv_dtype = -1 if args.kv_dtype == "auto" else args.kv_dtype
+
+    if device.type == "cuda":
+        have = torch.cuda.get_device_properties(device).total_memory
+        for a in arch_ids:
+            need = get_config(a).param_count() * 2
+            if need > have:
+                smoke = ("chip_smoke.py serves it at 16 of its 32 layers, "
+                         if a == "mixtral-8x7b" else "")
+                raise RuntimeError(
+                    f"{a}'s bf16 weights ({need / 1e9:.1f} GB) exceed the "
+                    f"card's memory ({have / 1e9:.1f} GB) at full width; "
+                    f"{smoke}--device cpu serves its reduced config")
 
     engine = EparaServingEngine()
     cfgs = {}

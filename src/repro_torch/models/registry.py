@@ -1,14 +1,14 @@
 """Model family registry: maps ``ModelConfig.family`` to the model API.
 
-The dense, SSM and audio (encoder-decoder) families are ported so far;
-the others raise, naming the ``ROADMAP.md`` item that ports them.
+The dense, MoE, SSM and audio (encoder-decoder) families are ported so
+far; the others raise, naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from . import encdec, ssm, transformer
+from . import encdec, moe, ssm, transformer
 from .config import ModelConfig
 
 
@@ -19,8 +19,8 @@ class ModelApi:
     init_cache: Callable
     # state-path entry points: the cache's leaves are per-slot state (or
     # dense sequence leaves) that the serving arena hands over by slot;
-    # ``None`` where not ported (the dense family's: ROADMAP.md Queue 1
-    # item 11)
+    # ``None`` where not ported (the dense and MoE families': ROADMAP.md
+    # Queue 1 item 11)
     prefill_chunk: Optional[Callable] = None
     decode_step: Optional[Callable] = None
     # paged-native entry points: the cache's sequence leaves are the
@@ -35,6 +35,9 @@ _FAMILIES = {
                       transformer.init_cache,
                       decode_step_paged=transformer.decode_step_paged,
                       prefill_chunk_paged=transformer.prefill_chunk_paged),
+    "moe": ModelApi(moe.init, moe.logits_fn, moe.init_cache,
+                    decode_step_paged=moe.decode_step_paged,
+                    prefill_chunk_paged=moe.prefill_chunk_paged),
     "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache,
                     prefill_chunk=ssm.prefill_chunk,
                     decode_step=ssm.decode_step),
@@ -44,7 +47,6 @@ _FAMILIES = {
 }
 
 _NOT_PORTED = {
-    "moe": "ROADMAP.md Queue 1 item 8 (MoE)",
     "vlm": "ROADMAP.md Queue 1 item 9 (VLM)",
     "hybrid": "ROADMAP.md Queue 1 item 10 (hybrid)",
 }

@@ -79,16 +79,19 @@ class KVArena:
         # meta device (no allocation) at two max_len values; the leaf axes
         # that grow are sequence axes and get paged, a leaf with none is
         # per-slot state.  Leaves are taken in sorted key order, the order
-        # the reference's pytree flatten uses.
+        # the reference's pytree flatten uses.  Growth is probed from one
+        # token below the slot budget up to it: a sequence axis capped by a
+        # sliding window equal to the budget still grows there (the
+        # reference probes the budget and one block past it, where such an
+        # axis does not grow, and then takes it for per-slot state).
         probe = lambda s: init_cache(cfg, 1, s, dtype, device="meta")
-        lo, hi = probe(self.slot_tokens), probe(self.slot_tokens
-                                               + self.block_size)
+        below, lo = probe(self.slot_tokens - 1), probe(self.slot_tokens)
         self._keys: List[str] = sorted(lo)
         self._tags: List[str] = []
         paged_shapes: List[Tuple[Tuple[int, ...], torch.dtype]] = []
         state_shapes: List[Tuple[Tuple[int, ...], torch.dtype]] = []
         for key in self._keys:
-            a, b = lo[key], hi[key]
+            a, b = lo[key], below[key]
             if _is_len_leaf(a):
                 self._tags.append(_LEN)
                 continue

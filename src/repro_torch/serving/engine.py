@@ -31,7 +31,8 @@ admission until its last request leaves.
 
 Ported so far: ``mode="continuous"``, ``kvcache_impl="paged"``,
 paged-native and state steps, chunked prefill, FIFO admission, greedy
-sampling, sticky DP sessions.
+sampling, sticky DP sessions, and MoE services' expert-capacity drop
+counts (``StepStats.moe_dropped_tokens``).
 Constructor arguments that ask for anything else raise, naming the
 ``ROADMAP.md`` item that ports it.  The plan's category default for the
 radix prefix cache is treated as 0 (disabled): the prefix cache is not
@@ -48,6 +49,7 @@ import torch
 
 from repro_torch.core.allocator import DPGroupRouter, ParallelPlan
 from repro_torch.device import resolve_device
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi, model_api
 
@@ -96,6 +98,10 @@ class StepStats:
     chunk_write_bytes: int = 0       # cache bytes written by chunked prefill
     decode_steps: int = 0            # fused decode invocations this step
     prefill_chunk_tokens: int = 0    # prompt tokens prefilled this step
+    moe_dropped_tokens: float = 0.0  # MoE expert-capacity drops this step
+    #                                  (token-assignments past capacity;
+    #                                  nonzero under binding capacity, where
+    #                                  chunked prefill may diverge)
 
 
 class _Slot:
@@ -233,6 +239,14 @@ class ServiceRuntime:
         self.prefill_tokens_computed = 0  # prompt tokens run through prefill
         self._session_refs: Dict[int, int] = {}  # sticky session -> requests
         self._service_ewma_s = 0.0   # EWMA of per-request service time
+        self._moe_stats = None
+        if cfg.family == "moe":
+            # expert-capacity drop observability: chunked prefill changes
+            # the routing-group granularity, so divergence under binding
+            # capacity shows up as a nonzero drop counter (global per
+            # process; read once per step, see models/moe.py)
+            moe.enable_drop_counter(True)
+            self._moe_stats = moe.MOE_DROP_STATS
         if (cfg.sliding_window is not None
                 and cfg.sliding_window < self.slot_token_budget):
             raise _not_ported("ring (sliding-window) cache layouts",
@@ -575,6 +589,12 @@ class ServiceRuntime:
         """Advance the data plane by one scheduling round: evict, admit,
         chunked prefill, one fused decode step."""
         chunkw0, steps0 = self.chunk_write_bytes, self.decode_steps
+        moe0 = 0.0
+        if self._moe_stats is not None:
+            # drops of MoE calls made since the last step (outside any
+            # step) go to the totals, not to this step
+            self._moe_stats.flush()
+            moe0 = self._moe_stats.dropped
         results: List[GenerationResult] = []
         for group, state in self.groups.items():
             results.extend(self._evict(group, state, now))
@@ -584,6 +604,8 @@ class ServiceRuntime:
             chunk_tokens += self._prefill_chunks(state)
             if state.slots:
                 self._decode_group(state)
+        if self._moe_stats is not None:
+            self._moe_stats.flush()
         return StepStats(
             results=results, now=now, admitted=admitted,
             evicted=len(results), in_flight=self.in_flight(),
@@ -591,7 +613,9 @@ class ServiceRuntime:
             queue_time_s=self.queue_time_estimate(),
             chunk_write_bytes=self.chunk_write_bytes - chunkw0,
             decode_steps=self.decode_steps - steps0,
-            prefill_chunk_tokens=chunk_tokens)
+            prefill_chunk_tokens=chunk_tokens,
+            moe_dropped_tokens=((self._moe_stats.dropped - moe0)
+                                if self._moe_stats is not None else 0.0))
 
     def drain(self, now: float = 0.0,
               max_wait_s: float = 0.0) -> List[GenerationResult]:

@@ -12,14 +12,18 @@ and sum in another order than the plain version.  The SSD scan's f32
 final state is held to atol = rtol = 1e-3 of its largest magnitude (f32
 sums in another order over up to 256-token chunks).  Flash attention's
 f32 log-sum-exp is held to 1e-3 of its magnitude (atol = rtol = 1e-3;
-rows that see nothing must hold -NEG_INF).
+rows that see nothing must hold -NEG_INF).  The grouped GEMM's bf16 output
+is held to the f32 product of the same bf16 values with atol = rtol =
+1.6e-2 (one rounding to bf16, sums in another order); its float32 instance
+to atol = rtol = 1e-3 (f32 sums over up to 14,336 terms in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (build, decode_attention, flash_attention,
-                                 ops, paged_attention, ref, ssd_scan)
+                                 grouped_matmul, ops, paged_attention, ref,
+                                 ssd_scan)
 from repro_torch.kernels.quant import QuantPages, quantize
 
 TOL = 1.6e-2
@@ -205,3 +209,50 @@ def test_cuda_decode_attention_matches_plain(cuda_device, case):
     assert decode_attention.launches["decode_attention"] == before + 1
     torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
     assert not out[lens == 0].any()
+
+
+GMM_CASES = {                       # (E, C, K, N, extra K, extra N)
+    "odd": (4, 50, 70, 33, 0, 0),
+    "narrow_n": (8, 10, 200, 16, 0, 0),
+    "one_row": (3, 1, 64, 128, 0, 0),
+    "strided": (2, 70, 256, 200, 8, 16),
+    "strided_unaligned": (2, 33, 96, 64, 3, 5),
+    "chunk": (8, 20, 4096, 14336, 0, 0),
+    "decode_down": (8, 512, 14336, 4096, 0, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_cuda_grouped_matmul_matches_plain(cuda_device, case, dtype):
+    """Ragged C, K and N (zero-filled tiles), C = 1, operands sliced from
+    wider tensors (read in place, with 16-byte-aligned and unaligned
+    strides), and mixtral's chunk and decode shapes."""
+    E, C, K, N, xk, xn = GMM_CASES[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(4)
+    dt = getattr(torch, dtype)
+    lhs = torch.randn(E, C, K + xk, generator=gen, device=cuda_device).to(
+        dt)[:, :, :K]
+    rhs = torch.randn(E, K, N + xn, generator=gen, device=cuda_device).to(
+        dt)[:, :, :N]
+    before = grouped_matmul.launches["grouped_matmul"]
+    out = ops.grouped_matmul(lhs, rhs)
+    want = ref.grouped_matmul_ref(lhs.float(), rhs.float())
+    torch.cuda.synchronize()
+    assert grouped_matmul.launches["grouped_matmul"] == before + 1
+    assert out.dtype == dt and tuple(out.shape) == (E, C, N)
+    tol = 1.6e-2 if dt == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(out.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_matmul_rejects_what_it_does_not_take(cuda_device):
+    a = torch.zeros(2, 4, 8, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="both be bfloat16"):
+        grouped_matmul.grouped_matmul(a, a.float().transpose(1, 2))
+    with pytest.raises(ValueError, match="both be bfloat16"):
+        grouped_matmul.grouped_matmul(a.half(), a.half().transpose(1, 2))
+    with pytest.raises(ValueError, match=r"rhs must be \(2, 8, N\)"):
+        grouped_matmul.grouped_matmul(a, a)

@@ -156,7 +156,6 @@ def test_flash_attention_refuses_inputs_that_require_grad():
 
 
 @pytest.mark.parametrize("family,item", [("vlm", "item 9"),
-                                         ("moe", "item 8"),
                                          ("hybrid", "item 10")])
 def test_unported_families_name_their_item(family, item):
     from repro_torch.models.config import ModelConfig
@@ -165,6 +164,80 @@ def test_unported_families_name_their_item(family, item):
                          for f in ModelConfig.__dataclass_fields__})
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         model_api(cfg)
+
+
+def test_moe_family_is_ported_paged_native():
+    from repro_torch.models import moe
+    from repro_torch.models.registry import family_api
+    api = family_api("moe")
+    assert api.init is moe.init
+    assert api.prefill_chunk_paged is moe.prefill_chunk_paged
+    assert api.decode_step_paged is moe.decode_step_paged
+    assert api.prefill_chunk is None and api.decode_step is None
+
+
+def test_unported_moe_entry_points_name_their_items():
+    from repro_torch.models import moe
+    for fn in (moe.prefill, moe.prefill_chunk, moe.decode_step):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            fn()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        moe.forward_hidden()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        moe.verify_step_paged()
+
+
+def test_moe_budget_over_the_window_raises_naming_item_11():
+    """reduced(mixtral-8x7b) has a 64-token window: a larger slot budget
+    would need a ring layout.  The runtime refuses it, and so does the
+    launcher at its default --max-seq-len of 256."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServiceRuntime
+    cfg = reduced(get_config("mixtral-8x7b"))
+    assert cfg.sliding_window == 64
+    params = moe.init(0, cfg, device="cpu")
+    plan = serve.plan_for(get_config("mixtral-8x7b"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        ServiceRuntime(cfg, params, plan, max_seq_len=72, block_size=8,
+                       device="cpu")
+    ServiceRuntime(cfg, params, plan, max_seq_len=64, block_size=8,
+                   device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        serve.main(["--archs", "mixtral-8x7b", "--device", "cpu",
+                    "--requests", "1"])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "grok-1-314b"])
+def test_launcher_serves_moe_on_cpu(arch, capsys):
+    from repro_torch.launch import serve
+    rc = serve.main(["--archs", arch, "--device", "cpu", "--max-seq-len",
+                     "64", "--requests", "4", "--max-new-tokens", "4"])
+    assert rc == 0
+    assert "served 4/4 requests" in capsys.readouterr().out
+
+
+def test_launcher_refuses_weights_over_the_card_memory(monkeypatch):
+    """On the card, before allocating anything, an arch whose full bf16
+    weights exceed the card's memory raises: mixtral-8x7b's 93.4 GB and
+    grok-1-314b's 633 GB on an 80 GB card."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("Props", (), {
+                            "total_memory": 80 * 2 ** 30})())
+
+    def no_model(*args, **kwargs):
+        raise AssertionError("weights allocated before the memory check")
+
+    monkeypatch.setattr(serve, "model_api", no_model)
+    for arch, gb in (("mixtral-8x7b", "93.4"), ("grok-1-314b", "633.")):
+        with pytest.raises(RuntimeError,
+                           match=rf"^{arch}'s bf16 weights \({gb}") as e:
+            serve.main(["--archs", arch])
+        assert ("16 of its 32 layers" in str(e.value)) == (
+            arch == "mixtral-8x7b")
 
 
 def test_encdec_init_refuses_cpu_fallback(monkeypatch):
