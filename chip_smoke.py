@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's serving paths (minicpm-2b, mamba2-2.7b, whisper-large-v3
-and mixtral-8x7b, full width, random weights from a seed) in six phases;
-any failure exits non-zero:
+and mixtral-8x7b, full width, random weights from a seed) and its training
+path (minicpm-2b) in seven phases; any failure exits non-zero:
 
 1. the kernels against their plain PyTorch versions
    (``repro_torch.kernels.ref``) on random inputs, compared in f32 with
@@ -24,7 +24,14 @@ any failure exits non-zero:
    magnitude (no single PyTorch call computes the scan); flash attention
    at whisper-large-v3's encoder shape (1500 x 1500, 20 heads, D = 64) and
    cross-attention chunk shape (128 rows x 1500 keys) and one small case
-   per mask option, its f32 log-sum-exp held to atol = rtol = 1e-3; dense
+   per mask option, its f32 log-sum-exp held to atol = rtol = 1e-3, its
+   output also at every sequence position to 1e-2 of that position's norm
+   (``check_rows``), and timed at the training shape (1 x 4096 x 4096, 36 heads, D = 64,
+   causal); the flash backward at the training shape, timed, and at odd
+   shapes (GQA, D = 128 and 256, a window, Lq != Lk, kv_len, q_offset,
+   ragged tiles), its bf16 dq, dk and dv held to the plain version on the
+   same bf16 inputs, also by ``check_rows``, beside the backward of ``scaled_dot_product_attention``
+   (``torch.autograd.grad`` on a saved graph; CUDA events); dense
    decode attention at the cross-attention decode shape (128 slots, 1500
    keys, 20 heads), 32 and 128 slots live, and a windowed GQA case; both
    beside ``scaled_dot_product_attention`` on the same tensors; the
@@ -48,15 +55,25 @@ any failure exits non-zero:
    and bf16 KV, at full width and 16 of its 32 layers (all 32 layers'
    bf16 weights, 93.4 GB, do not fit the card; 16 take 46.96 GB), the
    expert FFN through the grouped GEMM kernel, capacity factor 1.25;
+7. training through ``repro_torch.launch.train``: minicpm-2b at full
+   width, bf16, AdamW at lr 1e-3, batch 2 x 4096 tokens in 2 microbatches,
+   4 steps (finite losses and grad norms, the last loss below the first,
+   exactly 160 flash forward and 80 flash backward launches a step: 40
+   layers' forward and checkpointed recompute, and backward, per
+   microbatch), then the second step of a fresh trainer under
+   ``torch.profiler``;
 
 and a small-input check of each model's logits on the card against the
-same model on the CPU (the plain versions).
+same model on the CPU (the plain versions), of one training step's loss
+and gradients, and of one attention layer's gradients.
 
 The paged-attention launch counts are zeroed just before phase 2 and read
 just after phase 3; the SSD scan's just before and after phase 4; every
 count again just before phase 5, and flash and decode attention's read
 just after it; every count again just before phase 6, and the grouped
-GEMM's read just after it.
+GEMM's read just after it; every count again just before phase 7, and the
+flash kernels' read just after it (the forward's record sums phases 5 and
+7).
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -75,14 +92,20 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 TOL = 1.6e-2
+TRAIN_LR = "1e-3"
+TRAIN_SHAPE = dict(B=1, Lq=4096, Lk=4096, Hq=36, Hkv=36, D=64)
 SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "decode_attention":
                "src/repro_torch/kernels/csrc/decode_attention.cu",
            "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu"}
 SSD_STATE_TOL = 1e-3
 LSE_TOL = 1e-3
+ROW_REL_TOL = 1e-2
+ROW_FLOOR = 1e-5
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 REPLACES = {
@@ -95,6 +118,7 @@ REPLACES = {
         "src/repro/kernels/decode_attention.py:675",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:85",
     "flash_attention": "src/repro/kernels/flash_attention.py:108",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention_bwd.py:156",
     "decode_attention": "src/repro/kernels/decode_attention.py:92",
     "grouped_matmul": "src/repro/kernels/moe_gemm.py:41",
 }
@@ -359,6 +383,30 @@ def ssd_case(gen, *, Bb, L, H=80, P=64, G=1, N=128, chunk=256, timed):
     return rec
 
 
+def check_rows(name, got, want):
+    """Holds ``got`` to ``want`` at every sequence position (axis 1 of
+    (B, L, ...)): the norm of the difference over the other axes is at
+    most ROW_REL_TOL of ``want``'s norm there, plus ROW_FLOOR per element
+    (the rounding noise of a position whose true value is 0, such as dq of
+    a row that sees one key).  Unlike atol it scales with each position's
+    own size: at 4096 causal keys the late rows' out and the late keys' dk
+    and dv are of the order of 1e-2, as large as TOL.  Returns the
+    record's entries for ``name``: the normwise error of the whole
+    tensor, the worst position's error as a share of its limit, and
+    ``want``'s norm and largest magnitude."""
+    g = got.float().transpose(0, 1).flatten(1)
+    w = want.float().transpose(0, 1).flatten(1)
+    diff = g - w
+    limit = ROW_REL_TOL * w.norm(dim=1) + ROW_FLOOR * w.shape[1] ** 0.5
+    worst = (diff.norm(dim=1) / limit).max().item()
+    check(worst <= 1, f"{name}: a sequence position differs by {worst} of "
+          f"its limit ({ROW_REL_TOL} of its norm + {ROW_FLOOR} an element)")
+    return {f"{name}_rel_l2": (diff.norm() / w.norm()).item(),
+            f"{name}_worst_row_of_limit": worst,
+            f"{name}_ref_norm": w.norm().item(),
+            f"{name}_ref_max": w.abs().max().item()}
+
+
 def flash_case(gen, *, B, Lq, Lk, Hq, Hkv, D, timed, **mask):
     """Flash attention on q, k, v of the model's layout (B, L, H, D), out
     and lse against the plain version."""
@@ -380,26 +428,128 @@ def flash_case(gen, *, B, Lq, Lk, Hq, Hkv, D, timed, **mask):
     torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
     torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=LSE_TOL)
     lse_err = (lse - want_lse).abs().max().item()
-    rec = {"max_abs_err": err, "lse_max_abs_err": lse_err}
+    rec = {"max_abs_err": err, "lse_max_abs_err": lse_err,
+           **check_rows("out", out, want)}
     if not timed:
         return rec
-    check(not mask.get("causal", True), "only unmasked cases are timed")
+    causal = mask.get("causal", True)
     # what the function needs: q, k, v read once, out and lse written
-    # once; 4*D flops for each (row, key) pair of each query head
-    pairs = B * Hq * Lq * Lk
+    # once; 4*D flops for each visible (row, key) pair of each query head
+    pairs = B * Hq * visible_pairs(Lq, Lk, causal, mask)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
         + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, 4 * D * pairs)
-    rep = Hq // Hkv
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
-    vt = v.transpose(1, 2).repeat_interleave(rep, dim=1).contiguous()
+    qt, kt, vt = sdpa_layout(q, k, v)
     rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
                 "plain_ms": time_ms(plain, iters=2, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": graph_ms(
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt))})
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal))})
     return rec
+
+
+def visible_pairs(Lq, Lk, causal, mask):
+    """(row, key) pairs a timed flash case computes: all of them, or the
+    causal triangle of a square case with no other mask."""
+    if not causal:
+        return Lq * Lk
+    check(Lq == Lk and set(mask) == {"causal"},
+          "only unmasked or plain causal square cases are timed")
+    return Lq * (Lq + 1) // 2
+
+
+def sdpa_layout(*ts):
+    """(B, L, H, D) tensors -> contiguous (B, H, L, D), GQA heads repeated
+    to the first tensor's count, for ``scaled_dot_product_attention``."""
+    Hq = ts[0].shape[2]
+    return [t.transpose(1, 2).repeat_interleave(Hq // t.shape[2], dim=1)
+            .contiguous() for t in ts]
+
+
+def flash_bwd_case(gen, *, B, Lq, Lk, Hq, Hkv, D, timed, **mask):
+    """The flash backward on q, k, v and dout of the model's layout and the
+    forward kernel's out and lse, against the plain version on the same
+    bf16 inputs (which rounds dS and P to bf16 where the kernel does)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, ref
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, dout = rand(B, Lq, Hq, D), rand(B, Lq, Hq, D)
+    k, v = rand(B, Lk, Hkv, D), rand(B, Lk, Hkv, D)
+    out, lse = flash_attention.flash_attention(q, k, v, **mask)
+    run = lambda: flash_attention_bwd.flash_attention_bwd(
+        q, k, v, out, lse, dout, **mask)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                **mask)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    errs, rows = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(g).all()),
+              f"flash_attention_bwd: non-finite {name}")
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL, rtol=TOL)
+        errs[name] = (g.float() - w.float()).abs().max().item()
+        rows.update(check_rows(name, g, w))
+    rec = {"max_abs_err": max(errs.values()), **{f"{n}_max_abs_err": e
+                                                 for n, e in errs.items()},
+           **rows}
+    del got, want
+    if not timed:
+        return rec
+    causal = mask.get("causal", True)
+    # what the function needs: q, k, v, out, dout and lse read once, dq,
+    # dk and dv written once; five products of 2*D flops for each visible
+    # (row, key) pair of each query head (S, dP, dV, dK, dQ: P is not
+    # stored, so S is part of the work)
+    pairs = B * Hq * visible_pairs(Lq, Lk, causal, mask)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + out.numel() + dout.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, 5 * 2 * D * pairs)
+    qt, kt, vt = (t.requires_grad_(True) for t in sdpa_layout(q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = sdpa_layout(dout)[0]
+    library = lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                          retain_graph=True)
+    rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
+                "plain_ms": time_ms(plain, iters=1, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(library)})
+    return rec
+
+
+def training_kernels(gen):
+    """The flash backward's record at the training path's shape, with
+    max_abs_err over every case, and the flash forward timed at that
+    shape (printed)."""
+    import torch
+    fwd = flash_case(gen, causal=True, timed=True, **TRAIN_SHAPE)
+    print(f"  flash_attention, training shape (1 x 4096 x 4096, 36 heads, "
+          f"D = 64, causal): {fwd}")
+    rec = flash_bwd_case(gen, causal=True, timed=True, **TRAIN_SHAPE)
+    errs = [rec["max_abs_err"]]
+    small = dict(B=2, Lq=100, Lk=100, Hq=4, Hkv=4, D=64)
+    cases = [
+        dict(small, Hq=8, Hkv=2, D=128, causal=True),
+        dict(small, Lq=70, Lk=90, Hq=2, Hkv=1, D=256, causal=True),
+        dict(small, causal=True, window=17),
+        dict(small, Lq=40, Lk=150, causal=False),
+        dict(small, Lq=33, Lk=200, D=128, causal=True, q_offset=150,
+             kv_len=170),
+        dict(small, Lq=150, Lk=150, causal=True, prefix_len=100),
+        dict(small, Lq=70, Lk=60, causal=True, window=5, kv_len=20),
+    ]
+    worst = 0.0
+    for case in cases:
+        odd = flash_bwd_case(gen, timed=False, **case)
+        errs.append(odd["max_abs_err"])
+        worst = max(worst, *(odd[f"{n}_worst_row_of_limit"]
+                             for n in ("dq", "dk", "dv")))
+    rec["max_abs_err"] = max(errs)
+    rec["odd_shapes_worst_row_of_limit"] = worst
+    torch.cuda.empty_cache()
+    return fwd, rec
 
 
 def dense_decode_case(gen, *, B, S, Hq, Hkv, D, lens, timed, window=None):
@@ -633,6 +783,7 @@ def phase_kernels():
         rec[key] = max(rec[key], short[key], long[key])
     records["ssd_scan"] = rec
     records.update(whisper_kernels(gen))
+    _, records["flash_attention_bwd"] = training_kernels(gen)
     records["grouped_matmul"], attn_err, chunk_err = mixtral_kernels(gen,
                                                                     rng)
     for name, e in (("paged_decode_attention", attn_err),
@@ -736,7 +887,7 @@ def wave_whisper(n_requests=32, new_tokens=40):
     Returns the counts."""
     import torch
     from repro_torch.launch.profile_step import wave_runtime
-    from repro_torch.launch.serve import launch_counts
+    from repro_torch.kernels.ops import launch_counts
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     cfg, rt = wave_runtime(-1, n_requests, new_tokens,
@@ -794,7 +945,7 @@ def wave_mixtral(n_requests=32, new_tokens=40):
     just after.  Returns the counts."""
     import torch
     from repro_torch.launch.profile_step import wave_runtime
-    from repro_torch.launch.serve import launch_counts
+    from repro_torch.kernels.ops import launch_counts
     from repro_torch.models import moe
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -862,12 +1013,56 @@ def wave_mixtral(n_requests=32, new_tokens=40):
 
 
 def reset_launches():
-    from repro_torch.kernels import (decode_attention, flash_attention,
-                                     grouped_matmul, paged_attention,
-                                     ssd_scan)
-    for mod in (paged_attention, ssd_scan, flash_attention,
-                decode_attention, grouped_matmul):
-        mod.reset_launches()
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+
+
+def phase_train(steps=4):
+    """Phase 7: minicpm-2b's training path at full width through the
+    launcher's ``run``; every launch count is zeroed just before it and
+    read just after.  Then the second step of a fresh trainer under
+    ``torch.profiler``.  Returns the counts."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch import profile_step, train
+    argv = ["--arch", "minicpm-2b", "--batch", "2", "--seq", "4096",
+            "--microbatches", "2", "--lr", TRAIN_LR, "--log-every", "1"]
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = train.run(argv + ["--steps", str(steps)])
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms = result["losses"], result["grad_norms"]
+    check(len(losses) == steps and all(np.isfinite(losses))
+          and all(np.isfinite(norms)),
+          f"non-finite training losses or grad norms: {losses} {norms}")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    for i, grown in enumerate(result["launches"]):
+        want = {n: 0 for n in grown}
+        want.update(flash_attention=160, flash_attention_bwd=80)
+        check(grown == want, f"training step {i} launched {grown}")
+    tokens = 2 * 4096
+    print(f"phase 7 (minicpm-2b training, 40 layers, bf16, AdamW lr "
+          f"{TRAIN_LR}, 2 x 4096 tokens in 2 microbatches): losses "
+          f"{losses}, grad norms {norms}, step wall (s) {result['step_s']}, "
+          f"tok/s {[tokens / s for s in result['step_s']]}, launches a step "
+          f"{result['launches'][-1]}, {dt:.3f} s in all, memory (GB) "
+          f"before {mem0 / 1e9:.2f}, peak {peak / 1e9:.2f}")
+    del result
+    gc.collect()
+    steps_it = train.train_steps(argv + ["--steps", "2"])
+    next(steps_it)
+    profile_step.window(lambda: next(steps_it), 1,
+                        "phase 7 profiled training step", 10)
+    steps_it.close()
+    del steps_it
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def small_input_check():
@@ -932,6 +1127,113 @@ def small_input_check():
     errs["mixtral_moe_layer"] = compare_logits(small_moe_layer())
     print(f"small-input check: card vs CPU logits (max |diff|, "
           f"tolerance) {errs}")
+    small_train_step()
+
+
+def small_train_step():
+    """One training step's loss and gradients of reduced minicpm-2b with
+    head dim 64, in bf16, on the card (flash kernels) and on the CPU (plain
+    versions), from the same weights and batch.  The devices round bf16 at
+    other places (the matrix products, the forward kernel's output), so
+    the loss agrees to 2**-7 of itself, the grad norm to 2**-5 of itself,
+    and each leaf's gradient to 2**-6 of its largest magnitude (on the CPU
+    the bf16 step differs from the same step in f32 by at most 2.7e-4 of
+    the loss, 6e-5 of the norm and 1.1e-2 of a leaf's largest gradient:
+    the logits are of the order of 100, where a bf16 step is 0.5).  The
+    attention's gradients alone are held tighter by
+    ``small_attention_grads``."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.models import transformer
+    from repro_torch.training import train_step
+    from repro_torch.training.tree import tree_paths
+    cfg = reduced(get_config("minicpm-2b"), head_dim=64)
+    params = transformer.init(11, cfg, "cpu")
+    rng = np.random.default_rng(12)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65)))
+    loss_fn = train_step.make_loss_fn(cfg)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        before = launch_counts()
+        (loss, _), grads = train_step.value_and_grad(
+            loss_fn, tree_to(params, dev), batch)
+        grown = {n: c - before[n] for n, c in launch_counts().items()}
+        if dev == "cuda":
+            check(grown["flash_attention"] == 2 * cfg.num_layers
+                  and grown["flash_attention_bwd"] == cfg.num_layers,
+                  f"the card's train step launched {grown}")
+        flat = {k: g.float().cpu() for k, g in tree_paths(grads).items()}
+        norm = torch.sqrt(sum(g.square().sum() for g in flat.values()))
+        outs[dev] = (loss.item(), norm.item(), flat)
+    (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = outs["cpu"], outs["cuda"]
+    check(np.isfinite([l_gpu, n_gpu]).all(), "non-finite card train step")
+    check(abs(l_gpu - l_cpu) <= 2 ** -7 * abs(l_cpu),
+          f"card vs CPU train loss {l_gpu} vs {l_cpu}")
+    check(abs(n_gpu - n_cpu) <= 2 ** -5 * n_cpu,
+          f"card vs CPU grad norm {n_gpu} vs {n_cpu}")
+    worst, rel_l2 = 0.0, {}
+    for key, g in g_cpu.items():
+        err = (g_gpu[key] - g).abs().max().item()
+        scale = g.abs().max().item()
+        check(err <= 2 ** -6 * scale,
+              f"card vs CPU gradient of {key}: {err} > 2**-6 * {scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+        rel_l2[key] = ((g_gpu[key] - g).norm() / g.norm()).item()
+    print(f"small-input check: one train step, card vs CPU: loss {l_gpu} vs "
+          f"{l_cpu}, grad norm {n_gpu} vs {n_cpu}, worst leaf max |diff| / "
+          f"max |grad| {worst}, each leaf's |diff| / |grad| {rel_l2}")
+    small_attention_grads()
+
+
+def small_attention_grads():
+    """The gradients of one attention layer of reduced minicpm-2b (head
+    dim 64, bf16, 2 x 200 tokens: ragged tiles, rope) on the card (the
+    flash kernels, through autograd in the model's layout) against the
+    same layer, weights and inputs on the CPU (the plain versions).  With
+    no deep chain of bf16 roundings between them, each weight's gradient
+    agrees to 1e-2 of its norm and the input's gradient at every position
+    to ``check_rows``'s limit: the projections round to bf16 in another
+    order, and the kernels round P and dS to bf16 where the plain versions
+    do."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.models import layers, transformer
+    cfg = reduced(get_config("minicpm-2b"), head_dim=64)
+    attn = {k: w[0] for k, w in transformer.init(
+        13, cfg, "cpu")["blocks"]["attn"].items()}
+    rng = np.random.default_rng(14)
+    x0, dout = (torch.from_numpy(rng.standard_normal(
+        (2, 200, cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+        for _ in range(2))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: w.detach().to(dev).requires_grad_(True)
+             for k, w in attn.items()}
+        x = x0.detach().to(dev).requires_grad_(True)
+        before = launch_counts()
+        out, _ = layers.attention_with_kv(p, cfg, x)
+        out.backward(dout.to(dev))
+        grown = {n: c - before[n] for n, c in launch_counts().items()}
+        if dev == "cuda":
+            check(grown["flash_attention"] == 1
+                  and grown["flash_attention_bwd"] == 1,
+                  f"the card's attention layer launched {grown}")
+        grads[dev] = {"x": x.grad, **{k: w.grad for k, w in p.items()}}
+    rel = {}
+    for key, g in grads["cpu"].items():
+        got = grads["cuda"][key].float().cpu()
+        check(bool(torch.isfinite(got).all()), f"non-finite d{key}")
+        if key == "x":
+            rel.update(check_rows("dx", got, g))
+            continue
+        rel[key] = ((got - g.float()).norm() / g.float().norm()).item()
+        check(rel[key] <= ROW_REL_TOL, f"card vs CPU attention gradient of "
+              f"{key}: |diff| / |grad| = {rel[key]} > {ROW_REL_TOL}")
+    print(f"small-input check: one attention layer's gradients, card vs CPU "
+          f"(|diff| / |grad|, limit {ROW_REL_TOL}): {rel}")
 
 
 def compare_logits(outs):
@@ -1186,6 +1488,13 @@ def main() -> int:
     print("phase 6: request wave, mixtral-8x7b full width, 16 of 32 layers, "
           "512 slots")
     launches["grouped_matmul"] = wave_mixtral()["grouped_matmul"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 7: training, minicpm-2b full width, batch 2 x 4096, "
+          "2 microbatches")
+    train_launches = phase_train()
+    launches["flash_attention"] += train_launches["flash_attention"]
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     small_input_check()
 
     kernels = []
@@ -1196,7 +1505,7 @@ def main() -> int:
                         "launches": launches[name],
                         **{k: rec[k] for k in RECORD_KEYS}})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
-    check(len(kernels) == 8, f"expected eight kernels, got {len(kernels)}")
+    check(len(kernels) == 9, f"expected nine kernels, got {len(kernels)}")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main paths never launched: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -1,45 +1,88 @@
 """The kernels as the models call them, dispatched by the tensor's device.
 
 A CUDA tensor goes to the hand-written kernel (``paged_attention``,
-``flash_attention``, ``decode_attention``, ``ssd_scan``,
-``grouped_matmul``), a CPU tensor to its plain version (``ref``).  There
-is no other switch and no fallback: on the card a kernel launches or
-raises.
+``flash_attention``, ``flash_attention_bwd``, ``decode_attention``,
+``ssd_scan``, ``grouped_matmul``), a CPU tensor to its plain version
+(``ref``).  There is no other switch and no fallback: on the card a kernel
+launches or raises.
 ``QuantPages`` pools select the int8 attention kernels.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from . import decode_attention as da
 from . import flash_attention as fa
+from . import flash_attention_bwd as fab
 from . import grouped_matmul as gmm
 from . import paged_attention as pa
 from . import ref
 from . import ssd_scan as ssd
 from .quant import QuantPages
 
+_KERNEL_MODULES = (pa, fa, fab, da, ssd, gmm)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launches so far, by name."""
+    return {name: n for mod in _KERNEL_MODULES
+            for name, n in mod.launches.items()}
+
+
+def reset_launches() -> None:
+    for mod in _KERNEL_MODULES:
+        mod.reset_launches()
+
+
+def _flash_fwd(q, k, v, kw):
+    if q.device.type != "cuda":
+        return ref.flash_attention_ref(q, k, v, **kw)
+    return fa.flash_attention(q, k, v, **kw)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` around its flash kernels: the forward
+    kernel (or plain version) saves (q, k, v, out, lse), and the backward
+    recomputes P from them in the backward kernel (or plain version).
+    Autograd records none of the forward's own ops."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, lse = _flash_fwd(q, k, v, kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if q.device.type != "cuda":
+            grads = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                **ctx.kw)
+        else:
+            grads = fab.flash_attention_bwd(q, k, v, out, lse, dout,
+                                            **ctx.kw)
+        return (*grads, None)
+
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, prefix_len: int = 0,
                     q_offset: int = 0, kv_len: Optional[int] = None,
                     softmax_scale=None):
-    """Full (prefill, encoder or cross) attention, forward only: q
+    """Full (training, prefill, encoder or cross) attention: q
     (B, Lq, Hq, D) against k, v (B, Lk, Hkv, D) with the reference flash
     kernel's masks (see ``ref.flash_attention_ref``).  Returns
-    (B, Lq, Hq, D).  Raises where autograd would record a graph: the
-    backward is not ported, and a silent detach would train nothing."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention is forward-only in repro_torch: its backward "
-            "(training) is ROADMAP.md Queue 1 item 12 and Queue 2 item 10")
+    (B, Lq, Hq, D).  Where autograd records a graph it goes through
+    ``_FlashAttention``, whose backward is the flash backward; otherwise
+    it is the forward alone."""
     kw = dict(causal=causal, window=window, prefix_len=prefix_len,
               q_offset=q_offset, kv_len=kv_len, softmax_scale=softmax_scale)
-    if q.device.type != "cuda":
-        return ref.flash_attention_ref(q, k, v, **kw)[0]
-    return fa.flash_attention(q, k, v, **kw)[0]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, kw)
+    return _flash_fwd(q, k, v, kw)[0]
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,

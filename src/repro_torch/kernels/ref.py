@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the kernels: flash attention (forward), dense
-and paged attention, the Mamba-2 SSD scan and the grouped (per-expert)
-GEMM, plus the SSD decode step, which has no kernel.
+"""Plain PyTorch versions of the kernels: flash attention (forward and
+backward), dense and paged attention, the Mamba-2 SSD scan and the grouped
+(per-expert) GEMM, plus the SSD decode step, which has no kernel.
 
 Fully materialized math with the reference package's semantics
 (``kernels/ref.py``, ``kernels/flash_attention.py`` and the paged helpers
@@ -31,6 +31,22 @@ def per_slot(x, B: int, device) -> torch.Tensor:
     return x.expand(B).contiguous() if x.ndim == 0 else x.contiguous()
 
 
+def _flash_mask(qpos, kpos, *, causal: bool, window: Optional[int],
+                prefix_len: int, kv_len: int):
+    """(Lq, Lk) bool: key kpos is visible to the row at qpos (the flash
+    kernels' element mask, see ``flash_attention_ref``)."""
+    qpos, kpos = qpos[:, None], kpos[None]
+    ok = kpos < kv_len
+    if causal:
+        vis = kpos <= qpos
+        if window is not None:
+            vis = vis & (kpos > qpos - window)
+        if prefix_len:
+            vis = vis | (kpos < prefix_len)
+        ok = ok & vis
+    return ok
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None, prefix_len: int = 0,
                         q_offset: int = 0, kv_len: Optional[int] = None,
@@ -48,16 +64,9 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     G = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
     kv_len = Lk if kv_len is None else kv_len
-    qpos = q_offset + torch.arange(Lq, device=q.device)[:, None]
-    kpos = torch.arange(Lk, device=q.device)[None]
-    ok = kpos < kv_len
-    if causal:
-        vis = kpos <= qpos
-        if window is not None:
-            vis = vis & (kpos > qpos - window)
-        if prefix_len:
-            vis = vis | (kpos < prefix_len)
-        ok = ok & vis                                        # (Lq, Lk)
+    ok = _flash_mask(q_offset + torch.arange(Lq, device=q.device),
+                     torch.arange(Lk, device=q.device), causal=causal,
+                     window=window, prefix_len=prefix_len, kv_len=kv_len)
     qg = q.reshape(B, Lq, Hkv, G, D).float()
     s = torch.einsum("blhgd,bshd->bhgls", qg, k.float()) * scale
     s = torch.where(ok, s, NEG_INF)
@@ -69,6 +78,58 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-37)), -NEG_INF)
     return (out.reshape(B, Lq, Hq, D).to(q.dtype),
             lse.permute(0, 3, 1, 2).reshape(B, Lq, Hq))
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: Optional[int] = None, prefix_len: int = 0,
+                            q_offset: int = 0, kv_len: Optional[int] = None,
+                            softmax_scale=None, q_chunk: int = 512,
+                            k_chunk: int = 512):
+    """The recomputing flash backward of ``flash_attention_ref``: (dq, dk,
+    dv) in q's, k's and v's dtypes from the forward's residuals ``out``
+    (B, Lq, Hq, D) and ``lse`` (B, Lq, Hq) f32 and the output gradient
+    ``dout``.  Chunk by chunk (``q_chunk`` rows against ``k_chunk`` keys)
+    it recomputes P = exp(S - lse) and takes dS = P (dP - delta) scale,
+    with delta = rowsum(dout * out) in f32, never the whole attention
+    matrix.  As in the reference's oracle, dS and P are rounded to the
+    inputs' dtype before their products, which sum in f32.  Chunks are
+    ragged slices, so no padded row needs an lse; a row that sees no key
+    (lse = -NEG_INF) gets P = 0."""
+    B, Lq, Hq, D = q.shape
+    _, Lk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    kv_len = Lk if kv_len is None else kv_len
+    dev, f32 = q.device, torch.float32
+    delta = (dout.float() * out.float()).sum(-1)              # (B, Lq, Hq)
+    dq = torch.zeros(B, Lq, Hkv, G, D, dtype=f32, device=dev)
+    dk = torch.zeros(B, Lk, Hkv, D, dtype=f32, device=dev)
+    dv = torch.zeros(B, Lk, Hkv, D, dtype=f32, device=dev)
+    for q0 in range(0, Lq, q_chunk):
+        q1 = min(q0 + q_chunk, Lq)
+        n = q1 - q0
+        qt = q[:, q0:q1].reshape(B, n, Hkv, G, D).float()
+        dot = dout[:, q0:q1].reshape(B, n, Hkv, G, D).float()
+        lt = lse[:, q0:q1].reshape(B, n, Hkv, G).permute(0, 2, 3, 1)
+        dlt = delta[:, q0:q1].reshape(B, n, Hkv, G).permute(0, 2, 3, 1)
+        qpos = q_offset + torch.arange(q0, q1, device=dev)
+        for k0 in range(0, Lk, k_chunk):
+            k1 = min(k0 + k_chunk, Lk)
+            kt, vt = k[:, k0:k1].float(), v[:, k0:k1].float()
+            ok = _flash_mask(qpos, torch.arange(k0, k1, device=dev),
+                             causal=causal, window=window,
+                             prefix_len=prefix_len, kv_len=kv_len)
+            s = torch.einsum("blhgd,bshd->bhgls", qt, kt) * scale
+            s = torch.where(ok, s, NEG_INF)
+            p = torch.exp(s - lt[..., None])                 # (B, h, g, l, s)
+            dp = torch.einsum("blhgd,bshd->bhgls", dot, vt)
+            ds = (p * (dp - dlt[..., None]) * scale).to(k.dtype).float()
+            p = p.to(dout.dtype).float()
+            dq[:, q0:q1] += torch.einsum("bhgls,bshd->blhgd", ds, kt)
+            dk[:, k0:k1] += torch.einsum("bhgls,blhgd->bshd", ds, qt)
+            dv[:, k0:k1] += torch.einsum("bhgls,blhgd->bshd", p, dot)
+    return (dq.reshape(B, Lq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q, k_cache, v_cache, cache_len, *,

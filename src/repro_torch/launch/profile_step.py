@@ -9,7 +9,8 @@ steps, which mix chunked prefill and decode, and later decode-only steps.
 For each window it prints the host wall time per step (ending in a device
 synchronize), the device time per step (the sum of the CUDA kernels' own
 times), the device's idle share, the number of kernel launches per step,
-and the kernels that take the most device time.
+and the kernels that take the most device time.  ``window`` profiles any
+step function the same way (``chip_smoke.py`` phase 7 a training step).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --kv-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch mamba2-2.7b
@@ -84,13 +85,16 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _window(rt, steps: int, label: str, top: int) -> None:
+def window(step, steps: int, label: str, top: int) -> None:
+    """Profiles ``steps`` calls of ``step()`` and prints the window's
+    wall, device time, idle share and kernels per step, and its ``top``
+    kernels by device time."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            rt.step(max_wait_s=0.0)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.key_averages() if _device_us(e) > 0
@@ -127,10 +131,11 @@ def main(argv=None) -> int:
     print(f"{args.arch}, {rt.kv_dtype} KV, {rt.cfg.num_layers} layers, "
           f"{args.requests} requests, "
           f"{rt.plan.max_in_flight} slots, {torch.cuda.get_device_name(0)}")
-    _window(rt, args.steps, "prefill+decode window", args.top)
+    step = lambda: rt.step(max_wait_s=0.0)
+    window(step, args.steps, "prefill+decode window", args.top)
     while any(s.prefilling for g in rt.groups.values() for s in g.slots):
-        rt.step(max_wait_s=0.0)
-    _window(rt, args.steps, "decode-only window", args.top)
+        step()
+    window(step, args.steps, "decode-only window", args.top)
     rt.drain()
     return 0
 

@@ -40,8 +40,7 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.core.allocator import allocate
 from repro_torch.core.categories import GPUSpec, Sensitivity, ServiceSpec
 from repro_torch.device import resolve_device
-from repro_torch.kernels import (decode_attention, flash_attention,
-                                 grouped_matmul, paged_attention, ssd_scan)
+from repro_torch.kernels.ops import launch_counts
 from repro_torch.models.registry import model_api
 from repro_torch.serving.engine import (EparaServingEngine,
                                         GenerationRequest, ServiceRuntime)
@@ -97,12 +96,6 @@ def plan_for(full, kv_dtype=-1, bs=None):
     return dataclasses.replace(
         allocate(service_spec_for(full), GPUSpec(), user_bs=bs),
         prefix_cache=0, kv_dtype=kv_dtype)
-
-
-def launch_counts():
-    return {**paged_attention.launches, **flash_attention.launches,
-            **decode_attention.launches, **ssd_scan.launches,
-            **grouped_matmul.launches}
 
 
 def _parser() -> argparse.ArgumentParser:

@@ -161,14 +161,34 @@ def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
     return q, k, v
 
 
-def attention(p, cfg: ModelConfig, x, *, causal: bool = True, kv_x=None):
-    """Full attention without rope (the encoder-decoder's) through
-    ``ops.flash_attention``; ``kv_x`` (B, Lk, d) makes it cross-attention.
-    Returns (B, Lq, d)."""
+def attention_with_kv(p, cfg: ModelConfig, x, *, positions=None,
+                      causal: bool = True, window: Optional[int] = None,
+                      prefix_len: int = 0, kv_x=None, use_rope: bool = True):
+    """The reference's ``layers.attention``: full (training, prefill,
+    encoder or cross) attention through ``ops.flash_attention``,
+    differentiable.  x (B, Lq, d) at ``positions`` (default 0..Lq-1) is
+    rotated by rope unless ``use_rope`` is off; ``kv_x`` (B, Lk, d) makes
+    it cross-attention (its keys are not rotated).  Returns (out
+    (B, Lq, d), (k, v)), k and v as attended."""
     B, Lq, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_x)
-    out = ops.flash_attention(q, k, v, causal=causal)
-    return linear(out.reshape(B, Lq, cfg.num_heads * cfg.head_dim), p["wo"])
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(Lq, device=x.device)[None]
+        q = rope(q, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = rope(k, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              prefix_len=prefix_len)
+    out = out.reshape(B, Lq, cfg.num_heads * cfg.head_dim)
+    return linear(out, p["wo"]), (k, v)
+
+
+def attention(p, cfg: ModelConfig, x, *, causal: bool = True, kv_x=None):
+    """Full attention without rope (the encoder-decoder's); ``kv_x``
+    (B, Lk, d) makes it cross-attention.  Returns (B, Lq, d)."""
+    return attention_with_kv(p, cfg, x, causal=causal, kv_x=kv_x,
+                             use_rope=False)[0]
 
 
 def paged_insert_rows(pages, rows, block_tables, positions, valid, *,

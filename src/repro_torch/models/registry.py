@@ -1,7 +1,8 @@
 """Model family registry: maps ``ModelConfig.family`` to the model API.
 
-The dense, MoE, SSM and audio (encoder-decoder) families are ported so
-far; the others raise, naming the ``ROADMAP.md`` item that ports them.
+The dense, MoE, SSM and audio (encoder-decoder) families are ported for
+serving, the dense family also for training; the others raise, naming the
+``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
@@ -28,13 +29,18 @@ class ModelApi:
     # pure-SSM families, whose cache is all per-slot state
     decode_step_paged: Optional[Callable] = None
     prefill_chunk_paged: Optional[Callable] = None
+    # the training forward, (params, cfg, batch, *, train) -> (hidden,
+    # aux loss); ``None`` where not ported (every family but the dense
+    # one: ROADMAP.md Queue 1 item 12)
+    forward_hidden: Optional[Callable] = None
 
 
 _FAMILIES = {
     "dense": ModelApi(transformer.init, transformer.logits_fn,
                       transformer.init_cache,
                       decode_step_paged=transformer.decode_step_paged,
-                      prefill_chunk_paged=transformer.prefill_chunk_paged),
+                      prefill_chunk_paged=transformer.prefill_chunk_paged,
+                      forward_hidden=transformer.forward_hidden),
     "moe": ModelApi(moe.init, moe.logits_fn, moe.init_cache,
                     decode_step_paged=moe.decode_step_paged,
                     prefill_chunk_paged=moe.prefill_chunk_paged),

@@ -1,5 +1,5 @@
 """Dense decoder-only transformer (llama/mistral/qwen/minicpm families):
-the paged-native serving entry points.
+the training forward and the paged-native serving entry points.
 
 Parameters keep the reference's stacked layer axis: every leaf under
 ``params["blocks"]`` has a leading ``num_layers`` axis, and the reference's
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -25,6 +26,18 @@ def layer_params(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unbind_layers(tree, n: int):
+    """The ``n`` layers of a stacked parameter tree as a list of trees of
+    views, one ``torch.unbind`` per leaf.  Under autograd each leaf's
+    backward is then one ``stack`` of the layers' gradients, where ``n``
+    ``tree[i]`` selects would each add a full-size zero gradient of the
+    stacked leaf."""
+    if isinstance(tree, dict):
+        per = {k: unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig):
@@ -54,6 +67,38 @@ def init(seed: int, cfg: ModelConfig, device=None):
             "blocks": stack_layers([init_block(gen, cfg)
                                     for _ in range(cfg.num_layers)]),
             "ln_f": layers.init_norm(cfg, dev)}
+
+
+def block_forward(p, cfg: ModelConfig, x, *, positions, window,
+                  prefix_len):
+    h, _ = layers.attention_with_kv(p["attn"], cfg,
+                                    layers.apply_norm(p["ln1"], cfg, x),
+                                    positions=positions, causal=True,
+                                    window=window, prefix_len=prefix_len)
+    x = x + h
+    return x + layers.mlp(p["mlp"], cfg, layers.apply_norm(p["ln2"], cfg, x))
+
+
+def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+                   train: bool = False):
+    """The final-norm hidden states (B, L, d) of ``batch["tokens"]``
+    (B, L), and the auxiliary loss (a zero: dense models have none).  With
+    ``train`` each layer runs under a non-reentrant checkpoint (the
+    reference's ``jax.checkpoint`` of the scan body): its activations are
+    recomputed in the backward, flash attention's forward kernel
+    included."""
+    tokens = batch["tokens"]
+    h = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
+    kw = dict(positions=torch.arange(tokens.shape[1], device=h.device)[None],
+              window=cfg.sliding_window, prefix_len=0)
+    for lp in unbind_layers(params["blocks"], cfg.num_layers):
+        if train:
+            h = checkpoint(block_forward, lp, cfg, h, use_reentrant=False,
+                           **kw)
+        else:
+            h = block_forward(lp, cfg, h, **kw)
+    h = layers.apply_norm(params["ln_f"], cfg, h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):

@@ -16,18 +16,27 @@ rows that see nothing must hold -NEG_INF).  The grouped GEMM's bf16 output
 is held to the f32 product of the same bf16 values with atol = rtol =
 1.6e-2 (one rounding to bf16, sums in another order); its float32 instance
 to atol = rtol = 1e-3 (f32 sums over up to 14,336 terms in another order).
+The flash backward's bf16 dq, dk and dv are held to its plain version on
+the same bf16 inputs (which rounds dS and P to bf16 where the kernel
+does) with atol = rtol = 1.6e-2: sums in another order over up to a few
+hundred keys or queries, and one more bf16 rounding on output.  They are
+also held at every sequence position to 1e-2 of that position's norm (over
+the batch, heads and head dim) plus 1e-5 an element, which scales with the
+gradients' size where atol does not.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (build, decode_attention, flash_attention,
-                                 grouped_matmul, ops, paged_attention, ref,
-                                 ssd_scan)
+                                 flash_attention_bwd, grouped_matmul, ops,
+                                 paged_attention, ref, ssd_scan)
 from repro_torch.kernels.quant import QuantPages, quantize
 
 TOL = 1.6e-2
 LSE_TOL = 1e-3
+ROW_REL_TOL = 1e-2
+ROW_FLOOR = 1e-5
 
 
 @pytest.fixture
@@ -256,3 +265,92 @@ def test_cuda_grouped_matmul_rejects_what_it_does_not_take(cuda_device):
         grouped_matmul.grouped_matmul(a.half(), a.half().transpose(1, 2))
     with pytest.raises(ValueError, match=r"rhs must be \(2, 8, N\)"):
         grouped_matmul.grouped_matmul(a, a)
+
+
+FLASH_BWD_CASES = {
+    # id: ((B, Lq, Lk, Hq, Hkv, D), mask options)
+    "causal_d64": ((1, 256, 256, 4, 4, 64), dict(causal=True)),
+    "gqa4_d128": ((2, 100, 100, 8, 2, 128), dict(causal=True)),
+    "d256_ragged": ((1, 70, 90, 2, 1, 256), dict(causal=True)),
+    "window": ((1, 130, 130, 4, 2, 64), dict(causal=True, window=17)),
+    "noncausal_lq_ne_lk": ((1, 40, 150, 4, 4, 64), dict(causal=False)),
+    "q_offset_kv_len": ((1, 33, 200, 4, 4, 128),
+                        dict(causal=True, q_offset=150, kv_len=170)),
+    "prefix_past_tile": ((1, 150, 150, 2, 2, 64),
+                         dict(causal=True, prefix_len=100)),
+    "masked_rows": ((1, 70, 60, 2, 2, 64),
+                    dict(causal=True, window=5, kv_len=20)),
+}
+
+
+def _assert_rows_close(name, got, want):
+    """At every sequence position (axis 1 of (B, L, H, D)), the norm of
+    got - want over the other axes is at most ROW_REL_TOL of want's norm
+    there plus ROW_FLOOR an element (the noise of a position whose true
+    value is 0, such as dq of a row that sees one key)."""
+    g = got.float().transpose(0, 1).flatten(1)
+    w = want.float().transpose(0, 1).flatten(1)
+    limit = ROW_REL_TOL * w.norm(dim=1) + ROW_FLOOR * w.shape[1] ** 0.5
+    share = (g - w).norm(dim=1) / limit
+    assert (share <= 1).all(), (name, share.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_CASES))
+def test_cuda_flash_attention_bwd_matches_plain(cuda_device, case):
+    """q, k, v and dout sliced from wider tensors (strided, read in
+    place), the forward kernel's out and lse, every mask option, GQA,
+    D = 64, 128 and 256, lengths that are not multiples of the tiles, a
+    prefix reaching past the first query tile, rows that see nothing."""
+    (B, Lq, Lk, Hq, Hkv, D), kw = FLASH_BWD_CASES[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    q, dout = rand(B, Lq, 2, Hq, D).unbind(2)
+    k, v = rand(B, Lk, 2, Hkv, D).unbind(2)
+    out, lse = flash_attention.flash_attention(q, k, v, **kw)
+    before = flash_attention_bwd.launches["flash_attention_bwd"]
+    got = flash_attention_bwd.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                  **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches["flash_attention_bwd"] == before + 1
+    for name, g, w, like in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == like.shape, name
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL, rtol=TOL,
+                                   msg=lambda m: f"{name}: {m}")
+        _assert_rows_close(name, g, w)
+    if case == "masked_rows":
+        assert not got[1][:, 20:].any() and not got[2][:, 20:].any()
+    print({n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+           for n, log in build.build_log.items()
+           if n == "flash_attention_bwd"})
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_autograd_runs_both_kernels(cuda_device):
+    """Gradients through ``ops.flash_attention`` on the card launch the
+    forward kernel once and the backward kernel once, and equal the plain
+    backward's on the same residuals."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(6)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    q, k, v, dout = (rand(2, 96, 4, 64) for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    counts = ops.launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True)
+    out.backward(dout)
+    grown = {n: c - counts[n] for n, c in ops.launch_counts().items()}
+    assert grown["flash_attention"] == 1 and grown["flash_attention_bwd"] == 1
+    o, lse = flash_attention.flash_attention(q.detach(), k.detach(),
+                                             v.detach())
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       o, lse, dout)
+    for name, t, w in zip(("dq", "dk", "dv"), (q, k, v), want):
+        torch.testing.assert_close(t.grad.float(), w.float(), atol=TOL,
+                                   rtol=TOL)
+        _assert_rows_close(name, t.grad, w)

@@ -29,7 +29,9 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
-    assert "repro_torch.serving.engine" in mods
+    for mod in ("repro_torch.serving.engine", "repro_torch.launch.train",
+                "repro_torch.training.train_step", "repro_torch.data.pipeline"):
+        assert mod in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -66,7 +68,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     from repro_torch import bridge
     from repro_torch.core.allocator import ParallelPlan
     from repro_torch.core.categories import Sensitivity, TaskCategory
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import ssm, transformer
     from repro_torch.models.config import ModelConfig
     from repro_torch.serving.arena import KVArena
@@ -91,6 +93,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         bridge.params_from_jax({"w": np.ones((2, 2), np.float32)}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "minicpm-2b", "--reduced", "--steps", "1"])
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -127,32 +131,59 @@ def test_cuda_wrappers_reject_cpu_tensors():
 def test_attention_wrappers_reject_cpu_tensors():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    before = {**fa.launches, **da.launches}
+    from repro_torch.kernels import flash_attention_bwd as fab
+    before = {**fa.launches, **fab.launches, **da.launches}
     q4 = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 8, 4)
     q3 = torch.zeros(2, 4, 64, dtype=torch.bfloat16)
     cache = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_attention(q4, q4, q4)
     with pytest.raises(ValueError, match="CUDA tensor"):
+        fab.flash_attention_bwd(q4, q4, q4, q4, lse, q4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         da.decode_attention(q3, cache, cache,
                             torch.ones(2, dtype=torch.int32))
-    assert {**fa.launches, **da.launches} == before
+    assert {**fa.launches, **fab.launches, **da.launches} == before
 
 
 def test_flash_attention_refuses_inputs_that_require_grad():
-    """The backward is not ported: asking for a gradient raises, naming
-    the items that port it, instead of detaching quietly; without a graph
-    (``no_grad``) the forward runs."""
-    from repro_torch.kernels import ops
-    q = torch.randn(1, 8, 2, 16, requires_grad=True)
-    k = torch.randn(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 12 and Queue 2 item 10"):
-        ops.flash_attention(q, k, k)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        ops.flash_attention(k, k, q)
+    """(The name is the forward-only guard's, which the backward replaced.)
+    Gradients flow through ``ops.flash_attention`` on the CPU, to every
+    input that asks for one, through the plain backward, and equal
+    autograd through the materialized attention; without a graph
+    (``no_grad``) the forward runs alone and records nothing."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 8, 2, 16, generator=gen, requires_grad=True)
+    k = torch.randn(1, 8, 2, 16, generator=gen)
+    v = torch.randn(1, 8, 2, 16, generator=gen, requires_grad=True)
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert k.grad is None
+    qe, ve = (t.detach().requires_grad_(True) for t in (q, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qe, k) * 16 ** -0.5
+    s = s.masked_fill(torch.ones(8, 8, dtype=torch.bool).triu(1),
+                      float("-inf"))
+    torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), ve).square().sum() \
+        .backward()
+    torch.testing.assert_close(q.grad, qe.grad)
+    torch.testing.assert_close(v.grad, ve.grad)
     with torch.no_grad():
-        assert ops.flash_attention(q, k, k).shape == (1, 8, 2, 16)
+        out = ops.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    assert torch.equal(out, ref.flash_attention_ref(q, k, v)[0])
+
+
+def test_dense_family_trains_and_moe_does_not():
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.registry import family_api
+    assert family_api("dense").forward_hidden is transformer.forward_hidden
+    for family in ("moe", "ssm", "audio"):
+        assert family_api(family).forward_hidden is None
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        moe.forward_hidden()
 
 
 @pytest.mark.parametrize("family,item", [("vlm", "item 9"),
