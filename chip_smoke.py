@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's serving paths (minicpm-2b, mamba2-2.7b, whisper-large-v3
-and mixtral-8x7b, full width, random weights from a seed) and its training
-path (minicpm-2b) in seven phases; any failure exits non-zero:
+and mixtral-8x7b, full width, random weights from a seed), its training
+path (minicpm-2b) and its sync and dense-cache serving paths (minicpm-2b)
+in eight phases; any failure exits non-zero:
 
 1. the kernels against their plain PyTorch versions
    (``repro_torch.kernels.ref``) on random inputs, compared in f32 with
@@ -39,8 +40,14 @@ path (minicpm-2b) in seven phases; any failure exits non-zero:
    (8, 4096, 14336) and its down projection) and chunk shape (20 rows an
    expert), its bf16 output held to the f32 product of the same operands,
    beside ``torch.bmm`` on the same tensors, and at three odd shapes
-   (ragged tiles, C = 1); and the bf16 paged decode kernel at mixtral's
+   (ragged tiles, C = 1); the bf16 paged decode kernel at mixtral's
    attention shape (512 slots, 32 live, 32 heads over 8 KV heads, D = 128);
+   and the dense chunked-prefill kernel at minicpm-2b's dense-view chunk
+   shape (one slot, 128 rows at offset 64, S = 256, 36 heads, D = 64),
+   beside ``scaled_dot_product_attention`` with the same boolean mask, and
+   at odd shapes (GQA 32/8 at D = 128, per-row start and chunk_len with an
+   empty row, a prefix past the first tile, T = 13, S = 300, K/V read in
+   place from a wider buffer), also held by ``check_rows``;
 2. the launcher, ``repro_torch.launch.serve.main``: 8 requests, 16 new
    tokens, int8 KV (the plan's default for this frequency service);
 3. a request wave through ``ServiceRuntime`` with prompts of 6-200 tokens
@@ -62,10 +69,25 @@ path (minicpm-2b) in seven phases; any failure exits non-zero:
    layers' forward and checkpointed recompute, and backward, per
    microbatch), then the second step of a fresh trainer under
    ``torch.profiler``;
+8. the sync and dense-cache paths of minicpm-2b at full width: (a) the
+   launcher with ``--mode sync``, ``--kvcache-impl dense`` and
+   ``--no-chunked-prefill``, 8 requests of 16 new tokens each; (b) phase
+   3's wave through the dense-view step (``paged_native=False``, the
+   reference's oracle) at 128 slots and bf16 KV, exactly one dense chunk
+   kernel launch a layer in each chunk and one dense decode launch a layer
+   in each decode step; (c) the native step's logits (paged kernels #3
+   and #1) against the dense-view step's (#6 and #5) over three chunks and
+   three decode steps of one slot, to 2**-5 of their norm (each path's
+   distance from its plain versions on the card, the chain's own bf16
+   noise, printed beside it); (d) phase 3's wave in sync mode;
 
 and a small-input check of each model's logits on the card against the
-same model on the CPU (the plain versions), of one training step's loss
-and gradients, and of one attention layer's gradients.
+same model on the CPU (the plain versions): the paged steps, and the
+dense ``prefill``/``prefill_chunk``/``decode_step`` of minicpm-2b,
+mixtral-8x7b (and a ring of its window) and whisper-large-v3 and
+mamba2-2.7b's one-shot prefill; of one sync-mode wave's tokens; of one
+training step's loss and gradients, and of one attention layer's
+gradients.
 
 The paged-attention launch counts are zeroed just before phase 2 and read
 just after phase 3; the SSD scan's just before and after phase 4; every
@@ -73,12 +95,14 @@ count again just before phase 5, and flash and decode attention's read
 just after it; every count again just before phase 6, and the grouped
 GEMM's read just after it; every count again just before phase 7, and the
 flash kernels' read just after it (the forward's record sums phases 5 and
-7).
+7); every count again just before phase 8 (b), and the dense chunk
+kernel's read just after it.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
 script fails before printing any result.
 """
+import contextlib
 import gc
 import json
 import statistics
@@ -101,11 +125,14 @@ SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
                "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "decode_attention":
                "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "chunk_prefill_attention":
+               "src/repro_torch/kernels/csrc/chunk_attention.cu",
            "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu"}
 SSD_STATE_TOL = 1e-3
 LSE_TOL = 1e-3
 ROW_REL_TOL = 1e-2
 ROW_FLOOR = 1e-5
+PARITY_TOL = 2 ** -5
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
 REPLACES = {
@@ -120,6 +147,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:108",
     "flash_attention_bwd": "src/repro/kernels/flash_attention_bwd.py:156",
     "decode_attention": "src/repro/kernels/decode_attention.py:92",
+    "chunk_prefill_attention": "src/repro/kernels/decode_attention.py:208",
     "grouped_matmul": "src/repro/kernels/moe_gemm.py:41",
 }
 
@@ -650,6 +678,98 @@ def whisper_kernels(gen):
     return records
 
 
+def dense_chunk_case(gen, *, B, T, S, Hq, Hkv, D, start, chunk_len,
+                     prefix_len=0, timed=False):
+    """The dense chunked-prefill kernel against the plain version on the
+    same bf16 inputs, held by ``check_rows`` and atol = rtol = TOL; rows
+    past chunk_len must be zeros.  Untimed cases read K and V in place
+    from one wider (B, S, 2 * Hkv, D) buffer (head and sequence strides
+    that are not the tensor's own); the timed one is one layer of the
+    serving path's stacked dense view, contiguous."""
+    import torch
+    from repro_torch.kernels import chunk_attention, ops, ref
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q = rand(B, T, Hq, D)
+    if timed:
+        k, v = rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+    else:
+        kv = rand(B, S, 2 * Hkv, D)
+        k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]
+    start = np.asarray(start, np.int32)
+    chunk_len = np.asarray(chunk_len, np.int32)
+    st, cl = (torch.from_numpy(a).cuda() for a in (start, chunk_len))
+    out = ops.chunk_attention(q, k, v, st, cl, prefix_len=prefix_len)
+    want = ref.chunk_attention_ref(q.float(), k.float(), v.float(), st, cl,
+                                   prefix_len=prefix_len)
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs().max().item()
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    for b, n in enumerate(chunk_len.tolist()):
+        check(not out[b, n:].any(), "chunk_prefill_attention: a row past "
+              "chunk_len is not zero")
+    rec = {"max_abs_err": err, **check_rows("out", out, want)}
+    if not timed:
+        return rec
+    # what this data needs: per slot, the K/V rows some live row can see,
+    # read once, the live rows' q, every row's output, start and length;
+    # 4*D flops for each visible (row, key) pair of each query head
+    keys = pairs = 0
+    for s0, c in zip(start.tolist(), chunk_len.tolist()):
+        if c:
+            keys += s0 + c
+            pairs += sum(min(s0 + c, max(s0 + i + 1, prefix_len))
+                         for i in range(c))
+    nbytes = (int(chunk_len.sum()) * Hq * D * 2 + q.numel() * 2
+              + 2 * B * 4 + 2 * keys * Hkv * D * 2)
+    b_ms, b_by = bound(nbytes, 4 * D * Hq * pairs)
+    kpos = torch.arange(S, device="cuda")
+    qpos = st[:, None] + torch.arange(T, device="cuda")[None]
+    vis = (kpos[None, None] <= qpos[..., None]) | (kpos < prefix_len)
+    vis &= kpos[None, None] < (st + cl)[:, None, None]
+    run = lambda: chunk_attention.chunk_prefill_attention(
+        q, k, v, st, cl, prefix_len=prefix_len)
+    rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
+                "plain_ms": time_ms(lambda: ref.chunk_attention_ref(
+                    q, k, v, st, cl, prefix_len=prefix_len), iters=3,
+                    reps=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": graph_ms(sdpa_fn(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    vis[:, None], Hq))})
+    return rec
+
+
+def chunk_kernels(gen):
+    """The dense chunk kernel's record at minicpm-2b's chunk shape in the
+    dense-view step (one slot, a 128-row bucket at offset 64, S = 256, 36
+    heads, D = 64), beside SDPA with the same boolean mask; then odd
+    shapes: mixtral's GQA 32/8 at D = 128 over B = 3 with per-row start
+    and chunk_len (one row empty), a prefix past the first 16-row tile,
+    T = 13 and S = 300 (not a multiple of the 32-key tile); minicpm's
+    heads at S = 200 with a ragged row; MQA with a prefix.  max_abs_err
+    and the worst row's share of its limit over every case."""
+    import torch
+    rec = dense_chunk_case(gen, B=1, T=128, S=256, Hq=36, Hkv=36, D=64,
+                           start=[64], chunk_len=[128], timed=True)
+    cases = [
+        dict(B=3, T=13, S=300, Hq=32, Hkv=8, D=128, start=[0, 40, 287],
+             chunk_len=[13, 0, 13], prefix_len=40),
+        dict(B=2, T=128, S=200, Hq=36, Hkv=36, D=64, start=[0, 100],
+             chunk_len=[128, 77]),
+        dict(B=1, T=40, S=97, Hq=8, Hkv=1, D=64, start=[57],
+             chunk_len=[40], prefix_len=20),
+    ]
+    worst = rec["out_worst_row_of_limit"]
+    for case in cases:
+        r = dense_chunk_case(gen, **case)
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        worst = max(worst, r["out_worst_row_of_limit"])
+    rec["odd_shapes_worst_row_of_limit"] = worst
+    torch.cuda.empty_cache()
+    return rec
+
+
 def gmm_case(gen, *, E, C, K, N, timed):
     """The grouped GEMM on bf16 operands against the plain version on their
     f32 copies (what the kernel sums before its one rounding to bf16)."""
@@ -783,6 +903,7 @@ def phase_kernels():
         rec[key] = max(rec[key], short[key], long[key])
     records["ssd_scan"] = rec
     records.update(whisper_kernels(gen))
+    records["chunk_prefill_attention"] = chunk_kernels(gen)
     _, records["flash_attention_bwd"] = training_kernels(gen)
     records["grouped_matmul"], attn_err, chunk_err = mixtral_kernels(gen,
                                                                     rng)
@@ -1012,6 +1133,246 @@ def wave_mixtral(n_requests=32, new_tokens=40):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the sync and dense-cache paths
+# ---------------------------------------------------------------------------
+
+def phase_dense_launchers():
+    """Phase 8 (a): the launcher at full width in sync mode, with the dense
+    cache, and with one-shot prefill."""
+    import torch
+    from repro_torch.launch import serve
+    for flags in (["--mode", "sync"], ["--kvcache-impl", "dense"],
+                  ["--no-chunked-prefill"]):
+        rc = serve.main(["--archs", "minicpm-2b", "--requests", "8",
+                         "--max-new-tokens", "16", *flags])
+        check(rc == 0, f"launcher {flags} exited {rc}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def wave_oracle(n_requests=32, new_tokens=40):
+    """Phase 8 (b): phase 3's wave through the dense-view step
+    (``paged_native=False``, the reference's oracle) at 128 slots, bf16
+    KV; every launch count is zeroed just before it and read just after.
+    Returns (the counts, tokens by rid)."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch.profile_step import wave_runtime
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    cfg, rt = wave_runtime("bf16", n_requests, new_tokens, bs=128,
+                           paged_native=False)
+    check(rt.plan.max_in_flight == 128 and not rt.paged_native
+          and rt.chunked_prefill and rt.kv_dtype == "bf16",
+          f"unexpected oracle runtime {rt.plan}")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = rt.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(results) == n_requests,
+          f"oracle wave served {len(results)}/{n_requests}")
+    toks = {r.rid: np.asarray(r.tokens) for r in results}
+    for t in toks.values():
+        check(len(t) == new_tokens and t.min() >= 0
+              and t.max() < cfg.vocab_size, "token ids out of range")
+    check(launches["chunk_prefill_attention"]
+          == cfg.num_layers * rt.prefill_chunk_calls > 0,
+          f"chunk_prefill_attention launched "
+          f"{launches['chunk_prefill_attention']} times, not "
+          f"{cfg.num_layers} in each of {rt.prefill_chunk_calls} chunks")
+    check(launches["decode_attention"] == cfg.num_layers * rt.decode_steps
+          > 0, f"decode_attention launched {launches['decode_attention']} "
+          f"times, not {cfg.num_layers} in each of {rt.decode_steps} steps")
+    check(not any(n for k, n in launches.items() if k.startswith("paged")),
+          f"the oracle launched a paged kernel: {launches}")
+    n_tok = sum(len(t) for t in toks.values())
+    print(f"phase 8 (b) oracle wave (minicpm-2b, dense-view step, "
+          f"{rt.plan.max_in_flight} slots, bf16 KV): served "
+          f"{len(results)}/{n_requests}, {n_tok} tokens in {dt:.3f} s = "
+          f"{n_tok / dt:.1f} tok/s, {rt.decode_steps} decode steps, "
+          f"{rt.prefill_chunk_calls} prefill chunks, launches {launches}, "
+          f"memory (GB) before {mem0 / 1e9:.2f}, peak {peak / 1e9:.2f}")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, toks
+
+
+def parity_logits(cfg, params, chunks=(64, 64, 37), steps=3):
+    """One slot of two in two bf16 arenas: a prompt of ``chunks`` (64-row
+    buckets, the last ragged) through ``prefill_chunk_paged`` and through
+    ``prefill_chunk`` on the arena's dense view (the rows written back by
+    ``append_rows``), then ``steps`` decode steps through
+    ``decode_step_paged`` and ``decode_step`` on the dense view, both fed
+    the native step's greedy token; the second slot is dead.  Returns each
+    step's (native, dense-view) f32 logits (1, V) and both arenas'
+    lengths."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serving.arena import KVArena
+    prompt = np.random.default_rng(17).integers(0, cfg.vocab_size,
+                                                sum(chunks))
+    arenas = [KVArena(cfg, transformer.init_cache, capacity=2,
+                      max_seq_len=256, block_size=32, kv_dtype="bf16",
+                      device="cuda") for _ in range(2)]
+    for a in arenas:
+        a.reset_len(a.alloc(256))
+        a.reset_len(a.alloc(256))
+    native, dense = arenas
+    bt = native.device_block_tables()[:1]
+    one = torch.ones(1, dtype=torch.bool, device="cuda")
+    rows, pos = [], 0
+    for c in chunks:
+        toks = np.zeros((1, 64), np.int64)
+        toks[0, :c] = prompt[pos:pos + c]
+        batch = {"tokens": torch.from_numpy(toks).cuda()}
+        cl = torch.tensor([c], dtype=torch.int32, device="cuda")
+        lg_n, nc = transformer.prefill_chunk_paged(
+            params, cfg, batch, native.assemble(native.pages, [],
+                                                native.lens[:1]),
+            bt, chunk_len=cl, block_size=32)
+        native.lens[0] = nc["len"][0]
+        st = dense.lens[:1]
+        view = dense.dense_view(dense.pages, bt)
+        lg_d, dc = transformer.prefill_chunk(
+            params, cfg, batch, dense.assemble(view, [], st), chunk_len=cl)
+        dense.append_rows(dense.pages, dense.disassemble(dc)[0], st, one,
+                          bt, n_tokens=64, valid_tokens=dc["len"] - st)
+        dense.lens[0] = dc["len"][0]
+        rows.append((lg_n.float(), lg_d.float()))
+        pos += c
+    live = torch.tensor([True, False], device="cuda")
+    tables = native.device_block_tables()
+    for _ in range(steps):
+        tok = torch.zeros(2, dtype=torch.int32, device="cuda")
+        tok[0] = rows[-1][0][0].argmax()
+        lg_n, nc = transformer.decode_step_paged(
+            params, cfg, tok, native.assemble(native.pages, [], native.lens),
+            tables, live, block_size=32)
+        native.lens = nc["len"]
+        view = dense.dense_view(dense.pages, tables)
+        lg_d, dc = transformer.decode_step(
+            params, cfg, tok, dense.assemble(view, [], dense.lens),
+            live=live)
+        dense.append_rows(dense.pages, dense.disassemble(dc)[0], dense.lens,
+                          live, tables)
+        dense.lens = dc["len"]
+        rows.append((lg_n[:1].float(), lg_d[:1].float()))
+    torch.cuda.synchronize()
+    return rows, native.lens.tolist(), dense.lens.tolist()
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within the block the models' attention calls (paged and dense chunk
+    and decode) run the plain versions on the card's tensors, f32 math
+    with a bf16 output: the yardstick for the noise of a full-width bf16
+    chain."""
+    from repro_torch.kernels import ops, ref
+    swap = {"paged_chunk_attention": ref.paged_chunk_attention_ref,
+            "paged_decode_attention": ref.paged_decode_attention_ref,
+            "chunk_attention": ref.chunk_attention_ref,
+            "decode_attention": ref.decode_attention_ref}
+    saved = {name: getattr(ops, name) for name in swap}
+    for name, fn in swap.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def logits_parity(chunks=(64, 64, 37), steps=3):
+    """Phase 8 (c): ``parity_logits`` on minicpm-2b at full width in bf16:
+    the native path runs the paged kernels #3 and #1, the dense-view path
+    #6 and #5.  Each step's logits agree to PARITY_TOL of their norm.  The
+    limit comes from the noise of the chain itself: 40 layers of random
+    bf16 weights amplify one bf16 rounding that two correct kernels place
+    differently into a few percent of the logits' norm, so the same steps
+    also run with the plain versions on the card, and each path's distance
+    from its plain run (the floor) is printed beside the limit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.models import transformer
+    cfg = get_config("minicpm-2b")
+    params = transformer.init(1, cfg, "cuda")
+    reset_launches()
+    rows, lens_n, lens_d = parity_logits(cfg, params, chunks, steps)
+    grown = launch_counts()
+    n = len(chunks) * cfg.num_layers
+    for name, want in (("paged_chunk_prefill_attention", n),
+                       ("chunk_prefill_attention", n),
+                       ("paged_decode_attention", steps * cfg.num_layers),
+                       ("decode_attention", steps * cfg.num_layers)):
+        check(grown[name] == want, f"logits parity launched {grown}")
+    check(lens_n == lens_d == [sum(chunks) + steps, 0],
+          f"lengths {lens_n} vs {lens_d}")
+    with plain_attention():
+        plain, _, _ = parity_logits(cfg, params, chunks, steps)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    report = []
+    for i, ((a, b), (pa, pb)) in enumerate(zip(rows, plain)):
+        check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+              "non-finite logits")
+        report.append({"step": i, "max_abs_diff": (a - b).abs().max().item(),
+                       "norm": b.norm().item(), "rel_l2": rel(a, b),
+                       "floor": max(rel(a, pa), rel(b, pb))})
+    print(f"phase 8 (c) logits, native (kernels #3, #1) vs dense view "
+          f"(#6, #5), minicpm-2b full width, limit {PARITY_TOL} of the "
+          f"norm (floor: each path against its plain versions): {report}")
+    for r in report:
+        check(r["rel_l2"] <= PARITY_TOL,
+              f"native vs dense-view logits at step {r['step']}: "
+              f"|diff| / |logits| = {r['rel_l2']} > {PARITY_TOL}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def wave_sync(n_requests=32, new_tokens=40):
+    """Phase 8 (d): phase 3's wave in sync mode (run-to-completion
+    batches, left-padded prompts, a dense bf16 cache a batch); returns its
+    tokens per second and peak memory."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch.profile_step import wave_runtime
+    torch.cuda.reset_peak_memory_stats()
+    cfg, rt = wave_runtime("bf16", n_requests, new_tokens, mode="sync")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = rt.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(results) == n_requests,
+          f"sync wave served {len(results)}/{n_requests}")
+    for r in results:
+        t = np.asarray(r.tokens)
+        check(len(t) == new_tokens and t.min() >= 0
+              and t.max() < cfg.vocab_size, "token ids out of range")
+    check(launches["flash_attention"] > 0 and launches["decode_attention"]
+          > 0, f"the sync wave did not launch flash and decode attention: "
+          f"{launches}")
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"phase 8 (d) sync wave (minicpm-2b, bf16 dense cache): served "
+          f"{len(results)}/{n_requests}, {n_tok} tokens in {dt:.3f} s = "
+          f"{n_tok / dt:.1f} tok/s, {rt.oneshot_prefills} one-shot "
+          f"prefills, {rt.decode_steps} decode steps, launches {launches}, "
+          f"peak memory {peak / 1e9:.2f} GB")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def reset_launches():
     from repro_torch.kernels import ops
     ops.reset_launches()
@@ -1125,8 +1486,17 @@ def small_input_check():
     moe.enable_drop_counter(False)
     errs["mixtral"] = compare_logits(small_mixtral())
     errs["mixtral_moe_layer"] = compare_logits(small_moe_layer())
+    for arch, seed in (("minicpm-2b", 21), ("mixtral-8x7b", 22),
+                       ("whisper-large-v3", 23)):
+        errs[f"{arch} dense steps"] = compare_logits(
+            small_dense_steps(arch, seed))
+    errs["mixtral-8x7b ring"] = compare_logits(small_ring())
+    errs["mamba2-2.7b one-shot prefill"] = compare_logits(
+        small_ssm_prefill())
     print(f"small-input check: card vs CPU logits (max |diff|, "
           f"tolerance) {errs}")
+    print(f"small-input check: sync-mode wave, card vs CPU greedy tokens "
+          f"agree at {small_sync_wave()} of the positions")
     small_train_step()
 
 
@@ -1385,6 +1755,164 @@ def small_mixtral():
     return outs
 
 
+def small_dense_steps(arch, seed):
+    """reduced(arch) with head dim 64 in bf16 on both devices: a one-shot
+    ``prefill`` of 2 x 20 tokens into a 48-row cache and two decode steps,
+    then two ragged chunks into a fresh dense cache (``prefill_chunk``,
+    one dense chunk kernel launch a layer on the card; the first chunk
+    carries frame embeddings for whisper) and two decode steps.  A MoE
+    router is zeroed (see ``small_mixtral``).  Returns the stacked logits
+    per device."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import chunk_attention
+    from repro_torch.models.registry import model_api
+    cfg = reduced(get_config(arch), head_dim=64)
+    api = model_api(cfg)
+    params = api.init(seed, cfg, "cpu")
+    if cfg.family == "moe":
+        params["blocks"]["moe"]["router"].zero_()
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20)))
+    chunks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, T)))
+              for T in (32, 16)]
+    emb = None
+    if cfg.family == "audio":
+        emb = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_len, cfg.d_model), dtype=np.float32))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, dev)
+        batch = {"tokens": prompt.to(dev)}
+        if emb is not None:
+            batch["embeddings"] = emb.to(dev)
+        lg, cache = api.prefill(p, cfg, batch, cache_size=48)
+        logits = [lg]
+        for step in range(2):
+            tok = torch.tensor([7 + step, 11 + step], device=dev)
+            lg, cache = api.decode_step(p, cfg, tok, cache)
+            logits.append(lg)
+        cache = api.init_cache(cfg, 2, 48, device=dev)
+        cache["len"] = torch.zeros(2, dtype=torch.int32, device=dev)
+        before = chunk_attention.launches["chunk_prefill_attention"]
+        for i, (chunk, cl) in enumerate(zip(chunks, ([32, 19], [16, 9]))):
+            batch = {"tokens": chunk.to(dev)}
+            if emb is not None and i == 0:
+                batch["embeddings"] = emb.to(dev)
+            lg, cache = api.prefill_chunk(
+                p, cfg, batch, cache,
+                chunk_len=torch.tensor(cl, dtype=torch.int32, device=dev))
+            logits.append(lg)
+        if dev == "cuda":
+            check(chunk_attention.launches["chunk_prefill_attention"]
+                  == before + 2 * cfg.num_layers,
+                  f"the card's {arch} chunks did not run the dense chunk "
+                  f"kernel")
+        for step in range(2):
+            tok = torch.tensor([3 + step, 5 + step], device=dev)
+            lg, cache = api.decode_step(p, cfg, tok, cache)
+            logits.append(lg)
+        outs[dev] = torch.stack([x.float().cpu() for x in logits])
+    return outs
+
+
+def small_ring():
+    """reduced(mixtral-8x7b) (router zeroed) in bf16 on both devices: a
+    70-token prompt prefilled for a 128-token slot budget, twice the
+    64-token window, keeps a ring of the last 64 rows; three decode steps
+    wrap around it.  Returns the stacked logits per device."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import moe
+    cfg = reduced(get_config("mixtral-8x7b"), head_dim=64)
+    params = moe.init(9, cfg, "cpu")
+    params["blocks"]["moe"]["router"].zero_()
+    prompt = torch.from_numpy(np.random.default_rng(18).integers(
+        0, cfg.vocab_size, (1, 70)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, dev)
+        lg, cache = moe.prefill(p, cfg, {"tokens": prompt.to(dev)},
+                                cache_size=128)
+        check(cache["k"].shape[2] == 64, "the ring is not the window")
+        logits = [lg]
+        for step in range(3):
+            lg, cache = moe.decode_step(p, cfg, torch.tensor(
+                [5 + step], device=dev), cache)
+            logits.append(lg)
+        outs[dev] = torch.stack([x.float().cpu() for x in logits])
+    return outs
+
+
+def small_ssm_prefill():
+    """reduced(mamba2-2.7b) in bf16 on both devices: a one-shot
+    ``ssm.prefill`` of 2 x 40 tokens (one SSD scan launch a layer on the
+    card) and two decode steps.  Returns the stacked logits per device."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import ssm
+    cfg = reduced(get_config("mamba2-2.7b"))
+    params = ssm.init(19, cfg, "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (2, 40)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_to(params, dev)
+        before = ssd_scan.launches["ssd_scan"]
+        lg, cache = ssm.prefill(p, cfg, {"tokens": prompt.to(dev)})
+        if dev == "cuda":
+            check(ssd_scan.launches["ssd_scan"] == before + cfg.num_layers,
+                  "the card's one-shot prefill did not run the ssd_scan "
+                  "kernel")
+        logits = [lg]
+        for step in range(2):
+            lg, cache = ssm.decode_step(p, cfg, torch.tensor(
+                [7 + step, 11 + step], device=dev), cache)
+            logits.append(lg)
+        outs[dev] = torch.stack([x.float().cpu() for x in logits])
+    return outs
+
+
+def small_sync_wave():
+    """One sync-mode wave of reduced(minicpm-2b) (head dim 64, bf16, 6
+    requests of 5-30 tokens, 8 new each, batches of 4) on both devices.
+    Greedy chains in bf16 can part at a near-tie that the devices' other
+    rounding order flips, after which the rest of the chain differs, so
+    the tokens are held to agreement at 0.75 of the positions (the logits
+    themselves are held by ``small_dense_steps``).  Returns the share of
+    positions that agree."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import plan_for
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+    full = get_config("minicpm-2b")
+    cfg = reduced(full, head_dim=64)
+    params = transformer.init(20, cfg, "cpu")
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 30, 12, 21, 8, 17)]
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        rt = ServiceRuntime(cfg, tree_to(params, dev),
+                            plan_for(full, "bf16", 4), mode="sync",
+                            device=dev)
+        for rid, prompt in enumerate(prompts):
+            rt.submit(GenerationRequest(rid=rid, tokens=prompt,
+                                        max_new_tokens=8, stream=rid))
+        res = rt.drain()
+        check(len(res) == len(prompts), f"sync wave on {dev} served "
+              f"{len(res)}/{len(prompts)}")
+        toks[dev] = {r.rid: np.asarray(r.tokens) for r in res}
+    same = sum(int((toks["cpu"][r] == toks["cuda"][r]).sum())
+               for r in toks["cpu"])
+    share = same / sum(len(t) for t in toks["cpu"].values())
+    check(share >= 0.75, f"card vs CPU sync-wave tokens agree at only "
+          f"{share} of the positions")
+    return share
+
+
 def small_moe_layer():
     """Layer 0's MoE FFN of the same reduced(mixtral-8x7b), with its random
     router, on the same bf16 input on both devices: two routing groups of
@@ -1495,6 +2023,20 @@ def main() -> int:
     train_launches = phase_train()
     launches["flash_attention"] += train_launches["flash_attention"]
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 8: the sync and dense-cache paths, minicpm-2b full width")
+    phase_dense_launchers()
+    oracle_launches, oracle_toks = wave_oracle()
+    launches["chunk_prefill_attention"] = \
+        oracle_launches["chunk_prefill_attention"]
+    same = sum(int((oracle_toks[r] == bf16_toks[r]).sum())
+               for r in oracle_toks)
+    print(f"phase 8 (b) oracle vs phase 3 native bf16 greedy tokens: "
+          f"{same}/{sum(len(t) for t in oracle_toks.values())} positions "
+          f"agree")
+    logits_parity()
+    wave_sync()
     small_input_check()
 
     kernels = []
@@ -1505,7 +2047,7 @@ def main() -> int:
                         "launches": launches[name],
                         **{k: rec[k] for k in RECORD_KEYS}})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
-    check(len(kernels) == 9, f"expected nine kernels, got {len(kernels)}")
+    check(len(kernels) == 10, f"expected ten kernels, got {len(kernels)}")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel of the main paths never launched: {kernels}")
     print(json.dumps({"kernels": kernels}))

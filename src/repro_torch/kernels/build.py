@@ -23,7 +23,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("paged_attention", "ssd_scan", "flash_attention",
-           "flash_attention_bwd", "decode_attention", "grouped_matmul")
+           "flash_attention_bwd", "decode_attention", "chunk_attention",
+           "grouped_matmul")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

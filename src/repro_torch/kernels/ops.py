@@ -2,7 +2,8 @@
 
 A CUDA tensor goes to the hand-written kernel (``paged_attention``,
 ``flash_attention``, ``flash_attention_bwd``, ``decode_attention``,
-``ssd_scan``, ``grouped_matmul``), a CPU tensor to its plain version
+``chunk_attention``, ``ssd_scan``, ``grouped_matmul``), a CPU tensor to its
+plain version
 (``ref``).  There is no other switch and no fallback: on the card a kernel
 launches or raises.
 ``QuantPages`` pools select the int8 attention kernels.
@@ -13,6 +14,7 @@ from typing import Dict, Optional
 
 import torch
 
+from . import chunk_attention as ca
 from . import decode_attention as da
 from . import flash_attention as fa
 from . import flash_attention_bwd as fab
@@ -22,7 +24,7 @@ from . import ref
 from . import ssd_scan as ssd
 from .quant import QuantPages
 
-_KERNEL_MODULES = (pa, fa, fab, da, ssd, gmm)
+_KERNEL_MODULES = (pa, fa, fab, da, ca, ssd, gmm)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -98,6 +100,24 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     return da.decode_attention(q, k_cache, v_cache,
                                ref.per_slot(cache_len, q.shape[0], q.device),
                                window=window, softmax_scale=softmax_scale)
+
+
+def chunk_attention(q, k_cache, v_cache, start, chunk_len, *,
+                    prefix_len: int = 0, softmax_scale=None):
+    """Chunked-prefill attention against dense (B, S, Hkv, D) caches that
+    already hold the chunk's own K/V: row i of q (B, T, Hq, D) sits at
+    position ``start[b] + i`` and is real iff ``i < chunk_len[b]``
+    (``start``/``chunk_len`` scalars or (B,)).  Returns (B, T, Hq, D),
+    zeros in the rows past ``chunk_len``."""
+    if q.device.type != "cuda":
+        return ref.chunk_attention_ref(q, k_cache, v_cache, start, chunk_len,
+                                       prefix_len=prefix_len,
+                                       softmax_scale=softmax_scale)
+    B = q.shape[0]
+    return ca.chunk_prefill_attention(
+        q, k_cache, v_cache, ref.per_slot(start, B, q.device),
+        ref.per_slot(chunk_len, B, q.device), prefix_len=prefix_len,
+        softmax_scale=softmax_scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, cache_len, *,

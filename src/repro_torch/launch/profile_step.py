@@ -49,21 +49,24 @@ ARCHS = ("minicpm-2b", "mamba2-2.7b", "whisper-large-v3", "mixtral-8x7b")
 
 
 def wave_runtime(kv_dtype, n_requests: int = 32, new_tokens: int = 40,
-                 device="cuda", arch: str = "minicpm-2b"):
+                 device="cuda", arch: str = "minicpm-2b", bs=None,
+                 **runtime_kw):
     """A full-width ``ServiceRuntime`` of ``arch`` (random weights from
     seed 1) with ``n_requests`` prompts of 6-200 tokens, spread evenly,
     already submitted; audio requests carry standard-normal frame
     embeddings drawn from seed 1.  ``kv_dtype`` is the plan's (-1 = the
-    category's choice).  The plan is the full config's; the weights are cut
-    to ``WAVE_LAYERS`` where that names the arch.  Returns (cfg,
+    category's choice).  The plan is the full config's, at ``bs`` slots
+    if given (else ``WAVE_BS``'s, else the allocator's); the weights are
+    cut to ``WAVE_LAYERS`` where that names the arch.  ``runtime_kw`` go
+    to the runtime (``mode``, ``paged_native``, ...).  Returns (cfg,
     runtime)."""
     full = get_config(arch)
     cfg = dataclasses.replace(full, num_layers=WAVE_LAYERS.get(
         arch, full.num_layers))
     device = resolve_device(device)
     rt = ServiceRuntime(cfg, model_api(cfg).init(1, cfg, device),
-                        plan_for(full, kv_dtype, WAVE_BS.get(arch)),
-                        device=device)
+                        plan_for(full, kv_dtype, bs or WAVE_BS.get(arch)),
+                        device=device, **runtime_kw)
     rng = np.random.default_rng(2)
     frames = np.random.default_rng(1)
     for rid, n in enumerate(np.linspace(6, 200, n_requests).astype(int)):

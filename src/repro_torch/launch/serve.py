@@ -21,10 +21,16 @@ It takes the MoE archs mixtral-8x7b and grok-1-314b too.  Their full
 configs' bf16 weights (93.4 GB and 633 GB) do not fit one card, so on the
 card the launcher refuses them before allocating anything;
 ``chip_smoke.py`` serves mixtral-8x7b at 16 of its 32 layers.  On the CPU
-the reduced configs serve.  reduced(mixtral-8x7b) has a 64-token sliding
-window: a slot budget over it (the default ``--max-seq-len`` is 256) would
-need a ring cache layout, which is not ported (ROADMAP.md Queue 1 item
-11), so serve it with ``--max-seq-len 64``.
+the reduced configs serve; reduced(mixtral-8x7b)'s 64-token sliding window
+is shorter than the default 256-token slot budget, so its K/V is a ring of
+the last 64 tokens per slot and its prompts prefill in one shot.
+
+``--mode sync`` serves run-to-completion batches, ``--kvcache-impl dense``
+the pre-arena dense cache, ``--no-chunked-prefill`` one-shot prefill at
+admission, as in the reference:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b \
+      --mode sync
 """
 from __future__ import annotations
 
@@ -50,12 +56,8 @@ PREFIX_CACHEABLE_FAMILIES = ("dense", "moe")
 # reference flags that are accepted but only at their defaults: the value
 # that would need an unported part names the ROADMAP.md item porting it
 _ITEM_MULTI_SERVER = "ROADMAP.md Queue 1 item 6 (multi-server control plane)"
-_ITEM_DENSE = "ROADMAP.md Queue 1 item 11 (sync and dense oracle paths)"
 _UNPORTED_FLAGS = (
     ("servers", 1, _ITEM_MULTI_SERVER),
-    ("mode", "continuous", _ITEM_DENSE),
-    ("kvcache_impl", "paged", _ITEM_DENSE),
-    ("no_chunked_prefill", False, _ITEM_DENSE),
     ("prefix_cache", -1, "ROADMAP.md Queue 1 item 2 (radix prefix cache)"),
     ("admission_policy", "fifo", "ROADMAP.md Queue 1 item 3 (SDF admission)"),
     ("no_preempt", False, "ROADMAP.md Queue 1 item 3 (SDF admission)"),
@@ -119,10 +121,18 @@ def _parser() -> argparse.ArgumentParser:
                     help="'cuda' (default, full configs) or 'cpu' (reduced "
                          "configs)")
     # accepted for the reference's command lines; see _UNPORTED_FLAGS
+    ap.add_argument("--mode", choices=("continuous", "sync"),
+                    default="continuous",
+                    help="serving data plane: slot-based continuous "
+                         "batching (default) or run-to-completion batches")
+    ap.add_argument("--kvcache-impl", choices=("paged", "dense"),
+                    default="paged",
+                    help="cache data plane: the fixed-capacity paged KV "
+                         "arena (default) or the dense merge path")
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="prefill each prompt in one shot at admission "
+                         "instead of in chunks inside the decode loop")
     ap.add_argument("--servers", type=int, default=1)
-    ap.add_argument("--mode", default="continuous")
-    ap.add_argument("--kvcache-impl", default="paged")
-    ap.add_argument("--no-chunked-prefill", action="store_true")
     ap.add_argument("--prefix-cache", type=int, default=-1)
     ap.add_argument("--admission-policy", default="fifo")
     ap.add_argument("--no-preempt", action="store_true")
@@ -161,6 +171,9 @@ def main(argv=None) -> int:
     if args.kv_dtype not in ("auto", "bf16", "int8"):
         ap.error(f"--kv-dtype must be auto (category default), bf16 or "
                  f"int8, got {args.kv_dtype!r}")
+    if args.kv_dtype == "int8" and args.kvcache_impl != "paged":
+        ap.error("--kv-dtype=int8 requires --kvcache-impl=paged (only "
+                 "page pools are block-quantized)")
     arch_ids = [a.strip() for a in args.archs.split(",")]
     for a in arch_ids:
         if a not in ARCH_IDS:
@@ -194,8 +207,10 @@ def main(argv=None) -> int:
         params = model_api(cfg).init(zlib.crc32(a.encode()) + args.seed,
                                      cfg, device)
         engine.deploy(a, ServiceRuntime(
-            cfg, params, plan, max_seq_len=args.max_seq_len,
+            cfg, params, plan, mode=args.mode,
+            kvcache_impl=args.kvcache_impl, max_seq_len=args.max_seq_len,
             block_size=args.block_size,
+            chunked_prefill=False if args.no_chunked_prefill else None,
             prefill_chunk=(args.prefill_chunk or None), device=device))
 
     rng = np.random.default_rng(args.seed)
@@ -220,9 +235,12 @@ def main(argv=None) -> int:
     toks = sum(len(r.tokens) for r in results)
     steps = sum(rt.decode_steps for rt in engine.runtimes.values())
     chunks = sum(rt.prefill_chunk_calls for rt in engine.runtimes.values())
+    oneshot = sum(rt.oneshot_prefills for rt in engine.runtimes.values())
     print(f"served {len(results)}/{args.requests} requests, {toks} tokens "
           f"in {dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s, {steps} fused "
-          f"decode steps, {chunks} prefill chunks, device={device})")
+          f"decode steps, {chunks} prefill chunks, {oneshot} one-shot "
+          f"prefills, mode={args.mode}, kvcache={args.kvcache_impl}, "
+          f"device={device})")
     print("kernel launches: " + ", ".join(
         f"{k}={v - launches0[k]}" for k, v in launch_counts().items()))
     return 0 if len(results) == args.requests else 1

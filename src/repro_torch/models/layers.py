@@ -2,12 +2,14 @@
 
 Plain functions on tensors: params are nested dicts of tensors in the
 reference package's layouts (weights ``(in, out)``, so ``linear`` is
-``x @ w``), and every forward takes (params, cfg, ...).  Attention (paged,
-full and cross) goes through ``repro_torch.kernels.ops``, which runs the
-CUDA kernels for tensors on the card and their plain versions on the CPU.
+``x @ w``), and every forward takes (params, cfg, ...).  Attention (dense,
+paged, full and cross) goes through ``repro_torch.kernels.ops``, which runs
+the CUDA kernels for tensors on the card and their plain versions on the
+CPU.
 
-Unlike the reference, page pools are updated in place: ``paged_insert_rows``
-writes the new rows into the pool it is given and returns that same pool.
+Unlike the reference, caches are updated in place: ``paged_insert_rows``
+writes the new rows into the pool it is given and ``write_rows`` into the
+dense cache it is given, and each returns that same tensor.
 """
 from __future__ import annotations
 
@@ -191,6 +193,107 @@ def attention(p, cfg: ModelConfig, x, *, causal: bool = True, kv_x=None):
                              use_rope=False)[0]
 
 
+def write_rows(cache, rows, start, n):
+    """Write ``rows`` (B, T, Hkv, D) into one layer's dense cache
+    (B, S, Hkv, D), in place: row i of slot b lands at position
+    ``start[b] + i`` for i < ``n[b]`` (``start``, ``n`` (B,) int).  The
+    reference scatters with out-of-bounds indices for the other rows, which
+    its scatter drops; here every row writes, without a host sync and with
+    no two writes of different values to one place: a row past ``n[b]``
+    repeats slot b's last written row at the same position, and a slot with
+    ``n[b] == 0`` writes its row at ``start[b]`` back unchanged."""
+    B, T = rows.shape[:2]
+    S = cache.shape[1]
+    dev = cache.device
+    n = n.to(torch.long)
+    j = torch.minimum(torch.arange(T, device=dev)[None],
+                      (n - 1).clamp_min(0)[:, None])             # (B, T)
+    dest = (start.to(torch.long)[:, None] + j).clamp(0, S - 1)
+    bi = torch.arange(B, device=dev)[:, None].expand(B, T)
+    src = rows[bi, j].to(cache.dtype)
+    src = torch.where((n > 0)[:, None, None, None], src, cache[bi, dest])
+    cache[bi, dest] = src
+    return cache
+
+
+def attention_decode(p, cfg: ModelConfig, x_t, k_cache, v_cache, cache_len,
+                     *, window=None, use_rope: bool = True, live=None):
+    """One-token decode against one layer's dense caches (B, S, Hkv, D).
+
+    ``cache_len`` (scalar or (B,)) counts valid entries INCLUDING the token
+    being written, at ring slot ``(cache_len - 1) % S``; attention sees the
+    first ``min(cache_len, S)`` of them (the last ``window`` when set).
+    The new K/V row is written into the caches in place.  Where ``live``
+    (B,) is False a slot's cache is not written and its row attends to no
+    key (zeros: its output is thrown away).  Returns (out (B, d), k_cache,
+    v_cache)."""
+    B = x_t.shape[0]
+    dev = x_t.device
+    q, k_t, v_t = _project_qkv(p, cfg, x_t[:, None])
+    cache_len = torch.as_tensor(cache_len, dtype=torch.int32,
+                                device=dev).expand(B)
+    if use_rope:
+        pos = (cache_len - 1)[:, None]
+        q = rope(q, pos, cfg.rope_theta)
+        k_t = rope(k_t, pos, cfg.rope_theta)
+    S = k_cache.shape[1]
+    slot = torch.remainder(cache_len - 1, S)
+    n = (torch.ones((B,), dtype=torch.int32, device=dev) if live is None
+         else live.to(torch.int32))
+    write_rows(k_cache, k_t, slot, n)
+    write_rows(v_cache, v_t, slot, n)
+    eff_len = torch.clamp(cache_len, max=S)
+    if live is not None:
+        eff_len = torch.where(live.bool(), eff_len, 0)
+    out = ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                               eff_len.to(torch.int32), window=window)
+    out = out.reshape(B, cfg.num_heads * cfg.head_dim)
+    return linear(out, p["wo"]), k_cache, v_cache
+
+
+def attention_chunk(p, cfg: ModelConfig, x, k_cache, v_cache, cache_len,
+                    chunk_len, *, window=None, prefix_len: int = 0,
+                    use_rope: bool = True):
+    """Chunked-prefill attention against one layer's dense caches
+    (B, S, Hkv, D): write a right-padded T-token chunk (only the first
+    ``chunk_len`` rows real) at positions ``cache_len + i``, in place, then
+    attend over the cache through ``ops.chunk_attention``.  Returns (out
+    (B, T, d), k_cache, v_cache); rows past ``chunk_len`` are zeros before
+    the output projection (the caller discards them)."""
+    B, T, _ = x.shape
+    S = k_cache.shape[1]
+    if window is not None and S > window:
+        raise NotImplementedError(
+            "chunked prefill does not support ring (sliding-window) cache "
+            "layouts; the engine gates those to one-shot prefill")
+    q, k_t, v_t = _project_qkv(p, cfg, x)
+    dev = x.device
+    cache_len = torch.as_tensor(cache_len, dtype=torch.int32,
+                                device=dev).expand(B)
+    chunk_len = torch.as_tensor(chunk_len, dtype=torch.int32,
+                                device=dev).expand(B)
+    positions = cache_len[:, None] + torch.arange(T, device=dev)[None]
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k_t = rope(k_t, positions, cfg.rope_theta)
+    # rows at or past the cache's end are dropped, as the reference's
+    # out-of-bounds scatter drops them
+    n = torch.clamp(torch.minimum(chunk_len, S - cache_len), 0, T)
+    write_rows(k_cache, k_t, cache_len, n)
+    write_rows(v_cache, v_t, cache_len, n)
+    out = ops.chunk_attention(q.contiguous(), k_cache, v_cache,
+                              cache_len.contiguous(), chunk_len.contiguous(),
+                              prefix_len=prefix_len)
+    out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
+    return linear(out, p["wo"]), k_cache, v_cache
+
+
+def cross_attention_decode(p, cfg: ModelConfig, x_t, memory):
+    """Decode-time cross attention of x_t (B, d) against a fixed encoder
+    memory (B, Lk, d).  Returns (B, d)."""
+    return attention(p, cfg, x_t[:, None], causal=False, kv_x=memory)[:, 0]
+
+
 def paged_insert_rows(pages, rows, block_tables, positions, valid, *,
                       block_size: int):
     """Scatter per-slot K/V rows straight into a page pool, in place.
@@ -228,7 +331,7 @@ def _no_paged_ring(window, total_tokens: int) -> None:
     if window is not None and window < total_tokens:
         raise NotImplementedError(
             "paged-native attention does not support ring (sliding-window) "
-            "cache layouts (ROADMAP.md Queue 1 item 11, dense-cache paths)")
+            "cache layouts; the engine gates those to the dense-view path")
 
 
 def attention_decode_paged(p, cfg: ModelConfig, x_t, k_pages, v_pages,

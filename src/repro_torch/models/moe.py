@@ -1,5 +1,5 @@
 """Mixture-of-Experts decoder (mixtral-8x7b, grok-1-314b families): the
-paged-native serving entry points.
+serving entry points.
 
 GShard/Switch-style capacity-based top-k routing, as in the reference
 package's ``models/moe.py``: tokens are grouped per sequence (at most
@@ -9,14 +9,16 @@ package's ``models/moe.py``: tokens are grouped per sequence (at most
 The attention backbone is the dense decoder's (``layers``); only the FFN
 differs.
 
-Parameters keep the reference's tree and stacked layer axis; the serving
-cache is the arena's page pools, updated in place (see ``transformer``).
+Parameters keep the reference's tree and stacked layer axis; the caches
+are the arena's page pools or a dense cache, updated in place (see
+``transformer``).
 
 Ported: ``init``, ``logits_fn``, ``init_cache``, ``moe_mlp``,
-``prefill_chunk_paged`` and ``decode_step_paged``.  The one-shot
-``prefill`` and the dense-cache ``prefill_chunk``/``decode_step``
-(ROADMAP.md Queue 1 item 11), ``forward_hidden`` (item 12) and
-``verify_step_paged`` (item 4) raise, naming their item.
+``prefill_chunk_paged``, ``decode_step_paged``, the one-shot ``prefill``
+(the whole prompt one routing group, up to ``MAX_ROUTING_GROUP``) and the
+dense-cache ``prefill_chunk``/``decode_step``.  ``forward_hidden``
+(ROADMAP.md Queue 1 item 12) and ``verify_step_paged`` (item 4) raise,
+naming their item.
 """
 from __future__ import annotations
 
@@ -291,6 +293,36 @@ def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
                     "len": torch.where(live, lens + 1, lens)}
 
 
+def moe_ffn(lp, cfg: ModelConfig, x):
+    """The MoE block's FFN for ``transformer``'s dense steps: a decode batch
+    (B, d) routes each slot's token alone, a prompt or chunk (B, L, d) is
+    its own routing group."""
+    if x.ndim == 2:
+        return _moe_mlp_single(lp["moe"], cfg, x)
+    return moe_mlp(lp["moe"], cfg, x)[0]
+
+
+def prefill(params, cfg: ModelConfig, batch, *, cache_size=None):
+    """One-shot prefill (see ``transformer.prefill``): each prompt is one
+    routing group, so expert capacity scales with the prompt."""
+    return transformer.prefill_ffn(params, cfg, batch, cache_size, moe_ffn)
+
+
+def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
+    """Chunked prefill against a dense cache (see
+    ``transformer.prefill_chunk`` and ``prefill_chunk_paged``'s routing
+    note)."""
+    return transformer.prefill_chunk_ffn(params, cfg, batch, cache,
+                                         chunk_len, moe_ffn)
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
+    """Fused decode against a dense cache (see ``transformer.decode_step``);
+    per-slot routing groups keep every row independent."""
+    return transformer.decode_step_ffn(params, cfg, token, cache, live,
+                                       moe_ffn)
+
+
 def _not_ported(name: str, item: str):
     def fn(*args, **kwargs):
         raise NotImplementedError(
@@ -300,10 +332,6 @@ def _not_ported(name: str, item: str):
     return fn
 
 
-_DENSE = "item 11 (sync and dense oracle paths)"
-prefill = _not_ported("prefill", _DENSE)
-prefill_chunk = _not_ported("prefill_chunk", _DENSE)
-decode_step = _not_ported("decode_step", _DENSE)
 forward_hidden = _not_ported("forward_hidden", "item 12 (training)")
 verify_step_paged = _not_ported("verify_step_paged",
                                 "item 4 (speculation and forks)")

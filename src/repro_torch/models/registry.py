@@ -1,8 +1,9 @@
 """Model family registry: maps ``ModelConfig.family`` to the model API.
 
 The dense, MoE, SSM and audio (encoder-decoder) families are ported for
-serving, the dense family also for training; the others raise, naming the
-``ROADMAP.md`` item that ports them.
+serving (every dense-cache and paged-native entry point), the dense family
+also for training; the others raise, naming the ``ROADMAP.md`` item that
+ports them.
 """
 from __future__ import annotations
 
@@ -18,12 +19,12 @@ class ModelApi:
     init: Callable
     logits_fn: Callable
     init_cache: Callable
-    # state-path entry points: the cache's leaves are per-slot state (or
-    # dense sequence leaves) that the serving arena hands over by slot;
-    # ``None`` where not ported (the dense and MoE families': ROADMAP.md
-    # Queue 1 item 11)
-    prefill_chunk: Optional[Callable] = None
-    decode_step: Optional[Callable] = None
+    # dense-cache entry points: the one-shot prefill, which builds a new
+    # cache, and the chunk and decode steps over a dense cache (the sync
+    # and dense engines' own, the arena's gathered view, or per-slot state)
+    prefill: Callable
+    prefill_chunk: Callable
+    decode_step: Callable
     # paged-native entry points: the cache's sequence leaves are the
     # serving arena's page pools read through a block table; ``None`` for
     # pure-SSM families, whose cache is all per-slot state
@@ -37,17 +38,20 @@ class ModelApi:
 
 _FAMILIES = {
     "dense": ModelApi(transformer.init, transformer.logits_fn,
-                      transformer.init_cache,
+                      transformer.init_cache, transformer.prefill,
+                      transformer.prefill_chunk, transformer.decode_step,
                       decode_step_paged=transformer.decode_step_paged,
                       prefill_chunk_paged=transformer.prefill_chunk_paged,
                       forward_hidden=transformer.forward_hidden),
-    "moe": ModelApi(moe.init, moe.logits_fn, moe.init_cache,
+    "moe": ModelApi(moe.init, moe.logits_fn, moe.init_cache, moe.prefill,
+                    moe.prefill_chunk, moe.decode_step,
                     decode_step_paged=moe.decode_step_paged,
                     prefill_chunk_paged=moe.prefill_chunk_paged),
-    "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache,
-                    prefill_chunk=ssm.prefill_chunk,
-                    decode_step=ssm.decode_step),
+    "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache, ssm.prefill,
+                    ssm.prefill_chunk, ssm.decode_step),
     "audio": ModelApi(encdec.init, encdec.logits_fn, encdec.init_cache,
+                      encdec.prefill, encdec.prefill_chunk,
+                      encdec.decode_step,
                       decode_step_paged=encdec.decode_step_paged,
                       prefill_chunk_paged=encdec.prefill_chunk_paged),
 }

@@ -1,5 +1,5 @@
 """Mamba-2 (SSD, state-space duality) model, attention-free (mamba2-2.7b):
-the state-carrying serving entry points.
+the serving entry points.
 
 Block = in_proj -> causal depthwise conv (silu) -> SSD chunked scan (the
 ``ssd_scan`` CUDA kernel on the card) -> gated RMSNorm -> out_proj.
@@ -12,7 +12,10 @@ over layers becomes a loop over that axis.  The cache is
 Unlike the reference's functional carry, ``prefill_chunk`` and
 ``decode_step`` update ``cache["conv"]`` and ``cache["ssd"]`` IN PLACE,
 layer by layer, and return the same tensors: the carry would materialise a
-second full state stack (21.5 GB at 128 slots of mamba2-2.7b).
+second full state stack (21.5 GB at 128 slots of mamba2-2.7b).  The
+one-shot ``prefill`` (``mamba_block`` over the whole prompt, one SSD scan
+launch a layer) builds a new cache.  ``forward_hidden`` (training) is
+ROADMAP.md Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -122,6 +125,60 @@ def _conv_step(p, conv_state, u_t):
     y = (window.float() * p["conv_w"].float()[None]).sum(dim=1)
     y = F.silu(y + p["conv_b"].float()).to(u_t.dtype)
     return y, window[:, 1:]
+
+
+def _causal_conv(p, u):
+    """u: (B, L, ch) depthwise causal conv with kernel (k, ch) from zeros:
+    the sum of k shifted products, then silu in f32, as the reference."""
+    k = p["conv_w"].shape[0]
+    L = u.shape[1]
+    pad = F.pad(u, (0, 0, k - 1, 0))
+    y = sum(pad[:, i:i + L] * p["conv_w"][i][None, None] for i in range(k))
+    return F.silu((y + p["conv_b"][None, None]).float()).to(u.dtype)
+
+
+def mamba_block(p, cfg: ModelConfig, x, *, initial_state=None,
+                return_state: bool = False):
+    """x: (B, L, d) -> x + the block's output (B, L, d), through one SSD
+    scan over the whole sequence (the ``ssd_scan`` kernel on the card).
+    With ``return_state`` also the state a decode continues from: the raw
+    pre-conv tail (B, k-1, ch) of the last k-1 positions (zeros in front
+    when L < k-1) and the SSD state (B, H, P, N) f32."""
+    B, L, _ = x.shape
+    k = cfg.ssm_conv_kernel
+    xn = layers.apply_norm(p["ln"], cfg, x)
+    z, xBC, dt = _split_proj(cfg, layers.linear(xn, p["in_proj"]))
+    xs, Bm, Cm = _split_xbc(cfg, _causal_conv(p, xBC))
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None])
+    A = -torch.exp(p["A_log"])
+    y, state = ops.ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk=cfg.ssm_chunk,
+                            initial_state=initial_state)
+    out = x + _gated_out(p, cfg, y.reshape(B, L, cfg.d_inner), z)
+    if not return_state:
+        return out
+    tail = xBC[:, -(k - 1):] if L >= k - 1 else F.pad(
+        xBC, (0, 0, k - 1 - L, 0))
+    return out, (tail, state)
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            cache_size=None):
+    """One-shot prefill of ``batch["tokens"]`` (B, L) (``cache_size`` is
+    accepted for the common signature: the state does not grow).  Returns
+    (logits at the last position (B, V), a new cache with each layer's conv
+    tail and SSD state and the shared scalar ``len`` L)."""
+    tokens = batch["tokens"]
+    B, L = tokens.shape
+    x = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
+    cache = init_cache(cfg, B, L, dtype=x.dtype, device=x.device)
+    for i in range(cfg.num_layers):
+        x, (tail, state) = mamba_block(layer_params(params["blocks"], i),
+                                       cfg, x, return_state=True)
+        cache["conv"][i].copy_(tail)
+        cache["ssd"][i].copy_(state)
+    h = layers.apply_norm(params["ln_f"], cfg, x[:, -1])
+    cache["len"] = torch.tensor(L, dtype=torch.int32, device=x.device)
+    return logits_fn(params, cfg, h), cache
 
 
 def mamba_block_chunk(p, cfg: ModelConfig, x, conv_state, ssd_state,

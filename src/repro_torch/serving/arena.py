@@ -9,20 +9,27 @@ engine (the port of the reference package's ``serving/arena.py``).
   writes from unoccupied slots and padding rows, so the fused step needs no
   branches.
 * A cache leaf that does not grow with ``max_len`` is per-slot state (the
-  SSM family's conv tail and SSD state): it is kept as one row per slot,
+  SSM family's conv tail and SSD state, the encoder-decoder's cross K/V,
+  and the K/V of a sliding window shorter than the slot budget, a ring of
+  the last ``window`` tokens): it is kept as one row per slot,
   ``(layers, capacity, ...)`` in the leaf's own dtype, and never quantized.
-* Admission is an ``alloc`` (pages are written later, chunk by chunk);
-  eviction is a free-list operation with no device work.
+* Admission is an ``alloc``; pages are written chunk by chunk, or at once
+  by ``write_prefill`` after a one-shot prefill.  Eviction is a free-list
+  operation with no device work.
 * The decode step always runs at the full static shape ``(capacity, ...)``
   with an occupancy mask.
 * ``kv_dtype="int8"`` stores floating pools as ``QuantPages`` (int8 values
   plus one f32 scale per token and head, travelling with the blocks).
+* ``dense_view`` gathers the pools into a dense ``(layers, B, slot_tokens,
+  ...)`` view for the dense-cache steps (the families without paged-native
+  steps, ring layouts and the ``paged_native=False`` oracle), and
+  ``append_rows`` writes the rows such a step produced back into the pages.
 
 Host bookkeeping (free lists, block tables, occupancy) is numpy with the
 reference's semantics.  Device state is ``pages`` (one pool per paged
 leaf), ``state`` (one tensor per state leaf) and ``lens`` ``(capacity,)``
-int32; the model steps update pools and state in place, so ``pages`` and
-``state`` are never re-bound.
+int32; the model steps, ``write_prefill`` and ``append_rows`` update pools
+and state in place, so ``pages`` and ``state`` are never re-bound.
 
 Not ported yet (``ROADMAP.md`` Queue 1 item 1): cross-slot block sharing
 (refcounts, ``register``, the idle LRU), copy-on-write and block-table
@@ -37,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.quant import QuantPages
+from repro_torch.kernels.quant import QuantPages, dequantize, quantize
 
 _LEN, _PAGED, _STATE = "len", "paged", "state"
 
@@ -132,6 +139,9 @@ class KVArena:
             else:
                 self.pages.append(torch.zeros(
                     (A0, P1, self.block_size, *rest), dtype=dt, device=dev))
+        self._paged_shapes = paged_shapes
+        self._quantized = quantized
+        self._views: Dict[int, List[torch.Tensor]] = {}  # dense_view buffers
         self.state: List[torch.Tensor] = [
             torch.zeros((A0, self.capacity, *rest), dtype=dt, device=dev)
             for (A0, _, *rest), dt in state_shapes]
@@ -284,3 +294,118 @@ class KVArena:
         pick = lambda t: [cache[key] for key, tag in
                           zip(self._keys, self._tags) if tag == t]
         return pick(_PAGED), pick(_STATE)
+
+    # ------------------------------------------------------------------
+    # one-shot admission and the dense-view steps
+    # ------------------------------------------------------------------
+    def write_prefill(self, slot: int, cache: Dict[str, Any],
+                      prompt_len: int) -> int:
+        """Scatter one freshly prefilled single-request cache (batch 1, its
+        sequence axis at least the prompt's blocks) into the slot's pages
+        and state row, in place.  Only the blocks the prompt occupies are
+        written (quantized on write for an int8 pool); positions past the
+        prompt are garbage until a step reaches them, and the per-slot
+        length masks them everywhere.  The slot's length becomes the
+        cache's own ``len``.  Returns the bytes written (admission-copy
+        accounting)."""
+        n_blocks = self.blocks_for(max(1, prompt_len))
+        rows = n_blocks * self.block_size
+        bt_row = torch.from_numpy(
+            self._block_tables[slot][:n_blocks].astype(np.int64)).to(
+            self.device)
+        pages, state = iter(self.pages), iter(self.state)
+        cache_len = None
+        for key, tag in zip(self._keys, self._tags):
+            leaf = cache[key]
+            if tag == _LEN:
+                if cache_len is None:
+                    cache_len = leaf.reshape(-1)[0]
+            elif tag == _PAGED:
+                pool = next(pages)
+                A0, _, _, *rest = leaf.shape
+                blocks = leaf[:, 0, :rows].reshape(A0, n_blocks,
+                                                   self.block_size, *rest)
+                if isinstance(pool, QuantPages):
+                    qv, qs = quantize(blocks)
+                    pool.values[:, bt_row] = qv
+                    pool.scales[:, bt_row] = qs
+                else:
+                    pool[:, bt_row] = blocks.to(pool.dtype)
+            else:
+                st = next(state)
+                st[:, slot] = leaf[:, 0].to(st.dtype)
+        self.lens[slot] = prompt_len if cache_len is None else cache_len
+        return self.slot_bytes(prompt_len)
+
+    def dense_view(self, pages, block_tables: torch.Tensor
+                   ) -> List[torch.Tensor]:
+        """Gather each page pool through ``block_tables`` (B, nblk) into a
+        contiguous ``(layers, B, slot_tokens, ...)`` view in the leaf's own
+        dtype; an int8 pool's values and scales are dequantized.  The views
+        are the arena's buffers for B rows, gathered into in place layer by
+        layer: the next ``dense_view`` of B rows overwrites them, and no
+        other copy of the pools is made."""
+        B = block_tables.shape[0]
+        flat = block_tables.reshape(-1).long()
+        views = self._views.get(B)
+        if views is None:
+            views = [torch.empty((A0, B, self.slot_tokens, *rest), dtype=dt,
+                                 device=self.device)
+                     for (A0, _, _, *rest), dt in self._paged_shapes]
+            self._views[B] = views
+        for pool, view in zip(pages, views):
+            for layer in range(view.shape[0]):
+                out = view[layer].view(flat.shape[0], self.block_size,
+                                       *view.shape[3:])
+                if isinstance(pool, QuantPages):
+                    out.copy_(dequantize(
+                        pool.values[layer].index_select(0, flat),
+                        pool.scales[layer].index_select(0, flat),
+                        view.dtype))
+                else:
+                    torch.index_select(pool[layer], 0, flat, out=out)
+        return views
+
+    def append_rows(self, pages, dense_new, lens: torch.Tensor,
+                    live: torch.Tensor, block_tables: torch.Tensor, *,
+                    n_tokens: int = 1, valid_tokens=None) -> None:
+        """Write each live slot's newly produced cache rows from the dense
+        view ``dense_new`` back into its pages, in place: ``n_tokens``
+        consecutive rows per slot starting at ``lens`` (B,), of which the
+        first ``valid_tokens`` (B,) (default all) are real.  Rows of dead
+        slots and padding rows route to the trash block, the only place
+        two rows can land on; an int8 pool quantizes the rows on write."""
+        cap = lens.shape[0]
+        bs = self.block_size
+        dev = lens.device
+        offs = torch.arange(n_tokens, device=dev)
+        pos = (lens.long()[:, None] + offs[None]).clamp(
+            0, self.slot_tokens - 1)                          # (cap, T)
+        blk = torch.gather(block_tables.long(), 1, pos // bs)
+        flat = blk * bs + pos % bs
+        ok = live.bool()[:, None].expand(cap, n_tokens)
+        if valid_tokens is not None:
+            ok = ok & (offs[None] < valid_tokens.reshape(-1, 1))
+        flat = torch.where(ok, flat, self.trash_block * bs).reshape(-1)
+        slots = torch.arange(cap, device=dev)[:, None].expand(cap, n_tokens)
+        for pool, d in zip(pages, dense_new):
+            A0, P1, _, *rest = pool.shape
+            row = d[:, slots, pos].reshape(A0, cap * n_tokens, *rest)
+            if isinstance(pool, QuantPages):
+                qv, qs = quantize(row)
+                pool.values.view(A0, P1 * bs, *rest)[:, flat] = qv
+                pool.scales.view(A0, P1 * bs, *rest[:-1])[:, flat] = qs
+            else:
+                pool.view(A0, P1 * bs, *rest)[:, flat] = row.to(pool.dtype)
+
+    def merge_state(self, state, state_new, live: torch.Tensor) -> None:
+        """Commit a step's per-slot state for the live slots only, in place.
+        The port's steps write their state in place and keep dead slots'
+        rows themselves, so a leaf they return as the arena's own tensor is
+        already committed; any other is copied in under the mask."""
+        for old, new in zip(state, state_new):
+            if new is old:
+                continue
+            mask = live.bool().reshape(1, self.capacity,
+                                       *([1] * (old.ndim - 2)))
+            old.copy_(torch.where(mask, new.to(old.dtype), old))

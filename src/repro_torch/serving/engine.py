@@ -1,48 +1,61 @@
 """Live serving engine: continuous-batching decode over persistent slots,
 driven by an EPARA ``ParallelPlan`` (the port of the reference package's
-``serving/engine.py``, continuous paged-native path).
+``serving/engine.py``).
 
-``ServiceRuntime`` owns one service's params and its DP replica groups,
-each with a fixed-capacity paged ``KVArena``.  Each ``step()``:
+``ServiceRuntime`` owns one service's params and its DP replica groups.
+The default ``mode="continuous"`` keeps a persistent batch of decode slots
+per group; each ``step()``:
 
-  (a) evicts slots whose request hit EOS or its own ``max_new_tokens``
-      (a free-list operation);
+  (a) evicts slots whose request hit EOS or its own ``max_new_tokens``;
   (b) admits queued requests from the BS/MF composer into the free slots
-      (``compose(limit=free)``), each an arena ``alloc``;
+      (``compose(limit=free)``);
   (b2) advances chunked prefill: in-progress prompts are split into
-      bucket-sized chunks written straight into the page pools through the
-      slot's block-table row, at most ``prefill_chunk`` tokens per group
-      per step, so a long prompt never stalls live decode slots for more
-      than one chunk;
-  (c) runs one fused decode step over every slot at the arena's static
-      capacity, with per-slot lengths and an occupancy mask, then greedy
-      sampling.
+      bucket-sized chunks, at most ``prefill_chunk`` tokens per group per
+      step, so a long prompt never stalls live decode slots for more than
+      one chunk;
+  (c) runs one fused decode step over every slot, with per-slot lengths
+      and an occupancy mask, then greedy sampling.
 
-Two kinds of step, picked by the family as in the reference: attention
-families run paged-native (``prefill_chunk_paged``/``decode_step_paged``
-against the page pools), and pure-SSM families, which have no paged-native
-step, take the state path (``prefill_chunk``/``decode_step`` over the
-arena's per-slot state rows).  The first chunk of a request starts from
-zeroed state rows; for the audio family it also carries the request's
-frame embeddings (``extras["embeddings"]``), from which the
-encoder-decoder projects the slot's cross-attention K/V state.  Stateful
-plans (``plan.sticky``) pin each session to one DP group from its
-admission until its last request leaves.
+Two cache data planes back the slot loop (``kvcache_impl``):
 
-Ported so far: ``mode="continuous"``, ``kvcache_impl="paged"``,
-paged-native and state steps, chunked prefill, FIFO admission, greedy
-sampling, sticky DP sessions, and MoE services' expert-capacity drop
-counts (``StepStats.moe_dropped_tokens``).
-Constructor arguments that ask for anything else raise, naming the
-``ROADMAP.md`` item that ports it.  The plan's category default for the
-radix prefix cache is treated as 0 (disabled): the prefix cache is not
-ported yet.
+* ``"paged"`` (default): a fixed-capacity ``KVArena`` per group.
+  Attention families step paged-native (``prefill_chunk_paged``/
+  ``decode_step_paged`` read and write the page pools in place through the
+  block tables).  The others step over a dense view: pure-SSM families
+  (all per-slot state), ring (sliding-window) layouts, whose window is per
+  slot state and whose prompts prefill in one shot at admission
+  (``ring_fallback``), and ``paged_native=False``, the reference's test
+  oracle for the native step.  The dense-view step gathers the slots'
+  pages (``arena.dense_view``), runs the family's dense ``prefill_chunk``
+  (the dense chunk-attention kernel) or ``decode_step`` on it, and writes
+  the new rows back (``arena.append_rows``).  ``chunked_prefill=False``
+  prefills each admission in one shot and scatters its pages
+  (``arena.write_prefill``).
+* ``"dense"``: the pre-arena path.  Each admission prefills in one shot
+  and ``kvcache.merge`` copies the whole live cache to join it; eviction
+  compacts it with ``kvcache.select_slots``.
+
+``mode="sync"`` is the run-to-completion baseline: each step composes one
+batch, left-pads its prompts with token 0 (no mask: a short prompt attends
+to its pads, as in the reference), prefills it in one shot and decodes it
+to its longest request's budget.
+
+Stateful plans (``plan.sticky``) pin each session to one DP group from its
+admission until its last request leaves.  The first chunk of a request
+starts from zeroed state rows; for the audio family it also carries the
+request's frame embeddings (``extras["embeddings"]``), from which the
+encoder-decoder projects the slot's cross-attention K/V state.
+
+Not ported (constructor arguments that ask for them raise, naming the
+``ROADMAP.md`` item): the radix prefix cache (its category default is
+treated as 0), SDF admission, speculative decoding and n-way forks,
+stochastic sampling.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,8 +66,9 @@ from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi, model_api
 
+from . import kvcache
 from .arena import KVArena
-from .batching import QueuedItem, make_composer
+from .batching import ComposedBatch, QueuedItem, make_composer
 from .sampler import SamplerConfig, sample_per_slot
 
 DEFAULT_MAX_SEQ_LEN = 256
@@ -95,9 +109,14 @@ class StepStats:
     in_flight: int = 0               # occupied slots after the step
     pending: int = 0                 # queued requests after the step
     queue_time_s: float = 0.0        # est. wait for a new arrival
+    admission_copy_bytes: int = 0    # cache bytes copied by admissions and
+    #                                  the dense impl's eviction compaction
     chunk_write_bytes: int = 0       # cache bytes written by chunked prefill
+    whole_cache_copies: int = 0      # live-batch copies (dense merge or
+    #                                  select_slots compaction)
     decode_steps: int = 0            # fused decode invocations this step
     prefill_chunk_tokens: int = 0    # prompt tokens prefilled this step
+    oneshot_prefills: int = 0        # admissions prefilled in one shot
     moe_dropped_tokens: float = 0.0  # MoE expert-capacity drops this step
     #                                  (token-assignments past capacity;
     #                                  nonzero under binding capacity, where
@@ -150,11 +169,13 @@ class _Slot:
 
 
 class _GroupState:
-    """Persistent in-flight state of one DP replica group."""
-    __slots__ = ("slots", "arena")
+    """Persistent in-flight state of one DP replica group: its slots and
+    either a ``KVArena`` (paged) or a compacted cache dict (dense)."""
+    __slots__ = ("slots", "arena", "cache")
 
     def __init__(self):
         self.arena: Optional[KVArena] = None
+        self.cache: Optional[Dict[str, Any]] = None   # dense impl only
         self.slots: List[_Slot] = []
 
     @property
@@ -186,24 +207,20 @@ class ServiceRuntime:
                  admission_policy: Optional[str] = None,
                  draft_params=None, draft_cfg: Optional[ModelConfig] = None,
                  speculate: Optional[int] = None, device=None):
-        if mode != "continuous":
-            raise _not_ported(f"mode={mode!r}", "item 11 (sync and dense "
-                              "oracle paths)")
-        if kvcache_impl != "paged":
-            raise _not_ported(f"kvcache_impl={kvcache_impl!r}",
-                              "item 11 (sync and dense oracle paths)")
-        if chunked_prefill is False or paged_native is False:
-            raise _not_ported("one-shot prefill and the dense-view step",
-                              "item 11 (sync and dense oracle paths)")
-        self.api: ModelApi = model_api(cfg)
-        # attention families step paged-native; pure-SSM families have no
-        # paged-native step and take the state path
-        self.native = self.api.decode_step_paged is not None
-        if paged_native and not self.native:
+        if mode not in ("continuous", "sync"):
+            raise ValueError(f"mode must be continuous|sync, got {mode!r}")
+        if kvcache_impl not in ("paged", "dense"):
             raise ValueError(
-                f"paged_native requires a family with paged-native entry "
-                f"points, not {cfg.family!r}: pure-SSM families keep the "
-                f"state path")
+                f"kvcache_impl must be paged|dense, got {kvcache_impl!r}")
+        # dense caches are never quantized: an EXPLICIT int8 ask on a dense
+        # engine is a config error, the category's default keeps the
+        # model's dtype there
+        if plan.kv_dtype == "int8" and kvcache_impl != "paged":
+            raise ValueError(
+                "kv_dtype='int8' requires kvcache_impl='paged' (only page "
+                "pools are block-quantized); dense caches keep the model's "
+                "native dtype")
+        self.api: ModelApi = model_api(cfg)
         if (prefix_cache not in (None, 0, False)
                 or plan.prefix_cache > 0):
             raise _not_ported("the radix prefix cache", "item 2")
@@ -224,7 +241,10 @@ class ServiceRuntime:
         self.cfg = cfg
         self.params = params
         self.plan = plan
-        self.kv_dtype = plan.resolved_kv_dtype()
+        self.mode = mode
+        self.kvcache_impl = kvcache_impl
+        self.kv_dtype = (plan.resolved_kv_dtype() if kvcache_impl == "paged"
+                         else "bf16")
         self.max_seq_len = max_seq_len
         self.block_size = block_size
         self.pool_blocks = pool_blocks
@@ -234,9 +254,13 @@ class ServiceRuntime:
         self.groups: Dict[int, _GroupState] = {
             g: _GroupState() for g in range(max(1, plan.dp))}
         self.decode_steps = 0        # fused decode invocations (all groups)
+        self.admission_copy_bytes = 0  # cache bytes copied by admissions
         self.chunk_write_bytes = 0   # fresh rows appended by chunked prefill
+        self.whole_cache_copies = 0  # admissions/evictions that copied the
+        #                              live batch (dense impl)
         self.prefill_chunk_calls = 0  # chunk invocations (all groups)
         self.prefill_tokens_computed = 0  # prompt tokens run through prefill
+        self.oneshot_prefills = 0    # admissions via one-shot prefill
         self._session_refs: Dict[int, int] = {}  # sticky session -> requests
         self._service_ewma_s = 0.0   # EWMA of per-request service time
         self._moe_stats = None
@@ -247,10 +271,45 @@ class ServiceRuntime:
             # process; read once per step, see models/moe.py)
             moe.enable_drop_counter(True)
             self._moe_stats = moe.MOE_DROP_STATS
-        if (cfg.sliding_window is not None
-                and cfg.sliding_window < self.slot_token_budget):
-            raise _not_ported("ring (sliding-window) cache layouts",
-                              "item 11 (sync and dense oracle paths)")
+
+        # ring (sliding-window) layouts: a window shorter than the slot
+        # budget is a per-slot ring of the last ``window`` tokens, which
+        # the linear chunk writes do not model, so they keep one-shot
+        # admission prefill and the dense-view step
+        ring = (cfg.sliding_window is not None
+                and cfg.sliding_window < self.slot_token_budget)
+        # attention families step paged-native; pure-SSM families (all
+        # per-slot state) and ring layouts keep the dense-view step, and
+        # ``paged_native=False`` forces it on an attention family: the
+        # ORACLE the native step is held against
+        native_ok = (mode == "continuous" and kvcache_impl == "paged"
+                     and self.api.decode_step_paged is not None and not ring)
+        if paged_native is None:
+            paged_native = native_ok
+        elif paged_native and not native_ok:
+            raise ValueError(
+                "paged_native requires mode='continuous', "
+                "kvcache_impl='paged', a family with paged-native entry "
+                f"points (not {cfg.family!r} with ring={ring}): pure-SSM "
+                "families and ring (sliding-window) layouts keep the "
+                "state/dense-view path")
+        self.paged_native = bool(paged_native)
+        if chunked_prefill is None:
+            chunked_prefill = (mode == "continuous"
+                               and kvcache_impl == "paged" and not ring)
+        elif chunked_prefill:
+            if mode != "continuous" or kvcache_impl != "paged":
+                raise ValueError("chunked_prefill requires "
+                                 "mode='continuous' + kvcache_impl='paged'")
+            if ring:
+                raise ValueError("chunked_prefill does not support ring "
+                                 "(sliding-window) cache layouts")
+        self.chunked_prefill = bool(chunked_prefill)
+        # ring layouts take the one-shot path: an explicit, counted state
+        # (StepStats.oneshot_prefills)
+        self.ring_fallback = bool(ring and mode == "continuous"
+                                  and kvcache_impl == "paged"
+                                  and not self.chunked_prefill)
 
         explicit_chunk = (prefill_chunk if prefill_chunk is not None
                           else (plan.prefill_chunk or None))
@@ -310,12 +369,16 @@ class ServiceRuntime:
                     f"audio request {req.rid} needs extras['embeddings'] of "
                     f"shape {want}, got "
                     f"{None if emb is None else tuple(np.shape(emb))}")
-        total = (len(req.tokens) + self._extra_cache_tokens()
-                 + req.max_new_tokens)
-        if total > self.slot_token_budget:
-            raise ValueError(
-                f"request {req.rid} needs {total} cache tokens > per-slot "
-                f"budget {self.slot_token_budget}; raise max_seq_len")
+        if self.kvcache_impl == "paged" and self.mode == "continuous":
+            # reject over-budget requests at the door: raising later, mid-
+            # admission, would drop the composed batch's other members
+            total = (len(req.tokens) + self._extra_cache_tokens()
+                     + req.max_new_tokens)
+            if total > self.slot_token_budget:
+                raise ValueError(
+                    f"request {req.rid} needs {total} cache tokens > "
+                    f"per-slot budget {self.slot_token_budget}; raise "
+                    f"max_seq_len")
         if self.plan.sticky and req.stream:
             self._session_refs[req.stream] = \
                 self._session_refs.get(req.stream, 0) + 1
@@ -330,6 +393,25 @@ class ServiceRuntime:
 
     def total_slots(self) -> int:
         return self.plan.max_in_flight * len(self.groups)
+
+    # -- shared helpers ---------------------------------------------------
+    def _pad_prompts(self, reqs: Sequence[GenerationRequest]):
+        """Left-pad the prompts with token 0 to the longest: (B, L) int32 on
+        the device.  No mask goes with them: a short prompt attends to its
+        pads, as in the reference."""
+        L = max(len(r.tokens) for r in reqs)
+        toks = np.zeros((len(reqs), L), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, L - len(r.tokens):] = r.tokens
+        return torch.from_numpy(toks).to(self.device)
+
+    def _build_batch(self, reqs: Sequence[GenerationRequest], toks):
+        batch: Dict[str, Any] = {"tokens": toks}
+        if self.cfg.family == "audio":
+            batch["embeddings"] = torch.from_numpy(np.stack(
+                [np.asarray(r.extras["embeddings"], np.float32)
+                 for r in reqs])).to(self.device)
+        return batch
 
     def _extra_cache_tokens(self) -> int:
         """Cache positions a request takes beyond its text prompt: the VLM
@@ -350,19 +432,20 @@ class ServiceRuntime:
 
     def queue_time_estimate(self) -> float:
         """Expected wait before a newly queued request starts decoding:
-        queued request waves plus the chunked-prefill backlog (queued and
-        admitted-but-unconsumed prompt tokens drain at most one chunk
-        budget per group per step)."""
+        queued request waves plus, under chunked prefill, the prompt
+        backlog (queued and admitted-but-unconsumed prompt tokens drain at
+        most one chunk budget per group per step)."""
         if self._service_ewma_s <= 0.0:
             return 0.0
         waves = self.pending() / max(1, self.total_slots())
-        backlog = (self.composer.pending_prefill_tokens()
-                   + sum(len(s.req.tokens) - s.consumed
-                         for g in self.groups.values() for s in g.slots
-                         if s.prefilling))
-        chunk_steps = backlog / (self.prefill_chunk_tokens
-                                 * max(1, len(self.groups)))
-        waves += chunk_steps / max(1, self.total_slots())
+        if self.chunked_prefill and self.prefill_chunk_tokens > 0:
+            backlog = (self.composer.pending_prefill_tokens()
+                       + sum(len(s.req.tokens) - s.consumed
+                             for g in self.groups.values() for s in g.slots
+                             if s.prefilling))
+            chunk_steps = backlog / (self.prefill_chunk_tokens
+                                     * max(1, len(self.groups)))
+            waves += chunk_steps / max(1, self.total_slots())
         return waves * self._service_ewma_s
 
     # ------------------------------------------------------------------
@@ -374,8 +457,11 @@ class ServiceRuntime:
 
     def _evict(self, group: int, state: _GroupState,
                now: float) -> List[GenerationResult]:
-        """(a) Release every slot whose request finished."""
-        if not any(s.done for s in state.slots):
+        """(a) Release every slot whose request finished.  Paged: a
+        free-list operation per slot.  Dense: compact the cache's batch
+        axis with ``select_slots`` (a whole-batch copy)."""
+        keep = [i for i, s in enumerate(state.slots) if not s.done]
+        if len(keep) == len(state.slots):
             return []
         results = []
         for s in state.slots:
@@ -389,9 +475,16 @@ class ServiceRuntime:
                 decode_steps=s.steps)
             results.append(res)
             self._note_service_time(res)
-            state.arena.free(s.slot_id)
+            if state.arena is not None:
+                state.arena.free(s.slot_id)
             self._release_session(s.req)
-        state.slots = [s for s in state.slots if not s.done]
+        state.slots = [state.slots[i] for i in keep]
+        if state.arena is None:
+            state.cache = (kvcache.select_slots(state.cache, keep)
+                           if keep else None)
+            if keep:                 # compaction re-materialized the batch
+                self.whole_cache_copies += 1
+                self.admission_copy_bytes += kvcache.cache_bytes(state.cache)
         return results
 
     def _release_session(self, req: GenerationRequest) -> None:
@@ -418,22 +511,61 @@ class ServiceRuntime:
 
     def _admit_one(self, req: GenerationRequest, state: _GroupState,
                    now: float) -> bool:
-        """(b) Claim a slot: just an arena ``alloc``; the prompt is
-        prefilled chunk by chunk in (b2).  False when the arena is out of
-        blocks (the caller requeues)."""
-        arena = self._ensure_arena(state)
-        total = (len(req.tokens) + self._extra_cache_tokens()
-                 + req.max_new_tokens)
-        if total > arena.slot_tokens:
-            raise ValueError(
-                f"request {req.rid} needs {total} tokens > per-slot "
-                f"budget {arena.slot_tokens}; raise max_seq_len")
-        if not arena.can_alloc(total):
-            return False
-        slot_id = arena.alloc(total)
-        arena.reset_len(slot_id)
-        state.slots.append(_Slot(req, admit_wall=time.perf_counter(),
-                                 admitted_s=now, slot_id=slot_id))
+        """(b) Claim a slot for one admission.  Chunked paged: an arena
+        ``alloc``; the prompt is prefilled chunk by chunk in (b2).
+        One-shot paged: prefill, then ``write_prefill`` scatters the
+        prompt's pages and the slot's state.  Dense: prefill, then
+        ``kvcache.merge`` copies the live batch to join it.  False when
+        the arena is out of blocks (the caller requeues)."""
+        extra = self._extra_cache_tokens()
+        if self.kvcache_impl == "paged":
+            arena = self._ensure_arena(state)
+            total = len(req.tokens) + extra + req.max_new_tokens
+            if total > arena.slot_tokens:
+                raise ValueError(
+                    f"request {req.rid} needs {total} tokens > per-slot "
+                    f"budget {arena.slot_tokens}; raise max_seq_len")
+            if not arena.can_alloc(total):
+                return False
+            if self.chunked_prefill:
+                slot_id = arena.alloc(total)
+                arena.reset_len(slot_id)
+                state.slots.append(_Slot(req, admit_wall=time.perf_counter(),
+                                         admitted_s=now, slot_id=slot_id))
+                return True
+            # the prefill's cache lands exactly on the slot's rows
+            cache_size = arena.slot_tokens - extra
+        else:
+            cache_size = int(len(req.tokens) + req.max_new_tokens)
+
+        t0 = time.perf_counter()
+        batch = self._build_batch([req], self._pad_prompts([req]))
+        logits, cache = self.api.prefill(self.params, self.cfg, batch,
+                                         cache_size=cache_size)
+        first = int(sample_per_slot(logits, [self._req_seed(req)], [0], [0],
+                                    self.sampler)[0])
+        t1 = time.perf_counter()
+        self.oneshot_prefills += 1
+        self.prefill_tokens_computed += len(req.tokens)
+        if self.kvcache_impl == "paged":
+            slot_id = arena.alloc(total)
+            self.admission_copy_bytes += arena.write_prefill(
+                slot_id, cache, prompt_len=len(req.tokens) + extra)
+        else:
+            slot_id = len(state.slots)
+            cache = kvcache.with_lens(cache, kvcache.lens(cache))
+            self.admission_copy_bytes += kvcache.cache_bytes(cache)
+            if state.cache is None:
+                state.cache = cache
+            else:
+                # the merge copies the entire live batch to admit one row
+                self.admission_copy_bytes += kvcache.cache_bytes(state.cache)
+                self.whole_cache_copies += 1
+                state.cache = kvcache.merge([state.cache, cache])
+        slot = _Slot(req, admit_wall=t0, admitted_s=now, slot_id=slot_id)
+        slot.prefill_s = t1 - t0
+        slot.begin_decode(first, t1)
+        state.slots.append(slot)
         return True
 
     def _route_admission(self, item: QueuedItem) -> Optional[int]:
@@ -472,9 +604,12 @@ class ServiceRuntime:
 
     def _run_chunk(self, arena: KVArena, s: _Slot, T: int):
         """Advance one slot's prefill by one ``T``-bucket chunk; returns
-        the chunk's logits (only the final chunk's are consumed).  The
-        steps write the chunk's K/V rows and the slot's state rows into
-        the arena in place."""
+        the chunk's logits (only the final chunk's are consumed).
+        Paged-native: the step writes the chunk's K/V rows into the pools
+        through the slot's block-table row.  Otherwise: the slot's dense
+        view is gathered, the family's dense ``prefill_chunk`` runs on it,
+        and the rows it wrote go back to the pages (``append_rows``).
+        Either way the slot's state rows are written in place."""
         rem = len(s.req.tokens) - s.consumed
         n_valid = min(rem, T)
         toks = np.zeros((1, T), np.int32)
@@ -490,17 +625,24 @@ class ServiceRuntime:
             if self.cfg.family == "audio":
                 batch["embeddings"] = torch.from_numpy(np.asarray(
                     s.req.extras["embeddings"])[None]).to(dev)
-        cache = arena.assemble(arena.pages, arena.slot_state(sid),
-                               arena.lens[sid:sid + 1])
+        start = arena.lens[sid:sid + 1]
         chunk_len = torch.tensor([n_valid], dtype=torch.int32, device=dev)
-        if self.native:
+        bt_row = torch.from_numpy(arena._block_tables[sid:sid + 1]).to(dev)
+        if self.paged_native:
+            cache = arena.assemble(arena.pages, arena.slot_state(sid), start)
             logits, new_cache = self.api.prefill_chunk_paged(
-                self.params, self.cfg, batch, cache,
-                torch.from_numpy(arena._block_tables[sid:sid + 1]).to(dev),
+                self.params, self.cfg, batch, cache, bt_row,
                 chunk_len=chunk_len, block_size=arena.block_size)
         else:
+            dense = arena.dense_view(arena.pages, bt_row)
+            cache = arena.assemble(dense, arena.slot_state(sid), start)
             logits, new_cache = self.api.prefill_chunk(
                 self.params, self.cfg, batch, cache, chunk_len=chunk_len)
+            new_dense, _ = arena.disassemble(new_cache)
+            arena.append_rows(arena.pages, new_dense, start,
+                              torch.ones((1,), dtype=torch.bool, device=dev),
+                              bt_row, n_tokens=T,
+                              valid_tokens=new_cache["len"] - start)
         arena.lens[sid] = new_cache["len"][0]
         s.consumed += n_valid
         self.prefill_chunk_calls += 1
@@ -512,7 +654,7 @@ class ServiceRuntime:
         """(b2) Advance in-progress prefills, at most ``prefill_chunk``
         tokens per group per step.  The final chunk's logits seed the
         request's first sampled token."""
-        if state.arena is None:
+        if state.arena is None or not self.chunked_prefill:
             return 0
         budget = self.prefill_chunk_tokens
         done_tokens = 0
@@ -541,8 +683,14 @@ class ServiceRuntime:
                     s.prefill_s += time.perf_counter() - t0
         return done_tokens
 
-    def _decode_group(self, state: _GroupState) -> None:
-        """(c) One fused decode step over every occupied slot."""
+    def _decode_group_paged(self, state: _GroupState) -> None:
+        """(c) One fused decode step over every slot of the arena.
+        Paged-native: attention reads the pools in place and writes each
+        live slot's new row.  Otherwise: the dense view of every slot is
+        gathered, the family's dense ``decode_step`` runs on it (dense
+        decode attention), and each live slot's new row goes back to its
+        pages.  Both commit only live slots: dead slots keep their state
+        and their length."""
         arena = state.arena
         cap = arena.capacity
         tokens = np.zeros((cap,), np.int32)
@@ -562,17 +710,21 @@ class ServiceRuntime:
         dev = self.device
         live_dev = torch.from_numpy(live).to(dev)
         tokens_dev = torch.from_numpy(tokens).to(dev)
-        cache = arena.assemble(arena.pages, arena.state, arena.lens)
-        # both steps commit only live slots: dead slots keep their state
-        # and their length
-        if self.native:
+        tables = arena.device_block_tables()
+        if self.paged_native:
+            cache = arena.assemble(arena.pages, arena.state, arena.lens)
             logits, new_cache = self.api.decode_step_paged(
-                self.params, self.cfg, tokens_dev, cache,
-                arena.device_block_tables(), live_dev,
+                self.params, self.cfg, tokens_dev, cache, tables, live_dev,
                 block_size=arena.block_size)
         else:
+            dense = arena.dense_view(arena.pages, tables)
+            cache = arena.assemble(dense, arena.state, arena.lens)
             logits, new_cache = self.api.decode_step(
                 self.params, self.cfg, tokens_dev, cache, live=live_dev)
+            new_dense, new_state = arena.disassemble(new_cache)
+            arena.append_rows(arena.pages, new_dense, arena.lens, live_dev,
+                              tables)
+            arena.merge_state(arena.state, new_state, live_dev)
         arena.lens = new_cache["len"]
         toks = sample_per_slot(
             logits, seeds, np.zeros((cap,), np.uint32), offs, self.sampler,
@@ -584,17 +736,41 @@ class ServiceRuntime:
             slot.steps += 1
             slot.push(int(toks[slot.slot_id]))
 
-    def step(self, now: float = 0.0,
-             max_wait_s: float = float("inf")) -> StepStats:
-        """Advance the data plane by one scheduling round: evict, admit,
-        chunked prefill, one fused decode step."""
+    def _decode_group_dense(self, state: _GroupState) -> None:
+        """(c) The dense impl's fused decode over its compacted cache (every
+        row steps; finished rows await eviction and emit nothing)."""
+        live = np.array([not s.done for s in state.slots])
+        if not live.any():
+            return               # everything awaits eviction
+        dev = self.device
+        cur = torch.tensor([s.emitted[-1] if not s.done else 0
+                            for s in state.slots], dtype=torch.int32,
+                           device=dev)
+        logits, state.cache = self.api.decode_step(self.params, self.cfg,
+                                                   cur, state.cache)
+        toks = sample_per_slot(
+            logits, [self._req_seed(s.req) for s in state.slots],
+            [0] * len(state.slots), [len(s.emitted) for s in state.slots],
+            self.sampler, live=torch.from_numpy(live).to(dev)).cpu().numpy()
+        self.decode_steps += 1
+        for i, slot in enumerate(state.slots):
+            if slot.done:
+                continue
+            slot.steps += 1
+            slot.push(int(toks[i]))
+
+    def _decode_group(self, state: _GroupState) -> None:
+        if not state.slots:
+            return
+        if state.arena is not None:
+            self._decode_group_paged(state)
+        else:
+            self._decode_group_dense(state)
+
+    def _step_continuous(self, now: float, max_wait_s: float) -> StepStats:
+        copy0, whole0 = self.admission_copy_bytes, self.whole_cache_copies
         chunkw0, steps0 = self.chunk_write_bytes, self.decode_steps
-        moe0 = 0.0
-        if self._moe_stats is not None:
-            # drops of MoE calls made since the last step (outside any
-            # step) go to the totals, not to this step
-            self._moe_stats.flush()
-            moe0 = self._moe_stats.dropped
+        one0 = self.oneshot_prefills
         results: List[GenerationResult] = []
         for group, state in self.groups.items():
             results.extend(self._evict(group, state, now))
@@ -602,20 +778,94 @@ class ServiceRuntime:
         chunk_tokens = 0
         for state in self.groups.values():
             chunk_tokens += self._prefill_chunks(state)
-            if state.slots:
-                self._decode_group(state)
-        if self._moe_stats is not None:
-            self._moe_stats.flush()
+            self._decode_group(state)
         return StepStats(
             results=results, now=now, admitted=admitted,
             evicted=len(results), in_flight=self.in_flight(),
             pending=self.pending(),
             queue_time_s=self.queue_time_estimate(),
+            admission_copy_bytes=self.admission_copy_bytes - copy0,
             chunk_write_bytes=self.chunk_write_bytes - chunkw0,
+            whole_cache_copies=self.whole_cache_copies - whole0,
             decode_steps=self.decode_steps - steps0,
             prefill_chunk_tokens=chunk_tokens,
-            moe_dropped_tokens=((self._moe_stats.dropped - moe0)
-                                if self._moe_stats is not None else 0.0))
+            oneshot_prefills=self.oneshot_prefills - one0)
+
+    # ------------------------------------------------------------------
+    # sync mode: run-to-completion batches (the pre-slot baseline)
+    # ------------------------------------------------------------------
+    def run_batch(self, composed: ComposedBatch, *,
+                  now: float = 0.0) -> List[GenerationResult]:
+        """Prefill one composed batch in one shot (left-padded prompts) and
+        decode it to its longest request's budget; each request keeps its
+        own first ``max_new_tokens`` tokens.  Every member is charged the
+        batch's prefill and decode wall time."""
+        reqs = [item.payload for item in composed.items]
+        group = self.router.route(session=reqs[0].stream)
+        toks = self._pad_prompts(reqs)
+        max_new = max(r.max_new_tokens for r in reqs)
+        cache_size = int(toks.shape[1] + max_new)
+
+        t0 = time.perf_counter()
+        batch = self._build_batch(reqs, toks)
+        logits, cache = self.api.prefill(self.params, self.cfg, batch,
+                                         cache_size=cache_size)
+        self._sync()
+        t1 = time.perf_counter()
+        self.oneshot_prefills += len(reqs)
+        self.prefill_tokens_computed += sum(len(r.tokens) for r in reqs)
+
+        seeds = [self._req_seed(r) for r in reqs]
+        zeros = [0] * len(reqs)
+        cur = sample_per_slot(logits, seeds, zeros, zeros, self.sampler)
+        outs = [cur]
+        for i in range(max_new - 1):
+            logits, cache = self.api.decode_step(self.params, self.cfg, cur,
+                                                 cache)
+            cur = sample_per_slot(logits, seeds, zeros, [i + 1] * len(reqs),
+                                  self.sampler)
+            outs.append(cur)
+            self.decode_steps += 1
+        gen = torch.stack(outs, dim=1).cpu().numpy()      # (B, max_new)
+        t2 = time.perf_counter()
+        results = []
+        for i, r in enumerate(reqs):
+            results.append(GenerationResult(
+                rid=r.rid, tokens=gen[i, :r.max_new_tokens],
+                prefill_s=t1 - t0, decode_s=t2 - t1, group=group,
+                admitted_s=now, finished_s=now,
+                decode_steps=max_new - 1))
+            self._release_session(r)
+        return results
+
+    def _step_sync(self, now: float, max_wait_s: float) -> StepStats:
+        steps0 = self.decode_steps
+        composed = self.composer.compose(now=now, max_wait_s=max_wait_s)
+        results = ([] if composed is None
+                   else self.run_batch(composed, now=now))
+        return StepStats(results=results, now=now, admitted=len(results),
+                         evicted=len(results), in_flight=self.in_flight(),
+                         pending=self.pending(),
+                         queue_time_s=self.queue_time_estimate(),
+                         decode_steps=self.decode_steps - steps0)
+
+    def step(self, now: float = 0.0,
+             max_wait_s: float = float("inf")) -> StepStats:
+        """Advance the data plane by one scheduling round.  Continuous
+        mode: evict, admit, chunked prefill, one fused decode step.  Sync
+        mode: compose one batch and run it to completion."""
+        moe0 = 0.0
+        if self._moe_stats is not None:
+            # drops of MoE calls made since the last step (outside any
+            # step) go to the totals, not to this step
+            self._moe_stats.flush()
+            moe0 = self._moe_stats.dropped
+        stats = (self._step_sync(now, max_wait_s) if self.mode == "sync"
+                 else self._step_continuous(now, max_wait_s))
+        if self._moe_stats is not None:
+            self._moe_stats.flush()
+            stats.moe_dropped_tokens = self._moe_stats.dropped - moe0
+        return stats
 
     def drain(self, now: float = 0.0,
               max_wait_s: float = 0.0) -> List[GenerationResult]:

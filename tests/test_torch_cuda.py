@@ -16,6 +16,9 @@ rows that see nothing must hold -NEG_INF).  The grouped GEMM's bf16 output
 is held to the f32 product of the same bf16 values with atol = rtol =
 1.6e-2 (one rounding to bf16, sums in another order); its float32 instance
 to atol = rtol = 1e-3 (f32 sums over up to 14,336 terms in another order).
+The dense chunked-prefill kernel's bf16 output is held to its plain
+version on the same bf16 inputs with atol = rtol = 1.6e-2 and, at every
+row, to 1e-2 of that row's norm plus 1e-5 an element.
 The flash backward's bf16 dq, dk and dv are held to its plain version on
 the same bf16 inputs (which rounds dS and P to bf16 where the kernel
 does) with atol = rtol = 1.6e-2: sums in another order over up to a few
@@ -28,9 +31,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (build, decode_attention, flash_attention,
-                                 flash_attention_bwd, grouped_matmul, ops,
-                                 paged_attention, ref, ssd_scan)
+from repro_torch.kernels import (build, chunk_attention, decode_attention,
+                                 flash_attention, flash_attention_bwd,
+                                 grouped_matmul, ops, paged_attention, ref,
+                                 ssd_scan)
 from repro_torch.kernels.quant import QuantPages, quantize
 
 TOL = 1.6e-2
@@ -354,3 +358,70 @@ def test_cuda_flash_attention_autograd_runs_both_kernels(cuda_device):
         torch.testing.assert_close(t.grad.float(), w.float(), atol=TOL,
                                    rtol=TOL)
         _assert_rows_close(name, t.grad, w)
+
+
+CHUNK_CASES = {       # (B, T, S, Hq, Hkv, D), start, chunk_len, prefix_len
+    "minicpm_path": ((1, 128, 256, 36, 36, 64), [64], [128], 0),
+    "gqa_d128_ragged": ((3, 13, 300, 32, 8, 128), [0, 40, 287], [13, 0, 13],
+                        40),
+    "ragged_s": ((2, 128, 200, 36, 36, 64), [0, 100], [128, 77], 0),
+    "mqa_prefix": ((1, 40, 97, 8, 1, 64), [57], [40], 20),
+    "all_dead": ((2, 16, 64, 4, 2, 64), [5, 9], [0, 0], 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_cuda_chunk_attention_matches_plain(cuda_device, case):
+    """The dense chunked-prefill kernel on K and V read in place from a
+    wider (B, S, 2 * Hkv, D) buffer: GQA and MQA, D = 64 and 128, per-row
+    start and chunk_len with empty rows, a prefix past the first tile, T
+    and S off the tiles; rows past chunk_len are zeros."""
+    (B, T, S, Hq, Hkv, D), start, cl, prefix = CHUNK_CASES[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(9)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    q, kv = rand(B, T, Hq, D), rand(B, S, 2 * Hkv, D)
+    k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]
+    st = torch.tensor(start, dtype=torch.int32, device=cuda_device)
+    n = torch.tensor(cl, dtype=torch.int32, device=cuda_device)
+    before = chunk_attention.launches["chunk_prefill_attention"]
+    out = ops.chunk_attention(q, k, v, st, n, prefix_len=prefix)
+    want = ref.chunk_attention_ref(q.float(), k.float(), v.float(), st, n,
+                                   prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert chunk_attention.launches["chunk_prefill_attention"] == before + 1
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    _assert_rows_close("out", out, want)
+    for b, c in enumerate(cl):
+        assert not out[b, c:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_attention_rejects_what_it_does_not_take(cuda_device):
+    dev = cuda_device
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=dev)
+    cache = torch.zeros(1, 32, 2, 64, dtype=torch.bfloat16, device=dev)
+    wide = torch.zeros(1, 32, 2, 68, dtype=torch.bfloat16, device=dev)
+    st = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = dict(chunk_attention.launches)
+    calls = {
+        "head dim": lambda: chunk_attention.chunk_prefill_attention(
+            q[..., :32].contiguous(), cache[..., :32].contiguous(),
+            cache[..., :32].contiguous(), st, st),
+        "bf16": lambda: chunk_attention.chunk_prefill_attention(
+            q.float(), cache, cache, st, st),
+        "contiguous": lambda: chunk_attention.chunk_prefill_attention(
+            q.transpose(1, 2), cache, cache, st, st),
+        "multiples of 8": lambda: chunk_attention.chunk_prefill_attention(
+            q, wide[..., 4:], cache, st, st),
+        "CUDA tensor": lambda: chunk_attention.chunk_prefill_attention(
+            q, cache, cache, st.cpu(), st),
+        "int32": lambda: chunk_attention.chunk_prefill_attention(
+            q, cache, cache, st.long(), st),
+    }
+    for msg, call in calls.items():
+        with pytest.raises(ValueError, match=msg):
+            call()
+    assert chunk_attention.launches == before

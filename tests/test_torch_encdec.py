@@ -175,10 +175,14 @@ def test_chunks_then_decode_match_reference(impl):
 
 
 def test_unported_entry_points_raise():
-    for fn in (encdec.prefill, encdec.prefill_chunk, encdec.decode_step,
-               encdec.forward_hidden):
-        with pytest.raises(NotImplementedError, match="items 11"):
-            fn()
+    """``forward_hidden`` (training) raises, naming ROADMAP.md Queue 1 item
+    12; the one-shot ``prefill`` and the dense ``prefill_chunk`` and
+    ``decode_step`` (item 11, ported) are the registry's entry points."""
+    with pytest.raises(NotImplementedError, match="item 12"):
+        encdec.forward_hidden()
+    api = model_api(_mirror(_cfg()))
+    assert (api.prefill, api.prefill_chunk, api.decode_step) == (
+        encdec.prefill, encdec.prefill_chunk, encdec.decode_step)
 
 
 def test_cross_state_bytes_at_full_width():
@@ -247,7 +251,7 @@ def test_request_wave_matches_reference(kv_dtype):
     assert sorted(got) == sorted(want) == list(range(len(WAVE)))
     for rid in want:
         np.testing.assert_array_equal(got[rid].tokens, want[rid].tokens)
-    assert jrt.paged_native and trt.native
+    assert jrt.paged_native and trt.paged_native
     assert trt.chunk_buckets == jrt.chunk_buckets
     for name in ("decode_steps", "prefill_chunk_calls",
                  "prefill_tokens_computed", "chunk_write_bytes"):
@@ -305,4 +309,5 @@ def test_registry_serves_audio_paged_native():
     api = model_api(_mirror(_cfg()))
     assert api.prefill_chunk_paged is encdec.prefill_chunk_paged
     assert api.decode_step_paged is encdec.decode_step_paged
-    assert api.prefill_chunk is None and api.decode_step is None
+    assert api.prefill_chunk is encdec.prefill_chunk
+    assert api.decode_step is encdec.decode_step

@@ -129,10 +129,11 @@ def test_cuda_wrappers_reject_cpu_tensors():
 
 
 def test_attention_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels import chunk_attention as ca
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
-    before = {**fa.launches, **fab.launches, **da.launches}
+    before = {**fa.launches, **fab.launches, **da.launches, **ca.launches}
     q4 = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
     lse = torch.zeros(1, 8, 4)
     q3 = torch.zeros(2, 4, 64, dtype=torch.bfloat16)
@@ -144,7 +145,14 @@ def test_attention_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         da.decode_attention(q3, cache, cache,
                             torch.ones(2, dtype=torch.int32))
-    assert {**fa.launches, **fab.launches, **da.launches} == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ca.chunk_prefill_attention(torch.zeros(2, 8, 4, 64,
+                                               dtype=torch.bfloat16),
+                                   cache, cache,
+                                   torch.zeros(2, dtype=torch.int32),
+                                   torch.ones(2, dtype=torch.int32))
+    assert {**fa.launches, **fab.launches, **da.launches,
+            **ca.launches} == before
 
 
 def test_flash_attention_refuses_inputs_that_require_grad():
@@ -198,20 +206,40 @@ def test_unported_families_name_their_item(family, item):
 
 
 def test_moe_family_is_ported_paged_native():
+    """(The name predates the dense entry points.)  The MoE family serves
+    through its paged-native steps and through every dense-cache entry
+    point."""
     from repro_torch.models import moe
     from repro_torch.models.registry import family_api
     api = family_api("moe")
     assert api.init is moe.init
     assert api.prefill_chunk_paged is moe.prefill_chunk_paged
     assert api.decode_step_paged is moe.decode_step_paged
-    assert api.prefill_chunk is None and api.decode_step is None
+    assert api.prefill is moe.prefill
+    assert api.prefill_chunk is moe.prefill_chunk
+    assert api.decode_step is moe.decode_step
 
 
 def test_unported_moe_entry_points_name_their_items():
+    """The one-shot ``prefill`` and the dense ``prefill_chunk`` and
+    ``decode_step`` run (they were ROADMAP.md Queue 1 item 11); training
+    and speculative verify still raise, naming items 12 and 4."""
+    from repro_torch.configs import get_config, reduced
     from repro_torch.models import moe
-    for fn in (moe.prefill, moe.prefill_chunk, moe.decode_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            fn()
+    cfg = reduced(get_config("mixtral-8x7b"))
+    params = moe.init(0, cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9))
+    logits, cache = moe.prefill(params, cfg, {"tokens": tokens},
+                                cache_size=16)
+    assert logits.shape == (2, cfg.vocab_size)
+    assert tuple(cache["k"].shape[1:3]) == (2, 16) and int(cache["len"]) == 9
+    logits, cache = moe.decode_step(params, cfg, tokens[:, 0], cache)
+    assert logits.shape == (2, cfg.vocab_size) and int(cache["len"]) == 10
+    logits, cache = moe.prefill_chunk(
+        params, cfg, {"tokens": tokens[:, :4]}, cache,
+        chunk_len=torch.tensor([4, 2], dtype=torch.int32))
+    assert cache["len"].tolist() == [14, 12]
+    assert bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         moe.forward_hidden()
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
@@ -219,9 +247,11 @@ def test_unported_moe_entry_points_name_their_items():
 
 
 def test_moe_budget_over_the_window_raises_naming_item_11():
-    """reduced(mixtral-8x7b) has a 64-token window: a larger slot budget
-    would need a ring layout.  The runtime refuses it, and so does the
-    launcher at its default --max-seq-len of 256."""
+    """(The name is the refusal's, which ring layouts replaced.)
+    reduced(mixtral-8x7b) has a 64-token window: a larger slot budget makes
+    its K/V a per-slot ring, served with one-shot prefill and the
+    dense-view step.  The runtime takes it, and so does the launcher at
+    its default --max-seq-len of 256."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch import serve
     from repro_torch.models import moe
@@ -230,14 +260,15 @@ def test_moe_budget_over_the_window_raises_naming_item_11():
     assert cfg.sliding_window == 64
     params = moe.init(0, cfg, device="cpu")
     plan = serve.plan_for(get_config("mixtral-8x7b"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ServiceRuntime(cfg, params, plan, max_seq_len=72, block_size=8,
-                       device="cpu")
-    ServiceRuntime(cfg, params, plan, max_seq_len=64, block_size=8,
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        serve.main(["--archs", "mixtral-8x7b", "--device", "cpu",
-                    "--requests", "1"])
+    rt = ServiceRuntime(cfg, params, plan, max_seq_len=72, block_size=8,
+                        device="cpu")
+    assert rt.ring_fallback and not rt.paged_native
+    assert not rt.chunked_prefill
+    rt = ServiceRuntime(cfg, params, plan, max_seq_len=64, block_size=8,
+                        device="cpu")
+    assert rt.paged_native and not rt.ring_fallback
+    assert serve.main(["--archs", "mixtral-8x7b", "--device", "cpu",
+                       "--requests", "1", "--max-new-tokens", "2"]) == 0
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "grok-1-314b"])

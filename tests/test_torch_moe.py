@@ -328,7 +328,8 @@ def test_request_wave_matches_reference(capacity_factor):
     the host counters."""
     cfg, jrt, trt = _runtimes(capacity_factor)
     drops = _lockstep_wave(cfg, jrt, trt)
-    assert trt.native and trt.chunk_buckets == jrt.chunk_buckets == (8, 16)
+    assert trt.paged_native
+    assert trt.chunk_buckets == jrt.chunk_buckets == (8, 16)
     for name in ("decode_steps", "prefill_chunk_calls",
                  "prefill_tokens_computed", "chunk_write_bytes"):
         assert getattr(trt, name) == getattr(jrt, name), name

@@ -127,10 +127,19 @@ def test_runtime_rejects_unported_options():
     plan = ParallelPlan(service="toy",
                         category=TaskCategory(Sensitivity.LATENCY, False),
                         bs=2)
-    for kw in (dict(mode="sync"), dict(kvcache_impl="dense"),
-               dict(prefix_cache=16), dict(admission_policy="sdf"),
-               dict(speculate=2), dict(chunked_prefill=False)):
+    for kw in (dict(prefix_cache=16), dict(admission_policy="sdf"),
+               dict(speculate=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ServiceRuntime(cfg, params, plan, device="cpu", **kw)
+    # the sync, dense and one-shot paths are ported (ROADMAP.md Queue 1
+    # item 11); their invalid combinations raise as in the reference
+    for kw in (dict(mode="sync"), dict(kvcache_impl="dense"),
+               dict(chunked_prefill=False), dict(paged_native=False)):
+        ServiceRuntime(cfg, params, plan, device="cpu", **kw)
+    for kw in (dict(mode="batch"), dict(kvcache_impl="ring"),
+               dict(mode="sync", chunked_prefill=True),
+               dict(kvcache_impl="dense", paged_native=True)):
+        with pytest.raises(ValueError):
             ServiceRuntime(cfg, params, plan, device="cpu", **kw)
     rt = ServiceRuntime(cfg, params, plan, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -311,7 +311,7 @@ def test_request_wave_matches_reference():
     assert sorted(got) == sorted(want) == list(range(len(WAVE)))
     for rid in want:
         np.testing.assert_array_equal(got[rid].tokens, want[rid].tokens)
-    assert not jrt.paged_native and not trt.native
+    assert not jrt.paged_native and not trt.paged_native
     assert trt.chunk_buckets == jrt.chunk_buckets == (8, 16, 32)
     for name in ("decode_steps", "prefill_chunk_calls",
                  "prefill_tokens_computed", "chunk_write_bytes"):
