@@ -47,7 +47,11 @@ in eight phases; any failure exits non-zero:
    beside ``scaled_dot_product_attention`` with the same boolean mask, and
    at odd shapes (GQA 32/8 at D = 128, per-row start and chunk_len with an
    empty row, a prefix past the first tile, T = 13, S = 300, K/V read in
-   place from a wider buffer), also held by ``check_rows``;
+   place from a wider buffer), also held by ``check_rows``; each timed
+   flash record also carries its achieved TFLOP/s (the operations the
+   function needs over its graph-replay time) and the share of its bound
+   it reaches, and the build prints every kernel's ``ptxas`` register and
+   spill lines by kernel;
 2. the launcher, ``repro_torch.launch.serve.main``: 8 requests, 16 new
    tokens, int8 KV (the plan's default for this frequency service);
 3. a request wave through ``ServiceRuntime`` with prompts of 6-200 tokens
@@ -474,7 +478,15 @@ def flash_case(gen, *, B, Lq, Lk, Hq, Hkv, D, timed, **mask):
                 "library_ms": graph_ms(
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal))})
+    rec.update(achieved(4 * D * pairs, rec))
     return rec
+
+
+def achieved(flops, rec):
+    """A timed record's achieved rate (the function's needed operations
+    over its graph-replay time) and the share of its bound it reaches."""
+    return {"tflops": flops / (rec["ms"] * 1e-3) / 1e12,
+            "bound_share": rec["bound_ms"] / rec["ms"]}
 
 
 def visible_pairs(Lq, Lk, causal, mask):
@@ -544,6 +556,7 @@ def flash_bwd_case(gen, *, B, Lq, Lk, Hq, Hkv, D, timed, **mask):
                 "plain_ms": time_ms(plain, iters=1, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": time_ms(library)})
+    rec.update(achieved(5 * 2 * D * pairs, rec))
     return rec
 
 
@@ -567,6 +580,10 @@ def training_kernels(gen):
              kv_len=170),
         dict(small, Lq=150, Lk=150, causal=True, prefix_len=100),
         dict(small, Lq=70, Lk=60, causal=True, window=5, kv_len=20),
+        # several tiles of both kernels' streamed loops
+        dict(small, B=1, Lq=300, Lk=300, causal=True),
+        dict(small, B=1, Lq=300, Lk=300, causal=True, window=100),
+        dict(small, B=1, Lq=200, Lk=230, Hq=4, Hkv=2, D=256, causal=True),
     ]
     worst = 0.0
     for case in cases:
@@ -652,6 +669,14 @@ def whisper_kernels(gen):
         dict(small, Lq=70, Lk=150, D=128, causal=False),
         dict(small, Lq=70, Lk=150, D=256, Hkv=2, causal=True),
         dict(small, Lq=40, Lk=30, causal=True, window=4, kv_len=10),
+        # several key and query tiles: the diagonal inside a tile, a
+        # window's lower edge across tiles, a prefix past the first query
+        # tile, D = 128 and 256 (32-key tiles)
+        dict(small, B=1, Lq=300, Lk=300, causal=True),
+        dict(small, B=1, Lq=300, Lk=300, causal=True, window=100),
+        dict(small, B=1, Lq=200, Lk=200, causal=True, prefix_len=100),
+        dict(small, B=1, Lq=260, Lk=260, D=128, causal=True, window=70),
+        dict(small, B=1, Lq=200, Lk=230, Hkv=2, D=256, causal=False),
     ]
     for case in cases:
         r = flash_case(gen, timed=False, **case)
@@ -1948,6 +1973,40 @@ def tree_to(tree, dev):
     return tree.to(dev)
 
 
+def ptxas_lines(log):
+    """(kernel, line) for each register and spill line of ``ptxas -v``'s
+    output, the kernel named by the mangled name of the entry function the
+    line belongs to, with its integer template arguments
+    (``flash_fwd_kernel<64>``)."""
+    import re
+    kernel = "?"
+    for line in log.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(_Z\w+)", line)
+        if entry:
+            kernel = demangle(entry[1])
+        elif "registers" in line or "spill" in line:
+            yield kernel, line.replace("ptxas info    :", "").strip()
+
+
+def demangle(mangled):
+    """The last name of an Itanium-mangled function and its integer
+    template arguments: ``_ZN..16flash_fwd_kernelILi64EE..`` ->
+    ``flash_fwd_kernel<64>``."""
+    import re
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while True:
+        num = re.match(r"\d+", mangled[i:])
+        if num is None:
+            break
+        j = i + num.end()
+        name, i = mangled[j:j + int(num[0])], j + int(num[0])
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    return (f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', args[1]))}>"
+            if args else name)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1973,9 +2032,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({build.BUILD_ROOT})")
     for name, log in build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for kernel, line in ptxas_lines(log):
+            print(f"  ptxas {name} {kernel}: {line}")
 
     print("phase 1: kernels against their plain versions "
           f"(atol = rtol = {TOL})")

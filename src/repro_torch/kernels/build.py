@@ -3,9 +3,11 @@
 Each ``csrc/*.cu`` file compiles with ``nvcc`` into its own shared library
 with a plain C interface (loaded by ``ctypes``), under
 ``build/repro_torch_kernels/<name>-<hash>/`` at the repository root, keyed
-by a hash of the source and the flags: an unchanged source is built once
-per checkout.  All sources start compiling together.  Nothing here runs
-when the module is imported; a failed build raises.
+by a hash of the source, every header in ``csrc/`` (``*.cuh``, which the
+sources include) and the flags: an unchanged source is built once per
+checkout, and an edited header rebuilds every source.  All sources start
+compiling together.  Nothing here runs when the module is imported; a
+failed build raises.
 """
 from __future__ import annotations
 
@@ -44,8 +46,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_ROOT / f"{name}-{digest[:16]}" / f"lib{name}.so"
 
 

@@ -17,255 +17,270 @@
 // prefix_len reaches into it, and so drops prefix keys that its own oracle
 // ref.mha_exact sees; this kernel follows the element mask.)
 //
-// What bounds it on this card: operations, at the serving path's encoder
-// shape (1500 x 1500 keys, 20 heads, D = 64: 11.5 GFLOP against 15.5 MB),
-// and bytes at its cross-attention chunk shape (at most 128 rows against
-// 1500 keys).  This first kernel spends its operations on the CUDA cores in
-// f32, not on the tensor cores: far from the bf16 bound, but simple.
-// What the design does:
+// What bounds it on this card: operations, at the training path's shape
+// (1 x 4096 x 4096, 36 heads, D = 64, causal: 77 GFLOP against 75 MB) and
+// the serving path's encoder shape (1500 x 1500 keys, 20 heads: 11.5 GFLOP
+// against 15.5 MB); bytes at its cross-attention chunk shape (at most 128
+// rows against 1500 keys).  So both products run on the tensor cores, in
+// the FlashAttention-2 shape:
+//   * one block per (batch * query head, tile of 64 query rows), 4 warps of
+//     16 rows each; late query tiles (the heavy ones when causal) are
+//     scheduled first;
 //   * q, k and v are read in place in their (B, L, H, D) layout with the
-//     caller's batch, sequence and head strides; the Pallas wrapper's pad
-//     and (B, L, H, D) -> (B*H, L, D) transpose copies do not exist here;
-//   * one block per (batch * query head, tile of 64 query rows; 32 at
-//     D = 256), 128 threads; the q tile and each 64-key K/V tile are
-//     staged in shared memory as f32 (rows padded by one word, so the
-//     reads below hit 32 distinct banks);
-//   * thread (ty, tx) of a 16 x 8 grid owns 4 (2 at D = 256) query rows and
-//     the keys tx, tx + 8, ... of a tile for the scores, and the same rows
-//     and the dims tx, tx + 8, ... of the output: 32 multiply-adds per 12
-//     shared-memory reads in both products;
-//   * the online softmax keeps (m, l) per row in registers, reduced across
-//     the row's 8 threads with warp shuffles, in the order of the Pallas
-//     tile (mask, max, rescale, sum), all in f32; rows finalize with
-//     acc / max(l, 1e-37).
-// No TMA, no wgmma, no mma.sync: that is later work.
+//     caller's batch, sequence and head strides (the Pallas wrapper's pad
+//     and transpose copies do not exist here) by 16-byte cp.async copies
+//     into shared memory, rows padded by 8 bf16 (ldmatrix is then free of
+//     bank conflicts), the ragged edge zero-filled;
+//   * the q tile is copied once and, at D <= 128, held in registers as
+//     ldmatrix A fragments; at D = 256 those fragments (64 registers) beside
+//     the output (128) would not fit in 255, so each warp re-reads its 16
+//     rows of q from shared memory for every key tile;
+//   * key tiles (64 keys; 32 at D = 256) stream through a two-stage
+//     cp.async ring: tile j + 1's copy is issued before tile j's products
+//     and waited for (wait_group 1) only when tile j + 1 is next;
+//   * S = Q K^T on mma.sync.m16n8k16 bf16 -> f32, K read by ldmatrix; the
+//     online softmax runs on the accumulator fragments in registers (a
+//     thread holds rows g and g + 8, reduced over its quad by shuffles),
+//     with ex2.approx and scale * log2(e) applied once per score; only a tile
+//     that crosses an edge (the diagonal, the window's lower edge, kv_len,
+//     the prefix) takes the element mask;
+//   * O += P V: P is packed to bf16 pairs in registers (an m16n8
+//     accumulator pair is the A operand), V read by ldmatrix.trans, O held
+//     in f32 registers; the row sums l are taken from the f32 P before it
+//     is rounded, so lse keeps f32 accuracy.  Rounding P to bf16 for the
+//     product is the one numerical change from the plain f32 version (the
+//     backward rounds P the same way);
+//   * rows finalize with O / max(l, 1e-37) and leave through shared memory
+//     as 16-byte stores; lse = m + log(l).
+// ptxas gives 124 registers at D = 64 (4 blocks, 16 warps an SM), 171 at
+// D = 128 and 243 at D = 256, without spills.  Measured slower on the H100
+// than this design: 128-key tiles at D = 64, two groups of 16 rows a warp
+// (each K and V fragment read once for both, but half the warps an SM),
+// and a __launch_bounds__ minimum of blocks (ptxas then takes more
+// registers than it needs, or spills).
+// Not done yet: wgmma, TMA, splitting the keys of a short query tile over
+// several blocks (the cross chunk, 128 rows, gives 40 blocks for 132 SMs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTx = 8;                         // threads across keys / dims
-constexpr int kTy = kThreads / kTx;            // row groups
-constexpr int kBlockN = 64;                    // keys per staged tile
-constexpr int kKeysPer = kBlockN / kTx;        // keys per thread per tile
+constexpr int kThreads = 128;                  // 4 warps
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;   // -0.7 * FLT_MAX
 
 template <int D>
 struct Cfg {
-  static constexpr int kRows = D <= 128 ? 4 : 2;         // rows per thread
-  static constexpr int kBlockM = kTy * kRows;             // rows per block
-  static constexpr int kDims = D / kTx;                   // out dims per thread
-  static constexpr int kQStride = D + 1;
-  static constexpr int kKStride = D + 1;
-  static constexpr int kVStride = D;
-  static constexpr int kPStride = kBlockN + 1;
-  static constexpr int kSmemBytes =
-      (kBlockM * kQStride + kBlockN * kKStride + kBlockN * kVStride +
-       kBlockM * kPStride) * static_cast<int>(sizeof(float));
+  static constexpr int kBlockM = 64;                     // query rows per block
+  static constexpr int kBlockN = D <= 128 ? 64 : 32;     // keys per tile
+  static constexpr bool kQInRegs = D <= 128;
+  // the q tile, then two stages of k and of v
+  static constexpr int kSmemBytes = (kBlockM + 4 * kBlockN) * (D + kPad) * 2;
 };
 
+// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = +0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* out;                          // (B, Lq, Hq, D) contiguous
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;                                   // (B, Lq, Hq, D) contiguous
   float* lse;                                  // (B, Lq, Hq) contiguous
   long long q_sb, q_sl, q_sh;                  // strides, in elements
   long long k_sb, k_sl, k_sh;
   long long v_sb, v_sl, v_sh;
   int B, Lq, Lk, Hq, Hkv;
-  int causal, window, prefix_len, q_offset, kv_len;   // window < 0: none
+  int causal, window, prefix_len, q_offset;    // window < 0: none
+  int kv_lim;                                  // min(kv_len, Lk)
   float scale;
 };
-
-// Stage rows [row0, row0 + rows) of a (L, D) bf16 slab with row stride
-// ``ld`` into shared memory as f32 with row stride ``stride``; rows at or
-// past ``nvalid`` are zeros and are not read.
-template <int D>
-__device__ void stage(float* dst, int stride, const __nv_bfloat16* src,
-                      long long ld, int row0, int rows, int nvalid) {
-  constexpr int kParts = D / 8;                // 16-byte loads per row
-  for (int c = threadIdx.x; c < rows * kParts; c += kThreads) {
-    const int r = c / kParts, col = (c % kParts) * 8;
-    float* d = dst + r * stride + col;
-    if (row0 + r < nvalid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(row0 + r) * ld + col);
-      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = __bfloat162float(h[e]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = 0.f;
-    }
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Params p) {
   using C = Cfg<D>;
-  constexpr int RM = C::kRows, BM = C::kBlockM, ND = C::kDims;
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sk = sq + BM * C::kQStride;
-  float* sv = sk + kBlockN * C::kKStride;
-  float* sp = sv + kBlockN * C::kVStride;
+  constexpr int BM = C::kBlockM, BN = C::kBlockN, LD = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sk = sq + BM * LD;                     // stage s at sk + s * BN * LD
+  bf16* sv = sk + 2 * BN * LD;
 
   const int bh = blockIdx.x;
   const int b = bh / p.Hq, h = bh % p.Hq;
   const int kvh = h / (p.Hq / p.Hkv);
-  const int m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, tx = tid % kTx, ty = tid / kTx;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
 
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
+  const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const bf16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
 
-  // keys any row of this block can see lie in [k_begin, k_end)
-  const int rows_here = min(BM, p.Lq - m0);
-  const int q_lo = p.q_offset + m0, q_hi = q_lo + rows_here - 1;
-  const int kv_lim = min(p.Lk, p.kv_len);
-  int k_end = kv_lim;
-  int k_begin = 0;
-  if (p.causal) {
-    k_end = min(k_end, max(q_hi + 1, p.prefix_len));
-    if (p.window >= 0 && p.prefix_len <= 0) k_begin = max(0, q_lo - p.window + 1);
+  const int q_lo = p.q_offset + m0;
+  const int q_hi = q_lo + min(BM, p.Lq - m0) - 1;
+  int k_begin, k_end;
+  key_range(p, q_lo, q_hi, &k_begin, &k_end);
+
+  // group 1: the q tile; group 2: the first key tile, into stage 0
+  stage<D, kThreads>(sq, qb, p.q_sl, m0, BM, p.Lq);
+  cp_async_commit();
+  int t0 = next_tile<BN>(p, q_lo, q_hi, (k_begin / BN) * BN, k_end);
+  if (t0 < k_end) {
+    stage<D, kThreads>(sk, kb, p.k_sl, t0, BN, k_end);
+    stage<D, kThreads>(sv, vb, p.v_sl, t0, BN, k_end);
   }
+  cp_async_commit();
 
-  stage<D>(sq, C::kQStride, qb, p.q_sl, m0, BM, p.Lq);
-
-  float m_i[RM], l_i[RM], acc[RM][ND];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m_i[i] = kNegInf;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < ND; ++e) acc[i][e] = 0.f;
-  }
-
-  for (int t0 = (k_begin / kBlockN) * kBlockN; t0 < k_end; t0 += kBlockN) {
-    // a tile wholly before every row's window (and past the prefix) is
-    // skipped; the test is uniform over the block
-    if (p.causal && p.window >= 0 && t0 + kBlockN - 1 <= q_lo - p.window &&
-        t0 >= p.prefix_len)
-      continue;
-    __syncthreads();                           // the last tile's readers are done
-    stage<D>(sk, C::kKStride, kb, p.k_sl, t0, kBlockN, k_end);
-    stage<D>(sv, C::kVStride, vb, p.v_sl, t0, kBlockN, k_end);
+  bf16* wq = sq + warp * 16 * LD;              // this warp's 16 rows of q
+  uint32_t qf[C::kQInRegs ? D / 16 : 1][4];
+  if constexpr (C::kQInRegs) {
+    cp_async_wait<1>();
     __syncthreads();
-
-    // 1. scores of this thread's RM rows x kKeysPer keys
-    float s[RM][kKeysPer];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int c = 0; c < kKeysPer; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RM], kv[kKeysPer];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = sq[(ty * RM + i) * C::kQStride + d];
-#pragma unroll
-      for (int c = 0; c < kKeysPer; ++c) kv[c] = sk[(tx + kTx * c) * C::kKStride + d];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int c = 0; c < kKeysPer; ++c) s[i][c] += qv[i] * kv[c];
-    }
-
-    // 2. mask and the online-softmax update; a row's 8 threads are 8
-    //    neighbouring lanes of one warp
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int row = ty * RM + i;
-      const int qpos = q_lo + row;
-      bool ok[kKeysPer];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < kKeysPer; ++c) {
-        const int kpos = t0 + tx + kTx * c;
-        ok[c] = kpos < kv_lim &&
-                (!p.causal || kpos < p.prefix_len ||
-                 (kpos <= qpos && (p.window < 0 || kpos > qpos - p.window)));
-        s[i][c] = ok[c] ? s[i][c] * p.scale : kNegInf;
-        mx = fmaxf(mx, s[i][c]);
-      }
-#pragma unroll
-      for (int o = 1; o < kTx; o <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kKeysPer; ++c) {
-        const float pv = ok[c] ? expf(s[i][c] - m_new) : 0.f;
-        sp[row * C::kPStride + tx + kTx * c] = pv;
-        psum += pv;
-      }
-#pragma unroll
-      for (int o = 1; o < kTx; o <<= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l_i[i] = l_i[i] * alpha + psum;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < ND; ++e) acc[i][e] *= alpha;
-    }
-    __syncthreads();
-
-    // 3. acc += P @ V over the tile's keys
-#pragma unroll 4
-    for (int j = 0; j < kBlockN; ++j) {
-      float pj[RM], vj[ND];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) pj[i] = sp[(ty * RM + i) * C::kPStride + j];
-#pragma unroll
-      for (int e = 0; e < ND; ++e) vj[e] = sv[j * C::kVStride + tx + kTx * e];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int e = 0; e < ND; ++e) acc[i][e] += pj[i] * vj[e];
-    }
+    for (int kd = 0; kd < D / 16; ++kd) load_a<D>(qf[kd], wq, kd * 16, lane);
   }
 
+  // this thread's rows: warp * 16 + g and + 8
+  const int qpos0 = q_lo + warp * 16 + g;
+  const float sl2 = p.scale * kLog2e;
+  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = m0 + ty * RM + i;
-    if (row >= p.Lq) continue;
-    const long long o = (static_cast<long long>(b) * p.Lq + row) * p.Hq + h;
-    const float l = fmaxf(l_i[i], 1e-37f);
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < ND; ++e)
-      p.out[o * D + tx + kTx * e] = __float2bfloat16(acc[i][e] / l);
-    if (tx == 0)
-      p.lse[o] = l_i[i] > 0.f ? m_i[i] + logf(l) : -kNegInf;
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int st = 0; t0 < k_end; st ^= 1) {
+    // issue the next tile's copy into the other stage, then wait for this one
+    const int tn = next_tile<BN>(p, q_lo, q_hi, t0 + BN, k_end);
+    if (tn < k_end) {
+      stage<D, kThreads>(sk + (st ^ 1) * BN * LD, kb, p.k_sl, tn, BN, k_end);
+      stage<D, kThreads>(sv + (st ^ 1) * BN * LD, vb, p.v_sl, tn, BN, k_end);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* kt = sk + st * BN * LD;
+    const bf16* vt = sv + st * BN * LD;
+
+    // 1. S = Q K^T for this warp's 16 rows and the tile's BN keys
+    float s[BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (C::kQInRegs)
+      frags_dot_rows<D, BN>(s, qf, kt, lane);
+    else
+      rows_dot_rows<D, BN>(s, wq, kt, lane);
+
+    // 2. into the log2 domain; the element mask only where the tile
+    //    crosses an edge (uniform over the block)
+    const bool edge = tile_crosses_edge(p, q_lo, q_hi, t0, t0 + BN - 1);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= sl2;
+        if (edge && !visible(p, qpos0 + 8 * (e >> 1),
+                             t0 + j * 8 + 2 * t + (e & 1)))
+          s[j][e] = -INFINITY;
+      }
+
+    // 3. the online softmax: new row maxima over the quad, rescale
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // a row that has seen nothing yet keeps p = 0 and alpha = 0
+      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+      const float alpha = exp2_approx(m[i] - base[i]);
+      m[i] = mx[i];
+      l[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][2 * i] *= alpha;
+        o[j][2 * i + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_approx(s[j][e] - base[e >> 1]);
+        l[e >> 1] += s[j][e];                  // f32 p, before rounding
+      }
+
+    // 4. O += P V
+    regs_dot_tile<D, BN, D>(o, s, vt, 0, lane);
+    __syncthreads();                           // this stage's readers are done
+    t0 = tn;
+  }
+  cp_async_wait<0>();
+  __syncthreads();                             // q's copies landed everywhere
+
+  // finalize: the quad's partial row sums, then O / l through this warp's
+  // own rows of the q tile (no other warp reads them) as 16-byte stores
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float inv = 1.f / fmaxf(l[i], 1e-37f);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(wq + (g + 8 * i) * LD + j * 8 +
+                                         2 * t) =
+          __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+  }
+  __syncwarp();
+  constexpr int kParts = D / 8;                // 16-byte pieces per row
+#pragma unroll
+  for (int c = lane; c < 16 * kParts; c += 32) {
+    const int r = c / kParts, col = (c % kParts) * 8;
+    const int row = m0 + warp * 16 + r;
+    if (row < p.Lq)
+      *reinterpret_cast<uint4*>(
+          p.out + ((static_cast<long long>(b) * p.Lq + row) * p.Hq + h) * D +
+          col) = *reinterpret_cast<const uint4*>(wq + r * LD + col);
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = m0 + warp * 16 + g + 8 * i;
+      if (row >= p.Lq) continue;
+      p.lse[(static_cast<long long>(b) * p.Lq + row) * p.Hq + h] =
+          l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : -kNegInf;
+    }
   }
 }
 
 template <int D>
 int launch(const Params& p, cudaStream_t s) {
   using C = Cfg<D>;
-  if ((p.Lq + C::kBlockM - 1) / C::kBlockM > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // more than 48 KB of dynamic shared memory needs an opt-in, once per
-  // device (done before any CUDA-graph capture: the wrapper's first call)
-  static unsigned long long opted_in = 0;    // bit per device ordinal
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const int nq = (p.Lq + C::kBlockM - 1) / C::kBlockM;
+  if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned long long opted = 0;         // bit per device ordinal
+  const cudaError_t err = opt_in(flash_fwd_kernel<D>, C::kSmemBytes, &opted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!(opted_in >> dev & 1ULL)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               C::kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in |= 1ULL << dev;
-  }
-  const dim3 grid(p.B * p.Hq, (p.Lq + C::kBlockM - 1) / C::kBlockM);
-  flash_fwd_kernel<D><<<grid, kThreads, C::kSmemBytes, s>>>(p);
+  flash_fwd_kernel<D>
+      <<<dim3(p.B * p.Hq, nq), kThreads, C::kSmemBytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -285,17 +300,18 @@ extern "C" int flash_attention_fwd(
       static_cast<long long>(B) * Hq > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.out = static_cast<__nv_bfloat16*>(out);
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.out = static_cast<bf16*>(out);
   p.lse = static_cast<float*>(lse);
   p.q_sb = q_sb; p.q_sl = q_sl; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_sl = k_sl; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_sl = v_sl; p.v_sh = v_sh;
   p.B = B; p.Lq = Lq; p.Lk = Lk; p.Hq = Hq; p.Hkv = Hkv;
   p.causal = causal; p.window = window; p.prefix_len = prefix_len;
-  p.q_offset = q_offset; p.kv_len = kv_len;
+  p.q_offset = q_offset;
+  p.kv_lim = kv_len < Lk ? kv_len : Lk;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -31,7 +31,8 @@
 //           query head of the GQA group and every query tile that can see
 //           the keys; dv += P^T dout, dk += dS^T q.
 // Neither writes what the other reads, so there are no atomics and the
-// sums are in a fixed order.  S and dP are computed twice (once in each
+// sums are in a fixed order: two launches on the same inputs give
+// bit-identical gradients.  S and dP are computed twice (once in each
 // kernel): 7 products per tile pair instead of 5, for no atomics.
 //
 // What bounds it on this card: operations.  At the training path's shape
@@ -51,18 +52,33 @@
 // conflicts.  At D = 128 and 256 the key tile of dq and the query tile of
 // dkdv shrink to 32, and at D = 256 dkdv's warps split the head dim in two
 // halves (each recomputing the warp's S and dP), to stay in registers.
-// Not done yet: wgmma, TMA, double-buffered tiles, a persistent schedule.
+// The streamed tiles (dq's K and V, dkdv's q and dout with their lse and
+// delta rows) pass through a two-stage cp.async ring: the next tile's copy
+// is issued before this tile's products and waited for only when it is
+// next.  dkdv's query loop starts at the first query tile that can see the
+// block's keys (causal: tile floor((n0 - q_offset) / BR), unless the keys
+// lie in the prefix), and only tiles that cross a mask edge take the
+// element mask.  Registers decide how many warps hide the copies and the
+// ldmatrix latency, so each staged tile is taken 16 keys (dq) or 16
+// queries (dkdv) at a time: only 2 accumulator tiles each of S and dP are
+// live beside the f32 output.  At D = 64 the operands that stay fixed for
+// the whole loop (dq's q and dout rows, dkdv's k and v rows) are held as
+// ldmatrix A fragments, and __launch_bounds__ asks for 4 (dq) and 3 (dkdv)
+// blocks an SM, 16 and 12 warps; at D = 128, 3 and 3 (dkdv spills a few
+// bytes there).  The helpers are shared with the forward (mma_tiles.cuh).
+// Not done yet: wgmma, TMA, a persistent schedule; one 5-product kernel
+// (S and dP once, dq by f32 atomics) would trade the fixed summation
+// order, and so bit-reproducible gradients, for 2 fewer products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kPad = 8;                        // bf16 of padding per smem row
 constexpr int kRows = 64;                      // dq's query tile, dkdv's key tile
 
 struct Params {
@@ -85,167 +101,36 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 fills the 16 bytes with
-// zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, k-major), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// The A operand (16 x 16) of a product along an accumulator's columns:
-// accumulator tiles c[j], c[j + 1] (16 x 8 each) side by side, as bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// S += A (16 rows at ``a_rows``) B^T over the head dim, where both tiles
-// are stored row-major (rows x D) in shared memory: N / 8 accumulator tiles
-// of 16 x 8.  ``b_rows`` points at the first of the N rows of B.
-template <int D, int N>
-__device__ __forceinline__ void rows_dot_rows(float (&s)[N / 8][4],
-                                              const bf16* a_rows,
-                                              const bf16* b_rows, int lane) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int kd = 0; kd < D; kd += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_rows + (lane & 15) * LD + kd + (lane >> 4) * 8);
-#pragma unroll
-    for (int jp = 0; jp < N / 16; ++jp) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_rows + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                         kd + ((lane >> 3) & 1) * 8);
-      mma_bf16(s[2 * jp], a, b[0], b[1]);
-      mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x W, columns [c0, c0 + W) of the head dim) += X (16 x K, in
-// registers as K / 8 accumulator tiles) B, where B (K x D) is stored
-// row-major in shared memory: the product runs along B's rows.
-template <int D, int K, int W>
-__device__ __forceinline__ void regs_dot_tile(float (&acc)[W / 8][4],
-                                              const float (&x)[K / 8][4],
-                                              const bf16* b, int c0,
-                                              int lane) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    acc_to_a(a, x[2 * kk], x[2 * kk + 1]);
-#pragma unroll
-    for (int dp = 0; dp < W / 16; ++dp) {
-      uint32_t bt[4];
-      ldmatrix_x4_trans(bt, b + (kk * 16 + (lane & 15)) * LD + c0 + dp * 16 +
-                                (lane >> 4) * 8);
-      mma_bf16(acc[2 * dp], a, bt[0], bt[1]);
-      mma_bf16(acc[2 * dp + 1], a, bt[2], bt[3]);
-    }
-  }
-}
-
-// Stage rows [row0, row0 + rows) of a (L, D) bf16 slab with row stride
-// ``ld`` into shared memory (row stride D + kPad); rows at or past
-// ``nvalid`` become zeros and are not read.
-template <int D, int NT>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, long long ld,
-                                      int row0, int rows, int nvalid) {
-  constexpr int kParts = D / 8;                // 16-byte copies per row
-  for (int c = threadIdx.x; c < rows * kParts; c += NT) {
-    const int r = c / kParts, col = (c % kParts) * 8;
-    const bool ok = row0 + r < nvalid;
-    const bf16* s = ok ? src + static_cast<long long>(row0 + r) * ld + col : src;
-    cp_async16(dst + r * (D + kPad) + col, s, ok ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
-  if (kpos >= p.kv_lim) return false;
-  if (!p.causal || kpos < p.prefix_len) return true;
-  return kpos <= qpos && (p.window < 0 || kpos > qpos - p.window);
-}
-
-// may some query at [q_lo, q_hi] see some key at [k_lo, k_hi]?
-__device__ __forceinline__ bool tile_visible(const Params& p, int q_lo,
-                                             int q_hi, int k_lo, int k_hi) {
-  if (k_lo >= p.kv_lim) return false;
-  if (!p.causal || k_lo < p.prefix_len) return true;
-  if (k_lo > q_hi) return false;
-  return p.window < 0 || k_hi > q_lo - p.window;
-}
-
 // ---------------------------------------------------------------------------
 // dq: block (batch * query head, 64 query rows), 4 warps of 16 rows; key
-// tiles of BC.  Heavy (late, when causal) query tiles are scheduled first.
+// tiles of BC through the two-stage ring.  Heavy (late, when causal) query
+// tiles are scheduled first.
 // ---------------------------------------------------------------------------
 
 template <int D, int BC>
 struct DqCfg {
   static constexpr int kThreads = 128;
-  static constexpr int kSmemBytes = (2 * kRows + 2 * BC) * (D + kPad) * 2;
+  // keys of a staged tile taken at once: S and dP of BS keys are live
+  static constexpr int kSub = 16;
+  // q and dout held as A fragments in registers for the whole loop
+  static constexpr bool kFragsInRegs = D == 64;
+  // blocks an SM should hold (caps a thread's registers)
+  static constexpr int kMinBlocks = D == 64 ? 4 : D == 128 ? 3 : 2;
+  // the q and dout tiles, then two stages of k and of v
+  static constexpr int kSmemBytes = (2 * kRows + 4 * BC) * (D + kPad) * 2;
 };
 
 template <int D, int BC>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, DqCfg<D, BC>::kMinBlocks)
 flash_bwd_dq_kernel(const Params p) {
-  constexpr int NT = 128, LD = D + kPad;
+  using C = DqCfg<D, BC>;
+  constexpr int NT = 128, LD = D + kPad, BS = C::kSub;
+  constexpr bool FR = C::kFragsInRegs;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
   bf16* sdo = sq + kRows * LD;
-  bf16* sk = sdo + kRows * LD;
-  bf16* sv = sk + BC * LD;
+  bf16* sk = sdo + kRows * LD;                 // stage s at sk + s * BC * LD
+  bf16* sv = sk + 2 * BC * LD;
 
   const int bh = blockIdx.x;
   const int b = bh / p.Hq, h = bh % p.Hq;
@@ -258,9 +143,35 @@ flash_bwd_dq_kernel(const Params p) {
   const bf16* ob = p.dout + b * p.o_sb + h * p.o_sh;
   const bf16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
   const bf16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
+
+  const int q_lo = p.q_offset + m0;
+  const int q_hi = q_lo + min(kRows, p.Lq - m0) - 1;
+  int k_begin, k_end;
+  key_range(p, q_lo, q_hi, &k_begin, &k_end);
+
+  // group 1: the q and dout tiles; group 2: the first key tile, stage 0
   stage<D, NT>(sq, qb, p.q_sl, m0, kRows, p.Lq);
   stage<D, NT>(sdo, ob, p.o_sl, m0, kRows, p.Lq);
   cp_async_commit();
+  int n0 = next_tile<BC>(p, q_lo, q_hi, (k_begin / BC) * BC, k_end);
+  if (n0 < k_end) {
+    stage<D, NT>(sk, kb, p.k_sl, n0, BC, k_end);
+    stage<D, NT>(sv, vb, p.v_sl, n0, BC, k_end);
+  }
+  cp_async_commit();
+
+  const bf16* wq = sq + warp * 16 * LD;        // this warp's 16 rows
+  const bf16* wdo = sdo + warp * 16 * LD;
+  uint32_t qf[FR ? D / 16 : 1][4], of[FR ? D / 16 : 1][4];
+  if constexpr (FR) {
+    cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      load_a<D>(qf[kd], wq, kd * 16, lane);
+      load_a<D>(of[kd], wdo, kd * 16, lane);
+    }
+  }
 
   // this thread's rows: warp * 16 + g and + 8
   int qpos[2];
@@ -277,51 +188,59 @@ flash_bwd_dq_kernel(const Params p) {
   }
   const float sl2 = p.scale * kLog2e;
 
-  // keys any row of this block can see lie in [k_begin, k_end)
-  const int q_lo = p.q_offset + m0;
-  const int q_hi = q_lo + min(kRows, p.Lq - m0) - 1;
-  int k_end = p.kv_lim, k_begin = 0;
-  if (p.causal) {
-    k_end = min(k_end, max(q_hi + 1, p.prefix_len));
-    if (p.window >= 0 && p.prefix_len <= 0)
-      k_begin = max(0, q_lo - p.window + 1);
-  }
-
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  for (int n0 = (k_begin / BC) * BC; n0 < k_end; n0 += BC) {
-    if (!tile_visible(p, q_lo, q_hi, n0, n0 + BC - 1)) continue;
-    __syncthreads();                           // the last tile's readers are done
-    stage<D, NT>(sk, kb, p.k_sl, n0, BC, p.kv_lim);
-    stage<D, NT>(sv, vb, p.v_sl, n0, BC, p.kv_lim);
+  for (int st = 0; n0 < k_end; st ^= 1) {
+    // issue the next tile's copy into the other stage, then wait for this one
+    const int nn = next_tile<BC>(p, q_lo, q_hi, n0 + BC, k_end);
+    if (nn < k_end) {
+      stage<D, NT>(sk + (st ^ 1) * BC * LD, kb, p.k_sl, nn, BC, k_end);
+      stage<D, NT>(sv + (st ^ 1) * BC * LD, vb, p.v_sl, nn, BC, k_end);
+    }
     cp_async_commit();
-    cp_async_wait_all();
+    cp_async_wait<1>();
     __syncthreads();
+    const bf16* kt = sk + st * BC * LD;
+    const bf16* vt = sv + st * BC * LD;
 
-    float s[BC / 8][4], dp[BC / 8][4];
+    // the element mask only where the tile crosses an edge (uniform over
+    // the block)
+    const bool edge = tile_crosses_edge(p, q_lo, q_hi, n0, n0 + BC - 1);
+#pragma unroll 1
+    for (int c0 = 0; c0 < BC; c0 += BS) {
+      // S and dP of this warp's 16 rows and the BS keys from c0
+      float s[BS / 8][4], dp[BS / 8][4];
 #pragma unroll
-    for (int j = 0; j < BC / 8; ++j)
+      for (int j = 0; j < BS / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    rows_dot_rows<D, BC>(s, sq + warp * 16 * LD, sk, lane);
-    rows_dot_rows<D, BC>(dp, sdo + warp * 16 * LD, sv, lane);
-    // dS = P (dP - delta) scale, into s
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, kpos = n0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = live[i] && visible(p, qpos[i], kpos);
-        const float pv = ok ? exp2f(s[j][e] * sl2 - lse2[i]) : 0.f;
-        s[j][e] = pv * (dp[j][e] - dlt[i]) * p.scale;
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      if constexpr (FR) {
+        frags_dot_rows<D, BS>(s, qf, kt + c0 * LD, lane);
+        frags_dot_rows<D, BS>(dp, of, vt + c0 * LD, lane);
+      } else {
+        rows_dot_rows<D, BS>(s, wq, kt + c0 * LD, lane);
+        rows_dot_rows<D, BS>(dp, wdo, vt + c0 * LD, lane);
       }
-    regs_dot_tile<D, BC, D>(acc, s, sk, 0, lane);
+      // dS = P (dP - delta) scale, into s
+#pragma unroll
+      for (int j = 0; j < BS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, kpos = n0 + c0 + j * 8 + 2 * t + (e & 1);
+          float pv = exp2f(s[j][e] * sl2 - lse2[i]);
+          if (edge && !(live[i] && visible(p, qpos[i], kpos))) pv = 0.f;
+          s[j][e] = pv * (dp[j][e] - dlt[i]) * p.scale;
+        }
+      regs_dot_tile<D, BS, D>(acc, s, kt + c0 * LD, 0, lane);
+    }
+    __syncthreads();                           // this stage's readers are done
+    n0 = nn;
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -338,27 +257,60 @@ flash_bwd_dq_kernel(const Params p) {
 // ---------------------------------------------------------------------------
 // dk, dv: block (batch * kv head, 64 keys), 4 * WD warps: warp w owns keys
 // (w % 4) * 16 .. + 16 and head-dim columns (w / 4) * D / WD .. + D / WD of
-// dk and dv; query tiles of BR.
+// dk and dv; query tiles of BR, with their lse and delta rows, through the
+// two-stage ring, over every query head of the GQA group.
 // ---------------------------------------------------------------------------
 
 template <int D, int BR, int WD>
 struct DkdvCfg {
   static constexpr int kThreads = 128 * WD;
-  static constexpr int kSmemBytes =
-      (2 * kRows + 2 * BR) * (D + kPad) * 2 + 2 * BR * 4;
+  // query rows of a staged tile taken at once: S^T and dP^T of BS rows are
+  // live in registers
+  static constexpr int kSub = 16;
+  // k and v held as A fragments in registers for the whole loop
+  static constexpr bool kFragsInRegs = D == 64;
+  // blocks an SM should hold (caps a thread's registers)
+  static constexpr int kMinBlocks = D <= 128 ? 3 : 1;
+  // one stage: q and dout tiles, lse and delta rows (bytes; a multiple of 16)
+  static constexpr int kStageBytes = 2 * BR * (D + kPad) * 2 + 2 * BR * 4;
+  // the block's k and v tiles, then two stages
+  static constexpr int kSmemBytes = 2 * kRows * (D + kPad) * 2 + 2 * kStageBytes;
 };
 
+// Advance (gi, mt) to the first (query head of the group, query tile) pair
+// at or after it whose tile may see the keys [n0, n0 + kRows); gi = G when
+// none is left.  A new head starts again at tile mt_first.
+template <int BR>
+__device__ __forceinline__ void next_pair(const Params& p, int n0, int G,
+                                          int mt_first, int& gi, int& mt) {
+  const int nmt = (p.Lq + BR - 1) / BR;
+  for (; gi < G; ++gi, mt = mt_first)
+    for (; mt < nmt; ++mt) {
+      const int q_lo = p.q_offset + mt * BR;
+      if (tile_visible(p, q_lo, q_lo + min(BR, p.Lq - mt * BR) - 1, n0,
+                       n0 + kRows - 1))
+        return;
+    }
+}
+
 template <int D, int BR, int WD>
-__global__ void __launch_bounds__(128 * WD)
+__global__ void __launch_bounds__(DkdvCfg<D, BR, WD>::kThreads,
+                                  DkdvCfg<D, BR, WD>::kMinBlocks)
 flash_bwd_dkdv_kernel(const Params p) {
-  constexpr int NT = 128 * WD, LD = D + kPad, DW = D / WD;
+  using C = DkdvCfg<D, BR, WD>;
+  constexpr int NT = C::kThreads, LD = D + kPad, DW = D / WD, BS = C::kSub;
+  constexpr bool FR = C::kFragsInRegs;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sk = reinterpret_cast<bf16*>(smem_raw);
   bf16* sv = sk + kRows * LD;
-  bf16* sq = sv + kRows * LD;
-  bf16* sdo = sq + BR * LD;
-  float* slse = reinterpret_cast<float*>(sdo + BR * LD);   // lse * log2(e)
-  float* sdlt = slse + BR;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sv + kRows * LD);
+  // stage s: q (BR x LD), dout (BR x LD), lse (BR), delta (BR)
+  auto sq_of = [&](int s) {
+    return reinterpret_cast<bf16*>(ring + s * C::kStageBytes);
+  };
+  auto slse_of = [&](int s) {
+    return reinterpret_cast<float*>(sq_of(s) + 2 * BR * LD);
+  };
 
   const int bkv = blockIdx.x;
   const int b = bkv / p.Hkv, kvh = bkv % p.Hkv;
@@ -369,6 +321,24 @@ flash_bwd_dkdv_kernel(const Params p) {
   const int g = lane >> 2, t = lane & 3;
   const float sl2 = p.scale * kLog2e;
 
+  // start copying query tile mt of query head kvh * G + gi into stage s
+  auto issue = [&](int gi, int mt, int s) {
+    const int h = kvh * G + gi, m0 = mt * BR;
+    bf16* sq = sq_of(s);
+    float* slse = slse_of(s);
+    stage<D, NT>(sq, p.q + b * p.q_sb + h * p.q_sh, p.q_sl, m0, BR, p.Lq);
+    stage<D, NT>(sq + BR * LD, p.dout + b * p.o_sb + h * p.o_sh, p.o_sl, m0,
+                 BR, p.Lq);
+    for (int r = threadIdx.x; r < BR; r += NT) {
+      const int row = m0 + r;
+      const bool ok = row < p.Lq;
+      const long long o =
+          ok ? (static_cast<long long>(b) * p.Lq + row) * p.Hq + h : 0;
+      cp_async4(slse + r, p.lse + o, ok ? 4 : 0);
+      cp_async4(slse + BR + r, p.delta + o, ok ? 4 : 0);
+    }
+  };
+
   float dk[DW / 8][4], dv[DW / 8][4];
 #pragma unroll
   for (int j = 0; j < DW / 8; ++j)
@@ -376,59 +346,88 @@ flash_bwd_dkdv_kernel(const Params p) {
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
 
   if (n0 < p.kv_lim) {                         // uniform over the block
+    // group 1: the block's k and v tiles; group 2: the first query tile
     stage<D, NT>(sk, p.k + b * p.k_sb + kvh * p.k_sh, p.k_sl, n0, kRows,
                  p.kv_lim);
     stage<D, NT>(sv, p.v + b * p.v_sb + kvh * p.v_sh, p.v_sl, n0, kRows,
                  p.kv_lim);
     cp_async_commit();
-    const int kpos[2] = {n0 + wk * 16 + g, n0 + wk * 16 + g + 8};
-    for (int gi = 0; gi < G; ++gi) {
-      const int h = kvh * G + gi;
-      const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-      const bf16* ob = p.dout + b * p.o_sb + h * p.o_sh;
-      for (int m0 = 0; m0 < p.Lq; m0 += BR) {
-        const int q_lo = p.q_offset + m0;
-        const int q_hi = q_lo + min(BR, p.Lq - m0) - 1;
-        if (!tile_visible(p, q_lo, q_hi, n0, n0 + kRows - 1)) continue;
-        __syncthreads();                       // the last tile's readers are done
-        stage<D, NT>(sq, qb, p.q_sl, m0, BR, p.Lq);
-        stage<D, NT>(sdo, ob, p.o_sl, m0, BR, p.Lq);
-        cp_async_commit();
-        for (int r = threadIdx.x; r < BR; r += NT) {
-          const int row = m0 + r;
-          const bool ok = row < p.Lq;
-          const long long o = (static_cast<long long>(b) * p.Lq + row) * p.Hq + h;
-          slse[r] = ok ? p.lse[o] * kLog2e : 0.f;
-          sdlt[r] = ok ? p.delta[o] : 0.f;
-        }
-        cp_async_wait_all();
-        __syncthreads();
-
-        // S^T and dP^T: this warp's 16 keys x BR queries
-        float st[BR / 8][4], dpt[BR / 8][4];
+    // causal keys past the prefix are seen from query row n0 - q_offset on
+    const int mt_first = p.causal && n0 >= p.prefix_len
+                             ? max(0, n0 - p.q_offset) / BR : 0;
+    int gi = 0, mt = mt_first;
+    next_pair<BR>(p, n0, G, mt_first, gi, mt);
+    if (gi < G) issue(gi, mt, 0);
+    cp_async_commit();
+    const bf16* wk_rows = sk + wk * 16 * LD;   // this warp's 16 keys
+    const bf16* wv_rows = sv + wk * 16 * LD;
+    uint32_t kf[FR ? D / 16 : 1][4], vf[FR ? D / 16 : 1][4];
+    if constexpr (FR) {
+      cp_async_wait<1>();
+      __syncthreads();
 #pragma unroll
-        for (int j = 0; j < BR / 8; ++j)
+      for (int kd = 0; kd < D / 16; ++kd) {
+        load_a<D>(kf[kd], wk_rows, kd * 16, lane);
+        load_a<D>(vf[kd], wv_rows, kd * 16, lane);
+      }
+    }
+
+    const int kpos[2] = {n0 + wk * 16 + g, n0 + wk * 16 + g + 8};
+    for (int s = 0; gi < G; s ^= 1) {
+      // issue the next pair's copy into the other stage, then wait for this
+      int ngi = gi, nmt = mt + 1;
+      next_pair<BR>(p, n0, G, mt_first, ngi, nmt);
+      if (ngi < G) issue(ngi, nmt, s ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const bf16* sq = sq_of(s);
+      const bf16* sdo = sq + BR * LD;
+      const float* slse = slse_of(s);
+      const float* sdlt = slse + BR;
+      const int m0 = mt * BR, q_lo = p.q_offset + m0;
+
+      // the element mask only where the tile crosses an edge or the query
+      // rows end (uniform over the block)
+      const bool edge = m0 + BR > p.Lq ||
+                        tile_crosses_edge(p, q_lo, q_lo + BR - 1, n0,
+                                          n0 + kRows - 1);
+#pragma unroll 1
+      for (int r0 = 0; r0 < BR; r0 += BS) {
+        // S^T and dP^T: this warp's 16 keys x BS queries from row r0
+        float st[BS / 8][4], dpt[BS / 8][4];
+#pragma unroll
+        for (int j = 0; j < BS / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-        rows_dot_rows<D, BR>(st, sk + wk * 16 * LD, sq, lane);
-        rows_dot_rows<D, BR>(dpt, sv + wk * 16 * LD, sdo, lane);
+        if constexpr (FR) {
+          frags_dot_rows<D, BS>(st, kf, sq + r0 * LD, lane);
+          frags_dot_rows<D, BS>(dpt, vf, sdo + r0 * LD, lane);
+        } else {
+          rows_dot_rows<D, BS>(st, wk_rows, sq + r0 * LD, lane);
+          rows_dot_rows<D, BS>(dpt, wv_rows, sdo + r0 * LD, lane);
+        }
         // P^T into st, dS^T into dpt
 #pragma unroll
-        for (int j = 0; j < BR / 8; ++j)
+        for (int j = 0; j < BS / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int r = j * 8 + 2 * t + (e & 1);
-            const bool ok = m0 + r < p.Lq &&
-                            visible(p, q_lo + r, kpos[e >> 1]);
-            const float pv = ok ? exp2f(st[j][e] * sl2 - slse[r]) : 0.f;
+            const int r = r0 + j * 8 + 2 * t + (e & 1);
+            float pv = exp2f(st[j][e] * sl2 - slse[r] * kLog2e);
+            if (edge &&
+                !(m0 + r < p.Lq && visible(p, q_lo + r, kpos[e >> 1])))
+              pv = 0.f;
             st[j][e] = pv;
             dpt[j][e] = pv * (dpt[j][e] - sdlt[r]) * p.scale;
           }
-        regs_dot_tile<D, BR, DW>(dv, st, sdo, c0, lane);
-        regs_dot_tile<D, BR, DW>(dk, dpt, sq, c0, lane);
+        regs_dot_tile<D, BS, DW>(dv, st, sdo + r0 * LD, c0, lane);
+        regs_dot_tile<D, BS, DW>(dk, dpt, sq + r0 * LD, c0, lane);
       }
+      __syncthreads();                         // this stage's readers are done
+      gi = ngi;
+      mt = nmt;
     }
-    cp_async_wait_all();
+    cp_async_wait<0>();
   }
 
 #pragma unroll
@@ -445,24 +444,6 @@ flash_bwd_dkdv_kernel(const Params p) {
           __floats2bfloat162_rn(dv[j][2 * i], dv[j][2 * i + 1]);
     }
   }
-}
-
-// more than 48 KB of dynamic shared memory needs an opt-in, once per device
-// and kernel (done before any CUDA-graph capture: the wrapper's first call)
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int bytes, unsigned long long* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!(*done >> dev & 1ULL)) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return err;
-    *done |= 1ULL << dev;
-  }
-  return cudaSuccess;
 }
 
 template <int D, int BC, int BR, int WD>

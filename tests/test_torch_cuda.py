@@ -12,7 +12,9 @@ and sum in another order than the plain version.  The SSD scan's f32
 final state is held to atol = rtol = 1e-3 of its largest magnitude (f32
 sums in another order over up to 256-token chunks).  Flash attention's
 f32 log-sum-exp is held to 1e-3 of its magnitude (atol = rtol = 1e-3;
-rows that see nothing must hold -NEG_INF).  The grouped GEMM's bf16 output
+rows that see nothing must hold -NEG_INF), and its bf16 output also at
+every sequence position to 1e-2 of that position's norm plus 1e-5 an
+element, as the backward's gradients below.  The grouped GEMM's bf16 output
 is held to the f32 product of the same bf16 values with atol = rtol =
 1.6e-2 (one rounding to bf16, sums in another order); its float32 instance
 to atol = rtol = 1e-3 (f32 sums over up to 14,336 terms in another order).
@@ -169,6 +171,20 @@ FLASH_CASES = {
                         dict(causal=True, q_offset=150, kv_len=170)),
     "masked_rows_d256": ((1, 70, 60, 2, 2, 256),
                          dict(causal=True, window=5, kv_len=20)),
+    # several key and query tiles: the diagonal inside a tile and a ragged
+    # last tile; 28 keys past the last full tile of 64; a window whose
+    # lower edge crosses tile boundaries; a prefix past the first query
+    # tile; GQA 8/2; D = 128 and D = 256 (32-key tiles) over many tiles
+    "causal_300": ((1, 300, 300, 4, 4, 64), dict(causal=True)),
+    "noncausal_128x1500": ((1, 128, 1500, 4, 4, 64), dict(causal=False)),
+    "noncausal_1500": ((1, 1500, 1500, 2, 2, 64), dict(causal=False)),
+    "window_crosses_tiles": ((1, 300, 300, 4, 4, 64),
+                             dict(causal=True, window=100)),
+    "prefix_past_tile": ((1, 200, 200, 4, 4, 64),
+                         dict(causal=True, prefix_len=100)),
+    "gqa_8_2_tiles": ((2, 200, 200, 8, 2, 64), dict(causal=True)),
+    "d128_tiles": ((1, 260, 260, 4, 4, 128), dict(causal=True, window=70)),
+    "d256_tiles": ((1, 200, 230, 4, 2, 256), dict(causal=False)),
 }
 
 
@@ -194,6 +210,7 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
     assert flash_attention.launches["flash_attention"] == before + 1
     torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
     torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=LSE_TOL)
+    _assert_rows_close("out", out, want)
 
 
 @pytest.mark.cuda
@@ -284,6 +301,16 @@ FLASH_BWD_CASES = {
                          dict(causal=True, prefix_len=100)),
     "masked_rows": ((1, 70, 60, 2, 2, 64),
                     dict(causal=True, window=5, kv_len=20)),
+    # several tiles of both kernels' streamed loops (see FLASH_CASES)
+    "causal_300": ((1, 300, 300, 4, 4, 64), dict(causal=True)),
+    "noncausal_128x1500": ((1, 128, 1500, 2, 2, 64), dict(causal=False)),
+    "noncausal_1500": ((1, 1500, 1500, 1, 1, 64), dict(causal=False)),
+    "window_crosses_tiles": ((1, 300, 300, 4, 4, 64),
+                             dict(causal=True, window=100)),
+    "prefix_past_first_tile": ((1, 200, 200, 4, 4, 64),
+                               dict(causal=True, prefix_len=100)),
+    "gqa_8_2_tiles": ((2, 200, 200, 8, 2, 64), dict(causal=True)),
+    "d256_tiles": ((1, 200, 230, 4, 2, 256), dict(causal=True)),
 }
 
 
@@ -331,6 +358,30 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda_device, case):
     print({n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
            for n, log in build.build_log.items()
            if n == "flash_attention_bwd"})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal_300", "gqa_8_2_tiles",
+                                  "d256_tiles"])
+def test_cuda_flash_attention_is_bit_reproducible(cuda_device, case):
+    """Two launches on the same inputs give bit-identical out and lse, and
+    bit-identical dq, dk and dv: every sum has one owner and a fixed
+    order (no atomics)."""
+    (B, Lq, Lk, Hq, Hkv, D), kw = FLASH_BWD_CASES[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(7)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    q, dout = rand(B, Lq, Hq, D), rand(B, Lq, Hq, D)
+    k, v = rand(B, Lk, Hkv, D), rand(B, Lk, Hkv, D)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_attention.flash_attention(q, k, v, **kw)
+        runs.append((out, lse, *flash_attention_bwd.flash_attention_bwd(
+            q, k, v, out, lse, dout, **kw)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
