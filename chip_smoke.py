@@ -19,7 +19,12 @@ in eight phases; any failure exits non-zero:
    bound of the work:
    the four paged-attention kernels at minicpm-2b's shapes and at one GQA
    shape (minitron-4b's heads), beside ``scaled_dot_product_attention`` on
-   the gathered dense view (a yardstick the port never calls); the SSD
+   the gathered dense view (a yardstick the port never calls), the two
+   chunk kernels also at odd shapes (T = 13 and 65, starts that are
+   multiples of neither 64 nor the page, prefixes of 20 and 100, a dead
+   slot among four, mixtral's 32/8 heads at D = 128), every chunk case
+   also held by ``check_rows``, its rows past chunk_len zeros, and
+   repeated launches bit-identical; the SSD
    scan at mamba2-2.7b's chunk-call shapes (80 heads, P = 64, N = 128, one
    group), its f32 final state held to atol = rtol = 1e-3 of its largest
    magnitude (no single PyTorch call computes the scan); flash attention
@@ -38,9 +43,13 @@ in eight phases; any failure exits non-zero:
    beside ``scaled_dot_product_attention`` on the same tensors; the
    grouped GEMM at mixtral-8x7b's decode shapes ((8, 512, 4096) @
    (8, 4096, 14336) and its down projection) and chunk shape (20 rows an
-   expert), its bf16 output held to the f32 product of the same operands,
-   beside ``torch.bmm`` on the same tensors, and at three odd shapes
-   (ragged tiles, C = 1); the bf16 paged decode kernel at mixtral's
+   expert), its bf16 output held to the f32 product of the same operands
+   (also by ``check_rows``, repeated launches bit-identical), beside
+   ``torch.bmm`` on the same tensors, each record with its route, its
+   achieved TFLOP/s and its share of the bound, and at odd shapes (an
+   unaligned one on the ``mma.sync`` route; on the TMA route ragged
+   tiles, C = 1, 63, 64, 65 and 200, an lhs row stride above K); the bf16
+   paged decode kernel at mixtral's
    attention shape (512 slots, 32 live, 32 heads over 8 KV heads, D = 128);
    and the dense chunked-prefill kernel at minicpm-2b's dense-view chunk
    shape (one slot, 128 rows at offset 64, S = 256, 36 heads, D = 64),
@@ -65,7 +74,8 @@ in eight phases; any failure exits non-zero:
 6. the same wave through mixtral-8x7b's MoE path at the plan's 512 slots
    and bf16 KV, at full width and 16 of its 32 layers (all 32 layers'
    bf16 weights, 93.4 GB, do not fit the card; 16 take 46.96 GB), the
-   expert FFN through the grouped GEMM kernel, capacity factor 1.25;
+   expert FFN through the grouped GEMM kernel, every launch on its TMA
+   route, capacity factor 1.25;
 7. training through ``repro_torch.launch.train``: minicpm-2b at full
    width, bf16, AdamW at lr 1e-3, batch 2 x 4096 tokens in 2 microbatches,
    4 steps (finite losses and grad norms, the last loss below the first,
@@ -320,15 +330,22 @@ def chunk_case(gen, rng, *, B, T, Hq, Hkv, D, start, chunk_len, prefix_len,
         torch.bfloat16)
     st, cl = torch.from_numpy(start).cuda(), torch.from_numpy(
         chunk_len).cuda()
-    out = ops.paged_chunk_attention(q, k, v, tables, st, cl,
-                                    prefix_len=prefix_len)
+    kernel = lambda: ops.paged_chunk_attention(q, k, v, tables, st, cl,
+                                               prefix_len=prefix_len)
+    out = kernel()
     want = ref.paged_chunk_attention_ref(q.float(), k, v, tables, st, cl,
                                          prefix_len=prefix_len)
     torch.cuda.synchronize()
     err = (out.float() - want).abs().max().item()
     torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    for b, n in enumerate(chunk_len.tolist()):
+        check(not out[b, n:].any(), "paged chunk attention: a row past "
+              "chunk_len is not zero")
+    check(all(torch.equal(out, kernel()) for _ in range(2)),
+          "paged chunk attention: repeated launches differ")
+    rec = {"max_abs_err": err, **check_rows("out", out, want)}
     if not timed:
-        return {"max_abs_err": err}
+        return rec
     # what this data needs: per slot, the keys some live row can see (and
     # their table entries), the visible (row, key) pairs, the live rows' q,
     # every row's output and every slot's start and length
@@ -348,16 +365,13 @@ def chunk_case(gen, rng, *, B, T, Hq, Hkv, D, start, chunk_len, prefix_len,
     vis = (kpos[None, None] <= qpos[..., None]) | (kpos < prefix_len)
     vis &= kpos[None, None] < (st + cl)[:, None, None]
     kd, vd = dense_view(k, tables), dense_view(v, tables)
-    kernel = lambda: ops.paged_chunk_attention(q, k, v, tables, st, cl,
-                                               prefix_len=prefix_len)
-    rec = {"max_abs_err": err, "ms": graph_ms(kernel),
-           "host_paced_ms": time_ms(kernel),
-           "plain_ms": time_ms(lambda: ref.paged_chunk_attention_ref(
-               q, k, v, tables, st, cl, prefix_len=prefix_len), iters=3,
-               reps=3),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": graph_ms(sdpa_fn(q.transpose(1, 2), kd, vd,
-                                          vis[:, None], Hq))}
+    rec.update({"ms": graph_ms(kernel), "host_paced_ms": time_ms(kernel),
+                "plain_ms": time_ms(lambda: ref.paged_chunk_attention_ref(
+                    q, k, v, tables, st, cl, prefix_len=prefix_len),
+                    iters=3, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": graph_ms(sdpa_fn(q.transpose(1, 2), kd, vd,
+                                               vis[:, None], Hq))})
     return rec
 
 
@@ -795,23 +809,39 @@ def chunk_kernels(gen):
     return rec
 
 
-def gmm_case(gen, *, E, C, K, N, timed):
+def gmm_case(gen, *, E, C, K, N, timed, route=None, lhs_pad=0):
     """The grouped GEMM on bf16 operands against the plain version on their
-    f32 copies (what the kernel sums before its one rounding to bf16)."""
+    f32 copies (what the kernel sums before its one rounding to bf16),
+    held by atol = rtol = TOL and, at every row, by ``check_rows``;
+    repeated launches must give identical outputs.  ``route``: the route
+    the operands must take; ``lhs_pad`` > 0 reads lhs in place from a
+    wider (E, C, K + lhs_pad) buffer (a row stride above K).  A timed
+    record also carries its achieved TFLOP/s and share of the bound."""
     import torch
     from repro_torch.kernels import grouped_matmul, ref
-    lhs = torch.randn(E, C, K, generator=gen, device="cuda").to(
-        torch.bfloat16)
+    lhs = torch.randn(E, C, K + lhs_pad, generator=gen, device="cuda").to(
+        torch.bfloat16)[:, :, :K]
     rhs = torch.randn(E, K, N, generator=gen, device="cuda").to(
         torch.bfloat16)
+    which = grouped_matmul.route(lhs, rhs)
+    check(route is None or which == route,
+          f"grouped_matmul {(E, C, K, N)}: route {which}, not {route}")
+    before = dict(grouped_matmul.route_launches)
     run = lambda: grouped_matmul.grouped_matmul(lhs, rhs)
     out = run()
+    check(grouped_matmul.route_launches[which] == before[which] + 1,
+          f"grouped_matmul {(E, C, K, N)} did not count its {which} launch")
     want = ref.grouped_matmul_ref(lhs.float(), rhs.float())
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "grouped_matmul: non-finite output")
     err = (out.float() - want).abs().max().item()
     torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
-    rec = {"max_abs_err": err, "out_max_abs": want.abs().max().item()}
+    check(all(torch.equal(out, run()) for _ in range(2)),
+          f"grouped_matmul {(E, C, K, N)}: repeated launches differ")
+    # rows of (E, C, N): position c over experts and columns
+    rec = {"max_abs_err": err, "gemm_route": which,
+           "out_max_abs": want.abs().max().item(),
+           **check_rows("out", out, want)}
     del out, want
     if not timed:
         return rec
@@ -825,6 +855,7 @@ def gmm_case(gen, *, E, C, K, N, timed):
                     lhs, rhs), iters=2, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": graph_ms(lambda: torch.bmm(lhs, rhs))})
+    rec.update(achieved(flops, rec))
     return rec
 
 
@@ -835,18 +866,30 @@ def mixtral_kernels(gen, rng):
     kernels at mixtral's attention shapes, whose errors join those
     kernels' records."""
     import torch
-    rec = gmm_case(gen, E=8, C=512, K=4096, N=14336, timed=True)
+    rec = gmm_case(gen, E=8, C=512, K=4096, N=14336, timed=True,
+                   route="tma")
     errs = [rec["max_abs_err"]]
     for name, shape in (("decode down projection", (8, 512, 14336, 4096)),
                         ("chunk, 20 rows an expert", (8, 20, 4096, 14336))):
         E, C, K, N = shape
-        r = gmm_case(gen, E=E, C=C, K=K, N=N, timed=True)
+        r = gmm_case(gen, E=E, C=C, K=K, N=N, timed=True, route="tma")
         print(f"  grouped_matmul, {name} {shape}: {r}")
         errs.append(r["max_abs_err"])
         torch.cuda.empty_cache()
-    for E, C, K, N in ((4, 50, 70, 33), (8, 10, 200, 16), (4, 1, 256, 384)):
-        errs.append(gmm_case(gen, E=E, C=C, K=K, N=N,
-                             timed=False)["max_abs_err"])
+    # odd shapes: the unaligned one on the mma.sync route, the rest on the
+    # TMA route (C around the 128-row tile, a ragged 256-column N tile, an
+    # lhs row stride above K)
+    odd = [((4, 50, 70, 33), "mma_sync", 0), ((8, 10, 200, 16), "tma", 0),
+           ((4, 1, 256, 384), "tma", 0)]
+    odd += [((4, C, 512, 264), "tma", 0) for C in (1, 63, 64, 65, 200)]
+    odd += [((3, 70, 256, 200), "tma", 24)]
+    for (E, C, K, N), route, pad in odd:
+        r = gmm_case(gen, E=E, C=C, K=K, N=N, timed=False, route=route,
+                     lhs_pad=pad)
+        errs.append(r["max_abs_err"])
+        rec["odd_shapes_worst_row_of_limit"] = max(
+            rec.get("odd_shapes_worst_row_of_limit", 0.0),
+            r["out_worst_row_of_limit"])
     rec["max_abs_err"] = max(errs)
     torch.cuda.empty_cache()
     # phase 6's decode attention: 512 slots, 32 live half-way through
@@ -869,6 +912,24 @@ def mixtral_kernels(gen, rng):
         **mixtral)["max_abs_err"])
     torch.cuda.empty_cache()
     return rec, attn["max_abs_err"], chunk_err
+
+
+def chunk_odd_cases(minicpm, gqa):
+    """(heads, case) pairs of the paged chunk kernels' odd shapes: ragged
+    slots with a dead one among four, a prefix of 0, 20 and 100 (past the
+    first 64-row tile), T = 13 and 65 (ragged row tiles), starts that are
+    multiples of neither 64 nor the 32-token page, at minicpm's heads, a
+    GQA shape, and mixtral's 32/8 heads at D = 128."""
+    mixtral = dict(Hq=32, Hkv=8, D=128)
+    for shape in (minicpm, gqa, mixtral):
+        for prefix_len in (0, 20, 100):
+            yield shape, dict(B=4, T=128, start=[0, 40, 100, 200],
+                              chunk_len=[128, 90, 0, 56],
+                              prefix_len=prefix_len)
+        yield shape, dict(B=4, T=13, start=[5, 37, 0, 77],
+                          chunk_len=[13, 13, 0, 9], prefix_len=100)
+        yield shape, dict(B=4, T=65, start=[3, 37, 0, 130],
+                          chunk_len=[65, 60, 0, 1], prefix_len=0)
 
 
 def phase_kernels():
@@ -901,17 +962,17 @@ def phase_kernels():
             timed=False, **gqa)["max_abs_err"])
         records["paged_decode_attention" + tag] = rec
         # chunked prefill: the path's shape (one slot, a 128-row bucket)
-        # timed; ragged slots with a dead row and a prefix checked
+        # timed; then odd shapes, each also held by check_rows
         rec = chunk_case(gen, rng, B=1, T=128, start=[64], chunk_len=[128],
                          prefix_len=0, quant=quant, timed=True, **minicpm)
-        errs = [rec["max_abs_err"]]
-        for shape in (minicpm, gqa):
-            for prefix_len in (0, 20):
-                errs.append(chunk_case(
-                    gen, rng, B=4, T=128, start=[0, 40, 100, 200],
-                    chunk_len=[128, 90, 0, 56], prefix_len=prefix_len,
-                    quant=quant, timed=False, **shape)["max_abs_err"])
-        rec["max_abs_err"] = max(errs)
+        rec["odd_shapes_worst_row_of_limit"] = rec["out_worst_row_of_limit"]
+        for shape, case in chunk_odd_cases(minicpm, gqa):
+            r = chunk_case(gen, rng, quant=quant, timed=False, **shape,
+                           **case)
+            rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+            rec["odd_shapes_worst_row_of_limit"] = max(
+                rec["odd_shapes_worst_row_of_limit"],
+                r["out_worst_row_of_limit"])
         records["paged_chunk_prefill_attention" + tag] = rec
         torch.cuda.empty_cache()
     for rec in records.values():
@@ -1091,6 +1152,7 @@ def wave_mixtral(n_requests=32, new_tokens=40):
     just after.  Returns the counts."""
     import torch
     from repro_torch.launch.profile_step import wave_runtime
+    from repro_torch.kernels import grouped_matmul
     from repro_torch.kernels.ops import launch_counts
     from repro_torch.models import moe
     torch.cuda.reset_peak_memory_stats()
@@ -1117,6 +1179,7 @@ def wave_mixtral(n_requests=32, new_tokens=40):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
+    routes = dict(grouped_matmul.route_launches)
     peak = torch.cuda.max_memory_allocated()
     check(len(results) == n_requests,
           f"mixtral-8x7b wave served {len(results)}/{n_requests}")
@@ -1128,6 +1191,8 @@ def wave_mixtral(n_requests=32, new_tokens=40):
     check(launches["grouped_matmul"] == 3 * cfg.num_layers * calls,
           f"grouped_matmul launched {launches['grouped_matmul']} times, "
           f"not 3 a layer in each of {calls} steps and chunks")
+    check(routes["tma"] == launches["grouped_matmul"],
+          f"a grouped GEMM launch of the wave left the TMA route: {routes}")
     for name in ("grouped_matmul", "paged_decode_attention",
                  "paged_chunk_prefill_attention"):
         check(launches[name] > 0,
@@ -1144,6 +1209,7 @@ def wave_mixtral(n_requests=32, new_tokens=40):
           f"{len(results)}/{n_requests}, {n_tok} tokens in {dt:.3f} s = "
           f"{n_tok / dt:.1f} tok/s, {rt.decode_steps} decode steps, "
           f"{rt.prefill_chunk_calls} prefill chunks, launches {launches}, "
+          f"grouped GEMM routes {routes}, "
           f"expert-capacity drops {dropped:.0f} of {assigned:.0f} "
           f"assignments ({dropped / max(assigned, 1.0):.4f}), memory (GB) "
           f"before {mem0 / 1e9:.2f}, with weights {mem_weights / 1e9:.2f}, "
@@ -1990,10 +2056,12 @@ def ptxas_lines(log):
 
 
 def demangle(mangled):
-    """The last name of an Itanium-mangled function and its integer
-    template arguments: ``_ZN..16flash_fwd_kernelILi64EE..`` ->
-    ``flash_fwd_kernel<64>``."""
+    """The last name of an Itanium-mangled function and its template
+    arguments, integers and types: ``_ZN..16flash_fwd_kernelILi64EE..`` ->
+    ``flash_fwd_kernel<64>``, ``..18paged_chunk_kernelIaLi64EE..`` ->
+    ``paged_chunk_kernel<int8, 64>``."""
     import re
+    builtin = {"a": "int8", "h": "uint8", "i": "int", "f": "float"}
     i = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while True:
@@ -2002,9 +2070,25 @@ def demangle(mangled):
             break
         j = i + num.end()
         name, i = mangled[j:j + int(num[0])], j + int(num[0])
-    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
-    return (f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', args[1]))}>"
-            if args else name)
+    if not mangled[i:].startswith("I"):
+        return name
+    args, i = [], i + 1
+    while i < len(mangled) and mangled[i] != "E":
+        lit = re.match(r"L[a-z](-?\d+)E", mangled[i:])
+        typ = re.match(r"(\d+)", mangled[i:])
+        if lit:
+            args.append(lit[1])
+            i += lit.end()
+        elif typ:
+            j = i + typ.end()
+            args.append(mangled[j:j + int(typ[1])].strip("_"))
+            i = j + int(typ[1])
+        elif mangled[i] in builtin:
+            args.append(builtin[mangled[i]])
+            i += 1
+        else:
+            break
+    return f"{name}<{', '.join(args)}>"
 
 
 def main() -> int:

@@ -71,7 +71,6 @@
 namespace {
 
 constexpr int kThreads = 128;                  // 4 warps
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;   // -0.7 * FLT_MAX
 
@@ -83,13 +82,6 @@ struct Cfg {
   // the q tile, then two stages of k and of v
   static constexpr int kSmemBytes = (kBlockM + 4 * kBlockN) * (D + kPad) * 2;
 };
-
-// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = +0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 struct Params {
   const bf16* q;
@@ -198,35 +190,7 @@ flash_fwd_kernel(const Params p) {
       }
 
     // 3. the online softmax: new row maxima over the quad, rescale
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float base[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      // a row that has seen nothing yet keeps p = 0 and alpha = 0
-      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
-      const float alpha = exp2_approx(m[i] - base[i]);
-      m[i] = mx[i];
-      l[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][2 * i] *= alpha;
-        o[j][2 * i + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2_approx(s[j][e] - base[e >> 1]);
-        l[e >> 1] += s[j][e];                  // f32 p, before rounding
-      }
+    online_softmax<BN, D>(s, m, l, o);
 
     // 4. O += P V
     regs_dot_tile<D, BN, D>(o, s, vt, 0, lane);
@@ -236,20 +200,9 @@ flash_fwd_kernel(const Params p) {
   cp_async_wait<0>();
   __syncthreads();                             // q's copies landed everywhere
 
-  // finalize: the quad's partial row sums, then O / l through this warp's
-  // own rows of the q tile (no other warp reads them) as 16-byte stores
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const float inv = 1.f / fmaxf(l[i], 1e-37f);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(wq + (g + 8 * i) * LD + j * 8 +
-                                         2 * t) =
-          __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
-  }
-  __syncwarp();
+  // finalize: O / l through this warp's own rows of the q tile (no other
+  // warp reads them) as 16-byte stores
+  finalize_rows<D>(wq, o, l, lane);
   constexpr int kParts = D / 8;                // 16-byte pieces per row
 #pragma unroll
   for (int c = lane; c < 16 * kParts; c += 32) {

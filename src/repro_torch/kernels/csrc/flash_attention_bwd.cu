@@ -78,7 +78,6 @@
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kRows = 64;                      // dq's query tile, dkdv's key tile
 
 struct Params {

@@ -1,10 +1,13 @@
-// Tile helpers shared by the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): 16-byte cp.async copies that zero-fill the
+// Tile helpers shared by the attention kernels on mma.sync
+// (flash_attention.cu, flash_attention_bwd.cu, the chunk kernel of
+// paged_attention.cu) and the grouped GEMM's mma.sync route
+// (grouped_matmul.cu): 16-byte cp.async copies that zero-fill the
 // ragged edge, ldmatrix fragment loads, mma.sync.m16n8k16 bf16 -> f32, and
 // the two products the kernels are built from, on tiles stored row-major in
 // shared memory with rows padded by kPad bf16 (so ldmatrix is free of bank
-// conflicts), plus the element and tile masks of the reference's flash
-// kernels.
+// conflicts), the online-softmax step and the row finalization on the
+// accumulator fragments, plus the element and tile masks of the
+// reference's flash kernels.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t holds rows g and
 // g + 8 of a 16 x 8 accumulator, columns 2 t and 2 t + 1; an A operand
@@ -15,6 +18,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -82,6 +86,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = +0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -173,6 +186,68 @@ __device__ __forceinline__ void regs_dot_tile(float (&acc)[W / 8][4],
       mma_bf16(acc[2 * dp + 1], a, bt[2], bt[3]);
     }
   }
+}
+
+// The online-softmax step of a warp's 16 rows over one key tile, in the
+// log2 domain: s (16 x BN scores, -inf where masked) becomes
+// p = 2^(s - m_new); the row maxima m (reduced over the quad by shuffles)
+// and this thread's partial row sums l (of the f32 p, before any rounding)
+// are updated and the output o (16 x D) rescaled.  A row that has seen
+// nothing yet keeps p = 0 and alpha = 0.
+template <int BN, int D>
+__device__ __forceinline__ void online_softmax(float (&s)[BN / 8][4],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&o)[D / 8][4]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float base[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    base[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+    const float alpha = exp2_approx(m[i] - base[i]);
+    m[i] = mx[i];
+    l[i] *= alpha;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][2 * i] *= alpha;
+      o[j][2 * i + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2_approx(s[j][e] - base[e >> 1]);
+      l[e >> 1] += s[j][e];
+    }
+}
+
+// Finalize a warp's 16 rows: the quad's partial row sums, then
+// o / max(l, 1e-37) rounded to bf16 into ``rows`` (16 rows of the warp's
+// own, row stride D + kPad, in shared memory), from where the caller
+// stores them.  Leaves l as the full row sums.
+template <int D>
+__device__ __forceinline__ void finalize_rows(bf16* rows, float (&o)[D / 8][4],
+                                              float (&l)[2], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float inv = 1.f / fmaxf(l[i], 1e-37f);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(rows + (g + 8 * i) * (D + kPad) +
+                                         j * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+  }
+  __syncwarp();
 }
 
 // Start copying rows [row0, row0 + rows) of a (L, D) bf16 slab with row

@@ -49,9 +49,17 @@ def test_target_is_stable_and_under_the_build_root(csrc):
     assert not build.BUILD_ROOT.exists()        # _target creates nothing
 
 
-def test_flash_kernels_include_the_shared_header(csrc):
-    for name in ("flash_attention", "flash_attention_bwd"):
-        assert '#include "mma_tiles.cuh"' in (csrc / f"{name}.cu").read_text()
+@pytest.mark.parametrize("name,header", [
+    ("flash_attention", "mma_tiles.cuh"),
+    ("flash_attention_bwd", "mma_tiles.cuh"),
+    ("paged_attention", "mma_tiles.cuh"),
+    ("grouped_matmul", "wgmma_tiles.cuh"),
+])
+def test_flash_kernels_include_the_shared_header(csrc, name, header):
+    """The kernels on mma.sync include the shared tile header; the grouped
+    GEMM includes the wgmma/TMA header, which includes the other."""
+    assert f'#include "{header}"' in (csrc / f"{name}.cu").read_text()
+    assert '#include "mma_tiles.cuh"' in (csrc / "wgmma_tiles.cuh").read_text()
 
 
 @pytest.mark.parametrize("name", build.SOURCES)
@@ -71,6 +79,15 @@ def test_source_edit_changes_only_its_own_target(csrc, name):
     assert after[name] != before[name]
     assert {n: p for n, p in after.items() if n != name} == \
         {n: p for n, p in before.items() if n != name}
+
+
+def test_wgmma_header_edit_changes_every_target(csrc):
+    """The wgmma/TMA header, like every csrc/*.cuh, keys every library."""
+    before = _targets()
+    header = csrc / "wgmma_tiles.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _targets()
+    assert all(after[n] != before[n] for n in build.SOURCES)
 
 
 def test_new_header_changes_the_targets(csrc):

@@ -16,8 +16,11 @@ rows that see nothing must hold -NEG_INF), and its bf16 output also at
 every sequence position to 1e-2 of that position's norm plus 1e-5 an
 element, as the backward's gradients below.  The grouped GEMM's bf16 output
 is held to the f32 product of the same bf16 values with atol = rtol =
-1.6e-2 (one rounding to bf16, sums in another order); its float32 instance
-to atol = rtol = 1e-3 (f32 sums over up to 14,336 terms in another order).
+1.6e-2 (one rounding to bf16, sums in another order), on both of its
+routes (TMA with wgmma, and mma.sync), each case checking the route it
+takes; its float32 instance to atol = rtol = 1e-3 (f32 sums over up to
+14,336 terms in another order).  The paged chunk kernels are also held
+at every row to 1e-2 of that row's norm plus 1e-5 an element.
 The dense chunked-prefill kernel's bf16 output is held to its plain
 version on the same bf16 inputs with atol = rtol = 1.6e-2 and, at every
 row, to 1e-2 of that row's norm plus 1e-5 an element.
@@ -111,6 +114,66 @@ def test_cuda_kernels_match_plain(cuda_device, quant, heads):
         == before["paged_chunk_prefill_attention" + kind] + 2
     print({n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
            for n, log in build.build_log.items()})
+
+
+PAGED_CHUNK_ODD = {    # (B, T, Hq, Hkv, D), start, chunk_len, prefix_len
+    "t13": ((4, 13, 36, 36, 64), [5, 37, 0, 77], [13, 13, 0, 9], 0),
+    "t65": ((4, 65, 36, 36, 64), [3, 37, 0, 130], [65, 60, 0, 1], 0),
+    "prefix_100": ((4, 128, 36, 36, 64), [0, 40, 100, 120], [128, 90, 0, 56],
+                   100),
+    "gqa_32_8_d128": ((4, 65, 32, 8, 128), [37, 0, 0, 100], [65, 64, 0, 20],
+                      20),
+    "one_slot_path": ((1, 128, 36, 36, 64), [64], [128], 0),
+}
+
+
+def _paged_chunk_case(dev, case, quant, seed):
+    (B, T, Hq, Hkv, D), start, cl, prefix = PAGED_CHUNK_ODD[case]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    end = np.add(start, cl)
+    k, v, tables = _pools(gen, B=B, nblk=8, bs=32, Hkv=Hkv, D=D,
+                          lens=np.maximum(end, 1), quant=quant)
+    q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    st = torch.tensor(start, dtype=torch.int32, device=dev)
+    n = torch.tensor(cl, dtype=torch.int32, device=dev)
+    run = lambda: ops.paged_chunk_attention(q, k, v, tables, st, n,
+                                            prefix_len=prefix)
+    want = ref.paged_chunk_attention_ref(q.float(), k, v, tables, st, n,
+                                         prefix_len=prefix)
+    return run, want, cl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(PAGED_CHUNK_ODD))
+def test_cuda_paged_chunk_odd_shapes_match_plain(cuda_device, case, quant):
+    """The chunk kernels (64-row, 64-key tiles) off their tiles: T = 13
+    and 65, starts off the 32-token page and off 64, a dead slot among
+    four, a prefix past the first row tile, GQA 32/8 at D = 128; held by
+    atol and at every row by its norm; rows past chunk_len are zeros."""
+    run, want, cl = _paged_chunk_case(cuda_device, case, quant, 11)
+    kind = "_quant" if quant else ""
+    before = paged_attention.launches["paged_chunk_prefill_attention" + kind]
+    out = run()
+    torch.cuda.synchronize()
+    assert paged_attention.launches["paged_chunk_prefill_attention" + kind] \
+        == before + 1
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    _assert_rows_close("out", out, want)
+    for b, c in enumerate(cl):
+        assert not out[b, c:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_cuda_paged_chunk_is_bit_reproducible(cuda_device, quant):
+    """Repeated launches on the same inputs give bit-identical outputs:
+    each row has one owner block and a fixed order of sums."""
+    run, _, _ = _paged_chunk_case(cuda_device, "gqa_32_8_d128", quant, 12)
+    first = run()
+    assert all(torch.equal(first, run()) for _ in range(3))
 
 
 @pytest.mark.cuda
@@ -249,7 +312,27 @@ GMM_CASES = {                       # (E, C, K, N, extra K, extra N)
     "strided_unaligned": (2, 33, 96, 64, 3, 5),
     "chunk": (8, 20, 4096, 14336, 0, 0),
     "decode_down": (8, 512, 14336, 4096, 0, 0),
+    "c1": (4, 1, 512, 264, 0, 0),
+    "c63": (4, 63, 512, 264, 0, 0),
+    "c64": (4, 64, 512, 264, 0, 0),
+    "c65": (4, 65, 512, 264, 0, 0),
+    "c200": (4, 200, 512, 264, 0, 0),
+    "lhs_row_strided": (3, 70, 256, 200, 24, 0),
 }
+# the route each case takes in bf16 (float32 always takes mma_sync)
+GMM_ROUTES = {case: "mma_sync" if case in ("odd", "strided_unaligned")
+              else "tma" for case in GMM_CASES}
+
+
+def _gmm_operands(dev, case, dt, seed):
+    E, C, K, N, xk, xn = GMM_CASES[case]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lhs = torch.randn(E, C, K + xk, generator=gen, device=dev).to(
+        dt)[:, :, :K]
+    rhs = torch.randn(E, K, N + xn, generator=gen, device=dev).to(
+        dt)[:, :, :N]
+    return lhs, rhs
 
 
 @pytest.mark.cuda
@@ -260,21 +343,32 @@ def test_cuda_grouped_matmul_matches_plain(cuda_device, case, dtype):
     wider tensors (read in place, with 16-byte-aligned and unaligned
     strides), and mixtral's chunk and decode shapes."""
     E, C, K, N, xk, xn = GMM_CASES[case]
-    gen = torch.Generator(device=cuda_device)
-    gen.manual_seed(4)
     dt = getattr(torch, dtype)
-    lhs = torch.randn(E, C, K + xk, generator=gen, device=cuda_device).to(
-        dt)[:, :, :K]
-    rhs = torch.randn(E, K, N + xn, generator=gen, device=cuda_device).to(
-        dt)[:, :, :N]
+    lhs, rhs = _gmm_operands(cuda_device, case, dt, 4)
+    route = GMM_ROUTES[case] if dt == torch.bfloat16 else "mma_sync"
+    assert grouped_matmul.route(lhs, rhs) == route
     before = grouped_matmul.launches["grouped_matmul"]
+    before_route = grouped_matmul.route_launches[route]
     out = ops.grouped_matmul(lhs, rhs)
     want = ref.grouped_matmul_ref(lhs.float(), rhs.float())
     torch.cuda.synchronize()
     assert grouped_matmul.launches["grouped_matmul"] == before + 1
+    assert grouped_matmul.route_launches[route] == before_route + 1
     assert out.dtype == dt and tuple(out.shape) == (E, C, N)
     tol = 1.6e-2 if dt == torch.bfloat16 else 1e-3
     torch.testing.assert_close(out.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decode_down", "c65", "strided_unaligned"])
+def test_cuda_grouped_matmul_is_bit_reproducible(cuda_device, case):
+    """Repeated launches give bit-identical outputs on both routes: no
+    split-K and no atomics, one owner block and one order of sums per
+    output tile."""
+    lhs, rhs = _gmm_operands(cuda_device, case, torch.bfloat16, 5)
+    first = ops.grouped_matmul(lhs, rhs)
+    assert all(torch.equal(first, ops.grouped_matmul(lhs, rhs))
+               for _ in range(3))
 
 
 @pytest.mark.cuda

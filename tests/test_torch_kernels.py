@@ -180,3 +180,46 @@ def test_quant_pages_index_and_proxy_shape():
     assert layer.shape == (5, 4, 2, 8) and layer.scales.shape == (5, 4, 2)
     layer.values.zero_()                         # a view into the pool
     assert not qp.values[1].any() and qp.values[0].all()
+
+
+# Shapes the chunk kernel's 64-row tiles and 64-key tiles meet off their
+# edges on the card (tests/test_torch_cuda.py), at toy size here: T off
+# any tile, starts off the 8-token page, a dead slot among four, a prefix
+# past the first rows, GQA 4/2.
+CHUNK_ODD = {
+    "t13_prefix10": dict(T=13, start=(5, 13, 0, 19), chunk_len=(13, 9, 0, 2),
+                         prefix_len=10),
+    "t17_no_prefix": dict(T=17, start=(0, 3, 0, 11), chunk_len=(17, 17, 0, 5),
+                          prefix_len=0),
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(CHUNK_ODD))
+def test_paged_chunk_odd_shapes_plain_matches_pallas(case, quant):
+    c = CHUNK_ODD[case]
+    start = np.asarray(c["start"], np.int32)
+    cl = np.asarray(c["chunk_len"], np.int32)
+    kp, vp, bt = _pools(5, B=4, lens=np.maximum(start + cl, 1))
+    q = np.random.default_rng(13).normal(size=(4, c["T"], 4, 16)).astype(
+        np.float32)
+    kw = dict(prefix_len=c["prefix_len"])
+    if quant:
+        jk, tk = _quant_both(kp)
+        jv, tv = _quant_both(vp)
+        want = jops.paged_chunk_attention(
+            jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(start),
+            jnp.asarray(cl), impl="pallas_interpret", **kw)
+    else:
+        tk, tv = _t(kp), _t(vp)
+        want = paged_chunk_prefill_attention_pallas(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(bt), jnp.asarray(start), jnp.asarray(cl),
+            interpret=True, **kw)
+    got = ops.paged_chunk_attention(_t(q), tk, tv, _t(bt), _t(start),
+                                    _t(cl), **kw)
+    np.testing.assert_allclose(_alive(got.numpy(), cl),
+                               _alive(np.asarray(want), cl), atol=ATOL,
+                               rtol=ATOL)
+    for b, n in enumerate(cl):
+        assert not got[b, n:].any()
