@@ -27,7 +27,8 @@ in eight phases; any failure exits non-zero:
    repeated launches bit-identical; the SSD
    scan at mamba2-2.7b's chunk-call shapes (80 heads, P = 64, N = 128, one
    group), its f32 final state held to atol = rtol = 1e-3 of its largest
-   magnitude (no single PyTorch call computes the scan); flash attention
+   magnitude (no single PyTorch call computes the scan), on the 16-byte
+   copy route, repeated launches bit-identical; flash attention
    at whisper-large-v3's encoder shape (1500 x 1500, 20 heads, D = 64) and
    cross-attention chunk shape (128 rows x 1500 keys) and one small case
    per mask option, its f32 log-sum-exp held to atol = rtol = 1e-3, its
@@ -55,8 +56,12 @@ in eight phases; any failure exits non-zero:
    shape (one slot, 128 rows at offset 64, S = 256, 36 heads, D = 64),
    beside ``scaled_dot_product_attention`` with the same boolean mask, and
    at odd shapes (GQA 32/8 at D = 128, per-row start and chunk_len with an
-   empty row, a prefix past the first tile, T = 13, S = 300, K/V read in
-   place from a wider buffer), also held by ``check_rows``; each timed
+   empty row, a prefix past the first tile, T = 13, S = 300, T = 130 over
+   three row tiles at start 63, S = 700 over eleven key tiles, K/V read in
+   place from a wider buffer), also held by ``check_rows``, repeated
+   launches bit-identical; the SSD scan's and the dense chunk kernel's
+   records also carry their share of the bound and their ``ptxas``
+   registers and spills; each timed
    flash record also carries its achieved TFLOP/s (the operations the
    function needs over its graph-replay time) and the share of its bound
    it reaches, and the build prints every kernel's ``ptxas`` register and
@@ -67,7 +72,7 @@ in eight phases; any failure exits non-zero:
    and 40 new tokens each, once with int8 KV and once with bf16 KV;
 4. the same wave through mamba2-2.7b's state path at 128 slots (the
    allocator's own ``user_bs``: its default 512 slots of SSD state would
-   take 86 GB);
+   take 86 GB), every SSD scan launch on the 16-byte copy route;
 5. the same wave through whisper-large-v3's encoder-decoder path at 128
    slots (its default 512 slots of cross K/V would take 125.8 GB), each
    request with seeded random frame embeddings, int8 self-attention KV;
@@ -93,7 +98,8 @@ in eight phases; any failure exits non-zero:
    and #1) against the dense-view step's (#6 and #5) over three chunks and
    three decode steps of one slot, to 2**-5 of their norm (each path's
    distance from its plain versions on the card, the chain's own bf16
-   noise, printed beside it); (d) phase 3's wave in sync mode;
+   noise, printed beside it), and the three chunk steps' logits identical
+   (#3 and #6 run one body); (d) phase 3's wave in sync mode;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -380,7 +386,7 @@ def ssd_case(gen, *, Bb, L, H=80, P=64, G=1, N=128, chunk=256, timed):
     passes them) with a nonzero initial state."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, ssd_scan
     rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     proj = rand(Bb, L, H * P + 2 * G * N).to(torch.bfloat16)
     x = proj[..., :H * P].reshape(Bb, L, H, P)
@@ -394,7 +400,13 @@ def ssd_case(gen, *, Bb, L, H=80, P=64, G=1, N=128, chunk=256, timed):
                                initial_state=h0)
     plain = lambda: ref.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
                                         initial_state=h0)
+    route = ssd_scan.route(x, Bm, Cm, h0)
+    check(route == "vec16", f"ssd_scan {(Bb, L)}: the model's projection "
+          f"took the {route} copy route")
+    before = ssd_scan.route_launches[route]
     y, h = run()
+    check(ssd_scan.route_launches[route] == before + 1,
+          f"ssd_scan {(Bb, L)} did not count its {route} launch")
     wy, wh = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(),
                                  D, chunk=chunk, initial_state=h0)
     torch.cuda.synchronize()
@@ -405,8 +417,12 @@ def ssd_case(gen, *, Bb, L, H=80, P=64, G=1, N=128, chunk=256, timed):
     scale = wh.abs().max().item()
     torch.testing.assert_close(h, wh, atol=SSD_STATE_TOL * scale,
                                rtol=SSD_STATE_TOL)
+    check(all(torch.equal(y, y2) and torch.equal(h, h2)
+              for y2, h2 in (run() for _ in range(2))),
+          "ssd_scan: repeated launches differ")
     rec = {"max_abs_err": err,
-           "state_max_rel_err": (h - wh).abs().max().item() / scale}
+           "state_max_rel_err": (h - wh).abs().max().item() / scale,
+           "ssd_route": route, "bit_identical_repeats": True}
     if not timed:
         return rec
     # what the function needs: x, dt, B, C, A, D and the initial state
@@ -426,6 +442,7 @@ def ssd_case(gen, *, Bb, L, H=80, P=64, G=1, N=128, chunk=256, timed):
     rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
                 "plain_ms": time_ms(plain, iters=3, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
 
@@ -747,7 +764,11 @@ def dense_chunk_case(gen, *, B, T, S, Hq, Hkv, D, start, chunk_len,
     for b, n in enumerate(chunk_len.tolist()):
         check(not out[b, n:].any(), "chunk_prefill_attention: a row past "
               "chunk_len is not zero")
-    rec = {"max_abs_err": err, **check_rows("out", out, want)}
+    check(all(torch.equal(out, ops.chunk_attention(
+        q, k, v, st, cl, prefix_len=prefix_len)) for _ in range(2)),
+        "chunk_prefill_attention: repeated launches differ")
+    rec = {"max_abs_err": err, "bit_identical_repeats": True,
+           **check_rows("out", out, want)}
     if not timed:
         return rec
     # what this data needs: per slot, the K/V rows some live row can see,
@@ -776,6 +797,7 @@ def dense_chunk_case(gen, *, B, T, S, Hq, Hkv, D, start, chunk_len,
                 "library_ms": graph_ms(sdpa_fn(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     vis[:, None], Hq))})
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
 
@@ -784,10 +806,13 @@ def chunk_kernels(gen):
     dense-view step (one slot, a 128-row bucket at offset 64, S = 256, 36
     heads, D = 64), beside SDPA with the same boolean mask; then odd
     shapes: mixtral's GQA 32/8 at D = 128 over B = 3 with per-row start
-    and chunk_len (one row empty), a prefix past the first 16-row tile,
-    T = 13 and S = 300 (not a multiple of the 32-key tile); minicpm's
-    heads at S = 200 with a ragged row; MQA with a prefix.  max_abs_err
-    and the worst row's share of its limit over every case."""
+    and chunk_len (one row empty), a prefix of 40, T = 13 and S = 300 (not
+    a multiple of the 64-key tile); minicpm's heads at S = 200 with a
+    ragged row; MQA with a prefix; and more than one tile: T = 130 over
+    three 64-row tiles at start 63, S = 700 over eleven key tiles, GQA
+    32/8 at D = 128 with a prefix of 100.  max_abs_err and the worst row's
+    share of its limit over every case; every case's repeated launches
+    are bit-identical."""
     import torch
     rec = dense_chunk_case(gen, B=1, T=128, S=256, Hq=36, Hkv=36, D=64,
                            start=[64], chunk_len=[128], timed=True)
@@ -798,6 +823,12 @@ def chunk_kernels(gen):
              chunk_len=[128, 77]),
         dict(B=1, T=40, S=97, Hq=8, Hkv=1, D=64, start=[57],
              chunk_len=[40], prefix_len=20),
+        dict(B=2, T=130, S=256, Hq=36, Hkv=36, D=64, start=[63, 0],
+             chunk_len=[130, 101]),
+        dict(B=2, T=64, S=700, Hq=36, Hkv=36, D=64, start=[636, 300],
+             chunk_len=[64, 64]),
+        dict(B=2, T=128, S=400, Hq=32, Hkv=8, D=128, start=[0, 200],
+             chunk_len=[128, 90], prefix_len=100),
     ]
     worst = rec["out_worst_row_of_limit"]
     for case in cases:
@@ -987,9 +1018,12 @@ def phase_kernels():
     long = ssd_case(gen, Bb=2, L=300, timed=False)
     for key in ("max_abs_err", "state_max_rel_err"):
         rec[key] = max(rec[key], short[key], long[key])
+    rec["ptxas"] = ptxas_record("ssd_scan")
     records["ssd_scan"] = rec
     records.update(whisper_kernels(gen))
     records["chunk_prefill_attention"] = chunk_kernels(gen)
+    records["chunk_prefill_attention"]["ptxas"] = ptxas_record(
+        "chunk_attention")
     _, records["flash_attention_bwd"] = training_kernels(gen)
     records["grouped_matmul"], attn_err, chunk_err = mixtral_kernels(gen,
                                                                     rng)
@@ -1061,6 +1095,7 @@ def wave_mamba2(n_requests=32, new_tokens=40):
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = ssd_scan.launches["ssd_scan"]
+    routes = dict(ssd_scan.route_launches)
     check(len(results) == n_requests,
           f"mamba2-2.7b wave served {len(results)}/{n_requests}")
     for r in results:
@@ -1073,13 +1108,16 @@ def wave_mamba2(n_requests=32, new_tokens=40):
     check(all(bool(torch.isfinite(layer).all()) for st in arena.state
               for layer in st), "non-finite SSM state")
     check(launches > 0, "the mamba2-2.7b wave never launched ssd_scan")
+    check(routes["vec16"] == launches,
+          f"a mamba2-2.7b scan left the 16-byte copy route: {routes}")
     n_tok = sum(len(r.tokens) for r in results)
     print(f"phase 4 (mamba2-2.7b, {arena.capacity} slots, "
           f"{arena.state_slot_bytes / 1e6:.1f} MB of state a slot): served "
           f"{len(results)}/{n_requests}, {n_tok} tokens in {dt:.3f} s = "
           f"{n_tok / dt:.1f} tok/s, {rt.decode_steps} decode steps, "
           f"{rt.prefill_chunk_calls} prefill chunks, ssd_scan launches "
-          f"{launches}, memory (GB) before {mem0 / 1e9:.2f}, with weights "
+          f"{launches} (by copy route {routes}), memory (GB) before "
+          f"{mem0 / 1e9:.2f}, with weights "
           f"{mem_weights / 1e9:.2f}, after "
           f"{torch.cuda.memory_allocated() / 1e9:.2f}, peak {peak / 1e9:.2f}")
     del rt, arena
@@ -1414,14 +1452,25 @@ def logits_parity(chunks=(64, 64, 37), steps=3):
               "non-finite logits")
         report.append({"step": i, "max_abs_diff": (a - b).abs().max().item(),
                        "norm": b.norm().item(), "rel_l2": rel(a, b),
-                       "floor": max(rel(a, pa), rel(b, pb))})
+                       "floor": max(rel(a, pa), rel(b, pb)),
+                       "identical": torch.equal(a, b)})
     print(f"phase 8 (c) logits, native (kernels #3, #1) vs dense view "
           f"(#6, #5), minicpm-2b full width, limit {PARITY_TOL} of the "
           f"norm (floor: each path against its plain versions): {report}")
+    print(f"phase 8 (c) the {len(chunks)} chunk steps' rel_l2 (#3 and #6 "
+          f"share one body, so 0): "
+          f"{[r['rel_l2'] for r in report[:len(chunks)]]}")
     for r in report:
         check(r["rel_l2"] <= PARITY_TOL,
               f"native vs dense-view logits at step {r['step']}: "
               f"|diff| / |logits| = {r['rel_l2']} > {PARITY_TOL}")
+    # #3 and #6 run one body (chunk_tiles.cuh) in one tile and sum order,
+    # and the dense view holds the pages' values, so until the first
+    # decode step (#1 against #5) the two chains are one computation
+    for r in report[:len(chunks)]:
+        check(r["identical"], f"native vs dense-view logits at chunk step "
+              f"{r['step']} differ (rel_l2 {r['rel_l2']}): the chunk "
+              f"kernels share one body and must agree bit for bit")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2053,6 +2102,23 @@ def ptxas_lines(log):
             kernel = demangle(entry[1])
         elif "registers" in line or "spill" in line:
             yield kernel, line.replace("ptxas info    :", "").strip()
+
+
+def ptxas_record(source):
+    """{kernel: {"registers": n, "spill_bytes": stores + loads}} of one
+    source's ``ptxas -v`` output in this run's build (empty where this run
+    found the library built)."""
+    import re
+    from repro_torch.kernels import build
+    out = {}
+    for kernel, line in ptxas_lines(build.build_log.get(source, "")):
+        k = out.setdefault(kernel, {"registers": None, "spill_bytes": 0})
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            k["registers"] = int(regs[1])
+        k["spill_bytes"] += sum(int(n) for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", line))
+    return out
 
 
 def demangle(mangled):

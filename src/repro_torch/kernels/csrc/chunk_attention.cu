@@ -11,196 +11,85 @@
 // sits at position start[b] + i and is alive iff i < chunk_len[b]; it sees
 // a key at kpos iff (kpos <= start + i or kpos < prefix_len) and
 // kpos < start + chunk_len.  Dead rows are zeros.  GQA: query head h reads
-// kv head h / (Hq / Hkv).  The math of the paged chunk kernel
-// (csrc/paged_attention.cu, paged_chunk_kernel), on a dense cache.
+// kv head h / (Hq / Hkv).
 //
-// What bounds it on this card: bytes.  Each visible (row, key) pair costs
-// 4*D flops per query head; at the serving path's shape (one slot, a
-// 128-row bucket, 36 heads, D = 64, S = 256) that is 0.15 GFLOP against
-// 3.5 MB of q, K, V and output: ~40 flops a byte, under the ~295 a byte
-// where the H100's tensor cores, not its 3.35 TB/s, set the limit.  So the
-// design moves each needed byte once and spends nothing on flops:
-//   * the cache is read in place with the caller's batch, sequence and
-//     head strides (a layer slice of the stacked (layers, B, S, Hkv, D)
-//     view is such a cache); the Pallas wrapper pads S and transposes the
-//     whole cache to (B*Hkv, S_p, D) on every call;
-//   * no key at or past start + chunk_len is read: the key loop stops at
-//     the tile's last visible key, and the last 32-key tile loads only the
-//     rows below it (zeros above), as the Pallas kernel's @pl.when skips
-//     blocks past the end;
-//   * no row at or past chunk_len is computed: a 16-row tile whose rows
-//     are all dead writes zeros and returns before it reads anything, and
-//     a ragged tile scores only its live rows;
-//   * S need not be a multiple of the key tile, and T of the row tile.
-// One block per (slot, query head, 16-row tile), 4 warps: 16-byte loads of
-// K and V into shared memory, one warp per row and one lane per key for the
-// scores and the f32 online softmax, each thread accumulating its own
-// (row, dim) pairs of P @ V in registers.  Rows finalize with
-// acc / max(l, 1e-37).  A simple kernel: no mma, no cp.async, no TMA.
+// What bounds it on this card: at the serving path's shape (one slot, a
+// 128-row bucket at offset 64, 36 heads, D = 64, S = 256) it does 0.15
+// GFLOP against ~3.5 MB of q, K, V and output: ~40 flops a byte, under the
+// ~295 a byte where the H100's tensor cores, not its 3.35 TB/s, set the
+// limit, so bytes on paper; but the work is small, and what bounds it in
+// practice is latency, the chain of steps one block takes.  The first
+// kernel (one block per 16 rows, f32 staging, one lane per key for the
+// scores, a scalar P V loop) re-read each head's 192 visible keys 8 times
+// and ran its products on the CUDA cores, 2.7x the time of
+// scaled_dot_product_attention on the same inputs (NVIDIA H100 80GB HBM3,
+// 700 W, by chip_smoke.py).
+//
+// The design: the paged chunk kernel's body (chunk_tiles.cuh), which puts
+// both products on the tensor cores, with a dense key source: key kpos of
+// (slot b, kv head kvh) lies at k + b*kb + kpos*ks + kvh*kh (and likewise
+// for v), read in place with the caller's strides (a layer slice of the
+// stacked (layers, B, S, Hkv, D) view is such a cache; the Pallas wrapper
+// pads S and transposes the whole cache to (B*Hkv, S_p, D) on every call).
+//   * a block per 64 query rows of a head, 4 warps of 16 rows, q held as
+//     ldmatrix fragments; keys 64 at a time through a two-stage 16-byte
+//     cp.async ring (the wrapper's 16-byte alignment and strides that are
+//     multiples of 8 elements are what 16-byte copies need);
+//   * S = Q K^T and O += P V on mma.sync.m16n8k16, the online softmax on
+//     the fragments, the element mask only on tiles that cross an edge;
+//   * the key tiles start at 0 in steps of 64 and the sums run in the
+//     paged kernel's order, so on a dense view of the pages this kernel
+//     gives the paged kernel's output bit for bit;
+//   * no key at or past min(start + chunk_len, S) is read (the stager
+//     zero-fills instead), no row at or past chunk_len is computed (a tile
+//     whose rows are all dead writes zeros and reads nothing), and S and T
+//     need not be multiples of 64.
+// What holds it back now: launch and one block's serial chain (copy, two
+// products, softmax) over at most three key tiles at the path's shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "mma_tiles.cuh"
+#include "chunk_tiles.cuh"
 
-constexpr int kThreads = 128;             // 4 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kKeys = 32;                 // keys per staged tile: one per lane
-constexpr int kRows = 16;                 // query rows one block serves
-constexpr int kVec = 8;                   // bf16 values per 16-byte load
-constexpr float kNegInf = -0.7f * 3.402823466e+38f;   // -0.7 * FLT_MAX
+namespace {
 
 // The cache, read in place.  Strides are in elements; the head dim is dense.
 struct Cache {
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  const bf16* k;
+  const bf16* v;
   long long kb, ks, kh;                   // k: batch, sequence, head strides
   long long vb, vs, vh;
   int S;
 };
 
-template <int D>
-struct Smem {
-  float q[kRows][D];
-  float k[kKeys][D + 1];                  // +1: lane j reads row j, no conflicts
-  float v[kKeys][D];
-  float p[kRows][kKeys];
-  float m[kRows], l[kRows], alpha[kRows];
+// The dense rows of one (slot, kv head): key kpos lies kpos sequence
+// strides past the head's first row, read through the kernel's ``Cache``
+// argument.
+struct DenseKeys {
+  typedef bf16 T;
+  const Cache& c;
+  int b, kvh;
+
+  __device__ __forceinline__ void rows(int kpos, const bf16** kr,
+                                       const bf16** vr) const {
+    *kr = c.k + b * c.kb + kvh * c.kh + kpos * c.ks;
+    *vr = c.v + b * c.vb + kvh * c.vh + kpos * c.vs;
+  }
+  __device__ __forceinline__ const bf16* any() const { return c.k; }
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* dst) {
-  uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int e = 0; e < kVec; ++e) dst[e] = __bfloat162float(h[e]);
-}
-
-// Block (slot b, query head h, tile z of 16 rows).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-chunk_kernel(const __nv_bfloat16* __restrict__ q,
-             __nv_bfloat16* __restrict__ out, Cache c,
+__global__ void __launch_bounds__(kChunkThreads)
+chunk_kernel(const bf16* __restrict__ q, bf16* __restrict__ out, Cache c,
              const int* __restrict__ start, const int* __restrict__ chunk_len,
              int T, int Hq, int Hkv, int prefix_len, float scale) {
-  constexpr int kParts = D / kVec;                 // 16-byte loads per row
-  constexpr int kOwn = kRows * D / kThreads;       // (row, dim) pairs a thread
-  __shared__ Smem<D> sm;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x, h = blockIdx.y, i0 = blockIdx.z * kRows;
-  const int kvh = h / (Hq / Hkv);
-  const int st = start[b], cl = chunk_len[b];
-  const int nrows = min(kRows, T - i0);
-  const int alive = max(0, min(nrows, cl - i0));  // rows i0 .. i0+alive-1
-  const long long row_stride = static_cast<long long>(Hq) * D;
-  const long long row0 = (static_cast<long long>(b) * T + i0) * Hq + h;
-  __nv_bfloat16* ob = out + row0 * D;
-  if (alive == 0) {                        // every row of the tile is dead
-    for (int e = tid; e < nrows * D; e += kThreads)
-      ob[(e / D) * row_stride + e % D] = __float2bfloat16(0.f);
-    return;
-  }
-  // keys a live row of this tile can see: below its position + 1 or the
-  // prefix, and always below start + chunk_len (and the cache's end)
-  const int end = min(st + cl, c.S);
-  const int kend = max(0, min(end, max(st + i0 + alive, prefix_len)));
-  const __nv_bfloat16* qb = q + row0 * D;
-  for (int e = tid; e < alive * D; e += kThreads)
-    sm.q[e / D][e % D] = __bfloat162float(qb[(e / D) * row_stride + e % D]);
-  if (tid < kRows) {
-    sm.m[tid] = kNegInf;
-    sm.l[tid] = 0.f;
-    sm.alpha[tid] = 1.f;
-  }
-  float acc[kOwn];
-#pragma unroll
-  for (int i = 0; i < kOwn; ++i) acc[i] = 0.f;
-  const __nv_bfloat16* kbase = c.k + b * c.kb + kvh * c.kh;
-  const __nv_bfloat16* vbase = c.v + b * c.vb + kvh * c.vh;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < kend; t0 += kKeys) {
-    // 1. stage keys t0 .. t0+31 in f32; rows at or past kend are zeros and
-    //    never read from the cache
-    for (int e = tid; e < kKeys * kParts; e += kThreads) {
-      const int j = e / kParts, col = (e % kParts) * kVec;
-      const int kpos = t0 + j;
-      float kv[kVec], vv[kVec];
-      if (kpos < kend) {
-        load8(kbase + kpos * c.ks + col, kv);
-        load8(vbase + kpos * c.vs + col, vv);
-      } else {
-#pragma unroll
-        for (int x = 0; x < kVec; ++x) kv[x] = vv[x] = 0.f;
-      }
-#pragma unroll
-      for (int x = 0; x < kVec; ++x) {
-        sm.k[j][col + x] = kv[x];
-        sm.v[j][col + x] = vv[x];
-      }
-    }
-    __syncthreads();
-
-    // 2. scores and the online-softmax update of the live rows: one warp
-    //    per row, one lane per key (the Pallas tile's order: mask, max,
-    //    rescale, sum)
-    for (int r = warp; r < alive; r += kWarps) {
-      const float m_prev = sm.m[r];
-      const int kpos = t0 + lane;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) s += sm.q[r][d] * sm.k[lane][d];
-      s *= scale;
-      const bool ok = kpos < kend &&
-                      (kpos <= st + i0 + r || kpos < prefix_len);
-      s = ok ? s : kNegInf;
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float alpha = expf(m_prev - m_new);
-      const float p = ok ? expf(s - m_new) : 0.f;
-      const float psum = warp_sum(p);
-      sm.p[r][lane] = p;
-      if (lane == 0) {
-        sm.m[r] = m_new;
-        sm.l[r] = sm.l[r] * alpha + psum;
-        sm.alpha[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // 3. acc = acc * alpha + p @ V over the live rows
-#pragma unroll
-    for (int i = 0; i < kOwn; ++i) {
-      const int e = tid + i * kThreads, r = e / D, d = e % D;
-      if (r < alive) {
-        float a = acc[i] * sm.alpha[r];
-#pragma unroll 8
-        for (int j = 0; j < kKeys; ++j) a += sm.p[r][j] * sm.v[j][d];
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < kOwn; ++i) {
-    const int e = tid + i * kThreads, r = e / D, d = e % D;
-    if (r < nrows) {
-      const float o = r < alive ? acc[i] / fmaxf(sm.l[r], 1e-37f) : 0.f;
-      ob[r * row_stride + d] = __float2bfloat16(o);
-    }
-  }
+  const int b = blockIdx.x;
+  const DenseKeys src{c, b, static_cast<int>(blockIdx.y) / (Hq / Hkv)};
+  chunk_tile<D>(q, out, src, start[b], chunk_len[b], c.S, T, Hq, prefix_len,
+                scale);
 }
 
 }  // namespace
@@ -216,8 +105,8 @@ extern "C" int chunk_attention_bf16(
   if (B < 1 || T < 1 || S < 1 || Hkv < 1 || Hq % Hkv || prefix_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Cache c;
-  c.k = static_cast<const __nv_bfloat16*>(k_cache);
-  c.v = static_cast<const __nv_bfloat16*>(v_cache);
+  c.k = static_cast<const bf16*>(k_cache);
+  c.v = static_cast<const bf16*>(v_cache);
   c.kb = kb;
   c.ks = ks;
   c.kh = kh;
@@ -225,17 +114,19 @@ extern "C" int chunk_attention_bf16(
   c.vs = vs;
   c.vh = vh;
   c.S = S;
-  const dim3 grid(B, Hq, (T + kRows - 1) / kRows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  auto* oo = static_cast<__nv_bfloat16*>(out);
+  const auto* qq = static_cast<const bf16*>(q);
+  auto* oo = static_cast<bf16*>(out);
   const auto* st = static_cast<const int*>(start);
   const auto* cl = static_cast<const int*>(chunk_len);
+  static unsigned long long opted64 = 0, opted128 = 0;   // bit per device
   if (D == 64)
-    chunk_kernel<64><<<grid, kThreads, 0, s>>>(qq, oo, c, st, cl, T, Hq, Hkv, prefix_len, scale);
-  else if (D == 128)
-    chunk_kernel<128><<<grid, kThreads, 0, s>>>(qq, oo, c, st, cl, T, Hq, Hkv, prefix_len, scale);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_chunk_grid<bf16, 64>(chunk_kernel<64>, &opted64, B, T, Hq,
+                                       s, qq, oo, c, st, cl, T, Hq, Hkv,
+                                       prefix_len, scale);
+  if (D == 128)
+    return launch_chunk_grid<bf16, 128>(chunk_kernel<128>, &opted128, B, T,
+                                        Hq, s, qq, oo, c, st, cl, T, Hq, Hkv,
+                                        prefix_len, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -40,30 +40,22 @@
 // but it is small, so what bounds it in practice is latency: the chain of
 // steps one block takes.  The design shortens that chain and puts the
 // products on the tensor cores, in the shape of the flash forward
-// (flash_attention.cu), with the tiles of mma_tiles.cuh:
+// (flash_attention.cu): the body of chunk_tiles.cuh, which the dense chunk
+// kernel (chunk_attention.cu) shares, here with keys gathered row by row
+// through the slot's block-table row (a 64-key tile may span pages and end
+// inside one):
 //   * one block per (slot, query head, 64 query rows), 4 warps of 16 rows
 //     (phase 3's chunk: 72 blocks for 132 SMs; 32-row blocks of 2 warps,
-//     144 blocks, were the slower in a side-by-side build on the H100); a
-//     tile whose rows are all dead writes zeros and returns before it
-//     reads anything;
-//   * the live rows of q are copied once by 16-byte cp.async and held as
-//     ldmatrix A fragments;
-//   * keys come 64 at a time, gathered row by row through the block-table
-//     row with 16-byte cp.async (a tile may span pages and end inside one),
-//     through a two-stage ring: tile j + 1's copy is issued before tile j's
-//     products;
-//   * S = Q K^T and O += P V on mma.sync.m16n8k16 bf16 -> f32, the online
-//     softmax on the accumulator fragments (ex2.approx in the log2
-//     domain), the element mask (causal, prefix, chunk end, dead rows) only
-//     on a tile that crosses an edge; P is rounded to bf16 for P V, the row
-//     sums taken from the f32 P, as in the flash forward;
-//   * int8 pages: the raw int8 K and V rows and their f32 scales are staged
-//     (cp.async, 16 and 4 bytes), then widened to bf16 in shared memory,
-//     exactly (|v| <= 127); S's column j is multiplied by k_scale[j] in f32
-//     after Q K^T, and v_scale[j] folds into P's column j after the row sums
-//     and before P is rounded to bf16.  So the products are the plain
-//     version's dequantize products (q . (k * k_scale), p . (v * v_scale))
-//     with only P's rounding to bf16 added; the pool never exists in float;
+//     144 blocks, were the slower in a side-by-side build on the H100);
+//   * q held as ldmatrix fragments, keys through a two-stage 16-byte
+//     cp.async ring, S = Q K^T and O += P V on mma.sync.m16n8k16, the
+//     online softmax on the fragments, the element mask only on a tile
+//     that crosses an edge;
+//   * int8 pages: the raw rows and scales are staged and widened to bf16
+//     in shared memory, exactly; k_scale multiplies S's columns and
+//     v_scale folds into P after the row sums, so the products are the
+//     plain version's dequantize products with only P's rounding to bf16
+//     added; the pool never exists in float;
 //   * GQA: a block serves one query head and reads its kv head's tiles (a
 //     group's heads read them through L2).
 // Not done yet: wgmma, TMA, packing a GQA group's heads into one block.
@@ -73,6 +65,7 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "chunk_tiles.cuh"
 
 namespace {
 
@@ -277,238 +270,51 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// Chunked prefill on the tensor cores
+// Chunked prefill on the tensor cores: the body of chunk_tiles.cuh, with
+// keys gathered through the slot's block-table row
 // ---------------------------------------------------------------------------
 
-constexpr int kChunkWarps = 4;            // each serves 16 query rows
-constexpr int kChunkThreads = 32 * kChunkWarps;
-constexpr int kChunkRows = 16 * kChunkWarps;   // query rows a block serves
-constexpr int kChunkKeys = 64;            // keys per staged tile
-
+// The pages of one (slot, kv head): key kpos lies at offset kpos % bs of
+// page table[kpos / bs], read through the kernel's ``Pool`` argument.
 template <typename PageT, int D>
-struct ChunkCfg {
-  static constexpr bool kQuant = sizeof(PageT) == 1;
-  static constexpr int LD = D + kPad;                    // bf16 tile row stride
-  static constexpr int kTile = kChunkKeys * LD;          // bf16 per K or V tile
-  // bf16 pages land in a two-stage ring of bf16 tiles; int8 pages in a
-  // two-stage ring of raw tiles and their scales, widened into one bf16
-  // tile each for the products
-  static constexpr int kStages16 = kQuant ? 1 : 2;
-  static constexpr int kSmemBytes =
-      (kChunkRows * LD + 2 * kStages16 * kTile) * 2 +
-      (kQuant ? 2 * 2 * kChunkKeys * (D + 4) : 0);
+struct PagedKeys {
+  typedef PageT T;
+  const Pool& pool;
+  int b, kvh;
+
+  __device__ __forceinline__ long long page(int kpos) const {
+    return pool.tables[static_cast<long long>(b) * pool.nblk + kpos / pool.bs];
+  }
+  __device__ __forceinline__ void rows(int kpos, const PageT** kr,
+                                       const PageT** vr) const {
+    const long long e = page(kpos) * pool.page_stride +
+                        (kpos % pool.bs) * pool.tok_stride + kvh * D;
+    *kr = static_cast<const PageT*>(pool.k) + e;
+    *vr = static_cast<const PageT*>(pool.v) + e;
+  }
+  __device__ __forceinline__ void scales(int kpos, const float** kr,
+                                         const float** vr) const {
+    const long long e = page(kpos) * pool.spage_stride +
+                        (kpos % pool.bs) * pool.stok_stride + kvh;
+    *kr = pool.ks + e;
+    *vr = pool.vs + e;
+  }
+  __device__ __forceinline__ const PageT* any() const {
+    return static_cast<const PageT*>(pool.k);
+  }
+  __device__ __forceinline__ const float* any_scale() const { return pool.ks; }
 };
 
-// Start copying keys [t0, t0 + 64) of kv head ``kvh``, gathered row by row
-// from the pages that the slot's block-table row ``table`` names, into
-// shared memory: K and V rows (destination row stride ``ld`` elements)
-// and, for int8 pages, their f32 scales.  Keys at or past ``kend`` become
-// zeros and are not read.  The caller commits the group.
-template <typename PageT, int D>
-__device__ __forceinline__ void stage_keys(const Pool& pool, const int* table,
-                                           int kvh, int t0, int kend,
-                                           PageT* dk, PageT* dv, int ld,
-                                           float* dks, float* dvs) {
-  constexpr int kVec = 16 / sizeof(PageT);             // elements a copy
-  constexpr int kParts = D / kVec;
-  const PageT* kb = static_cast<const PageT*>(pool.k) + kvh * D;
-  const PageT* vb = static_cast<const PageT*>(pool.v) + kvh * D;
-  for (int c = threadIdx.x; c < kChunkKeys * kParts; c += kChunkThreads) {
-    const int j = c / kParts, col = (c % kParts) * kVec;
-    const int kpos = t0 + j;
-    const bool ok = kpos < kend;
-    long long e = 0;
-    if (ok)
-      e = static_cast<long long>(table[kpos / pool.bs]) * pool.page_stride +
-          (kpos % pool.bs) * pool.tok_stride + col;
-    cp_async16(dk + j * ld + col, kb + e, ok ? 16 : 0);
-    cp_async16(dv + j * ld + col, vb + e, ok ? 16 : 0);
-  }
-  if constexpr (sizeof(PageT) == 1) {
-    for (int j = threadIdx.x; j < kChunkKeys; j += kChunkThreads) {
-      const int kpos = t0 + j;
-      const bool ok = kpos < kend;
-      long long e = 0;
-      if (ok)
-        e = static_cast<long long>(table[kpos / pool.bs]) * pool.spage_stride +
-            (kpos % pool.bs) * pool.stok_stride + kvh;
-      cp_async4(dks + j, pool.ks + e, ok ? 4 : 0);
-      cp_async4(dvs + j, pool.vs + e, ok ? 4 : 0);
-    }
-  }
-}
-
-// int8 rows (64 x D, row stride D) -> bf16 rows (row stride D + kPad),
-// exactly: |v| <= 127 fits bf16's 8-bit significand
-template <int D>
-__device__ __forceinline__ void widen(bf16* dst, const int8_t* src) {
-  constexpr int kParts = D / 16;
-  for (int c = threadIdx.x; c < kChunkKeys * kParts; c += kChunkThreads) {
-    const int j = c / kParts, col = (c % kParts) * 16;
-    const int4 raw = *reinterpret_cast<const int4*>(src + j * D + col);
-    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-    uint32_t w[8];
-#pragma unroll
-    for (int x = 0; x < 8; ++x)
-      w[x] = pack_bf16(static_cast<float>(v[2 * x]),
-                       static_cast<float>(v[2 * x + 1]));
-    uint4* d = reinterpret_cast<uint4*>(dst + j * (D + kPad) + col);
-    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  }
-}
-
-// Chunked prefill: block (slot b, query head h, tile z of 64 rows), warp w
-// serving rows 16 w .. 16 w + 15 of the tile; row i sits at absolute
-// position start[b] + i and is alive iff i < chunk_len[b].  It sees a key
-// at kpos iff (kpos <= start + i or kpos < prefix_len) and
-// kpos < start + chunk_len.
 template <typename PageT, int D>
 __global__ void __launch_bounds__(kChunkThreads)
 paged_chunk_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
                    Pool pool, const int* __restrict__ start,
                    const int* __restrict__ chunk_len, int T, int Hq, int Hkv,
                    int prefix_len, float scale) {
-  using C = ChunkCfg<PageT, D>;
-  constexpr int BM = kChunkRows, BN = kChunkKeys, LD = C::LD;
-  constexpr bool kQuant = C::kQuant;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sk = sq + BM * LD;                     // stage s at sk + s * kTile
-  bf16* sv = sk + C::kStages16 * C::kTile;
-  // int8: raw stage s at rk + s * BN * D, its scales at sks + s * BN
-  PageT* rk = reinterpret_cast<PageT*>(sv + C::kStages16 * C::kTile);
-  PageT* rv = rk + 2 * BN * D;
-  float* sks = reinterpret_cast<float*>(rv + 2 * BN * D);
-  float* svs = sks + 2 * BN;
-
-  const int b = blockIdx.x, h = blockIdx.y, i0 = blockIdx.z * BM;
-  const int kvh = h / (Hq / Hkv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int st = start[b], cl = chunk_len[b];
-  const int nrows = min(BM, T - i0);
-  const int alive = max(0, min(nrows, cl - i0));  // rows i0 .. i0+alive-1
-  constexpr int kParts = D / 8;                    // 16-byte pieces a row
-  const long long row_stride = static_cast<long long>(Hq) * D;
-  const long long row0 = (static_cast<long long>(b) * T + i0) * Hq + h;
-  bf16* ob = out + row0 * D;
-  if (alive == 0) {                        // every row of the tile is dead
-    for (int c = threadIdx.x; c < nrows * kParts; c += kChunkThreads)
-      *reinterpret_cast<uint4*>(ob + (c / kParts) * row_stride +
-                                (c % kParts) * 8) = make_uint4(0, 0, 0, 0);
-    return;
-  }
-  // keys a live row of this tile can see: below its position + 1 or the
-  // prefix, and always below start + chunk_len (and the table's end)
-  const int end = min(st + cl, pool.nblk * pool.bs);
-  const int kend = max(0, min(end, max(st + i0 + alive, prefix_len)));
-  const int* table = pool.tables + static_cast<long long>(b) * pool.nblk;
-  auto issue = [&](int s, int t0) {
-    if constexpr (kQuant)
-      stage_keys<PageT, D>(pool, table, kvh, t0, kend, rk + s * BN * D,
-                           rv + s * BN * D, D, sks + s * BN, svs + s * BN);
-    else
-      stage_keys<PageT, D>(pool, table, kvh, t0, kend, sk + s * C::kTile,
-                           sv + s * C::kTile, LD, nullptr, nullptr);
-  };
-
-  // group 1: the live rows of q (dead rows are zeros, never read);
-  // group 2: the first key tile, into stage 0
-  stage<D, kChunkThreads>(sq, q + row0 * D, row_stride, 0, BM, alive);
-  cp_async_commit();
-  if (kend > 0) issue(0, 0);
-  cp_async_commit();
-
-  bf16* wq = sq + warp * 16 * LD;              // this warp's 16 rows of q
-  uint32_t qf[D / 16][4];
-  cp_async_wait<1>();
-  __syncthreads();
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) load_a<D>(qf[kd], wq, kd * 16, lane);
-
-  // this thread's rows of the chunk: row and row + 8
-  const int row = i0 + warp * 16 + g;
-  const float sl2 = scale * kLog2e;
-  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-
-  for (int s = 0, t0 = 0; t0 < kend; s ^= 1, t0 += BN) {
-    // issue the next tile's copy into the other stage, then wait for this one
-    if (t0 + BN < kend) issue(s ^ 1, t0 + BN);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* kt = sk + s * C::kTile;
-    const bf16* vt = sv + s * C::kTile;
-    if constexpr (kQuant) {
-      widen<D>(sk, rk + s * BN * D);
-      widen<D>(sv, rv + s * BN * D);
-      kt = sk;
-      vt = sv;
-      __syncthreads();
-    }
-
-    // 1. S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float sc[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    frags_dot_rows<D, BN>(sc, qf, kt, lane);
-
-    // 2. into the log2 domain (int8: times the key's scale); the element
-    //    mask only where some live row does not see the whole tile: a dead
-    //    row in the tile, the chunk's end, or the diagonal past the prefix
-    const int k_hi = t0 + BN - 1;
-    const bool edge = alive < nrows || k_hi >= end ||
-                      (k_hi >= prefix_len && k_hi > st + i0);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        float x = sc[j][e] * sl2;
-        if constexpr (kQuant) x *= sks[s * BN + col];
-        if (edge) {
-          const int i = row + 8 * (e >> 1), kpos = t0 + col;
-          if (!(i < cl && kpos < end && (kpos <= st + i || kpos < prefix_len)))
-            x = -INFINITY;
-        }
-        sc[j][e] = x;
-      }
-
-    // 3. the online softmax; int8: the value's scale folds into P's column
-    //    after the row sums and before P is rounded to bf16
-    online_softmax<BN, D>(sc, m, l, o);
-    if constexpr (kQuant) {
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          sc[j][e] *= svs[s * BN + j * 8 + 2 * t + (e & 1)];
-    }
-
-    // 4. O += P V
-    regs_dot_tile<D, BN, D>(o, sc, vt, 0, lane);
-    __syncthreads();                           // this stage's readers are done
-  }
-  cp_async_wait<0>();
-  __syncthreads();                             // q's copies landed everywhere
-
-  // O / l through this warp's own rows of the q tile as 16-byte stores;
-  // a row that saw no key (dead, or no visible key) is zeros
-  finalize_rows<D>(wq, o, l, lane);
-#pragma unroll
-  for (int c = lane; c < 16 * kParts; c += 32) {
-    const int r = c / kParts, col = (c % kParts) * 8;
-    if (warp * 16 + r < nrows)
-      *reinterpret_cast<uint4*>(ob + (warp * 16 + r) * row_stride + col) =
-          *reinterpret_cast<const uint4*>(wq + r * LD + col);
-  }
+  const int b = blockIdx.x;
+  const PagedKeys<PageT, D> src{pool, b, static_cast<int>(blockIdx.y) / (Hq / Hkv)};
+  chunk_tile<D>(q, out, src, start[b], chunk_len[b], pool.nblk * pool.bs, T,
+                Hq, prefix_len, scale);
 }
 
 Pool make_pool(const void* kp, const void* vp, const void* ks, const void* vs,
@@ -554,15 +360,10 @@ template <typename PageT, int D>
 int launch_chunk_d(const bf16* q, bf16* out, const Pool& pool, const int* st,
                    const int* cl, int B, int T, int Hq, int Hkv,
                    int prefix_len, float scale, cudaStream_t s) {
-  using C = ChunkCfg<PageT, D>;
   static unsigned long long opted = 0;       // bit per device ordinal
-  const cudaError_t err =
-      opt_in(paged_chunk_kernel<PageT, D>, C::kSmemBytes, &opted);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, Hq, (T + kChunkRows - 1) / kChunkRows);
-  paged_chunk_kernel<PageT, D><<<grid, kChunkThreads, C::kSmemBytes, s>>>(
-      q, out, pool, st, cl, T, Hq, Hkv, prefix_len, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_chunk_grid<PageT, D>(paged_chunk_kernel<PageT, D>, &opted, B,
+                                     T, Hq, s, q, out, pool, st, cl, T, Hq,
+                                     Hkv, prefix_len, scale);
 }
 
 template <typename PageT>
@@ -570,8 +371,7 @@ int launch_chunk(const void* q, void* out, const Pool& pool,
                  const void* start, const void* chunk_len, int B, int T,
                  int Hq, int Hkv, int D, int prefix_len, float scale,
                  void* stream) {
-  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv ||
-      (T + kChunkRows - 1) / kChunkRows > 65535)
+  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qq = static_cast<const bf16*>(q);

@@ -3,14 +3,22 @@
 ``ssd_scan`` checks device, dtype, shape and layout, allocates its outputs
 with ``torch.empty``, launches on the current stream without
 synchronising, raises if the launch reports a CUDA error, and adds one to
-``launches["ssd_scan"]``.  It takes CUDA tensors only: the CPU path is
-``ops``' dispatch to the plain version in ``ref``.
+``launches["ssd_scan"]`` and to its copy route's entry in
+``route_launches``.  It takes CUDA tensors only: the CPU path is ``ops``'
+dispatch to the plain version in ``ref``.
 
 Layouts are the reference package's: x (Bb, L, H, P) and B, C
 (Bb, L, G, N) bf16, dt (Bb, L, H) f32, A and D (H,) f32, the state
 (Bb, H, P, N) f32.  x, dt, B and C are read in place with their batch and
 time strides (the model passes slices of one projection); their last two
 axes must be dense.  (P, N) is one of ``SHAPES``.
+
+The kernel stages x, B and C in shared memory with 16-byte copies
+(``"vec16"``) when every row of them, and the initial state, starts on 16
+bytes, else with 4-byte copies (``"vec4"``): the kernel's entry point
+chooses from the pointers and strides, and ``route`` states the same rule
+in Python, so that the launches are counted by route.  It is a route
+inside the kernel, not a fallback.
 """
 from __future__ import annotations
 
@@ -25,12 +33,31 @@ KERNELS = ("ssd_scan",)
 SHAPES = ((64, 128), (64, 64), (16, 16))   # (P, N) pairs instantiated
 MAX_CHUNK = 256
 
+ROUTES = ("vec16", "vec4")
+
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
+route_launches: Dict[str, int] = {name: 0 for name in ROUTES}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, route_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def route(x, B, C, initial_state=None) -> str:
+    """The copy route the kernel takes for these operands: ``"vec16"``
+    where x, B, C and the initial state (if any) start on 16 bytes and
+    the batch and time strides of x, B and C are multiples of 8 elements
+    (their head and state axes are dense, and P and N are multiples of 8,
+    so every staged row then starts on 16 bytes), else ``"vec4"``.  A
+    plain function of pointers and strides, the rule of ``ssd_scan_fwd``;
+    it launches nothing."""
+    ok = all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
+             and t.stride(1) % 8 == 0 for t in (x, B, C))
+    if initial_state is not None:
+        ok = ok and initial_state.data_ptr() % 16 == 0
+    return "vec16" if ok else "vec4"
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -119,4 +146,5 @@ def ssd_scan(x, dt, A, B, C, D=None, *, chunk: int = 128,
         raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error "
                            f"{rc}")
     launches["ssd_scan"] += 1
+    route_launches[route(x, B, C, initial_state)] += 1
     return y, state

@@ -18,6 +18,11 @@ step function the same way (``chip_smoke.py`` phase 7 a training step).
       --arch whisper-large-v3
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
       --arch mixtral-8x7b
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --kv-dtype bf16 \
+      --dense-view
+
+``--dense-view`` profiles phase 8 (b)'s wave instead: minicpm-2b's
+dense-view step (``paged_native=False``) at 128 slots.
 """
 from __future__ import annotations
 
@@ -124,14 +129,21 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new-tokens", type=int, default=40)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--dense-view", action="store_true",
+                    help="the dense-view step (paged_native=False, the "
+                         "reference's oracle: dense chunk and decode "
+                         "attention on a gathered view) at 128 slots, as "
+                         "chip_smoke's phase 8 (b)")
     args = ap.parse_args(argv)
     kv_dtype = -1 if args.kv_dtype == "auto" else args.kv_dtype
+    view = dict(bs=128, paged_native=False) if args.dense_view else {}
     _, rt = wave_runtime(kv_dtype, args.requests, args.max_new_tokens,
-                         arch=args.arch)
+                         arch=args.arch, **view)
     # max_wait_s=0: the MF composer flushes partial frame groups at once,
     # as drain() does
     rt.step(max_wait_s=0.0)                     # first admission + warm-up
     print(f"{args.arch}, {rt.kv_dtype} KV, {rt.cfg.num_layers} layers, "
+          f"{'dense-view' if args.dense_view else 'native'} step, "
           f"{args.requests} requests, "
           f"{rt.plan.max_in_flight} slots, {torch.cuda.get_device_name(0)}")
     step = lambda: rt.step(max_wait_s=0.0)

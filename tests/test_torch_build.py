@@ -53,13 +53,20 @@ def test_target_is_stable_and_under_the_build_root(csrc):
     ("flash_attention", "mma_tiles.cuh"),
     ("flash_attention_bwd", "mma_tiles.cuh"),
     ("paged_attention", "mma_tiles.cuh"),
+    ("chunk_attention", "mma_tiles.cuh"),
+    ("ssd_scan", "mma_tiles.cuh"),
+    ("paged_attention", "chunk_tiles.cuh"),
+    ("chunk_attention", "chunk_tiles.cuh"),
     ("grouped_matmul", "wgmma_tiles.cuh"),
 ])
 def test_flash_kernels_include_the_shared_header(csrc, name, header):
-    """The kernels on mma.sync include the shared tile header; the grouped
-    GEMM includes the wgmma/TMA header, which includes the other."""
+    """The kernels on mma.sync include the shared tile header; both chunk
+    kernels (paged and dense) include the chunk body's header; the grouped
+    GEMM includes the wgmma/TMA header.  Both of those headers include the
+    tile header."""
     assert f'#include "{header}"' in (csrc / f"{name}.cu").read_text()
-    assert '#include "mma_tiles.cuh"' in (csrc / "wgmma_tiles.cuh").read_text()
+    for shared in ("wgmma_tiles.cuh", "chunk_tiles.cuh"):
+        assert '#include "mma_tiles.cuh"' in (csrc / shared).read_text()
 
 
 @pytest.mark.parametrize("name", build.SOURCES)

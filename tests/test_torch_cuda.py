@@ -10,7 +10,9 @@ Outputs are compared in f32 with atol = rtol = 1.6e-2, about two bf16
 steps of the output: the kernels read bf16 (or int8) K/V and write bf16,
 and sum in another order than the plain version.  The SSD scan's f32
 final state is held to atol = rtol = 1e-3 of its largest magnitude (f32
-sums in another order over up to 256-token chunks).  Flash attention's
+sums in another order over up to 256-token chunks), on both of its copy
+routes (16-byte copies for rows that start on 16 bytes, 4-byte copies
+otherwise), each case checking the route it takes.  Flash attention's
 f32 log-sum-exp is held to 1e-3 of its magnitude (atol = rtol = 1e-3;
 rows that see nothing must hold -NEG_INF), and its bf16 output also at
 every sequence position to 1e-2 of that position's norm plus 1e-5 an
@@ -190,37 +192,79 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                                lens)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", ssd_scan.SHAPES, ids=lambda s: f"P{s[0]}N{s[1]}")
-@pytest.mark.parametrize("L,chunk", [(5, 256), (300, 256), (70, 32)])
-def test_cuda_ssd_scan_matches_plain(cuda_device, shape, L, chunk):
-    """Strided x, B and C (slices of one wider projection, as the model
-    passes them), two groups, an initial state; L shorter than 8, two
-    chunks with a ragged tail, and several small chunks."""
-    P, N = shape
-    Bb, H, G = 2, 4, 2
-    gen = torch.Generator(device=cuda_device)
-    gen.manual_seed(1)
-    rand = lambda *s: torch.randn(*s, generator=gen, device=cuda_device)
-    width = H * P + 2 * G * N + 6
+# id: (P, N), Bb, L, H, G, chunk, extra projection columns.  The cases
+# "L-chunk-PpNn" read x, B and C from a projection 6 columns wider than
+# they need (rows 4-byte aligned: the "vec4" copy route); the others from
+# one whose rows start on 16 bytes, as the model's (the "vec16" route).
+SSD_CASES = {
+    f"{L}-{chunk}-P{P}N{N}": ((P, N), 2, L, 4, 2, chunk, 6)
+    for P, N in ssd_scan.SHAPES
+    for L, chunk in ((5, 256), (300, 256), (70, 32), (257, 256))
+}
+SSD_CASES.update({
+    "path_128-256-P64N128": ((64, 128), 1, 128, 80, 1, 256, 0),
+    "aligned_300-128-P64N128": ((64, 128), 2, 300, 4, 2, 128, 0),
+    "aligned_70-32-P16N16": ((16, 16), 2, 70, 4, 2, 32, 0),
+})
+
+
+def _ssd_case(dev, case, seed=1):
+    (P, N), Bb, L, H, G, chunk, extra = SSD_CASES[case]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    width = H * P + 2 * G * N + extra
     proj = rand(Bb, L, width).to(torch.bfloat16)
-    x = proj[..., :H * P].reshape(Bb, L, H, P)
-    Bm = (proj[..., H * P:H * P + G * N] * 0.3).reshape(Bb, L, G, N)
-    Cm = (proj[..., H * P + G * N:H * P + 2 * G * N] * 0.3).reshape(
-        Bb, L, G, N)
+    proj[..., H * P:] *= 0.3
+    x = proj[..., :H * P].unflatten(-1, (H, P))
+    Bm = proj[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    Cm = proj[..., H * P + G * N:H * P + 2 * G * N].unflatten(-1, (G, N))
     dt = torch.nn.functional.softplus(rand(Bb, L, H)) * 0.5
     A = -torch.exp(rand(H) * 0.5)
     D = rand(H)
     h0 = rand(Bb, H, P, N)
+    run = lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk,
+                               initial_state=h0)
+    want = lambda: ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(),
+                                       Cm.float(), D, chunk=chunk,
+                                       initial_state=h0)
+    return run, want, ssd_scan.route(x, Bm, Cm, h0), extra
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_cuda_ssd_scan_matches_plain(cuda_device, case):
+    """Strided x, B and C (slices of one wider projection, as the model
+    passes them), two groups, an initial state; L shorter than 8, two
+    chunks with a ragged tail (L = 257 at Q = 256: one token in the
+    second), several small chunks (the two-stage ring), and mamba2-2.7b's
+    chunk-call shape (80 heads, one group, 128 tokens); each on the copy
+    route its projection's alignment gives, counted under it."""
+    run, want, route, extra = _ssd_case(cuda_device, case)
+    assert route == ("vec4" if extra % 8 else "vec16")
     before = ssd_scan.launches["ssd_scan"]
-    y, h = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=h0)
-    wy, wh = ref.ssd_chunked_ref(x.float(), dt, A, Bm.float(), Cm.float(),
-                                 D, chunk=chunk, initial_state=h0)
+    before_route = ssd_scan.route_launches[route]
+    y, h = run()
+    wy, wh = want()
     torch.cuda.synchronize()
     assert ssd_scan.launches["ssd_scan"] == before + 1
+    assert ssd_scan.route_launches[route] == before_route + 1
     torch.testing.assert_close(y.float(), wy, atol=TOL, rtol=TOL)
     scale = wh.abs().max().item()
     torch.testing.assert_close(h, wh, atol=1e-3 * scale, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["path_128-256-P64N128",
+                                  "300-256-P64N128", "70-32-P16N16"])
+def test_cuda_ssd_scan_is_bit_reproducible(cuda_device, case):
+    """Repeated launches give bit-identical y and state: every output has
+    one owner block and a fixed order of sums, no atomics."""
+    run, _, _, _ = _ssd_case(cuda_device, case, seed=2)
+    y0, h0 = run()
+    for _ in range(3):
+        y, h = run()
+        assert torch.equal(y, y0) and torch.equal(h, h0)
 
 
 FLASH_CASES = {
@@ -512,6 +556,13 @@ CHUNK_CASES = {       # (B, T, S, Hq, Hkv, D), start, chunk_len, prefix_len
     "ragged_s": ((2, 128, 200, 36, 36, 64), [0, 100], [128, 77], 0),
     "mqa_prefix": ((1, 40, 97, 8, 1, 64), [57], [40], 20),
     "all_dead": ((2, 16, 64, 4, 2, 64), [5, 9], [0, 0], 0),
+    # more than one 64-row or 64-key tile: 130 rows over three row tiles
+    # at start 63; S = 700 over eleven key tiles; GQA 32/8 at D = 128 with
+    # a prefix of 100 past the first row tile
+    "t130_start63": ((2, 130, 256, 36, 36, 64), [63, 0], [130, 101], 0),
+    "s700": ((2, 64, 700, 36, 36, 64), [636, 300], [64, 64], 0),
+    "gqa_d128_prefix100": ((2, 128, 400, 32, 8, 128), [0, 200], [128, 90],
+                           100),
 }
 
 
@@ -541,6 +592,25 @@ def test_cuda_chunk_attention_matches_plain(cuda_device, case):
     _assert_rows_close("out", out, want)
     for b, c in enumerate(cl):
         assert not out[b, c:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gqa_d128_prefix100", "t130_start63"])
+def test_cuda_chunk_attention_is_bit_reproducible(cuda_device, case):
+    """Repeated launches on the same inputs give bit-identical outputs:
+    each row has one owner block and a fixed order of sums."""
+    (B, T, S, Hq, Hkv, D), start, cl, prefix = CHUNK_CASES[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(10)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    q, kv = rand(B, T, Hq, D), rand(B, S, 2 * Hkv, D)
+    k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]
+    st = torch.tensor(start, dtype=torch.int32, device=cuda_device)
+    n = torch.tensor(cl, dtype=torch.int32, device=cuda_device)
+    run = lambda: ops.chunk_attention(q, k, v, st, n, prefix_len=prefix)
+    first = run()
+    assert all(torch.equal(first, run()) for _ in range(3))
 
 
 @pytest.mark.cuda

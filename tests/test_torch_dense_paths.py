@@ -101,6 +101,9 @@ CHUNK_CASES = {
     "per_row_one_empty": ((3, 37, 13, 8, 2, 32), [0, 11, 24], [13, 0, 9], 0),
     "prefix_past_the_tile": ((2, 70, 13, 4, 4, 16), [20, 3], [13, 7], 45),
     "odd_t_and_s": ((1, 29, 5, 6, 3, 8), [21], [5], 0),
+    # more than one 64-row and 64-key tile of the card's kernel: 130 rows
+    # at start 63 over S = 200, a ragged second slot, a prefix of 100
+    "multi_tile": ((2, 200, 130, 4, 2, 16), [63, 0], [130, 77], 100),
 }
 
 

@@ -90,6 +90,7 @@ SCAN_CASES = {
     "chunk_multiple": (1, 64, 4, 1, 32),
     "ragged_two_chunks": (2, 50, 4, 1, 32),
     "groups": (1, 40, 4, 2, 32),
+    "three_chunks_groups": (2, 130, 4, 2, 64),
 }
 
 
