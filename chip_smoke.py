@@ -20,6 +20,11 @@ in eight phases; any failure exits non-zero:
    the four paged-attention kernels at minicpm-2b's shapes and at one GQA
    shape (minitron-4b's heads), beside ``scaled_dot_product_attention`` on
    the gathered dense view (a yardstick the port never calls), the two
+   decode kernels also held by ``check_rows`` at every (slot, head) row,
+   their dead slots zeros and repeated launches bit-identical, timed also
+   at 32 slots all live with the path's 32 lengths (the dead-slot
+   yardstick) and with all 512 slots live, each record with its share of
+   the bound and its instances' ``ptxas`` registers and spills; the two
    chunk kernels also at odd shapes (T = 13 and 65, starts that are
    multiples of neither 64 nor the page, prefixes of 20 and 100, a dead
    slot among four, mixtral's 32/8 heads at D = 128), every chunk case
@@ -292,13 +297,21 @@ def decode_case(gen, rng, *, B, Hq, Hkv, D, lens, quant, timed):
     q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(
         torch.bfloat16)
     cl = torch.from_numpy(lens).cuda()
-    out = ops.paged_decode_attention(q, k, v, tables, cl)
+    kernel = lambda: ops.paged_decode_attention(q, k, v, tables, cl)
+    out = kernel()
     want = ref.paged_decode_attention_ref(q.float(), k, v, tables, cl)
     torch.cuda.synchronize()
     err = (out.float() - want).abs().max().item()
     torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    check(not out[cl == 0].any(), "paged decode attention: a dead slot's "
+          "rows are not zero")
+    check(all(torch.equal(out, kernel()) for _ in range(2)),
+          "paged decode attention: repeated launches differ")
+    # every (slot, head) row held to its own norm
+    rec = {"max_abs_err": err, **check_rows("out", out.reshape(1, -1, D),
+                                            want.reshape(1, -1, D))}
     if not timed:
-        return {"max_abs_err": err}
+        return rec
     S = nblk * bs
     kd, vd = dense_view(k, tables), dense_view(v, tables)
     mask = (torch.arange(S, device="cuda")[None] < cl[:, None])[:, None,
@@ -311,14 +324,13 @@ def decode_case(gen, rng, *, B, Hq, Hkv, D, lens, quant, timed):
               + int((-(-lens // bs)).sum()) * 4
               + kv_bytes(keys, Hkv, D, quant))
     b_ms, b_by = bound(nbytes, 4 * D * Hq * keys)
-    kernel = lambda: ops.paged_decode_attention(q, k, v, tables, cl)
-    rec = {"max_abs_err": err, "ms": graph_ms(kernel),
-           "host_paced_ms": time_ms(kernel),
-           "plain_ms": time_ms(lambda: ref.paged_decode_attention_ref(
-               q, k, v, tables, cl), iters=2, reps=3),
-           "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": graph_ms(sdpa_fn(q[:, :, None], kd, vd, mask,
-                                          Hq))}
+    rec.update({"ms": graph_ms(kernel), "host_paced_ms": time_ms(kernel),
+                "plain_ms": time_ms(lambda: ref.paged_decode_attention_ref(
+                    q, k, v, tables, cl), iters=2, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": graph_ms(sdpa_fn(q[:, :, None], kd, vd, mask,
+                                               Hq))})
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
 
@@ -977,6 +989,8 @@ def phase_kernels():
     # lengths half-way through generation, the other slots empty
     path_lens = np.zeros(512, np.int64)
     path_lens[:32] = np.linspace(6, 200, 32).astype(int) + 20
+    decode_ptxas = {kern: r for kern, r in ptxas_record(
+        "paged_attention").items() if kern.startswith("paged_decode")}
     for quant in (False, True):
         tag = "_quant" if quant else ""
         rec = decode_case(gen, rng, B=512, lens=path_lens, quant=quant,
@@ -988,9 +1002,25 @@ def phase_kernels():
         full = decode_case(gen, rng, B=512, lens=lens, quant=quant,
                            timed=True, **minicpm)
         print(f"  paged_decode_attention{tag}, all 512 slots live: {full}")
+        rec["all_live"] = {key: full[key] for key in (
+            "ms", "bound_ms", "bound_share", "library_ms", "max_abs_err",
+            "out_worst_row_of_limit")}
         rec["gqa_err"] = max(full["max_abs_err"], decode_case(
             gen, rng, B=64, lens=rng.integers(0, 257, 64), quant=quant,
             timed=False, **gqa)["max_abs_err"])
+        # the dead-slot yardstick: the same 32 lengths, 32 slots all live
+        # (its own generators, so that every other case draws what it drew
+        # before the yardstick was added)
+        few_gen = torch.Generator(device="cuda")
+        few_gen.manual_seed(1)
+        few = decode_case(few_gen, np.random.default_rng(1), B=32,
+                          lens=path_lens[:32], quant=quant, timed=True,
+                          **minicpm)
+        rec["gqa_err"] = max(rec["gqa_err"], few["max_abs_err"])
+        rec["live32_of_32_ms"] = few["ms"]
+        rec["ms_over_live32_of_32"] = rec["ms"] / few["ms"]
+        rec["ptxas"] = {kern: r for kern, r in decode_ptxas.items()
+                        if ("int8" in kern) == quant}
         records["paged_decode_attention" + tag] = rec
         # chunked prefill: the path's shape (one slot, a 128-row bucket)
         # timed; then odd shapes, each also held by check_rows

@@ -24,7 +24,7 @@ KERNELS = ("paged_decode_attention", "paged_decode_attention_quant",
            "paged_chunk_prefill_attention",
            "paged_chunk_prefill_attention_quant")
 HEAD_DIMS = (64, 128)
-MAX_GROUP = 16          # query heads per kv head one decode block serves
+MAX_GROUP = 16          # query heads per kv head the decode kernel serves
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

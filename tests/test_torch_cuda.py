@@ -22,7 +22,8 @@ is held to the f32 product of the same bf16 values with atol = rtol =
 routes (TMA with wgmma, and mma.sync), each case checking the route it
 takes; its float32 instance to atol = rtol = 1e-3 (f32 sums over up to
 14,336 terms in another order).  The paged chunk kernels are also held
-at every row to 1e-2 of that row's norm plus 1e-5 an element.
+at every row to 1e-2 of that row's norm plus 1e-5 an element, and the
+paged decode kernels at every (slot, head) row the same way.
 The dense chunked-prefill kernel's bf16 output is held to its plain
 version on the same bf16 inputs with atol = rtol = 1.6e-2 and, at every
 row, to 1e-2 of that row's norm plus 1e-5 an element.
@@ -176,6 +177,88 @@ def test_cuda_paged_chunk_is_bit_reproducible(cuda_device, quant):
     run, _, _ = _paged_chunk_case(cuda_device, "gqa_32_8_d128", quant, 12)
     first = run()
     assert all(torch.equal(first, run()) for _ in range(3))
+
+
+def _path_lens(B):
+    """Phase 3's decode lengths: B slots, the first 32 live at their
+    lengths half-way through generation (26-220 keys), the rest empty."""
+    lens = np.zeros(B, np.int64)
+    lens[:32] = np.linspace(6, 200, 32).astype(int) + 20
+    return tuple(lens.tolist())
+
+
+def _two_pass_lens():
+    """1,100 slots, more than one 512-slot pass of the kernel's length
+    scan: live slots at both ends of each pass, the rest empty."""
+    lens = np.zeros(1100, np.int64)
+    lens[[0, 511, 512, 1023, 1024, 1099]] = (64, 1, 33, 17, 64, 50)
+    return tuple(lens.tolist())
+
+
+EDGE_LENS = (0, 1, 31, 32, 33, 256)     # 256 = nblk * bs: the whole budget
+# id: (B, Hq, Hkv, D, nblk, bs), lengths.  Blocks past each length map to
+# the trash page.
+PAGED_DECODE_CASES = {
+    **{f"g{G}_d{D}": ((6, Hq, Hkv, D, 8, 32), EDGE_LENS)
+       for G, Hq, Hkv in ((1, 16, 16), (3, 24, 8), (4, 32, 8), (16, 32, 2))
+       for D in (64, 128)},
+    "path_512_32_live": ((512, 36, 36, 64, 8, 32), _path_lens(512)),
+    "mixtral_512_32_live": ((512, 32, 8, 128, 8, 32), _path_lens(512)),
+    # enough live slots that the int8 kernel serves kv head pairs
+    **{f"pairs_g{G}_edges": ((512, Hq, Hkv, 64, 8, 32), EDGE_LENS * 85 + (7, 9))
+       for G, Hq, Hkv in ((1, 16, 16), (3, 24, 8), (4, 32, 8))},
+    "bs5_g2": ((6, 8, 4, 64, 40, 5), (0, 1, 4, 5, 6, 200)),
+    "table_spans_bs1": ((3, 4, 1, 128, 1100, 1), (0, 513, 1100)),
+    "two_scan_passes": ((1100, 8, 2, 64, 2, 32), _two_pass_lens()),
+}
+
+
+def _paged_decode_case(dev, case, quant, seed):
+    (B, Hq, Hkv, D, nblk, bs), lens = PAGED_DECODE_CASES[case]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    k, v, tables = _pools(gen, B=B, nblk=nblk, bs=bs, Hkv=Hkv, D=D,
+                          lens=lens, quant=quant)
+    q = torch.randn(B, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    run = lambda: ops.paged_decode_attention(q, k, v, tables, cl)
+    want = ref.paged_decode_attention_ref(q.float(), k, v, tables, cl)
+    return run, want, cl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(PAGED_DECODE_CASES))
+def test_cuda_paged_decode_matches_plain(cuda_device, case, quant):
+    """The decode kernels at G = 1, 3, 4 and 16, D = 64 and 128, lengths
+    0, 1, 31, 32, 33 and the whole budget, also with 512 slots, enough
+    live ones that int8 pages are served in kv head pairs; phase 3's and
+    mixtral's 512 slots with 32 live; pages of 5 and of 1 token; more
+    slots than one pass of the kernel's length scan.  Held by atol and at
+    every (slot, head) row by its norm; dead slots are zeros."""
+    run, want, cl = _paged_decode_case(cuda_device, case, quant, 21)
+    kind = "_quant" if quant else ""
+    before = paged_attention.launches["paged_decode_attention" + kind]
+    out = run()
+    torch.cuda.synchronize()
+    assert paged_attention.launches["paged_decode_attention" + kind] \
+        == before + 1
+    torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    D = out.shape[-1]
+    _assert_rows_close("out", out.reshape(1, -1, D), want.reshape(1, -1, D))
+    assert not out[cl == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_cuda_paged_decode_is_bit_reproducible(cuda_device, quant):
+    """Repeated launches on the same inputs give bit-identical outputs:
+    each item has one owner block, its warps' tiles and merge a fixed
+    order."""
+    for case in ("path_512_32_live", "g3_d128"):
+        run, _, _ = _paged_decode_case(cuda_device, case, quant, 22)
+        first = run()
+        assert all(torch.equal(first, run()) for _ in range(3))
 
 
 @pytest.mark.cuda

@@ -89,6 +89,45 @@ def test_paged_decode_quant_plain_matches_pallas(seed):
                                rtol=ATOL)
 
 
+# The edges the card's decode kernels must get right, held here on the
+# plain version the card compares them with (nblk * bs = 32): one query
+# head per kv head, an odd group (6 over 2), a dead slot, a slot that fills
+# its whole table, a slot of one key.  id: (Hq, Hkv, lens).
+DECODE_EDGES = {
+    "g1": (2, 2, LENS),
+    "g3": (6, 2, LENS),
+    "dead_slot": (4, 2, (5, 0, 32)),
+    "full_budget": (4, 2, (32, 32, 17)),
+    "one_key": (4, 2, (1, 9, 1)),
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(DECODE_EDGES))
+def test_paged_decode_edges_plain_matches_pallas(case, quant):
+    Hq, Hkv, lens = DECODE_EDGES[case]
+    kp, vp, bt = _pools(9, Hkv=Hkv, lens=lens)
+    q = np.random.default_rng(17).normal(size=(3, Hq, 16)).astype(
+        np.float32)
+    lens = np.asarray(lens, np.int32)
+    if quant:
+        jk, tk = _quant_both(kp)
+        jv, tv = _quant_both(vp)
+        want = jops.paged_decode_attention(
+            jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(lens),
+            impl="pallas_interpret")
+    else:
+        tk, tv = _t(kp), _t(vp)
+        want = paged_decode_attention_pallas(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(bt), jnp.asarray(lens), interpret=True)
+    got = ops.paged_decode_attention(_t(q), tk, tv, _t(bt), _t(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=ATOL)
+    # a dead slot's rows are zeros on both sides, not NaN
+    assert not got[lens == 0].any()
+
+
 # start + chunk_len crosses pages; slot 2 has chunk_len 0 (a dead row of
 # the verify contract)
 CHUNK = dict(start=(4, 11, 9), chunk_len=(8, 6, 0), T=8)
