@@ -8,8 +8,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's serving paths (minicpm-2b, mamba2-2.7b, whisper-large-v3
 and mixtral-8x7b, full width, random weights from a seed), its training
-path (minicpm-2b) and its sync and dense-cache serving paths (minicpm-2b)
-in eight phases; any failure exits non-zero:
+path (minicpm-2b), its sync and dense-cache serving paths and its prefix
+cache (minicpm-2b) in nine phases; any failure exits non-zero.  The serving
+phases run at the launcher's defaults, the prefix cache among them at the
+category's retention (minicpm-2b, a frequency service, keeps the whole
+pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
 
 1. the kernels against their plain PyTorch versions
    (``repro_torch.kernels.ref``) on random inputs, compared in f32 with
@@ -26,7 +29,8 @@ in eight phases; any failure exits non-zero:
    yardstick) and with all 512 slots live, each record with its share of
    the bound and its instances' ``ptxas`` registers and spills; the two
    chunk kernels also at odd shapes (T = 13 and 65, starts that are
-   multiples of neither 64 nor the page, prefixes of 20 and 100, a dead
+   multiples of neither 64 nor the page, prefix-cache hit starts (150,
+   mid-page, and a full-prompt hit's one row), prefixes of 20 and 100, a dead
    slot among four, mixtral's 32/8 heads at D = 128), every chunk case
    also held by ``check_rows``, its rows past chunk_len zeros, and
    repeated launches bit-identical; the SSD
@@ -105,6 +109,24 @@ in eight phases; any failure exits non-zero:
    distance from its plain versions on the card, the chain's own bf16
    noise, printed beside it), and the three chunk steps' logits identical
    (#3 and #6 run one body); (d) phase 3's wave in sync mode;
+9. the prefix cache on minicpm-2b at full width and the plan's 512 slots
+   (``max_seq_len`` 256): 64 requests, each a 150-token template (4 full
+   pages and a 22-token partial tail) plus a tail of its own of 1-40
+   tokens, 24 new tokens each (``profile_step.templated_wave``).  A donor
+   is served to its eviction first, which indexes the template's partial
+   tail; the other 63 are then submitted together.  In int8 and in bf16
+   KV, with the cache on (-1) and off (0): on, at least 62 of the 63
+   lookups hit, each hit reuses at least 128 tokens, at least 63 blocks are
+   copied on write, and at least 63 x 128 fewer prompt tokens are computed
+   than off.  Then two alternating templates at 8 retained blocks, on and
+   off, where the LRU evicts.  In every pair each request's final-chunk
+   logits agree to 2**-5 of their norm (phase 8 (c)'s rule for two correct
+   bf16 chains) and the greedy chains that agree in full are counted; the
+   tok/s, prefill chunks, prompt tokens computed and host wall per step
+   (all steps, and decode-only steps) are printed on against off, then the
+   idle share of the on run's first 5 steps under ``torch.profiler``, and
+   copy-on-write on the card is checked exact (``torch.equal``) on
+   minicpm-2b's int8 pools (values and scales) and bf16 pools;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -121,7 +143,9 @@ just after it; every count again just before phase 6, and the grouped
 GEMM's read just after it; every count again just before phase 7, and the
 flash kernels' read just after it (the forward's record sums phases 5 and
 7); every count again just before phase 8 (b), and the dense chunk
-kernel's read just after it.
+kernel's read just after it; every count again just before phase 9's
+runs, whose paged-attention counts are read just after each run (and
+printed, not put in the kernels' record).
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -961,8 +985,9 @@ def chunk_odd_cases(minicpm, gqa):
     """(heads, case) pairs of the paged chunk kernels' odd shapes: ragged
     slots with a dead one among four, a prefix of 0, 20 and 100 (past the
     first 64-row tile), T = 13 and 65 (ragged row tiles), starts that are
-    multiples of neither 64 nor the 32-token page, at minicpm's heads, a
-    GQA shape, and mixtral's 32/8 heads at D = 128."""
+    multiples of neither 64 nor the 32-token page, chunks that start at a
+    prefix-cache hit (mid-page, and a full-prompt hit's one valid row), at
+    minicpm's heads, a GQA shape, and mixtral's 32/8 heads at D = 128."""
     mixtral = dict(Hq=32, Hkv=8, D=128)
     for shape in (minicpm, gqa, mixtral):
         for prefix_len in (0, 20, 100):
@@ -973,6 +998,10 @@ def chunk_odd_cases(minicpm, gqa):
                           chunk_len=[13, 13, 0, 9], prefix_len=100)
         yield shape, dict(B=4, T=65, start=[3, 37, 0, 130],
                           chunk_len=[65, 60, 0, 1], prefix_len=0)
+        # prefix-cache hits (phase 9): chunks from mid-page, after a
+        # 150-token template, and a full-prompt hit's one row
+        yield shape, dict(B=4, T=32, start=[150, 150, 0, 189],
+                          chunk_len=[32, 8, 0, 1], prefix_len=0)
 
 
 def phase_kernels():
@@ -1067,6 +1096,15 @@ def phase_kernels():
 # phases 2 and 3: the serving main path
 # ---------------------------------------------------------------------------
 
+def prefix_counters(rt):
+    """A runtime's prefix-cache totals, as the launcher prints them."""
+    return (f"prefix cache {'on' if rt.prefix_cache_enabled else 'off'}: "
+            f"{rt.prefix_hits} hits, {rt.prefix_hit_tokens} prompt tokens "
+            f"reused, {rt.prefill_tokens_computed} computed, "
+            f"{rt.prefix_cow_copies} COW copies, {rt.prefix_evictions} LRU "
+            f"evictions")
+
+
 def phase_launcher():
     from repro_torch.launch import serve
     rc = serve.main(["--archs", "minicpm-2b", "--requests", "8",
@@ -1099,7 +1137,8 @@ def wave(kv_dtype, n_requests=32, new_tokens=40):
           f"{n_tok} tokens in {dt:.3f} s = {n_tok / dt:.1f} tok/s, "
           f"{rt.decode_steps} decode steps, {rt.prefill_chunk_calls} "
           f"prefill chunks, launches {grown}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
+          f"{prefix_counters(rt)}")
     del rt
     gc.collect()
     torch.cuda.empty_cache()
@@ -1149,7 +1188,8 @@ def wave_mamba2(n_requests=32, new_tokens=40):
           f"{launches} (by copy route {routes}), memory (GB) before "
           f"{mem0 / 1e9:.2f}, with weights "
           f"{mem_weights / 1e9:.2f}, after "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f}, peak {peak / 1e9:.2f}")
+          f"{torch.cuda.memory_allocated() / 1e9:.2f}, peak {peak / 1e9:.2f}, "
+          f"{prefix_counters(rt)}")
     del rt, arena
     gc.collect()
     torch.cuda.empty_cache()
@@ -1204,7 +1244,8 @@ def wave_whisper(n_requests=32, new_tokens=40):
           f"{rt.decode_steps} decode steps, {rt.prefill_chunk_calls} "
           f"prefill chunks, launches {launches}, memory (GB) before "
           f"{mem0 / 1e9:.2f}, with weights {mem_weights / 1e9:.2f}, after "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f}, peak {peak / 1e9:.2f}")
+          f"{torch.cuda.memory_allocated() / 1e9:.2f}, peak {peak / 1e9:.2f}, "
+          f"{prefix_counters(rt)}")
     print("phase 5 greedy tokens: " + json.dumps(
         [np.asarray(r.tokens).tolist() for r in
          sorted(results, key=lambda r: r.rid)]))
@@ -1282,7 +1323,7 @@ def wave_mixtral(n_requests=32, new_tokens=40):
           f"assignments ({dropped / max(assigned, 1.0):.4f}), memory (GB) "
           f"before {mem0 / 1e9:.2f}, with weights {mem_weights / 1e9:.2f}, "
           f"after {torch.cuda.memory_allocated() / 1e9:.2f}, peak "
-          f"{peak / 1e9:.2f}")
+          f"{peak / 1e9:.2f}, {prefix_counters(rt)}")
     print("phase 6 greedy tokens: " + json.dumps(
         [np.asarray(r.tokens).tolist() for r in
          sorted(results, key=lambda r: r.rid)]))
@@ -1355,7 +1396,8 @@ def wave_oracle(n_requests=32, new_tokens=40):
           f"{len(results)}/{n_requests}, {n_tok} tokens in {dt:.3f} s = "
           f"{n_tok / dt:.1f} tok/s, {rt.decode_steps} decode steps, "
           f"{rt.prefill_chunk_calls} prefill chunks, launches {launches}, "
-          f"memory (GB) before {mem0 / 1e9:.2f}, peak {peak / 1e9:.2f}")
+          f"memory (GB) before {mem0 / 1e9:.2f}, peak {peak / 1e9:.2f}, "
+          f"{prefix_counters(rt)}")
     del rt
     gc.collect()
     torch.cuda.empty_cache()
@@ -1537,10 +1579,237 @@ def wave_sync(n_requests=32, new_tokens=40):
           f"{len(results)}/{n_requests}, {n_tok} tokens in {dt:.3f} s = "
           f"{n_tok / dt:.1f} tok/s, {rt.oneshot_prefills} one-shot "
           f"prefills, {rt.decode_steps} decode steps, launches {launches}, "
-          f"peak memory {peak / 1e9:.2f} GB")
+          f"peak memory {peak / 1e9:.2f} GB, {prefix_counters(rt)}")
     del rt
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the prefix cache on templated requests
+# ---------------------------------------------------------------------------
+
+def templated_run(kv_dtype, prefix_cache, params, templates=1):
+    """One run of phase 9: ``profile_step.templated_wave`` at full width
+    (the plan's 512 slots, ``max_seq_len`` 256), its donors served to
+    their eviction, then the other requests submitted together and stepped
+    until they drain.  Returns the run's record: tokens and final-chunk
+    logits by rid, the hit each lookup after the donors found, counters
+    and step walls (each step ends in a host read of the sampled tokens,
+    so its wall includes the device's work)."""
+    import torch
+    from repro_torch.kernels import paged_attention
+    from repro_torch.launch.profile_step import serve_donors, templated_wave
+    # the last run's runtime lives in reference cycles (its wrapped chunk
+    # step, the prefix index's hooks): collect it before the next arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, rt, donors, others = templated_wave(kv_dtype, prefix_cache,
+                                             templates, params=params)
+    check(rt.plan.max_in_flight == 512 and rt.max_seq_len == 256
+          and rt.kv_dtype == kv_dtype and rt.paged_native
+          and rt.prefix_cache_enabled == (prefix_cache != 0),
+          f"unexpected templated runtime {rt.plan}")
+    final = {}
+    run_chunk = rt._run_chunk
+
+    def keep_final(arena, s, T):
+        logits, n = run_chunk(arena, s, T)
+        if s.consumed >= len(s.req.tokens):
+            final[s.req.rid] = logits[0].clone()
+        return logits, n
+    rt._run_chunk = keep_final
+    results = list(serve_donors(rt, donors))
+    hits = []
+    pc = rt.groups[0].prefix
+    if pc is not None:
+        record = pc.record
+        pc.record = lambda hit, n: (
+            hits.append(0 if hit is None else hit.tokens), record(hit, n))
+    before = dict(computed=rt.prefill_tokens_computed,
+                  chunks=rt.prefill_chunk_calls, steps=rt.decode_steps,
+                  hits=rt.prefix_hits, cow=rt.prefix_cow_copies,
+                  evictions=rt.prefix_evictions)
+    launches0 = dict(paged_attention.launches)
+    for req in others:
+        rt.submit(req)
+    walls, decode_only = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10_000):
+        if not (rt.pending() or rt.in_flight()):
+            break
+        ts = time.perf_counter()
+        st = rt.step(max_wait_s=0.0)
+        walls.append(time.perf_counter() - ts)
+        if st.decode_steps and not st.prefill_chunk_tokens:
+            decode_only.append(walls[-1])
+        results.extend(st.results)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(len(results) == len(donors) + len(others),
+          f"templated wave served {len(results)}/"
+          f"{len(donors) + len(others)}")
+    toks = {r.rid: np.asarray(r.tokens) for r in results}
+    for t in toks.values():
+        check(len(t) == others[0].max_new_tokens and t.min() >= 0
+              and t.max() < cfg.vocab_size, "token ids out of range")
+    check(sorted(final) == sorted(toks), "a request's final chunk is missing")
+    for rid, lg in final.items():
+        check(bool(torch.isfinite(lg).all()), f"non-finite logits, rid {rid}")
+    n_tok = sum(len(toks[r.rid]) for r in others)
+    rec = {"kv": kv_dtype, "prefix_cache": prefix_cache,
+           "templates": templates, "enabled": rt.prefix_cache_enabled,
+           "requests": len(results), "tok_s": n_tok / dt, "wall_s": dt,
+           "steps": len(walls),
+           "host_wall_ms_per_step": 1e3 * float(np.mean(walls)),
+           "median_wall_ms_per_step": 1e3 * float(np.median(walls)),
+           "decode_only_steps": len(decode_only),
+           "decode_only_wall_ms": (1e3 * float(np.mean(decode_only))
+                                   if decode_only else None),
+           "lookups": len(hits), "hits": sum(h > 0 for h in hits),
+           "min_hit_tokens": min((h for h in hits if h), default=0),
+           "computed": rt.prefill_tokens_computed - before["computed"],
+           "chunks": rt.prefill_chunk_calls - before["chunks"],
+           "decode_steps": rt.decode_steps - before["steps"],
+           "hit_tokens": rt.prefix_hit_tokens,
+           "cow": rt.prefix_cow_copies - before["cow"],
+           "evictions": rt.prefix_evictions,
+           "evictions_in_wave": rt.prefix_evictions - before["evictions"],
+           "launches": {k: paged_attention.launches[k] - launches0[k]
+                        for k in paged_attention.launches}}
+    print(f"phase 9 run ({kv_dtype} KV, prefix_cache={prefix_cache}, "
+          f"{templates} template(s)): {rec}, {prefix_counters(rt)}")
+    return rec, toks, final
+
+
+def cow_exact():
+    """Copy-on-write on the card is an exact copy: a minicpm-2b arena
+    (int8, then bf16 pools) with random pages, two registered blocks of one
+    slot shared into another and copied by one ``cow_blocks``; the copies'
+    values (and int8 scales) equal the sources' bit for bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving.arena import KVArena
+    from repro_torch.kernels.quant import QuantPages
+    cfg = get_config("minicpm-2b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    out = {}
+    for kv in ("int8", "bf16"):
+        a = KVArena(cfg, transformer.init_cache, capacity=2, max_seq_len=256,
+                    block_size=32, kv_dtype=kv, device="cuda")
+        tensors = [t for p in a.pages for t in (
+            (p.values, p.scales) if isinstance(p, QuantPages) else (p,))]
+        for t in tensors:
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
+                                      device="cuda", dtype=torch.int8))
+            else:
+                t.copy_(torch.rand(t.shape, generator=gen, device="cuda"))
+        src_slot = a.alloc(256)
+        src = a._slot_blocks[src_slot][3:5]
+        for b in a._slot_blocks[src_slot][:5]:
+            a.register(b)
+        dst_slot = a.alloc(256, shared=a._slot_blocks[src_slot][:5])
+        copied = a.cow_blocks([(dst_slot, 3), (dst_slot, 4)])
+        torch.cuda.synchronize()
+        dst = a._slot_blocks[dst_slot][3:5]
+        check(copied == 2 and a.cow_calls == 1 and not set(src) & set(dst),
+              f"{kv} copy-on-write copied {copied} in {a.cow_calls} calls")
+        exact = all(torch.equal(t[:, dst], t[:, src]) for t in tensors)
+        check(exact, f"{kv} copy-on-write is not an exact copy")
+        out[kv] = {"tensors": len(tensors), "blocks": copied, "exact": exact}
+        del a, tensors
+    torch.cuda.empty_cache()
+    print(f"phase 9 copy-on-write on the card (minicpm-2b pools, values and "
+          f"int8 scales compared with torch.equal): {out}")
+
+
+def phase_templated():
+    """Phase 9: minicpm-2b's templated wave with the prefix cache on (the
+    category's -1) and off (0), in int8 and bf16 KV, then two alternating
+    templates at 8 retained blocks, on and off; each request's final-chunk
+    logits are held to the cache-off run's to PARITY_TOL of their norm
+    (two correct bf16 chains, as in phase 8 (c)); then the on run's first
+    steps under ``torch.profiler``, and the copy-on-write check.  Every
+    launch count is zeroed just before the runs and read just after.
+    Returns the counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch import profile_step
+    from repro_torch.models.registry import model_api
+    cfg = get_config("minicpm-2b")
+    params = model_api(cfg).init(1, cfg, "cuda")
+    rel = lambda a, b: ((a.float() - b.float()).norm()
+                        / b.float().norm()).item()
+    reset_launches()
+    for kv, knob, templates in (("int8", -1, 1), ("bf16", -1, 1),
+                                ("int8", 8, 2)):
+        on, on_toks, on_lg = templated_run(kv, knob, params, templates)
+        off, off_toks, off_lg = templated_run(kv, 0, params, templates)
+        rels = sorted(rel(on_lg[r], off_lg[r]) for r in off_lg)
+        worst = rels[-1]
+        same = sum(bool(np.array_equal(on_toks[r], off_toks[r]))
+                   for r in off_toks)
+        others = on["requests"] - templates
+        print(f"phase 9 {kv} KV, {templates} template(s), prefix_cache="
+              f"{knob}: on vs off tok/s {on['tok_s']:.1f} vs "
+              f"{off['tok_s']:.1f}, prefill chunks {on['chunks']} vs "
+              f"{off['chunks']}, prompt tokens computed {on['computed']} vs "
+              f"{off['computed']}, host wall per step "
+              f"{on['host_wall_ms_per_step']:.3f} vs "
+              f"{off['host_wall_ms_per_step']:.3f} ms ({on['steps']} vs "
+              f"{off['steps']} steps; decode-only steps "
+              f"{on['decode_only_wall_ms']} vs {off['decode_only_wall_ms']} "
+              f"ms), hits {on['hits']}/{on['lookups']} (fewest tokens "
+              f"{on['min_hit_tokens']}), COW copies {on['cow']}, LRU "
+              f"evictions {on['evictions']}; final-chunk logits "
+              f"|on - off| / |off| median {rels[len(rels) // 2]}, worst "
+              f"{worst} (limit {PARITY_TOL}); greedy chains equal in full "
+              f"{same}/{len(off_toks)}")
+        print(f"phase 9 {kv} KV, {templates} template(s): every request's "
+              f"final-chunk |on - off| / |off|, sorted: {rels}")
+        check(worst <= PARITY_TOL, f"{kv} templated final-chunk logits with "
+              f"the cache differ from without: {worst} > {PARITY_TOL}")
+        check(off["hits"] == off["lookups"] == off["cow"] == 0,
+              f"the cache-off run used the cache: {off}")
+        if templates == 1:
+            check(on["lookups"] == others and on["hits"] >= others - 1
+                  and on["min_hit_tokens"] >= 128,
+                  f"{kv}: {on['hits']} of {on['lookups']} lookups hit, the "
+                  f"smallest {on['min_hit_tokens']} tokens")
+            check(on["computed"] <= off["computed"] - others * 128,
+                  f"{kv}: {on['computed']} prompt tokens computed with the "
+                  f"cache, {off['computed']} without")
+            check(on["cow"] >= others, f"{kv}: {on['cow']} COW copies")
+        else:
+            check(on["evictions"] > 0, f"no LRU eviction at 8 retained "
+                  f"blocks: {on}")
+        for name, n in on["launches"].items():
+            check(n > 0 or ("quant" in name) != (kv == "int8"),
+                  f"the {kv} templated wave never launched {name}")
+    launches = launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, rt, donors, others = profile_step.templated_wave(-1, -1,
+                                                        params=params)
+    profile_step.serve_donors(rt, donors)
+    for req in others:
+        rt.submit(req)
+    prof = profile_step.window(lambda: rt.step(max_wait_s=0.0), 5,
+                               "phase 9 profiled templated wave (int8, "
+                               "prefix cache on), first 5 steps", 8)
+    rt.drain()
+    print(f"phase 9 profiled on run: idle share {prof['idle_share']:.3f}, "
+          f"{prof}")
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cow_exact()
+    return launches
 
 
 def reset_launches():
@@ -2275,6 +2544,10 @@ def main() -> int:
           f"agree")
     logits_parity()
     wave_sync()
+    print("phase 9: the prefix cache, minicpm-2b full width, 512 slots, "
+          "64 requests sharing a 150-token template, 24 new each")
+    templated_launches = phase_templated()
+    print(f"phase 9 launches: {templated_launches}")
     small_input_check()
 
     kernels = []

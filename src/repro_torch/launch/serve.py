@@ -25,9 +25,14 @@ the reduced configs serve; reduced(mixtral-8x7b)'s 64-token sliding window
 is shorter than the default 256-token slot budget, so its K/V is a ring of
 the last 64 tokens per slot and its prompts prefill in one shot.
 
-``--mode sync`` serves run-to-completion batches, ``--kvcache-impl dense``
-the pre-arena dense cache, ``--no-chunked-prefill`` one-shot prefill at
-admission, as in the reference:
+The radix prefix cache runs at the category's retention unless
+``--prefix-cache`` says otherwise (0 turns it off, > 0 retains that many
+idle blocks); the launcher prints its hits, reused and computed prompt
+tokens, copy-on-write copies and LRU evictions.  ``--mode sync`` serves
+run-to-completion batches, ``--kvcache-impl dense`` the pre-arena dense
+cache, ``--no-chunked-prefill`` one-shot prefill at admission, as in the
+reference (the cache needs chunked prefill on the paged arena, so these
+turn it off):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b \
       --mode sync
@@ -48,17 +53,15 @@ from repro_torch.core.categories import GPUSpec, Sensitivity, ServiceSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import launch_counts
 from repro_torch.models.registry import model_api
-from repro_torch.serving.engine import (EparaServingEngine,
+from repro_torch.serving.engine import (PREFIX_CACHEABLE_FAMILIES,
+                                        EparaServingEngine,
                                         GenerationRequest, ServiceRuntime)
-
-PREFIX_CACHEABLE_FAMILIES = ("dense", "moe")
 
 # reference flags that are accepted but only at their defaults: the value
 # that would need an unported part names the ROADMAP.md item porting it
 _ITEM_MULTI_SERVER = "ROADMAP.md Queue 1 item 6 (multi-server control plane)"
 _UNPORTED_FLAGS = (
     ("servers", 1, _ITEM_MULTI_SERVER),
-    ("prefix_cache", -1, "ROADMAP.md Queue 1 item 2 (radix prefix cache)"),
     ("admission_policy", "fifo", "ROADMAP.md Queue 1 item 3 (SDF admission)"),
     ("no_preempt", False, "ROADMAP.md Queue 1 item 3 (SDF admission)"),
     ("deadline_s", 0.0, "ROADMAP.md Queue 1 item 3 (SDF admission)"),
@@ -90,14 +93,14 @@ def service_spec_for(cfg) -> ServiceSpec:
         prefix_cacheable=cfg.family in PREFIX_CACHEABLE_FAMILIES)
 
 
-def plan_for(full, kv_dtype=-1, bs=None):
+def plan_for(full, kv_dtype=-1, bs=None, prefix_cache=-1):
     """The allocator's plan for config ``full`` on the default ``GPUSpec``,
-    with ``kv_dtype`` (-1 = the category's choice), the prefix cache off
-    (it is not ported, so its category default becomes 0), and ``bs``
-    slots if given (the allocator's own ``user_bs``; None = its profile)."""
+    with ``kv_dtype`` and ``prefix_cache`` (-1 = the category's choice for
+    either), and ``bs`` slots if given (the allocator's own ``user_bs``;
+    None = its profile)."""
     return dataclasses.replace(
         allocate(service_spec_for(full), GPUSpec(), user_bs=bs),
-        prefix_cache=0, kv_dtype=kv_dtype)
+        prefix_cache=prefix_cache, kv_dtype=kv_dtype)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -133,7 +136,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="prefill each prompt in one shot at admission "
                          "instead of in chunks inside the decode loop")
     ap.add_argument("--servers", type=int, default=1)
-    ap.add_argument("--prefix-cache", type=int, default=-1)
+    ap.add_argument("--prefix-cache", type=int, default=-1,
+                    help="radix prefix-cache retention: -1 = the plan's "
+                         "category-derived bound (frequency retains the "
+                         "whole pool, latency a quarter), 0 = disabled, "
+                         ">0 = max idle cached blocks")
     ap.add_argument("--admission-policy", default="fifo")
     ap.add_argument("--no-preempt", action="store_true")
     ap.add_argument("--deadline-s", type=float, default=0.0)
@@ -168,6 +175,10 @@ def main(argv=None) -> int:
         ap.error(f"--prefill-chunk must be 0 (category default) or a "
                  f"positive multiple of --block-size={args.block_size}, "
                  f"got {args.prefill_chunk}")
+    if args.prefix_cache < -1:
+        ap.error(f"--prefix-cache must be -1 (category default), 0 "
+                 f"(disabled) or a positive block count, got "
+                 f"{args.prefix_cache}")
     if args.kv_dtype not in ("auto", "bf16", "int8"):
         ap.error(f"--kv-dtype must be auto (category default), bf16 or "
                  f"int8, got {args.kv_dtype!r}")
@@ -200,7 +211,7 @@ def main(argv=None) -> int:
         full = get_config(a)
         cfg = full if device.type == "cuda" else reduced(full)
         cfgs[a] = cfg
-        plan = plan_for(full, kv_dtype)
+        plan = plan_for(full, kv_dtype, prefix_cache=args.prefix_cache)
         print(f"  {a:20s} {plan.category} mp={plan.mp} bs={plan.bs} "
               f"mt={plan.mt} mf={plan.mf} dp={plan.dp} "
               f"kv={plan.resolved_kv_dtype()}")
@@ -233,14 +244,21 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(device)
     dt = time.monotonic() - t0
     toks = sum(len(r.tokens) for r in results)
-    steps = sum(rt.decode_steps for rt in engine.runtimes.values())
-    chunks = sum(rt.prefill_chunk_calls for rt in engine.runtimes.values())
-    oneshot = sum(rt.oneshot_prefills for rt in engine.runtimes.values())
+    rts = list(engine.runtimes.values())
+    steps = sum(rt.decode_steps for rt in rts)
+    chunks = sum(rt.prefill_chunk_calls for rt in rts)
+    oneshot = sum(rt.oneshot_prefills for rt in rts)
     print(f"served {len(results)}/{args.requests} requests, {toks} tokens "
           f"in {dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s, {steps} fused "
           f"decode steps, {chunks} prefill chunks, {oneshot} one-shot "
           f"prefills, mode={args.mode}, kvcache={args.kvcache_impl}, "
           f"device={device})")
+    print(f"prefix cache: {sum(rt.prefix_hits for rt in rts)} hits, "
+          f"{sum(rt.prefix_hit_tokens for rt in rts)} prompt tokens reused, "
+          f"{sum(rt.prefill_tokens_computed for rt in rts)} computed, "
+          f"{sum(rt.prefix_cow_copies for rt in rts)} COW copies, "
+          f"{sum(rt.prefix_evictions for rt in rts)} LRU evictions, "
+          f"{oneshot} one-shot prefills")
     print("kernel launches: " + ", ".join(
         f"{k}={v - launches0[k]}" for k, v in launch_counts().items()))
     return 0 if len(results) == args.requests else 1

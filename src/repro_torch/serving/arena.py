@@ -16,6 +16,14 @@ engine (the port of the reference package's ``serving/arena.py``).
 * Admission is an ``alloc``; pages are written chunk by chunk, or at once
   by ``write_prefill`` after a one-shot prefill.  Eviction is a free-list
   operation with no device work.
+* Blocks are shareable across slots (the prefix cache): ``alloc`` can
+  stitch resident blocks into the front of a new slot's table
+  (``shared=...``), per-block refcounts keep them alive across the source
+  slot's eviction, ``register``/``unregister`` let a prefix index freeze
+  blocks (a writer copies first: ``cow_blocks``, ``ensure_writable``), and
+  ref-0 registered blocks wait on an LRU that the allocator reclaims before
+  it ever fails.  ``park``/``release_parked`` freeze a live slot's blocks
+  while its slot is reused (preemption).
 * The decode step always runs at the full static shape ``(capacity, ...)``
   with an occupancy mask.
 * ``kv_dtype="int8"`` stores floating pools as ``QuantPages`` (int8 values
@@ -25,20 +33,18 @@ engine (the port of the reference package's ``serving/arena.py``).
   steps, ring layouts and the ``paged_native=False`` oracle), and
   ``append_rows`` writes the rows such a step produced back into the pages.
 
-Host bookkeeping (free lists, block tables, occupancy) is numpy with the
-reference's semantics.  Device state is ``pages`` (one pool per paged
-leaf), ``state`` (one tensor per state leaf) and ``lens`` ``(capacity,)``
-int32; the model steps, ``write_prefill`` and ``append_rows`` update pools
-and state in place, so ``pages`` and ``state`` are never re-bound.
-
-Not ported yet (``ROADMAP.md`` Queue 1 item 1): cross-slot block sharing
-(refcounts, ``register``, the idle LRU), copy-on-write and block-table
-parking.
+Host bookkeeping (free lists, block tables, refcounts, the idle LRU,
+occupancy) is numpy with the reference's semantics and counters.  Device
+state is ``pages`` (one pool per paged leaf), ``state`` (one tensor per
+state leaf) and ``lens`` ``(capacity,)`` int32; the model steps,
+``write_prefill``, ``append_rows`` and ``cow_blocks`` update pools and
+state in place, so ``pages`` and ``state`` are never re-bound.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -159,6 +165,24 @@ class KVArena:
         self._tables_dev: Optional[torch.Tensor] = None
         self._occ_dev: Optional[torch.Tensor] = None
 
+        # -- cross-slot block sharing (prefix cache) ---------------------
+        # ``_block_refs`` counts live slot references to a block;
+        # ``_cached`` marks blocks registered by a prefix index (frozen:
+        # any write copies first); ref-0 cached blocks wait in
+        # ``_idle_cached``, an LRU by last release, and are reclaimed
+        # before the allocator fails, through ``evict_hook`` so that the
+        # index drops their entries
+        self._block_refs = np.zeros((self.pool_blocks,), np.int32)
+        self._cached: set = set()
+        self._idle_cached: "OrderedDict[int, None]" = OrderedDict()
+        self.evict_hook: Optional[Callable[[int], None]] = None
+        self.cache_retention: Optional[int] = None  # max idle cached blocks
+        self.cached_evictions = 0     # idle cached blocks reclaimed
+        self.parks = 0                # preemption block-table parks
+        self.parked_blocks = 0        # blocks held by parked requests
+        self.cow_copies = 0           # copy-on-write block copies
+        self.cow_calls = 0            # batched copy dispatches
+
         # bytes one cache token occupies across all paged leaves; a
         # quantized leaf counts 1 byte per value plus its f32 row scale
         self.token_bytes = 0
@@ -179,28 +203,90 @@ class KVArena:
     def blocks_for(self, total_tokens: int) -> int:
         return max(1, math.ceil(total_tokens / self.block_size))
 
-    def can_alloc(self, total_tokens: int) -> bool:
+    @property
+    def free_capacity(self) -> int:
+        """Blocks the allocator can hand out without failing: the free
+        list plus every reclaimable (ref-0 cached) block."""
+        return len(self._free_blocks) + len(self._idle_cached)
+
+    def can_alloc(self, total_tokens: int, *, shared: Sequence[int] = (),
+                  reserve: int = 0) -> bool:
+        """Admission feasibility.  ``shared`` lists the cached blocks a
+        prefix hit would stitch in: they lower the demand for fresh blocks,
+        and idle ones leave the reclaimable supply (the hit revives them).
+        ``reserve`` asks for extra claimable headroom (the divergence copy a
+        partial-tail share will need)."""
+        shared = list(shared)
+        idle_shared = sum(1 for b in shared if b in self._idle_cached)
+        claimable = (len(self._free_blocks) + len(self._idle_cached)
+                     - idle_shared)
         return (bool(self._free_slots)
-                and self.blocks_for(total_tokens) <= len(self._free_blocks)
+                and (self.blocks_for(total_tokens) - len(shared) + reserve
+                     <= claimable)
                 and total_tokens <= self.slot_tokens)
 
-    def alloc(self, total_tokens: int, slot: Optional[int] = None) -> int:
+    def _reclaim_lru_block(self) -> None:
+        """Return the least recently released idle cached block to the free
+        list.  The block is appended before the hook fires: the hook's
+        ``unregister`` calls (subtree drops) must see it freed already, or
+        they would append it twice."""
+        blk, _ = self._idle_cached.popitem(last=False)
+        self._cached.discard(blk)
+        self.cached_evictions += 1
+        self._free_blocks.append(blk)
+        if self.evict_hook is not None:
+            self.evict_hook(blk)
+
+    def _claim_blocks(self, n: int) -> List[int]:
+        """Pop ``n`` blocks off the free list, reclaiming idle cached
+        blocks in LRU order when it runs short."""
+        while len(self._free_blocks) < n and self._idle_cached:
+            self._reclaim_lru_block()
+        if len(self._free_blocks) < n:
+            raise RuntimeError("arena out of blocks")
+        return [self._free_blocks.pop(0) for _ in range(n)]
+
+    def alloc(self, total_tokens: int, slot: Optional[int] = None, *,
+              shared: Sequence[int] = ()) -> int:
         """Claim a slot and its token blocks for a request whose lifetime
-        needs ``total_tokens`` (prompt + generation budget)."""
+        needs ``total_tokens`` (prompt + generation budget).  ``shared``
+        stitches resident physical blocks (a cached prompt prefix) into the
+        front of the slot's table in place of fresh ones: each one's
+        refcount rises, and idle cached ones leave the LRU."""
         if total_tokens > self.slot_tokens:
             raise ValueError(
                 f"request needs {total_tokens} tokens > arena slot budget "
                 f"{self.slot_tokens} (raise max_seq_len)")
         n = self.blocks_for(total_tokens)
-        if len(self._free_blocks) < n:
-            raise RuntimeError("arena out of blocks")
+        shared = list(shared)
+        if len(shared) > n:
+            raise ValueError(
+                f"{len(shared)} shared prefix blocks exceed the request's "
+                f"{n}-block budget")
+        # incref the shared prefix first, so that the claim below can never
+        # reclaim a block the hit is about to use
+        for b in shared:
+            if self._block_refs[b] == 0:
+                self._idle_cached.pop(b, None)
+            self._block_refs[b] += 1
+        try:
+            fresh = self._claim_blocks(n - len(shared))
+        except RuntimeError:
+            for b in shared:          # undo the increfs; the caller requeues
+                self._release_block(b)
+            raise
         if slot is None:
             if not self._free_slots:
+                for b in shared:
+                    self._release_block(b)
+                self._free_blocks.extend(fresh)
                 raise RuntimeError("arena out of slots")
             slot = self._free_slots.pop(0)
         else:
             self._free_slots.remove(slot)
-        blocks = [self._free_blocks.pop(0) for _ in range(n)]
+        for b in fresh:
+            self._block_refs[b] = 1
+        blocks = shared + fresh
         self._slot_blocks[slot] = blocks
         row = np.full((self.blocks_per_slot,), self.trash_block, np.int32)
         row[:n] = blocks
@@ -216,17 +302,173 @@ class KVArena:
         self.set_len(slot, 0)
 
     def set_len(self, slot: int, n: int) -> None:
+        """Set a slot's device-side length; a prefix hit admits with the
+        hit's token count, so chunked prefill resumes past it."""
         self.lens[slot] = n
 
+    def _release_block(self, block: int) -> None:
+        """Drop one slot reference; a ref-0 block joins the idle LRU if a
+        prefix index still holds it, else returns to the free list."""
+        self._block_refs[block] -= 1
+        if self._block_refs[block] > 0:
+            return
+        self._block_refs[block] = 0
+        if block in self._cached:
+            self._idle_cached.pop(block, None)
+            self._idle_cached[block] = None       # most recently released
+        else:
+            self._free_blocks.append(block)
+
     def free(self, slot: int) -> None:
-        """Release a slot: pure free-list bookkeeping, zero device work."""
+        """Release a slot: pure free-list bookkeeping, zero device work.
+        Blocks shared with other slots, or held by a prefix index, stay;
+        only the last reference returns a block to circulation."""
         if not self._occ[slot]:
             return
-        self._free_blocks.extend(self._slot_blocks.pop(slot))
+        for b in self._slot_blocks.pop(slot):
+            self._release_block(b)
         self._block_tables[slot] = self.trash_block
         self._occ[slot] = False
         self._free_slots.append(slot)
         self._tables_dev = self._occ_dev = None
+        self._enforce_retention()
+
+    # ------------------------------------------------------------------
+    # preemption: block-table parking
+    # ------------------------------------------------------------------
+    @property
+    def parkable(self) -> bool:
+        """Parking freezes only a slot's blocks; per-slot state rows are
+        overwritten by the slot's next tenant, so a layout with any cannot
+        park."""
+        return not self.state
+
+    def park(self, slot: int) -> List[int]:
+        """Free a live slot without releasing its blocks: the caller now
+        holds the slot's references and the K/V stays resident.  A resume
+        hands them back through ``alloc(total, shared=blocks)`` and then
+        ``release_parked``, which leaves the refcounts as they were."""
+        if not self._occ[slot]:
+            raise ValueError(f"slot {slot} is not occupied")
+        if not self.parkable:
+            raise ValueError(
+                "arena carries per-slot state leaves; parking would "
+                "destroy them on slot reuse")
+        blocks = self._slot_blocks.pop(slot)
+        self._block_tables[slot] = self.trash_block
+        self._occ[slot] = False
+        self._free_slots.append(slot)
+        self._tables_dev = self._occ_dev = None
+        self.parks += 1
+        self.parked_blocks += len(blocks)
+        return blocks
+
+    def release_parked(self, blocks: Sequence[int]) -> None:
+        """Drop a parked hold: after a resume's ``alloc(shared=blocks)``,
+        or to abandon a parked request (cached blocks then join the idle
+        LRU, private ones the free list)."""
+        for b in blocks:
+            self._release_block(b)
+        self.parked_blocks -= len(blocks)
+        self._enforce_retention()
+
+    # ------------------------------------------------------------------
+    # prefix-cache surface: registration, retention, copy-on-write
+    # ------------------------------------------------------------------
+    def register(self, block: int) -> None:
+        """Mark a block as held by a prefix index: its content is frozen
+        (writers copy first) and it outlives its slots on the idle LRU
+        until reclaimed or shared again."""
+        self._cached.add(block)
+
+    def unregister(self, block: int) -> None:
+        """The prefix index dropped its entry: an idle block returns to the
+        free list, a live one only stops being frozen."""
+        self._cached.discard(block)
+        if block in self._idle_cached:
+            del self._idle_cached[block]
+            self._free_blocks.append(block)
+
+    def _enforce_retention(self) -> None:
+        """Cap the idle cached blocks at ``cache_retention`` (the
+        category's knob)."""
+        if self.cache_retention is None:
+            return
+        while len(self._idle_cached) > self.cache_retention:
+            self._reclaim_lru_block()
+
+    def block_ref(self, block: int) -> int:
+        return int(self._block_refs[block])
+
+    def is_cached(self, block: int) -> bool:
+        return block in self._cached
+
+    def cow_block(self, slot: int, logical: int) -> bool:
+        """Give ``slot`` a private copy of its ``logical``-th block if that
+        block is shared with another slot or frozen by a prefix index.
+        True when a copy happened."""
+        return self.cow_blocks([(slot, logical)]) > 0
+
+    def cow_blocks(self, pairs: Sequence[Tuple[int, int]]) -> int:
+        """Copy-on-write for several (slot, logical block) targets at once:
+        one indexed copy over every pool tensor, an int8 pool's scales with
+        its values.  Blocks a slot owns alone and unfrozen are skipped.
+        Returns the number of blocks copied."""
+        # decide without mutating: which targets need a private copy (two
+        # sharers of one source both do)
+        needed: List[Tuple[int, int, int]] = []   # (slot, logical, phys)
+        for slot, logical in pairs:
+            phys = int(self._block_tables[slot][logical])
+            if phys == self.trash_block:
+                raise ValueError(f"slot {slot} logical block {logical} is "
+                                 f"unallocated")
+            if self._block_refs[phys] <= 1 and phys not in self._cached:
+                continue
+            needed.append((slot, logical, phys))
+        if not needed:
+            return 0
+        # claim every destination before any table changes, so that an
+        # exhausted arena raises with its bookkeeping whole (the sources
+        # have live references, so the claim cannot reclaim them)
+        fresh_blocks = self._claim_blocks(len(needed))
+        todo: List[Tuple[int, int]] = []          # (phys, fresh)
+        for (slot, logical, phys), fresh in zip(needed, fresh_blocks):
+            self._block_refs[fresh] = 1
+            blocks = self._slot_blocks[slot]
+            blocks[blocks.index(phys)] = fresh
+            self._block_tables[slot][logical] = fresh
+            todo.append((phys, fresh))
+        src = torch.tensor([s for s, _ in todo], dtype=torch.long,
+                           device=self.device)
+        dst = torch.tensor([d for _, d in todo], dtype=torch.long,
+                           device=self.device)
+        for pool in self.pages:
+            for p in ((pool.values, pool.scales)
+                      if isinstance(pool, QuantPages) else (pool,)):
+                p[:, dst] = p[:, src]
+        self._tables_dev = None
+        for phys, _ in todo:
+            self._release_block(phys)  # sole-ref cached sources go idle...
+        self._enforce_retention()      # ...so the retention bound applies
+        self.cow_copies += len(todo)
+        self.cow_calls += 1
+        return len(todo)
+
+    def ensure_writable(self, slot: int, start: int, n_tokens: int = 1
+                        ) -> int:
+        """Copy-on-write every block that the write ``[start, start +
+        n_tokens)`` touches and the slot does not own alone: a host check,
+        free when nothing in the pool is shared or frozen, and one batched
+        ``cow_blocks`` otherwise.  Returns the blocks copied."""
+        if not self._cached and not (self._block_refs > 1).any():
+            return 0
+        lo = max(0, start) // self.block_size
+        hi = max(0, start + n_tokens - 1) // self.block_size
+        pairs = [(slot, logical)
+                 for logical in range(lo, min(hi, self.blocks_per_slot - 1)
+                                      + 1)
+                 if self._block_tables[slot][logical] != self.trash_block]
+        return self.cow_blocks(pairs)
 
     def block_tables(self) -> np.ndarray:
         """(capacity, blocks_per_slot) logical->physical block map."""
@@ -236,8 +478,8 @@ class KVArena:
         return self._occ.copy()
 
     def device_block_tables(self) -> torch.Tensor:
-        """Device copy of the block table, re-uploaded only after an alloc
-        or free."""
+        """Device copy of the block table, re-uploaded only after a table
+        changes (alloc, free, park, copy-on-write)."""
         if self._tables_dev is None:
             self._tables_dev = torch.from_numpy(self._block_tables).to(
                 self.device)

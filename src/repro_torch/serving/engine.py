@@ -16,6 +16,15 @@ per group; each ``step()``:
   (c) runs one fused decode step over every slot, with per-slot lengths
       and an occupancy mask, then greedy sampling.
 
+A radix prefix cache (``serving/prefix_cache.py``) stands in front of (b)
+for the prefix-cacheable families: an admission looks up the longest
+cached prefix of its prompt and stitches its blocks into the new slot's
+table (``arena.alloc(shared=...)``), so (b2) starts past the hit.  A write
+into a shared or frozen block copies it first (``arena.ensure_writable``;
+a wave's divergence copies go in one ``arena.cow_blocks``).  Retention
+follows the task category (``ParallelPlan.prefix_cache``), and the hit,
+copy and eviction counts go into ``StepStats``.
+
 Two cache data planes back the slot loop (``kvcache_impl``):
 
 * ``"paged"`` (default): a fixed-capacity ``KVArena`` per group.
@@ -47,9 +56,8 @@ request's frame embeddings (``extras["embeddings"]``), from which the
 encoder-decoder projects the slot's cross-attention K/V state.
 
 Not ported (constructor arguments that ask for them raise, naming the
-``ROADMAP.md`` item): the radix prefix cache (its category default is
-treated as 0), SDF admission, speculative decoding and n-way forks,
-stochastic sampling.
+``ROADMAP.md`` item): SDF admission and parking preemption, speculative
+decoding and n-way forks, stochastic sampling.
 """
 from __future__ import annotations
 
@@ -69,10 +77,17 @@ from repro_torch.models.registry import ModelApi, model_api
 from . import kvcache
 from .arena import KVArena
 from .batching import ComposedBatch, QueuedItem, make_composer
+from .prefix_cache import PrefixHit, RadixPrefixCache
 from .sampler import SamplerConfig, sample_per_slot
 
 DEFAULT_MAX_SEQ_LEN = 256
 DEFAULT_BLOCK_SIZE = 32
+
+# Families whose paged K/V is a pure function of the prompt's token ids,
+# which cross-request block sharing needs: SSM and hybrid carry per-slot
+# recurrent state a shared prefix cannot rebuild, and the encoder-decoder
+# and VLM caches depend on inputs other than tokens.
+PREFIX_CACHEABLE_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -121,6 +136,11 @@ class StepStats:
     #                                  (token-assignments past capacity;
     #                                  nonzero under binding capacity, where
     #                                  chunked prefill may diverge)
+    prefix_lookups: int = 0          # prefix-cache lookups this step
+    prefix_hits: int = 0             # admissions that reused cached blocks
+    prefix_hit_tokens: int = 0       # prompt tokens served from the cache
+    prefix_evicted_blocks: int = 0   # cached blocks reclaimed (LRU) this step
+    prefix_cow_blocks: int = 0       # copy-on-write block copies this step
 
 
 class _Slot:
@@ -144,6 +164,7 @@ class _Slot:
         self.steps = 0
         self.slot_id = slot_id
         self.consumed = 0                   # prompt tokens prefilled so far
+        #                                     (a prefix hit starts past 0)
         self.prefilling = True
         self.emitted: List[int] = []
         self.done = False
@@ -170,11 +191,13 @@ class _Slot:
 
 class _GroupState:
     """Persistent in-flight state of one DP replica group: its slots and
-    either a ``KVArena`` (paged) or a compacted cache dict (dense)."""
-    __slots__ = ("slots", "arena", "cache")
+    either a ``KVArena`` (paged, with its prefix index when the cache is
+    on) or a compacted cache dict (dense)."""
+    __slots__ = ("slots", "arena", "prefix", "cache")
 
     def __init__(self):
         self.arena: Optional[KVArena] = None
+        self.prefix: Optional[RadixPrefixCache] = None
         self.cache: Optional[Dict[str, Any]] = None   # dense impl only
         self.slots: List[_Slot] = []
 
@@ -221,9 +244,6 @@ class ServiceRuntime:
                 "pools are block-quantized); dense caches keep the model's "
                 "native dtype")
         self.api: ModelApi = model_api(cfg)
-        if (prefix_cache not in (None, 0, False)
-                or plan.prefix_cache > 0):
-            raise _not_ported("the radix prefix cache", "item 2")
         if (admission_policy or plan.admission) != "fifo":
             raise _not_ported("admission policy "
                               f"{admission_policy or plan.admission!r}",
@@ -263,6 +283,7 @@ class ServiceRuntime:
         self.oneshot_prefills = 0    # admissions via one-shot prefill
         self._session_refs: Dict[int, int] = {}  # sticky session -> requests
         self._service_ewma_s = 0.0   # EWMA of per-request service time
+        self._prefix_hit_ewma = 0.0  # EWMA of cached-prompt-token fraction
         self._moe_stats = None
         if cfg.family == "moe":
             # expert-capacity drop observability: chunked prefill changes
@@ -323,6 +344,36 @@ class ServiceRuntime:
             chunk = plan.prefill_chunk_tokens(block_size)
         self.prefill_chunk_tokens = min(chunk, self.slot_token_budget)
         self.chunk_buckets = self._derive_buckets(self.prefill_chunk_tokens)
+
+        # -- prefix cache: -1 = the category's retention, 0 = off, > 0 =
+        # that many idle cached blocks.  The plan's value is a default that
+        # a path which cannot cache turns off; an explicit ask raises there
+        if prefix_cache is None:
+            knob = plan.prefix_cache
+            explicit_prefix = False
+        else:
+            knob = (-1 if prefix_cache is True
+                    else 0 if prefix_cache is False else int(prefix_cache))
+            if knob < -1:
+                raise ValueError(
+                    f"prefix_cache must be -1 (category default), 0 "
+                    f"(disabled) or a positive retention block count; got "
+                    f"{knob}")
+            explicit_prefix = knob != 0
+        cacheable = (mode == "continuous" and kvcache_impl == "paged"
+                     and self.chunked_prefill
+                     and cfg.family in PREFIX_CACHEABLE_FAMILIES)
+        if explicit_prefix and not cacheable:
+            raise ValueError(
+                "prefix_cache requires mode='continuous', "
+                "kvcache_impl='paged', chunked prefill (so hits resume "
+                f"mid-prompt) and a family in {PREFIX_CACHEABLE_FAMILIES} "
+                "(paged KV must be a pure function of prompt tokens); got "
+                f"family={cfg.family!r}, mode={mode!r}, "
+                f"kvcache_impl={kvcache_impl!r}, "
+                f"chunked_prefill={self.chunked_prefill}")
+        self._prefix_knob = knob
+        self.prefix_cache_enabled = bool(cacheable and knob != 0)
 
     @property
     def slot_token_budget(self) -> int:
@@ -434,15 +485,19 @@ class ServiceRuntime:
         """Expected wait before a newly queued request starts decoding:
         queued request waves plus, under chunked prefill, the prompt
         backlog (queued and admitted-but-unconsumed prompt tokens drain at
-        most one chunk budget per group per step)."""
+        most one chunk budget per group per step).  With the prefix cache
+        on, the queued prompt tokens are discounted by the observed hit
+        rate; admitted ones already start past their hits."""
         if self._service_ewma_s <= 0.0:
             return 0.0
         waves = self.pending() / max(1, self.total_slots())
         if self.chunked_prefill and self.prefill_chunk_tokens > 0:
-            backlog = (self.composer.pending_prefill_tokens()
-                       + sum(len(s.req.tokens) - s.consumed
-                             for g in self.groups.values() for s in g.slots
-                             if s.prefilling))
+            queued = self.composer.pending_prefill_tokens()
+            if self.prefix_cache_enabled:
+                queued *= max(0.0, 1.0 - self._prefix_hit_ewma)
+            backlog = queued + sum(len(s.req.tokens) - s.consumed
+                                   for g in self.groups.values()
+                                   for s in g.slots if s.prefilling)
             chunk_steps = backlog / (self.prefill_chunk_tokens
                                      * max(1, len(self.groups)))
             waves += chunk_steps / max(1, self.total_slots())
@@ -476,6 +531,13 @@ class ServiceRuntime:
             results.append(res)
             self._note_service_time(res)
             if state.arena is not None:
+                if state.prefix is not None and not s.prefilling:
+                    # the slot writes no more: its partial tail block's
+                    # prompt rows are final and can join the index
+                    # (sharers mask the generated rows past the entry's
+                    # valid count and copy before writing)
+                    state.prefix.insert(s.req.tokens,
+                                        state.arena._block_tables[s.slot_id])
                 state.arena.free(s.slot_id)
             self._release_session(s.req)
         state.slots = [state.slots[i] for i in keep]
@@ -507,16 +569,24 @@ class ServiceRuntime:
                 max_seq_len=self.max_seq_len, block_size=self.block_size,
                 pool_blocks=self.pool_blocks, kv_dtype=self.kv_dtype,
                 device=self.device)
+            if self.prefix_cache_enabled:
+                state.prefix = RadixPrefixCache(
+                    state.arena,
+                    retention_blocks=self.plan.prefix_cache_blocks(
+                        state.arena.pool_blocks, override=self._prefix_knob))
         return state.arena
 
     def _admit_one(self, req: GenerationRequest, state: _GroupState,
-                   now: float) -> bool:
-        """(b) Claim a slot for one admission.  Chunked paged: an arena
-        ``alloc``; the prompt is prefilled chunk by chunk in (b2).
-        One-shot paged: prefill, then ``write_prefill`` scatters the
-        prompt's pages and the slot's state.  Dense: prefill, then
-        ``kvcache.merge`` copies the live batch to join it.  False when
-        the arena is out of blocks (the caller requeues)."""
+                   now: float, pending_cows: List) -> bool:
+        """(b) Claim a slot for one admission.  Chunked paged: a prefix
+        lookup and an arena ``alloc``; the prompt is prefilled chunk by
+        chunk in (b2), from the hit on.  One-shot paged: prefill, then
+        ``write_prefill`` scatters the prompt's pages and the slot's state.
+        Dense: prefill, then ``kvcache.merge`` copies the live batch to
+        join it.  False when the arena is out of blocks (the caller
+        requeues).  ``pending_cows`` collects the wave's divergence copies
+        (partial-tail hits), which ``_admit`` makes in one
+        ``arena.cow_blocks`` after the wave."""
         extra = self._extra_cache_tokens()
         if self.kvcache_impl == "paged":
             arena = self._ensure_arena(state)
@@ -525,14 +595,11 @@ class ServiceRuntime:
                 raise ValueError(
                     f"request {req.rid} needs {total} tokens > per-slot "
                     f"budget {arena.slot_tokens}; raise max_seq_len")
+            if self.chunked_prefill:
+                return self._admit_chunked(req, state, arena, total, now,
+                                           pending_cows)
             if not arena.can_alloc(total):
                 return False
-            if self.chunked_prefill:
-                slot_id = arena.alloc(total)
-                arena.reset_len(slot_id)
-                state.slots.append(_Slot(req, admit_wall=time.perf_counter(),
-                                         admitted_s=now, slot_id=slot_id))
-                return True
             # the prefill's cache lands exactly on the slot's rows
             cache_size = arena.slot_tokens - extra
         else:
@@ -568,6 +635,60 @@ class ServiceRuntime:
         state.slots.append(slot)
         return True
 
+    def _admit_chunked(self, req: GenerationRequest, state: _GroupState,
+                       arena: KVArena, total: int, now: float,
+                       pending_cows: List) -> bool:
+        """A chunked admission: stitch the longest cached prefix of the
+        prompt into the new slot's table, so that its chunks start past the
+        hit."""
+        hit: Optional[PrefixHit] = None
+        pc = state.prefix
+        looked = pc is not None and len(req.tokens) > 1
+        if looked:
+            h = pc.lookup(req.tokens)
+            if h.tokens > 0:
+                hit = h
+        # blocks promised to this wave's deferred copies stay claimable
+        # until the flush
+        reserved = len(pending_cows)
+        if hit is not None and hit.partial_valid:
+            # a partial-tail share always needs its divergence copy (the
+            # first computed row lands in that block): admit it only with
+            # room for the copy, else fall back to the full-block hit
+            if not arena.can_alloc(total, shared=hit.blocks,
+                                   reserve=1 + reserved):
+                hit = (PrefixHit(blocks=hit.blocks[:-1],
+                                 tokens=hit.full_blocks * arena.block_size,
+                                 full_blocks=hit.full_blocks,
+                                 partial_valid=0)
+                       if hit.full_blocks else None)
+        shared = hit.blocks if hit is not None else ()
+        if not arena.can_alloc(total, shared=shared, reserve=reserved):
+            return False
+        slot_id = arena.alloc(total, shared=shared)
+        if hit is not None:
+            arena.set_len(slot_id, hit.tokens)
+            if hit.partial_valid:
+                # the divergence copy, deferred to the wave's flush (room
+                # was reserved above; ensure_writable in the chunk and
+                # decode paths stays as the invariant's guard)
+                pending_cows.append((slot_id, hit.full_blocks))
+        else:
+            arena.reset_len(slot_id)
+        slot = _Slot(req, admit_wall=time.perf_counter(), admitted_s=now,
+                     slot_id=slot_id)
+        if hit is not None:
+            slot.consumed = hit.tokens
+        if looked:
+            pc.record(hit, len(req.tokens))
+        if pc is not None:
+            # over every admission (a 1-token prompt counts as a miss), so
+            # that the queue-time discount stays honest
+            frac = (hit.tokens / len(req.tokens)) if hit is not None else 0.0
+            self._prefix_hit_ewma = 0.8 * self._prefix_hit_ewma + 0.2 * frac
+        state.slots.append(slot)
+        return True
+
     def _route_admission(self, item: QueuedItem) -> Optional[int]:
         """A DP group with a free slot; a sticky session must land on its
         pinned group or wait."""
@@ -591,13 +712,22 @@ class ServiceRuntime:
             return 0
         admitted = 0
         unplaced = []
+        pending_cows: Dict[int, List] = {g: [] for g in self.groups}
         for item in composed.items:
             g = self._route_admission(item)
             if g is None or not self._admit_one(item.payload,
-                                                self.groups[g], now):
+                                                self.groups[g], now,
+                                                pending_cows[g]):
                 unplaced.append(item)
                 continue
             admitted += 1
+        # the wave's divergence copies: one batched copy per group
+        for g, pairs in pending_cows.items():
+            if pairs:
+                arena = self.groups[g].arena
+                copied = arena.cow_blocks(pairs)
+                self.admission_copy_bytes += (copied * arena.block_size
+                                              * arena.token_bytes)
         for item in reversed(unplaced):   # push_front in reverse keeps FIFO
             self.composer.push_front(item)
         return admitted
@@ -625,6 +755,13 @@ class ServiceRuntime:
             if self.cfg.family == "audio":
                 batch["embeddings"] = torch.from_numpy(np.asarray(
                     s.req.extras["embeddings"])[None]).to(dev)
+        # copy-on-write before the chunk lands: a hit into a partial block
+        # shares it read-only, and the first write past the divergence
+        # point needs a private copy
+        copied = arena.ensure_writable(sid, s.consumed, n_valid)
+        if copied:
+            self.admission_copy_bytes += (copied * arena.block_size
+                                          * arena.token_bytes)
         start = arena.lens[sid:sid + 1]
         chunk_len = torch.tensor([n_valid], dtype=torch.int32, device=dev)
         bt_row = torch.from_numpy(arena._block_tables[sid:sid + 1]).to(dev)
@@ -678,6 +815,16 @@ class ServiceRuntime:
                     t1 = time.perf_counter()
                     s.prefill_s += t1 - t0
                     s.begin_decode(first, t1)
+                    if state.prefix is not None:
+                        # every full prompt block is written: index the
+                        # chain.  The partial tail is not indexed yet:
+                        # generation appends into it, and freezing it now
+                        # would make the owner copy its own tail; eviction
+                        # indexes it once it is final
+                        state.prefix.insert(
+                            s.req.tokens,
+                            state.arena._block_tables[s.slot_id],
+                            include_partial=False)
                 else:
                     self._sync()
                     s.prefill_s += time.perf_counter() - t0
@@ -705,6 +852,15 @@ class ServiceRuntime:
             live[sid] = True
             seeds[sid] = np.uint32(self._req_seed(s.req) & 0xFFFFFFFF)
             offs[sid] = len(s.emitted)
+            # the append position can sit in a block the prefix index froze
+            # or another slot shares: copy first (free when nothing in the
+            # pool is shared)
+            pos = (len(s.req.tokens) + self._extra_cache_tokens()
+                   + len(s.emitted) - 1)
+            copied = arena.ensure_writable(sid, pos, 1)
+            if copied:
+                self.admission_copy_bytes += (copied * arena.block_size
+                                              * arena.token_bytes)
         if not live.any():
             return
         dev = self.device
@@ -767,10 +923,40 @@ class ServiceRuntime:
         else:
             self._decode_group_dense(state)
 
+    # -- prefix-cache telemetry (summed across DP groups) ---------------
+    def _prefix_totals(self):
+        lk = ht = hits = ev = cow = 0
+        for g in self.groups.values():
+            if g.prefix is not None:
+                lk += g.prefix.lookups
+                hits += g.prefix.hits
+                ht += g.prefix.hit_tokens
+            if g.arena is not None:
+                ev += g.arena.cached_evictions
+                cow += g.arena.cow_copies
+        return lk, hits, ht, ev, cow
+
+    @property
+    def prefix_hit_tokens(self) -> int:
+        return self._prefix_totals()[2]
+
+    @property
+    def prefix_hits(self) -> int:
+        return self._prefix_totals()[1]
+
+    @property
+    def prefix_evictions(self) -> int:
+        return self._prefix_totals()[3]
+
+    @property
+    def prefix_cow_copies(self) -> int:
+        return self._prefix_totals()[4]
+
     def _step_continuous(self, now: float, max_wait_s: float) -> StepStats:
         copy0, whole0 = self.admission_copy_bytes, self.whole_cache_copies
         chunkw0, steps0 = self.chunk_write_bytes, self.decode_steps
         one0 = self.oneshot_prefills
+        pfx0 = self._prefix_totals()
         results: List[GenerationResult] = []
         for group, state in self.groups.items():
             results.extend(self._evict(group, state, now))
@@ -779,6 +965,7 @@ class ServiceRuntime:
         for state in self.groups.values():
             chunk_tokens += self._prefill_chunks(state)
             self._decode_group(state)
+        pfx1 = self._prefix_totals()
         return StepStats(
             results=results, now=now, admitted=admitted,
             evicted=len(results), in_flight=self.in_flight(),
@@ -789,7 +976,12 @@ class ServiceRuntime:
             whole_cache_copies=self.whole_cache_copies - whole0,
             decode_steps=self.decode_steps - steps0,
             prefill_chunk_tokens=chunk_tokens,
-            oneshot_prefills=self.oneshot_prefills - one0)
+            oneshot_prefills=self.oneshot_prefills - one0,
+            prefix_lookups=pfx1[0] - pfx0[0],
+            prefix_hits=pfx1[1] - pfx0[1],
+            prefix_hit_tokens=pfx1[2] - pfx0[2],
+            prefix_evicted_blocks=pfx1[3] - pfx0[3],
+            prefix_cow_blocks=pfx1[4] - pfx0[4])
 
     # ------------------------------------------------------------------
     # sync mode: run-to-completion batches (the pre-slot baseline)

@@ -127,6 +127,10 @@ PAGED_CHUNK_ODD = {    # (B, T, Hq, Hkv, D), start, chunk_len, prefix_len
     "gqa_32_8_d128": ((4, 65, 32, 8, 128), [37, 0, 0, 100], [65, 64, 0, 20],
                       20),
     "one_slot_path": ((1, 128, 36, 36, 64), [64], [128], 0),
+    # prefix-cache hits: chunks from mid-page (a 150-token template's
+    # partial tail) and a full-prompt hit's one row in a 32-row bucket
+    "prefix_hit": ((4, 32, 36, 36, 64), [150, 150, 0, 189], [32, 8, 0, 1],
+                   0),
 }
 
 

@@ -505,7 +505,8 @@ def test_runtime_modes_match_reference(family, mode):
     jplan, tplan = _plans(bs=4, kv_dtype="bf16")
     kw = dict(max_seq_len=56, block_size=8, **MODES[mode])
     jrt = JRuntime(cfg, jp, jplan, impl="ref", prefix_cache=0, **kw)
-    trt = ServiceRuntime(tcfg, tp, tplan, device="cpu", **kw)
+    trt = ServiceRuntime(tcfg, tp, tplan, device="cpu", prefix_cache=0,
+                         **kw)
     assert (trt.paged_native, trt.chunked_prefill) == (
         jrt.paged_native, jrt.chunked_prefill)
     _lockstep(jrt, trt, _wave(cfg, WAVE if family == "dense" else WAVE[:4]))
@@ -521,9 +522,11 @@ def test_sync_mode_attends_to_left_pads():
     kw = dict(max_seq_len=56, block_size=8, mode="sync")
     got = _lockstep(JRuntime(cfg, jp, jplan, impl="ref", prefix_cache=0,
                              **kw),
-                    ServiceRuntime(tcfg, tp, tplan, device="cpu", **kw),
+                    ServiceRuntime(tcfg, tp, tplan, device="cpu",
+                                   prefix_cache=0, **kw),
                     reqs)
-    alone = ServiceRuntime(tcfg, tp, tplan, device="cpu", **kw)
+    alone = ServiceRuntime(tcfg, tp, tplan, device="cpu", prefix_cache=0,
+                           **kw)
     rid, prompt, new, _ = reqs[0]
     alone.submit(GenerationRequest(rid=rid, tokens=prompt,
                                    max_new_tokens=new))
@@ -567,7 +570,8 @@ def test_mixtral_serves_past_its_window_like_the_reference():
     jplan, tplan = _plans(bs=2, kv_dtype="bf16")
     kw = dict(max_seq_len=128, block_size=8)
     jrt = JRuntime(cfg, jp, jplan, impl="ref", prefix_cache=0, **kw)
-    trt = ServiceRuntime(tcfg, tp, tplan, device="cpu", **kw)
+    trt = ServiceRuntime(tcfg, tp, tplan, device="cpu", prefix_cache=0,
+                         **kw)
     assert trt.ring_fallback and jrt.ring_fallback
     assert not trt.paged_native and not trt.chunked_prefill
     arena_state = [tuple(s.shape) for s in

@@ -220,7 +220,8 @@ def _runtimes(kv_dtype, bs=4):
         category=TaskCategory(Sensitivity.FREQUENCY, False), **args)
     kw = dict(max_seq_len=48, block_size=8)
     return (cfg, JRuntime(cfg, jp, jplan, impl="ref", prefix_cache=0, **kw),
-            ServiceRuntime(_mirror(cfg), tp, tplan, device="cpu", **kw))
+            ServiceRuntime(_mirror(cfg), tp, tplan, device="cpu",
+                           prefix_cache=0, **kw))
 
 
 def _requests(cfg, lens, seed):

@@ -285,7 +285,8 @@ def _runtimes(capacity_factor, arch="mixtral-8x7b"):
                          **args)
     kw = dict(max_seq_len=56, block_size=8)
     return (cfg, JRuntime(cfg, jp, jplan, impl="ref", prefix_cache=0, **kw),
-            ServiceRuntime(_mirror(cfg), tp, tplan, device="cpu", **kw))
+            ServiceRuntime(_mirror(cfg), tp, tplan, device="cpu",
+                           prefix_cache=0, **kw))
 
 
 def _lockstep_wave(cfg, jrt, trt):

@@ -108,7 +108,8 @@ def test_request_wave_matches_reference(sens, kv_dtype):
                for n, new in WAVE]
     kw = dict(max_seq_len=48, block_size=8)
     jrt = JRuntime(cfg, params, jplan, impl="ref", prefix_cache=0, **kw)
-    trt = ServiceRuntime(_mirror(cfg), tparams, tplan, device="cpu", **kw)
+    trt = ServiceRuntime(_mirror(cfg), tparams, tplan, device="cpu",
+                         prefix_cache=0, **kw)
     want = _serve(jrt, JRequest, prompts)
     got = _serve(trt, GenerationRequest, prompts)
     assert sorted(got) == sorted(want) == list(range(len(WAVE)))
@@ -127,10 +128,13 @@ def test_runtime_rejects_unported_options():
     plan = ParallelPlan(service="toy",
                         category=TaskCategory(Sensitivity.LATENCY, False),
                         bs=2)
-    for kw in (dict(prefix_cache=16), dict(admission_policy="sdf"),
-               dict(speculate=2)):
+    for kw in (dict(admission_policy="sdf"), dict(speculate=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServiceRuntime(cfg, params, plan, device="cpu", **kw)
+    # the radix prefix cache is ported (ROADMAP.md Queue 1 item 2): an
+    # explicit retention builds a runtime with the cache on
+    rt = ServiceRuntime(cfg, params, plan, device="cpu", prefix_cache=16)
+    assert rt.prefix_cache_enabled and rt._prefix_knob == 16
     # the sync, dense and one-shot paths are ported (ROADMAP.md Queue 1
     # item 11); their invalid combinations raise as in the reference
     for kw in (dict(mode="sync"), dict(kvcache_impl="dense"),

@@ -295,7 +295,8 @@ def _runtimes(dp, kv_dtype="int8"):
                          **cat)
     kw = dict(max_seq_len=80, block_size=8)
     return (cfg, JRuntime(cfg, jp, jplan, impl="ref", prefix_cache=0, **kw),
-            ServiceRuntime(_mirror(cfg), tp, tplan, device="cpu", **kw))
+            ServiceRuntime(_mirror(cfg), tp, tplan, device="cpu",
+                           prefix_cache=0, **kw))
 
 
 def test_request_wave_matches_reference():
