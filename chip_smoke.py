@@ -9,7 +9,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's serving paths (minicpm-2b, mamba2-2.7b, whisper-large-v3
 and mixtral-8x7b, full width, random weights from a seed), its training
 path (minicpm-2b), its sync and dense-cache serving paths and its prefix
-cache (minicpm-2b) in nine phases; any failure exits non-zero.  The serving
+cache (minicpm-2b) in nine phases, then its observability and crash
+evacuation (minicpm-2b) in a tenth; any failure exits non-zero.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
 pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
@@ -127,6 +128,29 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    idle share of the on run's first 5 steps under ``torch.profiler``, and
    copy-on-write on the card is checked exact (``torch.equal``) on
    minicpm-2b's int8 pools (values and scales) and bf16 pools;
+10. observability and crash evacuation on minicpm-2b at full width and the
+   plan's 512 slots: (a) the launcher with ``make obs-smoke``'s flags (6
+   requests, 4 new tokens, ``--trace-out``, ``--metrics-out``,
+   ``--calibrate-out`` into a temporary directory), its trace and metrics
+   read back by the port's ``validate_chrome_trace`` and
+   ``parse_prometheus_text``, the calibration's overrides printed; (b)
+   phase 3's int8 wave untraced, traced (a ``Tracer`` and a
+   ``MetricsRegistry``), traced, untraced: every greedy chain equal to
+   phase 3's, the paged-attention launches equal to phase 3's, the
+   untraced and traced final-chunk logits identical, every request's
+   timeline balanced (``request`` > ``queued``, ``prefill``, ``decode``,
+   served), the TTFT, TPOT and queue-wait histograms counting all 32; it
+   prints their median and p99 (interpolated in the histograms' buckets,
+   as Prometheus does) and mean, and the tok/s and host wall per step of
+   each run; (c) phase 3's int8 wave, traced, evacuated after
+   ``EVACUATE_AFTER`` steps (queued, mid-prefill and decoding requests
+   present), its requests resubmitted to the same runtime and served:
+   the counters, ``StepStats.evacuated``, an arena with no live slot whose
+   free and idle cached blocks are the pool, and two ``request`` roots in
+   each resubmitted timeline (the first ``outcome="evacuated"``) are
+   checked, the chains equal to phase 3's counted, and each resubmitted
+   request's final-chunk logits held to phase 3's to 2**-5 of their norm
+   where its chain differs;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -145,7 +169,9 @@ flash kernels' read just after it (the forward's record sums phases 5 and
 7); every count again just before phase 8 (b), and the dense chunk
 kernel's read just after it; every count again just before phase 9's
 runs, whose paged-attention counts are read just after each run (and
-printed, not put in the kernels' record).
+printed, not put in the kernels' record); phase 10 (b) reads the
+paged-attention counts before and after each of its runs and holds them
+to phase 3's int8 wave's (printed, not put in the record).
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -1589,6 +1615,21 @@ def wave_sync(n_requests=32, new_tokens=40):
 # phase 9: the prefix cache on templated requests
 # ---------------------------------------------------------------------------
 
+def keep_final_logits(rt):
+    """Wraps ``rt._run_chunk`` to keep each request's last final-chunk
+    logits; returns the dict they go into."""
+    final = {}
+    run_chunk = rt._run_chunk
+
+    def keep_final(arena, s, T):
+        logits, n = run_chunk(arena, s, T)
+        if s.consumed >= len(s.req.tokens):
+            final[s.req.rid] = logits[0].clone()
+        return logits, n
+    rt._run_chunk = keep_final
+    return final
+
+
 def templated_run(kv_dtype, prefix_cache, params, templates=1):
     """One run of phase 9: ``profile_step.templated_wave`` at full width
     (the plan's 512 slots, ``max_seq_len`` 256), its donors served to
@@ -1610,15 +1651,7 @@ def templated_run(kv_dtype, prefix_cache, params, templates=1):
           and rt.kv_dtype == kv_dtype and rt.paged_native
           and rt.prefix_cache_enabled == (prefix_cache != 0),
           f"unexpected templated runtime {rt.plan}")
-    final = {}
-    run_chunk = rt._run_chunk
-
-    def keep_final(arena, s, T):
-        logits, n = run_chunk(arena, s, T)
-        if s.consumed >= len(s.req.tokens):
-            final[s.req.rid] = logits[0].clone()
-        return logits, n
-    rt._run_chunk = keep_final
+    final = keep_final_logits(rt)
     results = list(serve_donors(rt, donors))
     hits = []
     pc = rt.groups[0].prefix
@@ -1810,6 +1843,238 @@ def phase_templated():
     torch.cuda.empty_cache()
     cow_exact()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: observability and crash evacuation
+# ---------------------------------------------------------------------------
+
+def phase_obs_smoke():
+    """Phase 10 (a): the launcher with ``make obs-smoke``'s flags, its
+    trace, metrics and calibration written to a temporary directory and
+    read back by the port's own ``validate_chrome_trace`` and
+    ``parse_prometheus_text``."""
+    import tempfile
+    from repro_torch.launch import serve
+    from repro_torch.obs import parse_prometheus_text, validate_chrome_trace
+    with tempfile.TemporaryDirectory() as d:
+        trace, prom, cal = (str(Path(d) / n) for n in (
+            "obs_trace.json", "obs_metrics.prom", "obs_calibration.json"))
+        rc = serve.main(["--archs", "minicpm-2b", "--requests", "6",
+                         "--max-new-tokens", "4", "--trace-out", trace,
+                         "--metrics-out", prom, "--calibrate-out", cal])
+        check(rc == 0, f"obs-smoke launcher exited {rc}")
+        n_events = validate_chrome_trace(json.loads(Path(trace).read_text()))
+        series = parse_prometheus_text(Path(prom).read_text())
+        overrides = json.loads(Path(cal).read_text())["sim_config_overrides"]
+    check(series['epara_requests_finished_total{service="minicpm-2b"}']
+          == 6, f"obs-smoke metrics: {series}")
+    print(f"phase 10 (a) obs-smoke: {n_events} trace events, {len(series)} "
+          f"series, overrides: {overrides}")
+
+
+def hist_quantile(hist, q):
+    """Prometheus' ``histogram_quantile`` over ``Histogram.value()``: the
+    q-th observation's value, interpolated linearly inside its bucket (the
+    largest finite bound where it falls in the +Inf bucket)."""
+    rank = q * hist["count"]
+    lo, below = 0.0, 0
+    for le, cum in hist["buckets"].items():
+        if cum >= rank:
+            if le == "+Inf":
+                return lo
+            return lo + (float(le) - lo) * (rank - below) / max(cum - below, 1)
+        lo, below = float(le), cum
+    return lo
+
+
+def obs_wave(tracer=None, metrics=None):
+    """Phase 3's int8 wave (``profile_step.wave_runtime``) with an optional
+    tracer and registry, stepped to idle as ``drain`` steps it.  Returns
+    tokens and final-chunk logits by rid, tok/s, the mean host wall per
+    step (each step ends in a host read of the sampled tokens) and the
+    paged-attention launches of the run."""
+    import torch
+    from repro_torch.kernels import paged_attention
+    from repro_torch.launch.profile_step import wave_runtime
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, rt = wave_runtime("int8", tracer=tracer, metrics=metrics)
+    final = keep_final_logits(rt)
+    launches0 = dict(paged_attention.launches)
+    results, walls = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while rt.pending() or rt.in_flight():
+        ts = time.perf_counter()
+        results.extend(rt.step(max_wait_s=0.0).results)
+        walls.append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    toks = {r.rid: np.asarray(r.tokens) for r in results}
+    rec = {"obs": tracer is not None, "tok_s": sum(map(len, toks.values()))
+           / dt, "steps": len(walls),
+           "host_wall_ms_per_step": 1e3 * float(np.mean(walls)),
+           "launches": {k: paged_attention.launches[k] - launches0[k]
+                        for k in paged_attention.launches}}
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, final, rec
+
+
+def phase_obs_wave(phase3_toks, phase3_launches):
+    """Phase 10 (b): phase 3's int8 wave untraced, traced (a ``Tracer``
+    and a ``MetricsRegistry``), traced, untraced.  Every run's greedy
+    chains equal phase 3's and so do its paged-attention launches; the
+    untraced and traced runs' final-chunk logits are identical; every
+    request's timeline is balanced, ``request`` > ``queued``, ``prefill``,
+    ``decode``, served; the TTFT, TPOT and queue-wait histograms count every
+    request.  Returns the first traced run's final-chunk logits."""
+    import torch
+    from repro_torch.obs import MetricsRegistry, Tracer
+    runs, logits = [], []
+    for traced in (False, True, True, False):
+        tracer, metrics = ((Tracer(), MetricsRegistry()) if traced
+                           else (None, None))
+        toks, final, rec = obs_wave(tracer, metrics)
+        check(sorted(toks) == sorted(phase3_toks)
+              and all(np.array_equal(toks[r], phase3_toks[r])
+                      for r in phase3_toks),
+              f"a greedy chain differs from phase 3's (obs={traced})")
+        check(rec["launches"] == phase3_launches,
+              f"launches {rec['launches']} != phase 3's {phase3_launches}")
+        runs.append(rec)
+        logits.append(final)
+        if len(runs) == 2:              # the first traced run
+            svc = "minicpm-2b"
+            for rid in toks:
+                tid = str(rid)
+                roots, instants = tracer.span_tree(svc, tid)
+                check(tracer.open_spans(svc, tid) == [] and len(roots) == 1
+                      and [c.name for c in roots[0].children]
+                      == ["queued", "prefill", "decode"]
+                      and roots[0].args.get("outcome") == "served"
+                      and [i.name for i in instants] == ["first_token"],
+                      f"request {rid}'s timeline: {roots} {instants}")
+            hists = {n: metrics.histogram(n).value(service=svc)
+                     for n in ("ttft_seconds", "tpot_seconds",
+                               "queue_wait_seconds")}
+            check(all(h["count"] == len(toks) for h in hists.values()),
+                  f"histogram counts {[h['count'] for h in hists.values()]}")
+            lat = {n: {"median": hist_quantile(h, 0.5),
+                       "p99": hist_quantile(h, 0.99),
+                       "mean": h["sum"] / h["count"], "count": h["count"]}
+                   for n, h in hists.items()}
+            print(f"phase 10 (b) latency from the histograms (bucket-"
+                  f"interpolated median and p99, exact mean, seconds): {lat}; "
+                  f"{tracer.emitted} trace events, {tracer.dropped} dropped")
+    check(sorted(logits[0]) == sorted(logits[1]) == sorted(phase3_toks)
+          and all(torch.equal(logits[0][r], logits[1][r])
+                  for r in logits[0]),
+          "the final-chunk logits differ with obs on")
+    off = [r for r in runs if not r["obs"]]
+    on = [r for r in runs if r["obs"]]
+    print(f"phase 10 (b) int8 wave, obs off, on, on, off: tok/s "
+          f"{[r['tok_s'] for r in runs]}, host wall ms per step "
+          f"{[r['host_wall_ms_per_step'] for r in runs]} ({runs[0]['steps']} "
+          f"steps); mean on vs off: tok/s "
+          f"{np.mean([r['tok_s'] for r in on])} vs "
+          f"{np.mean([r['tok_s'] for r in off])}, host wall per step "
+          f"{np.mean([r['host_wall_ms_per_step'] for r in on])} vs "
+          f"{np.mean([r['host_wall_ms_per_step'] for r in off])} ms; every "
+          f"chain equals phase 3's, launches {runs[0]['launches']}")
+    return logits[1]
+
+
+EVACUATE_AFTER = 2      # steps before the crash: 24 of the 32 requests
+#                         admitted (12 a step), so queued, mid-prefill and
+#                         decoding requests are all present (checked below)
+
+
+def phase_evacuate(phase3_toks, phase3_final):
+    """Phase 10 (c): phase 3's int8 wave, traced, evacuated after
+    ``EVACUATE_AFTER`` steps, its requests resubmitted to the same runtime
+    and served to idle.  Checks the counters, the arena (no live slot, free
+    plus idle cached blocks are the pool), the two ``request`` roots of
+    each resubmitted timeline; counts the chains equal to phase 3's and
+    holds every resubmitted request's final-chunk logits to phase 3's
+    (phase 10 (b)'s traced run) within PARITY_TOL of their norm."""
+    import torch
+    from repro_torch.launch.profile_step import wave_runtime
+    from repro_torch.obs import MetricsRegistry, Tracer
+    gc.collect()
+    torch.cuda.empty_cache()
+    tracer = Tracer()
+    cfg, rt = wave_runtime("int8", tracer=tracer, metrics=MetricsRegistry())
+    final = keep_final_logits(rt)
+    results = []
+    for _ in range(EVACUATE_AFTER):
+        results.extend(rt.step(max_wait_s=0.0).results)
+    slots = [s for g in rt.groups.values() for s in g.slots]
+    state = {"queued": rt.pending(),
+             "waiting_prefill": sum(s.prefilling and s.consumed == 0
+                                    for s in slots),
+             "mid_prefill": sum(s.prefilling and s.consumed > 0
+                                for s in slots),
+             "decoding": sum(not s.prefilling for s in slots),
+             "finished": len(results)}
+    check(state["queued"] and state["mid_prefill"] and state["decoding"],
+          f"after {EVACUATE_AFTER} steps not every state is present: {state}")
+    hits0 = rt.prefix_hits
+    back = rt.evacuate()
+    arena = rt.groups[0].arena
+    check(rt.evacuations == 1 and rt.evacuated_requests == len(back)
+          == len(phase3_toks) - len(results),
+          f"evacuation counters {rt.evacuations} {rt.evacuated_requests} "
+          f"{len(back)}")
+    check(rt.pending() == rt.in_flight() == arena.live == 0,
+          "a request survived the evacuation")
+    check(len(arena._free_blocks) + len(arena._idle_cached)
+          == arena.free_capacity == arena.pool_blocks,
+          f"arena after evacuation: {len(arena._free_blocks)} free + "
+          f"{len(arena._idle_cached)} idle cached of {arena.pool_blocks}")
+    for req in back:
+        rt.submit(req)
+    stats = [rt.step(max_wait_s=0.0)]
+    while rt.pending() or rt.in_flight():
+        stats.append(rt.step(max_wait_s=0.0))
+    check(stats[0].evacuated == len(back)
+          and all(st.evacuated == 0 for st in stats[1:]),
+          f"StepStats.evacuated {[st.evacuated for st in stats[:3]]}")
+    for st in stats:
+        results.extend(st.results)
+    toks = {r.rid: np.asarray(r.tokens) for r in results}
+    check(sorted(toks) == sorted(phase3_toks),
+          f"served {len(toks)}/{len(phase3_toks)} after the evacuation")
+    rel = {r.rid: ((final[r.rid].float() - phase3_final[r.rid].float()).norm()
+                   / phase3_final[r.rid].float().norm()).item() for r in back}
+    same = [r.rid for r in back
+            if np.array_equal(toks[r.rid], phase3_toks[r.rid])]
+    worst = max(rel.values())
+    check(all(np.array_equal(toks[r], phase3_toks[r]) for r in toks
+              if r not in rel), "a request served before the crash changed")
+    check(all(rel[r] <= PARITY_TOL for r in rel if r not in same),
+          f"a differing chain's final-chunk logits are off: {rel}")
+    for req in back:
+        tid = str(req.rid)
+        roots, _ = tracer.span_tree("minicpm-2b", tid)
+        check(tracer.open_spans("minicpm-2b", tid) == []
+              and [s.name for s in roots] == ["request", "request"]
+              and roots[0].args.get("outcome") == "evacuated"
+              and roots[1].args.get("outcome") == "served",
+              f"request {req.rid}'s timeline after resubmission: {roots}")
+    print(f"phase 10 (c) evacuation after {EVACUATE_AFTER} steps: {state}; "
+          f"{len(back)} requests evacuated and resubmitted, StepStats."
+          f"evacuated {stats[0].evacuated}, arena {arena.pool_blocks} "
+          f"blocks free or idle cached, prefix hits on resubmission "
+          f"{rt.prefix_hits - hits0}; chains equal to phase 3's "
+          f"{len(same)}/{len(back)}; final-chunk |resubmitted - phase 3| / "
+          f"|phase 3| sorted: {sorted(rel.values())} (worst {worst}, "
+          f"limit {PARITY_TOL} where a chain differs)")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def reset_launches():
@@ -2548,6 +2813,14 @@ def main() -> int:
           "64 requests sharing a 150-token template, 24 new each")
     templated_launches = phase_templated()
     print(f"phase 9 launches: {templated_launches}")
+    print("phase 10: observability and evacuation, minicpm-2b full width, "
+          "512 slots")
+    phase_obs_smoke()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase3_final = phase_obs_wave(int8_toks, int8_grown)
+    phase_evacuate(int8_toks, phase3_final)
+    del phase3_final
     small_input_check()
 
     kernels = []

@@ -36,6 +36,16 @@ turn it off):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b \
       --mode sync
+
+``--trace-out``, ``--metrics-out`` and ``--calibrate-out`` write the run's
+spans (Chrome trace-event JSON), metrics (Prometheus text, or a JSONL
+snapshot for a ``.jsonl`` path) and simulator calibration (JSON), through
+one tracer and one registry shared by every runtime, as the reference's
+``make obs-smoke`` does:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b \
+      --requests 6 --max-new-tokens 4 --trace-out trace.json \
+      --metrics-out metrics.prom --calibrate-out calibration.json
 """
 from __future__ import annotations
 
@@ -53,6 +63,8 @@ from repro_torch.core.categories import GPUSpec, Sensitivity, ServiceSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import launch_counts
 from repro_torch.models.registry import model_api
+from repro_torch.obs import (MetricsRegistry, Tracer, merge_telemetry,
+                             telemetry_from_runtime, write_calibration)
 from repro_torch.serving.engine import (PREFIX_CACHEABLE_FAMILIES,
                                         EparaServingEngine,
                                         GenerationRequest, ServiceRuntime)
@@ -68,9 +80,6 @@ _UNPORTED_FLAGS = (
     ("speculate", -1, "ROADMAP.md Queue 1 item 4 (speculation and forks)"),
     ("draft_arch", "", "ROADMAP.md Queue 1 item 4 (speculation and forks)"),
     ("n_samples", 1, "ROADMAP.md Queue 1 item 4 (speculation and forks)"),
-    ("trace_out", "", "ROADMAP.md Queue 1 item 5 (observability)"),
-    ("metrics_out", "", "ROADMAP.md Queue 1 item 5 (observability)"),
-    ("calibrate_out", "", "ROADMAP.md Queue 1 item 5 (observability)"),
     ("fault_spec", "", _ITEM_MULTI_SERVER),
     ("chaos_seed", -1, _ITEM_MULTI_SERVER),
     ("chaos_horizon_s", 20.0, _ITEM_MULTI_SERVER),
@@ -123,6 +132,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default, full configs) or 'cpu' (reduced "
                          "configs)")
+    ap.add_argument("--trace-out", default="",
+                    help="write the request and engine spans here "
+                         "(Chrome trace-event JSON)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the metrics here: a JSONL snapshot for a "
+                         ".jsonl path, else Prometheus text")
+    ap.add_argument("--calibrate-out", default="",
+                    help="write the simulator calibration derived from the "
+                         "run here (JSON)")
     # accepted for the reference's command lines; see _UNPORTED_FLAGS
     ap.add_argument("--mode", choices=("continuous", "sync"),
                     default="continuous",
@@ -147,9 +165,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--speculate", type=int, default=-1)
     ap.add_argument("--draft-arch", default="")
     ap.add_argument("--n-samples", type=int, default=1)
-    ap.add_argument("--trace-out", default="")
-    ap.add_argument("--metrics-out", default="")
-    ap.add_argument("--calibrate-out", default="")
     ap.add_argument("--fault-spec", default="")
     ap.add_argument("--chaos-seed", type=int, default=-1)
     ap.add_argument("--chaos-horizon-s", type=float, default=20.0)
@@ -205,6 +220,10 @@ def main(argv=None) -> int:
                     f"{smoke}--device cpu serves its reduced config")
 
     engine = EparaServingEngine()
+    # one tracer and one registry shared by every runtime: service names
+    # become trace processes and metric labels
+    tracer = Tracer() if args.trace_out else None
+    metrics = MetricsRegistry() if args.metrics_out else None
     cfgs = {}
     print("EPARA plans:")
     for a in arch_ids:
@@ -222,7 +241,8 @@ def main(argv=None) -> int:
             kvcache_impl=args.kvcache_impl, max_seq_len=args.max_seq_len,
             block_size=args.block_size,
             chunked_prefill=False if args.no_chunked_prefill else None,
-            prefill_chunk=(args.prefill_chunk or None), device=device))
+            prefill_chunk=(args.prefill_chunk or None), device=device,
+            tracer=tracer, metrics=metrics))
 
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
@@ -261,6 +281,25 @@ def main(argv=None) -> int:
           f"{oneshot} one-shot prefills")
     print("kernel launches: " + ", ".join(
         f"{k}={v - launches0[k]}" for k, v in launch_counts().items()))
+    if tracer is not None:
+        tracer.export(args.trace_out)
+        print(f"trace: {tracer.emitted} events "
+              f"({tracer.dropped} dropped by the ring) -> {args.trace_out}")
+    if metrics is not None:
+        if args.metrics_out.endswith(".jsonl"):
+            metrics.append_jsonl(args.metrics_out)
+        else:
+            metrics.write_prometheus(args.metrics_out)
+        print(f"metrics: {len(metrics._metrics)} series -> "
+              f"{args.metrics_out}")
+    if args.calibrate_out:
+        tel = merge_telemetry(telemetry_from_runtime(name, rt)
+                              for name, rt in engine.runtimes.items())
+        cal = write_calibration(args.calibrate_out, tel)
+        print(f"calibration: spec_accept_rate={cal.spec_accept_rate:.3f} "
+              f"prefix_hit_rates={cal.prefix_hit_rates or {}} "
+              f"prefill_token_s={cal.prefill_token_s:.2e} -> "
+              f"{args.calibrate_out}")
     return 0 if len(results) == args.requests else 1
 
 

@@ -55,6 +55,24 @@ starts from zeroed state rows; for the audio family it also carries the
 request's frame embeddings (``extras["embeddings"]``), from which the
 encoder-decoder projects the slot's cross-attention K/V state.
 
+Observability (``repro_torch/obs``, verbatim copies of the reference's)
+is off by default: ``tracer=`` records each request's lifecycle spans
+(``request`` > ``queued``, ``prefill`` with its ``prefill_chunk`` events,
+``decode``) and the engine's phase spans (``evict``, ``admit``, ``chunk``,
+``fused_decode``, ``sample``, ``step``), and ``metrics=`` folds every
+``StepStats`` and each finished request's TTFT, TPOT and queue wait into
+a registry.  Spans are host wall times.  On the card the model's launches
+are asynchronous, so a span that only queues device work closes before
+the device has done it, and that time lands where the host next waits
+for the device: the decode model's in the ``sample`` span (the read-back
+of the tokens), a non-final chunk's after its ``prefill_chunk`` span,
+inside the ``chunk`` phase (the wait that times the request's prefill).
+TTFT is exact: a slot's decode starts after its first token was read
+back.
+
+``evacuate`` strips every queued and in-flight request out (a crash of
+this data plane) and returns them for resubmission.
+
 Not ported (constructor arguments that ask for them raise, naming the
 ``ROADMAP.md`` item): SDF admission and parking preemption, speculative
 decoding and n-way forks, stochastic sampling.
@@ -73,6 +91,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi, model_api
+from repro_torch.obs.trace import NULL_TRACER
 
 from . import kvcache
 from .arena import KVArena
@@ -116,7 +135,10 @@ class GenerationResult:
 
 @dataclasses.dataclass
 class StepStats:
-    """One scheduling round's telemetry (the fields this path fills)."""
+    """One scheduling round's telemetry: the reference's fields in its
+    order, so that ``obs.metrics.step_stat_sums`` folds the same series.
+    The fields of parts not ported yet (admission verdicts, parking,
+    speculation, forks) stay at zero."""
     results: List[GenerationResult]
     now: float = 0.0
     admitted: int = 0                # requests admitted this step
@@ -132,15 +154,33 @@ class StepStats:
     decode_steps: int = 0            # fused decode invocations this step
     prefill_chunk_tokens: int = 0    # prompt tokens prefilled this step
     oneshot_prefills: int = 0        # admissions prefilled in one shot
-    moe_dropped_tokens: float = 0.0  # MoE expert-capacity drops this step
-    #                                  (token-assignments past capacity;
-    #                                  nonzero under binding capacity, where
-    #                                  chunked prefill may diverge)
     prefix_lookups: int = 0          # prefix-cache lookups this step
     prefix_hits: int = 0             # admissions that reused cached blocks
     prefix_hit_tokens: int = 0       # prompt tokens served from the cache
     prefix_evicted_blocks: int = 0   # cached blocks reclaimed (LRU) this step
     prefix_cow_blocks: int = 0       # copy-on-write block copies this step
+    moe_dropped_tokens: float = 0.0  # MoE expert-capacity drops this step
+    #                                  (token-assignments past capacity;
+    #                                  nonzero under binding capacity, where
+    #                                  chunked prefill may diverge)
+    rejected: List[Any] = dataclasses.field(
+        default_factory=list)        # admission verdicts (item 3)
+    deadline_missed: int = 0
+    congestion_rejects: int = 0
+    offload_verdicts: int = 0
+    failed_rejects: int = 0
+    evacuated: int = 0               # requests stripped out by ``evacuate``
+    #                                  since the last step
+    preempted: int = 0               # parking (item 3)
+    resumed: int = 0
+    parked: int = 0
+    draft_steps: int = 0             # speculation and forks (item 4)
+    verify_launches: int = 0
+    accepted_tokens: int = 0
+    spec_slots: int = 0
+    forks_spawned: int = 0
+    fork_shortfall: int = 0
+    spec_degraded: int = 0
 
 
 class _Slot:
@@ -229,7 +269,8 @@ class ServiceRuntime:
                  paged_native: Optional[bool] = None,
                  admission_policy: Optional[str] = None,
                  draft_params=None, draft_cfg: Optional[ModelConfig] = None,
-                 speculate: Optional[int] = None, device=None):
+                 speculate: Optional[int] = None, device=None,
+                 tracer=None, metrics=None, obs_name: Optional[str] = None):
         if mode not in ("continuous", "sync"):
             raise ValueError(f"mode must be continuous|sync, got {mode!r}")
         if kvcache_impl not in ("paged", "dense"):
@@ -269,6 +310,30 @@ class ServiceRuntime:
         self.block_size = block_size
         self.pool_blocks = pool_blocks
         self.sampler = sampler
+        # -- observability (repro_torch/obs): off by default.  Every call
+        # site tests ``trace.enabled`` or ``metrics is not None`` before it
+        # builds arguments or reads a clock, and neither layer touches a
+        # tensor, so turning them on changes no token and no launch
+        self.trace = NULL_TRACER if tracer is None else tracer
+        self.metrics = metrics
+        self._obs_named = obs_name is not None
+        self.obs_name = obs_name if obs_name is not None else cfg.name
+        self.prefill_seconds = 0.0   # summed per-request prefill wall time
+        #                              (calibration's prefill_token_s)
+        self._submit_wall: Dict[int, float] = {}  # rid -> submit wall time
+        self._queue_wait: Dict[int, float] = {}   # rid -> measured wait
+        # what the reference's calibration and gauges read of parts the
+        # port has not got: speculation (item 4) and compiles.  The port
+        # compiles nothing, so its compile counts stay 0 where the
+        # reference's read 1
+        self.speculate_k = 0
+        self.accepted_tokens = 0
+        self.verify_launches = 0
+        self.decode_traces = 0
+        self.prefill_traces = 0
+        self.evacuations = 0         # ``evacuate`` calls
+        self.evacuated_requests = 0  # requests stripped out across them
+        self._evacuated_pending = 0  # delta reported by the next StepStats
         self.router = DPGroupRouter(plan)
         self.composer = make_composer(plan)
         self.groups: Dict[int, _GroupState] = {
@@ -433,6 +498,15 @@ class ServiceRuntime:
         if self.plan.sticky and req.stream:
             self._session_refs[req.stream] = \
                 self._session_refs.get(req.stream, 0) + 1
+        if self.metrics is not None or self.trace.enabled:
+            self._submit_wall[req.rid] = time.perf_counter()
+        tr = self.trace
+        if tr.enabled:
+            tid = str(req.rid)
+            tr.begin(self.obs_name, tid, "request",
+                     prompt_tokens=len(req.tokens),
+                     max_new=req.max_new_tokens, n_samples=req.n_samples)
+            tr.begin(self.obs_name, tid, "queued")
         self.composer.add(QueuedItem(payload=req, stream=req.stream,
                                      enqueued_s=now, rid=req.rid))
 
@@ -476,7 +550,43 @@ class ServiceRuntime:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _obs_admitted(self, req: GenerationRequest, group: int,
+                      next_span: str, **args) -> None:
+        """Observability at admission: record the measured queue wait
+        (submit -> admission), close the request's ``queued`` span and open
+        the next lifecycle span."""
+        if self._submit_wall:
+            t = self._submit_wall.pop(req.rid, None)
+            if t is not None:
+                self._queue_wait[req.rid] = max(
+                    0.0, time.perf_counter() - t)
+        tr = self.trace
+        if tr.enabled:
+            tid = str(req.rid)
+            tr.end(self.obs_name, tid, group=group)
+            tr.begin(self.obs_name, tid, next_span, **args)
+
+    def _finish_request(self, req: GenerationRequest) -> None:
+        """Bookkeeping whenever a request leaves the data plane (eviction,
+        sync-batch completion, evacuation): its observability state, its
+        trace timeline (closed whatever is still open) and its sticky
+        session's group pin, dropped once no request of the session is
+        queued or in flight."""
+        self._submit_wall.pop(req.rid, None)
+        self._queue_wait.pop(req.rid, None)
+        if self.trace.enabled:
+            self.trace.close(self.obs_name, str(req.rid), outcome="served")
+        if not (self.plan.sticky and req.stream):
+            return
+        left = self._session_refs.get(req.stream, 1) - 1
+        if left <= 0:
+            self._session_refs.pop(req.stream, None)
+            self.router.release(req.stream)
+        else:
+            self._session_refs[req.stream] = left
+
     def _note_service_time(self, res: GenerationResult) -> None:
+        self.prefill_seconds += max(0.0, res.prefill_s)
         t = max(1e-6, res.prefill_s + max(0.0, res.decode_s))
         self._service_ewma_s = (t if self._service_ewma_s == 0.0
                                 else 0.8 * self._service_ewma_s + 0.2 * t)
@@ -530,6 +640,17 @@ class ServiceRuntime:
                 decode_steps=s.steps)
             results.append(res)
             self._note_service_time(res)
+            if self.trace.enabled:
+                self.trace.end(self.obs_name, str(s.req.rid),
+                               tokens=len(s.emitted), steps=s.steps)
+            if self.metrics is not None:
+                n = len(s.emitted)
+                self.metrics.observe_request(
+                    self.obs_name,
+                    ttft_s=max(0.0, s.decode_start_wall - s.admit_wall),
+                    tpot_s=(res.decode_s / (n - 1)) if n > 1 else None,
+                    queue_wait_s=self._queue_wait.get(s.req.rid, 0.0),
+                    new_tokens=n)
             if state.arena is not None:
                 if state.prefix is not None and not s.prefilling:
                     # the slot writes no more: its partial tail block's
@@ -539,7 +660,7 @@ class ServiceRuntime:
                     state.prefix.insert(s.req.tokens,
                                         state.arena._block_tables[s.slot_id])
                 state.arena.free(s.slot_id)
-            self._release_session(s.req)
+            self._finish_request(s.req)
         state.slots = [state.slots[i] for i in keep]
         if state.arena is None:
             state.cache = (kvcache.select_slots(state.cache, keep)
@@ -548,18 +669,6 @@ class ServiceRuntime:
                 self.whole_cache_copies += 1
                 self.admission_copy_bytes += kvcache.cache_bytes(state.cache)
         return results
-
-    def _release_session(self, req: GenerationRequest) -> None:
-        """Drop a sticky session's group pin once no request of it is
-        queued or in flight."""
-        if not (self.plan.sticky and req.stream):
-            return
-        left = self._session_refs.get(req.stream, 1) - 1
-        if left <= 0:
-            self._session_refs.pop(req.stream, None)
-            self.router.release(req.stream)
-        else:
-            self._session_refs[req.stream] = left
 
     def _ensure_arena(self, state: _GroupState) -> KVArena:
         if state.arena is None:
@@ -576,8 +685,9 @@ class ServiceRuntime:
                         state.arena.pool_blocks, override=self._prefix_knob))
         return state.arena
 
-    def _admit_one(self, req: GenerationRequest, state: _GroupState,
-                   now: float, pending_cows: List) -> bool:
+    def _admit_one(self, req: GenerationRequest, group: int,
+                   state: _GroupState, now: float,
+                   pending_cows: List) -> bool:
         """(b) Claim a slot for one admission.  Chunked paged: a prefix
         lookup and an arena ``alloc``; the prompt is prefilled chunk by
         chunk in (b2), from the hit on.  One-shot paged: prefill, then
@@ -596,8 +706,8 @@ class ServiceRuntime:
                     f"request {req.rid} needs {total} tokens > per-slot "
                     f"budget {arena.slot_tokens}; raise max_seq_len")
             if self.chunked_prefill:
-                return self._admit_chunked(req, state, arena, total, now,
-                                           pending_cows)
+                return self._admit_chunked(req, group, state, arena, total,
+                                           now, pending_cows)
             if not arena.can_alloc(total):
                 return False
             # the prefill's cache lands exactly on the slot's rows
@@ -605,6 +715,7 @@ class ServiceRuntime:
         else:
             cache_size = int(len(req.tokens) + req.max_new_tokens)
 
+        self._obs_admitted(req, group, "prefill", oneshot=True)
         t0 = time.perf_counter()
         batch = self._build_batch([req], self._pad_prompts([req]))
         logits, cache = self.api.prefill(self.params, self.cfg, batch,
@@ -633,11 +744,17 @@ class ServiceRuntime:
         slot.prefill_s = t1 - t0
         slot.begin_decode(first, t1)
         state.slots.append(slot)
+        tr = self.trace
+        if tr.enabled:
+            tid = str(req.rid)
+            tr.end(self.obs_name, tid, tokens_computed=len(req.tokens))
+            tr.instant(self.obs_name, tid, "first_token")
+            tr.begin(self.obs_name, tid, "decode")
         return True
 
-    def _admit_chunked(self, req: GenerationRequest, state: _GroupState,
-                       arena: KVArena, total: int, now: float,
-                       pending_cows: List) -> bool:
+    def _admit_chunked(self, req: GenerationRequest, group: int,
+                       state: _GroupState, arena: KVArena, total: int,
+                       now: float, pending_cows: List) -> bool:
         """A chunked admission: stitch the longest cached prefix of the
         prompt into the new slot's table, so that its chunks start past the
         hit."""
@@ -687,6 +804,7 @@ class ServiceRuntime:
             frac = (hit.tokens / len(req.tokens)) if hit is not None else 0.0
             self._prefix_hit_ewma = 0.8 * self._prefix_hit_ewma + 0.2 * frac
         state.slots.append(slot)
+        self._obs_admitted(req, group, "prefill", hit_tokens=slot.consumed)
         return True
 
     def _route_admission(self, item: QueuedItem) -> Optional[int]:
@@ -715,7 +833,7 @@ class ServiceRuntime:
         pending_cows: Dict[int, List] = {g: [] for g in self.groups}
         for item in composed.items:
             g = self._route_admission(item)
-            if g is None or not self._admit_one(item.payload,
+            if g is None or not self._admit_one(item.payload, g,
                                                 self.groups[g], now,
                                                 pending_cows[g]):
                 unplaced.append(item)
@@ -793,6 +911,7 @@ class ServiceRuntime:
         request's first sampled token."""
         if state.arena is None or not self.chunked_prefill:
             return 0
+        tr = self.trace
         budget = self.prefill_chunk_tokens
         done_tokens = 0
         for s in state.slots:
@@ -805,9 +924,14 @@ class ServiceRuntime:
                     budget = 0
                     break
                 t0 = time.perf_counter()
+                ct0 = tr.clock() if tr.enabled else 0.0
                 logits, n_valid = self._run_chunk(state.arena, s, T)
                 budget -= T
                 done_tokens += n_valid
+                if tr.enabled:
+                    tr.complete(self.obs_name, str(s.req.rid),
+                                "prefill_chunk", ct0, tokens=n_valid,
+                                bucket=T)
                 if s.consumed >= len(s.req.tokens):
                     first = int(sample_per_slot(
                         logits, [self._req_seed(s.req)], [0], [0],
@@ -815,6 +939,12 @@ class ServiceRuntime:
                     t1 = time.perf_counter()
                     s.prefill_s += t1 - t0
                     s.begin_decode(first, t1)
+                    if tr.enabled:
+                        tid = str(s.req.rid)
+                        tr.end(self.obs_name, tid,
+                               tokens_computed=s.consumed)
+                        tr.instant(self.obs_name, tid, "first_token")
+                        tr.begin(self.obs_name, tid, "decode")
                     if state.prefix is not None:
                         # every full prompt block is written: index the
                         # chain.  The partial tail is not indexed yet:
@@ -882,9 +1012,14 @@ class ServiceRuntime:
                               tables)
             arena.merge_state(arena.state, new_state, live_dev)
         arena.lens = new_cache["len"]
+        tr = self.trace
+        ts0 = tr.clock() if tr.enabled else 0.0
         toks = sample_per_slot(
             logits, seeds, np.zeros((cap,), np.uint32), offs, self.sampler,
             live=live_dev, occupancy=arena.device_occupancy()).cpu().numpy()
+        if tr.enabled:
+            tr.complete(self.obs_name, "engine", "sample", ts0,
+                        live=int(live.sum()))
         self.decode_steps += 1
         for slot in state.slots:
             if slot.done or slot.prefilling or not live[slot.slot_id]:
@@ -952,7 +1087,60 @@ class ServiceRuntime:
     def prefix_cow_copies(self) -> int:
         return self._prefix_totals()[4]
 
+    def _phase_mark(self, name: str, start: float, **args) -> float:
+        """Emit one engine-phase complete event ending now and return that
+        end, the next phase's start (a contiguous phase track)."""
+        end = self.trace.clock()
+        self.trace.complete(self.obs_name, "engine", name, start, end,
+                            **args)
+        return end
+
+    def _take_evacuated(self) -> int:
+        """Evacuations since the last step, folded into ``StepStats``."""
+        n = self._evacuated_pending
+        self._evacuated_pending = 0
+        return n
+
+    def evacuate(self, now: float = 0.0) -> List[GenerationRequest]:
+        """Crash this runtime's data plane: strip every queued and in-flight
+        request out and return them, one per rid, for resubmission.  Live
+        slots free their arena slots with no prefix insert (the slot died
+        mid-flight); the warm prefix index is kept, so a resubmission here
+        re-prefills from it as it stands.  The reference also releases its
+        parked entries' blocks here; that loop comes with parking (ROADMAP
+        Queue 1 item 3)."""
+        out: Dict[int, GenerationRequest] = {}
+        for item, _ in self.composer.shed(lambda item: True):
+            out.setdefault(item.payload.rid, item.payload)
+        slot_rids = set()
+        for state in self.groups.values():
+            for s in state.slots:
+                if state.arena is not None:
+                    state.arena.free(s.slot_id)
+                if self.trace.enabled:
+                    self.trace.close(self.obs_name, str(s.req.rid),
+                                     outcome="evacuated")
+                out.setdefault(s.req.rid, s.req)
+                slot_rids.add(s.req.rid)
+                self._finish_request(s.req)
+            state.slots = []
+            if state.arena is None:
+                state.cache = None
+        for req in out.values():
+            if req.rid in slot_rids:
+                continue
+            if self.trace.enabled:
+                self.trace.close(self.obs_name, str(req.rid),
+                                 outcome="evacuated")
+            self._finish_request(req)
+        self.evacuations += 1
+        self.evacuated_requests += len(out)
+        self._evacuated_pending += len(out)
+        return list(out.values())
+
     def _step_continuous(self, now: float, max_wait_s: float) -> StepStats:
+        tr = self.trace
+        t_phase = step_t0 = tr.clock() if tr.enabled else 0.0
         copy0, whole0 = self.admission_copy_bytes, self.whole_cache_copies
         chunkw0, steps0 = self.chunk_write_bytes, self.decode_steps
         one0 = self.oneshot_prefills
@@ -960,12 +1148,27 @@ class ServiceRuntime:
         results: List[GenerationResult] = []
         for group, state in self.groups.items():
             results.extend(self._evict(group, state, now))
+        if tr.enabled:
+            t_phase = self._phase_mark("evict", t_phase,
+                                       evicted=len(results))
         admitted = self._admit(now, max_wait_s)
+        if tr.enabled:
+            t_phase = self._phase_mark("admit", t_phase, admitted=admitted)
         chunk_tokens = 0
         for state in self.groups.values():
-            chunk_tokens += self._prefill_chunks(state)
+            n = self._prefill_chunks(state)
+            chunk_tokens += n
+            if tr.enabled:
+                t_phase = self._phase_mark("chunk", t_phase, tokens=n)
             self._decode_group(state)
+            if tr.enabled:
+                t_phase = self._phase_mark("fused_decode", t_phase)
         pfx1 = self._prefix_totals()
+        if tr.enabled:
+            tr.complete(self.obs_name, "engine", "step", step_t0,
+                        admitted=admitted, evicted=len(results),
+                        in_flight=self.in_flight(),
+                        pending=self.pending())
         return StepStats(
             results=results, now=now, admitted=admitted,
             evicted=len(results), in_flight=self.in_flight(),
@@ -981,7 +1184,8 @@ class ServiceRuntime:
             prefix_hits=pfx1[1] - pfx0[1],
             prefix_hit_tokens=pfx1[2] - pfx0[2],
             prefix_evicted_blocks=pfx1[3] - pfx0[3],
-            prefix_cow_blocks=pfx1[4] - pfx0[4])
+            prefix_cow_blocks=pfx1[4] - pfx0[4],
+            evacuated=self._take_evacuated())
 
     # ------------------------------------------------------------------
     # sync mode: run-to-completion batches (the pre-slot baseline)
@@ -1027,7 +1231,7 @@ class ServiceRuntime:
                 prefill_s=t1 - t0, decode_s=t2 - t1, group=group,
                 admitted_s=now, finished_s=now,
                 decode_steps=max_new - 1))
-            self._release_session(r)
+            self._finish_request(r)
         return results
 
     def _step_sync(self, now: float, max_wait_s: float) -> StepStats:
@@ -1057,6 +1261,8 @@ class ServiceRuntime:
         if self._moe_stats is not None:
             self._moe_stats.flush()
             stats.moe_dropped_tokens = self._moe_stats.dropped - moe0
+        if self.metrics is not None:
+            self.metrics.observe_step(self.obs_name, stats, runtime=self)
         return stats
 
     def drain(self, now: float = 0.0,
@@ -1086,6 +1292,10 @@ class EparaServingEngine:
         self._results: List[GenerationResult] = []
 
     def deploy(self, name: str, runtime: ServiceRuntime) -> None:
+        if not runtime._obs_named:
+            # observability labels follow the deployed name (two services
+            # can share a ModelConfig), unless the caller pinned one
+            runtime.obs_name = name
         self.runtimes[name] = runtime
 
     def submit(self, service: str, req: GenerationRequest,

@@ -727,3 +727,54 @@ def test_cuda_chunk_attention_rejects_what_it_does_not_take(cuda_device):
         with pytest.raises(ValueError, match=msg):
             call()
     assert chunk_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cuda_obs_is_byte_inert(cuda_device, kv_dtype):
+    """A request wave at toy width (2 layers, 4 heads of D = 64) on the
+    card, once untraced and once with a ``Tracer`` and a
+    ``MetricsRegistry``: the greedy tokens are identical, and so are the
+    paged kernels' launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.allocator import ParallelPlan
+    from repro_torch.core.categories import Sensitivity, TaskCategory
+    from repro_torch.models import transformer
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2,
+                              d_model=256, num_heads=4, num_kv_heads=4,
+                              d_ff=512, vocab_size=1024)
+    params = transformer.init(0, cfg, device=cuda_device)
+    plan = ParallelPlan(service="toy", category=TaskCategory(
+        Sensitivity.FREQUENCY, False), bs=8, mf=2, kv_dtype=kv_dtype)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (6, 40, 70, 13, 100, 33, 9, 64, 21, 90)]
+
+    def run(**obs):
+        rt = ServiceRuntime(cfg, params, plan, device=cuda_device,
+                            max_seq_len=160, block_size=16, **obs)
+        for rid, p in enumerate(prompts):
+            rt.submit(GenerationRequest(rid=rid, tokens=p, max_new_tokens=12,
+                                        stream=rid))
+        before = dict(paged_attention.launches)
+        toks = {r.rid: r.tokens.tolist() for r in rt.drain()}
+        return toks, {k: v - before[k]
+                      for k, v in paged_attention.launches.items()}
+
+    plain = run()
+    tracer, metrics = Tracer(), MetricsRegistry()
+    traced = run(tracer=tracer, metrics=metrics)
+    assert sorted(plain[0]) == list(range(len(prompts)))
+    assert traced == plain
+    assert sum(plain[1].values()) > 0
+    assert metrics.histogram("ttft_seconds").value(
+        service="minicpm-2b")["count"] == len(prompts)
+    for rid in range(len(prompts)):
+        roots, _ = tracer.span_tree("minicpm-2b", str(rid))
+        assert [c.name for c in roots[0].children] \
+            == ["queued", "prefill", "decode"]

@@ -562,7 +562,11 @@ def test_knob_gate_raises_where_the_reference_raises(case):
 
 @pytest.mark.parametrize("module", [
     "serving/prefix_cache.py", "serving/batching.py", "core/allocator.py",
-    "core/categories.py", "core/costmodel.py"])
+    "core/categories.py", "core/costmodel.py", "core/goodput.py",
+    "core/handler.py", "core/sync.py", "core/placement.py",
+    "core/cluster.py", "core/__init__.py", "simulator/workload.py",
+    "simulator/baselines.py", "simulator/engine.py", "obs/trace.py",
+    "obs/metrics.py", "obs/calibrate.py", "obs/__init__.py"])
 def test_copied_module_diffs_clean_against_the_reference(module):
     port = (ROOT / "src/repro_torch" / module).read_text()
     assert port.replace("repro_torch", "repro") == (
