@@ -10,7 +10,9 @@ drives the port's serving paths (minicpm-2b, mamba2-2.7b, whisper-large-v3
 and mixtral-8x7b, full width, random weights from a seed), its training
 path (minicpm-2b), its sync and dense-cache serving paths and its prefix
 cache (minicpm-2b) in nine phases, then its observability and crash
-evacuation (minicpm-2b) in a tenth; any failure exits non-zero.  The serving
+evacuation (minicpm-2b) in a tenth, and its stochastic sampling, deadline
+admission with parking and n-way forks (minicpm-2b) in an eleventh; any
+failure exits non-zero.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
 pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
@@ -151,6 +153,30 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    checked, the chains equal to phase 3's counted, and each resubmitted
    request's final-chunk logits held to phase 3's to 2**-5 of their norm
    where its chain differs;
+11. threefry sampling, SDF admission and forks on minicpm-2b at full width
+   (int8 KV and the launcher's defaults unless named): (a) the sampler on
+   the card against the port's CPU sampler on identical float32 logits
+   (512 rows of the 122,753-token vocabulary, seeds the row ids): counter
+   keys, threefry words (int64) and uniforms bit-identical, every row's
+   token equal with 32 and 512 rows live at temperature 0.8 and top_k 0
+   and 50 (a differing row is printed with its top-two perturbed-score
+   margin and passes only within twice its noise difference),
+   ``speculative_verify`` at k = 4 greedy and stochastic equal, and the
+   device time of each sampling call (CUDA events); (b) phase 3's int8
+   wave at temperature 0.8 and top_k 50 twice (chains identical, tokens
+   differing from phase 3's greedy chains counted: random weights put the
+   last token's logit far above the rest, so none do at 0.8), once at
+   temperature ``HOT_T`` (tokens must differ), and 4 requests of 4
+   samples at ``HOT_T`` twice (12 forks sharing their prompt blocks, no
+   prefill for forks, 12 copy-on-write copies, sibling chains distinct
+   and repeatable); (c) the reference's goodput overload trace
+   (``profile_step.goodput_trace``: the trace's 2-slot latency plan, bf16
+   KV, a logical clock) under fifo and sdf, greedy and at 0.8, then greedy
+   with int8 KV: sdf on time at least 1.3x fifo, at least one preemption
+   and as many resumes, chains identical across the policies, every
+   request served or verdicted, the arenas empty at the end, the counts
+   held beside the CPU test's on the toy config; (d) the launcher with
+   ``--admission-policy sdf --deadline-s 30 --requests 8``;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -171,7 +197,9 @@ kernel's read just after it; every count again just before phase 9's
 runs, whose paged-attention counts are read just after each run (and
 printed, not put in the kernels' record); phase 10 (b) reads the
 paged-attention counts before and after each of its runs and holds them
-to phase 3's int8 wave's (printed, not put in the record).
+to phase 3's int8 wave's (printed, not put in the record); phase 11 (b)
+and (c) print the paged-attention counts of their runs (the resumed and
+forked slots' decode and chunk launches), not put in the record.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -1168,7 +1196,7 @@ def wave(kv_dtype, n_requests=32, new_tokens=40):
     del rt
     gc.collect()
     torch.cuda.empty_cache()
-    return toks, grown
+    return toks, grown, n_tok / dt
 
 
 def wave_mamba2(n_requests=32, new_tokens=40):
@@ -2077,6 +2105,359 @@ def phase_evacuate(phase3_toks, phase3_final):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: threefry sampling, SDF admission with parking, n-way forks
+# ---------------------------------------------------------------------------
+
+STOCH_T, STOCH_K = 0.8, 50      # phase 11's stochastic sampler
+# random weights put the last token's logit ~200 above the next (tied
+# embeddings), so at 0.8 every draw is the argmax; forks and the check
+# that sampling changes tokens run at a temperature that flattens that gap
+HOT_T = 100.0
+SAMPLER_ROWS = 512              # the plan's slots (phase 3's capacity)
+
+
+def cuda_ms(fn, reps=5):
+    """Median device time of ``fn()`` over ``reps`` calls (CUDA events),
+    after one warm-up call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_sampler():
+    """Phase 11 (a): the port's sampler on the card against the port's own
+    CPU sampler, on identical float32 logits (512 rows of minicpm-2b's
+    vocabulary, seeds = row ids, offsets = row ids mod 40).  The counter
+    keys, the threefry words (int64) and the uniforms of every drawn row
+    must be bit-identical; the Gumbel noise is counted where it differs
+    (float64 logarithms on both sides); with 32 and with 512 rows live and
+    top_k 0 and 50, every row's token must be equal, and a differing row
+    is printed with its CPU top-two perturbed-score margin and passes only
+    where that margin is within twice the noise difference of its row.
+    ``speculative_verify`` at k = 4, greedy and stochastic: tokens and
+    n_emit equal.  Times each sampling call on the card (CUDA events)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving import sampler as S
+    V = get_config("minicpm-2b").vocab_size
+    B = SAMPLER_ROWS
+    gen = torch.Generator().manual_seed(11)
+    logits = torch.randn(B, V, generator=gen) * 4.0
+    dlogits = logits.cuda()
+    seeds, sids, offs = np.arange(B), np.zeros(B, np.int64), np.arange(B) % 40
+    kc, kd = S.prng_key(0), S.prng_key(0, "cuda")
+    keys = S.slot_keys(kc, seeds, sids, offs)
+    check(torch.equal(keys, S.slot_keys(kd, seeds, sids, offs).cpu()),
+          "the counter keys differ on the card")
+    live_sets = {32: np.arange(B) % (B // 32) == 0, B: np.ones(B, bool)}
+    rec = {"rows": B, "vocab": V}
+    for n_live, live in live_sets.items():
+        rows = np.flatnonzero(live)
+        bits = S.random_bits(keys[rows], (V,))
+        dbits = S.random_bits(keys[rows].cuda(), (V,))
+        check(torch.equal(bits, dbits.cpu()),
+              f"threefry words differ on the card ({n_live} live)")
+        u = S.uniform_from_bits(bits, S._TINY)
+        check(torch.equal(u.view(torch.int32), S.uniform_from_bits(
+            dbits, S._TINY).cpu().view(torch.int32)),
+            f"uniforms differ on the card ({n_live} live)")
+        g, dg = S.gumbel_from_bits(bits), S.gumbel_from_bits(dbits).cpu()
+        noise_diff = (g - dg).abs().amax(dim=-1)
+        rec[f"gumbel_differ_{n_live}"] = int((g != dg).sum())
+        del bits, dbits, u, dg
+        for top_k in (0, STOCH_K):
+            cfg = S.SamplerConfig(STOCH_T, top_k)
+            mask = torch.from_numpy(live)
+            want = S.sample_per_slot(logits, kc, seeds, sids, offs, cfg,
+                                     live=mask, fill_token=-1)
+            dmask = mask.cuda()
+            got = S.sample_per_slot(dlogits, kd, seeds, sids, offs, cfg,
+                                    live=dmask, fill_token=-1).cpu()
+            differ = torch.nonzero(got != want).flatten().tolist()
+            scores = g + S._filtered(logits[rows], cfg)
+            top2 = scores.topk(2, dim=-1).values
+            margins = (top2[:, 0] - top2[:, 1])
+            row_of = {int(r): i for i, r in enumerate(rows)}
+            for r in differ:
+                i = row_of[r]
+                print(f"phase 11 (a) row {r} ({n_live} live, top_k "
+                      f"{top_k}): card {int(got[r])} vs CPU {int(want[r])}, "
+                      f"CPU top-two margin {float(margins[i])}, noise "
+                      f"difference {float(noise_diff[i])}")
+                check(float(margins[i]) <= 2 * float(noise_diff[i]),
+                      f"row {r}'s token differs beyond a near tie")
+            ms = cuda_ms(lambda: S.sample_per_slot(
+                dlogits, kd, seeds, sids, offs, cfg, live=dmask))
+            rec[f"live{n_live}_k{top_k}"] = {
+                "rows_differ": len(differ), "ms": ms,
+                "min_margin": float(margins.min())}
+        del g
+    # speculative_verify at k = 4 over the first 32 rows
+    k, Bv = 4, 32
+    gen = torch.Generator().manual_seed(12)
+    tl = torch.randn(Bv, k + 1, V, generator=gen) * 4.0
+    dl = tl[:, :k] + torch.randn(Bv, k, V, generator=gen)
+    drafts = dl.argmax(-1)
+    flip = torch.rand(Bv, k, generator=gen) < 0.3
+    drafts = torch.where(flip, torch.randint(0, V, (Bv, k), generator=gen),
+                         drafts)
+    for temp in (0.0, STOCH_T):
+        cfg = S.SamplerConfig(temp, STOCH_K)
+        want = S.speculative_verify(tl, dl, drafts, kc, seeds[:Bv],
+                                    sids[:Bv], offs[:Bv], cfg)
+        got = S.speculative_verify(tl.cuda(), dl.cuda(), drafts.cuda(), kd,
+                                   seeds[:Bv], sids[:Bv], offs[:Bv], cfg)
+        check(torch.equal(want[0], got[0].cpu())
+              and torch.equal(want[1], got[1].cpu()),
+              f"speculative_verify differs on the card (temperature {temp})")
+        rec[f"verify_t{temp}_n_emit"] = np.bincount(
+            want[1].numpy(), minlength=k + 2).tolist()
+    print(f"phase 11 (a) sampler, card vs CPU: keys, threefry words and "
+          f"uniforms bit-identical; {json.dumps(rec)}")
+    del dlogits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def stochastic_wave(temperature, n_requests=32, new_tokens=40):
+    """Phase 3's int8 wave at ``temperature``, top_k STOCH_K.  Returns the
+    chains, tok/s and the median top-two gap of the final-chunk logits."""
+    import torch
+    from repro_torch.launch.profile_step import wave_runtime
+    from repro_torch.serving.sampler import SamplerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, rt = wave_runtime("int8", n_requests, new_tokens,
+                           sampler=SamplerConfig(temperature, STOCH_K))
+    final = keep_final_logits(rt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = rt.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    toks = {r.rid: np.asarray(r.tokens) for r in results}
+    check(len(toks) == n_requests and all(
+        len(t) == new_tokens and t.min() >= 0 and t.max() < cfg.vocab_size
+        for t in toks.values()), f"stochastic wave served {len(toks)}")
+    gaps = [float(v) for v in (torch.stack(list(final.values())).float()
+                               .topk(2, dim=-1).values.diff(dim=-1)
+                               .neg().flatten())]
+    del rt, final
+    return toks, sum(map(len, toks.values())) / dt, statistics.median(gaps)
+
+
+def fork_run(n_requests=4, n_samples=4, new_tokens=40):
+    """minicpm-2b at full width (512 slots, int8 KV) serving ``n_requests``
+    requests of ``n_samples`` samples each at temperature HOT_T: after
+    the step that forks them, each request's siblings share its full
+    prompt blocks.  Returns chains by (rid, sample) and the counters."""
+    import torch
+    from repro_torch.launch.profile_step import wave_runtime
+    from repro_torch.serving.engine import GenerationRequest
+    from repro_torch.serving.sampler import SamplerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, rt = wave_runtime("int8", 0, sampler=SamplerConfig(HOT_T,
+                                                            STOCH_K))
+    rng = np.random.default_rng(5)
+    lens = [45, 90, 137, 190]           # none a multiple of the page
+    for rid, n in enumerate(lens[:n_requests]):
+        rt.submit(GenerationRequest(
+            rid=rid, tokens=rng.integers(0, cfg.vocab_size, n).astype(
+                np.int32), max_new_tokens=new_tokens, stream=rid,
+            n_samples=n_samples))
+    results, shared = [], None
+    while rt.pending() or rt.in_flight():
+        results.extend(rt.step(max_wait_s=0.0).results)
+        if shared is None and rt.forks_spawned == n_requests * (
+                n_samples - 1):
+            arena, shared = rt.groups[0].arena, {}
+            for rid, n in enumerate(lens[:n_requests]):
+                rows = [arena._block_tables[s.slot_id][:n // 32].tolist()
+                        for s in rt.groups[0].slots if s.req.rid == rid]
+                shared[rid] = (len(rows), all(r == rows[0] for r in rows),
+                               min(arena.block_ref(b) for b in rows[0]))
+    rec = {"forks_spawned": rt.forks_spawned,
+           "fork_shortfall": rt.fork_shortfall,
+           "prefill_tokens_computed": rt.prefill_tokens_computed,
+           "prompt_tokens": sum(lens[:n_requests]),
+           "cow_copies": rt.prefix_cow_copies, "shared": shared}
+    chains = {(r.rid, r.sample): np.asarray(r.tokens) for r in results}
+    del rt
+    return chains, rec
+
+
+def phase_stochastic(phase3_toks, phase3_tok_s):
+    """Phase 11 (b): phase 3's int8 wave at temperature 0.8, top_k 50, run
+    twice (32/32 served, chains identical across the runs, tokens that
+    differ from phase 3's greedy chains counted, the final-chunk logits'
+    median top-two gap printed); once at HOT_T, where tokens must differ
+    from the greedy chains; then 4 requests of 4 samples at HOT_T, twice
+    (forks share the prompt blocks, copy-on-write copies counted, sibling
+    chains differ, each the same across the runs)."""
+    from repro_torch.kernels import paged_attention
+    l0 = dict(paged_attention.launches)
+    (a, tok_s_a, gap), (b, tok_s_b, _) = (stochastic_wave(STOCH_T)
+                                          for _ in range(2))
+    check(sorted(a) == sorted(b) and all(np.array_equal(a[r], b[r])
+                                         for r in a),
+          "the stochastic wave's chains differ between two runs")
+    total = sum(len(t) for t in a.values())
+    differ = sum(int((a[r] != phase3_toks[r]).sum()) for r in a)
+    hot, tok_s_hot, _ = stochastic_wave(HOT_T)
+    differ_hot = sum(int((hot[r] != phase3_toks[r]).sum()) for r in hot)
+    check(differ_hot > 0, f"the wave at temperature {HOT_T} drew phase "
+          f"3's greedy chains")
+    (fa, rec), (fb, _) = (fork_run() for _ in range(2))
+    check(sorted(fa) == sorted(fb) and all(np.array_equal(fa[k], fb[k])
+                                           for k in fa),
+          "a sibling's chain differs between two fork runs")
+    check(len(fa) == 16 and rec["forks_spawned"] == 12
+          and rec["prefill_tokens_computed"] == rec["prompt_tokens"]
+          and rec["cow_copies"] >= 12, f"fork run: {rec}")
+    check(rec["shared"] and all(n == 4 and same and ref >= 4
+                                for n, same, ref in rec["shared"].values()),
+          f"forks do not share their prompt blocks: {rec['shared']}")
+    for rid in range(4):
+        sib = {tuple(fa[(rid, s)].tolist()) for s in range(4)}
+        check(len(sib) == 4, f"request {rid}'s sibling chains coincide")
+    grown = {k: paged_attention.launches[k] - l0[k]
+             for k in paged_attention.launches}
+    print(f"phase 11 (b) stochastic int8 wave (T {STOCH_T}, top_k "
+          f"{STOCH_K}), two runs: 32/32 served, chains identical; tok/s "
+          f"{tok_s_a}, {tok_s_b} (phase 3 greedy {phase3_tok_s}); "
+          f"{differ}/{total} tokens differ from phase 3's greedy chains "
+          f"(final-chunk logits' median top-two gap {gap}); at T {HOT_T}: "
+          f"{differ_hot}/{total} differ, {tok_s_hot} tok/s; 4 requests x 4 "
+          f"samples at T {HOT_T}, two runs: {rec}, sibling chains distinct "
+          f"and repeatable; launches {grown}")
+    return {"tok_s": [tok_s_a, tok_s_b], "differ": differ,
+            "differ_hot": differ_hot, "gap": gap, "forks": rec,
+            "launches": grown}
+
+
+# phase 11 (c)'s plan: the trace's own (latency category, 2 slots, bf16
+# KV by the category unless kv_dtype says otherwise)
+GOODPUT_EXPECTED = {"fifo": 4, "sdf": 12, "preemptions": 1}
+
+
+def phase_goodput():
+    """Phase 11 (c): the reference's goodput overload trace
+    (``profile_step.goodput_trace``) on minicpm-2b at full width under a
+    logical clock, fifo and sdf, greedy and at temperature 0.8 (bf16 KV),
+    then greedy with int8 KV.  sdf's on-time count at least 1.3x fifo's,
+    at least one preemption and as many resumes, identical chains for
+    every request completed under both policies, every request served or
+    verdicted with one verdict, the arenas left with no parked block and
+    no live slot; the counts are held beside the CPU test's on the toy
+    config."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.allocator import ParallelPlan
+    from repro_torch.core.categories import Sensitivity, TaskCategory
+    from repro_torch.kernels import paged_attention
+    from repro_torch.launch.profile_step import goodput_trace
+    from repro_torch.models.registry import model_api
+    from repro_torch.serving.engine import ServiceRuntime
+    from repro_torch.serving.sampler import SamplerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("minicpm-2b")
+    params = model_api(cfg).init(1, cfg, "cuda")
+    plan = ParallelPlan(service="minicpm-2b",
+                        category=TaskCategory(Sensitivity.LATENCY, False),
+                        bs=2)
+    out = {}
+    for label, temp, kv in (("greedy bf16", 0.0, -1),
+                            ("stochastic bf16", STOCH_T, -1),
+                            ("greedy int8", 0.0, "int8")):
+        runs = {}
+        l0 = dict(paged_attention.launches)
+        for policy in ("fifo", "sdf"):
+            def make():
+                return ServiceRuntime(
+                    cfg, params, dc.replace(plan, admission=policy,
+                                            kv_dtype=kv),
+                    sampler=SamplerConfig(temp, 0), device="cuda")
+            t0 = time.perf_counter()
+            r = goodput_trace(make, cfg.vocab_size)
+            r["wall_s"] = time.perf_counter() - t0
+            check(r["completed"] + r["rejected"] == r["submitted"]
+                  and len(r["reject_verdicts"]) == r["rejected"],
+                  f"{label} {policy}: a request left without a verdict")
+            check(r["parked_blocks"] == r["live_slots"] == 0,
+                  f"{label} {policy}: arena not empty at the end")
+            runs[policy] = r
+        fifo, sdf = runs["fifo"], runs["sdf"]
+        check(sdf["goodput_ontime"] >= 1.3 * fifo["goodput_ontime"],
+              f"{label}: sdf on-time {sdf['goodput_ontime']} < 1.3 x fifo "
+              f"{fifo['goodput_ontime']}")
+        check(sdf["preemptions"] >= 1
+              and sdf["resumes"] == sdf["preemptions"],
+              f"{label}: preemptions {sdf['preemptions']}, resumes "
+              f"{sdf['resumes']}")
+        both = set(fifo["tokens"]) & set(sdf["tokens"])
+        check(both and all(fifo["tokens"][k] == sdf["tokens"][k]
+                           for k in both),
+              f"{label}: a chain differs between fifo and sdf")
+        grown = {k: paged_attention.launches[k] - l0[k]
+                 for k in paged_attention.launches}
+        summary = {p: {k: r[k] for k in (
+            "goodput_ontime", "completed", "rejected", "submitted",
+            "preemptions", "resumes", "arena_parks", "verdicts", "wall_s")}
+            for p, r in runs.items()}
+        same = (fifo["goodput_ontime"] == GOODPUT_EXPECTED["fifo"]
+                and sdf["goodput_ontime"] == GOODPUT_EXPECTED["sdf"]
+                and sdf["preemptions"] == GOODPUT_EXPECTED["preemptions"])
+        print(f"phase 11 (c) goodput trace, {label}: {json.dumps(summary)}; "
+              f"{len(both)} chains identical across policies; counts equal "
+              f"the CPU toy trace's {GOODPUT_EXPECTED}: {same}; launches "
+              f"{grown}")
+        out[label] = {"summary": summary, "same_as_cpu": same,
+                      "launches": grown}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sdf_launcher():
+    """Phase 11 (d): the launcher with ``--admission-policy sdf
+    --deadline-s 30 --requests 8``: exits 0 and prints its admission
+    line."""
+    import io
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--archs", "minicpm-2b", "--admission-policy",
+                         "sdf", "--deadline-s", "30", "--requests", "8"])
+    text = buf.getvalue()
+    print(text, end="")
+    check(rc == 0, f"sdf launcher exited {rc}")
+    check(any(ln.startswith("admission (sdf):")
+              for ln in text.splitlines()), "no admission line printed")
+
+
+def phase_sampling_admission(phase3_toks, phase3_tok_s):
+    t0 = time.perf_counter()
+    rec = {"sampler": phase_sampler()}
+    rec["stochastic"] = phase_stochastic(phase3_toks, phase3_tok_s)
+    rec["goodput"] = phase_goodput()
+    phase_sdf_launcher()
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def reset_launches():
     from repro_torch.kernels import ops
     ops.reset_launches()
@@ -2761,8 +3142,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("phase 3: request wave, prompts of 6-200 tokens, 40 new each")
-    int8_toks, int8_grown = wave("int8")
-    bf16_toks, bf16_grown = wave("bf16")
+    int8_toks, int8_grown, int8_tok_s = wave("int8")
+    bf16_toks, bf16_grown, _ = wave("bf16")
     launches = dict(paged_attention.launches)
     check(int8_grown["paged_decode_attention_quant"] > 0
           and int8_grown["paged_chunk_prefill_attention_quant"] > 0,
@@ -2821,6 +3202,9 @@ def main() -> int:
     phase3_final = phase_obs_wave(int8_toks, int8_grown)
     phase_evacuate(int8_toks, phase3_final)
     del phase3_final
+    print("phase 11: threefry sampling, SDF admission with parking, n-way "
+          "forks, minicpm-2b full width")
+    phase_sampling_admission(int8_toks, int8_tok_s)
     small_input_check()
 
     kernels = []

@@ -23,6 +23,17 @@ step function the same way (``chip_smoke.py`` phase 7 a training step).
   PYTHONPATH=src python -m repro_torch.launch.profile_step --templated \
       --prefix-cache 0
 
+``--temperature`` (and ``--top-k``) serve the wave with the stochastic
+sampler instead of greedy argmax (``chip_smoke.py`` phase 11 (b)):
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --kv-dtype int8 \
+      --temperature 0.8 --top-k 50
+
+``goodput_trace`` runs the reference's goodput overload trace
+(``benchmarks/continuous_batching.py``'s ``_goodput_overload_rows``) on a
+runtime the caller builds: phase 11 (c) at full width, the CPU tests on
+the toy config.
+
 ``--dense-view`` profiles phase 8 (b)'s wave instead: minicpm-2b's
 dense-view step (``paged_native=False``) at 128 slots.  ``--templated``
 profiles phase 9's: ``templated_wave``'s requests that share one prompt
@@ -46,6 +57,7 @@ from repro_torch.launch.serve import plan_for
 from repro_torch.models.registry import model_api
 from repro_torch.serving.engine import (DEFAULT_BLOCK_SIZE,
                                         GenerationRequest, ServiceRuntime)
+from repro_torch.serving.sampler import SamplerConfig
 
 
 # slots the card holds at full width, where the plan's do not fit: the
@@ -143,6 +155,83 @@ def serve_donors(rt, donors):
     return rt.drain()
 
 
+def goodput_trace(make_runtime, vocab_size: int, request_cls=None,
+                  n_urgent: int = 8, long_new: int = 48,
+                  budget: float = 14.0) -> dict:
+    """The reference's goodput overload trace on ``make_runtime()``, under
+    a logical clock (one tick a round): two deadline-less warmup requests
+    (4-token prompts, 4 new tokens) served to idle; two deadline-less
+    stragglers (6-token prompts, ``long_new`` new tokens) and two rounds;
+    then ``n_urgent`` requests (4-token prompts, 4 new tokens, deadline
+    ``budget`` ticks after submission), one every 3 rounds; then drained.
+    Prompts come from ``default_rng(7)`` in that order.  ``request_cls``
+    builds the requests (the port's ``GenerationRequest`` by default).
+
+    Returns the on-time count (deadline-less requests count as on time),
+    completed, rejected (each with its verdict) and submitted counts, the
+    controller's preemptions, resumes and verdicts, the arenas' parks,
+    parked blocks and live slots at the end, and the tokens and
+    ``finished_s`` of each completed (rid, sample)."""
+    request_cls = request_cls or GenerationRequest
+    rt = make_runtime()
+    rng = np.random.default_rng(7)
+    results, rejected, deadlines = [], [], {}
+    t = 0.0
+
+    def step():
+        nonlocal t
+        st = rt.step(now=t)
+        results.extend(st.results)
+        rejected.extend(st.rejected)
+        t += 1.0
+
+    def drain():
+        while rt.pending() or rt.in_flight():
+            step()
+            if t >= 5000.0:
+                raise RuntimeError("the runtime failed to drain")
+
+    def prompt(n):
+        return rng.integers(1, vocab_size, n).astype(np.int32)
+
+    for i in range(2):
+        rt.submit(request_cls(rid=1000 + i, tokens=prompt(4),
+                              max_new_tokens=4), now=t)
+    drain()
+    for i in range(2):
+        rt.submit(request_cls(rid=i, tokens=prompt(6),
+                              max_new_tokens=long_new), now=t)
+    for _ in range(2):
+        step()
+    for i in range(n_urgent):
+        deadlines[100 + i] = t + budget
+        rt.submit(request_cls(rid=100 + i, tokens=prompt(4),
+                              max_new_tokens=4, deadline_s=t + budget),
+                  now=t)
+        for _ in range(3):
+            step()
+    drain()
+    arenas = [g.arena for g in rt.groups.values() if g.arena is not None]
+    ctrl = rt.admission
+    return {
+        "goodput_ontime": sum(1 for r in results
+                              if not deadlines.get(r.rid)
+                              or r.finished_s <= deadlines[r.rid]),
+        "completed": len(results), "rejected": len(rejected),
+        "submitted": 4 + n_urgent,
+        "reject_verdicts": sorted((r.req.rid, r.verdict.value)
+                                  for r in rejected),
+        "preemptions": ctrl.preemptions, "resumes": ctrl.resumes,
+        "verdicts": dict(ctrl.verdicts),
+        "arena_parks": sum(a.parks for a in arenas),
+        "parked_blocks": sum(a.parked_blocks for a in arenas),
+        "live_slots": sum(a.live for a in arenas),
+        "tokens": {(r.rid, r.sample): tuple(int(x) for x in r.tokens)
+                   for r in results},
+        "finished_s": {(r.rid, r.sample): r.finished_s for r in results},
+    }
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -199,8 +288,13 @@ def main(argv=None) -> int:
     ap.add_argument("--prefix-cache", type=int, default=-1,
                     help="the plan's prefix-cache knob: -1 = the "
                          "category's retention, 0 = off, > 0 = idle blocks")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k filter of the stochastic sampler (0 = off)")
     args = ap.parse_args(argv)
     kv_dtype = -1 if args.kv_dtype == "auto" else args.kv_dtype
+    sampler = SamplerConfig(args.temperature, args.top_k)
     if args.templated:
         _, rt, donors, others = templated_wave(kv_dtype, args.prefix_cache)
         serve_donors(rt, donors)
@@ -211,7 +305,7 @@ def main(argv=None) -> int:
         view = dict(bs=128, paged_native=False) if args.dense_view else {}
         _, rt = wave_runtime(kv_dtype, args.requests, args.max_new_tokens,
                              arch=args.arch, prefix_cache=args.prefix_cache,
-                             **view)
+                             sampler=sampler, **view)
         label = "dense-view" if args.dense_view else "native"
         n = args.requests
     # max_wait_s=0: the MF composer flushes partial frame groups at once,
@@ -220,7 +314,8 @@ def main(argv=None) -> int:
     print(f"{rt.cfg.name}, {rt.kv_dtype} KV, {rt.cfg.num_layers} layers, "
           f"{label} step, {n} requests, prefix cache "
           f"{'on' if rt.prefix_cache_enabled else 'off'}, "
-          f"{rt.plan.max_in_flight} slots, {torch.cuda.get_device_name(0)}")
+          f"{rt.plan.max_in_flight} slots, sampler {rt.sampler}, "
+          f"{torch.cuda.get_device_name(0)}")
     step = lambda: rt.step(max_wait_s=0.0)
     window(step, args.steps, "prefill+decode window", args.top)
     while any(s.prefilling for g in rt.groups.values() for s in g.slots):

@@ -37,6 +37,20 @@ turn it off):
   PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b \
       --mode sync
 
+``--admission-policy sdf`` orders each step's queue by deadline slack,
+sheds the requests that cannot make their ``--deadline-s`` (seconds from
+the start of the run, 0 = none) with a verdict, and parks the laziest
+decode slot for an urgent request (``--no-preempt`` turns parking off); the
+run's clock is then the wall time since the first submission, as in the
+reference.  ``--n-samples`` forks n-1 sibling slots off each request's
+prompt (capped by the plan's category: minicpm-2b, a frequency service,
+forks up to its batch size).  The launcher prints the verdicts,
+preemptions and resumes, and exits 0 when every request was served or
+rejected with a verdict:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b \
+      --admission-policy sdf --deadline-s 30 --requests 8
+
 ``--trace-out``, ``--metrics-out`` and ``--calibrate-out`` write the run's
 spans (Chrome trace-event JSON), metrics (Prometheus text, or a JSONL
 snapshot for a ``.jsonl`` path) and simulator calibration (JSON), through
@@ -74,12 +88,8 @@ from repro_torch.serving.engine import (PREFIX_CACHEABLE_FAMILIES,
 _ITEM_MULTI_SERVER = "ROADMAP.md Queue 1 item 6 (multi-server control plane)"
 _UNPORTED_FLAGS = (
     ("servers", 1, _ITEM_MULTI_SERVER),
-    ("admission_policy", "fifo", "ROADMAP.md Queue 1 item 3 (SDF admission)"),
-    ("no_preempt", False, "ROADMAP.md Queue 1 item 3 (SDF admission)"),
-    ("deadline_s", 0.0, "ROADMAP.md Queue 1 item 3 (SDF admission)"),
-    ("speculate", -1, "ROADMAP.md Queue 1 item 4 (speculation and forks)"),
-    ("draft_arch", "", "ROADMAP.md Queue 1 item 4 (speculation and forks)"),
-    ("n_samples", 1, "ROADMAP.md Queue 1 item 4 (speculation and forks)"),
+    ("speculate", -1, "ROADMAP.md Queue 1 item 4 (speculative decoding)"),
+    ("draft_arch", "", "ROADMAP.md Queue 1 item 4 (speculative decoding)"),
     ("fault_spec", "", _ITEM_MULTI_SERVER),
     ("chaos_seed", -1, _ITEM_MULTI_SERVER),
     ("chaos_horizon_s", 20.0, _ITEM_MULTI_SERVER),
@@ -159,12 +169,25 @@ def _parser() -> argparse.ArgumentParser:
                          "category-derived bound (frequency retains the "
                          "whole pool, latency a quarter), 0 = disabled, "
                          ">0 = max idle cached blocks")
-    ap.add_argument("--admission-policy", default="fifo")
-    ap.add_argument("--no-preempt", action="store_true")
-    ap.add_argument("--deadline-s", type=float, default=0.0)
+    ap.add_argument("--admission-policy", choices=("fifo", "sdf"),
+                    default="fifo",
+                    help="admission control: arrival-order fifo (default) "
+                         "or strictest-deadline-first: slack-ordered "
+                         "queues, explicit reject verdicts, and preemption "
+                         "of lazy decodes by block-table parking")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="with --admission-policy=sdf, disable block-table "
+                         "parking (shed-only admission control)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="per-request completion deadline in seconds from "
+                         "submission (0 = none)")
+    ap.add_argument("--n-samples", type=int, default=1,
+                    help="parallel samples per request: n-1 sibling slots "
+                         "fork off the prompt's blocks by refcount and "
+                         "diverge copy-on-write (capped by the plan's "
+                         "resolved_n_samples)")
     ap.add_argument("--speculate", type=int, default=-1)
     ap.add_argument("--draft-arch", default="")
-    ap.add_argument("--n-samples", type=int, default=1)
     ap.add_argument("--fault-spec", default="")
     ap.add_argument("--chaos-seed", type=int, default=-1)
     ap.add_argument("--chaos-horizon-s", type=float, default=20.0)
@@ -200,6 +223,13 @@ def main(argv=None) -> int:
     if args.kv_dtype == "int8" and args.kvcache_impl != "paged":
         ap.error("--kv-dtype=int8 requires --kvcache-impl=paged (only "
                  "page pools are block-quantized)")
+    if args.admission_policy != "fifo" and args.mode != "continuous":
+        ap.error("--admission-policy=sdf requires --mode=continuous (the "
+                 "controller acts between composer and slot engine)")
+    if args.deadline_s < 0:
+        ap.error(f"--deadline-s must be >= 0, got {args.deadline_s}")
+    if args.n_samples < 1:
+        ap.error(f"--n-samples must be >= 1, got {args.n_samples}")
     arch_ids = [a.strip() for a in args.archs.split(",")]
     for a in arch_ids:
         if a not in ARCH_IDS:
@@ -230,7 +260,9 @@ def main(argv=None) -> int:
         full = get_config(a)
         cfg = full if device.type == "cuda" else reduced(full)
         cfgs[a] = cfg
-        plan = plan_for(full, kv_dtype, prefix_cache=args.prefix_cache)
+        plan = dataclasses.replace(
+            plan_for(full, kv_dtype, prefix_cache=args.prefix_cache),
+            admission=args.admission_policy)
         print(f"  {a:20s} {plan.category} mp={plan.mp} bs={plan.bs} "
               f"mt={plan.mt} mf={plan.mf} dp={plan.dp} "
               f"kv={plan.resolved_kv_dtype()}")
@@ -241,7 +273,8 @@ def main(argv=None) -> int:
             kvcache_impl=args.kvcache_impl, max_seq_len=args.max_seq_len,
             block_size=args.block_size,
             chunked_prefill=False if args.no_chunked_prefill else None,
-            prefill_chunk=(args.prefill_chunk or None), device=device,
+            prefill_chunk=(args.prefill_chunk or None),
+            preempt=not args.no_preempt, device=device,
             tracer=tracer, metrics=metrics))
 
     rng = np.random.default_rng(args.seed)
@@ -256,10 +289,18 @@ def main(argv=None) -> int:
                                              np.float32)}
         engine.submit(svc, GenerationRequest(
             rid=i, tokens=prompt, max_new_tokens=args.max_new_tokens,
-            stream=i, extras=extras))
+            stream=i, extras=extras, n_samples=args.n_samples,
+            deadline_s=args.deadline_s))
     launches0 = launch_counts()
+    rejects = []
+    # monotonic, not wall-clock: deadlines must not jump when the system
+    # clock is slewed.  The data-plane clock is seconds since t0; the
+    # deadlines and the admission controller's estimates live in it
     t0 = time.monotonic()
-    results = engine.drain()
+    clock = ((lambda: time.monotonic() - t0)
+             if args.admission_policy == "sdf" else None)
+    results = engine.serve_until_idle(
+        clock=clock, on_stats=lambda name, st: rejects.extend(st.rejected))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.monotonic() - t0
@@ -268,7 +309,8 @@ def main(argv=None) -> int:
     steps = sum(rt.decode_steps for rt in rts)
     chunks = sum(rt.prefill_chunk_calls for rt in rts)
     oneshot = sum(rt.oneshot_prefills for rt in rts)
-    print(f"served {len(results)}/{args.requests} requests, {toks} tokens "
+    primaries = sum(1 for r in results if r.sample == 0)
+    print(f"served {primaries}/{args.requests} requests, {toks} tokens "
           f"in {dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s, {steps} fused "
           f"decode steps, {chunks} prefill chunks, {oneshot} one-shot "
           f"prefills, mode={args.mode}, kvcache={args.kvcache_impl}, "
@@ -279,6 +321,19 @@ def main(argv=None) -> int:
           f"{sum(rt.prefix_cow_copies for rt in rts)} COW copies, "
           f"{sum(rt.prefix_evictions for rt in rts)} LRU evictions, "
           f"{oneshot} one-shot prefills")
+    forks = sum(rt.forks_spawned for rt in rts)
+    if forks or args.n_samples > 1:
+        print(f"parallel sampling (n={args.n_samples}): {forks} forks "
+              f"spawned, {sum(rt.fork_shortfall for rt in rts)} shortfall")
+    verdicts = {}
+    for rt in rts:
+        for v, n in rt.admission.verdicts.items():
+            verdicts[v] = verdicts.get(v, 0) + n
+    print(f"admission ({args.admission_policy}): "
+          f"{verdicts or 'no verdicts'}, "
+          f"{sum(rt.admission.preemptions for rt in rts)} preemptions, "
+          f"{sum(rt.admission.resumes for rt in rts)} resumes, "
+          f"{len(rejects)} final rejects")
     print("kernel launches: " + ", ".join(
         f"{k}={v - launches0[k]}" for k, v in launch_counts().items()))
     if tracer is not None:
@@ -300,7 +355,8 @@ def main(argv=None) -> int:
               f"prefix_hit_rates={cal.prefix_hit_rates or {}} "
               f"prefill_token_s={cal.prefill_token_s:.2e} -> "
               f"{args.calibrate_out}")
-    return 0 if len(results) == args.requests else 1
+    # every request is accounted for: served, or rejected with a verdict
+    return 0 if primaries + len(rejects) == args.requests else 1
 
 
 if __name__ == "__main__":

@@ -58,10 +58,12 @@ encoder-decoder projects the slot's cross-attention K/V state.
 Observability (``repro_torch/obs``, verbatim copies of the reference's)
 is off by default: ``tracer=`` records each request's lifecycle spans
 (``request`` > ``queued``, ``prefill`` with its ``prefill_chunk`` events,
-``decode``) and the engine's phase spans (``evict``, ``admit``, ``chunk``,
-``fused_decode``, ``sample``, ``step``), and ``metrics=`` folds every
-``StepStats`` and each finished request's TTFT, TPOT and queue wait into
-a registry.  Spans are host wall times.  On the card the model's launches
+``decode``, and a ``parked`` span between two ``decode`` spans for a
+preempted request; a fork decodes on its own ``rid.sample`` lane) and the
+engine's phase spans (``evict``, ``preempt`` under sdf, ``admit``,
+``chunk``, ``fused_decode``, ``sample``, ``step``), and ``metrics=``
+folds every ``StepStats`` and each finished request's TTFT, TPOT and
+queue wait into a registry.  Spans are host wall times.  On the card the model's launches
 are asynchronous, so a span that only queues device work closes before
 the device has done it, and that time lands where the host next waits
 for the device: the decode model's in the ``sample`` span (the read-back
@@ -70,23 +72,43 @@ inside the ``chunk`` phase (the wait that times the request's prefill).
 TTFT is exact: a slot's decode starts after its first token was read
 back.
 
-``evacuate`` strips every queued and in-flight request out (a crash of
-this data plane) and returns them for resubmission.
+Sampling is greedy, or stochastic on per-slot counter streams
+(``serving/sampler.py``): each drawn token is a pure function of (request
+seed, sample index, stream, emitted offset), never of batch composition,
+step count or park and resume history, and equals the reference's.
 
-Not ported (constructor arguments that ask for them raise, naming the
-``ROADMAP.md`` item): SDF admission and parking preemption, speculative
-decoding and n-way forks, stochastic sampling.
+Deadline-aware admission (``serving/admission.py``, a verbatim copy of the
+reference's): under ``admission_policy="sdf"`` each step orders the queue
+by deadline slack, sheds the requests that cannot make their deadlines
+with a verdict (``StepStats.rejected``), and when the most urgent request
+would miss waiting for a slot parks the laziest live decode slot: its
+blocks stay in the arena (``KVArena.park``), and its later re-admission
+stitches them back as a whole-content prefix hit and resumes decoding
+where it stopped.  ``"fifo"`` (the default) keeps the controller inert.
+
+n-way parallel sampling (``GenerationRequest.n_samples``, capped by the
+plan's ``resolved_n_samples``): when a primary's prompt is prefilled, n-1
+sibling slots fork off its prompt blocks by refcount, draw their first
+tokens from the same logits on their own sample streams, and diverge by
+copy-on-write.
+
+``evacuate`` strips every queued, in-flight and parked request out (a
+crash of this data plane) and returns them for resubmission.
+
+Not ported: speculative decoding (a constructor argument that asks for it
+raises, naming ``ROADMAP.md`` Queue 1 item 4).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.allocator import DPGroupRouter, ParallelPlan
+from repro_torch.core.categories import Outcome
 from repro_torch.device import resolve_device
 from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
@@ -94,10 +116,11 @@ from repro_torch.models.registry import ModelApi, model_api
 from repro_torch.obs.trace import NULL_TRACER
 
 from . import kvcache
+from .admission import AdmissionController, AdmissionReject, ParkedEntry
 from .arena import KVArena
 from .batching import ComposedBatch, QueuedItem, make_composer
 from .prefix_cache import PrefixHit, RadixPrefixCache
-from .sampler import SamplerConfig, sample_per_slot
+from .sampler import STREAM_DECODE, SamplerConfig, prng_key, sample_per_slot
 
 DEFAULT_MAX_SEQ_LEN = 256
 DEFAULT_BLOCK_SIZE = 32
@@ -116,9 +139,19 @@ class GenerationRequest:
     max_new_tokens: int = 16
     stream: int = 0
     extras: Optional[Dict[str, Any]] = None   # e.g. frame embeddings
+    submitted_s: float = 0.0
     eos_token: Optional[int] = None  # evict the slot early on this token
-    seed: Optional[int] = None       # sampling stream seed (None -> rid)
-    n_samples: int = 1               # > 1 (n-way forks) is not ported yet
+    deadline_s: float = 0.0          # absolute deadline in the caller's
+    #                                  clock (0 = none); the admission
+    #                                  controller's slack/verdict input
+    seed: Optional[int] = None       # sampling stream seed (None -> rid):
+    #                                  every token this request draws is a
+    #                                  pure function of (seed, sample_idx,
+    #                                  emitted offset), never of the batch
+    n_samples: int = 1               # n-way parallel sampling: n-1 forks
+    #                                  share the prompt's blocks and
+    #                                  diverge by copy-on-write (capped by
+    #                                  the plan's resolved_n_samples())
 
 
 @dataclasses.dataclass
@@ -131,14 +164,15 @@ class GenerationResult:
     admitted_s: float = 0.0          # logical clock at admission
     finished_s: float = 0.0          # logical clock at eviction
     decode_steps: int = 0            # fused steps this request took part in
+    sample: int = 0                  # which of the request's n parallel
+    #                                  samples this result is (0 = primary)
 
 
 @dataclasses.dataclass
 class StepStats:
     """One scheduling round's telemetry: the reference's fields in its
     order, so that ``obs.metrics.step_stat_sums`` folds the same series.
-    The fields of parts not ported yet (admission verdicts, parking,
-    speculation, forks) stay at zero."""
+    The speculation fields (not ported yet) stay at zero."""
     results: List[GenerationResult]
     now: float = 0.0
     admitted: int = 0                # requests admitted this step
@@ -163,23 +197,26 @@ class StepStats:
     #                                  (token-assignments past capacity;
     #                                  nonzero under binding capacity, where
     #                                  chunked prefill may diverge)
-    rejected: List[Any] = dataclasses.field(
-        default_factory=list)        # admission verdicts (item 3)
-    deadline_missed: int = 0
-    congestion_rejects: int = 0
-    offload_verdicts: int = 0
-    failed_rejects: int = 0
+    rejected: List[AdmissionReject] = dataclasses.field(
+        default_factory=list)        # requests shed this step, each with
+    #                                  an explicit verdict
+    deadline_missed: int = 0         # DEADLINE_MISSED verdicts this step
+    congestion_rejects: int = 0      # CONGESTION verdicts this step
+    offload_verdicts: int = 0        # OFFLOAD verdicts this step
+    failed_rejects: int = 0          # FAILED verdicts this step
     evacuated: int = 0               # requests stripped out by ``evacuate``
     #                                  since the last step
-    preempted: int = 0               # parking (item 3)
-    resumed: int = 0
-    parked: int = 0
-    draft_steps: int = 0             # speculation and forks (item 4)
+    preempted: int = 0               # live slots parked this step
+    resumed: int = 0                 # parked requests re-admitted this step
+    parked: int = 0                  # parked requests outstanding after
+    #                                  the step (KV frozen in the arena)
+    draft_steps: int = 0             # speculation (item 4)
     verify_launches: int = 0
     accepted_tokens: int = 0
     spec_slots: int = 0
-    forks_spawned: int = 0
-    fork_shortfall: int = 0
+    forks_spawned: int = 0           # n>1 sibling slots forked this step
+    fork_shortfall: int = 0          # requested forks not spawned (slot or
+    #                                  block pressure; primary still runs)
     spec_degraded: int = 0
 
 
@@ -191,7 +228,7 @@ class _Slot:
     chunk's logits yield the first token."""
     __slots__ = ("req", "emitted", "done", "prefill_s", "admit_wall",
                  "decode_start_wall", "finish_wall", "admitted_s", "steps",
-                 "slot_id", "prefilling", "consumed")
+                 "slot_id", "prefilling", "consumed", "sample_idx")
 
     def __init__(self, req: GenerationRequest, admit_wall: float,
                  admitted_s: float, slot_id: int):
@@ -205,6 +242,7 @@ class _Slot:
         self.slot_id = slot_id
         self.consumed = 0                   # prompt tokens prefilled so far
         #                                     (a prefix hit starts past 0)
+        self.sample_idx = 0                 # 0 = primary; >0 = n>1 fork
         self.prefilling = True
         self.emitted: List[int] = []
         self.done = False
@@ -258,7 +296,7 @@ class ServiceRuntime:
     ``params`` must lie on ``device`` (the card unless ``"cpu"``)."""
 
     def __init__(self, cfg: ModelConfig, params, plan: ParallelPlan, *,
-                 sampler: SamplerConfig = SamplerConfig(),
+                 sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
                  mode: str = "continuous", kvcache_impl: str = "paged",
                  max_seq_len: int = DEFAULT_MAX_SEQ_LEN,
                  block_size: int = DEFAULT_BLOCK_SIZE,
@@ -268,6 +306,7 @@ class ServiceRuntime:
                  prefix_cache: Optional[Any] = None,
                  paged_native: Optional[bool] = None,
                  admission_policy: Optional[str] = None,
+                 preempt: bool = True,
                  draft_params=None, draft_cfg: Optional[ModelConfig] = None,
                  speculate: Optional[int] = None, device=None,
                  tracer=None, metrics=None, obs_name: Optional[str] = None):
@@ -285,15 +324,9 @@ class ServiceRuntime:
                 "pools are block-quantized); dense caches keep the model's "
                 "native dtype")
         self.api: ModelApi = model_api(cfg)
-        if (admission_policy or plan.admission) != "fifo":
-            raise _not_ported("admission policy "
-                              f"{admission_policy or plan.admission!r}",
-                              "item 3")
         if (draft_params is not None or draft_cfg is not None
                 or (speculate or 0) > 0 or plan.speculate > 0):
             raise _not_ported("speculative decoding", "item 4")
-        if sampler.temperature > 0.0:
-            raise _not_ported("stochastic sampling", "item 7")
         self.device = resolve_device(device)
         leaf = params["embed"]["embedding"]
         if leaf.device.type != self.device.type:
@@ -310,6 +343,7 @@ class ServiceRuntime:
         self.block_size = block_size
         self.pool_blocks = pool_blocks
         self.sampler = sampler
+        self._key = prng_key(seed, self.device)
         # -- observability (repro_torch/obs): off by default.  Every call
         # site tests ``trace.enabled`` or ``metrics is not None`` before it
         # builds arguments or reads a clock, and neither layer touches a
@@ -338,6 +372,15 @@ class ServiceRuntime:
         self.composer = make_composer(plan)
         self.groups: Dict[int, _GroupState] = {
             g: _GroupState() for g in range(max(1, plan.dp))}
+        # deadline-aware admission control: policy from the plan's knob
+        # unless overridden; "fifo" (the default) keeps the controller
+        # inert
+        self.admission = AdmissionController(self, admission_policy,
+                                             preempt=preempt)
+        if self.admission.active and mode != "continuous":
+            raise ValueError(
+                "admission policy 'sdf' requires mode='continuous' (slack "
+                "ordering and preemption act on the slot loop)")
         self.decode_steps = 0        # fused decode invocations (all groups)
         self.admission_copy_bytes = 0  # cache bytes copied by admissions
         self.chunk_write_bytes = 0   # fresh rows appended by chunked prefill
@@ -440,6 +483,15 @@ class ServiceRuntime:
         self._prefix_knob = knob
         self.prefix_cache_enabled = bool(cacheable and knob != 0)
 
+        # -- n>1 parallel sampling (refcounted prompt-block forks) --------
+        self.forks_spawned = 0
+        self.fork_shortfall = 0
+        self._sibling_refs: Dict[int, int] = {}   # rid -> live siblings
+        self.n_samples_cap = (plan.resolved_n_samples()
+                              if (mode == "continuous"
+                                  and kvcache_impl == "paged"
+                                  and self.chunked_prefill) else 1)
+
     @property
     def slot_token_budget(self) -> int:
         """Cache tokens one arena slot can hold (block-rounded
@@ -475,8 +527,6 @@ class ServiceRuntime:
 
     # -- queue ------------------------------------------------------------
     def submit(self, req: GenerationRequest, now: float = 0.0) -> None:
-        if req.n_samples > 1:
-            raise _not_ported("n-way parallel sampling", "item 4")
         if self.cfg.family == "audio":
             want = (self.cfg.encoder_len, self.cfg.d_model)
             emb = (req.extras or {}).get("embeddings")
@@ -544,7 +594,21 @@ class ServiceRuntime:
         return self.cfg.prefix_len if self.cfg.family == "vlm" else 0
 
     def _req_seed(self, req: GenerationRequest) -> int:
+        """The request's sampling-stream seed (``rid`` unless the caller
+        pinned one)."""
         return req.rid if req.seed is None else int(req.seed)
+
+    def _sample(self, logits, seeds, sample_ids, offsets, live=None,
+                occupancy=None, stream: int = STREAM_DECODE):
+        """Per-slot counter-based sampling on the runtime's device: row
+        ``i``'s key folds (seed, sample index, stream, offset) into the
+        runtime's base key, so its tokens are the same alone, in any batch
+        mix, and across park and resume."""
+        return sample_per_slot(
+            logits, self._key, np.asarray(seeds, np.int64) & 0xFFFFFFFF,
+            np.asarray(sample_ids, np.int64),
+            np.asarray(offsets, np.int64), self.sampler, stream=stream,
+            live=live, occupancy=occupancy)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -566,6 +630,12 @@ class ServiceRuntime:
             tr.end(self.obs_name, tid, group=group)
             tr.begin(self.obs_name, tid, next_span, **args)
 
+    def _slot_tid(self, s: _Slot) -> str:
+        """The slot's trace timeline: the request id, with n>1 sampling
+        forks on their own ``rid.sample`` lane."""
+        return (str(s.req.rid) if s.sample_idx == 0
+                else f"{s.req.rid}.{s.sample_idx}")
+
     def _finish_request(self, req: GenerationRequest) -> None:
         """Bookkeeping whenever a request leaves the data plane (eviction,
         sync-batch completion, evacuation): its observability state, its
@@ -585,8 +655,21 @@ class ServiceRuntime:
         else:
             self._session_refs[req.stream] = left
 
+    def _finish_sibling(self, req: GenerationRequest) -> None:
+        """Eviction-side bookkeeping for n>1 sampling: a forked request
+        leaves the data plane once, when its last sibling slot does."""
+        refs = self._sibling_refs.get(req.rid)
+        if refs is None or refs <= 1:
+            self._sibling_refs.pop(req.rid, None)
+            self._finish_request(req)
+        else:
+            self._sibling_refs[req.rid] = refs - 1
+
     def _note_service_time(self, res: GenerationResult) -> None:
-        self.prefill_seconds += max(0.0, res.prefill_s)
+        if res.sample == 0:
+            # forks carry the primary's prefill_s but paid no prefill
+            # compute: count the wall time once
+            self.prefill_seconds += max(0.0, res.prefill_s)
         t = max(1e-6, res.prefill_s + max(0.0, res.decode_s))
         self._service_ewma_s = (t if self._service_ewma_s == 0.0
                                 else 0.8 * self._service_ewma_s + 0.2 * t)
@@ -637,11 +720,12 @@ class ServiceRuntime:
                 prefill_s=s.prefill_s,
                 decode_s=max(0.0, s.finish_wall - s.decode_start_wall),
                 group=group, admitted_s=s.admitted_s, finished_s=now,
-                decode_steps=s.steps)
+                decode_steps=s.steps, sample=s.sample_idx)
             results.append(res)
             self._note_service_time(res)
+            self.admission.observe(res)
             if self.trace.enabled:
-                self.trace.end(self.obs_name, str(s.req.rid),
+                self.trace.end(self.obs_name, self._slot_tid(s),
                                tokens=len(s.emitted), steps=s.steps)
             if self.metrics is not None:
                 n = len(s.emitted)
@@ -660,7 +744,7 @@ class ServiceRuntime:
                     state.prefix.insert(s.req.tokens,
                                         state.arena._block_tables[s.slot_id])
                 state.arena.free(s.slot_id)
-            self._finish_request(s.req)
+            self._finish_sibling(s.req)
         state.slots = [state.slots[i] for i in keep]
         if state.arena is None:
             state.cache = (kvcache.select_slots(state.cache, keep)
@@ -705,6 +789,10 @@ class ServiceRuntime:
                 raise ValueError(
                     f"request {req.rid} needs {total} tokens > per-slot "
                     f"budget {arena.slot_tokens}; raise max_seq_len")
+            entry = self.admission.parked.get(req.rid)
+            if entry is not None:
+                return self._resume_parked(req, state, entry, total,
+                                           pending_cows)
             if self.chunked_prefill:
                 return self._admit_chunked(req, group, state, arena, total,
                                            now, pending_cows)
@@ -720,8 +808,7 @@ class ServiceRuntime:
         batch = self._build_batch([req], self._pad_prompts([req]))
         logits, cache = self.api.prefill(self.params, self.cfg, batch,
                                          cache_size=cache_size)
-        first = int(sample_per_slot(logits, [self._req_seed(req)], [0], [0],
-                                    self.sampler)[0])
+        first = int(self._sample(logits, [self._req_seed(req)], [0], [0])[0])
         t1 = time.perf_counter()
         self.oneshot_prefills += 1
         self.prefill_tokens_computed += len(req.tokens)
@@ -807,9 +894,133 @@ class ServiceRuntime:
         self._obs_admitted(req, group, "prefill", hit_tokens=slot.consumed)
         return True
 
+    def _resume_parked(self, req: GenerationRequest, state: _GroupState,
+                       entry: ParkedEntry, total: int,
+                       pending_cows: List) -> bool:
+        """Re-admit a preempted request onto its parked blocks: alloc with
+        ``shared=blocks`` re-increfs every block (a whole-content prefix
+        hit, generated tokens included), then the parked hold drops, so
+        the refcounts are unchanged, with no prefill and no copy.  The
+        slot resumes at the device length and emitted tokens of park
+        time."""
+        arena = state.arena
+        if not arena.can_alloc(total, shared=entry.blocks,
+                               reserve=len(pending_cows)):
+            return False
+        slot_id = arena.alloc(total, shared=entry.blocks)
+        arena.release_parked(entry.blocks)
+        arena.set_len(slot_id, entry.cache_len)
+        slot = _Slot(req, admit_wall=entry.admit_wall,
+                     admitted_s=entry.admitted_s, slot_id=slot_id)
+        slot.prefill_s = entry.prefill_s
+        slot.prefilling = False
+        slot.emitted = list(entry.emitted)
+        slot.decode_start_wall = entry.decode_start_wall
+        slot.steps = entry.steps
+        slot.consumed = entry.consumed
+        state.slots.append(slot)
+        self.admission.pop_parked(req.rid)
+        self.admission.note_resume()
+        if state.prefix is not None:
+            # the whole parked content (prompt and generated K/V) is served
+            # from resident blocks: the prefix cache's hit telemetry counts
+            # it
+            state.prefix.note_resume(entry.cache_len)
+        self._obs_admitted(req, entry.group, "decode", resumed=True)
+        return True
+
+    def _park_slot(self, group: int, state: _GroupState, s: _Slot,
+                   now: float) -> None:
+        """Preempt one live decode slot by block-table parking: freeze its
+        blocks in the arena (the K/V stays resident, its references held
+        by the ``ParkedEntry``), free the slot, and re-queue the request;
+        its later compose resumes it through ``_resume_parked``."""
+        arena = state.arena
+        entry = ParkedEntry(
+            req=s.req, group=group,
+            blocks=[], cache_len=int(arena.lens[s.slot_id]),
+            emitted=list(s.emitted), consumed=s.consumed, steps=s.steps,
+            prefill_s=s.prefill_s, admit_wall=s.admit_wall,
+            decode_start_wall=s.decode_start_wall,
+            admitted_s=s.admitted_s, parked_s=now)
+        entry.blocks = arena.park(s.slot_id)
+        state.slots.remove(s)
+        self.admission.note_park(entry)
+        tr = self.trace
+        if tr.enabled:
+            tid = str(s.req.rid)
+            tr.end(self.obs_name, tid, reason="park", tokens=len(s.emitted))
+            tr.begin(self.obs_name, tid, "parked")
+        self.composer.add(QueuedItem(payload=s.req, stream=s.req.stream,
+                                     enqueued_s=now, rid=s.req.rid))
+
+    def _maybe_preempt(self, now: float) -> None:
+        """Park the laziest live decode slot when the most urgent pending
+        request would otherwise miss its deadline waiting.  One victim per
+        step bounds the churn; the controller's guard ensures the victim
+        can afford the round trip."""
+        ctrl = self.admission
+        if not (ctrl.active and ctrl.preempt
+                and self.kvcache_impl == "paged"):
+            return
+        if self._free_slots() > 0 or len(ctrl.parked) >= ctrl.max_parked:
+            return
+        head = self.composer.peek()
+        if head is None:
+            return
+        urgent_slack = ctrl.slack(head.payload, now)
+        if not 0.0 <= urgent_slack < float("inf"):
+            return                   # doomed (shed next round) or lax
+        if urgent_slack >= ctrl.wait_estimate(now):
+            return                   # it can afford to wait its turn
+        candidates = []
+        for g, state in self.groups.items():
+            arena = state.arena
+            if arena is None or not arena.parkable:
+                continue             # per-slot state can't survive parking
+            for s in state.slots:
+                if s.done or s.prefilling or s.req.rid == head.rid:
+                    continue
+                if s.req.rid in self._sibling_refs:
+                    # n>1 siblings share one request identity: parking one
+                    # fork would re-queue the rid while the others keep
+                    # decoding it, and its resume would admit it twice
+                    continue
+                candidates.append((ctrl.slot_slack(s, now),
+                                   ctrl.remaining_estimate(s),
+                                   (g, state, s)))
+        victim = ctrl.pick_victim(urgent_slack, candidates)
+        if victim is not None:
+            self._park_slot(*victim, now)
+
+    def _shed_rejected(self, now: float) -> List[AdmissionReject]:
+        """Run the controller's shed pass and finalize each reject: parked
+        blocks go back to the arena (cached ones to the idle LRU), the
+        session pin drops, and the request leaves the data plane carrying
+        its verdict."""
+        rejects: List[AdmissionReject] = []
+        for item, verdict in self.admission.shed(now):
+            req = item.payload
+            entry = self.admission.pop_parked(item.rid)
+            if entry is not None:
+                self.groups[entry.group].arena.release_parked(entry.blocks)
+            if self.trace.enabled:
+                # the verdict lands on the outermost ("request") span;
+                # _finish_request's close then finds nothing open
+                self.trace.close(self.obs_name, str(req.rid),
+                                 verdict=verdict.name)
+            self._finish_request(req)
+            rejects.append(AdmissionReject(req=req, verdict=verdict,
+                                           now=now))
+        return rejects
+
     def _route_admission(self, item: QueuedItem) -> Optional[int]:
         """A DP group with a free slot; a sticky session must land on its
-        pinned group or wait."""
+        pinned group or wait, and a parked request on the group whose
+        arena holds its blocks."""
+        pg = self.admission.parked_group(item.rid)
+        if pg is not None:
+            return pg if self.groups[pg].live < self.plan.bs else None
         g = self.router.route(session=item.stream)
         if self.groups[g].live < self.plan.bs:
             return g
@@ -848,6 +1059,7 @@ class ServiceRuntime:
                                               * arena.token_bytes)
         for item in reversed(unplaced):   # push_front in reverse keeps FIFO
             self.composer.push_front(item)
+        self.admission.note_admit(admitted)
         return admitted
 
     def _run_chunk(self, arena: KVArena, s: _Slot, T: int):
@@ -933,12 +1145,13 @@ class ServiceRuntime:
                                 "prefill_chunk", ct0, tokens=n_valid,
                                 bucket=T)
                 if s.consumed >= len(s.req.tokens):
-                    first = int(sample_per_slot(
-                        logits, [self._req_seed(s.req)], [0], [0],
-                        self.sampler)[0])
+                    first = int(self._sample(
+                        logits, [self._req_seed(s.req)], [s.sample_idx],
+                        [0])[0])
                     t1 = time.perf_counter()
                     s.prefill_s += t1 - t0
                     s.begin_decode(first, t1)
+                    self._spawn_forks(state, s, logits, t1)
                     if tr.enabled:
                         tid = str(s.req.rid)
                         tr.end(self.obs_name, tid,
@@ -960,6 +1173,59 @@ class ServiceRuntime:
                     s.prefill_s += time.perf_counter() - t0
         return done_tokens
 
+    def _spawn_forks(self, state: _GroupState, s: _Slot, logits,
+                     wall: float) -> None:
+        """Fork ``n_samples - 1`` sibling slots off a primary that just
+        finished prefill: each fork allocs with ``shared=`` the primary's
+        prompt blocks (refcount bumps, no prefill compute and no copy),
+        draws its first token from the same final-chunk logits on its own
+        ``sample_idx`` stream, and diverges from the shared tail block by
+        copy-on-write on its first append.  Slot or block pressure spawns
+        fewer than asked (counted as shortfall); the primary always
+        runs."""
+        if s.sample_idx != 0:
+            return
+        asked = int(getattr(s.req, "n_samples", 1)) - 1
+        want = min(asked + 1, self.n_samples_cap) - 1
+        if want <= 0:
+            # shortfall counts every sibling asked for but denied, by the
+            # category's cap as by alloc failures
+            self.fork_shortfall += max(0, asked)
+            return
+        arena = state.arena
+        P = len(s.req.tokens) + self._extra_cache_tokens()
+        total = P + s.req.max_new_tokens
+        shared = list(arena._block_tables[s.slot_id][:arena.blocks_for(P)])
+        seed = self._req_seed(s.req)
+        first = self._sample(
+            logits.reshape(1, -1).expand(want, logits.shape[-1]),
+            [seed] * want, list(range(1, want + 1)), [0] * want).cpu()
+        spawned = 0
+        for i in range(want):
+            if (state.live >= self.plan.bs
+                    or not arena.can_alloc(total, shared=shared)):
+                break
+            sid = arena.alloc(total, shared=shared)
+            arena.set_len(sid, P)
+            fork = _Slot(s.req, admit_wall=s.admit_wall,
+                         admitted_s=s.admitted_s, slot_id=sid)
+            fork.prefill_s = s.prefill_s
+            fork.consumed = len(s.req.tokens)
+            fork.sample_idx = i + 1
+            fork.begin_decode(int(first[i]), wall)
+            state.slots.append(fork)
+            spawned += 1
+            if self.trace.enabled:
+                # forks live on their own "rid.sample" lane carrying only
+                # a decode span: no prefill is the point
+                ftid = self._slot_tid(fork)
+                self.trace.begin(self.obs_name, ftid, "decode", fork=True)
+                self.trace.instant(self.obs_name, ftid, "first_token")
+        self.forks_spawned += spawned
+        self.fork_shortfall += asked - spawned
+        if spawned:
+            self._sibling_refs[s.req.rid] = spawned + 1
+
     def _decode_group_paged(self, state: _GroupState) -> None:
         """(c) One fused decode step over every slot of the arena.
         Paged-native: attention reads the pools in place and writes each
@@ -972,19 +1238,21 @@ class ServiceRuntime:
         cap = arena.capacity
         tokens = np.zeros((cap,), np.int32)
         live = np.zeros((cap,), bool)
-        seeds = np.zeros((cap,), np.uint32)
-        offs = np.zeros((cap,), np.uint32)
+        seeds = np.zeros((cap,), np.int64)
+        sids = np.zeros((cap,), np.int64)
+        offs = np.zeros((cap,), np.int64)
         for s in state.slots:
             if s.done or s.prefilling:
                 continue
             sid = s.slot_id
             tokens[sid] = s.emitted[-1]
             live[sid] = True
-            seeds[sid] = np.uint32(self._req_seed(s.req) & 0xFFFFFFFF)
+            seeds[sid] = self._req_seed(s.req) & 0xFFFFFFFF
+            sids[sid] = s.sample_idx
             offs[sid] = len(s.emitted)
             # the append position can sit in a block the prefix index froze
-            # or another slot shares: copy first (free when nothing in the
-            # pool is shared)
+            # or another slot (an n>1 sibling) shares: copy first (free
+            # when nothing in the pool is shared)
             pos = (len(s.req.tokens) + self._extra_cache_tokens()
                    + len(s.emitted) - 1)
             copied = arena.ensure_writable(sid, pos, 1)
@@ -1014,9 +1282,9 @@ class ServiceRuntime:
         arena.lens = new_cache["len"]
         tr = self.trace
         ts0 = tr.clock() if tr.enabled else 0.0
-        toks = sample_per_slot(
-            logits, seeds, np.zeros((cap,), np.uint32), offs, self.sampler,
-            live=live_dev, occupancy=arena.device_occupancy()).cpu().numpy()
+        toks = self._sample(
+            logits, seeds, sids, offs, live=live_dev,
+            occupancy=arena.device_occupancy()).cpu().numpy()
         if tr.enabled:
             tr.complete(self.obs_name, "engine", "sample", ts0,
                         live=int(live.sum()))
@@ -1039,10 +1307,11 @@ class ServiceRuntime:
                            device=dev)
         logits, state.cache = self.api.decode_step(self.params, self.cfg,
                                                    cur, state.cache)
-        toks = sample_per_slot(
+        toks = self._sample(
             logits, [self._req_seed(s.req) for s in state.slots],
-            [0] * len(state.slots), [len(s.emitted) for s in state.slots],
-            self.sampler, live=torch.from_numpy(live).to(dev)).cpu().numpy()
+            [s.sample_idx for s in state.slots],
+            [len(s.emitted) for s in state.slots],
+            live=torch.from_numpy(live).to(dev)).cpu().numpy()
         self.decode_steps += 1
         for i, slot in enumerate(state.slots):
             if slot.done:
@@ -1102,30 +1371,43 @@ class ServiceRuntime:
         return n
 
     def evacuate(self, now: float = 0.0) -> List[GenerationRequest]:
-        """Crash this runtime's data plane: strip every queued and in-flight
-        request out and return them, one per rid, for resubmission.  Live
-        slots free their arena slots with no prefix insert (the slot died
-        mid-flight); the warm prefix index is kept, so a resubmission here
-        re-prefills from it as it stands.  The reference also releases its
-        parked entries' blocks here; that loop comes with parking (ROADMAP
-        Queue 1 item 3)."""
+        """Crash this runtime's data plane: strip every queued, in-flight
+        and parked request out and return them, one per rid, for
+        resubmission.  Live slots free their arena slots with no prefix
+        insert (the slot died mid-flight), and parked entries release their
+        frozen blocks; the warm prefix index is kept, so a resubmission
+        here re-prefills from it as it stands."""
         out: Dict[int, GenerationRequest] = {}
+        # (1) queued work, including the rids _park_slot re-queued
         for item, _ in self.composer.shed(lambda item: True):
             out.setdefault(item.payload.rid, item.payload)
+        # (2) live slots.  Slot rids are finished here (through the sibling
+        # refcount, once per rid) and skipped in the last pass; queued and
+        # parked rids never overlap live slots
         slot_rids = set()
         for state in self.groups.values():
             for s in state.slots:
                 if state.arena is not None:
                     state.arena.free(s.slot_id)
                 if self.trace.enabled:
-                    self.trace.close(self.obs_name, str(s.req.rid),
+                    self.trace.close(self.obs_name, self._slot_tid(s),
                                      outcome="evacuated")
                 out.setdefault(s.req.rid, s.req)
                 slot_rids.add(s.req.rid)
-                self._finish_request(s.req)
+                self._finish_sibling(s.req)
             state.slots = []
             if state.arena is None:
                 state.cache = None
+        # (3) parked entries: their frozen blocks go back to the arena (the
+        # rid itself is already in ``out`` through the composer drain)
+        for rid in list(self.admission.parked):
+            entry = self.admission.pop_parked(rid)
+            if entry is None:
+                continue
+            arena = self.groups[entry.group].arena
+            if arena is not None:
+                arena.release_parked(entry.blocks)
+            out.setdefault(entry.req.rid, entry.req)
         for req in out.values():
             if req.rid in slot_rids:
                 continue
@@ -1144,6 +1426,7 @@ class ServiceRuntime:
         copy0, whole0 = self.admission_copy_bytes, self.whole_cache_copies
         chunkw0, steps0 = self.chunk_write_bytes, self.decode_steps
         one0 = self.oneshot_prefills
+        fk0, fs0 = self.forks_spawned, self.fork_shortfall
         pfx0 = self._prefix_totals()
         results: List[GenerationResult] = []
         for group, state in self.groups.items():
@@ -1151,6 +1434,22 @@ class ServiceRuntime:
         if tr.enabled:
             t_phase = self._phase_mark("evict", t_phase,
                                        evicted=len(results))
+        # admission control (inert under "fifo"): learn the caller's clock,
+        # order by slack, shed with verdicts, then park a victim if the
+        # urgent head can't wait, all before compose, so that the freed
+        # slot goes to the strictest deadline
+        ctrl = self.admission
+        rejected: List[AdmissionReject] = []
+        preempt0, resume0 = ctrl.preemptions, ctrl.resumes
+        if ctrl.active:
+            ctrl.note_step(now)
+            ctrl.order(now)          # slack order first: shed walks it
+            rejected = self._shed_rejected(now)
+            self._maybe_preempt(now)
+            if tr.enabled:
+                t_phase = self._phase_mark(
+                    "preempt", t_phase, shed=len(rejected),
+                    parked=ctrl.preemptions - preempt0)
         admitted = self._admit(now, max_wait_s)
         if tr.enabled:
             t_phase = self._phase_mark("admit", t_phase, admitted=admitted)
@@ -1169,6 +1468,8 @@ class ServiceRuntime:
                         admitted=admitted, evicted=len(results),
                         in_flight=self.in_flight(),
                         pending=self.pending())
+        verdict_count = lambda v: sum(1 for r in rejected
+                                      if r.verdict is v)
         return StepStats(
             results=results, now=now, admitted=admitted,
             evicted=len(results), in_flight=self.in_flight(),
@@ -1185,7 +1486,17 @@ class ServiceRuntime:
             prefix_hit_tokens=pfx1[2] - pfx0[2],
             prefix_evicted_blocks=pfx1[3] - pfx0[3],
             prefix_cow_blocks=pfx1[4] - pfx0[4],
-            evacuated=self._take_evacuated())
+            rejected=rejected,
+            deadline_missed=verdict_count(Outcome.DEADLINE_MISSED),
+            congestion_rejects=verdict_count(Outcome.CONGESTION),
+            offload_verdicts=verdict_count(Outcome.OFFLOAD),
+            failed_rejects=verdict_count(Outcome.FAILED),
+            evacuated=self._take_evacuated(),
+            preempted=ctrl.preemptions - preempt0,
+            resumed=ctrl.resumes - resume0,
+            parked=len(ctrl.parked),
+            forks_spawned=self.forks_spawned - fk0,
+            fork_shortfall=self.fork_shortfall - fs0)
 
     # ------------------------------------------------------------------
     # sync mode: run-to-completion batches (the pre-slot baseline)
@@ -1213,13 +1524,12 @@ class ServiceRuntime:
 
         seeds = [self._req_seed(r) for r in reqs]
         zeros = [0] * len(reqs)
-        cur = sample_per_slot(logits, seeds, zeros, zeros, self.sampler)
+        cur = self._sample(logits, seeds, zeros, zeros)
         outs = [cur]
         for i in range(max_new - 1):
             logits, cache = self.api.decode_step(self.params, self.cfg, cur,
                                                  cache)
-            cur = sample_per_slot(logits, seeds, zeros, [i + 1] * len(reqs),
-                                  self.sampler)
+            cur = self._sample(logits, seeds, zeros, [i + 1] * len(reqs))
             outs.append(cur)
             self.decode_steps += 1
         gen = torch.stack(outs, dim=1).cpu().numpy()      # (B, max_new)
@@ -1315,7 +1625,17 @@ class EparaServingEngine:
 
     def drain(self, now: float = 0.0,
               max_wait_s: float = 0.0) -> List[GenerationResult]:
-        """Step every runtime round-robin until none can make progress."""
+        return self.serve_until_idle(now=now, max_wait_s=max_wait_s)
+
+    def serve_until_idle(self, now: float = 0.0, max_wait_s: float = 0.0,
+                         on_stats: Optional[Callable] = None,
+                         clock: Optional[Callable[[], float]] = None
+                         ) -> List[GenerationResult]:
+        """Step every runtime round-robin until none can make progress,
+        calling ``on_stats(service, stats)`` after each round.  ``clock``
+        (when given) supplies each round's ``now``: a live clock is what
+        makes the admission controller's deadlines bite (a frozen ``now``
+        never expires anything)."""
         out: List[GenerationResult] = []
         progress = True
         while progress:
@@ -1323,11 +1643,14 @@ class EparaServingEngine:
             for name, rt in self.runtimes.items():
                 if not (rt.pending() or rt.in_flight()):
                     continue
-                stats = rt.step(now=now, max_wait_s=max_wait_s)
+                stats = rt.step(now=clock() if clock is not None else now,
+                                max_wait_s=max_wait_s)
                 self.last_stats[name] = stats
                 out.extend(stats.results)
+                if on_stats is not None:
+                    on_stats(name, stats)
                 if (stats.results or stats.admitted or stats.decode_steps
-                        or stats.prefill_chunk_tokens):
+                        or stats.prefill_chunk_tokens or stats.rejected):
                     progress = True
         self._results.extend(out)
         return out

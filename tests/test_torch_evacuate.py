@@ -15,9 +15,10 @@ to idle: their tokens equal the reference's and those of an uninterrupted
 run, the event streams are equal event for event (a resubmitted rid's
 timeline holds two ``request`` roots, the first closed with
 ``outcome="evacuated"``), and so are the count-valued metrics.  Every
-comparison is exact.  The parked-entry release of the reference's
-``evacuate`` comes with parking (ROADMAP.md Queue 1 item 3), so no case
-parks.  The first test mirrors ``tests/test_faults.py``'s
+comparison is exact.  One case evacuates an sdf runtime that holds a
+parked request and a forked one (two sibling slots) at temperature 0.8:
+the parked entry's blocks go back to the arena and each rid comes back
+once.  The first test mirrors ``tests/test_faults.py``'s
 ``test_evacuate_strips_queued_and_inflight`` on the port.
 """
 import dataclasses
@@ -240,3 +241,82 @@ def test_evacuate_keeps_the_warm_prefix_index(weights):
     assert trt.prefix_hits == jrt.prefix_hits
     assert trt.prefix_hits - hits0 >= len(tback)
     assert trt.prefill_tokens_computed == jrt.prefill_tokens_computed
+
+
+def test_evacuate_releases_parked_entries_and_forks(weights):
+    """An sdf runtime (3 slots, up to 2 samples a request, temperature 0.8)
+    holds a forked request on two sibling slots, a parked lazy request
+    and a queued one when it is evacuated: the returned rids (each once),
+    the arena (no parked block, no live slot), the controller, the
+    sibling refcounts and the event streams equal the reference's, and
+    the resubmitted requests are served with the reference's tokens."""
+    from repro.serving.sampler import SamplerConfig as JSampler
+    from repro_torch.serving.sampler import SamplerConfig
+    kw = dict(bs=3, admission="sdf", n_samples=2)
+    jplan = JPlan(service="toy", category=JCat(JSens.LATENCY, False), **kw)
+    tplan = ParallelPlan(service="toy", category=TaskCategory(
+        Sensitivity.LATENCY, False), **kw)
+    rts = (JRuntime(_CFG, weights[0], jplan, impl="ref",
+                    sampler=JSampler(0.8, 40),
+                    tracer=JTracer(clock=_ticks()), **KW),
+           ServiceRuntime(_mirror(_CFG), weights[1], tplan, device="cpu",
+                          sampler=SamplerConfig(0.8, 40),
+                          tracer=Tracer(clock=_ticks()), **KW))
+    backs, served = [], []
+    for rt, cls in zip(rts, (JRequest, GenerationRequest)):
+        t = 0.0
+        for rid in (100, 101):
+            rt.submit(cls(rid=rid, tokens=np.arange(1, 5, dtype=np.int32),
+                          max_new_tokens=4), now=t)
+        done = []
+        while rt.pending() or rt.in_flight():
+            done += rt.step(now=t).results
+            t += 1.0
+        rt.submit(cls(rid=10, tokens=np.arange(2, 8, dtype=np.int32),
+                      max_new_tokens=20, n_samples=2), now=t)
+        rt.submit(cls(rid=11, tokens=np.arange(3, 9, dtype=np.int32),
+                      max_new_tokens=30), now=t)
+        for _ in range(2):
+            done += rt.step(now=t).results
+            t += 1.0
+        rt.submit(cls(rid=7, tokens=np.arange(1, 5, dtype=np.int32),
+                      max_new_tokens=4, deadline_s=t + 12.0), now=t)
+        for _ in range(9):          # the park comes on the 8th step
+            done += rt.step(now=t).results
+            t += 1.0
+        rt.submit(cls(rid=8, tokens=np.arange(4, 9, dtype=np.int32),
+                      max_new_tokens=3), now=t)
+        assert list(rt.admission.parked) == [11]
+        assert rt._sibling_refs == {10: 2}
+        assert rt.groups[0].arena.parked_blocks > 0
+        back = rt.evacuate(now=t)
+        arena = rt.groups[0].arena
+        assert (arena.parked_blocks, arena.live) == (0, 0)
+        assert not rt.admission.parked and not rt._sibling_refs
+        assert rt.pending() == rt.in_flight() == 0
+        backs.append([r.rid for r in back])
+        for r in back:
+            rt.submit(r, now=t)
+        shed = []
+        while rt.pending() or rt.in_flight():
+            st = rt.step(now=t)
+            done += st.results
+            shed += [(r.req.rid, r.verdict.value) for r in st.rejected]
+            t += 1.0
+        served.append(({(r.rid, r.sample): tuple(int(x) for x in r.tokens)
+                        for r in done}, shed))
+    assert backs[1] == backs[0] and sorted(backs[1]) == [7, 8, 10, 11]
+    # resubmitted, rid 7 has passed its deadline and is shed with a
+    # verdict, and rid 10's fork finds no free slot beside the others (a
+    # shortfall), as in the reference
+    assert served[1] == served[0]
+    assert sorted(served[1][0]) == [(8, 0), (10, 0), (11, 0), (100, 0),
+                                    (101, 0)]
+    assert served[1][1] == [(7, "deadline_missed")]
+    jrt, trt = rts
+    _assert_same_arenas(jrt, trt)
+    assert trt.trace.events() == jrt.trace.events()
+    assert (trt.admission.preemptions, trt.evacuated_requests) == (1, 4)
+    roots, _ = trt.trace.span_tree("toy", "11")
+    assert roots[0].args["outcome"] == "evacuated"
+    assert [c.name for c in roots[0].children][-1] == "parked"

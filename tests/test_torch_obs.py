@@ -202,6 +202,80 @@ def test_event_stream_matches_reference(weights, runs, mode):
         assert trt.trace.open_spans("toy", str(rid)) == []
 
 
+def _sdf_run(rt, request_cls):
+    """An sdf run with one park, one resume and a fork lane (logical
+    clock): two warmup requests teach the controller the clock; a request
+    of two samples (its fork on lane "10.1") and a lazy long decode fill
+    the three slots; an urgent request then parks the lazy one (siblings
+    are never parked), which resumes once a slot frees."""
+    tokens, t = {}, 0.0
+
+    def drain():
+        nonlocal t
+        while rt.pending() or rt.in_flight():
+            st = rt.step(now=t)
+            tokens.update({(r.rid, r.sample): tuple(int(x) for x in r.tokens)
+                           for r in st.results})
+            t += 1.0
+
+    for rid in (100, 101):
+        rt.submit(request_cls(rid=rid, tokens=np.arange(1, 5, dtype=np.int32),
+                              max_new_tokens=4), now=t)
+    drain()
+    rt.submit(request_cls(rid=10, tokens=np.arange(2, 8, dtype=np.int32),
+                          max_new_tokens=20, n_samples=2), now=t)
+    rt.submit(request_cls(rid=11, tokens=np.arange(3, 9, dtype=np.int32),
+                          max_new_tokens=30), now=t)
+    for _ in range(2):
+        rt.step(now=t)
+        t += 1.0
+    rt.submit(request_cls(rid=7, tokens=np.arange(1, 5, dtype=np.int32),
+                          max_new_tokens=4, deadline_s=t + 12.0), now=t)
+    drain()
+    return tokens
+
+
+def test_event_stream_matches_reference_under_sdf(weights):
+    """The tick-clock event streams are equal on an sdf run that parks,
+    resumes and forks, at temperature 0.8: the ``preempt`` phase spans,
+    the parked request's ``decode`` > ``parked`` > ``decode`` spans and the
+    fork's own ``rid.sample`` lane."""
+    from repro.serving.sampler import SamplerConfig as JSampler
+    from repro_torch.serving.sampler import SamplerConfig
+    kw = dict(bs=3, admission="sdf", n_samples=2)
+    jplan = JPlan(service="toy", category=JCat(JSens.LATENCY, False), **kw)
+    tplan = ParallelPlan(service="toy", category=TaskCategory(
+        Sensitivity.LATENCY, False), **kw)
+    jrt = JRuntime(_CFG, weights[0], jplan, impl="ref",
+                   sampler=JSampler(0.8, 40), tracer=JTracer(clock=_ticks()),
+                   metrics=JMetrics(), **KW)
+    trt = ServiceRuntime(_mirror(_CFG), weights[1], tplan, device="cpu",
+                         sampler=SamplerConfig(0.8, 40),
+                         tracer=Tracer(clock=_ticks()),
+                         metrics=MetricsRegistry(), **KW)
+    want, got = _sdf_run(jrt, JRequest), _sdf_run(trt, GenerationRequest)
+    assert got == want and len(got) == 6 and (10, 1) in got
+    assert (trt.admission.preemptions, trt.admission.resumes,
+            trt.forks_spawned) == (1, 1, 1)
+    assert trt.trace.events() == jrt.trace.events()
+    roots, _ = trt.trace.span_tree("toy", "11")
+    assert [c.name for c in roots[0].children] \
+        == ["queued", "prefill", "decode", "parked", "decode"]
+    fork, _ = trt.trace.span_tree("toy", "10.1")
+    assert [r.name for r in fork] == ["decode"] and fork[0].args["fork"]
+    phases = {e[3] for e in trt.trace.events() if e[2] == "engine"}
+    assert "preempt" in phases
+    got_m = _split_series(jparse_prometheus_text(
+        trt.metrics.prometheus_text()))
+    want_m = _split_series(jparse_prometheus_text(
+        jrt.metrics.prometheus_text()))
+    for k in [k for k in want_m if "_compiles{" in k]:
+        assert got_m.pop(k) == 0.0      # the port compiles nothing
+        want_m.pop(k)
+    assert got_m == want_m
+    assert got_m['epara_step_preempted_total{service="toy"}'] == 1
+
+
 def test_request_span_trees_match_reference(runs):
     jtr, ttr = runs["jrt"].trace, runs["trt"].trace
     for rid, tokens in runs["ttoks"].items():

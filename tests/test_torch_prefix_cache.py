@@ -561,7 +561,8 @@ def test_knob_gate_raises_where_the_reference_raises(case):
 
 
 @pytest.mark.parametrize("module", [
-    "serving/prefix_cache.py", "serving/batching.py", "core/allocator.py",
+    "serving/prefix_cache.py", "serving/batching.py",
+    "serving/admission.py", "core/allocator.py",
     "core/categories.py", "core/costmodel.py", "core/goodput.py",
     "core/handler.py", "core/sync.py", "core/placement.py",
     "core/cluster.py", "core/__init__.py", "simulator/workload.py",

@@ -31,6 +31,7 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.arena import KVArena
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+from repro_torch.serving.sampler import SamplerConfig
 
 
 def _mirror(cfg) -> ModelConfig:
@@ -128,9 +129,21 @@ def test_runtime_rejects_unported_options():
     plan = ParallelPlan(service="toy",
                         category=TaskCategory(Sensitivity.LATENCY, False),
                         bs=2)
-    for kw in (dict(admission_policy="sdf"), dict(speculate=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServiceRuntime(cfg, params, plan, device="cpu", **kw)
+    # speculative decoding is not ported: it names its ROADMAP.md item
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+        ServiceRuntime(cfg, params, plan, device="cpu", speculate=2)
+    # SDF admission is ported (ROADMAP.md Queue 1 item 3): it builds a
+    # runtime with an active controller, refused in sync mode as in the
+    # reference
+    rt = ServiceRuntime(cfg, params, plan, device="cpu",
+                        admission_policy="sdf")
+    assert rt.admission.active and rt.admission.preempt
+    with pytest.raises(ValueError, match="requires mode='continuous'"):
+        ServiceRuntime(cfg, params, plan, device="cpu",
+                       admission_policy="sdf", mode="sync")
+    with pytest.raises(ValueError, match="admission policy"):
+        ServiceRuntime(cfg, params, plan, device="cpu",
+                       admission_policy="edf")
     # the radix prefix cache is ported (ROADMAP.md Queue 1 item 2): an
     # explicit retention builds a runtime with the cache on
     rt = ServiceRuntime(cfg, params, plan, device="cpu", prefix_cache=16)
@@ -145,10 +158,16 @@ def test_runtime_rejects_unported_options():
                dict(kvcache_impl="dense", paged_native=True)):
         with pytest.raises(ValueError):
             ServiceRuntime(cfg, params, plan, device="cpu", **kw)
-    rt = ServiceRuntime(cfg, params, plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rt.submit(GenerationRequest(rid=0, tokens=np.ones(3, np.int32),
-                                    n_samples=2))
+    # n-way forks are ported: n_samples = 2 is admitted (a latency plan
+    # caps it at one sample, counted as shortfall) and stochastic sampling
+    # builds a runtime (ROADMAP.md Queue 1 item 7)
+    rt = ServiceRuntime(cfg, params, plan, device="cpu",
+                        sampler=SamplerConfig(temperature=0.8, top_k=8))
+    rt.submit(GenerationRequest(rid=0, tokens=np.ones(3, np.int32),
+                                max_new_tokens=2, n_samples=2))
+    res = rt.drain()
+    assert [(r.rid, r.sample, len(r.tokens)) for r in res] == [(0, 0, 2)]
+    assert (rt.forks_spawned, rt.fork_shortfall) == (0, 1)
 
 
 @pytest.mark.parametrize("kv", ["auto", "bf16"])
@@ -163,7 +182,16 @@ def test_launcher_serves_on_cpu(kv, capsys):
 
 
 def test_launcher_names_roadmap_item_for_unported_flags(capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--device", "cpu", "--servers", "3"])
-    assert e.value.code == 2
-    assert "ROADMAP.md Queue 1 item 6" in capsys.readouterr().err
+    for argv, item in ((["--servers", "3"], "item 6"),
+                       (["--speculate", "2"], "item 4"),
+                       (["--draft-arch", "minicpm-2b"], "item 4")):
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--device", "cpu", *argv])
+        assert e.value.code == 2
+        assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err
+    # the admission and fork flags are ported (items 3 and 4's forks)
+    assert serve.main(["--device", "cpu", "--requests", "2",
+                       "--max-new-tokens", "2", "--max-seq-len", "32",
+                       "--admission-policy", "sdf", "--no-preempt",
+                       "--deadline-s", "600", "--n-samples", "2"]) == 0
+    assert "admission (sdf):" in capsys.readouterr().out
