@@ -10,8 +10,9 @@ drives the port's serving paths (minicpm-2b, mamba2-2.7b, whisper-large-v3
 and mixtral-8x7b, full width, random weights from a seed), its training
 path (minicpm-2b), its sync and dense-cache serving paths and its prefix
 cache (minicpm-2b) in nine phases, then its observability and crash
-evacuation (minicpm-2b) in a tenth, and its stochastic sampling, deadline
-admission with parking and n-way forks (minicpm-2b) in an eleventh; any
+evacuation (minicpm-2b) in a tenth, its stochastic sampling, deadline
+admission with parking and n-way forks (minicpm-2b) in an eleventh, and
+its speculative decoding (minitron-4b, mixtral-8x7b) in a twelfth; any
 failure exits non-zero.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
@@ -36,7 +37,9 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    mid-page, and a full-prompt hit's one row), prefixes of 20 and 100, a dead
    slot among four, mixtral's 32/8 heads at D = 128), every chunk case
    also held by ``check_rows``, its rows past chunk_len zeros, and
-   repeated launches bit-identical; the SSD
+   repeated launches bit-identical, and at speculative decoding's verify
+   launch (512 slots, T = 5, minitron-4b's 24/8 heads at D = 128, ragged
+   starts; 32 slots speculating, then all 512), timed; the SSD
    scan at mamba2-2.7b's chunk-call shapes (80 heads, P = 64, N = 128, one
    group), its f32 final state held to atol = rtol = 1e-3 of its largest
    magnitude (no single PyTorch call computes the scan), on the 16-byte
@@ -177,6 +180,30 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    request served or verdicted, the arenas empty at the end, the counts
    held beside the CPU test's on the toy config; (d) the launcher with
    ``--admission-policy sdf --deadline-s 30 --requests 8``;
+12. speculative decoding (k = 4) on minitron-4b at full width and its
+   plan (512 slots, bf16 KV, the prefix cache at a quarter's retention):
+   (a) one ``verify_step_paged`` (#3, T = 5) against five
+   ``decode_step_paged`` (#1) on copies of the same pools, 8 live slots
+   of 512 at ragged lengths: logits and the K/V rows each wrote held to
+   2**-5 of their norm at every row, nothing written outside the live
+   rows but the trash page, the lengths returned unchanged; (b) phase
+   3's wave plain, with a self-draft (the target's own tensors) and with
+   a 4-layer draft (views of the target's first 4 blocks, embedding,
+   final norm and head): both launch verify, #3 grows by at least a
+   verify launch's 32 layers a launch, the self-draft commits at least 4
+   tokens a slot-round, the 4-layer draft rolls back, every chain that
+   splits from the plain run's does so where the plain run's top-two
+   gap is below (a)'s largest logit difference (each split printed with
+   its gap), and the two drafts' chains are identical; (c) the 4-layer
+   draft at temperature 0.8 twice on the wave's first 8 requests
+   (identical chains and verify launches); (d) the launcher with
+   ``--archs minicpm-2b,minitron-4b --draft-arch minitron-4b`` (every
+   request served, minicpm-2b's non-speculative note, verify launches);
+   (e) mixtral-8x7b at full width and 2 of 32 layers with a self-draft,
+   at its capacity factor 1.25 (the verify's drops and the splits
+   printed) and at 8 (no drops, (a) repeated, the splits printed, a
+   1-layer draft's chains identical to the self-draft's); each run's
+   tok/s, speculation counters, launches and peak memory printed;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -199,7 +226,10 @@ printed, not put in the kernels' record); phase 10 (b) reads the
 paged-attention counts before and after each of its runs and holds them
 to phase 3's int8 wave's (printed, not put in the record); phase 11 (b)
 and (c) print the paged-attention counts of their runs (the resumed and
-forked slots' decode and chunk launches), not put in the record.
+forked slots' decode and chunk launches), not put in the record; every
+count is zeroed just before phase 12 and read just after it (printed,
+not put in the record), and phase 12 fails unless #1, #3 and #9
+launched.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -536,10 +566,11 @@ def ssd_case(gen, *, Bb, L, H=80, P=64, G=1, N=128, chunk=256, timed):
     return rec
 
 
-def check_rows(name, got, want):
+def check_rows(name, got, want, rel=ROW_REL_TOL):
     """Holds ``got`` to ``want`` at every sequence position (axis 1 of
     (B, L, ...)): the norm of the difference over the other axes is at
-    most ROW_REL_TOL of ``want``'s norm there, plus ROW_FLOOR per element
+    most ``rel`` (ROW_REL_TOL unless given) of ``want``'s norm there, plus
+    ROW_FLOOR per element
     (the rounding noise of a position whose true value is 0, such as dq of
     a row that sees one key).  Unlike atol it scales with each position's
     own size: at 4096 causal keys the late rows' out and the late keys' dk
@@ -550,10 +581,10 @@ def check_rows(name, got, want):
     g = got.float().transpose(0, 1).flatten(1)
     w = want.float().transpose(0, 1).flatten(1)
     diff = g - w
-    limit = ROW_REL_TOL * w.norm(dim=1) + ROW_FLOOR * w.shape[1] ** 0.5
+    limit = rel * w.norm(dim=1) + ROW_FLOOR * w.shape[1] ** 0.5
     worst = (diff.norm(dim=1) / limit).max().item()
     check(worst <= 1, f"{name}: a sequence position differs by {worst} of "
-          f"its limit ({ROW_REL_TOL} of its norm + {ROW_FLOOR} an element)")
+          f"its limit ({rel} of its norm + {ROW_FLOOR} an element)")
     return {f"{name}_rel_l2": (diff.norm() / w.norm()).item(),
             f"{name}_worst_row_of_limit": worst,
             f"{name}_ref_norm": w.norm().item(),
@@ -1058,6 +1089,38 @@ def chunk_odd_cases(minicpm, gqa):
                           chunk_len=[32, 8, 0, 1], prefix_len=0)
 
 
+def verify_cases(rec, quant, heads):
+    """The chunk kernel at phase 12's verify launch: 512 slots, T = SPEC_K
+    + 1 = 5 rows (a 64-row tile holds 5 live rows), minitron-4b's 24/8
+    heads at D = 128, ragged starts crossing pages; chunk_len 5 for 32
+    slots and 0 for the rest, then for all 512.  Each case is held as the
+    odd shapes are, timed, and put in ``rec`` under its name (its own
+    generators, so that the other cases draw what they drew before)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    rng = np.random.default_rng(2)
+    T = SPEC_K + 1
+    start = rng.integers(0, 256 - T + 1, 512)
+    start[:8] = (0, 27, 28, 31, 32, 60, 100, 251)     # around page ends
+    spec = np.zeros(512, np.int32)
+    spec[::16] = T
+    for name, cl in (("verify_32_of_512", spec),
+                     ("verify_512_of_512", np.full(512, T, np.int32))):
+        r = chunk_case(gen, rng, B=512, T=T, start=start, chunk_len=cl,
+                       prefix_len=0, quant=quant, timed=True, **heads)
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        rec["odd_shapes_worst_row_of_limit"] = max(
+            rec["odd_shapes_worst_row_of_limit"],
+            r["out_worst_row_of_limit"])
+        rec[name] = {key: r[key] for key in (
+            "ms", "host_paced_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err", "out_worst_row_of_limit")}
+        rec[name]["bound_share"] = r["bound_ms"] / r["ms"]
+        print(f"  paged_chunk_prefill_attention{'_quant' if quant else ''}"
+              f", {name}: {rec[name]}")
+
+
 def phase_kernels():
     """Returns {kernel name: record} at minicpm-2b's main-path shapes, with
     max_abs_err over every case of that kernel."""
@@ -1117,6 +1180,7 @@ def phase_kernels():
             rec["odd_shapes_worst_row_of_limit"] = max(
                 rec["odd_shapes_worst_row_of_limit"],
                 r["out_worst_row_of_limit"])
+        verify_cases(rec, quant, gqa)
         records["paged_chunk_prefill_attention" + tag] = rec
         torch.cuda.empty_cache()
     for rec in records.values():
@@ -2458,6 +2522,433 @@ def phase_sampling_admission(phase3_toks, phase3_tok_s):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: speculative decoding on minitron-4b (and mixtral-8x7b)
+# ---------------------------------------------------------------------------
+
+SPEC_ARCH = "minitron-4b"
+SPEC_K = 4                    # SPECULATE_BY_SENSITIVITY[LATENCY]
+DRAFT_LAYERS = 4              # (b)'s small draft: the target's first blocks
+# (a)'s live slots: ragged lengths (in, across and at page boundaries), at
+# slot ids spread over the 512
+VERIFY_LENS = (1, 30, 32, 33, 64, 100, 150, 200)
+VERIFY_SLOTS = (0, 63, 64, 130, 255, 300, 411, 511)
+MOE_LAYERS = 2                # (e): mixtral-8x7b at full width, 2 of 32
+STOCH_SPEC_REQUESTS = 8       # (c)'s wave: the first 8 of phase 3's 32
+
+
+def verify_vs_decode(cfg, params, label):
+    """Phase 12 (a): ``verify_step_paged`` (T = SPEC_K + 1, chunk kernel
+    #3) against SPEC_K + 1 successive ``decode_step_paged`` calls (#1) fed
+    the same tokens, on a copy of the same pools and lengths: 8 live slots
+    of VERIFY_LENS tokens (prefilled by one ``prefill_chunk_paged``) at
+    VERIFY_SLOTS among 512, the other 504 dead.  Each (slot, position)
+    row's logits are held to PARITY_TOL of its norm, and so are the K/V
+    rows the two wrote (``check_rows``; both are the ends of two correct
+    bf16 chains through every layer, phase 8 (c)'s rule); the verify
+    writes nothing outside its slots' rows but the trash page, and returns
+    ``len`` unchanged.  Returns the record (its ``max_abs_diff`` is the
+    largest logit difference)."""
+    import torch
+    from repro_torch.models.registry import model_api
+    from repro_torch.serving.arena import KVArena
+    api = model_api(cfg)
+    cap, T, bs = 512, SPEC_K + 1, 32
+    lens = np.asarray(VERIFY_LENS)
+    sids = list(VERIFY_SLOTS)
+    need = sum(-(-(n + T) // bs) for n in lens)
+    arena = KVArena(cfg, api.init_cache, capacity=cap, max_seq_len=256,
+                    block_size=bs, pool_blocks=need, kv_dtype="bf16",
+                    device="cuda")
+    for sid, n in zip(sids, lens):
+        arena.alloc(int(n) + T, slot=sid)
+        arena.reset_len(sid)
+    tables = arena.device_block_tables()
+    rng = np.random.default_rng(21)
+    toks = np.zeros((len(sids), int(lens.max())), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    rows = torch.tensor(sids, device="cuda")
+    _, c = api.prefill_chunk_paged(
+        params, cfg, {"tokens": torch.from_numpy(toks).cuda()},
+        arena.assemble(arena.pages, [], arena.lens[rows]), tables[rows],
+        chunk_len=torch.from_numpy(lens.astype(np.int32)).cuda(),
+        block_size=bs)
+    arena.lens[rows] = c["len"]
+    live = torch.zeros(cap, dtype=torch.bool, device="cuda")
+    live[rows] = True
+    vt = torch.zeros(cap, T, dtype=torch.int64, device="cuda")
+    vt[rows] = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (len(sids), T))).cuda()
+    pre = [p.clone() for p in arena.pages]
+    lens0 = arena.lens.clone()
+    dec_pages, dec_lens = [p.clone() for p in pre], lens0.clone()
+    logits_v, cv = api.verify_step_paged(
+        params, cfg, {"tokens": vt},
+        arena.assemble(arena.pages, [], arena.lens), tables,
+        chunk_len=torch.where(live, T, 0).to(torch.int32), block_size=bs)
+    check(torch.equal(cv["len"], lens0), "verify changed the lengths")
+    steps = []
+    for j in range(T):
+        lg, c = api.decode_step_paged(
+            params, cfg, vt[:, j].to(torch.int32),
+            {"k": dec_pages[0], "len": dec_lens, "v": dec_pages[1]}, tables,
+            live, block_size=bs)
+        dec_lens = c["len"]
+        steps.append(lg[rows].float())
+    torch.cuda.synchronize()
+    check(torch.equal(dec_lens, lens0 + live.int() * T),
+          "the decode steps' lengths")
+    got, want = logits_v[rows].float(), torch.stack(steps, 1)
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "non-finite verify or decode logits")
+    rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    rec = {"max_abs_diff": (got - want).abs().max().item(),
+           "worst_row_rel_l2": rel,
+           "logit_ref_max": want.abs().max().item(),
+           "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum()),
+           "rows": got.shape[0] * got.shape[1]}
+    # the K/V rows each path wrote: positions len..len+T-1 of each slot
+    bt = arena.block_tables()
+    pos = [(int(bt[s, p // bs]), p % bs) for s, n in zip(sids, lens)
+           for p in range(int(n), int(n) + T)]
+    blk = torch.tensor([b for b, _ in pos], device="cuda")
+    off = torch.tensor([o for _, o in pos], device="cuda")
+    for name, vp, dp, p0 in zip("kv", arena.pages, dec_pages, pre):
+        rec.update(check_rows(f"{name}_rows", vp[:, blk, off],
+                              dp[:, blk, off], rel=PARITY_TOL))
+        # the first layer's rows are projections of the embeddings alone
+        rec[f"{name}_rows_layer0_max_abs_diff"] = (
+            vp[0, blk, off].float() - dp[0, blk, off].float()).abs().max(
+            ).item()
+        changed = (vp != p0).flatten(3).any(-1).any(0)   # (pages, bs)
+        changed[blk, off] = False
+        changed[-1] = False                            # the trash page
+        check(not bool(changed.any()), f"verify wrote {name} rows outside "
+              f"its slots' rows and the trash page")
+    check(rel <= PARITY_TOL, f"verify vs decode logits: a row differs by "
+          f"{rel} of its norm > {PARITY_TOL}")
+    print(f"phase 12 {label} verify_step_paged (T = {T}, #3) vs {T} "
+          f"decode_step_paged (#1), {cfg.name} full width, "
+          f"{cfg.num_layers} layers, 8 live of 512 slots: "
+          f"{json.dumps(rec)}")
+    del arena, pre, dec_pages
+    return rec
+
+
+def next_token_gap(cfg, params, tokens):
+    """The top-two gap of the next-token logits after ``tokens``, computed
+    as a decode step computes it: all but the last token as one paged
+    chunk, then the last through ``decode_step_paged``, on a bf16 arena of
+    one slot."""
+    import torch
+    from repro_torch.models.registry import model_api
+    from repro_torch.serving.arena import KVArena
+    api = model_api(cfg)
+    n = len(tokens)
+    arena = KVArena(cfg, api.init_cache, capacity=1, max_seq_len=n + 1,
+                    block_size=32, kv_dtype="bf16", device="cuda")
+    sid = arena.alloc(n + 1)
+    arena.reset_len(sid)
+    bt = arena.device_block_tables()
+    head = torch.from_numpy(np.asarray(tokens[:-1], np.int64)[None]).cuda()
+    _, c = api.prefill_chunk_paged(
+        params, cfg, {"tokens": head},
+        arena.assemble(arena.pages, [], arena.lens), bt,
+        chunk_len=torch.tensor([n - 1], dtype=torch.int32, device="cuda"),
+        block_size=32)
+    lg, _ = api.decode_step_paged(
+        params, cfg, torch.tensor([int(tokens[-1])], dtype=torch.int32,
+                                  device="cuda"),
+        arena.assemble(arena.pages, [], c["len"]), bt,
+        torch.ones(1, dtype=torch.bool, device="cuda"), block_size=32)
+    top = lg[0].float().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def chain_splits(cfg, params, plain, spec):
+    """Each chain of ``spec`` that differs from ``plain``: its request,
+    the first position where they differ, and the plain run's top-two
+    logit gap there (``next_token_gap``)."""
+    from repro_torch.launch.profile_step import wave_prompts
+    prompts = wave_prompts(cfg.vocab_size)
+    out = []
+    for rid in sorted(plain):
+        a, b = plain[rid], spec[rid]
+        if np.array_equal(a, b):
+            continue
+        p = int(np.argmax(a != b))
+        out.append({"rid": rid, "pos": p, "gap": next_token_gap(
+            cfg, params, np.concatenate([prompts[rid], a[:p]]))})
+    return out
+
+
+def spec_wave(label, cfg, params, sampler=None, n_requests=32, **kw):
+    """Phase 3's wave (prompts of 6-200 tokens, 40 new), its first
+    ``n_requests`` of 32, on ``cfg`` (``params``) at the plan of its full
+    config (512 slots, the category's KV and prefix cache), with the
+    runtime arguments ``kw`` (a draft, ``speculate``).  Returns
+    the chains and the run's record: tok/s, wall, the speculation
+    counters, each speculating slot's commits a round (from the rounds
+    themselves), launches per kernel, MoE drops and peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch.profile_step import wave_prompts
+    from repro_torch.launch.serve import plan_for
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+    from repro_torch.serving.sampler import SamplerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rt = ServiceRuntime(cfg, params, plan_for(get_config(cfg.name)),
+                        sampler=sampler or SamplerConfig(), device="cuda",
+                        **kw)
+    for rid, prompt in enumerate(wave_prompts(cfg.vocab_size)[:n_requests]):
+        rt.submit(GenerationRequest(rid=rid, tokens=prompt,
+                                    max_new_tokens=40, stream=rid))
+    commits = []
+    spec_round = rt._spec_round
+
+    def counted_round(state, slots):
+        before = [len(s.emitted) for s in slots]
+        spec_round(state, slots)
+        commits.extend(len(s.emitted) - n for s, n in zip(slots, before)
+                       if not s.done)
+
+    rt._spec_round = counted_round
+    moe.MOE_DROP_STATS.flush()
+    drops0 = moe.MOE_DROP_STATS.dropped
+    l0 = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = rt.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    moe.MOE_DROP_STATS.flush()
+    check(len(results) == n_requests,
+          f"{label}: served {len(results)}/{n_requests}")
+    toks = {r.rid: np.asarray(r.tokens) for r in results}
+    for t in toks.values():
+        check(len(t) == 40 and t.min() >= 0 and t.max() < cfg.vocab_size,
+              f"{label}: token ids out of range")
+    n_tok = sum(len(t) for t in toks.values())
+    ver = rt.verify_launches
+    rec = {"tok_s": n_tok / dt, "wall_s": dt, "decode_steps":
+           rt.decode_steps, "prefill_chunks": rt.prefill_chunk_calls,
+           "verify_launches": ver, "accepted_tokens": rt.accepted_tokens,
+           "accepted_per_launch": rt.accepted_tokens / ver if ver else 0.0,
+           "slot_rounds": len(commits),
+           "commits_per_slot_round": (float(np.mean(commits)) if commits
+                                      else 0.0),
+           "commit_hist": np.bincount(commits, minlength=SPEC_K + 2)[
+               1:].tolist() if commits else [],
+           "draft_steps": rt.draft_steps,
+           "draft_prefill_tokens": rt.draft_prefill_tokens,
+           "spec_degraded": rt.spec_degraded,
+           "moe_dropped_tokens": moe.MOE_DROP_STATS.dropped - drops0,
+           "launches": {k: v - l0[k] for k, v in launch_counts().items()
+                        if v - l0[k]},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "prefix": prefix_counters(rt)}
+    print(f"phase 12 {label} ({n_requests} requests): {json.dumps(rec)}")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, rec
+
+
+def draft_view(cfg, params, n):
+    """A draft of the target's first ``n`` blocks, embedding, final norm
+    and head: views of the target's tensors, no copy."""
+    import dataclasses
+    from repro_torch.models.transformer import layer_params
+    blocks = layer_params(params["blocks"], slice(0, n))
+    return dataclasses.replace(cfg, num_layers=n), {
+        "embed": params["embed"], "blocks": blocks, "ln_f": params["ln_f"]}
+
+
+def hold_chains(label, cfg, params, plain, spec, limit):
+    """A speculative run's greedy chains against the plain run's: a chain
+    may split from the plain one only where the plain run's top-two logit
+    gap is below ``limit``, the verify-vs-decode logit difference (a)
+    measured (bf16 rounds otherwise in the verify kernel than in the
+    decode kernel, and bf16 logits of a 256,000-token vocabulary tie often
+    at the top).  Every split is recorded with its gap.  Returns them."""
+    splits = chain_splits(cfg, params, plain, spec)
+    print(f"phase 12 {label}: {32 - len(splits)}/32 chains equal the plain "
+          f"run's; splits (first differing position, plain top-two gap; "
+          f"limit {limit}): {splits}")
+    check(all(s["gap"] < limit for s in splits),
+          f"{label}: a chain splits from the plain run's where its top-two "
+          f"gap is not below {limit}: {splits}")
+    return splits
+
+
+def same_chains(label, a, b):
+    """Greedy speculative tokens are the target's: two runs with other
+    drafts must give the same chains."""
+    same = sum(np.array_equal(a[r], b[r]) for r in a)
+    check(sorted(a) == sorted(b) and same == len(a),
+          f"{label}: only {same}/{len(a)} chains equal")
+
+
+def phase_moe_verify():
+    """Phase 12 (e): mixtral-8x7b at full width and MOE_LAYERS of its 32
+    layers, phase 3's wave greedy, plain and with a self-draft.  At the
+    config's capacity factor (1.25; the grouped GEMM at its real shapes)
+    each slot's 5 verify rows are one routing group with a capacity of one
+    row an expert, so the verify drops assignments that decode (a group a
+    token) keeps: the drops and splits are recorded.  At capacity factor
+    8 nothing drops: (a) is repeated for mixtral, the splits from the
+    plain run's chains are recorded with their gaps (a router's near tie
+    can send a token to another expert, which moves a logit by more than
+    (a)'s rounding noise), and a 1-layer draft's chains must equal the
+    self-draft's."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config("mixtral-8x7b")
+    rec = {}
+    for cf in (full.moe_capacity_factor, 8.0):
+        cfg = dataclasses.replace(full, num_layers=MOE_LAYERS,
+                                  moe_capacity_factor=cf)
+        params = moe.init(1, cfg, "cuda")
+        tag = f"(e) mixtral cf {cf}"
+        r = rec[cf] = {}
+        if cf != full.moe_capacity_factor:
+            r["verify"] = verify_vs_decode(cfg, params, f"{tag} (a)")
+        plain, r["plain"] = spec_wave(f"{tag} plain", cfg, params,
+                                      speculate=0)
+        spec, r["self_draft"] = spec_wave(
+            f"{tag} self-draft", cfg, params, draft_params=params,
+            draft_cfg=cfg)
+        check(r["self_draft"]["verify_launches"] > 0,
+              f"{tag}: no verify launched")
+        splits = r["self_draft"]["splits"] = chain_splits(cfg, params,
+                                                          plain, spec)
+        print(f"phase 12 {tag}: {32 - len(splits)}/32 chains equal the "
+              f"plain run's, verify drops "
+              f"{r['self_draft']['moe_dropped_tokens']} (plain "
+              f"{r['plain']['moe_dropped_tokens']}); splits (first "
+              f"differing position, plain top-two gap): {splits}")
+        if "verify" in r:
+            check(r["self_draft"]["moe_dropped_tokens"] == 0,
+                  f"{tag}: the verify dropped assignments")
+            dcfg, dparams = draft_view(cfg, params, 1)
+            one, r["draft1"] = spec_wave(
+                f"{tag} 1-layer draft", cfg, params, draft_params=dparams,
+                draft_cfg=dcfg)
+            same_chains(f"{tag} self-draft vs 1-layer draft", spec, one)
+            del dparams
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {str(cf): r for cf, r in rec.items()}
+
+
+def phase_speculative():
+    """Phase 12 (a)-(e): speculative decoding at full width.  Every count
+    is zeroed just before it and read just after; returns them."""
+    import contextlib as ctx
+    import dataclasses
+    import io
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serving.sampler import SamplerConfig
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    cfg = get_config(SPEC_ARCH)
+    params = transformer.init(1, cfg, "cuda")
+    rec = {"verify": verify_vs_decode(cfg, params, "(a)")}
+    limit = rec["verify"]["max_abs_diff"]
+    # (b) greedy: plain, self-draft (the same tensors), a 4-layer draft
+    plain, rec["plain"] = spec_wave("(b) plain", cfg, params, speculate=0)
+    selfd, rec["self_draft"] = spec_wave(
+        "(b) self-draft", cfg, params, draft_params=params, draft_cfg=cfg)
+    dcfg, dparams = draft_view(cfg, params, DRAFT_LAYERS)
+    small, rec["draft4"] = spec_wave(
+        f"(b) {DRAFT_LAYERS}-layer draft", cfg, params, draft_params=dparams,
+        draft_cfg=dcfg)
+    for name in ("self_draft", "draft4"):
+        r = rec[name]
+        check(r["verify_launches"] > 0, f"(b) {name} launched no verify")
+        grown = (r["launches"].get("paged_chunk_prefill_attention", 0)
+                 - rec["plain"]["launches"].get(
+                     "paged_chunk_prefill_attention", 0))
+        check(grown >= r["verify_launches"] * cfg.num_layers,
+              f"(b) {name}: #3 grew {grown} < verify launches x layers")
+    check(rec["self_draft"]["commits_per_slot_round"] >= SPEC_K,
+          f"(b) the self-draft commits "
+          f"{rec['self_draft']['commits_per_slot_round']} a slot-round")
+    check(min(c for c in range(1, SPEC_K + 2)
+              if rec["draft4"]["commit_hist"][c - 1]) < SPEC_K + 1,
+          "(b) the 4-layer draft never rolled back")
+    rec["self_draft"]["splits"] = hold_chains(
+        "(b) self-draft", cfg, params, plain, selfd, limit)
+    rec["draft4"]["splits"] = hold_chains(
+        f"(b) {DRAFT_LAYERS}-layer draft", cfg, params, plain, small, limit)
+    same_chains(f"(b) self-draft vs {DRAFT_LAYERS}-layer draft", selfd,
+                small)
+    rec["seconds_ab"] = time.perf_counter() - t0
+    # (c) stochastic, the 4-layer draft, twice, on the wave's first
+    # STOCH_SPEC_REQUESTS requests (the script's time limit)
+    hot = SamplerConfig(STOCH_T, STOCH_K)
+    (a, ra), (b, rb) = (spec_wave(f"(c) T {STOCH_T} run {i}", cfg, params,
+                                  sampler=hot, n_requests=STOCH_SPEC_REQUESTS,
+                                  draft_params=dparams, draft_cfg=dcfg)
+                        for i in (1, 2))
+    check(all(np.array_equal(a[r], b[r]) for r in a)
+          and ra["verify_launches"] == rb["verify_launches"] > 0,
+          "(c) the stochastic speculative runs differ")
+    rec["stochastic"] = {"tok_s": [ra["tok_s"], rb["tok_s"]],
+                         "verify_launches": ra["verify_launches"],
+                         "differ_from_greedy": sum(
+                             int((a[r] != small[r]).sum()) for r in a)}
+    rec["seconds_abc"] = time.perf_counter() - t0
+    del dparams, a, b
+    # (d) the launcher
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with ctx.redirect_stdout(out):
+        rc = serve.main(["--archs", "minicpm-2b,minitron-4b",
+                         "--draft-arch", SPEC_ARCH])
+    text = out.getvalue()
+    print(text, end="")
+    line = next((ln for ln in text.splitlines()
+                 if ln.startswith(f"speculative (draft={SPEC_ARCH})")), "")
+    check(rc == 0 and "served 24/24" in text, f"(d) launcher exited {rc}")
+    check("note: minicpm-2b incompatible with draft" in text,
+          "(d) no non-speculative note for minicpm-2b")
+    check(line and int(line.split(":")[1].split()[0]) > 0,
+          f"(d) no verify launches: {line!r}")
+    rec["seconds_abcd"] = time.perf_counter() - t0
+    # (e) MoE verify: mixtral-8x7b at full width, 2 layers, self-draft
+    rec["moe"] = phase_moe_verify()
+    counts = launch_counts()
+    for name in ("paged_decode_attention", "paged_chunk_prefill_attention",
+                 "grouped_matmul"):
+        check(counts[name] > 0, f"phase 12 never launched {name}")
+    rec["launches"] = {k: v for k, v in counts.items() if v}
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 12 record: {json.dumps(rec)}")
+    print(f"phase 12: {rec['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def reset_launches():
     from repro_torch.kernels import ops
     ops.reset_launches()
@@ -3205,6 +3696,9 @@ def main() -> int:
     print("phase 11: threefry sampling, SDF admission with parking, n-way "
           "forks, minicpm-2b full width")
     phase_sampling_admission(int8_toks, int8_tok_s)
+    print("phase 12: speculative decoding, minitron-4b full width, 512 "
+          "slots, k = 4; mixtral-8x7b full width, 2 of 32 layers")
+    phase_speculative()
     small_input_check()
 
     kernels = []

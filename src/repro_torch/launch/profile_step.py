@@ -1,16 +1,18 @@
 """Where a serving step's time goes on the card.
 
 ``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phases 3
-to 6: one arch at full width (minicpm-2b, mamba2-2.7b, whisper-large-v3,
-whose requests also carry seeded random frame embeddings, or mixtral-8x7b
-at 16 of its 32 layers), with prompts of 6-200 tokens.  ``main`` serves it
-and profiles two windows of engine steps with ``torch.profiler``: the first
-steps, which mix chunked prefill and decode, and later decode-only steps.
-For each window it prints the host wall time per step (ending in a device
-synchronize), the device time per step (the sum of the CUDA kernels' own
-times), the device's idle share, the number of kernel launches per step,
-and the kernels that take the most device time.  ``window`` profiles any
-step function the same way (``chip_smoke.py`` phase 7 a training step).
+to 6 and 12: one arch at full width (minicpm-2b, mamba2-2.7b,
+whisper-large-v3, whose requests also carry seeded random frame
+embeddings, mixtral-8x7b at 16 of its 32 layers, or minitron-4b), with
+prompts of 6-200 tokens.  ``main`` serves it and profiles two windows of
+engine steps with ``torch.profiler``: the first steps, which mix chunked
+prefill and decode, and later decode-only steps.  For each window it
+prints the host wall time per step (ending in a device synchronize), the
+device time per step (the sum of the CUDA kernels' own times), the
+device's idle share, the number of kernel launches per step, the host's
+time blocked in synchronizing CUDA calls (the read-backs) per step, and
+the kernels that take the most device time.  ``window`` profiles any step
+function the same way (``chip_smoke.py`` phase 7 a training step).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step --kv-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.profile_step --arch mamba2-2.7b
@@ -34,6 +36,15 @@ sampler instead of greedy argmax (``chip_smoke.py`` phase 11 (b)):
 runtime the caller builds: phase 11 (c) at full width, the CPU tests on
 the toy config.
 
+``--draft-arch`` serves the wave with speculative decoding (``--speculate``
+k, -1 = the category's), the draft at its full config, seeded as the
+launcher seeds it (a draft of the profiled arch is a self-draft sharing
+its weights); the second window then profiles speculation rounds, taken
+once every slot's draft has caught up (``chip_smoke.py`` phase 12):
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch minitron-4b --draft-arch minitron-4b
+
 ``--dense-view`` profiles phase 8 (b)'s wave instead: minicpm-2b's
 dense-view step (``paged_native=False``) at 128 slots.  ``--templated``
 profiles phase 9's: ``templated_wave``'s requests that share one prompt
@@ -46,6 +57,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -69,7 +81,8 @@ WAVE_BS = {"mamba2-2.7b": 128, "whisper-large-v3": 128}
 # mixtral-8x7b's 32 layers of bf16 weights take 93.4 GB, its first 16 (the
 # only cut) 46.96 GB, beside 8.59 GB of bf16 KV at the plan's 512 slots
 WAVE_LAYERS = {"mixtral-8x7b": 16}
-ARCHS = ("minicpm-2b", "mamba2-2.7b", "whisper-large-v3", "mixtral-8x7b")
+ARCHS = ("minicpm-2b", "mamba2-2.7b", "whisper-large-v3", "mixtral-8x7b",
+         "minitron-4b")
 # phase 9's templated wave: 64 requests of a 150-token template (4 full
 # pages and a 22-token partial tail) plus 1-40 tokens of their own, 24 new
 # tokens each, within the plan's 256-token slots
@@ -80,34 +93,60 @@ def wave_runtime(kv_dtype, n_requests: int = 32, new_tokens: int = 40,
                  device="cuda", arch: str = "minicpm-2b", bs=None,
                  prefix_cache: int = -1, **runtime_kw):
     """A full-width ``ServiceRuntime`` of ``arch`` (random weights from
-    seed 1) with ``n_requests`` prompts of 6-200 tokens, spread evenly,
-    already submitted; audio requests carry standard-normal frame
-    embeddings drawn from seed 1.  ``kv_dtype`` is the plan's (-1 = the
-    category's choice), and so is ``prefix_cache``.  The plan is the
-    full config's, at ``bs`` slots if given (else ``WAVE_BS``'s, else the
-    allocator's); the weights are cut to ``WAVE_LAYERS`` where that names
-    the arch.  ``runtime_kw`` go to the runtime (``mode``,
-    ``paged_native``, ...).  Returns (cfg, runtime)."""
+    seed 1, or ``runtime_kw["params"]``) with ``n_requests`` prompts of
+    6-200 tokens, spread evenly, already submitted; audio requests carry
+    standard-normal frame embeddings drawn from seed 1.  ``kv_dtype`` is
+    the plan's (-1 = the category's choice), and so is ``prefix_cache``.
+    The plan is the full config's, at ``bs`` slots if given (else
+    ``WAVE_BS``'s, else the allocator's); the weights are cut to
+    ``WAVE_LAYERS`` where that names the arch.  ``runtime_kw`` go to the
+    runtime (``mode``, ``paged_native``, ...).  Returns (cfg, runtime)."""
     full = get_config(arch)
     cfg = dataclasses.replace(full, num_layers=WAVE_LAYERS.get(
         arch, full.num_layers))
     device = resolve_device(device)
-    rt = ServiceRuntime(cfg, model_api(cfg).init(1, cfg, device),
+    params = runtime_kw.pop("params", None)
+    if params is None:
+        params = model_api(cfg).init(1, cfg, device)
+    rt = ServiceRuntime(cfg, params,
                         plan_for(full, kv_dtype, bs or WAVE_BS.get(arch),
                                  prefix_cache),
                         device=device, **runtime_kw)
-    rng = np.random.default_rng(2)
     frames = np.random.default_rng(1)
-    for rid, n in enumerate(np.linspace(6, 200, n_requests).astype(int)):
+    for rid, prompt in enumerate(wave_prompts(cfg.vocab_size, n_requests)):
         extras = None
         if cfg.family == "audio":
             extras = {"embeddings": frames.standard_normal(
                 (cfg.encoder_len, cfg.d_model), dtype=np.float32)}
         rt.submit(GenerationRequest(
-            rid=rid, tokens=rng.integers(0, cfg.vocab_size, n).astype(
-                np.int32), max_new_tokens=new_tokens, stream=rid,
+            rid=rid, tokens=prompt, max_new_tokens=new_tokens, stream=rid,
             extras=extras))
     return cfg, rt
+
+
+def wave_prompts(vocab_size: int, n_requests: int = 32):
+    """``wave_runtime``'s prompts (seed 2): ``n_requests`` of 6-200
+    tokens, spread evenly, request ``i`` the ``i``-th."""
+    rng = np.random.default_rng(2)
+    return [rng.integers(0, vocab_size, n).astype(np.int32)
+            for n in np.linspace(6, 200, n_requests).astype(int)]
+
+
+def draft_spec(arch: str, draft_arch: str, device="cuda") -> dict:
+    """The runtime arguments of a full-config draft of ``draft_arch`` for
+    ``wave_runtime(arch=arch)``: a draft of the same arch shares the wave's
+    weights (seed 1), another is seeded by its name; both at the wave's
+    depth (``WAVE_LAYERS``)."""
+    full = get_config(draft_arch)
+    cfg = dataclasses.replace(full, num_layers=WAVE_LAYERS.get(
+        draft_arch, full.num_layers))
+    device = resolve_device(device)
+    seed = 1 if draft_arch == arch else zlib.crc32(draft_arch.encode())
+    params = model_api(cfg).init(seed, cfg, device)
+    out = {"draft_params": params, "draft_cfg": cfg}
+    if draft_arch == arch:
+        out["params"] = params
+    return out
 
 
 def templated_wave(kv_dtype, prefix_cache: int, templates: int = 1,
@@ -239,10 +278,17 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+# CUDA runtime calls in which the host waits for the device: the
+# read-backs of sampled tokens and the explicit synchronizes
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpyAsync", "cudaMemcpy")
+
+
 def window(step, steps: int, label: str, top: int) -> dict:
     """Profiles ``steps`` calls of ``step()`` and prints the window's
-    wall, device time, idle share and kernels per step, and its ``top``
-    kernels by device time.  Returns the four per-step figures."""
+    wall, device time, idle share, kernels per step, the host's time in
+    ``SYNC_CALLS`` per step (with their count), and its ``top`` kernels by
+    device time.  Returns the per-step figures."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -255,14 +301,20 @@ def window(step, steps: int, label: str, top: int) -> dict:
                and e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
+    syncs = [e for e in prof.key_averages() if e.key in SYNC_CALLS]
+    sync_ms = sum(e.self_cpu_time_total for e in syncs) / 1e3 / steps
+    n_sync = sum(e.count for e in syncs) / steps
     print(f"{label}: {steps} steps, wall {wall_ms:.3f} ms/step, device "
           f"{dev_ms:.3f} ms/step, idle share "
-          f"{1 - dev_ms / wall_ms:.3f}, {launches:.0f} kernels/step")
+          f"{1 - dev_ms / wall_ms:.3f}, {launches:.0f} kernels/step, host "
+          f"blocked in {n_sync:.1f} sync calls/step for {sync_ms:.3f} "
+          f"ms/step")
     for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
         print(f"  {_device_us(e) / 1e3 / steps:9.4f} ms/step "
               f"{e.count / steps:7.1f}/step  {e.key[:90]}")
     return {"wall_ms": wall_ms, "device_ms": dev_ms,
-            "idle_share": 1 - dev_ms / wall_ms, "kernels": launches}
+            "idle_share": 1 - dev_ms / wall_ms, "kernels": launches,
+            "sync_ms": sync_ms, "sync_calls": n_sync}
 
 
 def main(argv=None) -> int:
@@ -292,6 +344,11 @@ def main(argv=None) -> int:
                     help="sampling temperature (0 = greedy argmax)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="top-k filter of the stochastic sampler (0 = off)")
+    ap.add_argument("--draft-arch", default="",
+                    help="draft model for speculative decoding (full "
+                         "config; the profiled arch itself = a self-draft)")
+    ap.add_argument("--speculate", type=int, default=-1,
+                    help="draft depth k (-1 = the plan's category default)")
     args = ap.parse_args(argv)
     kv_dtype = -1 if args.kv_dtype == "auto" else args.kv_dtype
     sampler = SamplerConfig(args.temperature, args.top_k)
@@ -302,10 +359,14 @@ def main(argv=None) -> int:
             rt.submit(req)
         label, n = "templated", len(donors) + len(others)
     else:
-        view = dict(bs=128, paged_native=False) if args.dense_view else {}
+        kw = dict(bs=128, paged_native=False) if args.dense_view else {}
+        if args.draft_arch:
+            kw.update(draft_spec(args.arch, args.draft_arch),
+                      speculate=None if args.speculate < 0
+                      else args.speculate)
         _, rt = wave_runtime(kv_dtype, args.requests, args.max_new_tokens,
                              arch=args.arch, prefix_cache=args.prefix_cache,
-                             sampler=sampler, **view)
+                             sampler=sampler, **kw)
         label = "dense-view" if args.dense_view else "native"
         n = args.requests
     # max_wait_s=0: the MF composer flushes partial frame groups at once,
@@ -315,12 +376,22 @@ def main(argv=None) -> int:
           f"{label} step, {n} requests, prefix cache "
           f"{'on' if rt.prefix_cache_enabled else 'off'}, "
           f"{rt.plan.max_in_flight} slots, sampler {rt.sampler}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"speculate k={rt.speculate_k} (draft "
+          f"{args.draft_arch or 'none'}), {torch.cuda.get_device_name(0)}")
     step = lambda: rt.step(max_wait_s=0.0)
     window(step, args.steps, "prefill+decode window", args.top)
-    while any(s.prefilling for g in rt.groups.values() for s in g.slots):
+    # past every prefill, and every speculating slot's draft caught up
+    while any(s.prefilling or (s.spec and s.draft_len < rt._spec_goal(s))
+              for g in rt.groups.values() for s in g.slots):
         step()
-    window(step, args.steps, "decode-only window", args.top)
+    v0, a0 = rt.verify_launches, rt.accepted_tokens
+    window(step, args.steps, "speculation window" if rt.speculate_k
+           else "decode-only window", args.top)
+    if rt.speculate_k:
+        v = rt.verify_launches - v0
+        print(f"speculation window: {v} verify launches, "
+              f"{(rt.accepted_tokens - a0) / max(v, 1):.2f} tokens "
+              f"accepted a launch")
     rt.drain()
     return 0
 

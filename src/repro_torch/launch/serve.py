@@ -51,6 +51,18 @@ rejected with a verdict:
   PYTHONPATH=src python -m repro_torch.launch.serve --archs minicpm-2b \
       --admission-policy sdf --deadline-s 30 --requests 8
 
+``--draft-arch`` names a draft model for speculative decoding: each
+same-family same-vocabulary service of a latency plan speculates k tokens
+a round (``--speculate``, -1 = the category's k, 4 for latency), the
+others deploy without it and print a ``note:`` line.  Weights are seeded
+by arch, so a draft of a deployed arch is a self-draft sharing its
+tensors; on the card the draft runs its full config.  The launcher prints
+the verify launches, the accepted tokens a launch, the draft steps and
+the degraded slots:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --archs minicpm-2b,minitron-4b --draft-arch minitron-4b
+
 ``--trace-out``, ``--metrics-out`` and ``--calibrate-out`` write the run's
 spans (Chrome trace-event JSON), metrics (Prometheus text, or a JSONL
 snapshot for a ``.jsonl`` path) and simulator calibration (JSON), through
@@ -88,8 +100,6 @@ from repro_torch.serving.engine import (PREFIX_CACHEABLE_FAMILIES,
 _ITEM_MULTI_SERVER = "ROADMAP.md Queue 1 item 6 (multi-server control plane)"
 _UNPORTED_FLAGS = (
     ("servers", 1, _ITEM_MULTI_SERVER),
-    ("speculate", -1, "ROADMAP.md Queue 1 item 4 (speculative decoding)"),
-    ("draft_arch", "", "ROADMAP.md Queue 1 item 4 (speculative decoding)"),
     ("fault_spec", "", _ITEM_MULTI_SERVER),
     ("chaos_seed", -1, _ITEM_MULTI_SERVER),
     ("chaos_horizon_s", 20.0, _ITEM_MULTI_SERVER),
@@ -186,8 +196,16 @@ def _parser() -> argparse.ArgumentParser:
                          "fork off the prompt's blocks by refcount and "
                          "diverge copy-on-write (capped by the plan's "
                          "resolved_n_samples)")
-    ap.add_argument("--speculate", type=int, default=-1)
-    ap.add_argument("--draft-arch", default="")
+    ap.add_argument("--speculate", type=int, default=-1,
+                    help="speculative decoding draft depth k: -1 = the "
+                         "plan's category default (latency services "
+                         "speculate when a draft is given, frequency "
+                         "services do not), 0 = off, > 0 = propose k tokens "
+                         "a fused verify launch (requires --draft-arch)")
+    ap.add_argument("--draft-arch", default="",
+                    help="arch id of the draft model that proposes tokens "
+                         "for speculative decoding; services of another "
+                         "family or vocabulary deploy without speculation")
     ap.add_argument("--fault-spec", default="")
     ap.add_argument("--chaos-seed", type=int, default=-1)
     ap.add_argument("--chaos-horizon-s", type=float, default=20.0)
@@ -230,6 +248,21 @@ def main(argv=None) -> int:
         ap.error(f"--deadline-s must be >= 0, got {args.deadline_s}")
     if args.n_samples < 1:
         ap.error(f"--n-samples must be >= 1, got {args.n_samples}")
+    if args.speculate < -1:
+        ap.error(f"--speculate must be -1 (category default), 0 "
+                 f"(disabled) or a positive draft depth, got "
+                 f"{args.speculate}")
+    if args.speculate > 0 and not args.draft_arch:
+        ap.error("--speculate > 0 requires --draft-arch (the model that "
+                 "proposes the k tokens)")
+    if args.draft_arch and args.draft_arch not in ARCH_IDS:
+        ap.error(f"unknown --draft-arch {args.draft_arch!r}")
+    if args.draft_arch and (args.mode != "continuous"
+                            or args.kvcache_impl != "paged"
+                            or args.no_chunked_prefill):
+        ap.error("--draft-arch requires --mode=continuous, "
+                 "--kvcache-impl=paged and chunked prefill (the draft "
+                 "cache is chased through the paged chunk path)")
     arch_ids = [a.strip() for a in args.archs.split(",")]
     for a in arch_ids:
         if a not in ARCH_IDS:
@@ -239,7 +272,7 @@ def main(argv=None) -> int:
 
     if device.type == "cuda":
         have = torch.cuda.get_device_properties(device).total_memory
-        for a in arch_ids:
+        for a in arch_ids + ([args.draft_arch] if args.draft_arch else []):
             need = get_config(a).param_count() * 2
             if need > have:
                 smoke = ("chip_smoke.py serves it at 16 of its 32 layers, "
@@ -255,6 +288,21 @@ def main(argv=None) -> int:
     tracer = Tracer() if args.trace_out else None
     metrics = MetricsRegistry() if args.metrics_out else None
     cfgs = {}
+    # weights are seeded per arch, so a draft of a deployed arch is a
+    # self-draft: the service shares the draft's tensors
+    weights = {}
+
+    def params_of(arch, cfg):
+        if arch not in weights:
+            weights[arch] = model_api(cfg).init(
+                zlib.crc32(arch.encode()) + args.seed, cfg, device)
+        return weights[arch]
+
+    draft_cfg = draft_params = None
+    if args.draft_arch:
+        full = get_config(args.draft_arch)
+        draft_cfg = full if device.type == "cuda" else reduced(full)
+        draft_params = params_of(args.draft_arch, draft_cfg)
     print("EPARA plans:")
     for a in arch_ids:
         full = get_config(a)
@@ -262,19 +310,29 @@ def main(argv=None) -> int:
         cfgs[a] = cfg
         plan = dataclasses.replace(
             plan_for(full, kv_dtype, prefix_cache=args.prefix_cache),
-            admission=args.admission_policy)
+            admission=args.admission_policy, speculate=args.speculate)
         print(f"  {a:20s} {plan.category} mp={plan.mp} bs={plan.bs} "
               f"mt={plan.mt} mf={plan.mf} dp={plan.dp} "
               f"kv={plan.resolved_kv_dtype()}")
-        params = model_api(cfg).init(zlib.crc32(a.encode()) + args.seed,
-                                     cfg, device)
+        # the draft pairs only with same-family same-vocab services of a
+        # cacheable family; the rest deploy without speculation (an
+        # explicit --speculate > 0 still reaches the engine's gate)
+        compat = (draft_cfg is not None
+                  and cfg.family == draft_cfg.family
+                  and cfg.vocab_size == draft_cfg.vocab_size
+                  and cfg.family in PREFIX_CACHEABLE_FAMILIES)
+        if draft_cfg is not None and not compat and args.speculate <= 0:
+            print(f"  note: {a} incompatible with draft {args.draft_arch} "
+                  f"(family/vocab) — non-speculative")
         engine.deploy(a, ServiceRuntime(
-            cfg, params, plan, mode=args.mode,
+            cfg, params_of(a, cfg), plan, mode=args.mode,
             kvcache_impl=args.kvcache_impl, max_seq_len=args.max_seq_len,
             block_size=args.block_size,
             chunked_prefill=False if args.no_chunked_prefill else None,
             prefill_chunk=(args.prefill_chunk or None),
             preempt=not args.no_preempt, device=device,
+            draft_params=draft_params if compat else None,
+            draft_cfg=draft_cfg if compat else None,
             tracer=tracer, metrics=metrics))
 
     rng = np.random.default_rng(args.seed)
@@ -321,6 +379,16 @@ def main(argv=None) -> int:
           f"{sum(rt.prefix_cow_copies for rt in rts)} COW copies, "
           f"{sum(rt.prefix_evictions for rt in rts)} LRU evictions, "
           f"{oneshot} one-shot prefills")
+    ver = sum(rt.verify_launches for rt in rts)
+    acc = sum(rt.accepted_tokens for rt in rts)
+    if ver or args.draft_arch:
+        per = acc / ver if ver else 0.0
+        print(f"speculative (draft={args.draft_arch or 'none'}): {ver} "
+              f"verify launches, {acc} tokens accepted "
+              f"({per:.2f}/launch), "
+              f"{sum(rt.draft_steps for rt in rts)} draft steps, "
+              f"{sum(rt.spec_degraded for rt in rts)} degraded, "
+              f"{sum(rt.verify_traces for rt in rts)} verify compiles")
     forks = sum(rt.forks_spawned for rt in rts)
     if forks or args.n_samples > 1:
         print(f"parallel sampling (n={args.n_samples}): {forks} forks "

@@ -369,11 +369,17 @@ def attention_decode_paged(p, cfg: ModelConfig, x_t, k_pages, v_pages,
 def attention_chunk_paged(p, cfg: ModelConfig, x, k_pages, v_pages,
                           block_tables, cache_len, chunk_len, *,
                           block_size: int, window=None,
-                          use_rope: bool = True):
+                          use_rope: bool = True, verify: bool = False):
     """Chunked-prefill attention against one layer's paged KV: write a
     right-padded T-token chunk (only the first ``chunk_len`` rows real) at
     positions ``cache_len + i`` into the pages, in place, then attend
-    through the block table via ``ops.paged_chunk_attention``."""
+    through the block table via ``ops.paged_chunk_attention``.
+
+    ``verify=True`` is speculative decoding's verify contract: the same
+    kernels, with ``chunk_len`` a per-slot (B,) vector whose 0 rows are the
+    slots not speculating (their K/V rows go to the trash page and their
+    outputs are zeros, which the verifier masks); it routes through
+    ``ops.paged_verify_attention``, which holds the contract."""
     B, T, _ = x.shape
     _no_paged_ring(window, block_tables.shape[1] * block_size)
     q, k_t, v_t = _project_qkv(p, cfg, x)
@@ -394,8 +400,10 @@ def attention_chunk_paged(p, cfg: ModelConfig, x, k_pages, v_pages,
                       block_size=block_size)
     paged_insert_rows(v_pages, v_t, block_tables, positions, valid,
                       block_size=block_size)
-    out = ops.paged_chunk_attention(q.contiguous(), k_pages, v_pages,
-                                    block_tables, cache_len, chunk_len)
+    attend = ops.paged_verify_attention if verify \
+        else ops.paged_chunk_attention
+    out = attend(q.contiguous(), k_pages, v_pages, block_tables, cache_len,
+                 chunk_len)
     out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
     return linear(out, p["wo"]), k_pages, v_pages
 

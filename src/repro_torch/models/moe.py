@@ -14,11 +14,11 @@ are the arena's page pools or a dense cache, updated in place (see
 ``transformer``).
 
 Ported: ``init``, ``logits_fn``, ``init_cache``, ``moe_mlp``,
-``prefill_chunk_paged``, ``decode_step_paged``, the one-shot ``prefill``
-(the whole prompt one routing group, up to ``MAX_ROUTING_GROUP``) and the
-dense-cache ``prefill_chunk``/``decode_step``.  ``forward_hidden``
-(ROADMAP.md Queue 1 item 12) and ``verify_step_paged`` (item 4) raise,
-naming their item.
+``prefill_chunk_paged``, ``verify_step_paged``, ``decode_step_paged``, the
+one-shot ``prefill`` (the whole prompt one routing group, up to
+``MAX_ROUTING_GROUP``) and the dense-cache ``prefill_chunk``/
+``decode_step``.  ``forward_hidden`` (ROADMAP.md Queue 1 item 12) raises,
+naming its item.
 """
 from __future__ import annotations
 
@@ -249,24 +249,20 @@ def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
     The chunk is its own routing group: expert capacity scales with the
     bucket, not the prompt, and the padding rows past ``chunk_len`` compete
     for it as in the reference."""
-    tokens = batch["tokens"]
-    x = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
-    start = torch.as_tensor(cache["len"], dtype=torch.int32,
-                            device=x.device).reshape(-1)
-    k_all, v_all = cache["k"], cache["v"]
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        xn = layers.apply_norm(lp["ln1"], cfg, x)
-        h, _, _ = layers.attention_chunk_paged(
-            lp["attn"], cfg, xn, k_all[i], v_all[i], block_tables, start,
-            chunk_len, block_size=block_size, window=cfg.sliding_window)
-        x = x + h
-        m, _ = moe_mlp(lp["moe"], cfg, layers.apply_norm(lp["ln2"], cfg, x))
-        x = x + m
-    h = layers.take_chunk_last(x, chunk_len)
-    h = layers.apply_norm(params["ln_f"], cfg, h[:, None])[:, 0]
-    logits = logits_fn(params, cfg, h)
-    return logits, {"k": k_all, "v": v_all, "len": start + chunk_len}
+    return transformer.prefill_chunk_paged_ffn(
+        params, cfg, batch, cache, block_tables, chunk_len, block_size,
+        moe_ffn)
+
+
+def verify_step_paged(params, cfg: ModelConfig, batch, cache, block_tables,
+                      *, chunk_len, block_size: int):
+    """Speculative decoding's verify (see ``transformer.verify_step_paged``):
+    logits (B, T, V) over all T positions, ``cache["len"]`` unchanged.
+    Each slot's T rows are one routing group, as a chunk's are, so the
+    drafts are scored at chunked prefill's routing granularity."""
+    return transformer.verify_step_paged_ffn(
+        params, cfg, batch, cache, block_tables, chunk_len, block_size,
+        moe_ffn)
 
 
 def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
@@ -323,15 +319,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
                                        moe_ffn)
 
 
-def _not_ported(name: str, item: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"moe.{name} is not ported to repro_torch yet: ROADMAP.md "
-            f"Queue 1 {item}")
-    fn.__name__ = name
-    return fn
-
-
-forward_hidden = _not_ported("forward_hidden", "item 12 (training)")
-verify_step_paged = _not_ported("verify_step_paged",
-                                "item 4 (speculation and forks)")
+def forward_hidden(*args, **kwargs):
+    raise NotImplementedError(
+        "moe.forward_hidden is not ported to repro_torch yet: ROADMAP.md "
+        "Queue 1 item 12 (training)")

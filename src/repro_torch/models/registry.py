@@ -30,6 +30,12 @@ class ModelApi:
     # pure-SSM families, whose cache is all per-slot state
     decode_step_paged: Optional[Callable] = None
     prefill_chunk_paged: Optional[Callable] = None
+    # speculative decoding's verify: score T = k+1 fed tokens against the
+    # page pools in one pass, logits for all T positions (B, T, V), with
+    # per-slot (B,) chunk lengths (0 = the slot is not speculating).
+    # ``None`` for families without a paged-native chunk body: the serving
+    # engine's speculation gate
+    verify_step_paged: Optional[Callable] = None
     # the training forward, (params, cfg, batch, *, train) -> (hidden,
     # aux loss); ``None`` where not ported (every family but the dense
     # one: ROADMAP.md Queue 1 item 12)
@@ -42,11 +48,13 @@ _FAMILIES = {
                       transformer.prefill_chunk, transformer.decode_step,
                       decode_step_paged=transformer.decode_step_paged,
                       prefill_chunk_paged=transformer.prefill_chunk_paged,
+                      verify_step_paged=transformer.verify_step_paged,
                       forward_hidden=transformer.forward_hidden),
     "moe": ModelApi(moe.init, moe.logits_fn, moe.init_cache, moe.prefill,
                     moe.prefill_chunk, moe.decode_step,
                     decode_step_paged=moe.decode_step_paged,
-                    prefill_chunk_paged=moe.prefill_chunk_paged),
+                    prefill_chunk_paged=moe.prefill_chunk_paged,
+                    verify_step_paged=moe.verify_step_paged),
     "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache, ssm.prefill,
                     ssm.prefill_chunk, ssm.decode_step),
     "audio": ModelApi(encdec.init, encdec.logits_fn, encdec.init_cache,

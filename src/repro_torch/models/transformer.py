@@ -6,20 +6,24 @@ Parameters keep the reference's stacked layer axis: every leaf under
 ``lax.scan`` over layers becomes a Python loop over that axis.
 
 Two cache layouts, as in the reference.  The paged-native steps
-(``prefill_chunk_paged``/``decode_step_paged``) take the serving arena's
-page pools ``(layers, pages, block_size, Hkv, D)`` (a tensor, or
-``QuantPages`` for int8).  The dense steps (``prefill``, ``prefill_chunk``,
-``decode_step``) take a dense cache ``(layers, B, S, Hkv, D)``: the sync
-and dense-cache engines' own caches, the arena's gathered dense view, or a
-ring of the last ``sliding_window`` tokens where the window is shorter than
-the slot budget.  Every step but the one-shot ``prefill``, which builds its
-cache, updates the cache it is given in place and returns the same
-tensors.
+(``prefill_chunk_paged``, ``verify_step_paged``, ``decode_step_paged``)
+take the serving arena's page pools ``(layers, pages, block_size, Hkv,
+D)`` (a tensor, or ``QuantPages`` for int8).  The dense steps
+(``prefill``, ``prefill_chunk``, ``decode_step``) take a dense cache
+``(layers, B, S, Hkv, D)``: the sync and dense-cache engines' own caches,
+the arena's gathered dense view, or a ring of the last ``sliding_window``
+tokens where the window is shorter than the slot budget.  Every step but
+the one-shot ``prefill``, which builds its cache, updates the cache it is
+given in place and returns the same tensors.
 
-The MoE family (``moe.py``) runs the same dense steps with its expert FFN
-in place of the MLP: ``prefill_ffn``, ``prefill_chunk_ffn`` and
-``decode_step_ffn`` take the block's FFN as ``ffn(layer params, cfg,
-x)``.
+The MoE family (``moe.py``) runs the same steps with its expert FFN in
+place of the MLP: ``prefill_ffn``, ``prefill_chunk_ffn``,
+``decode_step_ffn``, ``prefill_chunk_paged_ffn`` and
+``verify_step_paged_ffn`` take the block's FFN as ``ffn(layer params,
+cfg, x)``.
+
+``verify_step_paged`` is speculative decoding's one fused verify pass:
+``prefill_chunk_paged``'s body with the head over every chunk position.
 """
 from __future__ import annotations
 
@@ -264,14 +268,13 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
     return decode_step_ffn(params, cfg, token, cache, live, dense_ffn)
 
 
-def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
-                        block_tables, *, chunk_len, block_size: int):
-    """Paged-native chunked prefill: append a right-padded chunk of
-    ``chunk_len`` <= T tokens (``batch["tokens"]`` (B, T)) to the page
-    pools ``cache["k"]``/``cache["v"]`` through ``block_tables`` (B, nblk),
-    starting at the per-slot offsets ``cache["len"]`` (B,).  The chunk's
-    K/V rows are written into the pools in place.  Returns (logits at each
-    slot's last real token (B, V), cache with ``len + chunk_len``)."""
+def _chunk_paged_hidden(params, cfg: ModelConfig, batch, cache,
+                        block_tables, chunk_len, block_size: int, ffn,
+                        verify: bool):
+    """The paged-native chunk body shared by chunked prefill and
+    speculative verify: every layer writes the chunk's K/V rows into the
+    pools in place and attends through the block tables.  Returns the
+    last layer's hidden states (B, T, d) and the per-slot starts."""
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
     start = torch.as_tensor(cache["len"], dtype=torch.int32,
@@ -282,14 +285,58 @@ def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
         xn = layers.apply_norm(lp["ln1"], cfg, x)
         h, _, _ = layers.attention_chunk_paged(
             lp["attn"], cfg, xn, k_all[i], v_all[i], block_tables, start,
-            chunk_len, block_size=block_size, window=cfg.sliding_window)
+            chunk_len, block_size=block_size, window=cfg.sliding_window,
+            verify=verify)
         x = x + h
-        x = x + layers.mlp(lp["mlp"], cfg,
-                           layers.apply_norm(lp["ln2"], cfg, x))
+        x = x + ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, x))
+    return x, start
+
+
+def prefill_chunk_paged_ffn(params, cfg: ModelConfig, batch, cache,
+                            block_tables, chunk_len, block_size: int, ffn):
+    x, start = _chunk_paged_hidden(params, cfg, batch, cache, block_tables,
+                                   chunk_len, block_size, ffn, False)
     h = layers.take_chunk_last(x, chunk_len)
     h = layers.apply_norm(params["ln_f"], cfg, h[:, None])[:, 0]
     logits = logits_fn(params, cfg, h)
-    return logits, {"k": k_all, "v": v_all, "len": start + chunk_len}
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "len": start + chunk_len}
+
+
+def verify_step_paged_ffn(params, cfg: ModelConfig, batch, cache,
+                          block_tables, chunk_len, block_size: int, ffn):
+    x, start = _chunk_paged_hidden(params, cfg, batch, cache, block_tables,
+                                   chunk_len, block_size, ffn, True)
+    h = layers.apply_norm(params["ln_f"], cfg, x)          # all T positions
+    return logits_fn(params, cfg, h), {"k": cache["k"], "v": cache["v"],
+                                       "len": start}
+
+
+def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
+                        block_tables, *, chunk_len, block_size: int):
+    """Paged-native chunked prefill: append a right-padded chunk of
+    ``chunk_len`` <= T tokens (``batch["tokens"]`` (B, T)) to the page
+    pools ``cache["k"]``/``cache["v"]`` through ``block_tables`` (B, nblk),
+    starting at the per-slot offsets ``cache["len"]`` (B,).  The chunk's
+    K/V rows are written into the pools in place.  Returns (logits at each
+    slot's last real token (B, V), cache with ``len + chunk_len``)."""
+    return prefill_chunk_paged_ffn(params, cfg, batch, cache, block_tables,
+                                   chunk_len, block_size, dense_ffn)
+
+
+def verify_step_paged(params, cfg: ModelConfig, batch, cache, block_tables,
+                      *, chunk_len, block_size: int):
+    """Speculative decoding's verify: score T = k+1 fed tokens
+    ``[last emitted, d_1 .. d_k]`` (``batch["tokens"]`` (B, T)) against
+    the page pools in one pass, with ``prefill_chunk_paged``'s body (the
+    K/V rows written in place through the block tables) and ``chunk_len``
+    a per-slot (B,) vector, T for the slots speculating and 0 for the
+    rest (their rows go to the trash page).  The head runs over all T
+    positions.  Returns (logits (B, T, V), cache with ``len`` unchanged:
+    the engine commits each slot's length after acceptance, so the rows
+    of rejected drafts lie past it and the next round overwrites them)."""
+    return verify_step_paged_ffn(params, cfg, batch, cache, block_tables,
+                                 chunk_len, block_size, dense_ffn)
 
 
 def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,

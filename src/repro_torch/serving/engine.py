@@ -92,11 +92,26 @@ sibling slots fork off its prompt blocks by refcount, draw their first
 tokens from the same logits on their own sample streams, and diverge by
 copy-on-write.
 
+Speculative decoding (latency services, ``draft_params``/``draft_cfg``
+and ``speculate``, or the plan's category default): a same-family draft
+model shadows each primary slot in a draft ``KVArena`` of its own (bf16,
+the same slot ids as the target's).  Catch-up chunks, under the same
+chunk budget as target prefill, bring the draft's cache to two rows
+behind the known tokens while the slot decodes normally; then each round
+runs k+1 fused draft decode steps and one fused verify launch
+(``verify_step_paged`` over every slot, T = k+1 rows for the speculating
+slots and 0 for the rest, through the paged chunk kernel), accepts with
+``sampler.speculative_verify``, commits 1..k+1 tokens a slot and rolls the
+draft back to the new lag.  A slot whose draft cannot be allocated, whose
+round would pass its table width, or that is parked degrades to plain
+decode (``spec_degraded``); forks never speculate.  Greedy output is the
+target's own greedy chain whatever the draft (the plain engine's on the
+CPU; on the card the verify kernel rounds bf16 otherwise than the decode
+kernel, so a chain can take the other of two tied top logits);
+stochastic output is a pure function of the counter streams.
+
 ``evacuate`` strips every queued, in-flight and parked request out (a
 crash of this data plane) and returns them for resubmission.
-
-Not ported: speculative decoding (a constructor argument that asks for it
-raises, naming ``ROADMAP.md`` Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -120,7 +135,8 @@ from .admission import AdmissionController, AdmissionReject, ParkedEntry
 from .arena import KVArena
 from .batching import ComposedBatch, QueuedItem, make_composer
 from .prefix_cache import PrefixHit, RadixPrefixCache
-from .sampler import STREAM_DECODE, SamplerConfig, prng_key, sample_per_slot
+from .sampler import (STREAM_DECODE, STREAM_DRAFT, SamplerConfig, prng_key,
+                      sample_per_slot, speculative_verify)
 
 DEFAULT_MAX_SEQ_LEN = 256
 DEFAULT_BLOCK_SIZE = 32
@@ -171,8 +187,7 @@ class GenerationResult:
 @dataclasses.dataclass
 class StepStats:
     """One scheduling round's telemetry: the reference's fields in its
-    order, so that ``obs.metrics.step_stat_sums`` folds the same series.
-    The speculation fields (not ported yet) stay at zero."""
+    order, so that ``obs.metrics.step_stat_sums`` folds the same series."""
     results: List[GenerationResult]
     now: float = 0.0
     admitted: int = 0                # requests admitted this step
@@ -210,14 +225,18 @@ class StepStats:
     resumed: int = 0                 # parked requests re-admitted this step
     parked: int = 0                  # parked requests outstanding after
     #                                  the step (KV frozen in the arena)
-    draft_steps: int = 0             # speculation (item 4)
-    verify_launches: int = 0
-    accepted_tokens: int = 0
-    spec_slots: int = 0
+    draft_steps: int = 0             # fused draft decode steps this step
+    verify_launches: int = 0         # fused verify launches this step
+    accepted_tokens: int = 0         # target tokens committed by verify
+    #                                  (acceptance rate = accepted_tokens
+    #                                  / verify_launches / (k+1))
+    spec_slots: int = 0              # live slots speculating after the step
     forks_spawned: int = 0           # n>1 sibling slots forked this step
     fork_shortfall: int = 0          # requested forks not spawned (slot or
     #                                  block pressure; primary still runs)
-    spec_degraded: int = 0
+    spec_degraded: int = 0           # slots that fell back to plain decode
+    #                                  this step (draft alloc failure, a
+    #                                  round past the table, parking)
 
 
 class _Slot:
@@ -228,7 +247,8 @@ class _Slot:
     chunk's logits yield the first token."""
     __slots__ = ("req", "emitted", "done", "prefill_s", "admit_wall",
                  "decode_start_wall", "finish_wall", "admitted_s", "steps",
-                 "slot_id", "prefilling", "consumed", "sample_idx")
+                 "slot_id", "prefilling", "consumed", "sample_idx", "spec",
+                 "draft_len")
 
     def __init__(self, req: GenerationRequest, admit_wall: float,
                  admitted_s: float, slot_id: int):
@@ -243,6 +263,8 @@ class _Slot:
         self.consumed = 0                   # prompt tokens prefilled so far
         #                                     (a prefix hit starts past 0)
         self.sample_idx = 0                 # 0 = primary; >0 = n>1 fork
+        self.spec = False                   # draft slot allocated + chasing
+        self.draft_len = 0                  # draft-cache rows written so far
         self.prefilling = True
         self.emitted: List[int] = []
         self.done = False
@@ -270,24 +292,20 @@ class _Slot:
 class _GroupState:
     """Persistent in-flight state of one DP replica group: its slots and
     either a ``KVArena`` (paged, with its prefix index when the cache is
-    on) or a compacted cache dict (dense)."""
-    __slots__ = ("slots", "arena", "prefix", "cache")
+    on, and the draft model's arena when it speculates) or a compacted
+    cache dict (dense)."""
+    __slots__ = ("slots", "arena", "prefix", "cache", "draft")
 
     def __init__(self):
         self.arena: Optional[KVArena] = None
         self.prefix: Optional[RadixPrefixCache] = None
         self.cache: Optional[Dict[str, Any]] = None   # dense impl only
+        self.draft: Optional[KVArena] = None   # the draft model's arena
         self.slots: List[_Slot] = []
 
     @property
     def live(self) -> int:
         return len(self.slots)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-        f"{item})")
 
 
 class ServiceRuntime:
@@ -324,14 +342,14 @@ class ServiceRuntime:
                 "pools are block-quantized); dense caches keep the model's "
                 "native dtype")
         self.api: ModelApi = model_api(cfg)
-        if (draft_params is not None or draft_cfg is not None
-                or (speculate or 0) > 0 or plan.speculate > 0):
-            raise _not_ported("speculative decoding", "item 4")
         self.device = resolve_device(device)
-        leaf = params["embed"]["embedding"]
-        if leaf.device.type != self.device.type:
-            raise ValueError(f"params lie on {leaf.device}, runtime device "
-                             f"is {self.device}")
+        for name, tree in (("params", params), ("draft_params", draft_params)):
+            if tree is None:
+                continue
+            leaf = tree["embed"]["embedding"]
+            if leaf.device.type != self.device.type:
+                raise ValueError(f"{name} lie on {leaf.device}, runtime "
+                                 f"device is {self.device}")
         self.cfg = cfg
         self.params = params
         self.plan = plan
@@ -356,13 +374,8 @@ class ServiceRuntime:
         #                              (calibration's prefill_token_s)
         self._submit_wall: Dict[int, float] = {}  # rid -> submit wall time
         self._queue_wait: Dict[int, float] = {}   # rid -> measured wait
-        # what the reference's calibration and gauges read of parts the
-        # port has not got: speculation (item 4) and compiles.  The port
-        # compiles nothing, so its compile counts stay 0 where the
-        # reference's read 1
-        self.speculate_k = 0
-        self.accepted_tokens = 0
-        self.verify_launches = 0
+        # the reference's XLA compile counts: the port compiles nothing, so
+        # they stay 0 where the reference's read 1
         self.decode_traces = 0
         self.prefill_traces = 0
         self.evacuations = 0         # ``evacuate`` calls
@@ -482,6 +495,62 @@ class ServiceRuntime:
                 f"chunked_prefill={self.chunked_prefill}")
         self._prefix_knob = knob
         self.prefix_cache_enabled = bool(cacheable and knob != 0)
+
+        # -- speculative decoding (draft/verify) --------------------------
+        # latency services trade draft compute for fewer serial target
+        # launches: a small draft proposes k tokens and the target scores
+        # all k+1 in one fused verify launch.  Greedy acceptance emits the
+        # target's own argmax chain; stochastic acceptance is exact
+        # leave-one-out rejection sampling (serving/sampler.py)
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("draft_params and draft_cfg come together")
+        have_draft = draft_params is not None
+        knob_k = (plan.resolved_speculate(have_draft) if speculate is None
+                  else int(speculate))
+        if knob_k > 0 and not have_draft:
+            raise ValueError(
+                f"speculate={knob_k} requires a draft model (draft_params "
+                "+ draft_cfg); the category default degrades to 0 without "
+                "one, an explicit ask does not")
+        if knob_k > 0:
+            draft_ring = (draft_cfg.sliding_window is not None
+                          and draft_cfg.sliding_window
+                          < self.slot_token_budget)
+            spec_ok = (mode == "continuous" and kvcache_impl == "paged"
+                       and self.paged_native and self.chunked_prefill
+                       and cfg.family in PREFIX_CACHEABLE_FAMILIES
+                       and draft_cfg.family == cfg.family
+                       and draft_cfg.vocab_size == cfg.vocab_size
+                       and self.api.verify_step_paged is not None
+                       and not draft_ring)
+            if not spec_ok:
+                raise ValueError(
+                    "speculative decoding requires mode='continuous', "
+                    "kvcache_impl='paged', paged_native, chunked_prefill, "
+                    f"a family in {PREFIX_CACHEABLE_FAMILIES} with a "
+                    "verify entry point, and a same-family same-vocab "
+                    "non-ring draft; got "
+                    f"family={cfg.family!r}/{draft_cfg.family!r}, "
+                    f"vocab={cfg.vocab_size}/{draft_cfg.vocab_size}, "
+                    f"mode={mode!r}, kvcache_impl={kvcache_impl!r}, "
+                    f"paged_native={self.paged_native}, "
+                    f"chunked_prefill={self.chunked_prefill}, "
+                    f"draft_ring={draft_ring}")
+        self.speculate_k = knob_k
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.draft_api: Optional[ModelApi] = (
+            model_api(draft_cfg) if have_draft else None)
+        self.draft_steps = 0         # fused draft decode invocations
+        self.verify_launches = 0     # fused verify invocations
+        self.accepted_tokens = 0     # target tokens committed by verify
+        self.spec_degraded = 0       # speculation fallbacks
+        self.draft_prefill_tokens = 0  # known tokens chunked into drafts
+        # the reference's compile counts of the draft and verify steps
+        # (0: the port compiles nothing)
+        self.verify_traces = 0
+        self.draft_decode_traces = 0
+        self.draft_prefill_traces = 0
 
         # -- n>1 parallel sampling (refcounted prompt-block forks) --------
         self.forks_spawned = 0
@@ -736,6 +805,7 @@ class ServiceRuntime:
                     queue_wait_s=self._queue_wait.get(s.req.rid, 0.0),
                     new_tokens=n)
             if state.arena is not None:
+                self._drop_draft(state, s)
                 if state.prefix is not None and not s.prefilling:
                     # the slot writes no more: its partial tail block's
                     # prompt rows are final and can join the index
@@ -936,6 +1006,13 @@ class ServiceRuntime:
         by the ``ParkedEntry``), free the slot, and re-queue the request;
         its later compose resumes it through ``_resume_parked``."""
         arena = state.arena
+        if s.spec:
+            # the draft cache can be rebuilt from the tokens, but chasing it
+            # again after the resume is not worth its chunks: a parked
+            # request resumes without speculation (only the telemetry
+            # shows it)
+            self._drop_draft(state, s)
+            self.spec_degraded += 1
         entry = ParkedEntry(
             req=s.req, group=group,
             blocks=[], cache_len=int(arena.lens[s.slot_id]),
@@ -1062,29 +1139,64 @@ class ServiceRuntime:
         self.admission.note_admit(admitted)
         return admitted
 
+    def _chunk_step(self, arena: KVArena, sid: int, toks: np.ndarray,
+                    n_valid: int, *, draft: bool = False,
+                    embeddings=None):
+        """One chunk into slot ``sid`` of ``arena`` from the slot's length
+        on: ``toks`` (1, T), the first ``n_valid`` real.  The target model,
+        or with ``draft`` the draft model over its own arena (always
+        paged-native).  Paged-native: the step writes the chunk's K/V rows
+        into the pools through the slot's block-table row.  Otherwise: the
+        slot's dense view is gathered, the family's dense
+        ``prefill_chunk`` runs on it, and the rows it wrote go back to the
+        pages (``append_rows``).  Either way the slot's state rows are
+        written in place and its length advances.  Returns the chunk's
+        logits."""
+        api, cfg, params = ((self.draft_api, self.draft_cfg,
+                             self.draft_params) if draft
+                            else (self.api, self.cfg, self.params))
+        dev = self.device
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        if embeddings is not None:
+            batch["embeddings"] = embeddings
+        start = arena.lens[sid:sid + 1]
+        chunk_len = torch.tensor([n_valid], dtype=torch.int32, device=dev)
+        bt_row = torch.from_numpy(arena._block_tables[sid:sid + 1]).to(dev)
+        if draft or self.paged_native:
+            cache = arena.assemble(arena.pages, arena.slot_state(sid), start)
+            logits, new_cache = api.prefill_chunk_paged(
+                params, cfg, batch, cache, bt_row, chunk_len=chunk_len,
+                block_size=arena.block_size)
+        else:
+            dense = arena.dense_view(arena.pages, bt_row)
+            cache = arena.assemble(dense, arena.slot_state(sid), start)
+            logits, new_cache = api.prefill_chunk(params, cfg, batch, cache,
+                                                  chunk_len=chunk_len)
+            new_dense, _ = arena.disassemble(new_cache)
+            arena.append_rows(arena.pages, new_dense, start,
+                              torch.ones((1,), dtype=torch.bool, device=dev),
+                              bt_row, n_tokens=toks.shape[1],
+                              valid_tokens=new_cache["len"] - start)
+        arena.lens[sid] = new_cache["len"][0]
+        return logits
+
     def _run_chunk(self, arena: KVArena, s: _Slot, T: int):
         """Advance one slot's prefill by one ``T``-bucket chunk; returns
-        the chunk's logits (only the final chunk's are consumed).
-        Paged-native: the step writes the chunk's K/V rows into the pools
-        through the slot's block-table row.  Otherwise: the slot's dense
-        view is gathered, the family's dense ``prefill_chunk`` runs on it,
-        and the rows it wrote go back to the pages (``append_rows``).
-        Either way the slot's state rows are written in place."""
+        the chunk's logits (only the final chunk's are consumed)."""
         rem = len(s.req.tokens) - s.consumed
         n_valid = min(rem, T)
         toks = np.zeros((1, T), np.int32)
         toks[0, :n_valid] = s.req.tokens[s.consumed:s.consumed + n_valid]
-        dev = self.device
         sid = s.slot_id
-        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        embeddings = None
         if s.consumed == 0:
             # a FIRST chunk (start == 0) must see fresh per-slot state, not
             # the slot's previous tenant's; the enc-dec's first chunk also
             # runs the encoder over the request's frame embeddings
             arena.zero_state(sid)
             if self.cfg.family == "audio":
-                batch["embeddings"] = torch.from_numpy(np.asarray(
-                    s.req.extras["embeddings"])[None]).to(dev)
+                embeddings = torch.from_numpy(np.asarray(
+                    s.req.extras["embeddings"])[None]).to(self.device)
         # copy-on-write before the chunk lands: a hit into a partial block
         # shares it read-only, and the first write past the divergence
         # point needs a private copy
@@ -1092,25 +1204,8 @@ class ServiceRuntime:
         if copied:
             self.admission_copy_bytes += (copied * arena.block_size
                                           * arena.token_bytes)
-        start = arena.lens[sid:sid + 1]
-        chunk_len = torch.tensor([n_valid], dtype=torch.int32, device=dev)
-        bt_row = torch.from_numpy(arena._block_tables[sid:sid + 1]).to(dev)
-        if self.paged_native:
-            cache = arena.assemble(arena.pages, arena.slot_state(sid), start)
-            logits, new_cache = self.api.prefill_chunk_paged(
-                self.params, self.cfg, batch, cache, bt_row,
-                chunk_len=chunk_len, block_size=arena.block_size)
-        else:
-            dense = arena.dense_view(arena.pages, bt_row)
-            cache = arena.assemble(dense, arena.slot_state(sid), start)
-            logits, new_cache = self.api.prefill_chunk(
-                self.params, self.cfg, batch, cache, chunk_len=chunk_len)
-            new_dense, _ = arena.disassemble(new_cache)
-            arena.append_rows(arena.pages, new_dense, start,
-                              torch.ones((1,), dtype=torch.bool, device=dev),
-                              bt_row, n_tokens=T,
-                              valid_tokens=new_cache["len"] - start)
-        arena.lens[sid] = new_cache["len"][0]
+        logits = self._chunk_step(arena, sid, toks, n_valid,
+                                  embeddings=embeddings)
         s.consumed += n_valid
         self.prefill_chunk_calls += 1
         self.prefill_tokens_computed += n_valid
@@ -1151,6 +1246,7 @@ class ServiceRuntime:
                     t1 = time.perf_counter()
                     s.prefill_s += t1 - t0
                     s.begin_decode(first, t1)
+                    self._enable_spec(state, s)
                     self._spawn_forks(state, s, logits, t1)
                     if tr.enabled:
                         tid = str(s.req.rid)
@@ -1172,6 +1268,189 @@ class ServiceRuntime:
                     self._sync()
                     s.prefill_s += time.perf_counter() - t0
         return done_tokens
+
+    # -- speculative decoding: the draft arena and the fused verify ------
+    def _spec_goal(self, s: _Slot) -> int:
+        """Draft-cache rows a slot needs before it can run a round: the
+        draft lags the known tokens by two rows, so that every round's step
+        0 feeds ``known[-2]`` (catching up; its output is dropped) and step
+        1 feeds ``emitted[-1]`` to propose the first draft: one uniform
+        round of k+1 steps."""
+        return len(s.req.tokens) + len(s.emitted) - 2
+
+    def _ensure_draft(self, state: _GroupState) -> KVArena:
+        if state.draft is None:
+            # the draft's K/V keeps the native precision: int8 would change
+            # which tokens are proposed from run to run
+            state.draft = KVArena(
+                self.draft_cfg, self.draft_api.init_cache,
+                capacity=self.plan.max_in_flight,
+                max_seq_len=self.max_seq_len, block_size=self.block_size,
+                kv_dtype="bf16", device=self.device)
+        return state.draft
+
+    def _enable_spec(self, state: _GroupState, s: _Slot) -> None:
+        """Arm speculation for a slot that just finished prefill: claim the
+        same slot id in the group's draft arena (the two block tables stay
+        aligned) and start the draft's chase, which ``_draft_chunks``
+        advances while the slot decodes normally; rounds start once it
+        reaches the lag goal.  A draft that cannot be allocated degrades to
+        plain decode (counted, never fatal).  Forks never speculate: their
+        divergence is the point, and greedy drafts would collapse them."""
+        if self.speculate_k <= 0 or s.sample_idx != 0 or s.done:
+            return
+        draft = self._ensure_draft(state)
+        # draft rows run k past the known tokens in a round
+        total = min(len(s.req.tokens) + s.req.max_new_tokens
+                    + self.speculate_k, draft.slot_tokens)
+        if not draft.can_alloc(total):
+            self.spec_degraded += 1
+            return
+        draft.alloc(total, slot=s.slot_id)
+        draft.reset_len(s.slot_id)
+        s.spec = True
+        s.draft_len = 0
+
+    def _drop_draft(self, state: _GroupState, s: _Slot) -> None:
+        """Free a speculating slot's draft slot; it decodes plainly from
+        here on."""
+        if s.spec:
+            state.draft.free(s.slot_id)
+            s.spec = False
+            s.draft_len = 0
+
+    def _draft_chunks(self, state: _GroupState) -> int:
+        """Chase each speculating slot's draft cache toward its lag goal,
+        at most one chunk budget per group per step (target prefill's
+        bound).  The goal moves one row a plain decode step while the chase
+        runs; the smallest bucket is a whole block, so the chase gains."""
+        if state.draft is None:
+            return 0
+        draft = state.draft
+        budget = self.prefill_chunk_tokens
+        done_tokens = 0
+        for s in state.slots:
+            if budget <= 0:
+                break
+            if not s.spec or s.prefilling or s.done:
+                continue
+            goal = self._spec_goal(s)
+            while s.draft_len < goal and budget > 0:
+                T = self._pick_bucket(goal - s.draft_len, budget)
+                if T is None:
+                    budget = 0
+                    break
+                n_valid = min(goal - s.draft_len, T)
+                known = np.concatenate([np.asarray(s.req.tokens, np.int32),
+                                        np.asarray(s.emitted, np.int32)])
+                toks = np.zeros((1, T), np.int32)
+                toks[0, :n_valid] = known[s.draft_len:s.draft_len + n_valid]
+                self._chunk_step(draft, s.slot_id, toks, n_valid, draft=True)
+                s.draft_len += n_valid
+                budget -= T
+                done_tokens += n_valid
+                self.draft_prefill_tokens += n_valid
+        return done_tokens
+
+    def _spec_round(self, state: _GroupState,
+                    spec_slots: List[_Slot]) -> None:
+        """One draft/verify round for every slot whose draft has caught up:
+        k+1 fused draft decode steps (step 0 feeds ``known[-2]`` to close
+        the lag, steps 1..k propose drafts on the ``STREAM_DRAFT``
+        streams), then one fused target verify launch, which commits up to
+        k+1 tokens a slot.  The draft then rolls back to the new lag goal
+        (the rows of rejected proposals lie past its length; the next round
+        overwrites them).  Acceptance runs on the speculating rows only:
+        each row's tokens depend only on its own logits and keys."""
+        arena, draft = state.arena, state.draft
+        cap = arena.capacity
+        k = self.speculate_k
+        dev = self.device
+        tr = self.trace
+        rt0 = tr.clock() if tr.enabled else 0.0
+        live = np.zeros((cap,), bool)
+        seeds = np.zeros((cap,), np.int64)
+        sids = np.zeros((cap,), np.int64)
+        offs = np.zeros((cap,), np.int64)
+        for s in spec_slots:
+            sid = s.slot_id
+            live[sid] = True
+            seeds[sid] = self._req_seed(s.req) & 0xFFFFFFFF
+            sids[sid] = s.sample_idx
+            offs[sid] = len(s.emitted)
+        live_dev = torch.from_numpy(live).to(dev)
+        rows = np.flatnonzero(live)               # speculating slot ids
+        rows_dev = torch.from_numpy(rows).to(dev)
+        drafts = np.zeros((cap, k), np.int32)
+        dlogits = []
+        for j in range(k + 1):
+            tokens = np.zeros((cap,), np.int32)
+            for s in spec_slots:
+                if j == 0:
+                    # the catch-up row: the second-to-last known token
+                    # (its output re-predicts a token already known)
+                    tokens[s.slot_id] = (s.emitted[-2] if len(s.emitted) >= 2
+                                         else s.req.tokens[-1])
+                elif j == 1:
+                    tokens[s.slot_id] = s.emitted[-1]
+                else:
+                    tokens[s.slot_id] = drafts[s.slot_id, j - 2]
+            logits = self._paged_decode(draft, torch.from_numpy(tokens).to(
+                dev), live_dev, draft=True)
+            self.draft_steps += 1
+            if j >= 1:
+                dlogits.append(logits[rows_dev])
+                drafts[:, j - 1] = self._sample(
+                    logits, seeds, sids, offs + (j - 1), live=live_dev,
+                    stream=STREAM_DRAFT).cpu().numpy()
+        vtok = np.zeros((cap, k + 1), np.int32)
+        for s in spec_slots:
+            sid = s.slot_id
+            vtok[sid, 0] = s.emitted[-1]
+            vtok[sid, 1:] = drafts[sid]
+            # copy-on-write over the whole verify span (a tail the prefix
+            # index froze, a prompt block shared with another slot)
+            start = len(s.req.tokens) + len(s.emitted) - 1
+            copied = arena.ensure_writable(sid, start, k + 1)
+            if copied:
+                self.admission_copy_bytes += (copied * arena.block_size
+                                              * arena.token_bytes)
+        tv0 = tr.clock() if tr.enabled else 0.0
+        cache = arena.assemble(arena.pages, arena.state, arena.lens)
+        logits, _ = self.api.verify_step_paged(
+            self.params, self.cfg, {"tokens": torch.from_numpy(vtok).to(dev)},
+            cache, arena.device_block_tables(),
+            chunk_len=torch.where(live_dev, k + 1, 0).to(torch.int32),
+            block_size=arena.block_size)
+        out, n_emit = speculative_verify(
+            logits[rows_dev], torch.stack(dlogits, dim=1),
+            torch.from_numpy(drafts[rows]).to(dev), self._key, seeds[rows],
+            sids[rows], offs[rows], self.sampler)
+        arena.lens = arena.lens.index_add(0, rows_dev, n_emit)
+        self.verify_launches += 1
+        if tr.enabled:
+            tr.complete(self.obs_name, "engine", "verify", tv0,
+                        slots=len(spec_slots), k=k)
+        out_h, nem = out.cpu().numpy(), n_emit.cpu().numpy()
+        row_of = {int(sid): i for i, sid in enumerate(rows)}
+        for s in spec_slots:
+            i = row_of[s.slot_id]
+            n = int(nem[i])
+            s.steps += 1
+            for t in out_h[i, :n]:
+                # count only the tokens the request keeps: verify can
+                # commit past max_new or EOS, and eviction drops those
+                self.accepted_tokens += 1
+                s.push(int(t))
+                if s.done:
+                    break
+            # roll the draft back to the new lag goal
+            dl = self._spec_goal(s)
+            draft.set_len(s.slot_id, dl)
+            s.draft_len = dl
+            if tr.enabled:
+                tr.complete(self.obs_name, str(s.req.rid), "spec_round",
+                            rt0, k=k, accepted=n)
 
     def _spawn_forks(self, state: _GroupState, s: _Slot, logits,
                      wall: float) -> None:
@@ -1226,24 +1505,64 @@ class ServiceRuntime:
         if spawned:
             self._sibling_refs[s.req.rid] = spawned + 1
 
+    def _paged_decode(self, arena: KVArena, tokens, live, *,
+                      draft: bool = False):
+        """One fused decode step over every slot of ``arena``: the target
+        model, or with ``draft`` the draft model over its arena (always
+        paged-native).  Paged-native: attention reads the pools in place
+        and writes each live slot's new row.  Otherwise: the dense view of
+        every slot is gathered, the family's dense ``decode_step`` runs on
+        it (dense decode attention), and each live slot's new row goes back
+        to its pages.  Both commit only live slots: dead slots keep their
+        state and their length.  Returns the logits (capacity, V)."""
+        api, cfg, params = ((self.draft_api, self.draft_cfg,
+                             self.draft_params) if draft
+                            else (self.api, self.cfg, self.params))
+        tables = arena.device_block_tables()
+        if draft or self.paged_native:
+            cache = arena.assemble(arena.pages, arena.state, arena.lens)
+            logits, new_cache = api.decode_step_paged(
+                params, cfg, tokens, cache, tables, live,
+                block_size=arena.block_size)
+        else:
+            dense = arena.dense_view(arena.pages, tables)
+            cache = arena.assemble(dense, arena.state, arena.lens)
+            logits, new_cache = api.decode_step(params, cfg, tokens, cache,
+                                                live=live)
+            new_dense, new_state = arena.disassemble(new_cache)
+            arena.append_rows(arena.pages, new_dense, arena.lens, live,
+                              tables)
+            arena.merge_state(arena.state, new_state, live)
+        arena.lens = new_cache["len"]
+        return logits
+
     def _decode_group_paged(self, state: _GroupState) -> None:
-        """(c) One fused decode step over every slot of the arena.
-        Paged-native: attention reads the pools in place and writes each
-        live slot's new row.  Otherwise: the dense view of every slot is
-        gathered, the family's dense ``decode_step`` runs on it (dense
-        decode attention), and each live slot's new row goes back to its
-        pages.  Both commit only live slots: dead slots keep their state
-        and their length."""
+        """(c) One fused decode step over every slot of the arena for the
+        decoding slots, then one speculation round for the slots whose
+        draft has caught up."""
         arena = state.arena
         cap = arena.capacity
+        k = self.speculate_k
         tokens = np.zeros((cap,), np.int32)
         live = np.zeros((cap,), bool)
         seeds = np.zeros((cap,), np.int64)
         sids = np.zeros((cap,), np.int64)
         offs = np.zeros((cap,), np.int64)
+        spec_round: List[_Slot] = []
         for s in state.slots:
             if s.done or s.prefilling:
                 continue
+            if s.spec:
+                if (len(s.req.tokens) + len(s.emitted) + k
+                        > arena.slot_tokens):
+                    # the tail of generation: a full round would write past
+                    # the slot's table, so it finishes with plain decode
+                    self._drop_draft(state, s)
+                    self.spec_degraded += 1
+                elif s.draft_len >= self._spec_goal(s):
+                    spec_round.append(s)
+                    continue
+                # else: the draft is still chasing; decode normally
             sid = s.slot_id
             tokens[sid] = s.emitted[-1]
             live[sid] = True
@@ -1259,41 +1578,27 @@ class ServiceRuntime:
             if copied:
                 self.admission_copy_bytes += (copied * arena.block_size
                                               * arena.token_bytes)
-        if not live.any():
-            return
-        dev = self.device
-        live_dev = torch.from_numpy(live).to(dev)
-        tokens_dev = torch.from_numpy(tokens).to(dev)
-        tables = arena.device_block_tables()
-        if self.paged_native:
-            cache = arena.assemble(arena.pages, arena.state, arena.lens)
-            logits, new_cache = self.api.decode_step_paged(
-                self.params, self.cfg, tokens_dev, cache, tables, live_dev,
-                block_size=arena.block_size)
-        else:
-            dense = arena.dense_view(arena.pages, tables)
-            cache = arena.assemble(dense, arena.state, arena.lens)
-            logits, new_cache = self.api.decode_step(
-                self.params, self.cfg, tokens_dev, cache, live=live_dev)
-            new_dense, new_state = arena.disassemble(new_cache)
-            arena.append_rows(arena.pages, new_dense, arena.lens, live_dev,
-                              tables)
-            arena.merge_state(arena.state, new_state, live_dev)
-        arena.lens = new_cache["len"]
-        tr = self.trace
-        ts0 = tr.clock() if tr.enabled else 0.0
-        toks = self._sample(
-            logits, seeds, sids, offs, live=live_dev,
-            occupancy=arena.device_occupancy()).cpu().numpy()
-        if tr.enabled:
-            tr.complete(self.obs_name, "engine", "sample", ts0,
-                        live=int(live.sum()))
-        self.decode_steps += 1
-        for slot in state.slots:
-            if slot.done or slot.prefilling or not live[slot.slot_id]:
-                continue
-            slot.steps += 1
-            slot.push(int(toks[slot.slot_id]))
+        if live.any():
+            dev = self.device
+            live_dev = torch.from_numpy(live).to(dev)
+            logits = self._paged_decode(arena, torch.from_numpy(tokens).to(
+                dev), live_dev)
+            tr = self.trace
+            ts0 = tr.clock() if tr.enabled else 0.0
+            toks = self._sample(
+                logits, seeds, sids, offs, live=live_dev,
+                occupancy=arena.device_occupancy()).cpu().numpy()
+            if tr.enabled:
+                tr.complete(self.obs_name, "engine", "sample", ts0,
+                            live=int(live.sum()))
+            self.decode_steps += 1
+            for slot in state.slots:
+                if slot.done or slot.prefilling or not live[slot.slot_id]:
+                    continue
+                slot.steps += 1
+                slot.push(int(toks[slot.slot_id]))
+        if spec_round:
+            self._spec_round(state, spec_round)
 
     def _decode_group_dense(self, state: _GroupState) -> None:
         """(c) The dense impl's fused decode over its compacted cache (every
@@ -1381,12 +1686,14 @@ class ServiceRuntime:
         # (1) queued work, including the rids _park_slot re-queued
         for item, _ in self.composer.shed(lambda item: True):
             out.setdefault(item.payload.rid, item.payload)
-        # (2) live slots.  Slot rids are finished here (through the sibling
-        # refcount, once per rid) and skipped in the last pass; queued and
-        # parked rids never overlap live slots
+        # (2) live slots free their draft and arena slots.  Slot rids are
+        # finished here (through the sibling refcount, once per rid) and
+        # skipped in the last pass; queued and parked rids never overlap
+        # live slots
         slot_rids = set()
         for state in self.groups.values():
             for s in state.slots:
+                self._drop_draft(state, s)
                 if state.arena is not None:
                     state.arena.free(s.slot_id)
                 if self.trace.enabled:
@@ -1426,6 +1733,8 @@ class ServiceRuntime:
         copy0, whole0 = self.admission_copy_bytes, self.whole_cache_copies
         chunkw0, steps0 = self.chunk_write_bytes, self.decode_steps
         one0 = self.oneshot_prefills
+        draft0, ver0 = self.draft_steps, self.verify_launches
+        acc0, deg0 = self.accepted_tokens, self.spec_degraded
         fk0, fs0 = self.forks_spawned, self.fork_shortfall
         pfx0 = self._prefix_totals()
         results: List[GenerationResult] = []
@@ -1457,6 +1766,7 @@ class ServiceRuntime:
         for state in self.groups.values():
             n = self._prefill_chunks(state)
             chunk_tokens += n
+            self._draft_chunks(state)
             if tr.enabled:
                 t_phase = self._phase_mark("chunk", t_phase, tokens=n)
             self._decode_group(state)
@@ -1495,8 +1805,14 @@ class ServiceRuntime:
             preempted=ctrl.preemptions - preempt0,
             resumed=ctrl.resumes - resume0,
             parked=len(ctrl.parked),
+            draft_steps=self.draft_steps - draft0,
+            verify_launches=self.verify_launches - ver0,
+            accepted_tokens=self.accepted_tokens - acc0,
+            spec_slots=sum(1 for g in self.groups.values()
+                           for s in g.slots if s.spec and not s.done),
             forks_spawned=self.forks_spawned - fk0,
-            fork_shortfall=self.fork_shortfall - fs0)
+            fork_shortfall=self.fork_shortfall - fs0,
+            spec_degraded=self.spec_degraded - deg0)
 
     # ------------------------------------------------------------------
     # sync mode: run-to-completion batches (the pre-slot baseline)
@@ -1581,11 +1897,13 @@ class ServiceRuntime:
         out: List[GenerationResult] = []
         while self.pending() or self.in_flight():
             before = (self.pending(), self.in_flight(), self.decode_steps,
-                      self.prefill_chunk_calls)
+                      self.prefill_chunk_calls, self.verify_launches,
+                      self.draft_prefill_tokens)
             stats = self.step(now=now, max_wait_s=max_wait_s)
             out.extend(stats.results)
             if (self.pending(), self.in_flight(), self.decode_steps,
-                    self.prefill_chunk_calls) == before \
+                    self.prefill_chunk_calls, self.verify_launches,
+                    self.draft_prefill_tokens) == before \
                     and not stats.results:
                 break            # no progress possible (e.g. empty compose)
         return out
@@ -1650,7 +1968,8 @@ class EparaServingEngine:
                 if on_stats is not None:
                     on_stats(name, stats)
                 if (stats.results or stats.admitted or stats.decode_steps
-                        or stats.prefill_chunk_tokens or stats.rejected):
+                        or stats.prefill_chunk_tokens or stats.rejected
+                        or stats.verify_launches or stats.draft_steps):
                     progress = True
         self._results.extend(out)
         return out

@@ -134,6 +134,25 @@ PAGED_CHUNK_ODD = {    # (B, T, Hq, Hkv, D), start, chunk_len, prefix_len
 }
 
 
+def _verify_starts():
+    """512 ragged starts with room for 5 rows, the first 8 around page
+    ends."""
+    start = np.random.default_rng(2).integers(0, 252, 512)
+    start[:8] = (0, 27, 28, 31, 32, 60, 100, 251)
+    return start.tolist()
+
+
+# speculative decoding's verify launch: 512 slots, T = k + 1 = 5 rows,
+# minitron-4b's 24/8 heads at D = 128; 32 slots speculating (chunk_len 5,
+# the rest 0), then all 512
+PAGED_CHUNK_ODD.update({
+    "verify_32_of_512": ((512, 5, 24, 8, 128), _verify_starts(),
+                         [5 if b % 16 == 0 else 0 for b in range(512)], 0),
+    "verify_512_of_512": ((512, 5, 24, 8, 128), _verify_starts(),
+                          [5] * 512, 0),
+})
+
+
 def _paged_chunk_case(dev, case, quant, seed):
     (B, T, Hq, Hkv, D), start, cl, prefix = PAGED_CHUNK_ODD[case]
     gen = torch.Generator(device=dev)
@@ -158,8 +177,9 @@ def _paged_chunk_case(dev, case, quant, seed):
 def test_cuda_paged_chunk_odd_shapes_match_plain(cuda_device, case, quant):
     """The chunk kernels (64-row, 64-key tiles) off their tiles: T = 13
     and 65, starts off the 32-token page and off 64, a dead slot among
-    four, a prefix past the first row tile, GQA 32/8 at D = 128; held by
-    atol and at every row by its norm; rows past chunk_len are zeros."""
+    four, a prefix past the first row tile, GQA 32/8 at D = 128, and the
+    verify launch's 512 slots of 5 rows; held by atol and at every row by
+    its norm; rows past chunk_len are zeros."""
     run, want, cl = _paged_chunk_case(cuda_device, case, quant, 11)
     kind = "_quant" if quant else ""
     before = paged_attention.launches["paged_chunk_prefill_attention" + kind]

@@ -222,8 +222,9 @@ def test_moe_family_is_ported_paged_native():
 
 def test_unported_moe_entry_points_name_their_items():
     """The one-shot ``prefill`` and the dense ``prefill_chunk`` and
-    ``decode_step`` run (they were ROADMAP.md Queue 1 item 11); training
-    and speculative verify still raise, naming items 12 and 4."""
+    ``decode_step`` run (they were ROADMAP.md Queue 1 item 11), and so does
+    the paged ``verify_step_paged`` (item 4): logits (B, T, V) and the
+    lengths unchanged; training still raises, naming item 12."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import moe
     cfg = reduced(get_config("mixtral-8x7b"))
@@ -242,8 +243,16 @@ def test_unported_moe_entry_points_name_their_items():
     assert bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         moe.forward_hidden()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        moe.verify_step_paged()
+    pool = (cfg.num_layers, 2 * 4 + 1, 8, cfg.num_kv_heads, cfg.head_dim)
+    paged = {"k": torch.zeros(pool), "v": torch.zeros(pool),
+             "len": torch.tensor([3, 0], dtype=torch.int32)}
+    logits, out = moe.verify_step_paged(
+        params, cfg, {"tokens": tokens[:, :5]}, paged,
+        torch.arange(8, dtype=torch.int32).reshape(2, 4),
+        chunk_len=torch.tensor([5, 0], dtype=torch.int32), block_size=8)
+    assert logits.shape == (2, 5, cfg.vocab_size)
+    assert out["len"].tolist() == [3, 0]
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_moe_budget_over_the_window_raises_naming_item_11():

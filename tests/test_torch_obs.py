@@ -13,9 +13,12 @@ bridge, each with its own package's ``Tracer`` and ``MetricsRegistry``.
   for event, timestamps included: the same spans, in the same order, with
   the same arguments, and the same clock reads between them.  This holds
   on the continuous paged path (native and dense view), the one-shot,
-  dense-cache and sync paths.  On the real clock each request's span tree
-  is balanced, rooted at ``request`` with ``queued``, ``prefill`` and
-  ``decode`` children, and ends with ``outcome="served"``.
+  dense-cache and sync paths, and with speculation (``tests/test_obs.py``'s
+  ``spec_run``: the ``verify`` and ``spec_round`` spans, the count-valued
+  metrics and the calibration's ``spec_accept_rate`` equal too).  On the
+  real clock each request's span tree is balanced, rooted at ``request``
+  with ``queued``, ``prefill`` and ``decode`` children, and ends with
+  ``outcome="served"``.
 * Metrics: the Prometheus series names are equal; every count-valued
   series has the same value; of the ``*_seconds`` series only the
   histogram counts are compared (their values are wall times).  The
@@ -274,6 +277,50 @@ def test_event_stream_matches_reference_under_sdf(weights):
         want_m.pop(k)
     assert got_m == want_m
     assert got_m['epara_step_preempted_total{service="toy"}'] == 1
+
+
+def test_event_stream_matches_reference_with_speculation(weights):
+    """``tests/test_obs.py``'s ``spec_run`` (three requests, a self-draft,
+    k = 3) on both engines: the tick-clock event streams are equal, the
+    ``verify`` engine spans and the per-request ``spec_round`` spans among
+    them, and so are the count-valued metrics and the calibration's
+    ``spec_accept_rate``."""
+    jplan, tplan = _plans()
+    jrt = JRuntime(_CFG, weights[0], jplan, impl="ref",
+                   draft_params=weights[0], draft_cfg=_CFG, speculate=3,
+                   tracer=JTracer(clock=_ticks()), metrics=JMetrics())
+    trt = ServiceRuntime(_mirror(_CFG), weights[1], tplan, device="cpu",
+                         draft_params=weights[1], draft_cfg=_mirror(_CFG),
+                         speculate=3, tracer=Tracer(clock=_ticks()),
+                         metrics=MetricsRegistry())
+    toks = []
+    for rt, cls in ((jrt, JRequest), (trt, GenerationRequest)):
+        rng = np.random.default_rng(3)
+        for i in range(3):
+            rt.submit(cls(rid=i, tokens=rng.integers(
+                1, _CFG.vocab_size, 6 + 2 * i).astype(np.int32),
+                max_new_tokens=8))
+        out = {}
+        while rt.pending() or rt.in_flight():
+            out.update({r.rid: tuple(int(x) for x in r.tokens)
+                        for r in rt.step().results})
+        toks.append(out)
+    assert toks[0] == toks[1] and len(toks[1]) == 3
+    assert trt.verify_launches == jrt.verify_launches > 0
+    assert trt.trace.events() == jrt.trace.events()
+    names = {e[3] for e in trt.trace.events()}
+    assert {"verify", "spec_round"} <= names
+    got_m = _split_series(jparse_prometheus_text(
+        trt.metrics.prometheus_text()))
+    want_m = _split_series(jparse_prometheus_text(
+        jrt.metrics.prometheus_text()))
+    for k in [k for k in want_m if "_compiles{" in k]:
+        assert got_m.pop(k) == 0.0      # the port compiles nothing
+        want_m.pop(k)
+    assert got_m == want_m
+    rate = calibrate({"toy": telemetry_from_runtime("toy", trt)})
+    want = jcalibrate({"toy": jtelemetry_from_runtime("toy", jrt)})
+    assert rate.spec_accept_rate == want.spec_accept_rate > 0.5
 
 
 def test_request_span_trees_match_reference(runs):

@@ -129,8 +129,13 @@ def test_runtime_rejects_unported_options():
     plan = ParallelPlan(service="toy",
                         category=TaskCategory(Sensitivity.LATENCY, False),
                         bs=2)
-    # speculative decoding is not ported: it names its ROADMAP.md item
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+    # speculative decoding is ported (ROADMAP.md Queue 1 item 4): a draft
+    # builds a speculating runtime (the latency category's k), and k > 0
+    # without one raises as in the reference
+    rt = ServiceRuntime(cfg, params, plan, device="cpu", draft_params=params,
+                        draft_cfg=cfg)
+    assert rt.speculate_k == plan.resolved_speculate(True) > 0
+    with pytest.raises(ValueError, match="requires a draft model"):
         ServiceRuntime(cfg, params, plan, device="cpu", speculate=2)
     # SDF admission is ported (ROADMAP.md Queue 1 item 3): it builds a
     # runtime with an active controller, refused in sync mode as in the
@@ -183,12 +188,26 @@ def test_launcher_serves_on_cpu(kv, capsys):
 
 def test_launcher_names_roadmap_item_for_unported_flags(capsys):
     for argv, item in ((["--servers", "3"], "item 6"),
-                       (["--speculate", "2"], "item 4"),
-                       (["--draft-arch", "minicpm-2b"], "item 4")):
+                       (["--chaos-seed", "1"], "item 6")):
         with pytest.raises(SystemExit) as e:
             serve.main(["--device", "cpu", *argv])
         assert e.value.code == 2
         assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err
+    # --speculate and --draft-arch are ported (item 4), with the
+    # reference's checks: k > 0 needs a draft, the draft a known arch
+    for argv, msg in ((["--speculate", "2"], "requires --draft-arch"),
+                      (["--draft-arch", "gpt-9"], "unknown --draft-arch")):
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--device", "cpu", *argv])
+        assert e.value.code == 2 and msg in capsys.readouterr().err
+    assert serve.main(["--device", "cpu", "--requests", "2",
+                       "--max-new-tokens", "6", "--max-seq-len", "32",
+                       "--archs", "minitron-4b", "--draft-arch",
+                       "minitron-4b", "--speculate", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "speculative (draft=minitron-4b):" in out
+    assert int(out.split("speculative (draft=minitron-4b): ")[1].split()[0]) \
+        > 0
     # the admission and fork flags are ported (items 3 and 4's forks)
     assert serve.main(["--device", "cpu", "--requests", "2",
                        "--max-new-tokens", "2", "--max-seq-len", "32",
