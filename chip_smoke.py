@@ -11,9 +11,10 @@ and mixtral-8x7b, full width, random weights from a seed), its training
 path (minicpm-2b), its sync and dense-cache serving paths and its prefix
 cache (minicpm-2b) in nine phases, then its observability and crash
 evacuation (minicpm-2b) in a tenth, its stochastic sampling, deadline
-admission with parking and n-way forks (minicpm-2b) in an eleventh, and
-its speculative decoding (minitron-4b, mixtral-8x7b) in a twelfth; any
-failure exits non-zero.  The serving
+admission with parking and n-way forks (minicpm-2b) in an eleventh, its
+speculative decoding (minitron-4b, mixtral-8x7b) in a twelfth, and its
+multi-server control plane with crash failover (minicpm-2b, minitron-4b)
+in a thirteenth; any failure exits non-zero.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
 pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
@@ -204,6 +205,32 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    printed) and at 8 (no drops, (a) repeated, the splits printed, a
    1-layer draft's chains identical to the self-draft's); each run's
    tok/s, speculation counters, launches and peak memory printed;
+13. the multi-server control plane (SSSP placement, the handler, the ring
+   sync, the ``ClusterSupervisor`` with fault injection and crash
+   failover): (a) the launcher with ``--servers 2 --archs minicpm-2b
+   --chaos-seed 2 --requests 24 --max-new-tokens 8`` at full width and
+   the plan's 512 slots (server 0 crashes at logical t = 2.9 mid-burst and
+   restarts at 6.4), and the same command with ``--device cpu`` on the
+   reduced config: both exit 0, a crash failover and an evacuation, #2 and
+   #4 launched, every counter of the ``served``, ``admission`` and
+   ``fault tolerance`` lines and the rounds equal on the card and the CPU
+   (the clock is logical); then ``--servers 3``, refused before anything
+   is allocated with the sum in the message; (b) minicpm-2b (frequency,
+   int8 KV) and minitron-4b (latency, bf16 KV) at full width, 128 slots
+   each (``plan_for(full, bs=128)``), each placed on all three servers of
+   the port's ``EdgeCloudControlPlane`` at demand 4.0, 24 requests a
+   service (phase 3's prompts of 6-200 tokens, 24 new tokens, entry
+   servers from seed 13) through the port's ``ClusterSupervisor`` with
+   ``RetryPolicy(base_timeout_s=4.0)`` on its logical clock, failure-free
+   and under ``CLUSTER_FAULTS`` (two dropped handoffs, a straggler, a
+   corrupted digest, a crash of server 0 at 4.0 and its restart at 12.0):
+   every rid accounted with no ``FAILED`` verdict, evacuations, failovers,
+   dropped handoffs and straggler rounds, server 0 back up, every survivor
+   runtime decoding, #1-#4 launched, and every chain that splits from the
+   failure-free run's at a top-two gap below phase 12 (a)'s largest
+   verify-vs-decode logit difference (``chain_splits``' rule), the splits
+   counted by service; each run's wall, tok/s, rounds, outcomes, recovery
+   counters and peak memory beside its static sum printed;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -229,6 +256,8 @@ and (c) print the paged-attention counts of their runs (the resumed and
 forked slots' decode and chunk launches), not put in the record; every
 count is zeroed just before phase 12 and read just after it (printed,
 not put in the record), and phase 12 fails unless #1, #3 and #9
+launched; every count is zeroed just before phase 13 and read just after
+it (printed, not put in the record), and phase 13 fails unless #1-#4
 launched.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
@@ -2666,12 +2695,14 @@ def next_token_gap(cfg, params, tokens):
     return (top[0] - top[1]).item()
 
 
-def chain_splits(cfg, params, plain, spec):
+def chain_splits(cfg, params, plain, spec, prompts=None):
     """Each chain of ``spec`` that differs from ``plain``: its request,
     the first position where they differ, and the plain run's top-two
-    logit gap there (``next_token_gap``)."""
+    logit gap there (``next_token_gap``).  Request ``i``'s prompt is
+    ``prompts[i]`` (phase 3's by default)."""
     from repro_torch.launch.profile_step import wave_prompts
-    prompts = wave_prompts(cfg.vocab_size)
+    if prompts is None:
+        prompts = wave_prompts(cfg.vocab_size)
     out = []
     for rid in sorted(plain):
         a, b = plain[rid], spec[rid]
@@ -2944,6 +2975,301 @@ def phase_speculative():
     rec["seconds"] = time.perf_counter() - t0
     print(f"phase 12 record: {json.dumps(rec)}")
     print(f"phase 12: {rec['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the multi-server control plane (placement, handler, ring sync,
+# ClusterSupervisor with fault injection and crash failover)
+# ---------------------------------------------------------------------------
+
+CLUSTER_LAUNCHER = ["--servers", "2", "--archs", "minicpm-2b",
+                    "--chaos-seed", "2", "--requests", "24",
+                    "--max-new-tokens", "8"]
+CLUSTER_ARCHS = ("minicpm-2b", "minitron-4b")   # frequency int8, latency bf16
+CLUSTER_SERVERS = 3
+CLUSTER_SLOTS = 128             # plan_for(full, bs=128), as phases 4-5
+CLUSTER_REQUESTS = 24           # a service
+CLUSTER_NEW = 24
+CLUSTER_TIMEOUT_S = 4.0
+# (at_s, kind, sid, keyword arguments): all five kinds
+CLUSTER_FAULTS = ((1.0, "drop_offload", 1, dict(count=2)),
+                  (2.0, "straggle", 2, dict(duration_s=6.0, factor=2.0)),
+                  (3.0, "corrupt", 1, dict(factor=4.0)),
+                  (4.0, "crash", 0, {}),
+                  (12.0, "restart", 0, {}))
+
+
+def launcher_counters(text):
+    """The launcher's ``served``, ``admission`` and ``fault tolerance``
+    lines with the wall time, tok/s and device taken out: what is left
+    counts, on the supervisor's logical clock."""
+    import re
+    keep = ("served ", "admission (", "fault tolerance:")
+    out = []
+    for ln in text.splitlines():
+        if ln.startswith(keep):
+            ln = re.sub(r" in [0-9.]+s \([0-9.]+ tok/s,", "", ln)
+            out.append(re.sub(r", device=[a-z0-9:]+", "", ln))
+    return out
+
+
+def phase_cluster_launcher():
+    """Phase 13 (a): the launcher on two servers of minicpm-2b at full
+    width and the plan's 512 slots, under ``random_fault_spec([0, 1], 20.0,
+    seed=2)`` (server 0 crashes at 2.9 mid-burst and restarts at 6.4), and
+    the same command on the CPU's reduced config: exit 0 both, a crash
+    failover and an evacuation, #2 and #4 launched, every counter of the
+    two runs' served, admission and fault tolerance lines equal, and the
+    rounds.  Then three servers, which the launcher refuses before it
+    allocates anything."""
+    import io
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch import serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    texts, rcs, walls, reports = {}, {}, {}, {}
+    supervisor = serve.ClusterSupervisor
+
+    class Recorded(supervisor):
+        """The launcher's supervisor, its report kept for the rounds."""
+
+        def run_until_idle(self, *args, **kwargs):
+            reports[dev] = super().run_until_idle(*args, **kwargs)
+            return reports[dev]
+
+    l0 = launch_counts()
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        serve.ClusterSupervisor = Recorded
+        try:
+            with contextlib.redirect_stdout(buf):
+                rcs[dev] = serve.main([*CLUSTER_LAUNCHER, "--device", dev])
+        finally:
+            serve.ClusterSupervisor = supervisor
+        walls[dev] = time.perf_counter() - t0
+        texts[dev] = buf.getvalue()
+        if dev == "cuda":
+            peak = (torch.cuda.max_memory_allocated(),
+                    torch.cuda.max_memory_reserved())
+            grown = {k: v - l0[k] for k, v in launch_counts().items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(texts["cuda"], end="")
+    check(rcs == {"cuda": 0, "cpu": 0}, f"(a) the launcher exited {rcs}")
+    tol = next((ln for ln in texts["cuda"].splitlines()
+                if ln.startswith("fault tolerance:")), "")
+    failovers = int(tol.split()[2]) if tol else 0
+    evacuated = int(tol.split()[5]) if tol else 0
+    check(failovers > 0 and evacuated > 0, f"(a) no failover: {tol!r}")
+    check(grown["paged_decode_attention_quant"] > 0
+          and grown["paged_chunk_prefill_attention_quant"] > 0,
+          f"(a) the int8 kernels did not launch: {grown}")
+    card, cpu = launcher_counters(texts["cuda"]), launcher_counters(
+        texts["cpu"])
+    check(len(card) == 3 and card == cpu
+          and reports["cuda"].rounds == reports["cpu"].rounds,
+          f"(a) the card's counters differ from the CPU's:\n{card}\n{cpu}")
+    args = serve._parser().parse_args(CLUSTER_LAUNCHER)
+    weights, arenas = serve.footprint(args)
+    rec = {"wall_s": walls["cuda"], "cpu_wall_s": walls["cpu"],
+           "rounds": reports["cuda"].rounds, "peak_gb": peak[0] / 1e9,
+           "peak_reserved_gb": peak[1] / 1e9,
+           "static_gb": (weights + arenas) / 1e9,
+           "launches": {k: v for k, v in grown.items() if v}}
+    # three servers do not fit with the headroom: refused before anything
+    # is allocated, the sum in the message
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    try:
+        serve.main(["--servers", "3", "--archs", "minicpm-2b"])
+        refusal = ""
+    except RuntimeError as e:
+        refusal = str(e)
+    check(refusal.startswith("the run needs 82.48 GB")
+          and "--servers 2 fits" in refusal
+          and torch.cuda.memory_allocated() == held,
+          f"(a) three servers were not refused before allocating: "
+          f"{refusal!r}")
+    rec["refusal"] = refusal
+    print(f"phase 13 (a) launcher, 2 servers of minicpm-2b, chaos seed 2: "
+          f"card and CPU counters equal ({card}); {json.dumps(rec)}")
+    return rec
+
+
+def cluster_run(label, cfgs, params, spec=None):
+    """Phase 13 (b)'s cluster: ``CLUSTER_SERVERS`` servers of 4 GPUs under
+    the port's ``EdgeCloudControlPlane`` (SSSP placement at demand 4.0),
+    a runtime of each service on each server at ``CLUSTER_SLOTS`` slots,
+    and ``CLUSTER_REQUESTS`` requests a service (phase 3's prompts of 6-200
+    tokens, ``CLUSTER_NEW`` new tokens, entry servers drawn from seed 13)
+    through the port's ``ClusterSupervisor`` on its logical clock, under
+    ``spec`` if given.  Returns the chains by rid and the run's record."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import EdgeCloudControlPlane, ServerSpec
+    from repro_torch.core.faults import FaultInjector
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch.profile_step import wave_prompts
+    from repro_torch.launch.serve import plan_for, service_spec_for
+    from repro_torch.serving.engine import (EparaServingEngine,
+                                            GenerationRequest, ServiceRuntime)
+    from repro_torch.serving.failover import ClusterSupervisor, RetryPolicy
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    servers = [ServerSpec(sid=i, num_gpus=4) for i in range(CLUSTER_SERVERS)]
+    cp = EdgeCloudControlPlane(servers, {
+        a: service_spec_for(get_config(a)) for a in CLUSTER_ARCHS})
+    cp.run_placement({(a, s.sid): 4.0 for a in CLUSTER_ARCHS
+                      for s in servers})
+    check(sorted(cp.placements) == sorted(
+        (a, s.sid) for a in CLUSTER_ARCHS for s in servers),
+        f"{label}: placements {cp.placements}")
+    plans = {a: plan_for(get_config(a), bs=CLUSTER_SLOTS)
+             for a in CLUSTER_ARCHS}
+    engines = {s.sid: EparaServingEngine() for s in servers}
+    for svc, sid in cp.placements:
+        engines[sid].deploy(svc, ServiceRuntime(
+            cfgs[svc], params[svc], plans[svc], device="cuda"))
+    cp.publish_all(0.0)
+    for _ in servers:
+        cp.sync_step(0.0)
+    sup = ClusterSupervisor(
+        cp, engines, retry=RetryPolicy(base_timeout_s=CLUSTER_TIMEOUT_S),
+        injector=FaultInjector(spec) if spec is not None else None)
+    prompts = {a: wave_prompts(cfgs[a].vocab_size, CLUSTER_REQUESTS)
+               for a in CLUSTER_ARCHS}
+    entry = np.random.default_rng(13)
+    for i in range(CLUSTER_REQUESTS * len(CLUSTER_ARCHS)):
+        svc = CLUSTER_ARCHS[i % len(CLUSTER_ARCHS)]
+        sup.submit(svc, GenerationRequest(
+            rid=i, tokens=prompts[svc][i // len(CLUSTER_ARCHS)],
+            max_new_tokens=CLUSTER_NEW, stream=i),
+            at_server=int(entry.integers(0, CLUSTER_SERVERS)), now=0.0)
+    l0 = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = sup.run_until_idle()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = CLUSTER_REQUESTS * len(CLUSTER_ARCHS)
+    check(rep.accounted == n and not rep.rejects,
+          f"{label}: {rep.accounted}/{n} accounted, rejects "
+          f"{[(r.req.rid, r.verdict.value, r.reason) for r in rep.rejects]}")
+    toks = {r.rid: np.asarray(r.tokens) for r in rep.results
+            if r.sample == 0}
+    for rid, t in toks.items():
+        vocab = cfgs[CLUSTER_ARCHS[rid % len(CLUSTER_ARCHS)]].vocab_size
+        check(len(t) == CLUSTER_NEW and t.min() >= 0 and t.max() < vocab,
+              f"{label}: rid {rid}'s tokens out of range")
+    steps = {f"{name}@{sid}": rt.decode_steps
+             for sid, eng in engines.items()
+             for name, rt in eng.runtimes.items()}
+    n_tok = sum(len(t) for t in toks.values())
+    rec = {"wall_s": dt, "tok_s": n_tok / dt, "rounds": rep.rounds,
+           "outcomes": rep.outcomes, "failovers": rep.failovers,
+           "evacuated": rep.evacuated, "duplicates": rep.duplicates,
+           "dropped_offloads": rep.dropped_offloads,
+           "heartbeat_misses": rep.heartbeat_misses,
+           "offload_retries": rep.offload_retries,
+           "down_at_end": sorted(sup.down), "decode_steps": steps,
+           "launches": {k: v - l0[k] for k, v in launch_counts().items()
+                        if v - l0[k]},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "static_gb": (sum(t.numel() * t.element_size() for a in params
+                             for t in tree_leaves(params[a]))
+                         + sum(g.arena.device_bytes()
+                               for eng in engines.values()
+                               for rt in eng.runtimes.values()
+                               for g in rt.groups.values()
+                               if g.arena is not None)) / 1e9}
+    print(f"phase 13 (b) {label}: {json.dumps(rec)}")
+    del sup, engines, cp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, rec
+
+
+def cluster_splits(cfgs, params, plain, crashed):
+    """``chain_splits`` of the crash run's chains against the failure-free
+    run's, by service; a split's ``rid`` is its request's index in the
+    service's wave."""
+    from repro_torch.launch.profile_step import wave_prompts
+    k = len(CLUSTER_ARCHS)
+    out = {}
+    for j, svc in enumerate(CLUSTER_ARCHS):
+        ours = range(CLUSTER_REQUESTS)
+        out[svc] = chain_splits(
+            cfgs[svc], params[svc], {i: plain[i * k + j] for i in ours},
+            {i: crashed[i * k + j] for i in ours},
+            wave_prompts(cfgs[svc].vocab_size, CLUSTER_REQUESTS))
+    return out
+
+
+def phase_cluster(limit):
+    """Phase 13: (a) ``phase_cluster_launcher``; (b) minicpm-2b and
+    minitron-4b at full width, 128 slots each, on three servers of the
+    port's control plane and supervisor, failure-free and under
+    ``CLUSTER_FAULTS``: every rid accounted, no FAILED verdict, failovers,
+    evacuations and straggler rounds, server 0 back up, every survivor
+    runtime decoding, #1-#4 launched, and every chain that splits from the
+    failure-free run's at a top-two gap below ``limit`` (phase 12 (a)'s
+    verify-vs-decode logit difference).  Every count is zeroed just before
+    it and read just after (printed, not put in the record)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.faults import FaultEvent, FaultSpec
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.models.registry import model_api
+    t0 = time.perf_counter()
+    reset_launches()
+    rec = {"launcher": phase_cluster_launcher()}
+    cfgs = {a: get_config(a) for a in CLUSTER_ARCHS}
+    params = {a: model_api(cfg).init(1, cfg, "cuda")
+              for a, cfg in cfgs.items()}
+    plain, rec["failure_free"] = cluster_run("failure-free", cfgs, params)
+    spec = FaultSpec(events=tuple(
+        FaultEvent(at_s=at, kind=kind, sid=sid, **kw)
+        for at, kind, sid, kw in CLUSTER_FAULTS))
+    crashed, rec["faults"] = cluster_run("under the fault schedule", cfgs,
+                                         params, spec)
+    r = rec["faults"]
+    check(r["evacuated"] > 0 and r["failovers"] > 0
+          and r["heartbeat_misses"] > 0 and r["dropped_offloads"] > 0,
+          f"(b) the schedule missed: {r}")
+    check(r["down_at_end"] == [], f"(b) servers down at the end: {r}")
+    survivors = {k: v for k, v in r["decode_steps"].items()
+                 if not k.endswith("@0")}
+    check(all(v > 0 for v in survivors.values()),
+          f"(b) a survivor runtime never decoded: {survivors}")
+    counts = launch_counts()
+    for name in ("paged_decode_attention", "paged_decode_attention_quant",
+                 "paged_chunk_prefill_attention",
+                 "paged_chunk_prefill_attention_quant"):
+        check(counts[name] > 0, f"phase 13 never launched {name}")
+    check(sorted(plain) == sorted(crashed), "(b) the runs served other rids")
+    splits = cluster_splits(cfgs, params, plain, crashed)
+    rec["splits"] = splits
+    print(f"phase 13 (b) chains split from the failure-free run's, by "
+          f"service: " + ", ".join(f"{s} {len(v)}/{CLUSTER_REQUESTS}"
+                                    for s, v in splits.items())
+          + f"; splits (request of the service's wave, first differing "
+          f"position, failure-free top-two gap; limit {limit}): {splits}")
+    check(all(s["gap"] < limit for v in splits.values() for s in v),
+          f"(b) a chain splits where its top-two gap is not below {limit}")
+    rec["launches"] = {k: v for k, v in counts.items() if v}
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 13 record: {json.dumps(rec)}")
+    print(f"phase 13: {rec['seconds']:.1f} s")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -3518,6 +3844,14 @@ def small_moe_layer():
     return outs
 
 
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
 def tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: tree_to(v, dev) for k, v in tree.items()}
@@ -3698,7 +4032,10 @@ def main() -> int:
     phase_sampling_admission(int8_toks, int8_tok_s)
     print("phase 12: speculative decoding, minitron-4b full width, 512 "
           "slots, k = 4; mixtral-8x7b full width, 2 of 32 layers")
-    phase_speculative()
+    spec_rec = phase_speculative()
+    print("phase 13: the multi-server control plane, minicpm-2b and "
+          "minitron-4b full width, crash failover")
+    phase_cluster(spec_rec["verify"]["max_abs_diff"])
     small_input_check()
 
     kernels = []

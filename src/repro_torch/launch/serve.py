@@ -1,5 +1,33 @@
-"""Serving launcher for one server: plan each service with the EPARA
-allocator, deploy one ``ServiceRuntime`` per arch, submit requests, drain.
+"""Serving launcher: deploy services through the EPARA control plane and
+drive requests end to end, as the reference's launcher does.
+
+Each edge server is an ``EparaServingEngine`` in this process.  The EPARA
+allocator plans each service, the SSSP placement assigns services to
+``--servers`` servers (4 GPUs each, demand 4.0 everywhere), every placement
+gets its own ``ServiceRuntime`` (one copy of an arch's weights is shared by
+every server hosting it), and every request enters at a drawn server and
+is routed by the distributed handler (local first, then idle-goodput
+weighted offload).  A ``ClusterSupervisor`` drives the rounds: it feeds
+each runtime's queue-time estimate back to the handler, runs a ring sync
+round every round, arms deadline-capped retry timeouts with exponential
+backoff, evacuates a crashed server's requests to survivors, deduplicates
+completions by ``(rid, sample)`` and gives a ``FAILED`` verdict only when
+no avenue is left.  ``--fault-spec`` replays a ``FaultSpec`` (JSON) and
+``--chaos-seed`` draws one; the launcher then prints the schedule and a
+``fault tolerance:`` line, and exits 0 only when every request was served
+or rejected with a verdict:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --servers 3 --chaos-seed 1
+
+``--servers`` defaults to 1 here, where the reference's default is 3: on
+one 80 GB card, three servers of minicpm-2b at the plan's 512 slots hold
+77.0 GB of arenas beside 5.45 GB of weights.  On the card the launcher
+sums the weights (once an arch), every placed runtime's arenas and the
+draft arenas from the configs and plans before it allocates anything,
+adds ``HEADROOM_BYTES`` for what a run holds beyond them, and refuses a
+run that does not fit, naming the ``--servers`` count that does; two
+servers of minicpm-2b (56.8 GB) fit.
 
 On the card the services run at their full config; with ``--device cpu``
 they run ``reduced(full)``, as the reference's CPU data plane does.  The
@@ -17,13 +45,13 @@ cross-attention K/V (whisper-large-v3, 125.8 GB).  On the card they run at
 128 slots through ``chip_smoke.py``, which asks ``plan_for`` for them; on
 the CPU the reduced configs serve at the plan's slots.
 
-It takes the MoE archs mixtral-8x7b and grok-1-314b too.  Their full
-configs' bf16 weights (93.4 GB and 633 GB) do not fit one card, so on the
-card the launcher refuses them before allocating anything;
-``chip_smoke.py`` serves mixtral-8x7b at 16 of its 32 layers.  On the CPU
-the reduced configs serve; reduced(mixtral-8x7b)'s 64-token sliding window
-is shorter than the default 256-token slot budget, so its K/V is a ring of
-the last 64 tokens per slot and its prompts prefill in one shot.
+It takes the MoE archs mixtral-8x7b and grok-1-314b too, whose plans need
+16 and 64 GPUs: more than a server's 4, so the placement puts them on no
+server and, as in the reference, every request ends with a ``FAILED``
+verdict.  Their full configs' bf16 weights (93.4 GB and 633 GB) do not
+fit one card either, so on the card the launcher refuses them before
+allocating anything; ``chip_smoke.py`` serves mixtral-8x7b at 16 of its
+32 layers through a runtime of its own.
 
 The radix prefix cache runs at the category's retention unless
 ``--prefix-cache`` says otherwise (0 turns it off, > 0 retains that many
@@ -79,34 +107,41 @@ import argparse
 import dataclasses
 import time
 import zlib
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced
+from repro_torch.core import EdgeCloudControlPlane, ServerSpec
 from repro_torch.core.allocator import allocate
 from repro_torch.core.categories import GPUSpec, Sensitivity, ServiceSpec
+from repro_torch.core.faults import (FaultInjector, FaultSpec,
+                                     random_fault_spec)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import launch_counts
 from repro_torch.models.registry import model_api
 from repro_torch.obs import (MetricsRegistry, Tracer, merge_telemetry,
                              telemetry_from_runtime, write_calibration)
+from repro_torch.serving.arena import KVArena
 from repro_torch.serving.engine import (PREFIX_CACHEABLE_FAMILIES,
                                         EparaServingEngine,
                                         GenerationRequest, ServiceRuntime)
+from repro_torch.serving.failover import ClusterSupervisor, RetryPolicy
 
 # reference flags that are accepted but only at their defaults: the value
 # that would need an unported part names the ROADMAP.md item porting it
-_ITEM_MULTI_SERVER = "ROADMAP.md Queue 1 item 6 (multi-server control plane)"
 _UNPORTED_FLAGS = (
-    ("servers", 1, _ITEM_MULTI_SERVER),
-    ("fault_spec", "", _ITEM_MULTI_SERVER),
-    ("chaos_seed", -1, _ITEM_MULTI_SERVER),
-    ("chaos_horizon_s", 20.0, _ITEM_MULTI_SERVER),
-    ("retry_timeout_s", 8.0, _ITEM_MULTI_SERVER),
-    ("retry_max_attempts", 4, _ITEM_MULTI_SERVER),
     ("pjit_decode", False, "ROADMAP.md Queue 1 item 13 (launch tooling)"),
 )
+# what a run holds on the card beyond its weights and arenas.  Measured on
+# an H100 80GB HBM3 (700 W): the caching allocator's peak reserve ran up to
+# 4.15 GB above the static sum (--archs minicpm-2b,minitron-4b
+# --draft-arch minitron-4b; 3.83 GB for two servers of minicpm-2b serving
+# 64 requests of 32 new tokens), and the CUDA context and libraries hold
+# 0.72 GB outside it.  chip_smoke.py's phase 13 prints each run's peaks
+# beside its static sum
+HEADROOM_BYTES = 4.9e9
 
 
 def service_spec_for(cfg) -> ServiceSpec:
@@ -132,9 +167,106 @@ def plan_for(full, kv_dtype=-1, bs=None, prefix_cache=-1):
         prefix_cache=prefix_cache, kv_dtype=kv_dtype)
 
 
+def control_plane(arch_ids, n_servers: int) -> EdgeCloudControlPlane:
+    """The reference's control plane: ``n_servers`` servers of 4 GPUs, each
+    arch's service spec from its full config, SSSP placement at demand 4.0
+    for every (service, server) pair."""
+    servers = [ServerSpec(sid=i, num_gpus=4) for i in range(n_servers)]
+    cp = EdgeCloudControlPlane(
+        servers, {a: service_spec_for(get_config(a)) for a in arch_ids})
+    cp.run_placement({(a, s.sid): 4.0 for a in arch_ids for s in servers})
+    return cp
+
+
+def deployed_plan(cp: EdgeCloudControlPlane, svc: str, args):
+    """``cp``'s plan for ``svc`` with the flags' knobs replaced in."""
+    return dataclasses.replace(
+        cp.plans[svc], prefix_cache=args.prefix_cache,
+        kv_dtype=-1 if args.kv_dtype == "auto" else args.kv_dtype,
+        admission=args.admission_policy, speculate=args.speculate)
+
+
+def draft_compatible(cfg, draft_cfg) -> bool:
+    """The draft pairs only with same-family same-vocab services of a
+    cacheable family."""
+    return (draft_cfg is not None and cfg.family == draft_cfg.family
+            and cfg.vocab_size == draft_cfg.vocab_size
+            and cfg.family in PREFIX_CACHEABLE_FAMILIES)
+
+
+def _arena_bytes(cfg, plan, args, kv_dtype: str) -> int:
+    """One DP group's arena, built on the meta device (nothing
+    allocated)."""
+    arena = KVArena(cfg, model_api(cfg).init_cache,
+                    capacity=plan.max_in_flight, max_seq_len=args.max_seq_len,
+                    block_size=args.block_size, kv_dtype=kv_dtype,
+                    device="meta")
+    return arena.device_bytes()
+
+
+def footprint(args, cp=None) -> Tuple[int, int]:
+    """(weight bytes, arena bytes) that the run of ``args`` holds on the
+    card at full width, computed from the configs and plans without
+    allocating: each distinct arch's bf16 weights once (the draft's too),
+    and the arenas of every placed runtime, one a DP group, with a bf16
+    draft arena beside each group of a service that speculates."""
+    arch_ids = [a.strip() for a in args.archs.split(",")]
+    if cp is None:
+        cp = control_plane(arch_ids, args.servers)
+    archs = set(arch_ids) | ({args.draft_arch} if args.draft_arch else set())
+    weights = sum(get_config(a).param_count() * 2 for a in archs)
+    draft = get_config(args.draft_arch) if args.draft_arch else None
+    arenas = 0
+    if args.mode == "continuous" and args.kvcache_impl == "paged":
+        for svc, sid in sorted(set(cp.placements)):
+            if sid < 0:
+                continue
+            full, plan = get_config(svc), deployed_plan(cp, svc, args)
+            group = _arena_bytes(full, plan, args, plan.resolved_kv_dtype())
+            if draft_compatible(full, draft) \
+                    and plan.resolved_speculate(True) > 0:
+                group += _arena_bytes(draft, plan, args, "bf16")
+            arenas += group * max(1, plan.dp)
+    return weights, arenas
+
+
+def _refuse_what_does_not_fit(args, arch_ids, cp, have: int) -> None:
+    """Raise before anything is allocated when the weights of an arch, or
+    the whole run with ``HEADROOM_BYTES``, exceed the card's memory."""
+    for a in arch_ids + ([args.draft_arch] if args.draft_arch else []):
+        need = get_config(a).param_count() * 2
+        if need > have:
+            smoke = ("chip_smoke.py serves it at 16 of its 32 layers, "
+                     if a == "mixtral-8x7b" else "")
+            raise RuntimeError(
+                f"{a}'s bf16 weights ({need / 1e9:.1f} GB) exceed the "
+                f"card's memory ({have / 1e9:.1f} GB) at full width; "
+                f"{smoke}--device cpu serves its reduced config")
+    weights, arenas = footprint(args, cp)
+    if weights + arenas + HEADROOM_BYTES <= have:
+        return
+    fits = next((n for n in range(args.servers - 1, 0, -1)
+                 if sum(footprint(argparse.Namespace(**{**vars(args),
+                                                       "servers": n})))
+                 + HEADROOM_BYTES <= have), None)
+    hint = (f"--servers {fits} fits" if fits is not None else
+            "no --servers count fits at these flags")
+    raise RuntimeError(
+        f"the run needs {(weights + arenas) / 1e9:.2f} GB on the card "
+        f"({weights / 1e9:.2f} GB of weights, {arenas / 1e9:.2f} GB of "
+        f"arenas over {args.servers} server(s)) plus "
+        f"{HEADROOM_BYTES / 1e9:.1f} GB of headroom, over the card's "
+        f"{have / 1e9:.2f} GB; {hint}, and --device cpu serves the reduced "
+        f"configs")
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--archs", default="minicpm-2b")
+    ap.add_argument("--servers", type=int, default=1,
+                    help="edge servers, each an engine in this process "
+                         "(the reference's default of 3 does not fit one "
+                         "card at full width)")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
@@ -161,7 +293,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--calibrate-out", default="",
                     help="write the simulator calibration derived from the "
                          "run here (JSON)")
-    # accepted for the reference's command lines; see _UNPORTED_FLAGS
     ap.add_argument("--mode", choices=("continuous", "sync"),
                     default="continuous",
                     help="serving data plane: slot-based continuous "
@@ -173,7 +304,6 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-chunked-prefill", action="store_true",
                     help="prefill each prompt in one shot at admission "
                          "instead of in chunks inside the decode loop")
-    ap.add_argument("--servers", type=int, default=1)
     ap.add_argument("--prefix-cache", type=int, default=-1,
                     help="radix prefix-cache retention: -1 = the plan's "
                          "category-derived bound (frequency retains the "
@@ -206,11 +336,27 @@ def _parser() -> argparse.ArgumentParser:
                     help="arch id of the draft model that proposes tokens "
                          "for speculative decoding; services of another "
                          "family or vocabulary deploy without speculation")
-    ap.add_argument("--fault-spec", default="")
-    ap.add_argument("--chaos-seed", type=int, default=-1)
-    ap.add_argument("--chaos-horizon-s", type=float, default=20.0)
-    ap.add_argument("--retry-timeout-s", type=float, default=8.0)
-    ap.add_argument("--retry-max-attempts", type=int, default=4)
+    ap.add_argument("--fault-spec", default="",
+                    help="replay a deterministic fault schedule from this "
+                         "JSON file (core/faults.py FaultSpec) against "
+                         "the run: crashes/restarts, stragglers, digest "
+                         "corruption, dropped offload handoffs")
+    ap.add_argument("--chaos-seed", type=int, default=-1,
+                    help="generate a random (but seed-deterministic) "
+                         "fault schedule instead of --fault-spec; -1 = "
+                         "no injected faults (default)")
+    ap.add_argument("--chaos-horizon-s", type=float, default=20.0,
+                    help="time horizon the generated --chaos-seed "
+                         "schedule spreads its events over (logical "
+                         "rounds unless --admission-policy=sdf)")
+    ap.add_argument("--retry-timeout-s", type=float, default=8.0,
+                    help="base offload/handoff timeout before a request "
+                         "retries on the next-best peer (exponential "
+                         "backoff per attempt)")
+    ap.add_argument("--retry-max-attempts", type=int, default=4,
+                    help="placement attempts per request before a dead "
+                         "avenue draws an explicit FAILED verdict")
+    # accepted for the reference's command lines; see _UNPORTED_FLAGS
     ap.add_argument("--pjit-decode", action="store_true")
     return ap
 
@@ -224,6 +370,8 @@ def main(argv=None) -> int:
             flag = "--" + name.replace("_", "-")
             ap.error(f"{flag}={value!r} is not ported to repro_torch yet "
                      f"({item}); only {default!r} is")
+    if args.servers < 1:
+        ap.error(f"--servers must be >= 1, got {args.servers}")
     if args.block_size < 1:
         ap.error(f"--block-size must be positive, got {args.block_size}")
     if args.prefill_chunk < 0 or (args.prefill_chunk
@@ -246,8 +394,6 @@ def main(argv=None) -> int:
                  "controller acts between composer and slot engine)")
     if args.deadline_s < 0:
         ap.error(f"--deadline-s must be >= 0, got {args.deadline_s}")
-    if args.n_samples < 1:
-        ap.error(f"--n-samples must be >= 1, got {args.n_samples}")
     if args.speculate < -1:
         ap.error(f"--speculate must be -1 (category default), 0 "
                  f"(disabled) or a positive draft depth, got "
@@ -263,33 +409,47 @@ def main(argv=None) -> int:
         ap.error("--draft-arch requires --mode=continuous, "
                  "--kvcache-impl=paged and chunked prefill (the draft "
                  "cache is chased through the paged chunk path)")
+    if args.n_samples < 1:
+        ap.error(f"--n-samples must be >= 1, got {args.n_samples}")
+    if args.fault_spec and args.chaos_seed >= 0:
+        ap.error("--fault-spec and --chaos-seed are mutually exclusive "
+                 "(a replayed schedule IS the seed's output)")
+    if args.retry_timeout_s <= 0:
+        ap.error(f"--retry-timeout-s must be positive, got "
+                 f"{args.retry_timeout_s}")
+    if args.retry_max_attempts < 1:
+        ap.error(f"--retry-max-attempts must be >= 1, got "
+                 f"{args.retry_max_attempts}")
     arch_ids = [a.strip() for a in args.archs.split(",")]
     for a in arch_ids:
         if a not in ARCH_IDS:
             ap.error(f"unknown arch {a!r}; known: {ARCH_IDS}")
     device = resolve_device(args.device)
-    kv_dtype = -1 if args.kv_dtype == "auto" else args.kv_dtype
 
+    # control plane: EPARA allocator + SSSP placement + handler
+    cp = control_plane(arch_ids, args.servers)
+    placements = cp.placements
     if device.type == "cuda":
-        have = torch.cuda.get_device_properties(device).total_memory
-        for a in arch_ids + ([args.draft_arch] if args.draft_arch else []):
-            need = get_config(a).param_count() * 2
-            if need > have:
-                smoke = ("chip_smoke.py serves it at 16 of its 32 layers, "
-                         if a == "mixtral-8x7b" else "")
-                raise RuntimeError(
-                    f"{a}'s bf16 weights ({need / 1e9:.1f} GB) exceed the "
-                    f"card's memory ({have / 1e9:.1f} GB) at full width; "
-                    f"{smoke}--device cpu serves its reduced config")
+        _refuse_what_does_not_fit(
+            args, arch_ids, cp,
+            torch.cuda.get_device_properties(device).total_memory)
+    plans = {a: deployed_plan(cp, a, args) for a in arch_ids}
+    print("EPARA plans:")
+    for a, plan in plans.items():
+        print(f"  {a:20s} {plan.category} mp={plan.mp} bs={plan.bs} "
+              f"mt={plan.mt} mf={plan.mf} dp={plan.dp} "
+              f"kv={plan.resolved_kv_dtype()}")
+    print(f"placements: {placements}")
 
-    engine = EparaServingEngine()
+    # data plane: one engine per server
+    engines = {s.sid: EparaServingEngine() for s in cp.servers}
     # one tracer and one registry shared by every runtime: service names
     # become trace processes and metric labels
     tracer = Tracer() if args.trace_out else None
     metrics = MetricsRegistry() if args.metrics_out else None
     cfgs = {}
-    # weights are seeded per arch, so a draft of a deployed arch is a
-    # self-draft: the service shares the draft's tensors
+    # weights are seeded per arch: one copy an arch, shared by every
+    # server hosting it, and a draft of a deployed arch is a self-draft
     weights = {}
 
     def params_of(arch, cfg):
@@ -298,34 +458,26 @@ def main(argv=None) -> int:
                 zlib.crc32(arch.encode()) + args.seed, cfg, device)
         return weights[arch]
 
+    for a in arch_ids:
+        full = get_config(a)
+        cfgs[a] = full if device.type == "cuda" else reduced(full)
     draft_cfg = draft_params = None
     if args.draft_arch:
         full = get_config(args.draft_arch)
         draft_cfg = full if device.type == "cuda" else reduced(full)
         draft_params = params_of(args.draft_arch, draft_cfg)
-    print("EPARA plans:")
-    for a in arch_ids:
-        full = get_config(a)
-        cfg = full if device.type == "cuda" else reduced(full)
-        cfgs[a] = cfg
-        plan = dataclasses.replace(
-            plan_for(full, kv_dtype, prefix_cache=args.prefix_cache),
-            admission=args.admission_policy, speculate=args.speculate)
-        print(f"  {a:20s} {plan.category} mp={plan.mp} bs={plan.bs} "
-              f"mt={plan.mt} mf={plan.mf} dp={plan.dp} "
-              f"kv={plan.resolved_kv_dtype()}")
-        # the draft pairs only with same-family same-vocab services of a
-        # cacheable family; the rest deploy without speculation (an
-        # explicit --speculate > 0 still reaches the engine's gate)
-        compat = (draft_cfg is not None
-                  and cfg.family == draft_cfg.family
-                  and cfg.vocab_size == draft_cfg.vocab_size
-                  and cfg.family in PREFIX_CACHEABLE_FAMILIES)
+    for svc, sid in placements:
+        if sid < 0:
+            continue
+        cfg = cfgs[svc]
+        # the rest deploy without speculation (an explicit --speculate > 0
+        # still reaches the engine's gate)
+        compat = draft_compatible(cfg, draft_cfg)
         if draft_cfg is not None and not compat and args.speculate <= 0:
-            print(f"  note: {a} incompatible with draft {args.draft_arch} "
-                  f"(family/vocab) — non-speculative")
-        engine.deploy(a, ServiceRuntime(
-            cfg, params_of(a, cfg), plan, mode=args.mode,
+            print(f"  note: {svc} incompatible with draft "
+                  f"{args.draft_arch} (family/vocab) — non-speculative")
+        engines[sid].deploy(svc, ServiceRuntime(
+            cfg, params_of(svc, cfg), plans[svc], mode=args.mode,
             kvcache_impl=args.kvcache_impl, max_seq_len=args.max_seq_len,
             block_size=args.block_size,
             chunked_prefill=False if args.no_chunked_prefill else None,
@@ -335,35 +487,61 @@ def main(argv=None) -> int:
             draft_cfg=draft_cfg if compat else None,
             tracer=tracer, metrics=metrics))
 
+    # drive requests through handler -> engine, supervised: the supervisor
+    # owns the ledger (every rid ends served or verdicted), the
+    # deadline-capped retry timeouts and, under a fault schedule, crash
+    # evacuation and failover
+    cp.publish_all(0.0)
+    for _ in range(len(cp.servers)):
+        cp.sync_step(0.0)
+    fault_spec = None
+    if args.fault_spec:
+        with open(args.fault_spec) as f:
+            fault_spec = FaultSpec.from_json(f.read())
+    elif args.chaos_seed >= 0:
+        fault_spec = random_fault_spec(
+            [s.sid for s in cp.servers], args.chaos_horizon_s,
+            seed=args.chaos_seed)
+    if fault_spec is not None:
+        print(f"fault schedule ({len(fault_spec.events)} events): "
+              + ", ".join(f"{e.kind}@{e.at_s:.1f}s->s{e.sid}"
+                          for e in fault_spec.events))
+    supervisor = ClusterSupervisor(
+        cp, engines,
+        retry=RetryPolicy(base_timeout_s=args.retry_timeout_s,
+                          max_attempts=args.retry_max_attempts),
+        injector=FaultInjector(fault_spec) if fault_spec else None,
+        metrics=metrics, tracer=tracer)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         svc = arch_ids[i % len(arch_ids)]
-        rng.integers(0, args.servers)    # the reference's entry-server draw
+        at = int(rng.integers(0, args.servers))
         cfg = cfgs[svc]
         prompt = rng.integers(0, cfg.vocab_size, size=6).astype(np.int32)
         extras = None
         if cfg.family == "audio":
             extras = {"embeddings": np.zeros((cfg.encoder_len, cfg.d_model),
                                              np.float32)}
-        engine.submit(svc, GenerationRequest(
+        supervisor.submit(svc, GenerationRequest(
             rid=i, tokens=prompt, max_new_tokens=args.max_new_tokens,
             stream=i, extras=extras, n_samples=args.n_samples,
-            deadline_s=args.deadline_s))
+            deadline_s=args.deadline_s), at_server=at, now=0.0)
     launches0 = launch_counts()
-    rejects = []
     # monotonic, not wall-clock: deadlines must not jump when the system
-    # clock is slewed.  The data-plane clock is seconds since t0; the
-    # deadlines and the admission controller's estimates live in it
+    # clock is slewed.  Under sdf the data-plane clock is seconds since t0
+    # (the deadlines and the admission controller's estimates live in
+    # it); under fifo the supervisor's logical clock steps a round at a
+    # time
     t0 = time.monotonic()
     clock = ((lambda: time.monotonic() - t0)
              if args.admission_policy == "sdf" else None)
-    results = engine.serve_until_idle(
-        clock=clock, on_stats=lambda name, st: rejects.extend(st.rejected))
+    report = supervisor.run_until_idle(clock=clock)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.monotonic() - t0
+    results = report.results
     toks = sum(len(r.tokens) for r in results)
-    rts = list(engine.runtimes.values())
+    rts = [rt for eng in engines.values() for rt in eng.runtimes.values()]
     steps = sum(rt.decode_steps for rt in rts)
     chunks = sum(rt.prefill_chunk_calls for rt in rts)
     oneshot = sum(rt.oneshot_prefills for rt in rts)
@@ -372,7 +550,7 @@ def main(argv=None) -> int:
           f"in {dt:.2f}s ({toks / max(dt, 1e-9):.1f} tok/s, {steps} fused "
           f"decode steps, {chunks} prefill chunks, {oneshot} one-shot "
           f"prefills, mode={args.mode}, kvcache={args.kvcache_impl}, "
-          f"device={device})")
+          f"device={device})  outcomes={report.outcomes}")
     print(f"prefix cache: {sum(rt.prefix_hits for rt in rts)} hits, "
           f"{sum(rt.prefix_hit_tokens for rt in rts)} prompt tokens reused, "
           f"{sum(rt.prefill_tokens_computed for rt in rts)} computed, "
@@ -401,7 +579,15 @@ def main(argv=None) -> int:
           f"{verdicts or 'no verdicts'}, "
           f"{sum(rt.admission.preemptions for rt in rts)} preemptions, "
           f"{sum(rt.admission.resumes for rt in rts)} resumes, "
-          f"{len(rejects)} final rejects")
+          f"{report.offload_retries} offload/timeout retries, "
+          f"{len(report.rejects)} final rejects")
+    if fault_spec is not None or report.failovers or report.duplicates:
+        print(f"fault tolerance: {report.failovers} crash failovers, "
+              f"{report.evacuated} requests evacuated, "
+              f"{report.duplicates} duplicate completions deduplicated, "
+              f"{report.dropped_offloads} handoffs dropped, "
+              f"{report.heartbeat_misses} straggler rounds skipped, "
+              f"{sum(rt.evacuations for rt in rts)} runtime evacuations")
     print("kernel launches: " + ", ".join(
         f"{k}={v - launches0[k]}" for k, v in launch_counts().items()))
     if tracer is not None:
@@ -417,14 +603,15 @@ def main(argv=None) -> int:
               f"{args.metrics_out}")
     if args.calibrate_out:
         tel = merge_telemetry(telemetry_from_runtime(name, rt)
-                              for name, rt in engine.runtimes.items())
+                              for eng in engines.values()
+                              for name, rt in eng.runtimes.items())
         cal = write_calibration(args.calibrate_out, tel)
         print(f"calibration: spec_accept_rate={cal.spec_accept_rate:.3f} "
               f"prefix_hit_rates={cal.prefix_hit_rates or {}} "
               f"prefill_token_s={cal.prefill_token_s:.2e} -> "
               f"{args.calibrate_out}")
     # every request is accounted for: served, or rejected with a verdict
-    return 0 if primaries + len(rejects) == args.requests else 1
+    return 0 if report.accounted == args.requests else 1
 
 
 if __name__ == "__main__":

@@ -197,6 +197,15 @@ class KVArena:
             int(np.prod([A0, *rest])) * dt.itemsize
             for (A0, _, *rest), dt in state_shapes)
 
+    def device_bytes(self) -> int:
+        """Bytes of the arena's device tensors (pools, scales, per-slot
+        state and lengths); on the meta device, what it would take."""
+        tensors = [self.lens, *self.state]
+        for p in self.pages:
+            tensors.extend((p.values, p.scales) if isinstance(p, QuantPages)
+                           else (p,))
+        return sum(t.numel() * t.element_size() for t in tensors)
+
     # ------------------------------------------------------------------
     # allocator surface
     # ------------------------------------------------------------------

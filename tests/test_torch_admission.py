@@ -449,10 +449,13 @@ def test_goodput_trace_matches_reference(weights, sampler, kv_dtype):
 # ---------------------------------------------------------------------------
 
 def test_launcher_serves_sdf_with_deadlines_and_forks(capsys):
+    # under sdf the supervisor's retry timeouts run on the wall clock, as
+    # in the reference: a long one keeps a slow machine from re-placing a
+    # request that is still decoding (a duplicate that forks again)
     rc = serve.main(["--device", "cpu", "--requests", "4",
                      "--max-new-tokens", "3", "--max-seq-len", "32",
                      "--admission-policy", "sdf", "--deadline-s", "600",
-                     "--n-samples", "2"])
+                     "--n-samples", "2", "--retry-timeout-s", "3600"])
     assert rc == 0
     out = capsys.readouterr().out
     assert "served 4/4 requests" in out

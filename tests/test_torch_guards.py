@@ -260,7 +260,9 @@ def test_moe_budget_over_the_window_raises_naming_item_11():
     reduced(mixtral-8x7b) has a 64-token window: a larger slot budget makes
     its K/V a per-slot ring, served with one-shot prefill and the
     dense-view step.  The runtime takes it, and so does the launcher at
-    its default --max-seq-len of 256."""
+    its default --max-seq-len of 256 (where, as in the reference, the
+    control plane places it on no server: see
+    test_launcher_serves_moe_on_cpu)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch import serve
     from repro_torch.models import moe
@@ -282,11 +284,21 @@ def test_moe_budget_over_the_window_raises_naming_item_11():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "grok-1-314b"])
 def test_launcher_serves_moe_on_cpu(arch, capsys):
+    """The launcher routes through the control plane, as the reference's
+    does: the MoE plans need 16 and 64 GPUs, more than a server's 4, so
+    SSSP places them on no server, every request ends with a FAILED
+    verdict ("no alive host") and the run exits 0 with all of them
+    accounted, printing the reference's outcomes.  The MoE serving path
+    itself is held to the reference in tests/test_torch_moe.py."""
     from repro_torch.launch import serve
     rc = serve.main(["--archs", arch, "--device", "cpu", "--max-seq-len",
                      "64", "--requests", "4", "--max-new-tokens", "4"])
     assert rc == 0
-    assert "served 4/4 requests" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "placements: []" in out
+    assert ("served 0/4 requests" in out and "outcomes={'resource_"
+            "insufficiency': 4, 'failed': 4}" in out)
+    assert "0 offload/timeout retries, 4 final rejects" in out
 
 
 def test_launcher_refuses_weights_over_the_card_memory(monkeypatch):

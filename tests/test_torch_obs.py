@@ -31,6 +31,11 @@ bridge, each with its own package's ``Tracer`` and ``MetricsRegistry``.
   templated wave equals the reference's.
 * The copied simulator's ``run_comparison`` gives the reference's result,
   field for field, on a small scenario.
+* A supervised cluster (``tests/test_faults.py``'s three toy servers,
+  speculating, forking, sdf) under all five fault kinds: the tick-clock
+  event streams, the ``cluster`` instants ``crash``, ``restart`` and
+  ``failover`` among them, and the count-valued series, the six
+  ``cluster_*`` series among them, equal the reference's.
 * The CPU launcher writes valid artifacts for ``--trace-out``,
   ``--metrics-out`` (Prometheus text or JSONL) and ``--calibrate-out``.
 
@@ -531,3 +536,122 @@ def test_launcher_writes_valid_artifacts(tmp_path, capsys, suffix):
     assert cal["sim_config_overrides"]["prefix_hit_rates"] \
         == {"minicpm-2b": 0.0}
     assert cal["telemetry"]["minicpm-2b"]["decode_steps"] > 0
+
+
+def _cluster_run(side, weights):
+    """``tests/test_faults.py``'s toy cluster (three servers, the "chat"
+    service on each) driven by one side's ``ClusterSupervisor`` through a
+    schedule of all five fault kinds (two dropped handoffs to server 1, a
+    straggling server 2, a corrupted digest, a crash of server 0 at 2.0
+    and its restart at 8.0), with one tracer on a
+    tick clock and one registry shared by the runtimes and the supervisor.
+    Every runtime speculates with a self-draft (k = 2) under sdf admission
+    at temperature 0.8, and each request asks for two samples, so that the
+    crash evacuates speculating slots and forks."""
+    import repro.core as jcore
+    from repro.core import faults as jfaults
+    from repro.serving import engine as jengine
+    from repro.serving import failover as jfailover
+    from repro.serving.sampler import SamplerConfig as JSampler
+    from repro_torch import core as tcore
+    from repro_torch.core import faults as tfaults
+    from repro_torch.serving import engine as tengine
+    from repro_torch.serving import failover as tfailover
+    from repro_torch.serving.sampler import SamplerConfig
+    ref = side == "ref"
+    core, faults, engine, failover = (
+        (jcore, jfaults, jengine, jfailover) if ref
+        else (tcore, tfaults, tengine, tfailover))
+    cfg, params = (_CFG, weights[0]) if ref else (_mirror(_CFG), weights[1])
+    tracer = (JTracer if ref else Tracer)(clock=_ticks())
+    metrics = (JMetrics if ref else MetricsRegistry)()
+    specs = {"chat": core.ServiceSpec("chat", flops_per_request=1e10,
+                                      weights_bytes=2e8, vram_bytes=5e8,
+                                      slo_latency_s=100.0)}
+    servers = [core.ServerSpec(sid=i, num_gpus=2) for i in range(3)]
+    cp = core.EdgeCloudControlPlane(servers, specs)
+    cp.run_placement({("chat", i): 10.0 for i in range(3)})
+    plan = dataclasses.replace(cp.plans["chat"], bs=4, n_samples=2,
+                               admission="sdf")
+    kw = dict(sampler=(JSampler if ref else SamplerConfig)(0.8, 40),
+              speculate=2, draft_params=params, draft_cfg=cfg,
+              max_seq_len=64, block_size=8, tracer=tracer, metrics=metrics,
+              **(dict(impl="ref") if ref else dict(device="cpu")))
+    engines = {s.sid: engine.EparaServingEngine() for s in servers}
+    for sid in engines:
+        engines[sid].deploy("chat", engine.ServiceRuntime(cfg, params, plan,
+                                                          **kw))
+    cp.publish_all(0.0)
+    for _ in range(3):
+        cp.sync_step(0.0)
+    spec = faults.FaultSpec(events=(
+        faults.FaultEvent(at_s=0.5, kind="drop_offload", sid=1, count=2),
+        faults.FaultEvent(at_s=1.0, kind="straggle", sid=2, duration_s=4.0,
+                          factor=2.0),
+        faults.FaultEvent(at_s=1.5, kind="corrupt", sid=1, factor=4.0),
+        faults.FaultEvent(at_s=2.0, kind="crash", sid=0),
+        faults.FaultEvent(at_s=8.0, kind="restart", sid=0)))
+    sup = failover.ClusterSupervisor(
+        cp, engines, retry=failover.RetryPolicy(base_timeout_s=4.0),
+        injector=faults.FaultInjector(spec), metrics=metrics, tracer=tracer)
+    rng = np.random.default_rng(1)
+    for rid in range(12):
+        sup.submit("chat", engine.GenerationRequest(
+            rid=rid, tokens=rng.integers(1, _CFG.vocab_size,
+                                         6 + rid).astype(np.int32),
+            max_new_tokens=6, stream=rid, n_samples=2),
+            at_server=rid % 3, now=0.0)
+    rep = sup.run_until_idle()
+    rts = [rt for e in engines.values() for rt in e.runtimes.values()]
+    return dict(
+        tokens={(r.rid, r.sample): tuple(int(x) for x in r.tokens)
+                for r in rep.results},
+        report=(rep.outcomes, rep.rounds, rep.failovers,
+                rep.offload_retries, rep.duplicates, rep.evacuated,
+                rep.accounted, rep.dropped_offloads, rep.heartbeat_misses),
+        runtimes=[(rt.evacuated_requests, rt.verify_launches,
+                   rt.forks_spawned) for rt in rts],
+        events=tracer.events(), metrics=metrics)
+
+
+def test_cluster_crash_events_and_series_match_reference(weights):
+    """A supervised crash on the toy cluster: the report, the tokens of
+    every ``(rid, sample)``, the tick-clock event streams (the ``cluster``
+    instants ``crash``, ``restart`` and ``failover`` among them) and the
+    count-valued Prometheus series (the six ``cluster_*`` series among
+    them) equal the reference's."""
+    want, got = _cluster_run("ref", weights), _cluster_run("port", weights)
+    assert got["tokens"] == want["tokens"]
+    assert got["report"] == want["report"]
+    assert got["runtimes"] == want["runtimes"]
+    (_, _, failovers, _, duplicates, evacuated, accounted, dropped,
+     misses) = got["report"]
+    assert accounted == 12 and failovers > 0 and evacuated > 0
+    assert dropped > 0 and misses > 0
+    assert any(k[1] == 1 for k in got["tokens"])          # forks served
+    evac, verify, forks = zip(*got["runtimes"])
+    assert evac[0] == evacuated and sum(verify) > 0 and sum(forks) > 0
+    assert got["events"] == want["events"]
+    instants = [e[3] for e in got["events"] if e[1] == "cluster"]
+    assert {"crash", "restart", "failover"} <= set(instants)
+    # a failover instant marks every re-placement, off the crash or after
+    # a timeout
+    assert instants.count("failover") >= failovers
+    got_m = _split_series(jparse_prometheus_text(
+        got["metrics"].prometheus_text()))
+    want_m = _split_series(jparse_prometheus_text(
+        want["metrics"].prometheus_text()))
+    for k in [k for k in want_m if "_compiles{" in k]:
+        assert got_m.pop(k) == 0.0      # the port compiles nothing
+        want_m.pop(k)
+    assert got_m == want_m
+    cluster = {k for k in got_m if k.startswith("epara_cluster_")}
+    assert cluster == {"epara_cluster_failovers_total",
+                       "epara_cluster_offload_retries_total",
+                       "epara_cluster_duplicate_results_total",
+                       "epara_cluster_dropped_offloads_total",
+                       "epara_cluster_heartbeat_misses_total",
+                       "epara_cluster_servers_down"}
+    assert got_m["epara_cluster_failovers_total"] == failovers
+    assert got_m["epara_cluster_duplicate_results_total"] == duplicates
+    assert got_m["epara_cluster_servers_down"] == 0.0

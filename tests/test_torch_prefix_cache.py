@@ -565,7 +565,8 @@ def test_knob_gate_raises_where_the_reference_raises(case):
     "serving/admission.py", "core/allocator.py",
     "core/categories.py", "core/costmodel.py", "core/goodput.py",
     "core/handler.py", "core/sync.py", "core/placement.py",
-    "core/cluster.py", "core/__init__.py", "simulator/workload.py",
+    "core/cluster.py", "core/__init__.py", "core/faults.py",
+    "serving/failover.py", "simulator/workload.py",
     "simulator/baselines.py", "simulator/engine.py", "obs/trace.py",
     "obs/metrics.py", "obs/calibrate.py", "obs/__init__.py"])
 def test_copied_module_diffs_clean_against_the_reference(module):

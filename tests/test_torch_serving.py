@@ -187,12 +187,17 @@ def test_launcher_serves_on_cpu(kv, capsys):
 
 
 def test_launcher_names_roadmap_item_for_unported_flags(capsys):
-    for argv, item in ((["--servers", "3"], "item 6"),
-                       (["--chaos-seed", "1"], "item 6")):
-        with pytest.raises(SystemExit) as e:
-            serve.main(["--device", "cpu", *argv])
-        assert e.value.code == 2
-        assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--device", "cpu", "--pjit-decode"])
+    assert e.value.code == 2
+    assert "ROADMAP.md Queue 1 item 13" in capsys.readouterr().err
+    # the multi-server control plane is ported (item 6): three servers
+    # under a drawn fault schedule serve every request
+    assert serve.main(["--device", "cpu", "--servers", "3", "--chaos-seed",
+                       "1", "--requests", "6", "--max-new-tokens", "3",
+                       "--max-seq-len", "32"]) == 0
+    out = capsys.readouterr().out
+    assert "served 6/6 requests" in out and "fault tolerance:" in out
     # --speculate and --draft-arch are ported (item 4), with the
     # reference's checks: k > 0 needs a draft, the draft a known arch
     for argv, msg in ((["--speculate", "2"], "requires --draft-arch"),
