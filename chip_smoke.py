@@ -12,9 +12,10 @@ path (minicpm-2b), its sync and dense-cache serving paths and its prefix
 cache (minicpm-2b) in nine phases, then its observability and crash
 evacuation (minicpm-2b) in a tenth, its stochastic sampling, deadline
 admission with parking and n-way forks (minicpm-2b) in an eleventh, its
-speculative decoding (minitron-4b, mixtral-8x7b) in a twelfth, and its
+speculative decoding (minitron-4b, mixtral-8x7b) in a twelfth, its
 multi-server control plane with crash failover (minicpm-2b, minitron-4b)
-in a thirteenth; any failure exits non-zero.  The serving
+in a thirteenth, and its VLM family (paligemma-3b) in a fourteenth; any
+failure exits non-zero.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
 pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
@@ -77,7 +78,14 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    place from a wider buffer), also held by ``check_rows``, repeated
    launches bit-identical; the SSD scan's and the dense chunk kernel's
    records also carry their share of the bound and their ``ptxas``
-   registers and spills; each timed
+   registers and spills; paligemma-3b's shapes (8 query heads on 1 kv
+   head at D = 256): #1 and #2 at 512 slots with 32 live at 262-496
+   keys, #3 and #4 at a first chunk (T = 288 from 0 with the 256-row
+   prefix), a text chunk (T = 64 at 288) and a ragged one (T = 13), #6
+   at the dense view's first and text chunks, #5 at the dense view's
+   decode, #7 over 262 and 456 rows with the prefix, each held by
+   ``check_rows``, repeats bit-identical, timed beside SDPA and the
+   bound, with the D = 256 instances' registers and spills; each timed
    flash record also carries its achieved TFLOP/s (the operations the
    function needs over its graph-replay time) and the share of its bound
    it reaches, and the build prints every kernel's ``ptxas`` register and
@@ -231,6 +239,20 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    verify-vs-decode logit difference (``chain_splits``' rule), the splits
    counted by service; each run's wall, tok/s, rounds, outcomes, recovery
    counters and peak memory beside its static sum printed;
+14. the VLM family: paligemma-3b at full width (18 layers, 8 query heads
+   on 1 kv head at D = 256, 257,216-token vocabulary), random weights
+   from seed 1, each request with random-normal image embeddings (its
+   256-row bidirectional prefix) from seed 1, 512-token slots: (a) phase
+   8 (c)'s native vs dense-view logits with a first chunk that carries
+   the prefix; (b) phase 3's wave at the plan's 512 slots in bf16 and in
+   int8 KV, and through the dense-view oracle at 512 slots (tok/s,
+   launches, peak memory beside the static sum): the bf16 chains equal
+   the oracle's or split where its top-two gap is below (a)'s largest
+   logit difference; (c) one request through the sync path, its first
+   token against one paged chunk's logits over the same prompt; (d) the
+   launcher with ``--archs paligemma-3b --max-seq-len 512 --requests
+   8``; phase 12 (e) also prints the router's top-k margins at mixtral's
+   verify-chain splits;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -258,7 +280,11 @@ count is zeroed just before phase 12 and read just after it (printed,
 not put in the record), and phase 12 fails unless #1, #3 and #9
 launched; every count is zeroed just before phase 13 and read just after
 it (printed, not put in the record), and phase 13 fails unless #1-#4
-launched.
+launched; every count is zeroed just before each of phase 14's runs and
+read just after it (the bf16 wave must launch #1 and #3, the int8 wave
+#2 and #4, the oracle #5 and #6, the sync request #7), and those counts
+are added to the record's and printed beside them as
+``paligemma_launches``.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -424,10 +450,10 @@ def sdpa_fn(q, k, v, mask, Hq):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def decode_case(gen, rng, *, B, Hq, Hkv, D, lens, quant, timed):
+def decode_case(gen, rng, *, B, Hq, Hkv, D, lens, quant, timed, nblk=8):
     import torch
     from repro_torch.kernels import ops, ref
-    bs, nblk = 32, 8
+    bs = 32
     lens = np.asarray(lens, np.int32)
     k, v, tables = make_pools(gen, rng, B=B, nblk=nblk, bs=bs, Hkv=Hkv,
                               D=D, lens=lens, quant=quant)
@@ -472,10 +498,10 @@ def decode_case(gen, rng, *, B, Hq, Hkv, D, lens, quant, timed):
 
 
 def chunk_case(gen, rng, *, B, T, Hq, Hkv, D, start, chunk_len, prefix_len,
-               quant, timed):
+               quant, timed, nblk=8):
     import torch
     from repro_torch.kernels import ops, ref
-    bs, nblk = 32, 8
+    bs = 32
     start = np.asarray(start, np.int32)
     chunk_len = np.asarray(chunk_len, np.int32)
     end = start + chunk_len
@@ -646,6 +672,7 @@ def flash_case(gen, *, B, Lq, Lk, Hq, Hkv, D, timed, **mask):
     if not timed:
         return rec
     causal = mask.get("causal", True)
+    prefix = mask.get("prefix_len", 0)
     # what the function needs: q, k, v read once, out and lse written
     # once; 4*D flops for each visible (row, key) pair of each query head
     pairs = B * Hq * visible_pairs(Lq, Lk, causal, mask)
@@ -653,12 +680,16 @@ def flash_case(gen, *, B, Lq, Lk, Hq, Hkv, D, timed, **mask):
         + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, 4 * D * pairs)
     qt, kt, vt = sdpa_layout(q, k, v)
+    # a prefix needs SDPA's boolean mask; plain causal its own flag
+    pos = torch.arange(Lk, device="cuda")
+    vis = (pos[None] <= pos[:Lq, None]) | (pos[None] < prefix)
+    sdpa = (dict(attn_mask=vis) if prefix else dict(is_causal=causal))
     rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
                 "plain_ms": time_ms(plain, iters=2, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": graph_ms(
                     lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal))})
+                        qt, kt, vt, **sdpa))})
     rec.update(achieved(4 * D * pairs, rec))
     return rec
 
@@ -672,12 +703,14 @@ def achieved(flops, rec):
 
 def visible_pairs(Lq, Lk, causal, mask):
     """(row, key) pairs a timed flash case computes: all of them, or the
-    causal triangle of a square case with no other mask."""
+    causal triangle of a square case, widened by a bidirectional prefix
+    where it has one."""
     if not causal:
         return Lq * Lk
-    check(Lq == Lk and set(mask) == {"causal"},
-          "only unmasked or plain causal square cases are timed")
-    return Lq * (Lq + 1) // 2
+    check(Lq == Lk and set(mask) <= {"causal", "prefix_len"},
+          "only unmasked or causal square cases are timed")
+    prefix = mask.get("prefix_len", 0)
+    return sum(min(Lk, max(i + 1, prefix)) for i in range(Lq))
 
 
 def sdpa_layout(*ts):
@@ -798,7 +831,11 @@ def dense_decode_case(gen, *, B, S, Hq, Hkv, D, lens, timed, window=None):
     torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
     check(not out[cl == 0].any(), "decode_attention: an empty slot's row "
           "is not zero")
-    rec = {"max_abs_err": err}
+    check(torch.equal(out, run()), "decode_attention: repeated launches "
+          "differ")
+    # every (slot, head) row held to its own norm
+    rec = {"max_abs_err": err, **check_rows("out", out.reshape(1, -1, D),
+                                            want.reshape(1, -1, D))}
     if not timed:
         return rec
     check(window is None, "only unwindowed cases are timed")
@@ -1236,7 +1273,118 @@ def phase_kernels():
     for name, e in (("paged_decode_attention", attn_err),
                     ("paged_chunk_prefill_attention", chunk_err)):
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], e)
+    vlm_kernels(records)
     return records
+
+
+# paligemma-3b (phase 14): 8 query heads on one kv head at D = 256
+VLM_ARCH = "paligemma-3b"
+VLM_HEADS = dict(Hq=8, Hkv=1, D=256)
+VLM_MAX_SEQ = 512              # 256 prefix rows + up to 200 prompt + 40 new
+# #3/#4 at phase 14's chunks: a first chunk (the 256-row prefix and a
+# 32-token bucket), a text chunk after it and a ragged one
+VLM_CHUNKS = {"first_t288": dict(B=1, T=288, start=[0], chunk_len=[288],
+                                 prefix_len=256),
+              "text_t64": dict(B=1, T=64, start=[288], chunk_len=[64],
+                               prefix_len=0),
+              "ragged_t13": dict(B=1, T=13, start=[352], chunk_len=[13],
+                                 prefix_len=0)}
+VLM_KEYS = ("ms", "host_paced_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err", "out_worst_row_of_limit")
+
+
+def vlm_lens(B=512):
+    """Phase 14's decode lengths: B slots, the first 32 live at 262-496
+    keys (the prefix, a prompt of 6-200 tokens and the tokens so far),
+    the rest empty."""
+    lens = np.zeros(B, np.int64)
+    lens[:32] = np.linspace(262, 496, 32).astype(int)
+    return lens
+
+
+def vlm_record(r):
+    out = {k: r[k] for k in VLM_KEYS if k in r}
+    out["bound_share"] = r["bound_ms"] / r["ms"]
+    return out
+
+
+def vlm_kernels(records):
+    """paligemma-3b's shapes, each case held by ``check_rows`` with
+    repeated launches bit-identical, timed beside SDPA on the same (or the
+    gathered) tensors and the bound, and put in its kernel's record under
+    "paligemma" with the D = 256 instances' ``ptxas`` registers and
+    spills: #1 and #2 at 512 slots with 32 live at 262-496 keys; #3 and #4
+    at ``VLM_CHUNKS``; #6 at the dense-view first and text chunks (S =
+    512); #5 at the dense view's decode; #7 over 262 and 456 rows with a
+    256-row prefix (the sync path's one-shot prefill).  Its own
+    generators, so the other cases draw what they drew before."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    rng = np.random.default_rng(26)
+    lens = vlm_lens()
+    ptx = {k: v for k, v in ptxas_record("paged_attention").items()
+           if ", 256" in k}
+    for quant in (False, True):
+        tag = "_quant" if quant else ""
+        regs = {k: v for k, v in ptx.items() if ("int8" in k) == quant}
+        rec = records["paged_decode_attention" + tag]
+        r = decode_case(gen, rng, B=512, lens=lens, quant=quant, timed=True,
+                        nblk=VLM_MAX_SEQ // 32, **VLM_HEADS)
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        rec["paligemma"] = {**vlm_record(r), "ptxas": {
+            k: v for k, v in regs.items() if k.startswith("paged_decode")}}
+        rec = records["paged_chunk_prefill_attention" + tag]
+        sub = {}
+        for name, case in VLM_CHUNKS.items():
+            r = chunk_case(gen, rng, quant=quant, timed=True,
+                           nblk=VLM_MAX_SEQ // 32, **VLM_HEADS, **case)
+            rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+            rec["odd_shapes_worst_row_of_limit"] = max(
+                rec["odd_shapes_worst_row_of_limit"],
+                r["out_worst_row_of_limit"])
+            sub[name] = vlm_record(r)
+        sub["ptxas"] = {k: v for k, v in regs.items()
+                        if k.startswith("paged_chunk")}
+        rec["paligemma"] = sub
+        torch.cuda.empty_cache()
+    rec = records["chunk_prefill_attention"]
+    sub = {}
+    for name in ("first_t288", "text_t64"):
+        case = dict(VLM_CHUNKS[name])
+        case.pop("B")
+        r = dense_chunk_case(gen, B=1, S=VLM_MAX_SEQ, timed=True,
+                             **VLM_HEADS, **case)
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        sub[name] = vlm_record(r)
+    sub["ptxas"] = {k: v for k, v in ptxas_record("chunk_attention").items()
+                    if "256" in k}
+    rec["paligemma"] = sub
+    rec = records["decode_attention"]
+    r = dense_decode_case(gen, B=512, S=VLM_MAX_SEQ, lens=lens, timed=True,
+                          **VLM_HEADS)
+    rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+    rec["paligemma"] = {**vlm_record(r), "ptxas": {
+        k: v for k, v in ptxas_record("decode_attention").items()
+        if "256" in k}}
+    rec = records["flash_attention"]
+    sub = {}
+    for L in (262, 456):
+        r = flash_case(gen, B=1, Lq=L, Lk=L, timed=True, causal=True,
+                       prefix_len=256, **VLM_HEADS)
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        sub[f"prefix256_rows{L}"] = vlm_record(r)
+    sub["ptxas"] = {k: v for k, v in ptxas_record("flash_attention").items()
+                    if "256" in k}
+    rec["paligemma"] = sub
+    for name in ("paged_decode_attention", "paged_decode_attention_quant",
+                 "paged_chunk_prefill_attention",
+                 "paged_chunk_prefill_attention_quant",
+                 "chunk_prefill_attention", "decode_attention",
+                 "flash_attention"):
+        print(f"  {name}, paligemma-3b (8/1 heads, D = 256): "
+              f"{json.dumps(records[name]['paligemma'])}")
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1551,26 +1699,29 @@ def wave_oracle(n_requests=32, new_tokens=40):
     return launches, toks
 
 
-def parity_logits(cfg, params, chunks=(64, 64, 37), steps=3):
+def parity_logits(cfg, params, chunks=(64, 64, 37), steps=3,
+                  embeddings=None, max_seq_len=256):
     """One slot of two in two bf16 arenas: a prompt of ``chunks`` (64-row
     buckets, the last ragged) through ``prefill_chunk_paged`` and through
     ``prefill_chunk`` on the arena's dense view (the rows written back by
     ``append_rows``), then ``steps`` decode steps through
     ``decode_step_paged`` and ``decode_step`` on the dense view, both fed
-    the native step's greedy token; the second slot is dead.  Returns each
-    step's (native, dense-view) f32 logits (1, V) and both arenas'
-    lengths."""
+    the native step's greedy token; the second slot is dead.  A VLM's
+    first chunk carries ``embeddings`` (1, prefix_len, d_model), its image
+    prefix.  Returns each step's (native, dense-view) f32 logits (1, V)
+    and both arenas' lengths."""
     import torch
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import model_api
     from repro_torch.serving.arena import KVArena
+    api = model_api(cfg)
     prompt = np.random.default_rng(17).integers(0, cfg.vocab_size,
                                                 sum(chunks))
-    arenas = [KVArena(cfg, transformer.init_cache, capacity=2,
-                      max_seq_len=256, block_size=32, kv_dtype="bf16",
-                      device="cuda") for _ in range(2)]
+    arenas = [KVArena(cfg, api.init_cache, capacity=2,
+                      max_seq_len=max_seq_len, block_size=32,
+                      kv_dtype="bf16", device="cuda") for _ in range(2)]
     for a in arenas:
-        a.reset_len(a.alloc(256))
-        a.reset_len(a.alloc(256))
+        a.reset_len(a.alloc(max_seq_len))
+        a.reset_len(a.alloc(max_seq_len))
     native, dense = arenas
     bt = native.device_block_tables()[:1]
     one = torch.ones(1, dtype=torch.bool, device="cuda")
@@ -1579,18 +1730,22 @@ def parity_logits(cfg, params, chunks=(64, 64, 37), steps=3):
         toks = np.zeros((1, 64), np.int64)
         toks[0, :c] = prompt[pos:pos + c]
         batch = {"tokens": torch.from_numpy(toks).cuda()}
+        n_rows = 64
+        if embeddings is not None and pos == 0:
+            batch["embeddings"] = embeddings
+            n_rows += cfg.prefix_len
         cl = torch.tensor([c], dtype=torch.int32, device="cuda")
-        lg_n, nc = transformer.prefill_chunk_paged(
+        lg_n, nc = api.prefill_chunk_paged(
             params, cfg, batch, native.assemble(native.pages, [],
                                                 native.lens[:1]),
             bt, chunk_len=cl, block_size=32)
         native.lens[0] = nc["len"][0]
         st = dense.lens[:1]
         view = dense.dense_view(dense.pages, bt)
-        lg_d, dc = transformer.prefill_chunk(
+        lg_d, dc = api.prefill_chunk(
             params, cfg, batch, dense.assemble(view, [], st), chunk_len=cl)
         dense.append_rows(dense.pages, dense.disassemble(dc)[0], st, one,
-                          bt, n_tokens=64, valid_tokens=dc["len"] - st)
+                          bt, n_tokens=n_rows, valid_tokens=dc["len"] - st)
         dense.lens[0] = dc["len"][0]
         rows.append((lg_n.float(), lg_d.float()))
         pos += c
@@ -1599,12 +1754,12 @@ def parity_logits(cfg, params, chunks=(64, 64, 37), steps=3):
     for _ in range(steps):
         tok = torch.zeros(2, dtype=torch.int32, device="cuda")
         tok[0] = rows[-1][0][0].argmax()
-        lg_n, nc = transformer.decode_step_paged(
+        lg_n, nc = api.decode_step_paged(
             params, cfg, tok, native.assemble(native.pages, [], native.lens),
             tables, live, block_size=32)
         native.lens = nc["len"]
         view = dense.dense_view(dense.pages, tables)
-        lg_d, dc = transformer.decode_step(
+        lg_d, dc = api.decode_step(
             params, cfg, tok, dense.assemble(view, [], dense.lens),
             live=live)
         dense.append_rows(dense.pages, dense.disassemble(dc)[0], dense.lens,
@@ -1647,12 +1802,25 @@ def logits_parity(chunks=(64, 64, 37), steps=3):
     from its plain run (the floor) is printed beside the limit."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ops import launch_counts
     from repro_torch.models import transformer
     cfg = get_config("minicpm-2b")
     params = transformer.init(1, cfg, "cuda")
+    hold_logits_parity("phase 8 (c)", cfg, params, chunks, steps)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hold_logits_parity(label, cfg, params, chunks=(64, 64, 37), steps=3,
+                       embeddings=None, max_seq_len=256):
+    """``parity_logits`` held as phase 8 (c) holds it (see
+    ``logits_parity``); returns the per-step report."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    extra = cfg.prefix_len if embeddings is not None else 0
     reset_launches()
-    rows, lens_n, lens_d = parity_logits(cfg, params, chunks, steps)
+    rows, lens_n, lens_d = parity_logits(cfg, params, chunks, steps,
+                                         embeddings, max_seq_len)
     grown = launch_counts()
     n = len(chunks) * cfg.num_layers
     for name, want in (("paged_chunk_prefill_attention", n),
@@ -1660,10 +1828,11 @@ def logits_parity(chunks=(64, 64, 37), steps=3):
                        ("paged_decode_attention", steps * cfg.num_layers),
                        ("decode_attention", steps * cfg.num_layers)):
         check(grown[name] == want, f"logits parity launched {grown}")
-    check(lens_n == lens_d == [sum(chunks) + steps, 0],
+    check(lens_n == lens_d == [sum(chunks) + extra + steps, 0],
           f"lengths {lens_n} vs {lens_d}")
     with plain_attention():
-        plain, _, _ = parity_logits(cfg, params, chunks, steps)
+        plain, _, _ = parity_logits(cfg, params, chunks, steps, embeddings,
+                                    max_seq_len)
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
     report = []
     for i, ((a, b), (pa, pb)) in enumerate(zip(rows, plain)):
@@ -1673,10 +1842,10 @@ def logits_parity(chunks=(64, 64, 37), steps=3):
                        "norm": b.norm().item(), "rel_l2": rel(a, b),
                        "floor": max(rel(a, pa), rel(b, pb)),
                        "identical": torch.equal(a, b)})
-    print(f"phase 8 (c) logits, native (kernels #3, #1) vs dense view "
-          f"(#6, #5), minicpm-2b full width, limit {PARITY_TOL} of the "
+    print(f"{label} logits, native (kernels #3, #1) vs dense view "
+          f"(#6, #5), {cfg.name} full width, limit {PARITY_TOL} of the "
           f"norm (floor: each path against its plain versions): {report}")
-    print(f"phase 8 (c) the {len(chunks)} chunk steps' rel_l2 (#3 and #6 "
+    print(f"{label} the {len(chunks)} chunk steps' rel_l2 (#3 and #6 "
           f"share one body, so 0): "
           f"{[r['rel_l2'] for r in report[:len(chunks)]]}")
     for r in report:
@@ -1690,9 +1859,7 @@ def logits_parity(chunks=(64, 64, 37), steps=3):
         check(r["identical"], f"native vs dense-view logits at chunk step "
               f"{r['step']} differ (rel_l2 {r['rel_l2']}): the chunk "
               f"kernels share one body and must agree bit for bit")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    return report
 
 
 def wave_sync(n_requests=32, new_tokens=40):
@@ -2665,26 +2832,33 @@ def verify_vs_decode(cfg, params, label):
     return rec
 
 
-def next_token_gap(cfg, params, tokens):
+def next_token_gap(cfg, params, tokens, extras=None):
     """The top-two gap of the next-token logits after ``tokens``, computed
     as a decode step computes it: all but the last token as one paged
-    chunk, then the last through ``decode_step_paged``, on a bf16 arena of
-    one slot."""
+    chunk (a VLM's with its image prefix, ``extras["embeddings"]``), then
+    the last through ``decode_step_paged``, on a bf16 arena of one
+    slot."""
     import torch
     from repro_torch.models.registry import model_api
     from repro_torch.serving.arena import KVArena
     api = model_api(cfg)
     n = len(tokens)
+    batch = {"tokens": torch.from_numpy(
+        np.asarray(tokens[:-1], np.int64)[None]).cuda()}
+    if extras is not None and cfg.family == "vlm":
+        batch["embeddings"] = torch.from_numpy(
+            extras["embeddings"][None]).cuda()
+        n += cfg.prefix_len
     arena = KVArena(cfg, api.init_cache, capacity=1, max_seq_len=n + 1,
                     block_size=32, kv_dtype="bf16", device="cuda")
     sid = arena.alloc(n + 1)
     arena.reset_len(sid)
     bt = arena.device_block_tables()
-    head = torch.from_numpy(np.asarray(tokens[:-1], np.int64)[None]).cuda()
     _, c = api.prefill_chunk_paged(
-        params, cfg, {"tokens": head},
+        params, cfg, batch,
         arena.assemble(arena.pages, [], arena.lens), bt,
-        chunk_len=torch.tensor([n - 1], dtype=torch.int32, device="cuda"),
+        chunk_len=torch.tensor([len(tokens) - 1], dtype=torch.int32,
+                               device="cuda"),
         block_size=32)
     lg, _ = api.decode_step_paged(
         params, cfg, torch.tensor([int(tokens[-1])], dtype=torch.int32,
@@ -2695,14 +2869,48 @@ def next_token_gap(cfg, params, tokens):
     return (top[0] - top[1]).item()
 
 
+def router_margins(cfg, params, tokens, rows=SPEC_K + 1):
+    """The MoE router's top-k margin at the last ``rows`` tokens of
+    ``tokens`` (a verify round's tokens), computed as ``next_token_gap``
+    computes the next token: for each token, the smallest over the layers
+    of the gap between its k-th and (k+1)-th router logits (f32), in bf16
+    steps of the k-th logit (2^(floor(log2 |l_k|) - 7)): under one step, a
+    bf16 rounding of the router's input placed otherwise (the verify
+    kernel's, not the decode kernel's) can swap the k-th expert.  Returns
+    the margins, last token last."""
+    import torch
+    from repro_torch.models import layers, moe
+    per_call, mlp = [], moe.moe_mlp
+
+    def spy(p, c, x):
+        lg = layers.linear(x.float(), p["router"].float())
+        top = lg.topk(c.experts_per_token + 1, dim=-1).values
+        kth = top[..., -2]
+        step = torch.exp2(torch.floor(torch.log2(kth.abs())) - 7)
+        per_call.append(((kth - top[..., -1]) / step)[0])
+        return mlp(p, c, x)
+
+    moe.moe_mlp = spy
+    try:
+        next_token_gap(cfg, params, tokens)
+    finally:
+        moe.moe_mlp = mlp
+    # one call a layer for the head chunk, then one a layer for the token
+    L = cfg.num_layers
+    head = torch.stack(per_call[:L]).min(0).values[:len(tokens) - 1]
+    last = torch.stack(per_call[L:]).min(0).values
+    return torch.cat([head, last])[-rows:].tolist()
+
+
 def chain_splits(cfg, params, plain, spec, prompts=None):
     """Each chain of ``spec`` that differs from ``plain``: its request,
     the first position where they differ, and the plain run's top-two
     logit gap there (``next_token_gap``).  Request ``i``'s prompt is
-    ``prompts[i]`` (phase 3's by default)."""
-    from repro_torch.launch.profile_step import wave_prompts
+    ``prompts[i]`` (phase 3's by default) and its extras the wave's."""
+    from repro_torch.launch.profile_step import wave_extras, wave_prompts
     if prompts is None:
         prompts = wave_prompts(cfg.vocab_size)
+    extras = wave_extras(cfg, len(prompts))
     out = []
     for rid in sorted(plain):
         a, b = plain[rid], spec[rid]
@@ -2710,7 +2918,8 @@ def chain_splits(cfg, params, plain, spec, prompts=None):
             continue
         p = int(np.argmax(a != b))
         out.append({"rid": rid, "pos": p, "gap": next_token_gap(
-            cfg, params, np.concatenate([prompts[rid], a[:p]]))})
+            cfg, params, np.concatenate([prompts[rid], a[:p]]),
+            extras[rid])})
     return out
 
 
@@ -2840,6 +3049,7 @@ def phase_moe_verify():
     import dataclasses
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.launch.profile_step import wave_prompts
     from repro_torch.models import moe
     gc.collect()
     torch.cuda.empty_cache()
@@ -2868,6 +3078,27 @@ def phase_moe_verify():
               f"{r['plain']['moe_dropped_tokens']}); splits (first "
               f"differing position, plain top-two gap): {splits}")
         if "verify" in r:
+            # each split's router margins over the verify round's tokens
+            # before it, in bf16 steps: a margin under one step there is a
+            # near tie of the router that the verify may break otherwise
+            prompts = wave_prompts(cfg.vocab_size)
+            for sp in splits:
+                m = router_margins(cfg, params, np.concatenate(
+                    [prompts[sp["rid"]], plain[sp["rid"]][:sp["pos"]]]))
+                sp["router_margin_steps"] = m
+                sp["above_limit"] = sp["gap"] >= r["verify"]["max_abs_diff"]
+            margins = [(sp["rid"], sp["pos"], [
+                round(x, 3) for x in sp["router_margin_steps"]])
+                for sp in splits]
+            above = [(sp["rid"], sp["pos"], sp["gap"],
+                      min(sp["router_margin_steps"]))
+                     for sp in splits if sp["above_limit"]]
+            print(f"phase 12 {tag}: router top-{cfg.experts_per_token} "
+                  f"margins (bf16 steps of the k-th router logit, the "
+                  f"last {SPEC_K + 1} tokens before each split, smallest "
+                  f"over {cfg.num_layers} layers): {margins}; splits "
+                  f"above the logit limit {r['verify']['max_abs_diff']} "
+                  f"(rid, position, gap, smallest margin): {above}")
             check(r["self_draft"]["moe_dropped_tokens"] == 0,
                   f"{tag}: the verify dropped assignments")
             dcfg, dparams = draft_view(cfg, params, 1)
@@ -3278,6 +3509,212 @@ def phase_cluster(limit):
 def reset_launches():
     from repro_torch.kernels import ops
     ops.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the VLM family, paligemma-3b at full width
+# ---------------------------------------------------------------------------
+
+def vlm_wave(label, params, kv_dtype, **kw):
+    """Phase 3's wave (32 requests, prompts of 6-200 tokens, 40 new) on
+    paligemma-3b at full width, each request with its seeded random image
+    embeddings, 512-token slots; every count zeroed just before it and
+    read just after.  Returns (chains, record)."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch.profile_step import wave_runtime
+    torch.cuda.reset_peak_memory_stats()
+    cfg, rt = wave_runtime(kv_dtype, arch=VLM_ARCH, params=params, **kw)
+    check(rt.plan.max_in_flight == kw.get("bs", 512)
+          and rt.kv_dtype == kv_dtype and rt.chunked_prefill
+          and rt.slot_token_budget == VLM_MAX_SEQ
+          and not rt.prefix_cache_enabled and not rt.speculate_k,
+          f"{label}: unexpected runtime {rt.plan}")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = rt.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    check(len(results) == 32, f"{label}: served {len(results)}/32")
+    toks = {r.rid: np.asarray(r.tokens) for r in results}
+    for t in toks.values():
+        check(len(t) == 40 and t.min() >= 0 and t.max() < cfg.vocab_size,
+              f"{label}: token ids out of range")
+    n_tok = sum(len(t) for t in toks.values())
+    static = (sum(t.numel() * t.element_size() for t in tree_leaves(params))
+              + sum(g.arena.device_bytes() for g in rt.groups.values()
+                    if g.arena is not None))
+    rec = {"tok_s": n_tok / dt, "wall_s": dt, "slots": rt.plan.max_in_flight,
+           "decode_steps": rt.decode_steps,
+           "prefill_chunks": rt.prefill_chunk_calls,
+           "chunk_write_bytes": rt.chunk_write_bytes,
+           "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "static_gb": static / 1e9}
+    print(f"phase 14 {label}: {json.dumps(rec)}")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return toks, rec
+
+
+def sync_vs_paged_logits(cfg, params):
+    """Request 0 of the wave (its prompt and image embeddings): the
+    next-token logits of ``vlm.prefill`` (the sync path's one-shot
+    prefill, flash attention with the prefix) and of one paged chunk of
+    the whole prompt (``vlm.prefill_chunk_paged``) on a bf16 arena of one
+    slot, both f32 (V,)."""
+    import torch
+    from repro_torch.launch.profile_step import wave_extras, wave_prompts
+    from repro_torch.models import vlm
+    from repro_torch.serving.arena import KVArena
+    prompt = wave_prompts(cfg.vocab_size, 1)[0]
+    batch = {"tokens": torch.from_numpy(prompt.astype(np.int64)[None]).cuda(),
+             "embeddings": torch.from_numpy(
+                 wave_extras(cfg, 1)[0]["embeddings"][None]).cuda()}
+    lg_s, _ = vlm.prefill(params, cfg, batch)
+    arena = KVArena(cfg, vlm.init_cache, capacity=1, max_seq_len=VLM_MAX_SEQ,
+                    block_size=32, kv_dtype="bf16", device="cuda")
+    arena.reset_len(arena.alloc(VLM_MAX_SEQ))
+    lg_p, _ = vlm.prefill_chunk_paged(
+        params, cfg, batch, arena.assemble(arena.pages, [], arena.lens),
+        arena.device_block_tables(),
+        chunk_len=torch.tensor([len(prompt)], dtype=torch.int32,
+                               device="cuda"), block_size=32)
+    return lg_s[0].float(), lg_p[0].float()
+
+
+def phase_vlm():
+    """Phase 14: paligemma-3b at full width (18 layers, 8 query heads on 1
+    kv head at D = 256, 257,216-token vocabulary), random weights from
+    seed 1 and random-normal image embeddings from seed 1: (a) the native
+    vs dense-view logits of a first chunk with its 256-row prefix, two
+    text chunks and three decode steps, held as phase 8 (c) holds them;
+    (b) the greedy wave at the plan's 512 slots in bf16 (#1, #3 at D =
+    256) and int8 (#2, #4) KV, and the dense-view oracle (#6, #5), also at
+    512 slots (so that only the attention kernels differ): the bf16 chains
+    equal the oracle's or split where the oracle's top-two gap is below
+    (a)'s largest logit difference (phase 12's rule); (c) one request
+    through the sync path (its one-shot prefill runs #7 with the prefix):
+    its first token is the argmax of ``vlm.prefill``'s logits, which agree
+    with one paged chunk's (#3) over the same prompt to PARITY_TOL of
+    their norm, and the two first tokens are equal or split where the
+    paged top-two gap is below the logits' largest difference; (d) the
+    launcher ``--archs paligemma-3b --max-seq-len 512 --requests 8``.
+    Returns the D = 256 launches of the kernels by name."""
+    import contextlib as ctx
+    import io
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.profile_step import wave_extras, wave_runtime
+    from repro_torch.models import vlm
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(VLM_ARCH)
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.head_dim, cfg.vocab_size, cfg.prefix_len)
+          == (18, 2048, 8, 1, 256, 257216, 256), f"not full width: {cfg}")
+    params = vlm.init(1, cfg, "cuda")
+    rec = {}
+    # (a) the first chunk carries request 0's image embeddings
+    emb = torch.from_numpy(
+        wave_extras(cfg, 1)[0]["embeddings"][None]).cuda()
+    report = hold_logits_parity("phase 14 (a)", cfg, params, embeddings=emb,
+                                max_seq_len=VLM_MAX_SEQ)
+    limit = max(r["max_abs_diff"] for r in report)
+    rec["parity"] = {"max_abs_diff": limit,
+                     "max_rel_l2": max(r["rel_l2"] for r in report)}
+    # (b) the waves
+    launches = {}
+    bf16, rec["bf16"] = vlm_wave("(b) bf16 KV, 512 slots", params, "bf16")
+    int8, rec["int8"] = vlm_wave("(b) int8 KV, 512 slots", params, "int8")
+    oracle, rec["oracle"] = vlm_wave("(b) dense-view oracle, bf16 KV, 512 "
+                                     "slots", params, "bf16",
+                                     paged_native=False)
+    for name, r in (("bf16", rec["bf16"]), ("int8", rec["int8"]),
+                    ("oracle", rec["oracle"])):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for name in ("paged_decode_attention", "paged_chunk_prefill_attention"):
+        check(rec["bf16"]["launches"].get(name, 0) > 0,
+              f"the bf16 wave did not launch {name}")
+        check(rec["int8"]["launches"].get(name + "_quant", 0) > 0,
+              f"the int8 wave did not launch {name}_quant")
+    for name in ("chunk_prefill_attention", "decode_attention"):
+        check(rec["oracle"]["launches"].get(name, 0) > 0,
+              f"the oracle wave did not launch {name}")
+    check(not any(k.startswith("paged") for k in rec["oracle"]["launches"]),
+          f"the oracle launched a paged kernel: {rec['oracle']['launches']}")
+    splits = chain_splits(cfg, params, oracle, bf16)
+    rec["bf16"]["splits"] = splits
+    same = sum(int((int8[r] == bf16[r]).sum()) for r in bf16)
+    print(f"phase 14 (b) bf16 vs the dense-view oracle: "
+          f"{32 - len(splits)}/32 chains equal; splits (first differing "
+          f"position, oracle top-two gap; limit {limit}): {splits}; int8 vs "
+          f"bf16: {same}/{32 * 40} positions agree")
+    check(all(sp["gap"] < limit for sp in splits),
+          f"(b) a bf16 chain splits from the oracle's where its top-two gap "
+          f"is not below {limit}: {splits}")
+    # (c) one request through the sync path: one-shot prefill (flash
+    # attention with the prefix)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, rt = wave_runtime("bf16", n_requests=1, new_tokens=1, arch=VLM_ARCH,
+                         params=params, mode="sync")
+    reset_launches()
+    sync = int(np.asarray(rt.drain()[0].tokens)[0])
+    torch.cuda.synchronize()
+    grown = {k: v for k, v in launch_counts().items() if v}
+    for k, v in grown.items():
+        launches[k] = launches.get(k, 0) + v
+    check(grown.get("flash_attention", 0) == cfg.num_layers,
+          f"(c) the sync prefill launched {grown}")
+    del rt
+    lg_s, lg_p = sync_vs_paged_logits(cfg, params)
+    diff = (lg_s - lg_p).abs().max().item()
+    top = lg_p.topk(2).values
+    rec["sync"] = {"token": sync, "prefill_argmax": int(lg_s.argmax()),
+                   "paged_argmax": int(lg_p.argmax()),
+                   "wave_first_token": int(bf16[0][0]),
+                   "max_abs_diff": diff,
+                   "rel_l2": ((lg_s - lg_p).norm() / lg_p.norm()).item(),
+                   "paged_gap": (top[0] - top[1]).item(), "launches": grown}
+    print(f"phase 14 (c) the sync path's first token vs one paged chunk's: "
+          f"{json.dumps(rec['sync'])}")
+    check(sync == rec["sync"]["prefill_argmax"],
+          "(c) the sync runtime's first token is not its prefill's argmax")
+    check(rec["sync"]["rel_l2"] <= PARITY_TOL,
+          f"(c) one-shot vs paged chunk logits: {rec['sync']}")
+    check(sync == rec["sync"]["paged_argmax"]
+          or rec["sync"]["paged_gap"] < diff,
+          f"(c) the first tokens differ where the paged top-two gap is not "
+          f"below the logits' difference: {rec['sync']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the launcher
+    reset_launches()
+    out = io.StringIO()
+    with ctx.redirect_stdout(out):
+        rc = serve.main(["--archs", VLM_ARCH, "--max-seq-len",
+                         str(VLM_MAX_SEQ), "--requests", "8"])
+    text = out.getvalue()
+    print(text, end="")
+    check(rc == 0 and "served 8/8" in text, f"(d) launcher exited {rc}")
+    for k, v in launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 14 record: {json.dumps(rec)}")
+    print(f"phase 14: {rec['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec["launches"]
 
 
 def phase_train(steps=4):
@@ -4036,6 +4473,11 @@ def main() -> int:
     print("phase 13: the multi-server control plane, minicpm-2b and "
           "minitron-4b full width, crash failover")
     phase_cluster(spec_rec["verify"]["max_abs_diff"])
+    print("phase 14: the VLM family, paligemma-3b full width, 512 slots, "
+          "D = 256")
+    vlm_launches = phase_vlm()
+    for name in launches:
+        launches[name] += vlm_launches.get(name, 0)
     small_input_check()
 
     kernels = []
@@ -4044,6 +4486,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": REPLACES[name],
                         "launches": launches[name],
+                        "paligemma_launches": vlm_launches.get(name, 0),
                         **{k: rec[k] for k in RECORD_KEYS}})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
     check(len(kernels) == 10, f"expected ten kernels, got {len(kernels)}")

@@ -32,13 +32,14 @@
 // stacked (layers, B, S, Hkv, D) view is such a cache; the Pallas wrapper
 // pads S and transposes the whole cache to (B*Hkv, S_p, D) on every call).
 //   * a block per 64 query rows of a head, 4 warps of 16 rows, q held as
-//     ldmatrix fragments; keys 64 at a time through a two-stage 16-byte
-//     cp.async ring (the wrapper's 16-byte alignment and strides that are
-//     multiples of 8 elements are what 16-byte copies need);
+//     ldmatrix fragments (re-read from shared memory at D = 256); keys 64
+//     at a time (32 at D = 256) through a two-stage 16-byte cp.async ring
+//     (the wrapper's 16-byte alignment and strides that are multiples of 8
+//     elements are what 16-byte copies need);
 //   * S = Q K^T and O += P V on mma.sync.m16n8k16, the online softmax on
 //     the fragments, the element mask only on tiles that cross an edge;
-//   * the key tiles start at 0 in steps of 64 and the sums run in the
-//     paged kernel's order, so on a dense view of the pages this kernel
+//   * the key tiles start at 0 in steps of ChunkCfg::kKeys and the sums run
+//     in the paged kernel's order, so on a dense view of the pages this kernel
 //     gives the paged kernel's output bit for bit;
 //   * no key at or past min(start + chunk_len, S) is read (the stager
 //     zero-fills instead), no row at or past chunk_len is computed (a tile
@@ -119,13 +120,18 @@ extern "C" int chunk_attention_bf16(
   auto* oo = static_cast<bf16*>(out);
   const auto* st = static_cast<const int*>(start);
   const auto* cl = static_cast<const int*>(chunk_len);
-  static unsigned long long opted64 = 0, opted128 = 0;   // bit per device
+  // bit per device, a kernel
+  static unsigned long long opted64 = 0, opted128 = 0, opted256 = 0;
   if (D == 64)
     return launch_chunk_grid<bf16, 64>(chunk_kernel<64>, &opted64, B, T, Hq,
                                        s, qq, oo, c, st, cl, T, Hq, Hkv,
                                        prefix_len, scale);
   if (D == 128)
     return launch_chunk_grid<bf16, 128>(chunk_kernel<128>, &opted128, B, T,
+                                        Hq, s, qq, oo, c, st, cl, T, Hq, Hkv,
+                                        prefix_len, scale);
+  if (D == 256)
+    return launch_chunk_grid<bf16, 256>(chunk_kernel<256>, &opted256, B, T,
                                         Hq, s, qq, oo, c, st, cl, T, Hq, Hkv,
                                         prefix_len, scale);
   return static_cast<int>(cudaErrorInvalidValue);

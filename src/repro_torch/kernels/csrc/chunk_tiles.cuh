@@ -19,12 +19,15 @@
 // The design (see paged_attention.cu's note for what bounds it):
 //   * 4 warps of 16 query rows; a tile whose rows are all dead writes
 //     zeros and returns before it reads anything;
-//   * the live rows of q are copied once by 16-byte cp.async and held as
-//     ldmatrix A fragments;
-//   * keys come 64 at a time, row by row from the source with 16-byte
-//     cp.async, through a two-stage ring: tile j + 1's copy is issued
-//     before tile j's products; no key at or past the visible end is read
-//     (the stager zero-fills instead);
+//   * the live rows of q are copied once by 16-byte cp.async and, at
+//     D <= 128, held as ldmatrix A fragments; at D = 256 those fragments
+//     (64 registers) beside the output (128) would not fit in 255, so each
+//     warp re-reads its 16 rows of q from shared memory for every key tile
+//     (as flash_attention.cu does at D = 256);
+//   * keys come 64 at a time (32 at D = 256, ``ChunkCfg::kKeys``), row by
+//     row from the source with 16-byte cp.async, through a two-stage ring:
+//     tile j + 1's copy is issued before tile j's products; no key at or
+//     past the visible end is read (the stager zero-fills instead);
 //   * S = Q K^T and O += P V on mma.sync.m16n8k16 bf16 -> f32, the online
 //     softmax on the accumulator fragments (ex2.approx in the log2
 //     domain), the element mask only on a tile that crosses an edge; P is
@@ -65,18 +68,23 @@ constexpr int kChunkKeys = 64;            // keys per staged tile
 template <typename PageT, int D>
 struct ChunkCfg {
   static constexpr bool kQuant = sizeof(PageT) == 1;
+  // keys per staged tile: 32 at D = 256, where the score tile's registers
+  // go to the output's 128 (and the smaller tile keeps two blocks an SM:
+  // 101,376 bytes of shared memory for bf16 keys)
+  static constexpr int kKeys = D <= 128 ? kChunkKeys : 32;
   static constexpr int LD = D + kPad;                    // bf16 tile row stride
-  static constexpr int kTile = kChunkKeys * LD;          // bf16 per K or V tile
+  static constexpr int kTile = kKeys * LD;               // bf16 per K or V tile
   // bf16 keys land in a two-stage ring of bf16 tiles; int8 pages in a
   // two-stage ring of raw tiles and their scales, widened into one bf16
   // tile each for the products
   static constexpr int kStages16 = kQuant ? 1 : 2;
   static constexpr int kSmemBytes =
       (kChunkRows * LD + 2 * kStages16 * kTile) * 2 +
-      (kQuant ? 2 * 2 * kChunkKeys * (D + 4) : 0);
+      (kQuant ? 2 * 2 * kKeys * (D + 4) : 0);
 };
 
-// Start copying keys [t0, t0 + 64) from ``src`` into shared memory: K and
+// Start copying keys [t0, t0 + ChunkCfg::kKeys) from ``src`` into shared
+// memory: K and
 // V rows (destination row stride ``ld`` elements) and, for int8 pages,
 // their f32 scales.  Keys at or past ``kend`` become zeros and are not
 // read.  The caller commits the group.
@@ -86,9 +94,10 @@ __device__ __forceinline__ void stage_keys(const Src& src, int t0, int kend,
                                            typename Src::T* dv, int ld,
                                            float* dks, float* dvs) {
   using T = typename Src::T;
+  constexpr int kKeys = ChunkCfg<T, D>::kKeys;
   constexpr int kVec = 16 / sizeof(T);                 // elements a copy
   constexpr int kParts = D / kVec;
-  for (int c = threadIdx.x; c < kChunkKeys * kParts; c += kChunkThreads) {
+  for (int c = threadIdx.x; c < kKeys * kParts; c += kChunkThreads) {
     const int j = c / kParts, col = (c % kParts) * kVec;
     const int kpos = t0 + j;
     const bool ok = kpos < kend;
@@ -103,7 +112,7 @@ __device__ __forceinline__ void stage_keys(const Src& src, int t0, int kend,
     cp_async16(dv + j * ld + col, v, ok ? 16 : 0);
   }
   if constexpr (sizeof(T) == 1) {
-    for (int j = threadIdx.x; j < kChunkKeys; j += kChunkThreads) {
+    for (int j = threadIdx.x; j < kKeys; j += kChunkThreads) {
       const int kpos = t0 + j;
       const bool ok = kpos < kend;
       const float* ks = src.any_scale();
@@ -115,12 +124,14 @@ __device__ __forceinline__ void stage_keys(const Src& src, int t0, int kend,
   }
 }
 
-// int8 rows (64 x D, row stride D) -> bf16 rows (row stride D + kPad),
+// int8 rows (ChunkCfg::kKeys x D, row stride D) -> bf16 rows (row stride
+// D + kPad),
 // exactly: |v| <= 127 fits bf16's 8-bit significand
 template <int D>
 __device__ __forceinline__ void widen(bf16* dst, const int8_t* src) {
   constexpr int kParts = D / 16;
-  for (int c = threadIdx.x; c < kChunkKeys * kParts; c += kChunkThreads) {
+  constexpr int kKeys = ChunkCfg<int8_t, D>::kKeys;
+  for (int c = threadIdx.x; c < kKeys * kParts; c += kChunkThreads) {
     const int j = c / kParts, col = (c % kParts) * 16;
     const int4 raw = *reinterpret_cast<const int4*>(src + j * D + col);
     const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
@@ -135,6 +146,40 @@ __device__ __forceinline__ void widen(bf16* dst, const int8_t* src) {
   }
 }
 
+// A warp's 16 rows of q in the score product Q K^T: at D <= 128 held as
+// D / 16 ldmatrix A fragments, loaded once q has landed; at D = 256 those
+// (64 registers) beside the output (128) would not fit in 255, so each key
+// tile re-reads the rows from shared memory, where the key loop's first
+// wait has landed them (as flash_attention.cu does at D = 256).  A
+// specialization rather than an ``if constexpr`` (which changed the D <= 128
+// instances' PTX): they compile to the PTX they had before D = 256.
+template <int D, bool kInRegs = (D <= 128)>
+struct ChunkQ {
+  uint32_t f[D / 16][4];
+
+  __device__ __forceinline__ void load(const bf16* wq, int lane) {
+    cp_async_wait<1>();
+    __syncthreads();
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) load_a<D>(f[kd], wq, kd * 16, lane);
+  }
+  template <int BN>
+  __device__ __forceinline__ void dot(float (&s)[BN / 8][4], const bf16*,
+                                      const bf16* kt, int lane) const {
+    frags_dot_rows<D, BN>(s, f, kt, lane);
+  }
+};
+
+template <int D>
+struct ChunkQ<D, false> {
+  __device__ __forceinline__ void load(const bf16*, int) {}
+  template <int BN>
+  __device__ __forceinline__ void dot(float (&s)[BN / 8][4], const bf16* wq,
+                                      const bf16* kt, int lane) const {
+    rows_dot_rows<D, BN>(s, wq, kt, lane);
+  }
+};
+
 // The body of block (slot blockIdx.x, query head blockIdx.y, row tile
 // blockIdx.z), with the slot's start ``st``, chunk length ``cl`` and the
 // source's end ``limit``; q and out are (B, T, Hq, D) contiguous and the
@@ -147,7 +192,7 @@ __device__ __forceinline__ void chunk_tile(const bf16* __restrict__ q,
                                            int prefix_len, float scale) {
   using PageT = typename Src::T;
   using C = ChunkCfg<PageT, D>;
-  constexpr int BM = kChunkRows, BN = kChunkKeys, LD = C::LD;
+  constexpr int BM = kChunkRows, BN = C::kKeys, LD = C::LD;
   constexpr bool kQuant = C::kQuant;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
@@ -195,11 +240,8 @@ __device__ __forceinline__ void chunk_tile(const bf16* __restrict__ q,
   cp_async_commit();
 
   bf16* wq = sq + warp * 16 * LD;              // this warp's 16 rows of q
-  uint32_t qf[D / 16][4];
-  cp_async_wait<1>();
-  __syncthreads();
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) load_a<D>(qf[kd], wq, kd * 16, lane);
+  ChunkQ<D> qf;
+  qf.load(wq, lane);
 
   // this thread's rows of the chunk: row and row + 8
   const int row = i0 + warp * 16 + g;
@@ -226,13 +268,13 @@ __device__ __forceinline__ void chunk_tile(const bf16* __restrict__ q,
       __syncthreads();
     }
 
-    // 1. S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    // 1. S = Q K^T for this warp's 16 rows and the tile's BN keys
     float sc[BN / 8][4];
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    frags_dot_rows<D, BN>(sc, qf, kt, lane);
+    qf.template dot<BN>(sc, wq, kt, lane);
 
     // 2. into the log2 domain (int8: times the key's scale); the element
     //    mask only where some live row does not see the whole tile: a dead

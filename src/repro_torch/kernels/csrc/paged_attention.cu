@@ -46,9 +46,16 @@
 //     (tile i + 1's copies are issued before tile i's scores), looks up the
 //     block-table entry a tile needs one tile earlier still, and loads an
 //     item's q while the tile before its first is scored.  A tile is 32
-//     tokens (16 of a bf16 row of D = 128, split over 2 lanes), at most 4 KB
+//     tokens (16 of a bf16 row of D = 128 or an int8 row of D = 256, split
+//     over 2 lanes; 8 of a bf16 row of D = 256, split over 4), at most 4 KB
 //     of K and 4 KB of V; chunks are XOR-swizzled so the lanes' reads are
 //     free of bank conflicts.
+//   * D = 256 (paligemma-3b: 8 query heads on 1 kv head) serves groups of
+//     at most 8: R = 8 rows of q and a lane's 8 output dims a row are 64
+//     accumulators, and the next item's q (8 uint4 a lane) waits in
+//     registers beside them.  MQA leaves one item a live slot, so 32 live
+//     slots fill 32 of the card's blocks; splitting an item's keys over
+//     blocks is not built.
 //   * K and V stay in their stored type until the FMA: bf16 is widened by a
 //     shift, int8 by a byte permute (exact).  Each (token, head) scale is
 //     copied once: the score takes scale * k_scale once per key, v_scale
@@ -84,7 +91,8 @@
 //   * one block per (slot, query head, 64 query rows), 4 warps of 16 rows
 //     (phase 3's chunk: 72 blocks for 132 SMs; 32-row blocks of 2 warps,
 //     144 blocks, were the slower in a side-by-side build on the H100);
-//   * q held as ldmatrix fragments, keys through a two-stage 16-byte
+//   * q held as ldmatrix fragments (at D = 256 re-read from shared memory
+//     for each 32-key tile), keys through a two-stage 16-byte
 //     cp.async ring, S = Q K^T and O += P V on mma.sync.m16n8k16, the
 //     online softmax on the fragments, the element mask only on a tile
 //     that crosses an edge;
@@ -127,6 +135,7 @@ constexpr int kDecWarps = 4;              // a block's warps
 constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kDecStages = 2;             // cp.async ring depth of each warp
 constexpr int kMaxGroup = 16;             // query heads per kv head
+constexpr int kMaxGroup256 = 8;           // the same at D = 256
 constexpr int kSlotPass = 512;            // slots one pass of the length scan takes
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;   // -0.7 * FLT_MAX
 
@@ -145,9 +154,10 @@ struct DecodeCfg {
   static constexpr int kTokBytes = H * kRowBytes;         // a token's H rows
   static constexpr int kTokChunks = H * kChunks;
   static constexpr int kLanes = 32 / H;                   // lanes serving a head
-  // lanes that score one key: a bf16 row of D = 128 is split over 2 lanes,
-  // so that a tile is at most 4 KB of K and 4 KB of V
-  static constexpr int kLpk = kRowBytes > 128 ? 2 : 1;
+  // lanes that score one key: a row over 128 bytes is split over
+  // kRowBytes / 128 lanes (2 for bf16 at D = 128, 4 at D = 256), so that a
+  // tile is at most 4 KB of K and 4 KB of V
+  static constexpr int kLpk = kRowBytes > 128 ? kRowBytes / 128 : 1;
   static constexpr int kKeys = kLanes / kLpk;             // tokens a warp tile
   static constexpr int kLaneChunks = kChunks / kLpk;      // chunks a lane scores
   static constexpr int kIssue = kKeys * kTokChunks / 32;  // copies a lane issues
@@ -157,14 +167,16 @@ struct DecodeCfg {
   static constexpr int kOwn = D / kLpr;
   static constexpr int kKpr = kLanes / kLpr;
   static constexpr int kRows = H * R;                     // q rows a warp holds
-  static constexpr int kQld = D + 4 * (kLpk - 1);        // q row stride (f32)
+  // q row stride (f32): each part of a split row starts 4 floats on
+  static constexpr int kQld = D + 4 * (kLpk - 1);
   static constexpr int kPart = kRows * D + 2 * kRows;     // acc, then m, l
   static constexpr int kTileBytes = kKeys * kTokBytes;
   static constexpr int kScales = kQuant ? 2 * kKeys * H : 0;   // f32 a stage
   static constexpr int kStageBytes = 2 * kTileBytes + 4 * kScales;
   static constexpr int kWarpBytes = kDecStages * kStageBytes;
   static constexpr int kRingBytes = kDecWarps * kWarpBytes;
-  static_assert(kTokChunks == 4 || kTokChunks == 8 || kTokChunks == 16, "row size");
+  static_assert(kTokChunks == 4 || kTokChunks == 8 || kTokChunks == 16 ||
+                kTokChunks == 32, "row size");
   static_assert(kLpk == 1 || H == 1, "a split row serves one head");
   static_assert(H == 1 || (R <= 4 && kRowBytes == 64), "head pairs: 64-byte rows");
 };
@@ -412,9 +424,10 @@ __device__ __forceinline__ void attend_tile(const unsigned char* stage,
   const unsigned char* sk = stage;
   const unsigned char* sv = stage + C::kTileBytes;
 
-  // 1. scores: this lane's chunks of its token's K row against q.  The two
-  //    halves of a split row walk their chunks in orders 4 apart, and q's
-  //    second half sits 16 bytes further on, so neither read conflicts.
+  // 1. scores: this lane's chunks of its token's K row against q.  The
+  //    parts of a split row walk their chunks in orders 4 apart, and each
+  //    part of q sits 16 bytes further on than the one before, so neither
+  //    read conflicts.
   float s[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) s[r] = 0.f;
@@ -432,9 +445,16 @@ __device__ __forceinline__ void attend_tile(const unsigned char* stage,
 #pragma unroll
       for (int e = 0; e < C::kVec; ++e) s[r] = fmaf(qc[r * C::kQld + e], kf[e], s[r]);
   }
-  if constexpr (C::kLpk == 2) {
+  // the parts' sums, in one order on every lane of the key (spelled out by
+  // part count, as is store_q's offset, so that the instances of rows of
+  // at most 256 bytes compile to the PTX they had before the 4-part split)
+  if constexpr (C::kLpk >= 2) {
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] += __shfl_xor_sync(0xffffffffu, s[r], 1);
+  }
+  if constexpr (C::kLpk == 4) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] += __shfl_xor_sync(0xffffffffu, s[r], 2);
   }
 
   // 2. the online-softmax update, row by row (the order of the Pallas
@@ -505,8 +525,8 @@ __device__ __forceinline__ void load_q(
   }
 }
 
-// The q rows into this warp's f32 copy (q's second half 16 bytes on when a
-// key's row is split over two lanes)
+// The q rows into this warp's f32 copy (part i of a key's row split over
+// kLpk lanes 16 bytes times i on)
 template <typename PageT, int D, int R, int H>
 __device__ __forceinline__ void store_q(
     float* sq, const uint4 (&qr)[(DecodeCfg<PageT, D, R, H>::kRows * D / 8 + 31) / 32]) {
@@ -520,7 +540,9 @@ __device__ __forceinline__ void store_q(
       float f[8];
       widen_words<bf16, 8>(w, f);
       const int row = c / (D / 8), d = (c % (D / 8)) * 8;
-      float* dst = sq + row * C::kQld + d + (C::kLpk == 2 && d >= D / 2 ? 4 : 0);
+      float* dst = sq + row * C::kQld + d +
+                   (C::kLpk <= 2 ? (C::kLpk == 2 && d >= D / 2 ? 4 : 0)
+                                 : 4 * (d / (D / C::kLpk)));
       reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
       reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
     }
@@ -877,7 +899,8 @@ int launch_decode_d(const bf16* q, bf16* out, const Pool& pool,
   if constexpr (sizeof(PageT) == 1 && D == 64) {
     if (pairs) { ROWS(1, true) ROWS(2, true) ROWS(4, true) }
   }
-  ROWS(1, false) ROWS(2, false) ROWS(4, false) ROWS(8, false) ROWS(16, false)
+  ROWS(1, false) ROWS(2, false) ROWS(4, false) ROWS(8, false)
+  if constexpr (D <= 128) { ROWS(16, false) }
 #undef ROWS
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -896,6 +919,8 @@ int launch_decode(const void* q, void* out, const Pool& pool,
     return launch_decode_d<PageT, 64>(qq, oo, pool, lens, B, Hq, Hkv, scale, s);
   if (D == 128)
     return launch_decode_d<PageT, 128>(qq, oo, pool, lens, B, Hq, Hkv, scale, s);
+  if (D == 256 && Hq / Hkv <= kMaxGroup256)
+    return launch_decode_d<PageT, 256>(qq, oo, pool, lens, B, Hq, Hkv, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -926,6 +951,9 @@ int launch_chunk(const void* q, void* out, const Pool& pool,
                                      prefix_len, scale, s);
   if (D == 128)
     return launch_chunk_d<PageT, 128>(qq, oo, pool, st, cl, B, T, Hq, Hkv,
+                                      prefix_len, scale, s);
+  if (D == 256)
+    return launch_chunk_d<PageT, 256>(qq, oo, pool, st, cl, B, T, Hq, Hkv,
                                       prefix_len, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

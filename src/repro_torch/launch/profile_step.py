@@ -1,12 +1,14 @@
 """Where a serving step's time goes on the card.
 
 ``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phases 3
-to 6 and 12: one arch at full width (minicpm-2b, mamba2-2.7b,
+to 6, 12 and 14: one arch at full width (minicpm-2b, mamba2-2.7b,
 whisper-large-v3, whose requests also carry seeded random frame
-embeddings, mixtral-8x7b at 16 of its 32 layers, or minitron-4b), with
-prompts of 6-200 tokens.  ``main`` serves it and profiles two windows of
-engine steps with ``torch.profiler``: the first steps, which mix chunked
-prefill and decode, and later decode-only steps.  For each window it
+embeddings, mixtral-8x7b at 16 of its 32 layers, minitron-4b, or
+paligemma-3b, whose requests carry seeded random image embeddings in
+512-token slots), with prompts of 6-200 tokens.  ``main`` serves it and
+profiles two windows of engine steps with ``torch.profiler``: the first
+steps, which mix chunked prefill and decode, and later decode-only
+steps.  For each window it
 prints the host wall time per step (ending in a device synchronize), the
 device time per step (the sum of the CUDA kernels' own times), the
 device's idle share, the number of kernel launches per step, the host's
@@ -20,6 +22,8 @@ function the same way (``chip_smoke.py`` phase 7 a training step).
       --arch whisper-large-v3
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
       --arch mixtral-8x7b
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      --arch paligemma-3b
   PYTHONPATH=src python -m repro_torch.launch.profile_step --kv-dtype bf16 \
       --dense-view
   PYTHONPATH=src python -m repro_torch.launch.profile_step --templated \
@@ -81,8 +85,12 @@ WAVE_BS = {"mamba2-2.7b": 128, "whisper-large-v3": 128}
 # mixtral-8x7b's 32 layers of bf16 weights take 93.4 GB, its first 16 (the
 # only cut) 46.96 GB, beside 8.59 GB of bf16 KV at the plan's 512 slots
 WAVE_LAYERS = {"mixtral-8x7b": 16}
+# slot budgets where the launcher's default 256 tokens do not hold a
+# request: paligemma-3b's 256-row image prefix, a prompt of up to 200
+# tokens and 40 new ones take 496
+WAVE_MAX_SEQ_LEN = {"paligemma-3b": 512}
 ARCHS = ("minicpm-2b", "mamba2-2.7b", "whisper-large-v3", "mixtral-8x7b",
-         "minitron-4b")
+         "minitron-4b", "paligemma-3b")
 # phase 9's templated wave: 64 requests of a 150-token template (4 full
 # pages and a 22-token partial tail) plus 1-40 tokens of their own, 24 new
 # tokens each, within the plan's 256-token slots
@@ -95,12 +103,16 @@ def wave_runtime(kv_dtype, n_requests: int = 32, new_tokens: int = 40,
     """A full-width ``ServiceRuntime`` of ``arch`` (random weights from
     seed 1, or ``runtime_kw["params"]``) with ``n_requests`` prompts of
     6-200 tokens, spread evenly, already submitted; audio requests carry
-    standard-normal frame embeddings drawn from seed 1.  ``kv_dtype`` is
-    the plan's (-1 = the category's choice), and so is ``prefix_cache``.
+    standard-normal frame embeddings drawn from seed 1, VLM requests
+    standard-normal image embeddings (the prefix) from seed 1
+    (``wave_extras``).  ``kv_dtype`` is the plan's (-1 = the category's
+    choice), and so is ``prefix_cache``.
     The plan is the full config's, at ``bs`` slots if given (else
     ``WAVE_BS``'s, else the allocator's); the weights are cut to
-    ``WAVE_LAYERS`` where that names the arch.  ``runtime_kw`` go to the
-    runtime (``mode``, ``paged_native``, ...).  Returns (cfg, runtime)."""
+    ``WAVE_LAYERS`` where that names the arch, and the slots hold
+    ``WAVE_MAX_SEQ_LEN``'s tokens where that names it.  ``runtime_kw`` go
+    to the runtime (``mode``, ``paged_native``, ...).  Returns (cfg,
+    runtime)."""
     full = get_config(arch)
     cfg = dataclasses.replace(full, num_layers=WAVE_LAYERS.get(
         arch, full.num_layers))
@@ -108,20 +120,32 @@ def wave_runtime(kv_dtype, n_requests: int = 32, new_tokens: int = 40,
     params = runtime_kw.pop("params", None)
     if params is None:
         params = model_api(cfg).init(1, cfg, device)
+    if arch in WAVE_MAX_SEQ_LEN:
+        runtime_kw.setdefault("max_seq_len", WAVE_MAX_SEQ_LEN[arch])
     rt = ServiceRuntime(cfg, params,
                         plan_for(full, kv_dtype, bs or WAVE_BS.get(arch),
                                  prefix_cache),
                         device=device, **runtime_kw)
-    frames = np.random.default_rng(1)
-    for rid, prompt in enumerate(wave_prompts(cfg.vocab_size, n_requests)):
-        extras = None
-        if cfg.family == "audio":
-            extras = {"embeddings": frames.standard_normal(
-                (cfg.encoder_len, cfg.d_model), dtype=np.float32)}
+    for rid, (prompt, extras) in enumerate(zip(
+            wave_prompts(cfg.vocab_size, n_requests),
+            wave_extras(cfg, n_requests))):
         rt.submit(GenerationRequest(
             rid=rid, tokens=prompt, max_new_tokens=new_tokens, stream=rid,
             extras=extras))
     return cfg, rt
+
+
+def wave_extras(cfg, n_requests: int = 32):
+    """``wave_runtime``'s request extras (seed 1), request ``i`` the
+    ``i``-th: standard-normal frame embeddings (audio) or image embeddings
+    (VLM) of (rows, d_model), else None."""
+    if cfg.family not in ("audio", "vlm"):
+        return [None] * n_requests
+    rows = cfg.encoder_len if cfg.family == "audio" else cfg.prefix_len
+    frames = np.random.default_rng(1)
+    return [{"embeddings": frames.standard_normal((rows, cfg.d_model),
+                                                  dtype=np.float32)}
+            for _ in range(n_requests)]
 
 
 def wave_prompts(vocab_size: int, n_requests: int = 32):

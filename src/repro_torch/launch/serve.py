@@ -230,6 +230,29 @@ def footprint(args, cp=None) -> Tuple[int, int]:
     return weights, arenas
 
 
+PROMPT_TOKENS = 6               # the launcher's prompt length
+
+
+def _refuse_requests_over_the_budget(args, cfgs) -> None:
+    """Raise before anything is allocated when the launcher's requests
+    cannot fit a slot: on the paged continuous path each takes its prompt,
+    the VLM's image prefix and its new tokens out of ``--max-seq-len``
+    (which the engine would otherwise refuse at submit, request by
+    request)."""
+    if args.mode != "continuous" or args.kvcache_impl != "paged":
+        return
+    for a, cfg in cfgs.items():
+        extra = cfg.prefix_len if cfg.family == "vlm" else 0
+        need = PROMPT_TOKENS + extra + args.max_new_tokens
+        if need > args.max_seq_len:
+            prefix = f" + {extra} image-prefix" if extra else ""
+            raise ValueError(
+                f"{a}'s requests need {PROMPT_TOKENS} prompt{prefix} + "
+                f"{args.max_new_tokens} new = {need} cache tokens, over "
+                f"--max-seq-len {args.max_seq_len}; pass --max-seq-len "
+                f"{need} or more")
+
+
 def _refuse_what_does_not_fit(args, arch_ids, cp, have: int) -> None:
     """Raise before anything is allocated when the weights of an arch, or
     the whole run with ``HEADROOM_BYTES``, exceed the card's memory."""
@@ -426,6 +449,10 @@ def main(argv=None) -> int:
             ap.error(f"unknown arch {a!r}; known: {ARCH_IDS}")
     device = resolve_device(args.device)
 
+    cfgs = {a: get_config(a) if device.type == "cuda"
+            else reduced(get_config(a)) for a in arch_ids}
+    _refuse_requests_over_the_budget(args, cfgs)
+
     # control plane: EPARA allocator + SSSP placement + handler
     cp = control_plane(arch_ids, args.servers)
     placements = cp.placements
@@ -447,7 +474,6 @@ def main(argv=None) -> int:
     # become trace processes and metric labels
     tracer = Tracer() if args.trace_out else None
     metrics = MetricsRegistry() if args.metrics_out else None
-    cfgs = {}
     # weights are seeded per arch: one copy an arch, shared by every
     # server hosting it, and a draft of a deployed arch is a self-draft
     weights = {}
@@ -458,9 +484,6 @@ def main(argv=None) -> int:
                 zlib.crc32(arch.encode()) + args.seed, cfg, device)
         return weights[arch]
 
-    for a in arch_ids:
-        full = get_config(a)
-        cfgs[a] = full if device.type == "cuda" else reduced(full)
     draft_cfg = draft_params = None
     if args.draft_arch:
         full = get_config(args.draft_arch)
@@ -517,10 +540,14 @@ def main(argv=None) -> int:
         svc = arch_ids[i % len(arch_ids)]
         at = int(rng.integers(0, args.servers))
         cfg = cfgs[svc]
-        prompt = rng.integers(0, cfg.vocab_size, size=6).astype(np.int32)
+        prompt = rng.integers(0, cfg.vocab_size,
+                              size=PROMPT_TOKENS).astype(np.int32)
         extras = None
         if cfg.family == "audio":
             extras = {"embeddings": np.zeros((cfg.encoder_len, cfg.d_model),
+                                             np.float32)}
+        elif cfg.family == "vlm":
+            extras = {"embeddings": np.zeros((cfg.prefix_len, cfg.d_model),
                                              np.float32)}
         supervisor.submit(svc, GenerationRequest(
             rid=i, tokens=prompt, max_new_tokens=args.max_new_tokens,

@@ -368,12 +368,14 @@ def attention_decode_paged(p, cfg: ModelConfig, x_t, k_pages, v_pages,
 
 def attention_chunk_paged(p, cfg: ModelConfig, x, k_pages, v_pages,
                           block_tables, cache_len, chunk_len, *,
-                          block_size: int, window=None,
+                          block_size: int, window=None, prefix_len: int = 0,
                           use_rope: bool = True, verify: bool = False):
     """Chunked-prefill attention against one layer's paged KV: write a
     right-padded T-token chunk (only the first ``chunk_len`` rows real) at
     positions ``cache_len + i`` into the pages, in place, then attend
-    through the block table via ``ops.paged_chunk_attention``.
+    through the block table via ``ops.paged_chunk_attention``.  Keys below
+    ``prefix_len`` are seen by every row (the VLM's first chunk carries
+    its bidirectional image prefix).
 
     ``verify=True`` is speculative decoding's verify contract: the same
     kernels, with ``chunk_len`` a per-slot (B,) vector whose 0 rows are the
@@ -403,7 +405,7 @@ def attention_chunk_paged(p, cfg: ModelConfig, x, k_pages, v_pages,
     attend = ops.paged_verify_attention if verify \
         else ops.paged_chunk_attention
     out = attend(q.contiguous(), k_pages, v_pages, block_tables, cache_len,
-                 chunk_len)
+                 chunk_len, prefix_len=prefix_len)
     out = out.reshape(B, T, cfg.num_heads * cfg.head_dim)
     return linear(out, p["wo"]), k_pages, v_pages
 

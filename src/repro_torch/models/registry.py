@@ -1,16 +1,16 @@
 """Model family registry: maps ``ModelConfig.family`` to the model API.
 
-The dense, MoE, SSM and audio (encoder-decoder) families are ported for
-serving (every dense-cache and paged-native entry point), the dense family
-also for training; the others raise, naming the ``ROADMAP.md`` item that
-ports them.
+The dense, MoE, SSM, audio (encoder-decoder) and VLM families are ported
+for serving (every dense-cache and paged-native entry point), the dense
+family also for training; the hybrid family raises, naming the
+``ROADMAP.md`` item that ports it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from . import encdec, moe, ssm, transformer
+from . import encdec, moe, ssm, transformer, vlm
 from .config import ModelConfig
 
 
@@ -62,10 +62,13 @@ _FAMILIES = {
                       encdec.decode_step,
                       decode_step_paged=encdec.decode_step_paged,
                       prefill_chunk_paged=encdec.prefill_chunk_paged),
+    "vlm": ModelApi(vlm.init, vlm.logits_fn, vlm.init_cache, vlm.prefill,
+                    vlm.prefill_chunk, vlm.decode_step,
+                    decode_step_paged=vlm.decode_step_paged,
+                    prefill_chunk_paged=vlm.prefill_chunk_paged),
 }
 
 _NOT_PORTED = {
-    "vlm": "ROADMAP.md Queue 1 item 9 (VLM)",
     "hybrid": "ROADMAP.md Queue 1 item 10 (hybrid)",
 }
 

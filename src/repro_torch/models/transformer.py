@@ -169,11 +169,21 @@ def prefill_cache_size(cfg: ModelConfig, L: int, cache_size) -> int:
     return max(cache_size, L)
 
 
-def prefill_ffn(params, cfg: ModelConfig, batch, cache_size, ffn):
-    tokens = batch["tokens"]
-    B, L = tokens.shape
+def embed_tokens(params, cfg: ModelConfig, batch):
+    """The embedded ``batch["tokens"]`` in the compute dtype."""
+    return layers.embed(params["embed"], cfg, batch["tokens"]).to(
+        cfg.compute_dtype)
+
+
+def prefill_ffn(params, cfg: ModelConfig, batch, cache_size, ffn, *,
+                x=None, prefix_len: int = 0):
+    """The one-shot prefill body; ``x`` (B, L, d), when given, replaces
+    the embedded tokens (the VLM's image prefix and text), and its first
+    ``prefix_len`` rows attend to each other both ways."""
+    if x is None:
+        x = embed_tokens(params, cfg, batch)
+    B, L = x.shape[:2]
     cache_size = prefill_cache_size(cfg, L, cache_size)
-    x = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
     positions = torch.arange(L, device=x.device)[None]
     shape = (cfg.num_layers, B, cache_size, cfg.num_kv_heads, cfg.head_dim)
     k_all = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -182,7 +192,8 @@ def prefill_ffn(params, cfg: ModelConfig, batch, cache_size, ffn):
         lp = layer_params(params["blocks"], i)
         h, (k, v) = layers.attention_with_kv(
             lp["attn"], cfg, layers.apply_norm(lp["ln1"], cfg, x),
-            positions=positions, causal=True, window=cfg.sliding_window)
+            positions=positions, causal=True, window=cfg.sliding_window,
+            prefix_len=prefix_len)
         x = x + h
         x = x + ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, x))
         k, v = prefill_cache_rows(k, v, cache_size)
@@ -203,16 +214,19 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
 
 
 def prefill_chunk_ffn(params, cfg: ModelConfig, batch, cache, chunk_len,
-                      ffn):
-    tokens = batch["tokens"]
-    x = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
+                      ffn, *, x=None, prefix_len: int = 0):
+    """The dense-cache chunk body; ``x`` and ``prefix_len`` as in
+    ``prefill_ffn``, with ``chunk_len`` counting the rows of ``x``."""
+    if x is None:
+        x = embed_tokens(params, cfg, batch)
     start = cache["len"]
     k_all, v_all = cache["k"], cache["v"]
     for i in range(cfg.num_layers):
         lp = layer_params(params["blocks"], i)
         h, _, _ = layers.attention_chunk(
             lp["attn"], cfg, layers.apply_norm(lp["ln1"], cfg, x), k_all[i],
-            v_all[i], start, chunk_len, window=cfg.sliding_window)
+            v_all[i], start, chunk_len, window=cfg.sliding_window,
+            prefix_len=prefix_len)
         x = x + h
         x = x + ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, x))
     h = layers.take_chunk_last(x, chunk_len)
@@ -270,13 +284,14 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
 
 def _chunk_paged_hidden(params, cfg: ModelConfig, batch, cache,
                         block_tables, chunk_len, block_size: int, ffn,
-                        verify: bool):
+                        verify: bool, x=None, prefix_len: int = 0):
     """The paged-native chunk body shared by chunked prefill and
     speculative verify: every layer writes the chunk's K/V rows into the
-    pools in place and attends through the block tables.  Returns the
-    last layer's hidden states (B, T, d) and the per-slot starts."""
-    tokens = batch["tokens"]
-    x = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
+    pools in place and attends through the block tables (``x`` and
+    ``prefix_len`` as in ``prefill_ffn``).  Returns the last layer's
+    hidden states (B, T, d) and the per-slot starts."""
+    if x is None:
+        x = embed_tokens(params, cfg, batch)
     start = torch.as_tensor(cache["len"], dtype=torch.int32,
                             device=x.device).reshape(-1)
     k_all, v_all = cache["k"], cache["v"]
@@ -286,16 +301,18 @@ def _chunk_paged_hidden(params, cfg: ModelConfig, batch, cache,
         h, _, _ = layers.attention_chunk_paged(
             lp["attn"], cfg, xn, k_all[i], v_all[i], block_tables, start,
             chunk_len, block_size=block_size, window=cfg.sliding_window,
-            verify=verify)
+            prefix_len=prefix_len, verify=verify)
         x = x + h
         x = x + ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, x))
     return x, start
 
 
 def prefill_chunk_paged_ffn(params, cfg: ModelConfig, batch, cache,
-                            block_tables, chunk_len, block_size: int, ffn):
+                            block_tables, chunk_len, block_size: int, ffn,
+                            *, x=None, prefix_len: int = 0):
     x, start = _chunk_paged_hidden(params, cfg, batch, cache, block_tables,
-                                   chunk_len, block_size, ffn, False)
+                                   chunk_len, block_size, ffn, False, x,
+                                   prefix_len)
     h = layers.take_chunk_last(x, chunk_len)
     h = layers.apply_norm(params["ln_f"], cfg, h[:, None])[:, 0]
     logits = logits_fn(params, cfg, h)

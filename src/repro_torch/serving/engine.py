@@ -53,7 +53,9 @@ Stateful plans (``plan.sticky``) pin each session to one DP group from its
 admission until its last request leaves.  The first chunk of a request
 starts from zeroed state rows; for the audio family it also carries the
 request's frame embeddings (``extras["embeddings"]``), from which the
-encoder-decoder projects the slot's cross-attention K/V state.
+encoder-decoder projects the slot's cross-attention K/V state, and for
+the VLM family its image embeddings, the bidirectional prefix that the
+first chunk writes into the cache ahead of the text.
 
 Observability (``repro_torch/obs``, verbatim copies of the reference's)
 is off by default: ``tracer=`` records each request's lifecycle spans
@@ -146,6 +148,10 @@ DEFAULT_BLOCK_SIZE = 32
 # recurrent state a shared prefix cannot rebuild, and the encoder-decoder
 # and VLM caches depend on inputs other than tokens.
 PREFIX_CACHEABLE_FAMILIES = ("dense", "moe")
+# families whose requests carry ``extras["embeddings"]`` (rows, d_model),
+# by the config field that counts the rows: the audio encoder's frames and
+# the VLM's image prefix
+_EMBEDDING_ROWS = {"audio": "encoder_len", "vlm": "prefix_len"}
 
 
 @dataclasses.dataclass
@@ -596,13 +602,14 @@ class ServiceRuntime:
 
     # -- queue ------------------------------------------------------------
     def submit(self, req: GenerationRequest, now: float = 0.0) -> None:
-        if self.cfg.family == "audio":
-            want = (self.cfg.encoder_len, self.cfg.d_model)
+        if self.cfg.family in _EMBEDDING_ROWS:
+            want = (getattr(self.cfg, _EMBEDDING_ROWS[self.cfg.family]),
+                    self.cfg.d_model)
             emb = (req.extras or {}).get("embeddings")
             if emb is None or tuple(np.shape(emb)) != want:
                 raise ValueError(
-                    f"audio request {req.rid} needs extras['embeddings'] of "
-                    f"shape {want}, got "
+                    f"{self.cfg.family} request {req.rid} needs "
+                    f"extras['embeddings'] of shape {want}, got "
                     f"{None if emb is None else tuple(np.shape(emb))}")
         if self.kvcache_impl == "paged" and self.mode == "continuous":
             # reject over-budget requests at the door: raising later, mid-
@@ -651,7 +658,7 @@ class ServiceRuntime:
 
     def _build_batch(self, reqs: Sequence[GenerationRequest], toks):
         batch: Dict[str, Any] = {"tokens": toks}
-        if self.cfg.family == "audio":
+        if self.cfg.family in _EMBEDDING_ROWS:
             batch["embeddings"] = torch.from_numpy(np.stack(
                 [np.asarray(r.extras["embeddings"], np.float32)
                  for r in reqs])).to(self.device)
@@ -659,7 +666,8 @@ class ServiceRuntime:
 
     def _extra_cache_tokens(self) -> int:
         """Cache positions a request takes beyond its text prompt: the VLM
-        family's image prefix (0 for every family ported so far)."""
+        family's image prefix (its ``prefill`` budgets ``cache_size`` in
+        text tokens and adds the prefix itself)."""
         return self.cfg.prefix_len if self.cfg.family == "vlm" else 0
 
     def _req_seed(self, req: GenerationRequest) -> int:
@@ -1162,6 +1170,10 @@ class ServiceRuntime:
         start = arena.lens[sid:sid + 1]
         chunk_len = torch.tensor([n_valid], dtype=torch.int32, device=dev)
         bt_row = torch.from_numpy(arena._block_tables[sid:sid + 1]).to(dev)
+        # cache rows the step writes: the bucket, and on a VLM's first
+        # chunk the image prefix ahead of it
+        n_rows = toks.shape[1] + (cfg.prefix_len if embeddings is not None
+                                  and cfg.family == "vlm" else 0)
         if draft or self.paged_native:
             cache = arena.assemble(arena.pages, arena.slot_state(sid), start)
             logits, new_cache = api.prefill_chunk_paged(
@@ -1175,7 +1187,7 @@ class ServiceRuntime:
             new_dense, _ = arena.disassemble(new_cache)
             arena.append_rows(arena.pages, new_dense, start,
                               torch.ones((1,), dtype=torch.bool, device=dev),
-                              bt_row, n_tokens=toks.shape[1],
+                              bt_row, n_tokens=n_rows,
                               valid_tokens=new_cache["len"] - start)
         arena.lens[sid] = new_cache["len"][0]
         return logits
@@ -1192,9 +1204,10 @@ class ServiceRuntime:
         if s.consumed == 0:
             # a FIRST chunk (start == 0) must see fresh per-slot state, not
             # the slot's previous tenant's; the enc-dec's first chunk also
-            # runs the encoder over the request's frame embeddings
+            # runs the encoder over the request's frame embeddings, and the
+            # VLM's carries its image prefix
             arena.zero_state(sid)
-            if self.cfg.family == "audio":
+            if self.cfg.family in _EMBEDDING_ROWS:
                 embeddings = torch.from_numpy(np.asarray(
                     s.req.extras["embeddings"])[None]).to(self.device)
         # copy-on-write before the chunk lands: a hit into a partial block
@@ -1209,7 +1222,11 @@ class ServiceRuntime:
         s.consumed += n_valid
         self.prefill_chunk_calls += 1
         self.prefill_tokens_computed += n_valid
-        self.chunk_write_bytes += arena.chunk_bytes(n_valid)
+        # chunk writes are appends of fresh rows, the VLM's image prefix
+        # among them on its first chunk
+        rows = n_valid + (self._extra_cache_tokens() if embeddings is not None
+                          else 0)
+        self.chunk_write_bytes += arena.chunk_bytes(rows)
         return logits, n_valid
 
     def _prefill_chunks(self, state: _GroupState) -> int:

@@ -152,13 +152,25 @@ PAGED_CHUNK_ODD.update({
                           [5] * 512, 0),
 })
 
+# paligemma-3b's chunks (8 query heads on 1 kv head, D = 256): first chunks
+# carry the 256-row image prefix with a text bucket (T = 288 and 320 from
+# start 0, prefix_len 256, one of them ragged), a text chunk from 288 and
+# a ragged 13-row one past the prefix, with a dead slot
+PAGED_CHUNK_ODD.update({
+    "vlm_first_t288": ((2, 288, 8, 1, 256), [0, 0], [288, 262], 256),
+    "vlm_first_t320": ((1, 320, 8, 1, 256), [0], [320], 256),
+    "vlm_text_t64": ((2, 64, 8, 1, 256), [288, 300], [64, 40], 0),
+    "vlm_t13": ((3, 13, 8, 1, 256), [288, 0, 450], [13, 0, 9], 0),
+})
+
 
 def _paged_chunk_case(dev, case, quant, seed):
     (B, T, Hq, Hkv, D), start, cl, prefix = PAGED_CHUNK_ODD[case]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     end = np.add(start, cl)
-    k, v, tables = _pools(gen, B=B, nblk=8, bs=32, Hkv=Hkv, D=D,
+    nblk = max(8, -(-int(end.max()) // 32))
+    k, v, tables = _pools(gen, B=B, nblk=nblk, bs=32, Hkv=Hkv, D=D,
                           lens=np.maximum(end, 1), quant=quant)
     q = torch.randn(B, T, Hq, D, generator=gen, device=dev).to(
         torch.bfloat16)
@@ -175,11 +187,12 @@ def _paged_chunk_case(dev, case, quant, seed):
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("case", sorted(PAGED_CHUNK_ODD))
 def test_cuda_paged_chunk_odd_shapes_match_plain(cuda_device, case, quant):
-    """The chunk kernels (64-row, 64-key tiles) off their tiles: T = 13
-    and 65, starts off the 32-token page and off 64, a dead slot among
-    four, a prefix past the first row tile, GQA 32/8 at D = 128, and the
-    verify launch's 512 slots of 5 rows; held by atol and at every row by
-    its norm; rows past chunk_len are zeros."""
+    """The chunk kernels (64-row, 64-key tiles; 32-key at D = 256) off
+    their tiles: T = 13 and 65, starts off the 32-token page and off 64, a
+    dead slot among four, a prefix past the first row tile, GQA 32/8 at
+    D = 128, the verify launch's 512 slots of 5 rows, and paligemma-3b's
+    MQA at D = 256 with its 256-row prefix; held by atol and at every row
+    by its norm; rows past chunk_len are zeros."""
     run, want, cl = _paged_chunk_case(cuda_device, case, quant, 11)
     kind = "_quant" if quant else ""
     before = paged_attention.launches["paged_chunk_prefill_attention" + kind]
@@ -198,9 +211,10 @@ def test_cuda_paged_chunk_odd_shapes_match_plain(cuda_device, case, quant):
 def test_cuda_paged_chunk_is_bit_reproducible(cuda_device, quant):
     """Repeated launches on the same inputs give bit-identical outputs:
     each row has one owner block and a fixed order of sums."""
-    run, _, _ = _paged_chunk_case(cuda_device, "gqa_32_8_d128", quant, 12)
-    first = run()
-    assert all(torch.equal(first, run()) for _ in range(3))
+    for case in ("gqa_32_8_d128", "vlm_first_t288"):
+        run, _, _ = _paged_chunk_case(cuda_device, case, quant, 12)
+        first = run()
+        assert all(torch.equal(first, run()) for _ in range(3))
 
 
 def _path_lens(B):
@@ -208,6 +222,15 @@ def _path_lens(B):
     lengths half-way through generation (26-220 keys), the rest empty."""
     lens = np.zeros(B, np.int64)
     lens[:32] = np.linspace(6, 200, 32).astype(int) + 20
+    return tuple(lens.tolist())
+
+
+def _vlm_lens(B):
+    """paligemma-3b's decode lengths: B slots, the first 32 live at
+    262-496 keys (the 256-row prefix, a prompt and the tokens so far), the
+    rest empty."""
+    lens = np.zeros(B, np.int64)
+    lens[:32] = np.linspace(262, 496, 32).astype(int)
     return tuple(lens.tolist())
 
 
@@ -234,6 +257,10 @@ PAGED_DECODE_CASES = {
     "bs5_g2": ((6, 8, 4, 64, 40, 5), (0, 1, 4, 5, 6, 200)),
     "table_spans_bs1": ((3, 4, 1, 128, 1100, 1), (0, 513, 1100)),
     "two_scan_passes": ((1100, 8, 2, 64, 2, 32), _two_pass_lens()),
+    # D = 256 (paligemma-3b's 8/1 heads), at most 8 query heads a kv head
+    **{f"g{G}_d256": ((6, Hq, Hkv, 256, 8, 32), EDGE_LENS)
+       for G, Hq, Hkv in ((1, 4, 4), (3, 6, 2), (8, 8, 1))},
+    "vlm_512_32_live": ((512, 8, 1, 256, 16, 32), _vlm_lens(512)),
 }
 
 
@@ -254,10 +281,10 @@ def _paged_decode_case(dev, case, quant, seed):
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("case", sorted(PAGED_DECODE_CASES))
 def test_cuda_paged_decode_matches_plain(cuda_device, case, quant):
-    """The decode kernels at G = 1, 3, 4 and 16, D = 64 and 128, lengths
-    0, 1, 31, 32, 33 and the whole budget, also with 512 slots, enough
-    live ones that int8 pages are served in kv head pairs; phase 3's and
-    mixtral's 512 slots with 32 live; pages of 5 and of 1 token; more
+    """The decode kernels at G = 1, 3, 4 and 16, D = 64 and 128, G = 1, 3
+    and 8 at D = 256, lengths 0, 1, 31, 32, 33 and the whole budget, also with 512 slots, enough
+    live ones that int8 pages are served in kv head pairs; phase 3's,
+    mixtral's and paligemma-3b's 512 slots with 32 live; pages of 5 and of 1 token; more
     slots than one pass of the kernel's length scan.  Held by atol and at
     every (slot, head) row by its norm; dead slots are zeros."""
     run, want, cl = _paged_decode_case(cuda_device, case, quant, 21)
@@ -279,7 +306,7 @@ def test_cuda_paged_decode_is_bit_reproducible(cuda_device, quant):
     """Repeated launches on the same inputs give bit-identical outputs:
     each item has one owner block, its warps' tiles and merge a fixed
     order."""
-    for case in ("path_512_32_live", "g3_d128"):
+    for case in ("path_512_32_live", "g3_d128", "vlm_512_32_live"):
         run, _, _ = _paged_decode_case(cuda_device, case, quant, 22)
         first = run()
         assert all(torch.equal(first, run()) for _ in range(3))
@@ -294,6 +321,13 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         paged_attention.paged_decode_attention(q, pages, pages, bt, lens)
+    # D = 256 takes at most 8 query heads a kv head
+    q16 = torch.zeros(2, 16, 256, dtype=torch.bfloat16, device=cuda_device)
+    pages256 = torch.zeros(5, 32, 1, 256, dtype=torch.bfloat16,
+                           device=cuda_device)
+    with pytest.raises(ValueError, match="exceeds 8"):
+        paged_attention.paged_decode_attention(q16, pages256, pages256, bt,
+                                               lens)
     with pytest.raises(ValueError, match="bf16"):
         paged_attention.paged_decode_attention(q.float(), pages, pages, bt,
                                                lens)
@@ -670,6 +704,10 @@ CHUNK_CASES = {       # (B, T, S, Hq, Hkv, D), start, chunk_len, prefix_len
     "s700": ((2, 64, 700, 36, 36, 64), [636, 300], [64, 64], 0),
     "gqa_d128_prefix100": ((2, 128, 400, 32, 8, 128), [0, 200], [128, 90],
                            100),
+    # paligemma-3b's dense-view chunks: MQA 8/1 at D = 256 (32-key tiles),
+    # a first chunk with the 256-row prefix, then a text chunk at 288
+    "vlm_first_d256": ((2, 288, 512, 8, 1, 256), [0, 0], [288, 270], 256),
+    "vlm_text_d256": ((1, 64, 512, 8, 1, 256), [288], [64], 0),
 }
 
 
@@ -677,7 +715,8 @@ CHUNK_CASES = {       # (B, T, S, Hq, Hkv, D), start, chunk_len, prefix_len
 @pytest.mark.parametrize("case", sorted(CHUNK_CASES))
 def test_cuda_chunk_attention_matches_plain(cuda_device, case):
     """The dense chunked-prefill kernel on K and V read in place from a
-    wider (B, S, 2 * Hkv, D) buffer: GQA and MQA, D = 64 and 128, per-row
+    wider (B, S, 2 * Hkv, D) buffer: GQA and MQA, D = 64, 128 and 256,
+    per-row
     start and chunk_len with empty rows, a prefix past the first tile, T
     and S off the tiles; rows past chunk_len are zeros."""
     (B, T, S, Hq, Hkv, D), start, cl, prefix = CHUNK_CASES[case]
@@ -702,7 +741,8 @@ def test_cuda_chunk_attention_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["gqa_d128_prefix100", "t130_start63"])
+@pytest.mark.parametrize("case", ["gqa_d128_prefix100", "t130_start63",
+                                  "vlm_first_d256"])
 def test_cuda_chunk_attention_is_bit_reproducible(cuda_device, case):
     """Repeated launches on the same inputs give bit-identical outputs:
     each row has one owner block and a fixed order of sums."""

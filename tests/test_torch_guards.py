@@ -188,14 +188,13 @@ def test_dense_family_trains_and_moe_does_not():
     from repro_torch.models import moe, transformer
     from repro_torch.models.registry import family_api
     assert family_api("dense").forward_hidden is transformer.forward_hidden
-    for family in ("moe", "ssm", "audio"):
+    for family in ("moe", "ssm", "audio", "vlm"):
         assert family_api(family).forward_hidden is None
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         moe.forward_hidden()
 
 
-@pytest.mark.parametrize("family,item", [("vlm", "item 9"),
-                                         ("hybrid", "item 10")])
+@pytest.mark.parametrize("family,item", [("hybrid", "item 10")])
 def test_unported_families_name_their_item(family, item):
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.registry import model_api
@@ -218,6 +217,23 @@ def test_moe_family_is_ported_paged_native():
     assert api.prefill is moe.prefill
     assert api.prefill_chunk is moe.prefill_chunk
     assert api.decode_step is moe.decode_step
+
+
+def test_vlm_family_is_ported_paged_native():
+    """The VLM family serves through the dense decoder's paged-native and
+    dense-cache steps, with its own chunk and one-shot prefills (the image
+    prefix rides along with the first chunk); its training forward is not
+    ported (ROADMAP.md Queue 1 item 12)."""
+    from repro_torch.models import transformer, vlm
+    from repro_torch.models.registry import family_api
+    api = family_api("vlm")
+    assert api.init is transformer.init
+    assert api.prefill_chunk_paged is vlm.prefill_chunk_paged
+    assert api.decode_step_paged is transformer.decode_step_paged
+    assert api.prefill is vlm.prefill
+    assert api.prefill_chunk is vlm.prefill_chunk
+    assert api.decode_step is transformer.decode_step
+    assert api.verify_step_paged is None and api.forward_hidden is None
 
 
 def test_unported_moe_entry_points_name_their_items():
