@@ -121,7 +121,8 @@ extern "C" int chunk_attention_bf16(
   const auto* st = static_cast<const int*>(start);
   const auto* cl = static_cast<const int*>(chunk_len);
   // bit per device, a kernel
-  static unsigned long long opted64 = 0, opted128 = 0, opted256 = 0;
+  static unsigned long long opted64 = 0, opted128 = 0, opted256 = 0,
+                            opted112 = 0;
   if (D == 64)
     return launch_chunk_grid<bf16, 64>(chunk_kernel<64>, &opted64, B, T, Hq,
                                        s, qq, oo, c, st, cl, T, Hq, Hkv,
@@ -132,6 +133,10 @@ extern "C" int chunk_attention_bf16(
                                         prefix_len, scale);
   if (D == 256)
     return launch_chunk_grid<bf16, 256>(chunk_kernel<256>, &opted256, B, T,
+                                        Hq, s, qq, oo, c, st, cl, T, Hq, Hkv,
+                                        prefix_len, scale);
+  if (D == 112)
+    return launch_chunk_grid<bf16, 112>(chunk_kernel<112>, &opted112, B, T,
                                         Hq, s, qq, oo, c, st, cl, T, Hq, Hkv,
                                         prefix_len, scale);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -31,7 +31,11 @@
 //     lane accumulates its D/32 output dims from coalesced V rows, the
 //     probabilities passed by warp shuffles; the four partial results are
 //     merged through shared memory at the end (the usual split-K merge,
-//     inside one block).
+//     inside one block);
+//   * D = 112 (zamba2-7b's shared attention): a K row is two batches of
+//     seven 16-byte loads, and 28 lanes own 4 output dims each (8-byte V
+//     reads); the other 4 lanes score keys, repeat the 28th lane's V reads
+//     (the same addresses: no bytes) and write nothing out.
 // No shared-memory staging of K or V, no cp.async, no TMA.
 
 #include <cuda_bf16.h>
@@ -78,7 +82,16 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
               long long k_sb, long long k_sl, long long k_sh,
               long long v_sb, long long v_sl, long long v_sh, int window,
               float scale) {
-  constexpr int ND = D / 32;                   // output dims a lane owns
+  // output dims a lane owns, and the lanes that own some: all 32, or at
+  // D = 112 (zamba2-7b) the first 28, 4 dims each
+  constexpr int ND = (D + 31) / 32;
+  constexpr int kVLanes = D / ND;
+  // K row columns a lane's batch of 16-byte loads covers: 64, or half the
+  // row at D = 112 (7 loads of 8 columns)
+  constexpr int kStep = D % 64 == 0 ? 64 : D / 2;
+  constexpr int kP = kStep / 8;
+  static_assert(D % kStep == 0 && kStep % 8 == 0 && kVLanes * ND == D,
+                "head dim");
   __shared__ float sq[R][D];
   __shared__ float sm[kWarps][R], sl[kWarps][R];
   __shared__ float sacc[kWarps][R][D];
@@ -101,7 +114,11 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   const __nv_bfloat16* kb = k + b * k_sb + kvh * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh + lane * ND;
+  // lanes past the row (D = 112) read the last lane's dims again, which
+  // costs no bytes, and never write them out
+  int vlane = lane;
+  if constexpr (kVLanes < 32) vlane = min(lane, kVLanes - 1);
+  const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh + vlane * ND;
   float m[R], l[R], acc[R][ND];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -121,13 +138,13 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     if (ok) {
       const __nv_bfloat16* kr = kb + kpos * k_sl;
 #pragma unroll
-      for (int c0 = 0; c0 < D; c0 += 64) {
-        uint4 raw[8];
+      for (int c0 = 0; c0 < D; c0 += kStep) {
+        uint4 raw[kP];
 #pragma unroll
-        for (int part = 0; part < 8; ++part)
+        for (int part = 0; part < kP; ++part)
           raw[part] = *reinterpret_cast<const uint4*>(kr + c0 + part * 8);
 #pragma unroll
-        for (int part = 0; part < 8; ++part) {
+        for (int part = 0; part < kP; ++part) {
           const __nv_bfloat16* hk = reinterpret_cast<const __nv_bfloat16*>(&raw[part]);
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
@@ -178,8 +195,13 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
       sm[warp][r] = m[r];
       sl[warp][r] = l[r];
     }
+    if constexpr (kVLanes == 32) {
 #pragma unroll
-    for (int e = 0; e < ND; ++e) sacc[warp][r][lane * ND + e] = acc[r][e];
+      for (int e = 0; e < ND; ++e) sacc[warp][r][lane * ND + e] = acc[r][e];
+    } else if (lane < kVLanes) {
+#pragma unroll
+      for (int e = 0; e < ND; ++e) sacc[warp][r][lane * ND + e] = acc[r][e];
+    }
   }
   __syncthreads();
   for (int c = tid; c < G * D; c += kThreads) {
@@ -249,6 +271,9 @@ extern "C" int decode_attention_dense(
                          k_sh, v_sb, v_sl, v_sh, window, scale, s);
     case 256:
       return launch<256>(q, k, v, cache_len, out, B, Hq, Hkv, S, k_sb, k_sl,
+                         k_sh, v_sb, v_sl, v_sh, window, scale, s);
+    case 112:
+      return launch<112>(q, k, v, cache_len, out, B, Hq, Hkv, S, k_sb, k_sl,
                          k_sh, v_sb, v_sl, v_sh, window, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -53,7 +53,10 @@
 //   * rows finalize with O / max(l, 1e-37) and leave through shared memory
 //     as 16-byte stores; lse = m + log(l).
 // ptxas gives 124 registers at D = 64 (4 blocks, 16 warps an SM), 171 at
-// D = 128 and 243 at D = 256, without spills.  Measured slower on the H100
+// D = 128 and 243 at D = 256, without spills.  D = 112 (zamba2-7b's shared
+// attention) is an instance of the D <= 128 shape: 7 k-steps of 16, 14
+// n-tiles of 8, shared rows of 120 bf16 (240 bytes: ldmatrix rows stay
+// 16-byte aligned and free of bank conflicts).  Measured slower on the H100
 // than this design: 128-key tiles at D = 64, two groups of 16 rows a warp
 // (each K and V fragment read once for both, but half the warps an SM),
 // and a __launch_bounds__ minimum of blocks (ptxas then takes more
@@ -271,6 +274,7 @@ extern "C" int flash_attention_fwd(
     case 64: return launch<64>(p, s);
     case 128: return launch<128>(p, s);
     case 256: return launch<256>(p, s);
+    case 112: return launch<112>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

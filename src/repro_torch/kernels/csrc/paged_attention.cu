@@ -56,6 +56,15 @@
 //     registers beside them.  MQA leaves one item a live slot, so 32 live
 //     slots fill 32 of the card's blocks; splitting an item's keys over
 //     blocks is not built.
+//   * D = 112 (zamba2-7b: 32 query heads on 32 kv heads) computes at the
+//     D = 128 instance's width over the pool's rows of 112: a bf16 row is
+//     14 of the tile's 16 chunks (an int8 row 7 of 8), whose last two (one)
+//     are zero-filled and read nothing, beside q rows whose dims past 112
+//     are zeros.  The swizzle, the split over lanes and the P V ownership
+//     stay those of powers of two; the pool is neither padded nor copied.
+//     Each tile moves 14 / 16 of its shared-memory bytes from memory.
+//     Groups of at most 4 (zamba2 has 1): R = 8 and 16 at this width
+//     would add the build's heaviest instances for no served model.
 //   * K and V stay in their stored type until the FMA: bf16 is widened by a
 //     shift, int8 by a byte permute (exact).  Each (token, head) scale is
 //     copied once: the score takes scale * k_scale once per key, v_scale
@@ -102,7 +111,10 @@
 //     plain version's dequantize products with only P's rounding to bf16
 //     added; the pool never exists in float;
 //   * GQA: a block serves one query head and reads its kv head's tiles (a
-//     group's heads read them through L2).
+//     group's heads read them through L2);
+//   * D = 112 is an instance of its own: 7 k-steps of 16 and 14 n-tiles of
+//     8 for mma.sync, shared rows of 120 bf16 (240 bytes, so ldmatrix rows
+//     stay 16-byte aligned and free of bank conflicts).
 // Not done yet: wgmma, TMA, packing a GQA group's heads into one block.
 
 #include <cuda_bf16.h>
@@ -136,6 +148,7 @@ constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kDecStages = 2;             // cp.async ring depth of each warp
 constexpr int kMaxGroup = 16;             // query heads per kv head
 constexpr int kMaxGroup256 = 8;           // the same at D = 256
+constexpr int kMaxGroup112 = 4;           // and at D = 112
 constexpr int kSlotPass = 512;            // slots one pass of the length scan takes
 constexpr float kNegInf = -0.7f * 3.402823466e+38f;   // -0.7 * FLT_MAX
 
@@ -148,7 +161,12 @@ constexpr float kNegInf = -0.7f * 3.402823466e+38f;   // -0.7 * FLT_MAX
 template <typename PageT, int D, int R, int H>
 struct DecodeCfg {
   static constexpr bool kQuant = sizeof(PageT) == 1;
-  static constexpr int kRowBytes = D * static_cast<int>(sizeof(PageT));
+  // the compute width: D, or at D = 112 (zamba2-7b) 128, over the pool's
+  // rows of 112: a row's chunks past its own are zero-filled in the tile
+  // and q's dims past D are zeros, so they add nothing
+  static constexpr int kW = D == 112 ? 128 : D;
+  static constexpr int kGChunks = D * static_cast<int>(sizeof(PageT)) / 16;
+  static constexpr int kRowBytes = kW * static_cast<int>(sizeof(PageT));
   static constexpr int kVec = 16 / static_cast<int>(sizeof(PageT));  // a chunk
   static constexpr int kChunks = kRowBytes / 16;          // 16-byte chunks a row
   static constexpr int kTokBytes = H * kRowBytes;         // a token's H rows
@@ -163,13 +181,13 @@ struct DecodeCfg {
   static constexpr int kIssue = kKeys * kTokChunks / 32;  // copies a lane issues
   // P V: a lane owns kOwn dims of its head's output; kLpr lanes cover a V
   // row, so one warp-wide read covers kKpr tokens of each head
-  static constexpr int kLpr = R <= 4 ? D / 8 : kLanes;
-  static constexpr int kOwn = D / kLpr;
+  static constexpr int kLpr = R <= 4 ? kW / 8 : kLanes;
+  static constexpr int kOwn = kW / kLpr;
   static constexpr int kKpr = kLanes / kLpr;
   static constexpr int kRows = H * R;                     // q rows a warp holds
   // q row stride (f32): each part of a split row starts 4 floats on
-  static constexpr int kQld = D + 4 * (kLpk - 1);
-  static constexpr int kPart = kRows * D + 2 * kRows;     // acc, then m, l
+  static constexpr int kQld = kW + 4 * (kLpk - 1);
+  static constexpr int kPart = kRows * kW + 2 * kRows;    // acc, then m, l
   static constexpr int kTileBytes = kKeys * kTokBytes;
   static constexpr int kScales = kQuant ? 2 * kKeys * H : 0;   // f32 a stage
   static constexpr int kStageBytes = 2 * kTileBytes + 4 * kScales;
@@ -179,6 +197,7 @@ struct DecodeCfg {
                 kTokChunks == 32, "row size");
   static_assert(kLpk == 1 || H == 1, "a split row serves one head");
   static_assert(H == 1 || (R <= 4 && kRowBytes == 64), "head pairs: 64-byte rows");
+  static_assert(kW == D || H == 1, "a padded row serves one head");
 };
 
 // The kernel's shared memory, for single heads and, with kPairs, head pairs
@@ -383,7 +402,8 @@ __device__ __forceinline__ void issue_tile(unsigned char* stage,
   for (int i = 0; i < C::kIssue; ++i) {
     const int idx = i * 32 + lane, r = idx / C::kTokChunks, c = idx % C::kTokChunks;
     const long long ro = __shfl_sync(0xffffffffu, roff, r);
-    const bool rok = t0 + r < p.kend;
+    bool rok = t0 + r < p.kend;
+    if constexpr (C::kW != D) rok = rok && c < C::kGChunks;   // past the row: zeros
     const int dst = r * C::kTokBytes + swz<C::kTokChunks, H>(r, c) * 16;
     cp_async16(sk + dst, rok ? kb + ro + c * C::kVec : kb, rok ? 16 : 0);
     cp_async16(sv + dst, rok ? vb + ro + c * C::kVec : vb, rok ? 16 : 0);
@@ -541,8 +561,8 @@ __device__ __forceinline__ void store_q(
       widen_words<bf16, 8>(w, f);
       const int row = c / (D / 8), d = (c % (D / 8)) * 8;
       float* dst = sq + row * C::kQld + d +
-                   (C::kLpk <= 2 ? (C::kLpk == 2 && d >= D / 2 ? 4 : 0)
-                                 : 4 * (d / (D / C::kLpk)));
+                   (C::kLpk <= 2 ? (C::kLpk == 2 && d >= C::kW / 2 ? 4 : 0)
+                                 : 4 * (d / (C::kW / C::kLpk)));
       reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
       reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
     }
@@ -587,11 +607,11 @@ __device__ __forceinline__ void finish_item(float* merge, int* done, int* gen,
     if (r >= G) break;
     if (ll < C::kLpr) {
 #pragma unroll
-      for (int e = 0; e < C::kOwn; ++e) part[(hh * R + r) * D + db + e] = w.acc[r][e];
+      for (int e = 0; e < C::kOwn; ++e) part[(hh * R + r) * C::kW + db + e] = w.acc[r][e];
     }
     if (ll == 0) {
-      part[C::kRows * D + hh * R + r] = w.m[r];
-      part[C::kRows * D + C::kRows + hh * R + r] = w.l[r];
+      part[C::kRows * C::kW + hh * R + r] = w.m[r];
+      part[C::kRows * C::kW + C::kRows + hh * R + r] = w.l[r];
     }
   }
   __threadfence_block();
@@ -613,16 +633,16 @@ __device__ __forceinline__ void finish_item(float* merge, int* done, int* gen,
 #pragma unroll
     for (int v = 0; v < kDecWarps; ++v)
       if (((v - p.k) & (kDecWarps - 1)) < nw)
-        mx = fmaxf(mx, mp[v * kPart + C::kRows * D + row]);
+        mx = fmaxf(mx, mp[v * kPart + C::kRows * C::kW + row]);
     float lsum = 0.f, a0 = 0.f, a1 = 0.f;
 #pragma unroll
     for (int v = 0; v < kDecWarps; ++v) {
       if (((v - p.k) & (kDecWarps - 1)) >= nw) continue;
       const float* pw = mp + v * kPart;
-      const float f = exp2_approx(pw[C::kRows * D + row] - mx);
-      lsum += pw[C::kRows * D + C::kRows + row] * f;
-      a0 += pw[row * D + d] * f;
-      a1 += pw[row * D + d + 1] * f;
+      const float f = exp2_approx(pw[C::kRows * C::kW + row] - mx);
+      lsum += pw[C::kRows * C::kW + C::kRows + row] * f;
+      a0 += pw[row * C::kW + d] * f;
+      a1 += pw[row * C::kW + d + 1] * f;
     }
     const float den = fmaxf(lsum, 1e-37f);
     o2[c] = __floats2bfloat162_rn(a0 / den, a1 / den);
@@ -650,6 +670,11 @@ __device__ __forceinline__ void warp_stream(unsigned char* ring, float* sq,
   const int warp = threadIdx.x >> 5;
   Pos cur = first_tile<C::kKeys>(it, 0, warp);
   if (cur.k < 0) return;
+  if constexpr (C::kW != D) {
+    // q's dims past D stay zeros: store_q writes only the first D
+    for (int i = threadIdx.x & 31; i < C::kRows * C::kQld; i += 32) sq[i] = 0.f;
+    __syncwarp();
+  }
   Pos nxt = next_tile<C::kKeys>(it, cur, warp);
   Pos nx2 = next_tile<C::kKeys>(it, nxt, warp);
   uint4 qr[(C::kRows * D / 8 + 31) / 32];
@@ -899,8 +924,9 @@ int launch_decode_d(const bf16* q, bf16* out, const Pool& pool,
   if constexpr (sizeof(PageT) == 1 && D == 64) {
     if (pairs) { ROWS(1, true) ROWS(2, true) ROWS(4, true) }
   }
-  ROWS(1, false) ROWS(2, false) ROWS(4, false) ROWS(8, false)
-  if constexpr (D <= 128) { ROWS(16, false) }
+  ROWS(1, false) ROWS(2, false) ROWS(4, false)
+  if constexpr (D != 112) { ROWS(8, false) }
+  if constexpr (D <= 128 && D != 112) { ROWS(16, false) }
 #undef ROWS
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -919,6 +945,8 @@ int launch_decode(const void* q, void* out, const Pool& pool,
     return launch_decode_d<PageT, 64>(qq, oo, pool, lens, B, Hq, Hkv, scale, s);
   if (D == 128)
     return launch_decode_d<PageT, 128>(qq, oo, pool, lens, B, Hq, Hkv, scale, s);
+  if (D == 112 && Hq / Hkv <= kMaxGroup112)
+    return launch_decode_d<PageT, 112>(qq, oo, pool, lens, B, Hq, Hkv, scale, s);
   if (D == 256 && Hq / Hkv <= kMaxGroup256)
     return launch_decode_d<PageT, 256>(qq, oo, pool, lens, B, Hq, Hkv, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -954,6 +982,9 @@ int launch_chunk(const void* q, void* out, const Pool& pool,
                                       prefix_len, scale, s);
   if (D == 256)
     return launch_chunk_d<PageT, 256>(qq, oo, pool, st, cl, B, T, Hq, Hkv,
+                                      prefix_len, scale, s);
+  if (D == 112)
+    return launch_chunk_d<PageT, 112>(qq, oo, pool, st, cl, B, T, Hq, Hkv,
                                       prefix_len, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,7 +23,7 @@ import torch
 from . import build
 
 KERNELS = ("flash_attention",)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -23,9 +23,13 @@ from typing import Dict, Optional
 import torch
 
 from . import build
-from .flash_attention import HEAD_DIMS, _check, _require
+from .flash_attention import _check, _require
 
 KERNELS = ("flash_attention_bwd",)
+# the backward's own instances: the forward also takes D = 112 (zamba2-7b's
+# serving path), the backward not yet (training the hybrid family is
+# ROADMAP.md Queue 1 item 12)
+HEAD_DIMS = (64, 128, 256)
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -9,8 +9,9 @@ its entry in ``launches``.  They take CUDA tensors only: the CPU path is
 Layouts are the reference package's: q (B, Hq, D) for decode and
 (B, T, Hq, D) for a chunk, bf16; one layer's pages (P, bs, Hkv, D), bf16 or
 int8 with f32 scales (P, bs, Hkv), read in place; block tables (B, nblk)
-and lengths (B,) int32.  Head dim 64, 128 or 256, Hq a multiple of Hkv
-(at most 16 query heads a kv head in decode, 8 at D = 256).
+and lengths (B,) int32.  Head dim 64, 112, 128 or 256, Hq a multiple of
+Hkv (at most 16 query heads a kv head in decode, 8 at D = 256 and 4 at
+D = 112).
 """
 from __future__ import annotations
 
@@ -24,9 +25,10 @@ from . import build
 KERNELS = ("paged_decode_attention", "paged_decode_attention_quant",
            "paged_chunk_prefill_attention",
            "paged_chunk_prefill_attention_quant")
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 MAX_GROUP = 16          # query heads per kv head the decode kernel serves
 MAX_GROUP_256 = 8       # the same at D = 256
+MAX_GROUP_112 = 4       # and at D = 112
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -134,7 +136,7 @@ def _decode(name, q, k_pages, v_pages, k_scales, v_scales, block_tables,
                   torch.int8 if quant else torch.bfloat16)
     B, Hq, D = q.shape
     _, bs, Hkv, _ = k_pages.shape
-    limit = MAX_GROUP_256 if D == 256 else MAX_GROUP
+    limit = {256: MAX_GROUP_256, 112: MAX_GROUP_112}.get(D, MAX_GROUP)
     _require(Hq // Hkv <= limit,
              f"query group {Hq // Hkv} exceeds {limit} at head dim {D}")
     out = torch.empty_like(q)

@@ -1,11 +1,12 @@
 """Where a serving step's time goes on the card.
 
 ``wave_runtime`` sets up the request wave of ``chip_smoke.py``'s phases 3
-to 6, 12 and 14: one arch at full width (minicpm-2b, mamba2-2.7b,
+to 6, 12, 14 and 15: one arch at full width (minicpm-2b, mamba2-2.7b,
 whisper-large-v3, whose requests also carry seeded random frame
-embeddings, mixtral-8x7b at 16 of its 32 layers, minitron-4b, or
+embeddings, mixtral-8x7b at 16 of its 32 layers, minitron-4b,
 paligemma-3b, whose requests carry seeded random image embeddings in
-512-token slots), with prompts of 6-200 tokens.  ``main`` serves it and
+512-token slots, or zamba2-7b at its plan's 256 slots), with prompts of
+6-200 tokens.  ``main`` serves it and
 profiles two windows of engine steps with ``torch.profiler``: the first
 steps, which mix chunked prefill and decode, and later decode-only
 steps.  For each window it
@@ -24,6 +25,7 @@ function the same way (``chip_smoke.py`` phase 7 a training step).
       --arch mixtral-8x7b
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
       --arch paligemma-3b
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --arch zamba2-7b
   PYTHONPATH=src python -m repro_torch.launch.profile_step --kv-dtype bf16 \
       --dense-view
   PYTHONPATH=src python -m repro_torch.launch.profile_step --templated \
@@ -90,7 +92,7 @@ WAVE_LAYERS = {"mixtral-8x7b": 16}
 # tokens and 40 new ones take 496
 WAVE_MAX_SEQ_LEN = {"paligemma-3b": 512}
 ARCHS = ("minicpm-2b", "mamba2-2.7b", "whisper-large-v3", "mixtral-8x7b",
-         "minitron-4b", "paligemma-3b")
+         "minitron-4b", "paligemma-3b", "zamba2-7b")
 # phase 9's templated wave: 64 requests of a 150-token template (4 full
 # pages and a 22-token partial tail) plus 1-40 tokens of their own, 24 new
 # tokens each, within the plan's 256-token slots
@@ -347,8 +349,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-dtype", choices=("auto", "int8", "bf16"),
                     default="auto",
                     help="paged-KV precision: 'auto' = the plan's category "
-                         "choice (int8 for minicpm-2b and whisper-large-v3, "
-                         "bf16 for mixtral-8x7b)")
+                         "choice (int8 for minicpm-2b, whisper-large-v3 and "
+                         "zamba2-7b, bf16 for mixtral-8x7b)")
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--max-new-tokens", type=int, default=40)
     ap.add_argument("--steps", type=int, default=5)

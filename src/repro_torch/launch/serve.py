@@ -45,6 +45,15 @@ cross-attention K/V (whisper-large-v3, 125.8 GB).  On the card they run at
 128 slots through ``chip_smoke.py``, which asks ``plan_for`` for them; on
 the CPU the reduced configs serve at the plan's slots.
 
+``--archs zamba2-7b`` (the hybrid family) fits one card at its own plan
+with nothing cut: 256 slots and int8 K/V (a frequency service), 13.58 GB
+of bf16 weights beside 45.29 GB of arenas at the default ``--max-seq-len``
+256: 152.2 MB of conv and f32 SSD state a slot (38.96 GB) and 6.33 GB of
+int8 K/V for the shared block's 13 applications; with ``HEADROOM_BYTES``
+63.8 GB.  ``--kv-dtype bf16`` holds 64.8 GB static:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --archs zamba2-7b
+
 It takes the MoE archs mixtral-8x7b and grok-1-314b too, whose plans need
 16 and 64 GPUs: more than a server's 4, so the placement puts them on no
 server and, as in the reference, every request ends with a ``FAILED``

@@ -114,23 +114,27 @@ def sinusoid_at(pos, d: int):
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
-                   cross: bool = False):
+                   d_in: Optional[int] = None, cross: bool = False):
     """Self-attention projections, or with ``cross`` the separate q/k/v
-    projections of a cross-attention (k and v read the encoder memory)."""
-    d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.num_heads, \
+    projections of a cross-attention (k and v read the encoder memory).
+    The projections read ``d_in`` features (default ``d_model``; the
+    hybrid's shared block reads concat(h, h0), twice that) and the output
+    projection writes ``d_model``."""
+    d, hd, nq, nkv = d_in or cfg.d_model, cfg.head_dim, cfg.num_heads, \
         cfg.num_kv_heads
     dt, dev = cfg.weight_dtype, gen.device
     if cfg.fused_projections and not cross:
         p = {"wqkv": dense_init(gen, (d, (nq + 2 * nkv) * hd), dt),
-             "wo": dense_init(gen, (nq * hd, d), dt)}
+             "wo": dense_init(gen, (nq * hd, cfg.d_model), dt)}
         if cfg.qkv_bias:
             p["bqkv"] = torch.zeros(((nq + 2 * nkv) * hd,), dtype=dt,
                                     device=dev)
         return p
+    d_kv = cfg.d_model if cross else d
     p = {"wq": dense_init(gen, (d, nq * hd), dt),
-         "wk": dense_init(gen, (d, nkv * hd), dt),
-         "wv": dense_init(gen, (d, nkv * hd), dt),
-         "wo": dense_init(gen, (nq * hd, d), dt)}
+         "wk": dense_init(gen, (d_kv, nkv * hd), dt),
+         "wv": dense_init(gen, (d_kv, nkv * hd), dt),
+         "wo": dense_init(gen, (nq * hd, cfg.d_model), dt)}
     if cfg.qkv_bias:
         for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
             p[name] = torch.zeros((n * hd,), dtype=dt, device=dev)

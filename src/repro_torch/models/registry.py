@@ -1,16 +1,17 @@
 """Model family registry: maps ``ModelConfig.family`` to the model API.
 
-The dense, MoE, SSM, audio (encoder-decoder) and VLM families are ported
-for serving (every dense-cache and paged-native entry point), the dense
-family also for training; the hybrid family raises, naming the
-``ROADMAP.md`` item that ports it.
+Every family is ported for serving: the dense, MoE, SSM, hybrid, audio
+(encoder-decoder) and VLM families, each with every dense-cache and
+paged-native entry point it has in the reference.  Only the dense family
+is ported for training; the others' ``forward_hidden`` is ``None``
+(``ROADMAP.md`` Queue 1 item 12).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from . import encdec, moe, ssm, transformer, vlm
+from . import encdec, hybrid, moe, ssm, transformer, vlm
 from .config import ModelConfig
 
 
@@ -37,8 +38,9 @@ class ModelApi:
     # engine's speculation gate
     verify_step_paged: Optional[Callable] = None
     # the training forward, (params, cfg, batch, *, train) -> (hidden,
-    # aux loss); ``None`` where not ported (every family but the dense
-    # one: ROADMAP.md Queue 1 item 12)
+    # aux loss); ``None`` where not ported (the MoE, SSM, hybrid, audio
+    # and VLM families, served but not trained: ROADMAP.md Queue 1 item
+    # 12)
     forward_hidden: Optional[Callable] = None
 
 
@@ -57,6 +59,11 @@ _FAMILIES = {
                     verify_step_paged=moe.verify_step_paged),
     "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache, ssm.prefill,
                     ssm.prefill_chunk, ssm.decode_step),
+    "hybrid": ModelApi(hybrid.init, hybrid.logits_fn, hybrid.init_cache,
+                       hybrid.prefill, hybrid.prefill_chunk,
+                       hybrid.decode_step,
+                       decode_step_paged=hybrid.decode_step_paged,
+                       prefill_chunk_paged=hybrid.prefill_chunk_paged),
     "audio": ModelApi(encdec.init, encdec.logits_fn, encdec.init_cache,
                       encdec.prefill, encdec.prefill_chunk,
                       encdec.decode_step,
@@ -68,18 +75,9 @@ _FAMILIES = {
                     prefill_chunk_paged=vlm.prefill_chunk_paged),
 }
 
-_NOT_PORTED = {
-    "hybrid": "ROADMAP.md Queue 1 item 10 (hybrid)",
-}
-
-
 def family_api(family: str) -> ModelApi:
     if family in _FAMILIES:
         return _FAMILIES[family]
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {family!r} is not ported to repro_torch yet: "
-            f"{_NOT_PORTED[family]}")
     raise KeyError(f"unknown model family {family!r}")
 
 

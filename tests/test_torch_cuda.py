@@ -163,6 +163,15 @@ PAGED_CHUNK_ODD.update({
     "vlm_t13": ((3, 13, 8, 1, 256), [288, 0, 450], [13, 0, 9], 0),
 })
 
+# zamba2-7b's shared attention (32 query heads on 32 kv heads, D = 112, an
+# instance of its own): a 128-row chunk from 0 and one from mid-page, a
+# ragged 13-row one with a dead slot, and GQA 8/2 with a prefix
+PAGED_CHUNK_ODD.update({
+    "zamba_t128_d112": ((2, 128, 32, 32, 112), [0, 70], [128, 100], 0),
+    "zamba_t13_d112": ((3, 13, 32, 32, 112), [5, 0, 200], [13, 0, 9], 0),
+    "gqa_8_2_d112": ((2, 65, 8, 2, 112), [37, 0], [65, 64], 20),
+})
+
 
 def _paged_chunk_case(dev, case, quant, seed):
     (B, T, Hq, Hkv, D), start, cl, prefix = PAGED_CHUNK_ODD[case]
@@ -211,7 +220,7 @@ def test_cuda_paged_chunk_odd_shapes_match_plain(cuda_device, case, quant):
 def test_cuda_paged_chunk_is_bit_reproducible(cuda_device, quant):
     """Repeated launches on the same inputs give bit-identical outputs:
     each row has one owner block and a fixed order of sums."""
-    for case in ("gqa_32_8_d128", "vlm_first_t288"):
+    for case in ("gqa_32_8_d128", "vlm_first_t288", "zamba_t128_d112"):
         run, _, _ = _paged_chunk_case(cuda_device, case, quant, 12)
         first = run()
         assert all(torch.equal(first, run()) for _ in range(3))
@@ -261,6 +270,11 @@ PAGED_DECODE_CASES = {
     **{f"g{G}_d256": ((6, Hq, Hkv, 256, 8, 32), EDGE_LENS)
        for G, Hq, Hkv in ((1, 4, 4), (3, 6, 2), (8, 8, 1))},
     "vlm_512_32_live": ((512, 8, 1, 256, 16, 32), _vlm_lens(512)),
+    # D = 112 (zamba2-7b's 32/32 heads): the D = 128 width over rows of
+    # 112, G = 1, 3, 4 and 16, and the plan's 256 slots with 32 live
+    **{f"g{G}_d112": ((6, Hq, Hkv, 112, 8, 32), EDGE_LENS)
+       for G, Hq, Hkv in ((1, 16, 16), (3, 24, 8), (4, 32, 8))},
+    "zamba_256_32_live": ((256, 32, 32, 112, 8, 32), _path_lens(256)),
 }
 
 
@@ -282,9 +296,10 @@ def _paged_decode_case(dev, case, quant, seed):
 @pytest.mark.parametrize("case", sorted(PAGED_DECODE_CASES))
 def test_cuda_paged_decode_matches_plain(cuda_device, case, quant):
     """The decode kernels at G = 1, 3, 4 and 16, D = 64 and 128, G = 1, 3
-    and 8 at D = 256, lengths 0, 1, 31, 32, 33 and the whole budget, also with 512 slots, enough
+    and 4 at D = 112, G = 1, 3 and 8 at D = 256, lengths 0, 1, 31, 32, 33 and the whole budget, also with 512 slots, enough
     live ones that int8 pages are served in kv head pairs; phase 3's,
-    mixtral's and paligemma-3b's 512 slots with 32 live; pages of 5 and of 1 token; more
+    mixtral's and paligemma-3b's 512 slots with 32 live, zamba2-7b's 256
+    with 32 live; pages of 5 and of 1 token; more
     slots than one pass of the kernel's length scan.  Held by atol and at
     every (slot, head) row by its norm; dead slots are zeros."""
     run, want, cl = _paged_decode_case(cuda_device, case, quant, 21)
@@ -306,7 +321,8 @@ def test_cuda_paged_decode_is_bit_reproducible(cuda_device, quant):
     """Repeated launches on the same inputs give bit-identical outputs:
     each item has one owner block, its warps' tiles and merge a fixed
     order."""
-    for case in ("path_512_32_live", "g3_d128", "vlm_512_32_live"):
+    for case in ("path_512_32_live", "g3_d128", "vlm_512_32_live",
+                 "zamba_256_32_live"):
         run, _, _ = _paged_decode_case(cuda_device, case, quant, 22)
         first = run()
         assert all(torch.equal(first, run()) for _ in range(3))
@@ -327,6 +343,13 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                            device=cuda_device)
     with pytest.raises(ValueError, match="exceeds 8"):
         paged_attention.paged_decode_attention(q16, pages256, pages256, bt,
+                                               lens)
+    # and D = 112 at most 4
+    q8 = torch.zeros(2, 8, 112, dtype=torch.bfloat16, device=cuda_device)
+    pages112 = torch.zeros(5, 32, 1, 112, dtype=torch.bfloat16,
+                           device=cuda_device)
+    with pytest.raises(ValueError, match="exceeds 4"):
+        paged_attention.paged_decode_attention(q8, pages112, pages112, bt,
                                                lens)
     with pytest.raises(ValueError, match="bf16"):
         paged_attention.paged_decode_attention(q.float(), pages, pages, bt,
@@ -433,6 +456,10 @@ FLASH_CASES = {
     "gqa_8_2_tiles": ((2, 200, 200, 8, 2, 64), dict(causal=True)),
     "d128_tiles": ((1, 260, 260, 4, 4, 128), dict(causal=True, window=70)),
     "d256_tiles": ((1, 200, 230, 4, 2, 256), dict(causal=False)),
+    # D = 112 (zamba2-7b's one-shot prefill): 7 k-steps and 14 n-tiles
+    "d112_causal_tiles": ((2, 260, 260, 32, 32, 112), dict(causal=True)),
+    "d112_gqa_window": ((1, 130, 200, 8, 2, 112),
+                        dict(causal=True, window=40, q_offset=70)),
 }
 
 
@@ -441,7 +468,7 @@ FLASH_CASES = {
 def test_cuda_flash_attention_matches_plain(cuda_device, case):
     """q, k and v sliced from one (B, L, 3, H, D) tensor (strided, as a
     fused projection would give them), every mask option, GQA, D = 64,
-    128 and 256, rows that see nothing."""
+    112, 128 and 256, rows that see nothing."""
     (B, Lq, Lk, Hq, Hkv, D), kw = FLASH_CASES[case]
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(2)
@@ -462,7 +489,8 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["cross", "gqa_window", "d128", "d256"])
+@pytest.mark.parametrize("case", ["cross", "gqa_window", "d128", "d256",
+                                  "d112", "d112_gqa_window"])
 def test_cuda_decode_attention_matches_plain(cuda_device, case):
     """Ragged lengths with empty slots (zeros), a window, GQA, and each
     head dim, against caches sliced from a wider tensor."""
@@ -470,7 +498,9 @@ def test_cuda_decode_attention_matches_plain(cuda_device, case):
         "cross": (8, 1500, 20, 20, 64, None),
         "gqa_window": (6, 300, 32, 4, 128, 40),
         "d128": (5, 77, 16, 16, 128, None),
-        "d256": (4, 90, 16, 2, 256, None)}[case]
+        "d256": (4, 90, 16, 2, 256, None),
+        "d112": (6, 300, 32, 32, 112, None),
+        "d112_gqa_window": (5, 120, 16, 4, 112, 50)}[case]
     gen = torch.Generator(device=cuda_device)
     gen.manual_seed(3)
     q = torch.randn(B, Hq, D, generator=gen, device=cuda_device).to(
@@ -640,6 +670,20 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_bwd_refuses_d112(cuda_device):
+    """The forward takes D = 112 (zamba2-7b's serving path), the backward
+    has no such instance: its wrapper raises before it launches."""
+    dev = cuda_device
+    q = torch.zeros(1, 8, 2, 112, dtype=torch.bfloat16, device=dev)
+    out, lse = flash_attention.flash_attention(q, q, q, causal=True)
+    before = flash_attention_bwd.launches["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd.flash_attention_bwd(q, q, q, out, lse, q,
+                                                causal=True)
+    assert flash_attention_bwd.launches["flash_attention_bwd"] == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["causal_300", "gqa_8_2_tiles",
                                   "d256_tiles"])
 def test_cuda_flash_attention_is_bit_reproducible(cuda_device, case):
@@ -708,6 +752,11 @@ CHUNK_CASES = {       # (B, T, S, Hq, Hkv, D), start, chunk_len, prefix_len
     # a first chunk with the 256-row prefix, then a text chunk at 288
     "vlm_first_d256": ((2, 288, 512, 8, 1, 256), [0, 0], [288, 270], 256),
     "vlm_text_d256": ((1, 64, 512, 8, 1, 256), [288], [64], 0),
+    # zamba2-7b's dense-view chunks: 32/32 heads at D = 112, from 0 and
+    # from mid-tile; GQA 8/2 with a prefix past the first row tile
+    "zamba_d112": ((2, 128, 256, 32, 32, 112), [0, 100], [128, 90], 0),
+    "gqa_d112_prefix100": ((2, 128, 300, 8, 2, 112), [0, 150], [128, 77],
+                           100),
 }
 
 
@@ -715,7 +764,7 @@ CHUNK_CASES = {       # (B, T, S, Hq, Hkv, D), start, chunk_len, prefix_len
 @pytest.mark.parametrize("case", sorted(CHUNK_CASES))
 def test_cuda_chunk_attention_matches_plain(cuda_device, case):
     """The dense chunked-prefill kernel on K and V read in place from a
-    wider (B, S, 2 * Hkv, D) buffer: GQA and MQA, D = 64, 128 and 256,
+    wider (B, S, 2 * Hkv, D) buffer: GQA and MQA, D = 64, 112, 128 and 256,
     per-row
     start and chunk_len with empty rows, a prefix past the first tile, T
     and S off the tiles; rows past chunk_len are zeros."""
@@ -742,7 +791,7 @@ def test_cuda_chunk_attention_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["gqa_d128_prefix100", "t130_start63",
-                                  "vlm_first_d256"])
+                                  "vlm_first_d256", "zamba_d112"])
 def test_cuda_chunk_attention_is_bit_reproducible(cuda_device, case):
     """Repeated launches on the same inputs give bit-identical outputs:
     each row has one owner block and a fixed order of sums."""

@@ -276,14 +276,13 @@ def test_bf16_steps_match_reference():
 
 
 def test_registry_unported_families_raise():
+    """(The name predates the hybrid port.)  Every family of the reference
+    resolves, hybrid too; an unknown family still raises."""
     assert model_api(toy_config()) is not None
-    assert model_api(_mirror(toy_config(family="ssm"))) is not None
-    assert model_api(_mirror(toy_config(family="audio"))) is not None
-    assert model_api(_mirror(toy_config(family="moe"))) is not None
-    assert model_api(_mirror(toy_config(family="vlm"))) is not None
-    for fam in ("hybrid",):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            model_api(_mirror(toy_config(family=fam)))
+    for fam in ("ssm", "audio", "moe", "vlm", "hybrid"):
+        assert model_api(_mirror(toy_config(family=fam))) is not None
+    with pytest.raises(KeyError, match="unknown model family"):
+        model_api(_mirror(toy_config(family="retnet")))
 
 
 def test_init_keeps_reference_tree():
