@@ -14,8 +14,10 @@ evacuation (minicpm-2b) in a tenth, its stochastic sampling, deadline
 admission with parking and n-way forks (minicpm-2b) in an eleventh, its
 speculative decoding (minitron-4b, mixtral-8x7b) in a twelfth, its
 multi-server control plane with crash failover (minicpm-2b, minitron-4b)
-in a thirteenth, its VLM family (paligemma-3b) in a fourteenth and its
-hybrid family (zamba2-7b) in a fifteenth; any failure exits non-zero.
+in a thirteenth, its VLM family (paligemma-3b) in a fourteenth, its
+hybrid family (zamba2-7b) in a fifteenth and the training of the MoE,
+SSM, audio, VLM and hybrid families in a sixteenth; any failure exits
+non-zero.
 Every phase prints its wall time.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
@@ -117,8 +119,8 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    4 steps (finite losses and grad norms, the last loss below the first,
    exactly 160 flash forward and 80 flash backward launches a step: 40
    layers' forward and checkpointed recompute, and backward, per
-   microbatch), then the second step of a fresh trainer under
-   ``torch.profiler``;
+   microbatch; the profiled second step of a fresh trainer was cut for
+   the time limit: ``profile_step --train`` runs it);
 8. the sync and dense-cache paths of minicpm-2b at full width: (a) the
    launcher with ``--mode sync``, ``--kvcache-impl dense`` and
    ``--no-chunked-prefill``, 8 requests of 16 new tokens each; (b) phase
@@ -132,15 +134,16 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    noise, printed beside it), and the three chunk steps' logits identical
    (#3 and #6 run one body); (d) phase 3's wave in sync mode;
 9. the prefix cache on minicpm-2b at full width and the plan's 512 slots
-   (``max_seq_len`` 256): 64 requests, each a 150-token template (4 full
+   (``max_seq_len`` 256): 32 requests (of the wave's 64: the time limit),
+   each a 150-token template (4 full
    pages and a 22-token partial tail) plus a tail of its own of 1-40
    tokens, 24 new tokens each (``profile_step.templated_wave``).  A donor
    is served to its eviction first, which indexes the template's partial
-   tail; the other 63 are then submitted together.  In int8 KV (the bf16
+   tail; the other 31 are then submitted together.  In int8 KV (the bf16
    pair was cut for the script's time limit), with the cache on (-1) and
-   off (0): on, at least 62 of the 63
-   lookups hit, each hit reuses at least 128 tokens, at least 63 blocks are
-   copied on write, and at least 63 x 128 fewer prompt tokens are computed
+   off (0): on, at least 30 of the 31
+   lookups hit, each hit reuses at least 128 tokens, at least 31 blocks are
+   copied on write, and at least 31 x 128 fewer prompt tokens are computed
    than off.  Then two alternating templates at 8 retained blocks, on and
    off, where the LRU evicts.  In every pair each request's final-chunk
    logits agree to 2**-5 of their norm (phase 8 (c)'s rule for two correct
@@ -208,7 +211,8 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    of 512 at ragged lengths: logits and the K/V rows each wrote held to
    2**-5 of their norm at every row, nothing written outside the live
    rows but the trash page, the lengths returned unchanged; (b) phase
-   3's wave plain, with a self-draft (the target's own tensors) and with
+   3's wave's first 16 requests (the time limit) plain, with a self-draft
+   (the target's own tensors) and with
    a 4-layer draft (views of the target's first 4 blocks, embedding,
    final norm and head; on the wave's first 8 requests, for the script's
    time limit): both launch verify, #3 launches at least 32 layers for
@@ -274,20 +278,28 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    (b) phase 3's wave in int8 KV at the plan's 256 slots (tok/s,
    launches, peak memory beside the static sum), then in bf16 KV and
    through the dense-view oracle at 128 slots (the oracle's gathered view
-   does not fit beside a 256-slot bf16 arena): the first tokens equal,
+   does not fit beside a 256-slot bf16 arena) on its first 16 requests
+   (the time limit): the first tokens equal,
    and fed the oracle's chains, the two paths' logits agree to
    ``HYBRID_PARITY_TOL`` at every position (splits printed with their
    gaps); (c) one request through the sync path, its first token
    against one paged chunk's logits over the same prompt; (d) the
    launcher with ``--archs zamba2-7b`` at its defaults;
+16. training at full width through the launcher (``TRAIN_FAMILIES``):
+   mamba2-2.7b, whisper-large-v3, paligemma-3b, zamba2-7b (Adafactor)
+   and mixtral-8x7b (2 of 32 layers), 4 steps each: finite, falling
+   losses, every step's launches equal to ``train_launches`` (the
+   grouped GEMM's forward, dX and dW on the TMA route), peak memory
+   beside the static size; phase 1 times #8 at D = 112, #9's dX and dW
+   and #10 at these shapes;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
 dense ``prefill``/``prefill_chunk``/``decode_step`` of minicpm-2b,
 mixtral-8x7b (and a ring of its window) and whisper-large-v3 and
 mamba2-2.7b's one-shot prefill; of one sync-mode wave's tokens; of one
-training step's loss and gradients, and of one attention layer's
-gradients.
+training step's loss and gradients for each family, and of one
+attention layer's gradients.
 
 The paged-attention launch counts are zeroed just before phase 2 and read
 just after phase 3; the SSD scan's just before and after phase 4; every
@@ -313,7 +325,10 @@ read just after it (the bf16 wave must launch #1 and #3, the int8 wave
 are added to the record's and printed beside them as
 ``paligemma_launches``; phase 15's the same way (the int8 wave must also
 launch the SSD scan, the sync request #7 and the scan), as
-``zamba2_launches``.
+``zamba2_launches``; every count is zeroed just before each of phase
+16's families and read just after it, and their sum is added to the
+record's and printed beside it as ``train_families_launches`` (#7-#10
+must launch).
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -1312,6 +1327,7 @@ def phase_kernels():
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], e)
     vlm_kernels(records)
     hybrid_kernels(records)
+    train_family_kernels(records)
     return records
 
 
@@ -1430,6 +1446,7 @@ def vlm_kernels(records):
 HYBRID_ARCH = "zamba2-7b"
 HYBRID_HEADS = dict(Hq=32, Hkv=32, D=112)
 HYBRID_MAX_SEQ = 256
+HYBRID_PAIR_REQUESTS = 16      # phase 15 (b)'s bf16 and oracle waves
 # #3/#4 at phase 15's chunks: a 128-row bucket at 64 (phase 3's) and a
 # ragged 13-row one at 150
 HYBRID_CHUNKS = {"t128_at64": dict(B=1, T=128, start=[64], chunk_len=[128],
@@ -1525,6 +1542,90 @@ def hybrid_kernels(records):
         print(f"  {name}, zamba2-7b (32/32 heads, D = 112; the SSD scan at "
               f"112 heads, P = N = 64): {json.dumps(records[name]['zamba2'])}")
     torch.cuda.empty_cache()
+
+
+def train_family_kernels(records):
+    """Phase 16's training shapes, each put in its kernel's record under
+    "train" (its own generators, so the other cases draw what they drew
+    before): #8 at zamba2-7b's D = 112 (1 x 4096 x 4096, 32/32 heads,
+    causal; SDPA's backward beside it) and two ragged D = 112 cases, with
+    the D = 112 instances' ``ptxas`` registers and spills; #9's two
+    backward products at mixtral-8x7b's training microbatch (two routing
+    groups of 2048 at capacity 640: C = 1280 rows an expert), dX (8, 1280,
+    14336) @ (8, 14336, 4096) and dW (8, 4096, 1280) @ (8, 1280, 14336),
+    on the TMA route, ``torch.bmm`` beside each; #10 over a 4096-token
+    sequence in chunks of 256 at mamba2-2.7b's 80 heads (P = 64, N = 128)
+    and zamba2-7b's 112 (P = N = 64), and ``_SsdScan``'s backward there
+    (a recompute of the plain scan: plain PyTorch, CUDA events)."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    rec = records["flash_attention_bwd"]
+    r = flash_bwd_case(gen, B=1, Lq=4096, Lk=4096, Hq=32, Hkv=32, D=112,
+                       causal=True, timed=True)
+    sub = {"zamba2_1x4096_causal": {**vlm_record(r), "tflops": r["tflops"],
+                                    "dq_worst_row_of_limit":
+                                        r["dq_worst_row_of_limit"]}}
+    errs = [r["max_abs_err"]]
+    for case in (dict(B=2, Lq=70, Lk=90, Hq=4, Hkv=2, causal=True),
+                 dict(B=1, Lq=300, Lk=300, Hq=4, Hkv=4, causal=True,
+                      window=100)):
+        errs.append(flash_bwd_case(gen, D=112, timed=False,
+                                   **case)["max_abs_err"])
+    rec["max_abs_err"] = max(rec["max_abs_err"], *errs)
+    sub["ptxas"] = {k: v for k, v in ptxas_record(
+        "flash_attention_bwd").items() if "112" in k}
+    rec["train"] = sub
+    torch.cuda.empty_cache()
+    rec = records["grouped_matmul"]
+    sub = {}
+    for name, (E, C, K, N) in (("dX", (8, 1280, 14336, 4096)),
+                               ("dW", (8, 4096, 1280, 14336))):
+        r = gmm_case(gen, E=E, C=C, K=K, N=N, timed=True, route="tma")
+        rec["max_abs_err"] = max(rec["max_abs_err"], r["max_abs_err"])
+        sub[name] = {**vlm_record(r), "tflops": r["tflops"]}
+        torch.cuda.empty_cache()
+    rec["train"] = sub
+    rec = records["ssd_scan"]
+    sub = {}
+    for name, shape in (("mamba2", dict(H=80, P=64, N=128)),
+                        ("zamba2", dict(H=112, P=64, N=64))):
+        r = ssd_case(gen, Bb=1, L=4096, G=1, chunk=256, timed=True, **shape)
+        for key in ("max_abs_err", "state_max_rel_err"):
+            rec[key] = max(rec[key], r[key])
+        sub[name] = {**vlm_record(r),
+                     "backward_plain_recompute_ms": ssd_backward_ms(
+                         gen, L=4096, **shape)}
+        torch.cuda.empty_cache()
+    rec["train"] = sub
+    for name in ("flash_attention_bwd", "grouped_matmul", "ssd_scan"):
+        print(f"  {name}, training shapes: "
+              f"{json.dumps(records[name]['train'])}")
+
+
+def ssd_backward_ms(gen, *, L, H, P, N, chunk=256):
+    """CUDA-event time of ``_SsdScan``'s backward (the plain chunked
+    scan's recompute and its gradient) over one L-token sequence, as
+    ``ops.ssd_scan`` under autograd runs it; plain PyTorch, printed as
+    such."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    rand = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    proj = rand(1, L, H * P + 2 * N).to(torch.bfloat16)
+    ins = [proj[..., :H * P].reshape(1, L, H, P), F.softplus(
+        rand(1, L, H) - 2.0), -torch.exp(rand(H) * 0.5),
+        proj[..., H * P:H * P + N].reshape(1, L, 1, N),
+        proj[..., H * P + N:].reshape(1, L, 1, N), rand(H)]
+    ins = [t.detach().requires_grad_(True) for t in ins]
+    y, _ = ops.ssd_scan(*ins, chunk=chunk)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    grads = torch.autograd.grad(y, ins, dy, retain_graph=True)
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          "ssd_scan backward: non-finite gradient")
+    return time_ms(lambda: torch.autograd.grad(y, ins, dy,
+                                               retain_graph=True),
+                   iters=2, reps=3)
 
 
 # ---------------------------------------------------------------------------
@@ -2070,7 +2171,8 @@ def keep_final_logits(rt):
     return final
 
 
-def templated_run(kv_dtype, prefix_cache, params, templates=1):
+def templated_run(kv_dtype, prefix_cache, params, templates=1,
+                  n_requests=64):
     """One run of phase 9: ``profile_step.templated_wave`` at full width
     (the plan's 512 slots, ``max_seq_len`` 256), its donors served to
     their eviction, then the other requests submitted together and stepped
@@ -2086,7 +2188,8 @@ def templated_run(kv_dtype, prefix_cache, params, templates=1):
     gc.collect()
     torch.cuda.empty_cache()
     cfg, rt, donors, others = templated_wave(kv_dtype, prefix_cache,
-                                             templates, params=params)
+                                             templates, params=params,
+                                             n_requests=n_requests)
     check(rt.plan.max_in_flight == 512 and rt.max_seq_len == 256
           and rt.kv_dtype == kv_dtype and rt.paged_native
           and rt.prefix_cache_enabled == (prefix_cache != 0),
@@ -2220,10 +2323,11 @@ def phase_templated():
                         / b.float().norm()).item()
     reset_launches()
     # (the bf16 pair, 39 s of drains, was cut for the script's time limit:
-    # cow_exact still holds bf16 pools' copy-on-write)
-    for kv, knob, templates in (("int8", -1, 1), ("int8", 8, 2)):
-        on, on_toks, on_lg = templated_run(kv, knob, params, templates)
-        off, off_toks, off_lg = templated_run(kv, 0, params, templates)
+    # cow_exact still holds bf16 pools' copy-on-write; so were each
+    # pair's last 32 requests, 85 s of drains)
+    for kv, knob, templates, n in (("int8", -1, 1, 32), ("int8", 8, 2, 32)):
+        on, on_toks, on_lg = templated_run(kv, knob, params, templates, n)
+        off, off_toks, off_lg = templated_run(kv, 0, params, templates, n)
         rels = sorted(rel(on_lg[r], off_lg[r]) for r in off_lg)
         worst = rels[-1]
         same = sum(bool(np.array_equal(on_toks[r], off_toks[r]))
@@ -2876,6 +2980,7 @@ VERIFY_LENS = (1, 30, 32, 33, 64, 100, 150, 200)
 VERIFY_SLOTS = (0, 63, 64, 130, 255, 300, 411, 511)
 MOE_LAYERS = 2                # (e): mixtral-8x7b at full width, 2 of 32
 STOCH_SPEC_REQUESTS = 8       # (c)'s wave: the first 8 of phase 3's 32
+SPEC_WAVE_REQUESTS = 16       # (b)'s plain and self-draft waves
 
 
 def verify_vs_decode(cfg, params, label):
@@ -3279,10 +3384,14 @@ def phase_speculative():
     params = transformer.init(1, cfg, "cuda")
     rec = {"verify": verify_vs_decode(cfg, params, "(a)")}
     limit = rec["verify"]["max_abs_diff"]
-    # (b) greedy: plain, self-draft (the same tensors), a 4-layer draft
-    plain, rec["plain"] = spec_wave("(b) plain", cfg, params, speculate=0)
+    # (b) greedy: plain, self-draft (the same tensors), a 4-layer draft,
+    # on the wave's first SPEC_WAVE_REQUESTS requests (all 32 took 55 s:
+    # cut for the script's time limit)
+    plain, rec["plain"] = spec_wave("(b) plain", cfg, params, speculate=0,
+                                    n_requests=SPEC_WAVE_REQUESTS)
     selfd, rec["self_draft"] = spec_wave(
-        "(b) self-draft", cfg, params, draft_params=params, draft_cfg=cfg)
+        "(b) self-draft", cfg, params, n_requests=SPEC_WAVE_REQUESTS,
+        draft_params=params, draft_cfg=cfg)
     # the 4-layer draft on the wave's first STOCH_SPEC_REQUESTS requests
     # (the whole wave took 18.3 s: cut for the script's time limit)
     dcfg, dparams = draft_view(cfg, params, DRAFT_LAYERS)
@@ -3666,8 +3775,9 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 def family_wave(phase, label, arch, params, kv_dtype, max_seq_len, slots,
-                **kw):
-    """Phase 3's wave (32 requests, prompts of 6-200 tokens, 40 new) on
+                n_requests=32, **kw):
+    """Phase 3's wave (its first ``n_requests`` of 32 requests, prompts of
+    6-200 tokens, 40 new) on
     ``arch`` at full width (``wave_runtime``'s extras) with ``kw``, which
     must give ``slots`` slots of ``max_seq_len`` tokens, no prefix cache
     and no draft; every count zeroed just before it and read just after.
@@ -3676,7 +3786,8 @@ def family_wave(phase, label, arch, params, kv_dtype, max_seq_len, slots,
     from repro_torch.kernels.ops import launch_counts
     from repro_torch.launch.profile_step import wave_runtime
     torch.cuda.reset_peak_memory_stats()
-    cfg, rt = wave_runtime(kv_dtype, arch=arch, params=params, **kw)
+    cfg, rt = wave_runtime(kv_dtype, n_requests, arch=arch, params=params,
+                           **kw)
     check(rt.plan.max_in_flight == slots
           and rt.kv_dtype == kv_dtype and rt.chunked_prefill
           and rt.slot_token_budget == max_seq_len
@@ -3689,7 +3800,8 @@ def family_wave(phase, label, arch, params, kv_dtype, max_seq_len, slots,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: v for k, v in launch_counts().items() if v}
-    check(len(results) == 32, f"{label}: served {len(results)}/32")
+    check(len(results) == n_requests,
+          f"{label}: served {len(results)}/{n_requests}")
     toks = {r.rid: np.asarray(r.tokens) for r in results}
     for t in toks.values():
         check(len(t) == 40 and t.min() >= 0 and t.max() < cfg.vocab_size,
@@ -3968,7 +4080,8 @@ def phase_hybrid():
     HYBRID_PARITY_TOL of their norm; (b) phase 3's wave in int8 KV at the
     plan's 256 slots (#2, #4 and the SSD scan #10), then in bf16 KV (#1,
     #3) and through the dense-view oracle (#6, #5), both at 128 slots (the
-    oracle's gathered view does not fit beside a 256-slot bf16 arena):
+    oracle's gathered view does not fit beside a 256-slot bf16 arena) and
+    on the wave's first 16 requests (the time limit):
     every bf16 first token equals the oracle's (the prefill chunks run one
     body), and ``replay_chains`` feeds the oracle's chains to both paths,
     whose logits must agree to HYBRID_PARITY_TOL at every position; the
@@ -4015,12 +4128,15 @@ def phase_hybrid():
     int8, rec["int8"] = family_wave(
         "phase 15", "(b) int8 KV, the plan's 256 slots", HYBRID_ARCH, params,
         "int8", HYBRID_MAX_SEQ, 256)
+    # bf16 and the oracle on the wave's first HYBRID_PAIR_REQUESTS (all 32
+    # took 20 s more: cut for the script's time limit)
     bf16, rec["bf16"] = family_wave(
         "phase 15", "(b) bf16 KV, 128 slots", HYBRID_ARCH, params, "bf16",
-        HYBRID_MAX_SEQ, 128, bs=128)
+        HYBRID_MAX_SEQ, 128, n_requests=HYBRID_PAIR_REQUESTS, bs=128)
     oracle, rec["oracle"] = family_wave(
         "phase 15", "(b) dense-view oracle, bf16 KV, 128 slots", HYBRID_ARCH,
-        params, "bf16", HYBRID_MAX_SEQ, 128, bs=128, paged_native=False)
+        params, "bf16", HYBRID_MAX_SEQ, 128, n_requests=HYBRID_PAIR_REQUESTS,
+        bs=128, paged_native=False)
     for r in (rec["int8"], rec["bf16"], rec["oracle"]):
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
@@ -4041,7 +4157,7 @@ def phase_hybrid():
     check(all(oracle[r][0] == bf16[r][0] for r in oracle),
           "(b) a first token differs between the native and oracle waves")
     chunk_same, rows = replay_chains(cfg, params, oracle)
-    rel = torch.stack([r["rel_l2"] for r in rows])              # (39, 32)
+    rel = torch.stack([r["rel_l2"] for r in rows])       # (39, requests)
     mad = torch.stack([r["max_abs_diff"] for r in rows])
     flips = torch.stack([r["flip"] for r in rows])
     gaps = torch.stack([r["gap"] for r in rows])
@@ -4072,9 +4188,9 @@ def phase_hybrid():
                                           for sp in splits),
         "splits": len(splits)}
     print(f"phase 15 (b) bf16 vs the dense-view oracle: "
-          f"{32 - len(splits)}/32 chains equal; splits (first differing "
-          f"position, top-two gap): {splits}; int8 vs bf16: "
-          f"{same}/{32 * 40} positions agree")
+          f"{len(oracle) - len(splits)}/{len(oracle)} chains equal; splits "
+          f"(first differing position, top-two gap): {splits}; int8 vs "
+          f"bf16: {same}/{len(bf16) * 40} positions agree")
     print(f"phase 15 (b) teacher-forced replay of the oracle's chains "
           f"(both paths fed the same tokens at every position, limit "
           f"{HYBRID_PARITY_TOL} of the norm): {json.dumps(rec['replay'])}")
@@ -4145,11 +4261,10 @@ def phase_hybrid():
 def phase_train(steps=4):
     """Phase 7: minicpm-2b's training path at full width through the
     launcher's ``run``; every launch count is zeroed just before it and
-    read just after.  Then the second step of a fresh trainer under
-    ``torch.profiler``.  Returns the counts."""
+    read just after.  Returns the counts."""
     import torch
     from repro_torch.kernels.ops import launch_counts
-    from repro_torch.launch import profile_step, train
+    from repro_torch.launch import train
     argv = ["--arch", "minicpm-2b", "--batch", "2", "--seq", "4096",
             "--microbatches", "2", "--lr", TRAIN_LR, "--log-every", "1"]
     mem0 = torch.cuda.memory_allocated()
@@ -4166,9 +4281,10 @@ def phase_train(steps=4):
           f"non-finite training losses or grad norms: {losses} {norms}")
     check(losses[-1] < losses[0],
           f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    from repro_torch.configs import get_config
     for i, grown in enumerate(result["launches"]):
-        want = {n: 0 for n in grown}
-        want.update(flash_attention=160, flash_attention_bwd=80)
+        want = dict.fromkeys(grown, 0)
+        want.update(train_launches(get_config("minicpm-2b"), 2))
         check(grown == want, f"training step {i} launched {grown}")
     tokens = 2 * 4096
     print(f"phase 7 (minicpm-2b training, 40 layers, bf16, AdamW lr "
@@ -4177,17 +4293,131 @@ def phase_train(steps=4):
           f"tok/s {[tokens / s for s in result['step_s']]}, launches a step "
           f"{result['launches'][-1]}, {dt:.3f} s in all, memory (GB) "
           f"before {mem0 / 1e9:.2f}, peak {peak / 1e9:.2f}")
+    # (the profiled second step of a fresh trainer was cut for the
+    # script's time limit: ``profile_step --train`` with these flags runs
+    # it)
     del result
-    gc.collect()
-    steps_it = train.train_steps(argv + ["--steps", "2"])
-    next(steps_it)
-    profile_step.window(lambda: next(steps_it), 1,
-                        "phase 7 profiled training step", 10)
-    steps_it.close()
-    del steps_it
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training of the five other families at full width
+# ---------------------------------------------------------------------------
+
+# (arch, batch, sequence, microbatches, optimizer, layers or None, stub
+# embeddings): 2 x 4096 tokens, as phase 7; whisper's 448-token text
+# context over its 1500 zero frames (the reference's stub); paligemma's
+# train_4k (256 image rows + 3840 text tokens), its image rows normal
+# draws (zero rows stay zero through its 18 layers, and each RMSNorm's
+# backward at a zero row scales the gradient by 1/sqrt(eps): it overflows
+# to NaN, in the reference too); zamba2 with Adafactor (AdamW's state and
+# the weights take 81.5 GB); mixtral at 2 of 32 layers (its 32 layers'
+# bf16 weights take 93.4 GB)
+TRAIN_FAMILIES = (("mamba2-2.7b", 2, 4096, 2, "adamw", None, "zeros"),
+                  ("whisper-large-v3", 2, 448, 1, "adamw", None, "zeros"),
+                  ("paligemma-3b", 2, 3840, 2, "adamw", None, "normal"),
+                  ("zamba2-7b", 2, 4096, 2, "adafactor", None, "zeros"),
+                  ("mixtral-8x7b", 2, 4096, 2, "adamw", 2, "zeros"))
+
+
+def train_launches(cfg, k):
+    """Each kernel's launches in a train step of ``k`` microbatches, as the
+    training forward's code gives them (the kernels not named: none).  A
+    microbatch runs a checkpointed layer's kernels twice (the forward and
+    the backward's recompute) and the flash backward once an attention;
+    whisper's encoder and zamba2's shared block are not checkpointed; a
+    grouped GEMM launches twice more in the backward (dX and dW); the SSD
+    scan's backward is a plain recompute."""
+    L = cfg.num_layers
+    fwd = bwd = ssd = gmm = 0
+    if cfg.family in ("dense", "vlm"):
+        fwd, bwd = 2 * L, L
+    elif cfg.family == "moe":
+        fwd, bwd, gmm = 2 * L, L, L * (3 * 2 + 3 * 2)
+    elif cfg.family == "ssm":
+        ssd = 2 * L
+    elif cfg.family == "audio":
+        fwd = cfg.encoder_layers + 2 * 2 * L
+        bwd = cfg.encoder_layers + 2 * L
+    elif cfg.family == "hybrid":
+        apps = L // cfg.attn_every
+        fwd, bwd, ssd = apps, apps, 2 * L
+    counts = {"flash_attention": fwd, "flash_attention_bwd": bwd,
+              "ssd_scan": ssd, "grouped_matmul": gmm}
+    return {n: k * c for n, c in counts.items() if c}
+
+
+def phase_train_families(steps=4):
+    """Phase 16: each of ``TRAIN_FAMILIES`` trains for ``steps`` steps at
+    lr ``TRAIN_LR`` through the launcher's ``run`` (random weights from
+    seed 0, bf16): losses and grad norms finite, the last loss below the
+    first, every step's launches equal to ``train_launches``, the grouped
+    GEMM's all on the TMA route; peak memory beside the static size (the
+    weights and the optimizer state) and each step's wall printed.  Every
+    count is zeroed just before each family and read just after it.
+    Returns the counts summed over the families."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_matmul
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    total = {}
+    for arch, B, L, k, opt, layers, stub in TRAIN_FAMILIES:
+        argv = ["--arch", arch, "--batch", str(B), "--seq", str(L),
+                "--microbatches", str(k), "--optimizer", opt, "--lr",
+                TRAIN_LR, "--log-every", str(steps), "--steps", str(steps),
+                "--stub-embeddings", stub]
+        cfg = get_config(arch)
+        if layers:
+            argv += ["--layers", str(layers)]
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        reset_launches()
+        t = time.perf_counter()
+        result = train.run(argv)
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        counts = launch_counts()
+        losses, norms = result["losses"], result["grad_norms"]
+        check(len(losses) == steps and np.isfinite(losses).all()
+              and np.isfinite(norms).all(),
+              f"{arch}: non-finite training losses or grad norms: {losses} "
+              f"{norms}")
+        check(losses[-1] < losses[0],
+              f"{arch}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+        want = dict.fromkeys(counts, 0)
+        want.update(train_launches(cfg, k))
+        for i, grown in enumerate(result["launches"]):
+            check(grown == want, f"{arch}: training step {i} launched "
+                  f"{grown}, not {want}")
+        routes = dict(grouped_matmul.route_launches)
+        check(routes["mma_sync"] == 0,
+              f"{arch}: a grouped GEMM left the TMA route: {routes}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        tokens = B * (L + cfg.prefix_len)
+        print(f"phase 16 {arch} ({cfg.num_layers} layers, bf16, {opt} lr "
+              f"{TRAIN_LR}, {B} x {L} tokens in {k} microbatch(es)): losses "
+              f"{losses}, grad norms {norms}, step wall (s) "
+              f"{result['step_s']}, tok/s "
+              f"{[tokens / x for x in result['step_s']]}, launches a step "
+              f"{result['launches'][-1]}, grouped GEMM routes {routes}, "
+              f"{wall:.3f} s in all, memory (GB) before {mem0 / 1e9:.2f}, "
+              f"static {result['static_bytes'][0] / 1e9:.2f}, peak "
+              f"{peak / 1e9:.2f}")
+        del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16 launches: {total}")
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def small_input_check():
@@ -4262,6 +4492,7 @@ def small_input_check():
     print(f"small-input check: sync-mode wave, card vs CPU greedy tokens "
           f"agree at {small_sync_wave()} of the positions")
     small_train_step()
+    small_train_families()
 
 
 def small_train_step():
@@ -4276,49 +4507,112 @@ def small_train_step():
     the logits are of the order of 100, where a bf16 step is 0.5).  The
     attention's gradients alone are held tighter by
     ``small_attention_grads``."""
-    import torch
     from repro_torch.configs import get_config, reduced
-    from repro_torch.kernels.ops import launch_counts
     from repro_torch.models import transformer
+    cfg = reduced(get_config("minicpm-2b"), head_dim=64)
+    rng = np.random.default_rng(12)
+    hold_train_step("one train step", cfg, transformer.init(11, cfg, "cpu"),
+                    rng.integers(0, cfg.vocab_size, (2, 65)))
+    small_attention_grads()
+
+
+# the five other families' reduced archs (2 layers; head dim 64, zamba2's
+# 112 so that the flash backward's D = 112 instance runs), with the seeds
+# of their weights
+SMALL_TRAIN_FAMILIES = (("mamba2-2.7b", {}, 31),
+                        ("whisper-large-v3", dict(head_dim=64), 32),
+                        ("paligemma-3b", dict(head_dim=64), 33),
+                        ("zamba2-7b", dict(head_dim=112), 34),
+                        ("mixtral-8x7b", dict(head_dim=64), 35))
+
+
+def small_train_families():
+    """``small_train_step`` for each other family's reduced arch
+    (``SMALL_TRAIN_FAMILIES``), in bf16, card vs CPU, at its limits: the
+    grouped GEMM (forward, dX and dW) and the SSD scan (forward; the
+    backward's plain recompute) run under autograd on the card, and the
+    flash pair over whisper's encoder, cross and decoder masks,
+    paligemma's prefix and zamba2's D = 112.  The audio and VLM batches
+    carry random frame or image embeddings.  mixtral's router weights are
+    zeros, as in ``small_mixtral``: every token then routes to experts 0
+    and 1 on both devices (and past capacity is dropped on both), where a
+    random router's near ties would let the devices' bf16 roundings pick
+    other experts; the router's own gradient still flows.  The loss and
+    the grad norm are held to ``small_train_step``'s limits, each leaf's
+    gradient to 2**-4 of its largest magnitude, not 2**-6: these leaves'
+    gradients are sums with cancellation (norm weights, the SSD's dt_bias
+    and A_log, the conv, a mixed-in embedding), so two bf16 roundings of
+    one step part by more.  On the CPU alone the bf16 step differs from
+    the same step in f32 by up to 0.045 of a leaf's largest gradient
+    (mamba2's dt_bias; zamba2 0.024, mixtral 0.019, whisper 0.014,
+    paligemma 0.011), where minicpm-2b's differs by 0.011."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import model_api
+    for arch, over, seed in SMALL_TRAIN_FAMILIES:
+        cfg = reduced(get_config(arch), **over)
+        params = model_api(cfg).init(seed, cfg, "cpu")
+        if cfg.family == "moe":
+            params["blocks"]["moe"]["router"].zero_()
+        rng = np.random.default_rng(seed)
+        tokens = rng.integers(0, cfg.vocab_size, (2, 65))
+        rows = {"audio": cfg.encoder_len, "vlm": cfg.prefix_len}.get(
+            cfg.family)
+        emb = (None if rows is None else
+               rng.standard_normal((2, rows, cfg.d_model), dtype=np.float32))
+        hold_train_step(f"one {arch} train step", cfg, params, tokens, emb,
+                        leaf_tol=2 ** -4)
+
+
+def hold_train_step(label, cfg, params, tokens, embeddings=None,
+                    leaf_tol=2 ** -6):
+    """One ``value_and_grad`` of ``make_loss_fn(cfg)`` on the CPU and on the
+    card from the same weights (a CPU tree) and batch (tokens (B, L + 1),
+    shifted into tokens and labels; ``embeddings`` (B, rows, d) or None),
+    held to ``small_train_step``'s limits, each leaf's gradient to
+    ``leaf_tol`` of its largest magnitude; the card's launches must equal
+    ``train_launches`` of one microbatch."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
     from repro_torch.training import train_step
     from repro_torch.training.tree import tree_paths
-    cfg = reduced(get_config("minicpm-2b"), head_dim=64)
-    params = transformer.init(11, cfg, "cpu")
-    rng = np.random.default_rng(12)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65)))
+    toks = torch.from_numpy(tokens)
     loss_fn = train_step.make_loss_fn(cfg)
     outs = {}
     for dev in ("cpu", "cuda"):
         batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        if embeddings is not None:
+            batch["embeddings"] = torch.from_numpy(embeddings).to(
+                cfg.compute_dtype).to(dev)
         before = launch_counts()
         (loss, _), grads = train_step.value_and_grad(
             loss_fn, tree_to(params, dev), batch)
         grown = {n: c - before[n] for n, c in launch_counts().items()}
         if dev == "cuda":
-            check(grown["flash_attention"] == 2 * cfg.num_layers
-                  and grown["flash_attention_bwd"] == cfg.num_layers,
-                  f"the card's train step launched {grown}")
+            want = dict.fromkeys(grown, 0)
+            want.update(train_launches(cfg, 1))
+            check(grown == want, f"{label}: the card launched {grown}, "
+                  f"not {want}")
         flat = {k: g.float().cpu() for k, g in tree_paths(grads).items()}
         norm = torch.sqrt(sum(g.square().sum() for g in flat.values()))
         outs[dev] = (loss.item(), norm.item(), flat)
     (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = outs["cpu"], outs["cuda"]
-    check(np.isfinite([l_gpu, n_gpu]).all(), "non-finite card train step")
+    check(np.isfinite([l_gpu, n_gpu]).all(), f"{label}: non-finite on card")
     check(abs(l_gpu - l_cpu) <= 2 ** -7 * abs(l_cpu),
-          f"card vs CPU train loss {l_gpu} vs {l_cpu}")
+          f"{label}: card vs CPU loss {l_gpu} vs {l_cpu}")
     check(abs(n_gpu - n_cpu) <= 2 ** -5 * n_cpu,
-          f"card vs CPU grad norm {n_gpu} vs {n_cpu}")
+          f"{label}: card vs CPU grad norm {n_gpu} vs {n_cpu}")
     worst, rel_l2 = 0.0, {}
     for key, g in g_cpu.items():
         err = (g_gpu[key] - g).abs().max().item()
         scale = g.abs().max().item()
-        check(err <= 2 ** -6 * scale,
-              f"card vs CPU gradient of {key}: {err} > 2**-6 * {scale}")
+        check(err <= leaf_tol * scale,
+              f"{label}: card vs CPU gradient of {key}: {err} > {leaf_tol} "
+              f"* {scale}")
         worst = max(worst, err / max(scale, 1e-30))
         rel_l2[key] = ((g_gpu[key] - g).norm() / g.norm()).item()
-    print(f"small-input check: one train step, card vs CPU: loss {l_gpu} vs "
+    print(f"small-input check: {label}, card vs CPU: loss {l_gpu} vs "
           f"{l_cpu}, grad norm {n_gpu} vs {n_cpu}, worst leaf max |diff| / "
           f"max |grad| {worst}, each leaf's |diff| / |grad| {rel_l2}")
-    small_attention_grads()
 
 
 def small_attention_grads():
@@ -4925,6 +5219,14 @@ def main() -> int:
     hybrid_launches = phase_hybrid()
     for name in launches:
         launches[name] += hybrid_launches.get(name, 0)
+    print("phase 16: training, mamba2-2.7b, whisper-large-v3, paligemma-3b, "
+          "zamba2-7b and mixtral-8x7b (2 of 32 layers) full width")
+    family_launches = phase_train_families()
+    for name in ("flash_attention", "flash_attention_bwd", "grouped_matmul",
+                 "ssd_scan"):
+        check(family_launches[name] > 0, f"phase 16 never launched {name}")
+    for name in launches:
+        launches[name] += family_launches.get(name, 0)
     stamp[0] = time.perf_counter()
     small_input_check()
     phase_time("small-input check")
@@ -4937,6 +5239,8 @@ def main() -> int:
                         "launches": launches[name],
                         "paligemma_launches": vlm_launches.get(name, 0),
                         "zamba2_launches": hybrid_launches.get(name, 0),
+                        "train_families_launches": family_launches.get(
+                            name, 0),
                         **{k: rec[k] for k in RECORD_KEYS}})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
     check(len(kernels) == 10, f"expected ten kernels, got {len(kernels)}")

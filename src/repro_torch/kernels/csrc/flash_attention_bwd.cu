@@ -65,7 +65,9 @@
 // the whole loop (dq's q and dout rows, dkdv's k and v rows) are held as
 // ldmatrix A fragments, and __launch_bounds__ asks for 4 (dq) and 3 (dkdv)
 // blocks an SM, 16 and 12 warps; at D = 128, 3 and 3 (dkdv spills a few
-// bytes there).  The helpers are shared with the forward (mma_tiles.cuh).
+// bytes there).  D = 112 (zamba2-7b's shared block) takes D = 128's tiles:
+// 7 k-steps of 16 for mma.sync and 14 accumulator tiles of 8 columns, 2
+// dq and 3 dkdv blocks an SM.  The helpers are shared with the forward (mma_tiles.cuh).
 // Not done yet: wgmma, TMA, a persistent schedule; one 5-product kernel
 // (S and dP once, dq by f32 atomics) would trade the fixed summation
 // order, and so bit-reproducible gradients, for 2 fewer products.
@@ -509,6 +511,7 @@ extern "C" int flash_attention_bwd(
     case 64: return launch<64, 64, 64, 1>(p, s);
     case 128: return launch<128, 32, 32, 1>(p, s);
     case 256: return launch<256, 32, 32, 2>(p, s);
+    case 112: return launch<112, 32, 32, 1>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

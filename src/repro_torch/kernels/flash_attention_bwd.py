@@ -26,10 +26,7 @@ from . import build
 from .flash_attention import _check, _require
 
 KERNELS = ("flash_attention_bwd",)
-# the backward's own instances: the forward also takes D = 112 (zamba2-7b's
-# serving path), the backward not yet (training the hybrid family is
-# ROADMAP.md Queue 1 item 12)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -7,6 +7,11 @@ plain version
 (``ref``).  There is no other switch and no fallback: on the card a kernel
 launches or raises.
 ``QuantPages`` pools select the int8 attention kernels.
+
+Where autograd records a graph, the flash attention, the SSD scan and the
+grouped GEMM go through ``autograd.Function``s that dispatch by device
+too, forward and backward: the flash backward kernel, a recompute of the
+plain SSD scan, and the grouped GEMM again for dX and dW.
 """
 from __future__ import annotations
 
@@ -182,17 +187,67 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, start,
                                  softmax_scale=softmax_scale)
 
 
-def ssd_scan(x, dt, A, B, C, D=None, *, chunk: int = 128,
-             initial_state=None):
-    """Mamba-2 SSD chunked scan: x (Bb, L, H, P); dt (Bb, L, H) f32; A (H,)
-    f32; B, C (Bb, L, G, N); D (H,) f32 or None; initial_state
-    (Bb, H, P, N) f32 or None.  Returns (y (Bb, L, H, P), final state
-    (Bb, H, P, N) f32)."""
+def _ssd_fwd(x, dt, A, B, C, D, chunk, initial_state):
     if x.device.type != "cuda":
         return ref.ssd_chunked_ref(x, dt, A, B, C, D, chunk=chunk,
                                    initial_state=initial_state)
     return ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk,
                         initial_state=initial_state)
+
+
+class _SsdScan(torch.autograd.Function):
+    """Autograd around the SSD scan.  The forward is the kernel (or plain
+    version) and saves (x, dt, A, B, C, D).  The backward recomputes the
+    plain chunked scan (``ref.ssd_chunked_ref``) from them under autograd
+    and differentiates it against dy: there is no reference VJP or
+    backward kernel (``jax.grad`` cannot differentiate the reference's
+    Pallas scan; under ``impl="ref"`` it is autodiff of the same plain
+    scan).  Training never takes the gradient of the final state or of
+    ``initial_state``; asking for either raises."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, initial_state, chunk):
+        ctx.set_materialize_grads(False)
+        y, state = _ssd_fwd(x, dt, A, B, C, D, chunk, initial_state)
+        ctx.save_for_backward(x, dt, A, B, C, D, initial_state)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        if dstate is not None or ctx.needs_input_grad[6]:
+            raise NotImplementedError(
+                "ssd_scan: no gradient of the final state or of "
+                "initial_state (training takes neither)")
+        x, dt, A, B, C, D, h0 = ctx.saved_tensors
+        need = ctx.needs_input_grad[:6]
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip((x, dt, A, B, C, D), need)]
+        grads = [None] * 6
+        if dy is not None and any(need):
+            with torch.enable_grad():
+                y, _ = ref.ssd_chunked_ref(*ins, chunk=ctx.chunk,
+                                           initial_state=h0)
+            got = iter(torch.autograd.grad(
+                y, [t for t, n in zip(ins, need) if n], dy))
+            grads = [next(got) if n else None for n in need]
+        return (*grads, None, None)
+
+
+def ssd_scan(x, dt, A, B, C, D=None, *, chunk: int = 128,
+             initial_state=None):
+    """Mamba-2 SSD chunked scan: x (Bb, L, H, P); dt (Bb, L, H) f32; A (H,)
+    f32; B, C (Bb, L, G, N); D (H,) f32 or None; initial_state
+    (Bb, H, P, N) f32 or None.  Returns (y (Bb, L, H, P), final state
+    (Bb, H, P, N) f32).  Where autograd records a graph it goes through
+    ``_SsdScan``, whose backward recomputes the plain scan; otherwise it
+    is the forward alone."""
+    args = (x, dt, A, B, C, D)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (*args, initial_state)):
+        return _SsdScan.apply(*args, initial_state, chunk)
+    return _ssd_fwd(*args, chunk, initial_state)
 
 
 def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, D=None):
@@ -202,9 +257,45 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, D=None):
     return ref.ssd_decode_step_ref(state, x_t, dt_t, A, B_t, C_t, D)
 
 
-def grouped_matmul(lhs, rhs):
-    """The expert FFN's grouped GEMM after capacity dispatch: lhs
-    (E, C, K) @ rhs (E, K, N) -> (E, C, N) in lhs's dtype, summed in f32."""
+def _gmm_fwd(lhs, rhs):
     if lhs.device.type != "cuda":
         return ref.grouped_matmul_ref(lhs, rhs)
     return gmm.grouped_matmul(lhs, rhs)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """Autograd around the grouped GEMM.  The reference has no VJP here
+    (``jax.grad`` cannot differentiate its Pallas kernel; under
+    ``impl="ref"`` it is autodiff of the einsum), and both gradients are
+    grouped GEMMs again: dX = dY W^T and dW = X^T dY, each through the
+    kernel on the card and the plain version on the CPU.  The kernel
+    reads operands whose last axis is dense, so W^T and X^T are copied
+    into the transposed layout: at mixtral-8x7b's (8, 4096, 14336) bf16
+    expert weight that copy is 940 MB, at its training microbatch's
+    (8, 1280, 4096) expert rows 84 MB."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs):
+        ctx.save_for_backward(lhs, rhs)
+        return _gmm_fwd(lhs, rhs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        lhs, rhs = ctx.saved_tensors
+        dout = dout.contiguous()
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            dlhs = _gmm_fwd(dout, rhs.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            drhs = _gmm_fwd(lhs.transpose(1, 2).contiguous(), dout)
+        return dlhs, drhs
+
+
+def grouped_matmul(lhs, rhs):
+    """The expert FFN's grouped GEMM after capacity dispatch: lhs
+    (E, C, K) @ rhs (E, K, N) -> (E, C, N) in lhs's dtype, summed in f32.
+    Where autograd records a graph it goes through ``_GroupedMatmul``;
+    otherwise it is the forward alone."""
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
+        return _GroupedMatmul.apply(lhs, rhs)
+    return _gmm_fwd(lhs, rhs)

@@ -278,29 +278,34 @@ def ssd_chunked_ref(x, dt, A, B, C, D=None, *, chunk: int = 128,
     Cc = padt(C.float().repeat_interleave(rep, dim=2)).reshape(
         Bb, nC, Q, H, N)
     cum = torch.cumsum(dtc * A.float()[None, None, None], dim=2)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    # intra-chunk, every chunk at once: M[t,s] = exp(cum_t - cum_s) *
+    # (C_t . B_s) * dt_s.  The exponent is masked before the exp (the
+    # reference masks after it): the same values, but where s > t the
+    # exponent grows with the chunk past f32's exp range, and exp(inf)
+    # times a zero cotangent would make the gradient NaN
+    decay = torch.exp(torch.where(tri[None, None, :, :, None],
+                                  cum[:, :, :, None] - cum[:, :, None],
+                                  -torch.inf))        # (Bb, nC, t, s, H)
+    cb = torch.einsum("bcthn,bcshn->bctsh", Cc, Bc)
+    y = torch.einsum("bctsh,bcshp->bcthp", decay * cb * dtc[:, :, None],
+                     xc)
+    # each chunk's own state: sum_s exp(cum_last - cum_s) dt_s x_s B_s^T
+    last = cum[:, :, -1]                                   # (Bb, nC, H)
+    w = torch.exp(last[:, :, None] - cum) * dtc            # (Bb, nC, Q, H)
+    S = torch.einsum("bcshp,bcshn->bchpn", xc * w[..., None], Bc)
+    # the state carried into each chunk, chunk after chunk
     h = (torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
          if initial_state is None else initial_state.float())
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    ys = []
+    carried = []
     for c in range(nC):
-        xq, dtq, Bq, Cq, cq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c], \
-            cum[:, c]
-        # intra-chunk: M[t,s] = exp(cum_t - cum_s) * (C_t . B_s) * dt_s
-        decay = torch.exp(cq[:, :, None] - cq[:, None])     # (Bb, t, s, H)
-        decay = torch.where(tri[None, :, :, None], decay, 0.0)
-        cb = torch.einsum("bthn,bshn->btsh", Cq, Bq)
-        M = decay * cb * dtq[:, None]
-        y_intra = torch.einsum("btsh,bshp->bthp", M, xq)
-        # inter-chunk: the carried state's contribution
-        y_inter = torch.einsum("bthn,bhpn->bthp", Cq, h) \
-            * torch.exp(cq)[..., None]
-        # chunk state: sum_s exp(cum_last - cum_s) dt_s x_s B_s^T
-        last = cq[:, -1][:, None]                            # (Bb, 1, H)
-        w = torch.exp(last - cq) * dtq                       # (Bb, Q, H)
-        S = torch.einsum("bshp,bshn->bhpn", xq * w[..., None], Bq)
-        h = h * torch.exp(last[:, 0])[..., None, None] + S
-        ys.append(y_intra + y_inter)
-    y = torch.cat(ys, dim=1)[:, :L]
+        carried.append(h)
+        h = h * torch.exp(last[:, c])[..., None, None] + S[:, c]
+    # inter-chunk: the carried state's contribution
+    y = y + torch.einsum("bcthn,bchpn->bcthp", Cc,
+                         torch.stack(carried, dim=1)) \
+        * torch.exp(cum)[..., None]
+    y = y.reshape(Bb, nC * Q, H, P)[:, :L]
     if D is not None:
         y = y + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), h

@@ -51,6 +51,13 @@ once every slot's draft has caught up (``chip_smoke.py`` phase 12):
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
       --arch minitron-4b --draft-arch minitron-4b
 
+``--train`` profiles the second step of a training run instead: the
+flags after it are the training launcher's (``chip_smoke.py`` phases 7
+and 16), e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_step --train \
+      --arch mamba2-2.7b --batch 2 --seq 4096 --microbatches 2 --lr 1e-3
+
 ``--dense-view`` profiles phase 8 (b)'s wave instead: minicpm-2b's
 dense-view step (``paged_native=False``) at 128 slots.  ``--templated``
 profiles phase 9's: ``templated_wave``'s requests that share one prompt
@@ -176,11 +183,13 @@ def draft_spec(arch: str, draft_arch: str, device="cuda") -> dict:
 
 
 def templated_wave(kv_dtype, prefix_cache: int, templates: int = 1,
-                   device="cuda", params=None):
+                   device="cuda", params=None,
+                   n_requests: int = TEMPLATED_REQUESTS):
     """minicpm-2b at full width and the plan's slots, serving requests that
     share a prompt template, as a frequency service's periodic requests
     do: ``templates`` templates of ``TEMPLATE_TOKENS`` tokens (seed 3), and
-    ``TEMPLATED_REQUESTS`` requests, each a template plus a tail of its
+    ``n_requests`` requests (the first of ``TEMPLATED_REQUESTS``, drawn
+    alike whatever their number), each a template plus a tail of its
     own of 1-``MAX_TAIL`` tokens (seed 4), with ``TEMPLATED_NEW`` tokens to
     generate.  The first ``templates`` requests are the donors, one a
     template, whose tails are short enough (1-9 tokens) that their prompts
@@ -208,7 +217,7 @@ def templated_wave(kv_dtype, prefix_cache: int, templates: int = 1,
             bodies[rid % templates],
             rng.integers(0, cfg.vocab_size, tails[rid])]).astype(np.int32),
         max_new_tokens=TEMPLATED_NEW, stream=rid)
-        for rid in range(TEMPLATED_REQUESTS)]
+        for rid in range(n_requests)]
     return cfg, rt, reqs[:templates], reqs[templates:]
 
 
@@ -343,6 +352,18 @@ def window(step, steps: int, label: str, top: int) -> dict:
             "sync_ms": sync_ms, "sync_calls": n_sync}
 
 
+def profile_train(train_argv, top: int) -> int:
+    """Profiles the second step of ``launch.train.train_steps`` run with
+    ``train_argv`` (two steps; the first warms up)."""
+    from repro_torch.launch import train
+    steps = train.train_steps([*train_argv, "--steps", "2", "--log-every",
+                               "1"])
+    next(steps)
+    window(lambda: next(steps), 1, "training step", top)
+    steps.close()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, default="minicpm-2b")
@@ -375,7 +396,12 @@ def main(argv=None) -> int:
                          "config; the profiled arch itself = a self-draft)")
     ap.add_argument("--speculate", type=int, default=-1,
                     help="draft depth k (-1 = the plan's category default)")
+    ap.add_argument("--train", nargs=argparse.REMAINDER, default=None,
+                    help="profile the second step of the training "
+                         "launcher run with the flags that follow")
     args = ap.parse_args(argv)
+    if args.train is not None:
+        return profile_train(args.train, args.top)
     kv_dtype = -1 if args.kv_dtype == "auto" else args.kv_dtype
     sampler = SamplerConfig(args.temperature, args.top_k)
     if args.templated:

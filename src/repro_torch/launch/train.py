@@ -1,5 +1,6 @@
 """Training launcher: the reference's ``repro/launch/train.py`` with its
-flags, plus ``--device``.
+flags, plus ``--device`` and ``--stub-embeddings``; ``--layers`` also cuts
+the full config's depth (the reference applies it to ``--reduced`` only).
 
 On the card (the default) it trains the full config, e.g. minicpm-2b at
 its published width with the reference's ``train_4k`` sequence length:
@@ -8,13 +9,19 @@ its published width with the reference's ``train_4k`` sequence length:
       --batch 2 --seq 4096 --microbatches 2 --steps 4 --lr 1e-3
 
 and ``--device cpu --reduced`` trains the smoke-sized variant on the CPU
-(the kernels' plain versions).  Weights are random from seed 0, batches
-come from ``TokenPipeline`` (seed 0).  Only the dense family trains so
-far; the others raise, naming ROADMAP.md Queue 1 item 12.
+(the kernels' plain versions).  Every family trains; the audio and VLM
+batches carry the reference's zero frame or image embeddings beside the
+tokens (for the VLM ``--seq`` counts the text, after its image prefix),
+or with ``--stub-embeddings normal`` random ones: paligemma-3b at full
+depth needs them, its gradient overflows on zero image rows.
+zamba2-7b fits one 80 GB card with ``--optimizer adafactor`` (AdamW's
+state and the weights would take 81.5 GB).  Weights are random from seed
+0, batches come from ``TokenPipeline`` (seed 0).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Any, Dict, Iterator, List
 
@@ -31,12 +38,26 @@ from repro_torch.training.train_step import make_train_step
 from repro_torch.training.tree import tree_leaves
 
 
-def build_batch(tokens, labels, device) -> Dict[str, torch.Tensor]:
-    """Token and label arrays (B, L) -> the batch on ``device``.  (The
-    reference also adds zero frame or image embeddings for the audio and
-    VLM families, whose training is not ported.)"""
-    return {"tokens": torch.as_tensor(tokens, device=device),
-            "labels": torch.as_tensor(labels, device=device)}
+def build_batch(cfg, tokens, labels, device, *, stub: str = "zeros",
+                seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Token and label arrays (B, L) -> the batch on ``device``, with the
+    stub frontend's ``embeddings`` in the compute dtype: (B, encoder_len,
+    d_model) frames for the audio family, (B, prefix_len, d_model) image
+    rows for the VLM.  ``stub="zeros"`` gives the reference's zeros,
+    ``"normal"`` standard normal draws from ``seed``."""
+    batch = {"tokens": torch.as_tensor(tokens, device=device),
+             "labels": torch.as_tensor(labels, device=device)}
+    rows = {"audio": cfg.encoder_len, "vlm": cfg.prefix_len}.get(cfg.family)
+    if rows is not None:
+        shape = (batch["tokens"].shape[0], rows, cfg.d_model)
+        if stub == "zeros":
+            emb = torch.zeros(shape, device=device)
+        else:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            emb = torch.randn(shape, generator=gen, device=device)
+        batch["embeddings"] = emb.to(cfg.compute_dtype)
+    return batch
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -53,9 +74,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--d-model", type=int, default=None,
                     help="override reduced d_model (e.g. 512 for ~100M)")
-    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the layer count: of the reduced variant, or of "
+                         "the full config (its width kept, its depth cut)")
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--stub-embeddings", default="zeros",
+                    choices=["zeros", "normal"],
+                    help="the audio and VLM stub frontends' embeddings: "
+                         "the reference's zeros, or normal draws seeded by "
+                         "the step (paligemma-3b's zero image rows stay "
+                         "zero through its 18 layers, where each RMSNorm's "
+                         "backward scales by 1/sqrt(eps): the gradient "
+                         "overflows, in the reference too)")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run the plain versions on the CPU; the "
                          "default is the card")
@@ -65,8 +96,9 @@ def _parser() -> argparse.ArgumentParser:
 def train_steps(argv=None) -> Iterator[Dict[str, Any]]:
     """Sets up as the flags say and trains, yielding each step's ``loss``,
     ``grad_norm``, ``step_s`` (host wall seconds, ending in a read of the
-    loss) and ``launches`` (each kernel's launches in the step).  Saves
-    the checkpoint after the last step."""
+    loss), ``launches`` (each kernel's launches in the step) and
+    ``static_bytes`` (the weights and the optimizer state).  Saves the
+    checkpoint after the last step."""
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -80,6 +112,8 @@ def train_steps(argv=None) -> Iterator[Dict[str, Any]]:
         if args.layers:
             over["num_layers"] = args.layers
         cfg = reduced(cfg, **over)
+    elif args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = model_api(cfg).init(0, cfg, device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -89,6 +123,8 @@ def train_steps(argv=None) -> Iterator[Dict[str, Any]]:
 
     opt = get_optimizer(args.optimizer, args.lr)
     state = opt.init(params)
+    static = sum(t.numel() * t.element_size() for tree in (params, *state)
+                 for t in tree_leaves(tree))
     step_fn = make_train_step(cfg, opt, num_microbatches=args.microbatches)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq,
                          batch_size=args.batch, seed=0)
@@ -96,13 +132,15 @@ def train_steps(argv=None) -> Iterator[Dict[str, Any]]:
     t0 = time.time()
     for step in range(args.steps):
         raw = pipe.batch(step)
-        batch = build_batch(raw["tokens"] % cfg.vocab_size,
-                            raw["labels"] % cfg.vocab_size, device)
+        batch = build_batch(cfg, raw["tokens"] % cfg.vocab_size,
+                            raw["labels"] % cfg.vocab_size, device,
+                            stub=args.stub_embeddings, seed=step)
         before, ts = launch_counts(), time.perf_counter()
         params, state, metrics = step_fn(params, state, batch)
         out = {"loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
                "step_s": time.perf_counter() - ts,
+               "static_bytes": static,
                "launches": {k: n - before[k]
                             for k, n in launch_counts().items()}}
         if step % args.log_every == 0 or step == args.steps - 1:
@@ -118,9 +156,11 @@ def train_steps(argv=None) -> Iterator[Dict[str, Any]]:
 
 def run(argv=None) -> Dict[str, List[Any]]:
     """Trains as the flags say and returns the per-step ``losses``,
-    ``grad_norms``, ``step_s`` and ``launches`` of ``train_steps``."""
+    ``grad_norms``, ``step_s``, ``launches`` and ``static_bytes`` of
+    ``train_steps``."""
     names = {"losses": "loss", "grad_norms": "grad_norm",
-             "step_s": "step_s", "launches": "launches"}
+             "step_s": "step_s", "launches": "launches",
+             "static_bytes": "static_bytes"}
     out = {key: [] for key in names}
     for m in train_steps(argv):
         for key, name in names.items():

@@ -19,15 +19,16 @@ caches and cross state IN PLACE and return the same tensors (the one-shot
 ``prefill`` builds its cache).
 
 Ported: ``init``, ``encode``, ``logits_fn``, ``init_cache``, ``prefill``,
-``prefill_chunk``, ``decode_step``, ``prefill_chunk_paged`` and
-``decode_step_paged``.  ``forward_hidden`` raises, naming ROADMAP.md Queue
-1 item 12.
+``prefill_chunk``, ``decode_step``, ``prefill_chunk_paged``,
+``decode_step_paged`` and the training forward ``forward_hidden`` (the
+encoder once, each decoder layer checkpointed, as in the reference).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -35,7 +36,7 @@ from repro_torch.kernels import ops
 from . import layers
 from .config import ModelConfig
 from .transformer import (layer_params, prefill_cache_rows,
-                          prefill_cache_size, stack_layers)
+                          prefill_cache_size, stack_layers, unbind_layers)
 
 
 def init_encoder_block(gen: torch.Generator, cfg: ModelConfig):
@@ -81,8 +82,7 @@ def encode(params, cfg: ModelConfig, frame_embeddings):
     B, T, d = frame_embeddings.shape
     h = frame_embeddings.to(cfg.compute_dtype)
     h = h + layers.sinusoidal_positions(T, d, h.device)[None].to(h.dtype)
-    for i in range(cfg.encoder_layers):
-        lp = layer_params(params["enc_blocks"], i)
+    for lp in unbind_layers(params["enc_blocks"], cfg.encoder_layers):
         h = h + layers.attention(lp["attn"], cfg,
                                  layers.apply_norm(lp["ln1"], cfg, h),
                                  causal=False)
@@ -114,10 +114,37 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
             "len": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def forward_hidden(*args, **kwargs):
-    raise NotImplementedError(
-        "encdec.forward_hidden is not ported to repro_torch yet: ROADMAP.md "
-        "Queue 1 item 12 (training)")
+def _decoder_layer(lp, cfg: ModelConfig, x, memory):
+    """One decoder layer over a whole sequence: causal self-attention
+    without rope, cross-attention over the encoder memory, the MLP."""
+    a, _ = layers.attention_with_kv(lp["self_attn"], cfg,
+                                    layers.apply_norm(lp["ln1"], cfg, x),
+                                    causal=True, window=cfg.sliding_window,
+                                    use_rope=False)
+    x = x + a
+    x = x + layers.attention(lp["cross_attn"], cfg,
+                             layers.apply_norm(lp["ln_x"], cfg, x),
+                             causal=False, kv_x=memory)
+    return x + layers.mlp(lp["mlp"], cfg, layers.apply_norm(lp["ln2"], cfg, x))
+
+
+def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+                   train: bool = False):
+    """The teacher-forced decoder's final-norm hidden states (B, L, d) over
+    ``batch["tokens"]`` (B, L) given the stub frame embeddings
+    ``batch["embeddings"]`` (B, encoder_len, d), and a zero aux loss.  The
+    encoder runs once, not checkpointed; with ``train`` each decoder layer
+    runs under a non-reentrant checkpoint, as in the reference."""
+    memory = encode(params, cfg, batch["embeddings"])
+    tokens = batch["tokens"]
+    h = _decoder_embed(params, cfg, tokens, torch.zeros(
+        tokens.shape[0], dtype=torch.long, device=tokens.device))
+    for lp in unbind_layers(params["dec_blocks"], cfg.num_layers):
+        h = (checkpoint(_decoder_layer, lp, cfg, h, memory,
+                        use_reentrant=False)
+             if train else _decoder_layer(lp, cfg, h, memory))
+    h = layers.apply_norm(params["ln_f"], cfg, h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _decoder_embed(params, cfg: ModelConfig, tokens, start):

@@ -21,19 +21,21 @@ state beside sequence leaves, which the serving arena pages (``attn_k``,
 reference's functional carry would hold a second copy of the state: 39 GB
 at zamba2-7b's 256 slots), and the K/V it is given, dense or paged, in
 place too.  The paged decode step writes only live slots' state and
-rows.  ``forward_hidden`` (training) is ROADMAP.md Queue 1 item 12.
+rows.  ``forward_hidden`` is the training forward: the mamba layers
+checkpointed, the shared block's applications not, as in the reference.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
 from . import layers, ssm, transformer
 from .config import ModelConfig
-from .transformer import layer_params, stack_layers
+from .transformer import layer_params, stack_layers, unbind_layers
 
 
 def _n_apps(cfg: ModelConfig) -> int:
@@ -161,10 +163,32 @@ def _shared_chunk_paged(shared, cfg: ModelConfig, h, h0, k_pages, v_pages,
 # model API
 # ---------------------------------------------------------------------------
 
-def forward_hidden(*args, **kwargs):
-    raise NotImplementedError(
-        "hybrid.forward_hidden is not ported to repro_torch yet: ROADMAP.md "
-        "Queue 1 item 12 (training)")
+def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+                   train: bool = False):
+    """The final-norm hidden states (B, L, d) of ``batch["tokens"]``
+    (B, L), and a zero aux loss.  With ``train`` each mamba layer runs
+    under a non-reentrant checkpoint and the shared block's applications
+    do not (the reference checkpoints ``mamba_body`` alone), so h0's
+    gradient gathers from every application."""
+    tokens = batch["tokens"]
+    h0 = _embed(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=h0.device)[None]
+    mamba = unbind_layers(params["mamba"], cfg.num_layers)
+
+    def mamba_fn(i, h):
+        if train:
+            return checkpoint(ssm.mamba_block, mamba[i], cfg, h,
+                              use_reentrant=False)
+        return ssm.mamba_block(mamba[i], cfg, h)
+
+    def shared_fn(g, h):
+        return _shared_forward(params["shared"], cfg, h, h0,
+                               positions=positions,
+                               window=cfg.sliding_window)[0]
+
+    h = _run_layers(cfg, h0, mamba_fn, shared_fn)
+    h = layers.apply_norm(params["ln_f"], cfg, h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):

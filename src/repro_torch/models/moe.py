@@ -17,20 +17,21 @@ Ported: ``init``, ``logits_fn``, ``init_cache``, ``moe_mlp``,
 ``prefill_chunk_paged``, ``verify_step_paged``, ``decode_step_paged``, the
 one-shot ``prefill`` (the whole prompt one routing group, up to
 ``MAX_ROUTING_GROUP``) and the dense-cache ``prefill_chunk``/
-``decode_step``.  ``forward_hidden`` (ROADMAP.md Queue 1 item 12) raises,
-naming its item.
+``decode_step``, and the training forward ``forward_hidden``, whose
+expert GEMMs' gradients are grouped GEMMs again (``ops.grouped_matmul``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 from . import layers, transformer
 from .config import ModelConfig
-from .transformer import layer_params
+from .transformer import layer_params, unbind_layers
 
 
 # ---------------------------------------------------------------------------
@@ -145,13 +146,14 @@ def enable_drop_counter(on: bool = True) -> None:
 MAX_ROUTING_GROUP = 2048
 
 
-def moe_mlp(p, cfg: ModelConfig, x):
+def moe_mlp(p, cfg: ModelConfig, x, *, count_drops: bool = True):
     """x: (B, L, d) -> (B, L, d), plus the aux loss.
 
     Long sequences are split into routing groups of <= MAX_ROUTING_GROUP
     tokens (the last one zero-padded): expert capacity, and with it the
     (G, S, E, C) dispatch tensors, scales with the group, not the
-    sequence."""
+    sequence.  ``count_drops=False`` keeps the call out of the drop
+    counter (training, whose checkpoint recompute would count twice)."""
     B, L, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     seg = min(L, MAX_ROUTING_GROUP)
@@ -163,7 +165,7 @@ def moe_mlp(p, cfg: ModelConfig, x):
     logits = layers.linear(xg.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)                  # (BG, seg, E)
     combine, aux, dropped = _top_k_dispatch(probs, k, capacity)
-    if _DROP_COUNTER_ENABLED:
+    if _DROP_COUNTER_ENABLED and count_drops:
         MOE_DROP_STATS.note(dropped, k * B * G * seg)
     dispatch = (combine > 0).to(x.dtype)                   # (BG, seg, E, C)
     # (BG, S, E, C) x (BG, S, d) -> (E, BG*C, d)
@@ -319,7 +321,35 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
                                        moe_ffn)
 
 
-def forward_hidden(*args, **kwargs):
-    raise NotImplementedError(
-        "moe.forward_hidden is not ported to repro_torch yet: ROADMAP.md "
-        "Queue 1 item 12 (training)")
+def _train_block(lp, cfg: ModelConfig, x, positions):
+    """One layer of the training forward: (x out, the layer's aux loss)."""
+    a, _ = layers.attention_with_kv(lp["attn"], cfg,
+                                    layers.apply_norm(lp["ln1"], cfg, x),
+                                    positions=positions, causal=True,
+                                    window=cfg.sliding_window)
+    x = x + a
+    m, aux = moe_mlp(lp["moe"], cfg, layers.apply_norm(lp["ln2"], cfg, x),
+                     count_drops=False)
+    return x + m, aux
+
+
+def forward_hidden(params, cfg: ModelConfig, batch, *, train: bool = False):
+    """The final-norm hidden states (B, L, d) of ``batch["tokens"]``
+    (B, L), and the aux load-balance loss summed over the layers and
+    divided by their number.  With ``train`` each whole layer runs under a
+    non-reentrant checkpoint (the reference's ``jax.checkpoint`` of the
+    scan body), so its attention and expert GEMMs run again in the
+    backward.  The drop counter never counts these calls."""
+    tokens = batch["tokens"]
+    h = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
+    positions = torch.arange(tokens.shape[1], device=h.device)[None]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp in unbind_layers(params["blocks"], cfg.num_layers):
+        if train:
+            h, a = checkpoint(_train_block, lp, cfg, h, positions,
+                              use_reentrant=False)
+        else:
+            h, a = _train_block(lp, cfg, h, positions)
+        aux = aux + a
+    h = layers.apply_norm(params["ln_f"], cfg, h)
+    return h, aux / cfg.num_layers

@@ -1,10 +1,9 @@
 """Model family registry: maps ``ModelConfig.family`` to the model API.
 
-Every family is ported for serving: the dense, MoE, SSM, hybrid, audio
-(encoder-decoder) and VLM families, each with every dense-cache and
-paged-native entry point it has in the reference.  Only the dense family
-is ported for training; the others' ``forward_hidden`` is ``None``
-(``ROADMAP.md`` Queue 1 item 12).
+Every family is ported for serving and for training: the dense, MoE,
+SSM, hybrid, audio (encoder-decoder) and VLM families, each with every
+dense-cache and paged-native entry point it has in the reference and its
+training forward ``forward_hidden``.
 """
 from __future__ import annotations
 
@@ -26,6 +25,9 @@ class ModelApi:
     prefill: Callable
     prefill_chunk: Callable
     decode_step: Callable
+    # the training forward, (params, cfg, batch, *, train) -> (hidden,
+    # aux loss)
+    forward_hidden: Callable
     # paged-native entry points: the cache's sequence leaves are the
     # serving arena's page pools read through a block table; ``None`` for
     # pure-SSM families, whose cache is all per-slot state
@@ -37,11 +39,6 @@ class ModelApi:
     # ``None`` for families without a paged-native chunk body: the serving
     # engine's speculation gate
     verify_step_paged: Optional[Callable] = None
-    # the training forward, (params, cfg, batch, *, train) -> (hidden,
-    # aux loss); ``None`` where not ported (the MoE, SSM, hybrid, audio
-    # and VLM families, served but not trained: ROADMAP.md Queue 1 item
-    # 12)
-    forward_hidden: Optional[Callable] = None
 
 
 _FAMILIES = {
@@ -56,23 +53,28 @@ _FAMILIES = {
                     moe.prefill_chunk, moe.decode_step,
                     decode_step_paged=moe.decode_step_paged,
                     prefill_chunk_paged=moe.prefill_chunk_paged,
-                    verify_step_paged=moe.verify_step_paged),
+                    verify_step_paged=moe.verify_step_paged,
+                    forward_hidden=moe.forward_hidden),
     "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache, ssm.prefill,
-                    ssm.prefill_chunk, ssm.decode_step),
+                    ssm.prefill_chunk, ssm.decode_step,
+                    forward_hidden=ssm.forward_hidden),
     "hybrid": ModelApi(hybrid.init, hybrid.logits_fn, hybrid.init_cache,
                        hybrid.prefill, hybrid.prefill_chunk,
                        hybrid.decode_step,
                        decode_step_paged=hybrid.decode_step_paged,
-                       prefill_chunk_paged=hybrid.prefill_chunk_paged),
+                       prefill_chunk_paged=hybrid.prefill_chunk_paged,
+                       forward_hidden=hybrid.forward_hidden),
     "audio": ModelApi(encdec.init, encdec.logits_fn, encdec.init_cache,
                       encdec.prefill, encdec.prefill_chunk,
                       encdec.decode_step,
                       decode_step_paged=encdec.decode_step_paged,
-                      prefill_chunk_paged=encdec.prefill_chunk_paged),
+                      prefill_chunk_paged=encdec.prefill_chunk_paged,
+                      forward_hidden=encdec.forward_hidden),
     "vlm": ModelApi(vlm.init, vlm.logits_fn, vlm.init_cache, vlm.prefill,
                     vlm.prefill_chunk, vlm.decode_step,
                     decode_step_paged=vlm.decode_step_paged,
-                    prefill_chunk_paged=vlm.prefill_chunk_paged),
+                    prefill_chunk_paged=vlm.prefill_chunk_paged,
+                    forward_hidden=vlm.forward_hidden),
 }
 
 def family_api(family: str) -> ModelApi:

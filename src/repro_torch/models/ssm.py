@@ -14,8 +14,9 @@ Unlike the reference's functional carry, ``prefill_chunk`` and
 layer by layer, and return the same tensors: the carry would materialise a
 second full state stack (21.5 GB at 128 slots of mamba2-2.7b).  The
 one-shot ``prefill`` (``mamba_block`` over the whole prompt, one SSD scan
-launch a layer) builds a new cache.  ``forward_hidden`` (training) is
-ROADMAP.md Queue 1 item 12.
+launch a layer) builds a new cache.  ``forward_hidden`` is the
+training forward: ``mamba_block`` a layer, each checkpointed when
+training, the scan's gradient through ``ops.ssd_scan``'s recompute.
 """
 from __future__ import annotations
 
@@ -23,13 +24,14 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 from . import layers
 from .config import ModelConfig
-from .transformer import layer_params, stack_layers
+from .transformer import layer_params, stack_layers, unbind_layers
 
 
 def conv_channels(cfg: ModelConfig) -> int:
@@ -68,6 +70,21 @@ def init(seed: int, cfg: ModelConfig, device=None):
             "blocks": stack_layers([init_mamba_block(gen, cfg)
                                     for _ in range(cfg.num_layers)]),
             "ln_f": layers.init_norm(cfg, dev)}
+
+
+def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+                   train: bool = False):
+    """The final-norm hidden states (B, L, d) of ``batch["tokens"]``
+    (B, L), every layer one ``mamba_block`` (one SSD scan over the whole
+    sequence) under a non-reentrant checkpoint when ``train``; the aux
+    loss is a zero."""
+    h = layers.embed(params["embed"], cfg, batch["tokens"]).to(
+        cfg.compute_dtype)
+    for lp in unbind_layers(params["blocks"], cfg.num_layers):
+        h = (checkpoint(mamba_block, lp, cfg, h, use_reentrant=False)
+             if train else mamba_block(lp, cfg, h))
+    h = layers.apply_norm(params["ln_f"], cfg, h)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):

@@ -104,15 +104,21 @@ def block_forward(p, cfg: ModelConfig, x, *, positions, window,
 def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Any], *,
                    train: bool = False):
     """The final-norm hidden states (B, L, d) of ``batch["tokens"]``
-    (B, L), and the auxiliary loss (a zero: dense models have none).  With
-    ``train`` each layer runs under a non-reentrant checkpoint (the
-    reference's ``jax.checkpoint`` of the scan body): its activations are
-    recomputed in the backward, flash attention's forward kernel
-    included."""
-    tokens = batch["tokens"]
-    h = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
-    kw = dict(positions=torch.arange(tokens.shape[1], device=h.device)[None],
-              window=cfg.sliding_window, prefix_len=0)
+    (B, L), and the auxiliary loss (a zero: dense models have none)."""
+    return run_blocks(params, cfg, embed_tokens(params, cfg, batch),
+                      train=train)
+
+
+def run_blocks(params, cfg: ModelConfig, h, *, train: bool,
+               prefix_len: int = 0):
+    """The stacked blocks over the input rows h (B, L, d), causal but
+    bidirectional over the first ``prefix_len`` rows, then the final
+    norm; returns (hidden, a zero aux loss).  With ``train`` each layer
+    runs under a non-reentrant checkpoint (the reference's
+    ``jax.checkpoint`` of the scan body): its activations are recomputed
+    in the backward, flash attention's forward kernel included."""
+    kw = dict(positions=torch.arange(h.shape[1], device=h.device)[None],
+              window=cfg.sliding_window, prefix_len=prefix_len)
     for lp in unbind_layers(params["blocks"], cfg.num_layers):
         if train:
             h = checkpoint(block_forward, lp, cfg, h, use_reentrant=False,

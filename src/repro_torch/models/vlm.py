@@ -15,7 +15,8 @@ prefix rows, so the prefix cannot span a chunk boundary): it writes
 ``chunk_len + prefix_len`` cache rows.  Later chunks are plain causal
 appends.  After prefill every cached position is visible to a new token,
 so decode is the dense decoder's, paged or not.  The training forward
-waits for ``ROADMAP.md`` Queue 1 item 12.
+``forward_hidden`` returns the hidden states of the whole prefix + text
+sequence; the loss reads the text rows only (``training/train_step.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +41,16 @@ def _concat_inputs(params, cfg: ModelConfig, batch):
     img = torch.as_tensor(batch["embeddings"], device=tok.device).to(
         cfg.compute_dtype)
     return torch.cat([img, tok], dim=1)
+
+
+def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+                   train: bool = False):
+    """The final-norm hidden states (B, prefix_len + L, d) of the image
+    rows and ``batch["tokens"]`` (B, L) under the prefix-LM mask, each
+    layer checkpointed when ``train``; the aux loss is a zero."""
+    return transformer.run_blocks(params, cfg,
+                                  _concat_inputs(params, cfg, batch),
+                                  train=train, prefix_len=cfg.prefix_len)
 
 
 def _chunk_inputs(params, cfg: ModelConfig, batch, chunk_len):

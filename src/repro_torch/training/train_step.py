@@ -1,6 +1,9 @@
 """Training step: chunked cross-entropy loss, gradients, optimizer update
 (the reference's ``repro/training/train_step.py``).
 
+Every model family trains (``models.registry``); the VLM's loss covers
+its text rows only.
+
 The loss runs the sequence in chunks, each under a non-reentrant
 checkpoint, so the (B, L, vocab) f32 logits are never materialized and no
 chunk's (B, chunk, vocab) block is kept for the backward: at minicpm-2b's
@@ -17,7 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import model_api
 
-from .tree import tree_leaves, tree_map, tree_unflatten
+from .tree import layer_slices, tree_leaves, tree_map, tree_unflatten
 
 DEFAULT_LOSS_CHUNK = 512
 MOE_AUX_WEIGHT = 0.01
@@ -48,16 +51,14 @@ def chunked_cross_entropy(hidden, labels, logits_fn, *,
 
 def make_loss_fn(cfg: ModelConfig, *,
                  loss_chunk: int = DEFAULT_LOSS_CHUNK) -> Callable:
-    """loss_fn(params, batch) -> (loss, {"nll", "aux"}).  Raises for a
-    family whose training forward is not ported."""
+    """loss_fn(params, batch) -> (loss, {"nll", "aux"}).  The VLM's loss
+    covers the text rows only, after its ``prefix_len`` image rows."""
     api = model_api(cfg)
-    if api.forward_hidden is None:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported to "
-            f"repro_torch yet: ROADMAP.md Queue 1 item 12")
 
     def loss_fn(params, batch: Dict[str, Any]):
         hidden, aux = api.forward_hidden(params, cfg, batch, train=True)
+        if cfg.family == "vlm":
+            hidden = hidden[:, cfg.prefix_len:]
         lf = lambda h: api.logits_fn(params, cfg, h)
         loss = chunked_cross_entropy(hidden, batch["labels"], lf,
                                      chunk=loss_chunk)
@@ -88,8 +89,11 @@ def make_train_step(cfg: ModelConfig, optimizer, *,
     ``num_microbatches`` = k > 1 runs the batch in k slices of B / k rows
     and sums the gradients in ``accum_dtype`` (g / k each): activation
     memory scales with B / k while the update sees the whole batch's
-    gradient.  ``metrics["grad_norm"]`` is the global f32 norm of the
-    gradient the update sees."""
+    gradient.  The sums and the norm run a layer of a stacked leaf at a
+    time (``tree.layer_slices``), so no f32 copy of a whole stacked leaf
+    is made (zamba2-7b's mamba ``in_proj`` would take 17 GB).
+    ``metrics["grad_norm"]`` is the global f32 norm of the gradient the
+    update sees."""
     loss_fn = make_loss_fn(cfg, loss_chunk=loss_chunk)
     k = num_microbatches
 
@@ -107,13 +111,15 @@ def make_train_step(cfg: ModelConfig, optimizer, *,
                 mb = {name: x[i * n:(i + 1) * n] for name, x in batch.items()}
                 (mb_loss, mb_metrics), g = value_and_grad(loss_fn, params, mb)
                 for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
-                    acc.add_(gi.to(accum_dtype) / k)
+                    for a, b in zip(layer_slices(acc), layer_slices(gi)):
+                        a.add_(b.to(accum_dtype) / k)
                 del g
                 loss = loss + mb_loss / k
                 aux = aux + mb_metrics["aux"] / k
             metrics = {"nll": loss, "aux": aux}
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in tree_leaves(grads)))
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(s.float()))
+                               for g in tree_leaves(grads)
+                               for s in layer_slices(g)))
         new_params, new_state = optimizer.update(grads, opt_state, params)
         return new_params, new_state, dict(metrics, loss=loss,
                                            grad_norm=gnorm)

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Iterable, List
 
+import torch
+
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the matching leaves of
@@ -36,3 +38,10 @@ def tree_paths(tree, prefix: str = "") -> Dict[str, object]:
             out.update(tree_paths(v, f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: tree}
+
+
+def layer_slices(t) -> tuple:
+    """A stacked leaf (layers, ...) of three or more axes as its layers'
+    views, any other leaf as itself: elementwise work done slice by slice
+    makes temporaries of one layer, not of the whole stack."""
+    return torch.unbind(t, 0) if t.ndim >= 3 else (t,)

@@ -620,6 +620,10 @@ FLASH_BWD_CASES = {
                                dict(causal=True, prefix_len=100)),
     "gqa_8_2_tiles": ((2, 200, 200, 8, 2, 64), dict(causal=True)),
     "d256_tiles": ((1, 200, 230, 4, 2, 256), dict(causal=True)),
+    # zamba2-7b's shared block trains at D = 112: causal over several
+    # tiles, and ragged GQA lengths
+    "d112_causal": ((1, 300, 300, 4, 4, 112), dict(causal=True)),
+    "d112_ragged": ((2, 70, 90, 4, 2, 112), dict(causal=True)),
 }
 
 
@@ -640,7 +644,7 @@ def _assert_rows_close(name, got, want):
 def test_cuda_flash_attention_bwd_matches_plain(cuda_device, case):
     """q, k, v and dout sliced from wider tensors (strided, read in
     place), the forward kernel's out and lse, every mask option, GQA,
-    D = 64, 128 and 256, lengths that are not multiples of the tiles, a
+    D = 64, 112, 128 and 256, lengths that are not multiples of the tiles, a
     prefix reaching past the first query tile, rows that see nothing."""
     (B, Lq, Lk, Hq, Hkv, D), kw = FLASH_BWD_CASES[case]
     gen = torch.Generator(device=cuda_device)
@@ -671,21 +675,28 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_bwd_refuses_d112(cuda_device):
-    """The forward takes D = 112 (zamba2-7b's serving path), the backward
-    has no such instance: its wrapper raises before it launches."""
+    """(The name predates the backward's D = 112 instance.)  The backward
+    launches at D = 112, zamba2-7b's head dim, and its wrapper refuses a
+    head dim with no instance (96) before it launches."""
     dev = cuda_device
     q = torch.zeros(1, 8, 2, 112, dtype=torch.bfloat16, device=dev)
     out, lse = flash_attention.flash_attention(q, q, q, causal=True)
     before = flash_attention_bwd.launches["flash_attention_bwd"]
+    dq, dk, dv = flash_attention_bwd.flash_attention_bwd(q, q, q, out, lse,
+                                                         q, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches["flash_attention_bwd"] == before + 1
+    assert not (dq.any() or dk.any() or dv.any())
+    q96 = q[..., :96].contiguous()
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bwd.flash_attention_bwd(q, q, q, out, lse, q,
-                                                causal=True)
-    assert flash_attention_bwd.launches["flash_attention_bwd"] == before
+        flash_attention_bwd.flash_attention_bwd(q96, q96, q96, q96, lse,
+                                                q96, causal=True)
+    assert flash_attention_bwd.launches["flash_attention_bwd"] == before + 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["causal_300", "gqa_8_2_tiles",
-                                  "d256_tiles"])
+                                  "d256_tiles", "d112_ragged"])
 def test_cuda_flash_attention_is_bit_reproducible(cuda_device, case):
     """Two launches on the same inputs give bit-identical out and lse, and
     bit-identical dq, dk and dv: every sum has one owner and a fixed
@@ -887,3 +898,73 @@ def test_cuda_obs_is_byte_inert(cuda_device, kv_dtype):
         roots, _ = tracer.span_tree("minicpm-2b", str(rid))
         assert [c.name for c in roots[0].children] \
             == ["queued", "prefill", "decode"]
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_matmul_autograd_launches_dx_and_dw(cuda_device):
+    """Gradients through ``ops.grouped_matmul`` on the card launch the
+    kernel three times, all on the TMA route: the forward, dX = dY W^T
+    and dW = X^T dY (transposed copies of W and X), each held to the f32
+    product of the same bf16 values as the forward is."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(8)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    lhs, rhs, dout = rand(8, 96, 256), rand(8, 256, 520), rand(8, 96, 520)
+    lhs.requires_grad_(True)
+    rhs.requires_grad_(True)
+    before = dict(grouped_matmul.route_launches)
+    out = ops.grouped_matmul(lhs, rhs)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    grown = {r: n - before[r]
+             for r, n in grouped_matmul.route_launches.items()}
+    assert grown == {"tma": 3, "mma_sync": 0}, grown
+    want_dx = ref.grouped_matmul_ref(dout.float(),
+                                     rhs.detach().float().transpose(1, 2))
+    want_dw = ref.grouped_matmul_ref(lhs.detach().float().transpose(1, 2),
+                                     dout.float())
+    for name, got, want in (("dX", lhs.grad, want_dx),
+                            ("dW", rhs.grad, want_dw)):
+        assert got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got.float(), want, atol=TOL, rtol=TOL,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_autograd_matches_cpu(cuda_device):
+    """Gradients through ``ops.ssd_scan`` on the card (the forward kernel,
+    once; the backward a recompute of the plain scan) against the same
+    inputs on the CPU (plain forward and backward): x, B and C in bf16,
+    dt, A and D in f32, chunks of 32 over 100 steps.  Both backward
+    passes differentiate the same plain scan in f32, so the gradients
+    agree to 1e-3 of each one's largest magnitude (bf16 x, B and C
+    gradients: to atol = rtol = 1.6e-2)."""
+    rng = np.random.default_rng(9)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    Bb, L, H, P, G, N = 2, 100, 4, 16, 1, 16
+    inputs = [f(Bb, L, H, P).bfloat16(),
+              torch.nn.functional.softplus(f(Bb, L, H) - 1.0),
+              -torch.exp(0.5 * f(H)), f(Bb, L, G, N).bfloat16(),
+              f(Bb, L, G, N).bfloat16(), f(H)]
+    dy = f(Bb, L, H, P).bfloat16()
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        ts = [t.detach().to(dev).requires_grad_(True) for t in inputs]
+        before = ssd_scan.launches["ssd_scan"]
+        y, _ = ops.ssd_scan(*ts, chunk=32)
+        y.backward(dy.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ssd_scan.launches["ssd_scan"] == before + 1
+        grads[dev] = [t.grad.float().cpu() for t in ts]
+    for name, g, w in zip(("x", "dt", "A", "B", "C", "D"), grads["cuda"],
+                          grads["cpu"]):
+        assert torch.isfinite(g).all(), name
+        if name in ("x", "B", "C"):
+            torch.testing.assert_close(g, w, atol=TOL, rtol=TOL,
+                                       msg=lambda m: f"d{name}: {m}")
+        else:
+            scale = w.abs().max().item()
+            torch.testing.assert_close(g, w, atol=1e-3 * scale, rtol=1e-3,
+                                       msg=lambda m: f"d{name}: {m}")

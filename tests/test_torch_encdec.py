@@ -175,14 +175,16 @@ def test_chunks_then_decode_match_reference(impl):
 
 
 def test_unported_entry_points_raise():
-    """``forward_hidden`` (training) raises, naming ROADMAP.md Queue 1 item
-    12; the one-shot ``prefill`` and the dense ``prefill_chunk`` and
-    ``decode_step`` (item 11, ported) are the registry's entry points."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        encdec.forward_hidden()
+    """(The name predates their ports.)  The training forward
+    ``forward_hidden`` (item 12), the one-shot ``prefill`` and the dense
+    ``prefill_chunk`` and ``decode_step`` (item 11) are the registry's
+    entry points; ``tests/test_torch_train_families.py`` holds training
+    to the reference."""
     api = model_api(_mirror(_cfg()))
-    assert (api.prefill, api.prefill_chunk, api.decode_step) == (
-        encdec.prefill, encdec.prefill_chunk, encdec.decode_step)
+    assert (api.prefill, api.prefill_chunk, api.decode_step,
+            api.forward_hidden) == (encdec.prefill, encdec.prefill_chunk,
+                                    encdec.decode_step,
+                                    encdec.forward_hidden)
 
 
 def test_cross_state_bytes_at_full_width():

@@ -185,20 +185,22 @@ def test_flash_attention_refuses_inputs_that_require_grad():
 
 
 def test_dense_family_trains_and_moe_does_not():
-    from repro_torch.models import moe, transformer
+    """(The name predates the other families' training.)  Every family's
+    training forward is its own module's ``forward_hidden``."""
+    from repro_torch.models import encdec, hybrid, moe, ssm, transformer, vlm
     from repro_torch.models.registry import family_api
-    assert family_api("dense").forward_hidden is transformer.forward_hidden
-    for family in ("moe", "ssm", "hybrid", "audio", "vlm"):
-        assert family_api(family).forward_hidden is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        moe.forward_hidden()
+    for family, module in (("dense", transformer), ("moe", moe),
+                           ("ssm", ssm), ("hybrid", hybrid),
+                           ("audio", encdec), ("vlm", vlm)):
+        assert family_api(family).forward_hidden is module.forward_hidden
 
 
 @pytest.mark.parametrize("family,item", [("hybrid", "item 12")])
 def test_unported_families_name_their_item(family, item):
-    """(The name predates the hybrid port.)  The hybrid family serves
-    through its paged-native steps, with no speculative verify; what it
-    still lacks, training, raises naming its ROADMAP.md item."""
+    """(The name predates the hybrid port and its training.)  The hybrid
+    family serves through its paged-native steps, with no speculative
+    verify, and trains through its ``forward_hidden``: ``make_loss_fn``
+    builds.  (``item`` is the ROADMAP.md item that ported it.)"""
     from repro_torch.models import hybrid
     from repro_torch.models.config import ModelConfig
     from repro_torch.models.registry import model_api
@@ -208,9 +210,10 @@ def test_unported_families_name_their_item(family, item):
     assert api.init is hybrid.init
     assert api.decode_step_paged is hybrid.decode_step_paged
     assert api.prefill_chunk_paged is hybrid.prefill_chunk_paged
-    assert api.verify_step_paged is None and api.forward_hidden is None
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        hybrid.forward_hidden()
+    assert api.verify_step_paged is None
+    assert api.forward_hidden is hybrid.forward_hidden
+    from repro_torch.training import train_step
+    assert callable(train_step.make_loss_fn(cfg))
 
 
 def test_moe_family_is_ported_paged_native():
@@ -231,8 +234,8 @@ def test_moe_family_is_ported_paged_native():
 def test_vlm_family_is_ported_paged_native():
     """The VLM family serves through the dense decoder's paged-native and
     dense-cache steps, with its own chunk and one-shot prefills (the image
-    prefix rides along with the first chunk); its training forward is not
-    ported (ROADMAP.md Queue 1 item 12)."""
+    prefix rides along with the first chunk); it trains through its own
+    ``forward_hidden`` (prefix and text rows)."""
     from repro_torch.models import transformer, vlm
     from repro_torch.models.registry import family_api
     api = family_api("vlm")
@@ -242,14 +245,16 @@ def test_vlm_family_is_ported_paged_native():
     assert api.prefill is vlm.prefill
     assert api.prefill_chunk is vlm.prefill_chunk
     assert api.decode_step is transformer.decode_step
-    assert api.verify_step_paged is None and api.forward_hidden is None
+    assert api.verify_step_paged is None
+    assert api.forward_hidden is vlm.forward_hidden
 
 
 def test_unported_moe_entry_points_name_their_items():
     """The one-shot ``prefill`` and the dense ``prefill_chunk`` and
     ``decode_step`` run (they were ROADMAP.md Queue 1 item 11), and so does
     the paged ``verify_step_paged`` (item 4): logits (B, T, V) and the
-    lengths unchanged; training still raises, naming item 12."""
+    lengths unchanged; and so does the training forward (item 12):
+    hidden states (B, L, d) and a positive aux loss."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import moe
     cfg = reduced(get_config("mixtral-8x7b"))
@@ -266,8 +271,10 @@ def test_unported_moe_entry_points_name_their_items():
         chunk_len=torch.tensor([4, 2], dtype=torch.int32))
     assert cache["len"].tolist() == [14, 12]
     assert bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        moe.forward_hidden()
+    hidden, aux = moe.forward_hidden(params, cfg, {"tokens": tokens},
+                                     train=True)
+    assert hidden.shape == (2, 9, cfg.d_model)
+    assert bool(torch.isfinite(hidden).all()) and aux.item() > 0
     pool = (cfg.num_layers, 2 * 4 + 1, 8, cfg.num_kv_heads, cfg.head_dim)
     paged = {"k": torch.zeros(pool), "v": torch.zeros(pool),
              "len": torch.tensor([3, 0], dtype=torch.int32)}

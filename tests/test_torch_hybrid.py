@@ -509,13 +509,14 @@ def test_runtime_wave_matches_reference(case):
 
 
 def test_registry_serves_hybrid_without_training():
-    """hybrid resolves with every dense-cache and paged-native entry
-    point, no speculative verify and no training forward (ROADMAP.md
-    Queue 1 item 12)."""
+    """(The name predates its training.)  hybrid resolves with every
+    dense-cache and paged-native entry point, no speculative verify, and
+    its training forward (ROADMAP.md Queue 1 item 12)."""
     api = family_api("hybrid")
     assert api.decode_step_paged is hybrid.decode_step_paged
     assert api.prefill_chunk_paged is hybrid.prefill_chunk_paged
-    assert api.verify_step_paged is None and api.forward_hidden is None
+    assert api.verify_step_paged is None
+    assert api.forward_hidden is hybrid.forward_hidden
 
 
 def _served(out):
