@@ -15,9 +15,10 @@ admission with parking and n-way forks (minicpm-2b) in an eleventh, its
 speculative decoding (minitron-4b, mixtral-8x7b) in a twelfth, its
 multi-server control plane with crash failover (minicpm-2b, minitron-4b)
 in a thirteenth, its VLM family (paligemma-3b) in a fourteenth, its
-hybrid family (zamba2-7b) in a fifteenth and the training of the MoE,
-SSM, audio, VLM and hybrid families in a sixteenth; any failure exits
-non-zero.
+hybrid family (zamba2-7b) in a fifteenth, the training of the MoE,
+SSM, audio, VLM and hybrid families in a sixteenth and head-sharded
+paged serving (``--pjit-decode``; minicpm-2b, codeqwen1.5-7b) in a
+seventeenth; any failure exits non-zero.
 Every phase prints its wall time.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
@@ -292,6 +293,26 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    grouped GEMM's forward, dX and dW on the TMA route), peak memory
    beside the static size; phase 1 times #8 at D = 112, #9's dX and dW
    and #10 at these shapes;
+17. head-sharded paged serving, the launcher's ``--pjit-decode`` on
+   service meshes that list ``cuda:0`` tp times (``launch/steps.py``
+   ``paged_decode_builder``): (a) minicpm-2b at its plan (512 slots, int8
+   K/V, the prefix cache at its default) on phase 3's first 16 requests,
+   40 new tokens, at tp = 1 (its chains must be phase 3's exactly) and at
+   tp = 4 (9 heads a shard: every paged kernel launched 4 times a layer a
+   step, first tokens equal, each decode step's logits over the slots fed
+   the same tokens held to phase 8 (c)'s 2**-5 of their norm, splits
+   printed with their top-two gaps); (b) codeqwen1.5-7b (D = 128, bf16
+   K/V, random qkv biases, 32 slots) unsharded and at tp = 2 on 8
+   requests, held the same way, and across ``cuda:0`` and ``cuda:1``
+   where the machine has two cards (else the cross-card copies are
+   printed as unchecked); (d) each decode step's CUDA-event time beside
+   ``decode_cost_analysis`` at tp = 1 and 4 (the same FLOPs); (e) the
+   launcher with ``--pjit-decode`` on the card's (1, device count) mesh;
+   (c) #1-#4 at the shards' shapes (9 and 18 heads at D = 64;
+   mistral-large-123b's 24 query heads on 2 kv heads at D = 128) against
+   their plain versions by ``check_rows``, the tp = 4 shapes timed beside
+   their bounds, each timed decode record's work equal to
+   ``roofline/op_cost.py``'s rule;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -328,7 +349,12 @@ launch the SSD scan, the sync request #7 and the scan), as
 ``zamba2_launches``; every count is zeroed just before each of phase
 16's families and read just after it, and their sum is added to the
 record's and printed beside it as ``train_families_launches`` (#7-#10
-must launch).
+must launch); every count is zeroed just before phase 17 and read after
+its launcher run (before (c)'s comparisons), added to the record's and
+printed as ``tp_launches`` (#1-#4 must launch).
+``python3 chip_smoke.py --across-cards`` on a machine with four cards
+runs phase 17 across them instead (``across_cards``); ``python3
+chip_smoke.py --tp-witness`` runs only ``tp_kv_witness``.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -345,8 +371,6 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 TOL = 1.6e-2
 TRAIN_LR = "1e-3"
 TRAIN_SHAPE = dict(B=1, Lq=4096, Lk=4096, Hq=36, Hkv=36, D=64)
@@ -475,8 +499,12 @@ def kv_bytes(keys, Hkv, D, quant):
 
 
 def bound(nbytes, flops):
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    """The least time in ms for the card to move ``nbytes`` and compute
+    ``flops``, at the peaks of ``repro_torch/roofline/analysis.py`` (the
+    H100 SXM data sheet's HBM3 rate and dense bf16 rate), and which of the
+    two bounds it."""
+    from repro_torch.roofline.analysis import bound_ms
+    return bound_ms(nbytes, flops)
 
 
 def dense_view(pages, tables):
@@ -540,6 +568,7 @@ def decode_case(gen, rng, *, B, Hq, Hkv, D, lens, quant, timed, nblk=8):
               + int((-(-lens // bs)).sum()) * 4
               + kv_bytes(keys, Hkv, D, quant))
     b_ms, b_by = bound(nbytes, 4 * D * Hq * keys)
+    rec["work"] = (nbytes, 4 * D * Hq * keys)
     rec.update({"ms": graph_ms(kernel), "host_paced_ms": time_ms(kernel),
                 "plain_ms": time_ms(lambda: ref.paged_decode_attention_ref(
                     q, k, v, tables, cl), iters=2, reps=3),
@@ -593,6 +622,7 @@ def chunk_case(gen, rng, *, B, T, Hq, Hkv, D, start, chunk_len, prefix_len,
     nbytes = (int(chunk_len.sum()) * Hq * D * 2 + q.numel() * 2
               + entries * 4 + 2 * B * 4 + kv_bytes(keys, Hkv, D, quant))
     b_ms, b_by = bound(nbytes, 4 * D * Hq * pairs)
+    rec["work"] = (nbytes, 4 * D * Hq * pairs)
     S = nblk * bs
     kpos = torch.arange(S, device="cuda")
     qpos = st[:, None] + torch.arange(T, device="cuda")[None]
@@ -4420,6 +4450,395 @@ def phase_train_families(steps=4):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 17: head-sharded paged serving (--pjit-decode)
+# ---------------------------------------------------------------------------
+
+TP_REQUESTS = 16               # phase 3's first 16 requests
+TP_NEW_TOKENS = 40
+TP_CODEQWEN_REQUESTS = 8
+TP_CODEQWEN_BS = 32            # bf16 K/V of 32 slots: 4.3 GB
+TP_WITNESS_BS = 64             # the witness's waves: rows see no other slot
+# kernels #1-#4 at the shards' shapes: minicpm-2b's 36 heads over 4 and
+# over 2 shards, and mistral-large-123b's 96 query heads on 8 kv heads
+# over 4 (its G = 12 takes the D = 128, R = 16 decode instance)
+TP_KERNEL_SHAPES = {"minicpm_tp4": dict(Hq=9, Hkv=9, D=64),
+                    "minicpm_tp2": dict(Hq=18, Hkv=18, D=64),
+                    "mistral_large_tp4": dict(Hq=24, Hkv=2, D=128)}
+
+
+def tp_mesh(devices):
+    from repro_torch.launch import mesh as meshlib
+    return meshlib.make_mesh((1, len(devices)), ("data", "model"), devices)
+
+
+def tp_wave(arch, kv_dtype, n_requests, devices=None, bs=None, params=None):
+    """Phase 3's first ``n_requests`` requests of ``arch`` at full width,
+    unsharded (``devices`` None) or over the service mesh of ``devices``
+    (the launcher's builder); every fused decode step's live rows' logits,
+    fed tokens and CUDA-event time recorded.  Returns (chains, steps,
+    runtime)."""
+    import torch
+    from repro_torch.launch.profile_step import wave_prompts, wave_runtime
+    from repro_torch.launch.steps import paged_decode_builder
+    from repro_torch.serving.engine import GenerationRequest
+    builder = (None if devices is None
+               else paged_decode_builder(tp_mesh(devices)))
+    kw = {} if params is None else {"params": params}
+    cfg, rt = wave_runtime(kv_dtype, 0, TP_NEW_TOKENS, arch=arch, bs=bs,
+                           paged_step_builder=builder, **kw)
+    for rid, prompt in enumerate(wave_prompts(cfg.vocab_size)[:n_requests]):
+        rt.submit(GenerationRequest(rid=rid, tokens=prompt,
+                                    max_new_tokens=TP_NEW_TOKENS,
+                                    stream=rid))
+    steps, decode = [], rt._paged_decode
+
+    def recorded(arena, tokens, live, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits = decode(arena, tokens, live, **kw)
+        b.record()
+        steps.append((live.nonzero()[:, 0].cpu(), tokens[live].cpu(),
+                      logits[live], a, b))
+        return logits
+
+    rt._paged_decode = recorded
+    results = rt.drain()
+    torch.cuda.synchronize()
+    check(len(results) == n_requests,
+          f"{arch} tp wave served {len(results)}/{n_requests}")
+    chains = {r.rid: np.asarray(r.tokens) for r in results}
+    return chains, [(i, t, lg, a.elapsed_time(b))
+                    for i, t, lg, a, b in steps], rt
+
+
+def hold_tp_logits(label, base, sharded):
+    """Holds each decode step's logits of the sharded run to the base
+    run's as phase 8 (c) holds a step's (``PARITY_TOL`` of their norm),
+    over the live slots whose fed tokens so far are the same in both runs;
+    returns (steps held, rows, the worst step's share of the limit, the
+    worst single row's share: printed, not held)."""
+    import torch
+    check(len(base) == len(sharded),
+          f"{label}: {len(base)} vs {len(sharded)} decode steps")
+    same, n_steps, rows, worst, worst_row = {}, 0, 0, 0.0, 0.0
+    for (ia, ta, la, _), (ib, tb, lb, _) in zip(base, sharded):
+        check(torch.equal(ia, ib), f"{label}: the live slots differ")
+        keep = []
+        for j, slot in enumerate(ia.tolist()):
+            same[slot] = same.get(slot, True) and int(ta[j]) == int(tb[j])
+            if same[slot]:
+                keep.append(j)
+        if not keep:
+            continue
+        a, b = la[keep].float(), lb[keep].float()
+        share = ((b - a).norm() / (PARITY_TOL * a.norm())).item()
+        rows_share = ((b - a).norm(dim=1)
+                      / (PARITY_TOL * a.norm(dim=1))).max().item()
+        check(share <= 1, f"{label}: a decode step's logits differ by "
+              f"{share} of the limit ({PARITY_TOL} of their norm)")
+        n_steps, rows = n_steps + 1, rows + len(keep)
+        worst, worst_row = max(worst, share), max(worst_row, rows_share)
+    return n_steps, rows, worst, worst_row
+
+
+def tp_kv_witness(card0):
+    """``python3 chip_smoke.py --tp-witness``: what sets phase 17 (a)'s
+    logits gap, int8 K/V or the reduction's rounding.  minicpm-2b's wave at tp = 1 and tp = 4 (over
+    ``[card0] * 4``) with int8 and with bf16 K/V, at ``TP_WITNESS_BS``
+    slots, one weight draw for the four; each pair held as (a) holds its
+    own.  Returns {kv dtype: ``hold_tp_logits``'s tuple}."""
+    import torch
+    out, params = {}, None
+    for kv in ("int8", "bf16"):
+        runs = []
+        for devices in ([card0], [card0] * 4):
+            _, st, rt = tp_wave("minicpm-2b", kv, TP_REQUESTS,
+                                devices=devices, bs=TP_WITNESS_BS,
+                                params=params)
+            params = rt.params if params is None else params
+            runs.append(st)
+            del rt
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[kv] = hold_tp_logits(f"tp witness minicpm-2b {kv} tp = 4",
+                                 *runs)
+        print(f"tp witness: minicpm-2b {kv} K/V, {TP_WITNESS_BS} slots, "
+              f"tp = 4 against tp = 1: logits held on {out[kv][0]} steps "
+              f"({out[kv][1]} rows), worst step {out[kv][2]:.4f} of the "
+              f"limit (worst single row {out[kv][3]:.4f})")
+    return out
+
+
+def tp_kernel_cases():
+    """#1-#4 at the shards' shapes against their plain versions
+    (``check_rows`` and atol = rtol = TOL), the tp = 4 shapes timed; each
+    timed record's work equal to ``roofline/op_cost.py``'s rule for the
+    same arguments."""
+    import torch
+    from repro_torch.kernels.quant import QuantPages
+    from repro_torch.roofline.op_cost import kernel_work
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    rng = np.random.default_rng(17)
+    lens = phase3_lens(512)
+    out = {}
+    for shape, heads in TP_KERNEL_SHAPES.items():
+        timed = shape.endswith("tp4")
+        for quant in (False, True):
+            tag = "_quant" if quant else ""
+            rec = decode_case(gen, rng, B=512, lens=lens, quant=quant,
+                              timed=timed, **heads)
+            if timed:
+                meta = lambda *s, dt=torch.bfloat16: torch.empty(
+                    s, dtype=dt, device="meta")
+                pool = meta(4097, 32, heads["Hkv"], heads["D"])
+                if quant:
+                    pool = QuantPages(meta(*pool.shape, dt=torch.int8),
+                                      meta(*pool.shape[:3],
+                                           dt=torch.float32))
+                _, flops, nbytes = kernel_work(
+                    "paged_decode_attention",
+                    meta(512, heads["Hq"], heads["D"]), pool, pool,
+                    meta(512, 8, dt=torch.int32), torch.from_numpy(lens))
+                check((nbytes, flops) == rec["work"],
+                      f"op_cost's paged decode work {(nbytes, flops)} is "
+                      f"not the bound's {rec['work']}")
+            out[f"paged_decode_attention{tag}@{shape}"] = rec
+            rec = chunk_case(gen, rng, B=1, T=128, start=[64],
+                             chunk_len=[128], prefix_len=0, quant=quant,
+                             timed=timed, **heads)
+            out[f"paged_chunk_prefill_attention{tag}@{shape}"] = rec
+            torch.cuda.empty_cache()
+    for name, rec in out.items():
+        print(f"  phase 17 {name}: "
+              + json.dumps({k: v for k, v in rec.items() if k != "work"}))
+    return out
+
+
+def phase_tp(phase3_toks):
+    """Phase 17: minicpm-2b at its plan (512 slots, int8 K/V, the prefix
+    cache at its default) over the service mesh [cuda:0] (tp = 1: phase
+    3's chains exactly) and [cuda:0] * 4 (tp = 4, 9 heads a shard: first
+    tokens equal, logits held to ``PARITY_TOL``, splits printed with
+    their gaps, the kernel launches 4x); codeqwen1.5-7b (bf16 K/V, random
+    qkv biases) unsharded and at tp = 2 on 8 requests;
+    ``decode_cost_analysis`` beside the measured step time; the launcher
+    with ``--pjit-decode``; #1-#4 at the shards' shapes.  Every count is
+    zeroed just before the phase and read after the launcher, before the
+    kernel comparisons.  Returns the counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.profile_step import wave_prompts, wave_runtime
+    from repro_torch.models.registry import model_api
+    n_cards = torch.cuda.device_count()
+    print(f"phase 17: {n_cards} card(s) on this machine")
+    reset_launches()
+    card0 = torch.device("cuda", 0)
+    base, base_steps, rt = tp_wave("minicpm-2b", "int8", TP_REQUESTS,
+                                   devices=[card0])
+    check(rt.sharded_step.tp == 1 and rt.kv_dtype == "int8"
+          and rt.prefix_cache_enabled and rt.plan.max_in_flight == 512,
+          "phase 17: minicpm-2b is not at its plan")
+    for rid, toks in base.items():
+        check(np.array_equal(toks, phase3_toks[rid]),
+              f"phase 17: tp = 1 request {rid}'s chain is not phase 3's")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    c0 = launch_counts()
+    t0 = time.perf_counter()
+    got, steps4, rt = tp_wave("minicpm-2b", "int8", TP_REQUESTS,
+                              devices=[card0] * 4)
+    wall = time.perf_counter() - t0
+    grown = {k: v - c0[k] for k, v in launch_counts().items()}
+    L = rt.cfg.num_layers
+    check(grown["paged_decode_attention_quant"] == 4 * L * rt.decode_steps
+          and grown["paged_chunk_prefill_attention_quant"]
+          == 4 * L * rt.prefill_chunk_calls,
+          f"phase 17: tp = 4 launches {grown} are not 4 a layer a step")
+    check(all(got[r][0] == base[r][0] for r in base),
+          "phase 17: a tp = 4 first token differs from tp = 1's")
+    held = hold_tp_logits("phase 17 minicpm-2b tp = 4", base_steps, steps4)
+    params = rt.params
+    splits = chain_splits(rt.cfg, params, base, got,
+                          wave_prompts(rt.cfg.vocab_size)[:TP_REQUESTS])
+    step_ms = [ms for *_, ms in steps4]
+    base_ms = [ms for *_, ms in base_steps]
+    cost4 = rt.decode_cost_analysis()
+    print(f"phase 17 (a) minicpm-2b int8, 512 slots, {TP_REQUESTS} "
+          f"requests: tp = 4 over [cuda:0] * 4, {rt.decode_steps} decode "
+          f"steps, {rt.prefill_chunk_calls} chunks, {wall:.3f} s, launches "
+          f"{grown}, mesh reductions {rt.sharded_step.mesh.reduce_calls} "
+          f"({rt.sharded_step.mesh.reduce_bytes / 1e9:.3f} GB); logits "
+          f"held on {held[0]} steps ({held[1]} rows), worst step "
+          f"{held[2]:.4f} of the limit (worst single row {held[3]:.4f}); "
+          f"{sum(np.array_equal(got[r], base[r]) for r in base)}/"
+          f"{len(base)} chains equal tp = 1's, splits {splits}; "
+          f"{prefix_counters(rt)}")
+    print(f"phase 17 (d) decode step, CUDA events: tp = 1 median "
+          f"{statistics.median(base_ms):.3f} ms, tp = 4 median "
+          f"{statistics.median(step_ms):.3f} ms; decode_cost_analysis tp "
+          f"= 4: " + json.dumps(cost4))
+    del rt, steps4, base_steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, rt = wave_runtime("int8", 0)
+    cost1 = rt.decode_cost_analysis()
+    check(cost1["aten_flops"] == cost4["aten_flops"]
+          and cost1["kernel_flops"] == cost4["kernel_flops"],
+          "phase 17: the sharded step's FLOPs are not the unsharded one's")
+    print("phase 17 (d) decode_cost_analysis tp = 1 (every slot at the "
+          "full table width, as a static step counts it): "
+          + json.dumps(cost1))
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) codeqwen1.5-7b: D = 128, bf16 K/V, qkv biases drawn so that
+    # their split is exercised, unsharded and over [cuda:0] * 2
+    cfg = get_config("codeqwen1.5-7b")
+    params = model_api(cfg).init(1, cfg, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    for name in ("bq", "bk", "bv"):
+        b = params["blocks"]["attn"][name]
+        b.copy_(0.02 * torch.randn(b.shape, generator=gen, device="cuda"))
+    runs = {}
+    for label, devices in (("unsharded", None), ("tp2", [card0] * 2)) + (
+            (("tp2_two_cards", [card0, torch.device("cuda", 1)]),)
+            if n_cards > 1 else ()):
+        chains, st, rt = tp_wave("codeqwen1.5-7b", "bf16",
+                                 TP_CODEQWEN_REQUESTS, devices=devices,
+                                 bs=TP_CODEQWEN_BS, params=params)
+        check(rt.kv_dtype == "bf16", "phase 17: codeqwen is not bf16 K/V")
+        runs[label] = (chains, st)
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    base, base_steps = runs["unsharded"]
+    for label in runs:
+        if label == "unsharded":
+            continue
+        got, st = runs[label]
+        check(all(got[r][0] == base[r][0] for r in base),
+              f"phase 17 codeqwen {label}: a first token differs")
+        held = hold_tp_logits(f"phase 17 codeqwen {label}", base_steps,
+                              st)
+        splits = chain_splits(cfg, params, base, got,
+                              wave_prompts(cfg.vocab_size)[
+                                  :TP_CODEQWEN_REQUESTS])
+        print(f"phase 17 (b) codeqwen1.5-7b bf16, {TP_CODEQWEN_BS} slots, "
+              f"{TP_CODEQWEN_REQUESTS} requests, {label}: logits held on "
+              f"{held[0]} steps ({held[1]} rows), worst step "
+              f"{held[2]:.4f} of the limit (worst single row "
+              f"{held[3]:.4f}); "
+              f"{sum(np.array_equal(got[r], base[r]) for r in base)}/"
+              f"{len(base)} chains equal the unsharded run's, splits "
+              f"{splits}")
+    if n_cards == 1:
+        print("phase 17 (b): one card, so the cross-card copies of the "
+              "mesh's reductions are unchecked")
+    del params, runs, base_steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("phase 17 (e) the launcher with --pjit-decode:")
+    rc = serve.main(["--pjit-decode", "--requests", "8",
+                     "--max-new-tokens", "8"])
+    check(rc == 0, f"the launcher with --pjit-decode exited {rc}")
+    # the serving runs' launches; (c)'s comparisons are not counted
+    counts = launch_counts()
+    print("phase 17 (c) #1-#4 at the shards' shapes:")
+    tp_kernel_cases()
+    return counts
+
+
+
+def across_cards():
+    """``python3 chip_smoke.py --across-cards`` on a machine with four
+    cards: phase 17's minicpm-2b wave at tp = 4 over cuda:0-3 against the
+    same wave over ``[cuda:0] * 4`` (chains and logits), the launcher's
+    (1, 4) service mesh, and mistral-large-123b (246 GB of bf16 weights)
+    drawn shard by shard over the four cards by ``init_sharded`` and
+    served without the whole tree.  Returns the exit code."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import serve
+    from repro_torch.launch.profile_step import wave_prompts
+    from repro_torch.launch.steps import init_sharded, paged_decode_builder
+    from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    check(len(cards) >= 4, f"--across-cards needs 4 cards, found {len(cards)}")
+    peaks = lambda: [round(torch.cuda.max_memory_allocated(d) / 1e9, 2)
+                     for d in cards]
+    t0 = time.perf_counter()
+    one, st_one, rt = tp_wave("minicpm-2b", "int8", TP_REQUESTS,
+                              devices=[cards[0]] * 4)
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    four, st_four, rt = tp_wave("minicpm-2b", "int8", TP_REQUESTS,
+                                devices=cards[:4])
+    held = hold_tp_logits("across cards, minicpm-2b tp = 4", st_one,
+                          st_four)
+    same = sum(np.array_equal(one[r], four[r]) for r in one)
+    check(same == len(one), f"across cards: {same}/{len(one)} chains equal")
+    print(f"across cards (a) minicpm-2b tp = 4 over cuda:0-3 against "
+          f"[cuda:0] * 4: {same}/{len(one)} chains equal, logits held on "
+          f"{held[0]} steps, worst {held[2]} of the limit; decode step "
+          f"median (CUDA events) one card "
+          f"{statistics.median([s[3] for s in st_one]):.3f} ms, 4 cards "
+          f"{statistics.median([s[3] for s in st_four]):.3f} ms; "
+          f"{rt.sharded_step.mesh.reduce_calls} reductions "
+          f"({rt.sharded_step.mesh.reduce_bytes / 1e9:.3f} GB); peak GB "
+          f"by card {peaks()}; {time.perf_counter() - t0:.1f} s")
+    del rt, st_one, st_four
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc = serve.main(["--pjit-decode", "--requests", "8",
+                     "--max-new-tokens", "8"])
+    check(rc == 0, f"the launcher on the (1, 4) mesh exited {rc}")
+    print("across cards (b) the launcher with --pjit-decode on the (1, 4) "
+          "mesh: exit 0")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    cfg = get_config("mistral-large-123b")
+    mesh = meshlib.make_mesh((1, 4), ("data", "model"), cards[:4])
+    t0 = time.perf_counter()
+    shards = init_sharded(1, cfg, mesh)
+    held_gb = [round(torch.cuda.memory_allocated(d) / 1e9, 2)
+               for d in cards]
+    rt = ServiceRuntime(cfg, None, serve.plan_for(cfg, bs=32),
+                        device=cards[0],
+                        paged_step_builder=paged_decode_builder(
+                            mesh, shards=shards))
+    for rid, p in enumerate(wave_prompts(cfg.vocab_size)[:4]):
+        rt.submit(GenerationRequest(rid=rid, tokens=p, max_new_tokens=16,
+                                    stream=rid))
+    t1 = time.perf_counter()
+    results = rt.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    toks = [r.tokens.tolist() for r in results]
+    check(len(results) == 4 and all(
+        len(t) == 16 and min(t) >= 0 and max(t) < cfg.vocab_size
+        for t in toks), f"mistral-large-123b served {toks}")
+    print(f"across cards (c) mistral-large-123b over 4 cards "
+          f"(init_sharded, no whole tree), 32 slots, bf16 K/V: weights GB "
+          f"by card {held_gb}; 4 requests, {sum(map(len, toks))} tokens in "
+          f"{dt:.2f} s, {rt.decode_steps} decode steps, "
+          f"{rt.prefill_chunk_calls} chunks; peak GB by card {peaks()}; "
+          f"{time.perf_counter() - t0:.1f} s with the draws")
+    return 0
+
+
 def small_input_check():
     """The models on the card (CUDA kernels) against the same models and
     weights on the CPU (plain versions), in bf16 at a reduced width: one
@@ -5107,6 +5526,14 @@ def main() -> int:
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({build.BUILD_ROOT})")
+    if sys.argv[1:] == ["--across-cards"]:
+        rc = across_cards()
+        print(card)
+        return rc
+    if sys.argv[1:] == ["--tp-witness"]:
+        tp_kv_witness(torch.device("cuda", 0))
+        print(card)
+        return 0
     for name, log in build.build_log.items():
         for kernel, line in ptxas_lines(log):
             print(f"  ptxas {name} {kernel}: {line}")
@@ -5228,6 +5655,16 @@ def main() -> int:
     for name in launches:
         launches[name] += family_launches.get(name, 0)
     stamp[0] = time.perf_counter()
+    print("phase 17: head-sharded paged serving (--pjit-decode), "
+          "minicpm-2b at tp = 1 and 4, codeqwen1.5-7b at tp = 2")
+    tp_launches = phase_tp(int8_toks)
+    for name in ("paged_decode_attention", "paged_decode_attention_quant",
+                 "paged_chunk_prefill_attention",
+                 "paged_chunk_prefill_attention_quant"):
+        check(tp_launches[name] > 0, f"phase 17 never launched {name}")
+    for name in launches:
+        launches[name] += tp_launches.get(name, 0)
+    phase_time("phase 17")
     small_input_check()
     phase_time("small-input check")
 
@@ -5241,6 +5678,7 @@ def main() -> int:
                         "zamba2_launches": hybrid_launches.get(name, 0),
                         "train_families_launches": family_launches.get(
                             name, 0),
+                        "tp_launches": tp_launches.get(name, 0),
                         **{k: rec[k] for k in RECORD_KEYS}})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
     check(len(kernels) == 10, f"expected ten kernels, got {len(kernels)}")

@@ -129,6 +129,10 @@ from repro_torch.core.faults import (FaultInjector, FaultSpec,
                                      random_fault_spec)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import launch_counts
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch.steps import (TP_ITEM, abstract_params,
+                                      init_sharded, paged_decode_builder,
+                                      tp_refusal)
 from repro_torch.models.registry import model_api
 from repro_torch.obs import (MetricsRegistry, Tracer, merge_telemetry,
                              telemetry_from_runtime, write_calibration)
@@ -140,9 +144,8 @@ from repro_torch.serving.failover import ClusterSupervisor, RetryPolicy
 
 # reference flags that are accepted but only at their defaults: the value
 # that would need an unported part names the ROADMAP.md item porting it
-_UNPORTED_FLAGS = (
-    ("pjit_decode", False, "ROADMAP.md Queue 1 item 13 (launch tooling)"),
-)
+# (none left)
+_UNPORTED_FLAGS: Tuple = ()
 # what a run holds on the card beyond its weights and arenas.  Measured on
 # an H100 80GB HBM3 (700 W): the caching allocator's peak reserve ran up to
 # 4.15 GB above the static sum (--archs minicpm-2b,minitron-4b
@@ -203,27 +206,57 @@ def draft_compatible(cfg, draft_cfg) -> bool:
             and cfg.family in PREFIX_CACHEABLE_FAMILIES)
 
 
-def _arena_bytes(cfg, plan, args, kv_dtype: str) -> int:
-    """One DP group's arena, built on the meta device (nothing
+def _arena_bytes(cfg, plan, args, kv_dtype: str, tp: int = 1) -> int:
+    """One DP group's arena on the first device of ``tp`` model shards
+    (its pools split by kv head), built on the meta device (nothing
     allocated)."""
     arena = KVArena(cfg, model_api(cfg).init_cache,
                     capacity=plan.max_in_flight, max_seq_len=args.max_seq_len,
                     block_size=args.block_size, kv_dtype=kv_dtype,
-                    device="meta")
-    return arena.device_bytes()
+                    device="meta",
+                    shard_devices=["meta"] * tp if tp > 1 else None)
+    return arena.shard_bytes(0)
 
 
-def footprint(args, cp=None) -> Tuple[int, int]:
+def _shard_weight_bytes(cfg, mesh) -> int:
+    """Bytes of the first model shard's weights under the serving rules
+    (``param_specs(fsdp=False)``), from the abstract tree."""
+    params = abstract_params(cfg)
+    specs = dict(meshlib.tree_flatten_with_path(
+        meshlib.param_specs(mesh, params, fsdp=False)))
+    return sum(meshlib.shard_bytes(mesh, p, specs[path])
+               for path, p in meshlib.tree_flatten_with_path(params))
+
+
+def service_mesh(device):
+    """``--pjit-decode``'s service mesh: (1, device count) over the card's
+    devices, as the reference builds (1, jax.device_count()), or (1, 1) on
+    the CPU."""
+    if device.type == "cuda":
+        n = torch.cuda.device_count()
+        return meshlib.make_mesh((1, n), ("data", "model"),
+                                 [torch.device("cuda", i) for i in range(n)])
+    return meshlib.make_mesh((1, 1), ("data", "model"), [device])
+
+
+def footprint(args, cp=None, mesh=None) -> Tuple[int, int]:
     """(weight bytes, arena bytes) that the run of ``args`` holds on the
     card at full width, computed from the configs and plans without
     allocating: each distinct arch's bf16 weights once (the draft's too),
     and the arenas of every placed runtime, one a DP group, with a bf16
-    draft arena beside each group of a service that speculates."""
+    draft arena beside each group of a service that speculates.  With a
+    service ``mesh`` of several model shards (``--pjit-decode``), the
+    first card's share, the most any card holds: the first shard's
+    weights (``init_sharded`` draws no whole tree) and pools."""
     arch_ids = [a.strip() for a in args.archs.split(",")]
     if cp is None:
         cp = control_plane(arch_ids, args.servers)
+    tp = 1 if mesh is None else mesh.shape["model"]
     archs = set(arch_ids) | ({args.draft_arch} if args.draft_arch else set())
-    weights = sum(get_config(a).param_count() * 2 for a in archs)
+    weights = (sum(get_config(a).param_count() * 2 for a in archs)
+               if tp == 1 else
+               sum(_shard_weight_bytes(get_config(a), mesh)
+                   for a in arch_ids))
     draft = get_config(args.draft_arch) if args.draft_arch else None
     arenas = 0
     if args.mode == "continuous" and args.kvcache_impl == "paged":
@@ -231,12 +264,38 @@ def footprint(args, cp=None) -> Tuple[int, int]:
             if sid < 0:
                 continue
             full, plan = get_config(svc), deployed_plan(cp, svc, args)
-            group = _arena_bytes(full, plan, args, plan.resolved_kv_dtype())
+            group = _arena_bytes(full, plan, args, plan.resolved_kv_dtype(),
+                                 tp)
             if draft_compatible(full, draft) \
                     and plan.resolved_speculate(True) > 0:
                 group += _arena_bytes(draft, plan, args, "bf16")
             arenas += group * max(1, plan.dp)
     return weights, arenas
+
+
+def _refuse_what_tp_cannot_serve(args, cfgs, cp, mesh, draft_cfg) -> None:
+    """Raise before anything is allocated when ``--pjit-decode`` would put
+    a placed service on a path the head-sharded step does not serve."""
+    tp = mesh.shape["model"]
+    if tp > 1 and args.no_chunked_prefill:
+        raise ValueError(
+            f"--pjit-decode over {tp} model shards: --no-chunked-prefill's "
+            f"one-shot prefill runs the whole parameter tree, which no card "
+            f"holds ({TP_ITEM})")
+    budget = -(-args.max_seq_len // args.block_size) * args.block_size
+    for svc in sorted({s for s, sid in cp.placements if sid >= 0}):
+        cfg = cfgs[svc]
+        ring = (cfg.sliding_window is not None
+                and cfg.sliding_window < budget)
+        why = tp_refusal(
+            cfg, tp, mode=args.mode, kvcache_impl=args.kvcache_impl,
+            paged_native=(args.mode == "continuous"
+                          and args.kvcache_impl == "paged"
+                          and model_api(cfg).decode_step_paged is not None
+                          and not ring),
+            draft=draft_compatible(cfg, draft_cfg))
+        if why is not None:
+            raise ValueError(f"--pjit-decode: {why}")
 
 
 PROMPT_TOKENS = 6               # the launcher's prompt length
@@ -262,24 +321,30 @@ def _refuse_requests_over_the_budget(args, cfgs) -> None:
                 f"{need} or more")
 
 
-def _refuse_what_does_not_fit(args, arch_ids, cp, have: int) -> None:
+def _refuse_what_does_not_fit(args, arch_ids, cp, have: int,
+                              mesh=None) -> None:
     """Raise before anything is allocated when the weights of an arch, or
-    the whole run with ``HEADROOM_BYTES``, exceed the card's memory."""
+    the whole run with ``HEADROOM_BYTES``, exceed the card's memory (the
+    first card's share over a service ``mesh``)."""
+    tp = 1 if mesh is None else mesh.shape["model"]
     for a in arch_ids + ([args.draft_arch] if args.draft_arch else []):
-        need = get_config(a).param_count() * 2
+        need = (get_config(a).param_count() * 2 if tp == 1
+                else _shard_weight_bytes(get_config(a), mesh))
         if need > have:
             smoke = ("chip_smoke.py serves it at 16 of its 32 layers, "
                      if a == "mixtral-8x7b" else "")
+            shard = f" (one of {tp} shards)" if tp > 1 else ""
             raise RuntimeError(
-                f"{a}'s bf16 weights ({need / 1e9:.1f} GB) exceed the "
-                f"card's memory ({have / 1e9:.1f} GB) at full width; "
+                f"{a}'s bf16 weights{shard} ({need / 1e9:.1f} GB) exceed "
+                f"the card's memory ({have / 1e9:.1f} GB) at full width; "
                 f"{smoke}--device cpu serves its reduced config")
-    weights, arenas = footprint(args, cp)
+    weights, arenas = footprint(args, cp, mesh)
     if weights + arenas + HEADROOM_BYTES <= have:
         return
     fits = next((n for n in range(args.servers - 1, 0, -1)
                  if sum(footprint(argparse.Namespace(**{**vars(args),
-                                                       "servers": n})))
+                                                       "servers": n}),
+                                  mesh=mesh))
                  + HEADROOM_BYTES <= have), None)
     hint = (f"--servers {fits} fits" if fits is not None else
             "no --servers count fits at these flags")
@@ -388,8 +453,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--retry-max-attempts", type=int, default=4,
                     help="placement attempts per request before a dead "
                          "avenue draws an explicit FAILED verdict")
-    # accepted for the reference's command lines; see _UNPORTED_FLAGS
-    ap.add_argument("--pjit-decode", action="store_true")
+    ap.add_argument("--pjit-decode", action="store_true",
+                    help="serve each dense service split by heads over the "
+                         "service mesh (1, device count): the paged decode "
+                         "and chunk steps run shard by shard (EPARA's "
+                         "model-parallel mode)")
     return ap
 
 
@@ -465,10 +533,19 @@ def main(argv=None) -> int:
     # control plane: EPARA allocator + SSSP placement + handler
     cp = control_plane(arch_ids, args.servers)
     placements = cp.placements
+    mesh = step_builder = None
+    if args.pjit_decode:
+        mesh = service_mesh(device)
+        draft_cfg = None
+        if args.draft_arch:
+            full = get_config(args.draft_arch)
+            draft_cfg = full if device.type == "cuda" else reduced(full)
+        _refuse_what_tp_cannot_serve(args, cfgs, cp, mesh, draft_cfg)
+        step_builder = paged_decode_builder(mesh)
     if device.type == "cuda":
         _refuse_what_does_not_fit(
             args, arch_ids, cp,
-            torch.cuda.get_device_properties(device).total_memory)
+            torch.cuda.get_device_properties(device).total_memory, mesh)
     plans = {a: deployed_plan(cp, a, args) for a in arch_ids}
     print("EPARA plans:")
     for a, plan in plans.items():
@@ -476,6 +553,9 @@ def main(argv=None) -> int:
               f"mt={plan.mt} mf={plan.mf} dp={plan.dp} "
               f"kv={plan.resolved_kv_dtype()}")
     print(f"placements: {placements}")
+    if mesh is not None:
+        print(f"service mesh: {dict(mesh.shape)} over "
+              f"{[str(d) for d in mesh.devices]} (tp={mesh.shape['model']})")
 
     # data plane: one engine per server
     engines = {s.sid: EparaServingEngine() for s in cp.servers}
@@ -493,6 +573,14 @@ def main(argv=None) -> int:
                 zlib.crc32(arch.encode()) + args.seed, cfg, device)
         return weights[arch]
 
+    def sharded_of(arch, cfg):
+        """(None, a builder over the arch's shards) over several model
+        shards: each card draws and holds its shards alone."""
+        if arch not in weights:
+            weights[arch] = init_sharded(
+                zlib.crc32(arch.encode()) + args.seed, cfg, mesh)
+        return None, paged_decode_builder(mesh, shards=weights[arch])
+
     draft_cfg = draft_params = None
     if args.draft_arch:
         full = get_config(args.draft_arch)
@@ -508,8 +596,11 @@ def main(argv=None) -> int:
         if draft_cfg is not None and not compat and args.speculate <= 0:
             print(f"  note: {svc} incompatible with draft "
                   f"{args.draft_arch} (family/vocab) — non-speculative")
+        params, builder = ((params_of(svc, cfg), step_builder)
+                           if mesh is None or mesh.shape["model"] == 1
+                           else sharded_of(svc, cfg))
         engines[sid].deploy(svc, ServiceRuntime(
-            cfg, params_of(svc, cfg), plans[svc], mode=args.mode,
+            cfg, params, plans[svc], mode=args.mode,
             kvcache_impl=args.kvcache_impl, max_seq_len=args.max_seq_len,
             block_size=args.block_size,
             chunked_prefill=False if args.no_chunked_prefill else None,
@@ -517,7 +608,7 @@ def main(argv=None) -> int:
             preempt=not args.no_preempt, device=device,
             draft_params=draft_params if compat else None,
             draft_cfg=draft_cfg if compat else None,
-            tracer=tracer, metrics=metrics))
+            paged_step_builder=builder, tracer=tracer, metrics=metrics))
 
     # drive requests through handler -> engine, supervised: the supervisor
     # owns the ledger (every rid ends served or verdicted), the

@@ -1,0 +1,533 @@
+"""Step builders (the port of the reference package's ``launch/steps.py``).
+
+``build_step`` returns a ``StepBundle``: the step as a callable, its
+argument tree as fake tensors (nothing allocated on a device) and the
+spec trees, for one (arch x input shape x mesh).  ``dryrun.py`` traces
+it under the bundle's ``FakeTensorMode``.
+
+Shape -> step mapping:
+  train_4k               -> train_step (loss + grads + optimizer update)
+  prefill_32k            -> serve_prefill (logits of last position + cache)
+  decode_32k / long_500k -> serve_decode (ONE token vs a seq_len cache)
+
+The port trains and prefills nothing sharded: the bundle's step is the
+whole step, and its spec trees say how the reference's pjit would place
+its arguments.
+
+``paged_decode_builder`` is the serving side: a dense service's paged
+decode and chunk steps split by heads over the ``model`` axis of a
+service mesh (EPARA's model-parallel mode, ``--pjit-decode``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch.configs import config_for_shape, reduced
+from repro_torch.kernels.quant import QuantPages
+from repro_torch.models import layers, transformer
+from repro_torch.models.config import ModelConfig, SHAPES_BY_NAME, ShapeSpec
+from repro_torch.models.registry import model_api
+from repro_torch.training.optimizer import get_optimizer
+from repro_torch.training.train_step import make_train_step
+
+from . import mesh as meshlib
+
+ADAFACTOR_THRESHOLD = 50e9     # params above this train with adafactor
+
+# what the head-sharded step does not cover yet, named by the ROADMAP.md
+# Queue 1 item that would port it
+TP_ITEM = "ROADMAP.md Queue 1 item 15 (tensor parallelism beyond the dense " \
+          "paged-native path)"
+
+
+def choose_optimizer(cfg: ModelConfig) -> str:
+    return "adafactor" if cfg.param_count() > ADAFACTOR_THRESHOLD \
+        else "adamw"
+
+
+def choose_microbatches(cfg: ModelConfig, shape: ShapeSpec,
+                        batch_shards: int = 16) -> int:
+    if shape.kind != "train":
+        return 1
+    if cfg.param_count() > ADAFACTOR_THRESHOLD:
+        k = 16
+    elif cfg.param_count() > 5e9:
+        k = 4
+    else:
+        k = 2
+    # each microbatch must still shard evenly over the batch axes
+    while k > 1 and (shape.global_batch // k) % batch_shards != 0:
+        k //= 2
+    return k
+
+
+# ---------------------------------------------------------------------------
+# abstract trees: shapes and dtypes, nothing allocated
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg: ModelConfig, mode: Optional[FakeTensorMode] = None):
+    """``cfg``'s parameter tree as fake CPU tensors made under ``mode`` (a
+    new ``FakeTensorMode`` unless given): the init runs, its draws and
+    buffers are fake, so a full-width tree costs no memory."""
+    mode = mode or FakeTensorMode()
+    with mode:
+        return model_api(cfg).init(0, cfg, "cpu")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                mode: FakeTensorMode) -> Dict[str, Any]:
+    """Fake tensors for every model input of (cfg, shape), as the
+    reference's ``registry.input_specs`` gives them."""
+    B, L = shape.global_batch, shape.seq_len
+    tok = dict(dtype=torch.int32, device="cpu")
+    with mode:
+        specs: Dict[str, Any] = {}
+        if shape.kind == "train":
+            specs["tokens"] = torch.zeros((B, L), **tok)
+            specs["labels"] = torch.zeros((B, L), **tok)
+        elif shape.kind == "prefill":
+            specs["tokens"] = torch.zeros((B, L), **tok)
+        else:   # decode: one new token + a cache of length L (built apart)
+            specs["token"] = torch.zeros((B,), **tok)
+        emb = dict(dtype=cfg.compute_dtype, device="cpu")
+        if cfg.family == "audio" and shape.kind != "decode":
+            specs["embeddings"] = torch.zeros(
+                (B, cfg.encoder_len, cfg.d_model), **emb)
+        if cfg.family == "vlm" and shape.kind != "decode":
+            specs["embeddings"] = torch.zeros(
+                (B, cfg.prefix_len, cfg.d_model), **emb)
+            # text tokens shrink so prefix + text == the assigned seq_len
+            specs["tokens"] = torch.zeros((B, L - cfg.prefix_len), **tok)
+            if shape.kind == "train":
+                specs["labels"] = torch.zeros((B, L - cfg.prefix_len),
+                                              **tok)
+    return specs
+
+
+@dataclasses.dataclass
+class StepBundle:
+    name: str
+    fn: Callable                     # the whole step, run eagerly
+    args: Tuple[Any, ...]            # fake tensor trees
+    in_specs: Tuple[Any, ...]        # spec trees of ``args``
+    out_specs: Any
+    cfg: ModelConfig
+    shape: ShapeSpec
+    mesh: Any
+    mode: FakeTensorMode             # the mode ``args`` were made under
+    microbatches: int = 1
+    optimizer: str = "none"
+
+
+def build_step(arch: str, shape_name: str, mesh, *,
+               fsdp_params: bool = True,
+               microbatches: Optional[int] = None,
+               optimizer_name: Optional[str] = None,
+               pad_vocab_multiple: Optional[int] = None,
+               serve_2d_tp: bool = False,
+               expert_parallel: bool = False,
+               reduce: bool = False) -> StepBundle:
+    """The step of (arch, shape) with its fake argument trees and spec
+    trees over ``mesh``.  The reference also lowers the step
+    (``lower_step``); the port compiles nothing, so there is no
+    ``lower_step``: ``dryrun.py`` traces ``fn(*args)`` under ``mode``.
+    ``reduce`` takes the arch's reduced config (at the same shape)."""
+    cfg = config_for_shape(arch, shape_name)
+    if reduce:
+        cfg = reduced(cfg)
+    if pad_vocab_multiple:
+        v = -(-cfg.vocab_size // pad_vocab_multiple) * pad_vocab_multiple
+        cfg = dataclasses.replace(cfg, vocab_size=v)
+    shape = SHAPES_BY_NAME[shape_name]
+    api = model_api(cfg)
+    mode = FakeTensorMode()
+    params = abstract_params(cfg, mode)
+    pspecs = meshlib.param_specs(mesh, params, fsdp=fsdp_params,
+                                 expert_parallel=expert_parallel)
+    batch = input_specs(cfg, shape, mode)
+
+    if shape.kind == "train":
+        opt_name = optimizer_name or choose_optimizer(cfg)
+        opt = get_optimizer(opt_name)
+        batch_shards = 1
+        for ax in ("pod", "data"):
+            batch_shards *= mesh.shape.get(ax, 1)
+        nmb = microbatches or choose_microbatches(cfg, shape, batch_shards)
+        with mode:
+            opt_state = opt.init(params)
+        ospecs = meshlib.opt_state_specs(mesh, opt_state, pspecs)
+        bspecs = meshlib.batch_specs(mesh, batch)
+        # bf16 grad accumulation for 100B+ configs, as the reference's
+        accum = (torch.bfloat16 if cfg.param_count() > ADAFACTOR_THRESHOLD
+                 else torch.float32)
+        fn = make_train_step(cfg, opt, num_microbatches=nmb,
+                             accum_dtype=accum)
+        args, in_specs = (params, opt_state, batch), (pspecs, ospecs, bspecs)
+        out_specs = (pspecs, ospecs, None)
+        name = f"{arch}:{shape_name}:train[{opt_name},mb={nmb}]"
+    elif shape.kind == "prefill":
+        bspecs = meshlib.batch_specs(mesh, batch)
+        cache_size = shape.seq_len
+
+        def fn(p, b):
+            with torch.no_grad():
+                return api.prefill(p, cfg, b, cache_size=cache_size)
+
+        with mode:
+            cache = api.init_cache(cfg, shape.global_batch, cache_size,
+                                   device="cpu")
+        cspecs = meshlib.cache_specs(mesh, cache)
+        args, in_specs = (params, batch), (pspecs, bspecs)
+        out_specs = (None, cspecs)
+        name = f"{arch}:{shape_name}:prefill"
+    else:  # decode
+        with mode:
+            cache = api.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                   device="cpu")
+            # the cache arrives full: len = seq_len
+            cache["len"] = torch.full((), shape.seq_len, dtype=torch.int32)
+        cspecs = meshlib.cache_specs(mesh, cache,
+                                     replicate_batch=serve_2d_tp)
+        token = batch["token"]
+        tspec = meshlib.batch_specs(mesh, {"token": token},
+                                    replicate_batch=serve_2d_tp)["token"]
+
+        def fn(p, tok, c):
+            with torch.no_grad():
+                return api.decode_step(p, cfg, tok, c)
+
+        args, in_specs = (params, token, cache), (pspecs, tspec, cspecs)
+        out_specs = (None, cspecs)
+        name = f"{arch}:{shape_name}:decode" + \
+            ("[2dtp]" if serve_2d_tp else "")
+    return StepBundle(name=name, fn=fn, args=args, in_specs=in_specs,
+                      out_specs=out_specs, cfg=cfg, shape=shape, mesh=mesh,
+                      mode=mode,
+                      microbatches=nmb if shape.kind == "train" else 1,
+                      optimizer=(opt_name if shape.kind == "train"
+                                 else "none"))
+
+
+# ---------------------------------------------------------------------------
+# serving: head-sharded paged decode and chunk steps (EPARA's MP mode)
+# ---------------------------------------------------------------------------
+
+def _paged_leaf_spec(mesh, leaf):
+    """Spec for one arena device buffer.  Page pools
+    ``(layers, pages, block_size, Hkv, D)`` shard their head/head_dim axes
+    over the model axis, while the PAGE axis stays replicated (the block
+    table's page indirection must resolve locally).  Smaller state leaves
+    shard their channel axis when divisible."""
+    nd = leaf.ndim
+    if nd >= 4:
+        prefs: Dict[Any, list] = {"model": [nd - 2, nd - 1]}
+    elif nd >= 3:
+        prefs = {"model": [nd - 1]}
+    else:
+        prefs = {}
+    return meshlib._pick(mesh, tuple(leaf.shape), prefs)
+
+
+def _pool_sharding(mesh, pool):
+    """Spec(s) for one page pool.  An int8 pool is two leaves: the values
+    shard like a dense pool, the per-row scale pool ``(layers, pages,
+    block_size, Hkv)`` only its trailing Hkv axis, never the token
+    axis."""
+    if isinstance(pool, QuantPages):
+        return QuantPages(
+            _paged_leaf_spec(mesh, pool.values),
+            meshlib._pick(mesh, tuple(pool.scales.shape),
+                          {"model": [pool.scales.ndim - 1]}))
+    return _paged_leaf_spec(mesh, pool)
+
+
+def _model_dim(spec) -> Optional[int]:
+    return spec.index("model") if "model" in spec else None
+
+
+def _take(leaf, dim: int, s: int, n: int, sections=None):
+    """Shard ``s`` of ``n`` of ``leaf`` along ``dim``: one contiguous
+    block, or with ``sections`` (sizes along ``dim``) the s-th block of
+    every section, concatenated (a fused wqkv's q, k and v; a fused
+    gate|up's halves)."""
+    if sections is None:
+        size = leaf.shape[dim] // n
+        return leaf.narrow(dim, s * size, size)
+    parts, at = [], 0
+    for sec in sections:
+        size = sec // n
+        parts.append(leaf.narrow(dim, at + s * size, size))
+        at += sec
+    return torch.cat(parts, dim=dim)
+
+
+@dataclasses.dataclass
+class _Plan:
+    """How a dense config splits over ``tp`` shards."""
+    tp: int
+    cfg_shard: ModelConfig
+    vocab_split: bool
+    mlp_split: bool
+
+
+def _split_plan(cfg: ModelConfig, pspecs, tp: int) -> _Plan:
+    """Check the specs against what the head-sharded step can run and
+    return the plan: attention split by whole kv heads (the GQA group of
+    kv head j, query heads [j*G, (j+1)*G), on j's shard), the MLP by its
+    hidden columns where the rule divides them, the vocabulary where it
+    divides it."""
+    blocks = pspecs["blocks"]
+    for name, spec in blocks["attn"].items():
+        want = len(spec) - (2 if name == "wo" else 1)
+        if tp > 1 and _model_dim(spec) != want:
+            raise ValueError(f"{cfg.name}: attn/{name} spec {spec} does not "
+                             f"split heads ({TP_ITEM})")
+    mlp = {n: _model_dim(s) for n, s in blocks["mlp"].items()}
+    split = {n: d is not None for n, d in mlp.items()}
+    if len(set(split.values())) > 1:
+        raise ValueError(f"{cfg.name}: the MLP's specs split some of its "
+                         f"leaves and not others: {blocks['mlp']} "
+                         f"({TP_ITEM})")
+    embed = pspecs["embed"]
+    vsplit = _model_dim(embed["embedding"]) is not None
+    if "unembed" in embed and (_model_dim(embed["unembed"]) is not None) \
+            != vsplit:
+        raise ValueError(f"{cfg.name}: embedding and unembed split "
+                         f"differently ({TP_ITEM})")
+    return _Plan(tp=tp, cfg_shard=dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tp,
+        num_kv_heads=cfg.num_kv_heads // tp),
+        vocab_split=vsplit, mlp_split=all(split.values()))
+
+
+def shard_params(params, cfg: ModelConfig, pspecs, devices: List) -> List:
+    """Split a dense parameter tree into one tree a shard, on the shard's
+    device, by the spec tree: a leaf the spec replicates is the same
+    tensor on every shard on its device (no copy), a split leaf's block is
+    copied out.  The fused ``wqkv``/``bqkv`` split q, k and v by heads and
+    ``w_gateup`` its gate and up halves, never contiguous columns across
+    sections."""
+    tp = len(devices)
+    hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    sections = {"wqkv": (nq * hd, nkv * hd, nkv * hd),
+                "bqkv": (nq * hd, nkv * hd, nkv * hd),
+                "w_gateup": (cfg.d_ff, cfg.d_ff)}
+    specs = dict(meshlib.tree_flatten_with_path(pspecs))
+
+    def build(s: int, dev):
+        def leaf(path, t):
+            dim = _model_dim(specs[path])
+            if dim is not None:
+                t = _take(t, dim, s, tp, sections.get(path[-1])).contiguous()
+            return t.to(dev)
+        return meshlib.tree_map_with_path(leaf, params)
+
+    return [build(s, dev) for s, dev in enumerate(devices)]
+
+
+def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
+               paged_native: bool, draft: bool) -> Optional[str]:
+    """Why the head-sharded paged step cannot serve this service over
+    ``tp`` model shards, or None: it serves the dense family on the
+    paged-native continuous path, without a draft, over a ``tp`` that
+    divides the kv heads."""
+    refuse = []
+    if cfg.family != "dense":
+        refuse.append(f"the {cfg.family!r} family")
+    if mode != "continuous":
+        refuse.append(f"mode={mode!r}")
+    if kvcache_impl != "paged":
+        refuse.append("the dense cache")
+    elif not paged_native:
+        refuse.append("the dense-view step")
+    if draft:
+        refuse.append("a draft model")
+    if cfg.num_kv_heads % tp:
+        # the reference's rules would shard head_dim here, attention with
+        # partial scores reduced over the shards: a deviation kept on
+        # purpose, the step splits whole kv heads only
+        refuse.append(f"{cfg.num_kv_heads} kv heads over tp={tp} (the "
+                      f"step splits whole kv heads, not head_dim)")
+    if not refuse:
+        return None
+    return (f"{cfg.name}: the head-sharded paged step serves the dense "
+            f"family on the paged-native continuous path; not "
+            f"{', '.join(refuse)} ({TP_ITEM})")
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:0`` name one device when 0 is the current."""
+    idx = lambda d: (torch.cuda.current_device()
+                     if d.type == "cuda" and d.index is None else d.index)
+    return a.type == b.type and idx(a) == idx(b)
+
+
+class ShardedPagedStep:
+    """A dense service's paged-native decode and chunk steps, split by
+    heads over the model axis of ``mesh``: built by
+    ``paged_decode_builder`` for ``ServiceRuntime(paged_step_builder=...)``.
+
+    The host loop, scheduler and block tables stay single.  Each shard
+    holds its heads' weights and its heads' page pools (the arena's
+    ``shard_pages``) on its device; ``transformer.decode_step_paged_tp``
+    and ``prefill_chunk_paged_tp`` run the shards one after another and
+    reduce the attention and MLP outputs through the mesh.  The host-fed
+    operands (tokens, lengths, the live mask, block tables) are copied to
+    each distinct device.  Every kernel launch of the unsharded step
+    becomes ``tp`` launches."""
+
+    def __init__(self, runtime, mesh, *, shards: Optional[List] = None):
+        cfg = runtime.cfg
+        why = tp_refusal(cfg, mesh.shape.get("model", 1),
+                         mode=runtime.mode,
+                         kvcache_impl=runtime.kvcache_impl,
+                         paged_native=runtime.paged_native,
+                         draft=runtime.draft_params is not None)
+        if why is not None:
+            raise ValueError(why)
+        for ax, n in mesh.shape.items():
+            if ax != "model" and n != 1:
+                raise ValueError(
+                    f"a service mesh splits one replica over its model "
+                    f"axis; its {ax!r} axis has {n} (replicas are the "
+                    f"plan's DP groups)")
+        self.mesh = mesh
+        self.devices = mesh.axis_devices("model")
+        if not _same_device(self.devices[0], runtime.device):
+            raise ValueError(f"the mesh's first device {self.devices[0]} is "
+                             f"not the runtime's {runtime.device}")
+        self.cfg = cfg
+        if (shards is None) == (runtime.params is None):
+            raise ValueError("a head-sharded runtime takes its whole "
+                             "parameter tree or its shards (init_sharded), "
+                             "one of the two")
+        whole = runtime.params if shards is None else abstract_params(cfg)
+        pspecs = meshlib.param_specs(mesh, whole, fsdp=False)
+        self.plan = _split_plan(cfg, pspecs, len(self.devices))
+        shard_trees = (shard_params(runtime.params, cfg, pspecs, self.devices)
+                       if shards is None else shards)
+        if len(shard_trees) != self.plan.tp:
+            raise ValueError(f"{len(shard_trees)} shard trees for "
+                             f"tp={self.plan.tp}")
+        V = cfg.vocab_size
+        tp = self.plan.tp
+        self.shards = [transformer.Shard(
+            params=p, cfg=self.plan.cfg_shard,
+            vocab=((s * V // tp, (s + 1) * V // tp) if self.plan.vocab_split
+                   else None), mlp_split=self.plan.mlp_split)
+            for s, p in enumerate(shard_trees)]
+
+    @property
+    def tp(self) -> int:
+        return self.plan.tp
+
+    def check_arena(self, arena) -> None:
+        """The arena's pools split by kv head as ``_pool_sharding`` places
+        them over the mesh."""
+        spec = _pool_sharding(self.mesh, arena.full_pool_like())
+        vals = spec.values if isinstance(spec, QuantPages) else spec
+        if self.tp > 1 and _model_dim(vals) != len(vals) - 2:
+            raise ValueError(f"pool spec {vals} does not split kv heads "
+                             f"({TP_ITEM})")
+
+    def _each(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """``t`` on every shard's device (one copy a distinct device)."""
+        copies: Dict[torch.device, torch.Tensor] = {}
+        return [copies.setdefault(d, t.to(d)) for d in self.devices]
+
+    def decode(self, arena, tokens, live):
+        """One fused decode step over every slot; returns (logits
+        (capacity, V) on the first device, the new lengths)."""
+        tables = [arena.device_block_tables(d) for d in self.devices]
+        caches = [arena.assemble(pages, [], lens) for pages, lens in
+                  zip(arena.shard_pages, self._each(arena.lens))]
+        return transformer.decode_step_paged_tp(
+            self.shards, self.cfg, self._each(tokens), caches, tables,
+            self._each(live), block_size=arena.block_size, mesh=self.mesh)
+
+    def chunk(self, arena, sid: int, tokens, start, chunk_len):
+        """One chunk into slot ``sid`` (``tokens`` (1, T)) from ``start``;
+        returns (logits (1, V) on the first device, the new length)."""
+        row = torch.from_numpy(arena._block_tables[sid:sid + 1])
+        caches = [arena.assemble(pages, [], st) for pages, st in
+                  zip(arena.shard_pages, self._each(start))]
+        return transformer.prefill_chunk_paged_tp(
+            self.shards, self.cfg, self._each(tokens), caches,
+            self._each(row), self._each(chunk_len),
+            block_size=arena.block_size, mesh=self.mesh)
+
+
+def init_sharded(seed: int, cfg: ModelConfig, mesh) -> List:
+    """A dense model's random weights from ``seed`` straight into one tree
+    a model shard of ``mesh``, on the shard's device: the values of
+    ``shard_params(transformer.init(seed, cfg, first device), ...)``, drawn
+    a layer at a time on the first device, so that no device ever holds
+    the whole tree (mistral-large-123b's 246 GB of bf16 weights split over
+    4 cards).  For ``ServiceRuntime(cfg, None, plan,
+    paged_step_builder=paged_decode_builder(mesh, shards=...))``."""
+    if cfg.family != "dense":
+        raise ValueError(f"init_sharded draws the dense family's weights, "
+                         f"not {cfg.family!r} ({TP_ITEM})")
+    devices = mesh.axis_devices("model")
+    tp = len(devices)
+    pspecs = meshlib.param_specs(mesh, abstract_params(cfg), fsdp=False)
+    _split_plan(cfg, pspecs, tp)
+    gen = torch.Generator(device=devices[0])
+    gen.manual_seed(int(seed))
+    embed = layers.init_embedding(gen, cfg)
+    trees = [{"embed": t["embed"]} for t in shard_params(
+        {"embed": embed}, cfg, {"embed": pspecs["embed"]}, devices)]
+    del embed
+    blocks: List[Dict] = [{} for _ in devices]
+    # a layer's spec is the stacked leaf's without the layer axis
+    layer_specs = meshlib.tree_map_with_path(
+        lambda _, p: meshlib.P(*p[1:]), pspecs["blocks"])
+    for i in range(cfg.num_layers):
+        layer = shard_params(transformer.init_block(gen, cfg), cfg,
+                             layer_specs, devices)
+        for tree, part in zip(blocks, layer):
+            def put(path, t, tree=tree):
+                node = tree
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                if path[-1] not in node:
+                    node[path[-1]] = torch.empty(
+                        (cfg.num_layers, *t.shape), dtype=t.dtype,
+                        device=t.device)
+                node[path[-1]][i].copy_(t)
+            meshlib.tree_map_with_path(put, part)
+    ln_f = layers.init_norm(cfg, devices[0])
+    for tree, b, dev in zip(trees, blocks, devices):
+        tree["blocks"] = b
+        tree["ln_f"] = {k: v.to(dev) for k, v in ln_f.items()}
+    return trees
+
+
+def paged_decode_builder(mesh, *, fsdp_params: bool = False,
+                         shards: Optional[List] = None) -> Callable:
+    """Builder for ``ServiceRuntime(paged_step_builder=...)``: the
+    runtime's parameters split by ``param_specs(fsdp=False)`` on head
+    boundaries, the arena's pools by kv head over ``mesh``'s model
+    axis, and the paged decode and chunk steps run shard by shard.  The
+    reference's builder jits only the decode step; here the chunk step
+    runs sharded too, since it writes into the same per-shard pools.
+    Unlike the reference's ``builder(runtime, arena)``, the port's takes
+    the runtime alone: the runtime builds its arena after it, with the
+    pools split from the start, so no device ever holds the whole pool.
+    ``shards`` (``init_sharded``'s trees) serve a runtime made without
+    its whole tree (``params=None``).  ``fsdp_params`` keeps the
+    reference's signature: the step splits whole heads over the model axis
+    only, so ``True`` raises."""
+    if fsdp_params:
+        raise ValueError(f"the head-sharded step splits parameters over the "
+                         f"model axis only; FSDP serving is not ported "
+                         f"({TP_ITEM})")
+
+    def builder(runtime):
+        return ShardedPagedStep(runtime, mesh, shards=shards)
+
+    return builder

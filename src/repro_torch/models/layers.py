@@ -484,3 +484,37 @@ def unembed(p, cfg: ModelConfig, h):
     if cfg.tie_embeddings:
         return h @ p["embedding"].T
     return h @ p["unembed"]
+
+
+# ---------------------------------------------------------------------------
+# head-sharded steps: embedding and unembedding over vocabulary shards
+# ---------------------------------------------------------------------------
+
+def embed_tp(shards, cfg: ModelConfig, tokens, mesh):
+    """The embedded ``tokens`` (one copy a shard) on every shard, in the
+    compute dtype.  A shard holding vocabulary rows [lo, hi) looks up the
+    tokens it holds and gives zeros for the rest; the mesh sums the parts
+    (exactly: one part a token is nonzero).  Shards that hold the whole
+    table look up on their own."""
+    if shards[0].vocab is None:
+        return [embed(s.params["embed"], cfg, t).to(cfg.compute_dtype)
+                for s, t in zip(shards, tokens)]
+    parts = []
+    for s, t in zip(shards, tokens):
+        lo, hi = s.vocab
+        t = t.long()
+        rows = s.params["embed"]["embedding"][(t - lo).clamp(0, hi - lo - 1)]
+        held = ((t >= lo) & (t < hi))[..., None]
+        parts.append(torch.where(held, rows, torch.zeros_like(rows)))
+    return [x.to(cfg.compute_dtype) for x in mesh.all_reduce(parts)]
+
+
+def unembed_tp(shards, cfg: ModelConfig, h, mesh):
+    """Logits of the hidden rows ``h`` (one copy a shard) on the first
+    shard's device: each vocabulary shard's columns, concatenated by the
+    mesh, or the first shard's whole table."""
+    if shards[0].vocab is None:
+        return unembed(shards[0].params["embed"], cfg, h[0])
+    return mesh.gather([unembed(s.params["embed"], cfg, x)
+                        for s, x in zip(shards, h)], dim=-1)
+

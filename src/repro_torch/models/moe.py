@@ -31,7 +31,7 @@ from repro_torch.kernels import ops
 
 from . import layers, transformer
 from .config import ModelConfig
-from .transformer import layer_params, unbind_layers
+from .transformer import unbind_layers
 
 
 # ---------------------------------------------------------------------------
@@ -272,23 +272,8 @@ def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
     """Paged-native fused decode (see ``transformer.decode_step_paged``):
     the per-slot routing groups keep every row independent of its batch
     neighbours, so dead slots' rows are harmless."""
-    lens = cache["len"].to(torch.int32)
-    live = live.bool()
-    x = layers.embed(params["embed"], cfg, token).to(cfg.compute_dtype)
-    k_all, v_all = cache["k"], cache["v"]
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        xn = layers.apply_norm(lp["ln1"], cfg, x)
-        h, _, _ = layers.attention_decode_paged(
-            lp["attn"], cfg, xn, k_all[i], v_all[i], block_tables, lens,
-            live, block_size=block_size, window=cfg.sliding_window)
-        x = x + h
-        x = x + _moe_mlp_single(lp["moe"], cfg,
-                                layers.apply_norm(lp["ln2"], cfg, x))
-    h = layers.apply_norm(params["ln_f"], cfg, x)
-    logits = logits_fn(params, cfg, h)
-    return logits, {"k": k_all, "v": v_all,
-                    "len": torch.where(live, lens + 1, lens)}
+    return transformer.decode_step_paged_ffn(
+        params, cfg, token, cache, block_tables, live, block_size, moe_ffn)
 
 
 def moe_ffn(lp, cfg: ModelConfig, x):

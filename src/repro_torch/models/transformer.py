@@ -18,16 +18,22 @@ given in place and returns the same tensors.
 
 The MoE family (``moe.py``) runs the same steps with its expert FFN in
 place of the MLP: ``prefill_ffn``, ``prefill_chunk_ffn``,
-``decode_step_ffn``, ``prefill_chunk_paged_ffn`` and
-``verify_step_paged_ffn`` take the block's FFN as ``ffn(layer params,
+``decode_step_ffn``, ``prefill_chunk_paged_ffn``, ``verify_step_paged_ffn`` and
+``decode_step_paged_ffn`` take the block's FFN as ``ffn(layer params,
 cfg, x)``.
+
+The paged-native steps run one layer loop over a list of ``Shard``s:
+one shard, the whole tree, for an unsharded model; ``tp`` head shards
+whose partial attention and FFN outputs a mesh reduces for the
+head-sharded step (``launch/steps.py`` ``paged_decode_builder``).
 
 ``verify_step_paged`` is speculative decoding's one fused verify pass:
 ``prefill_chunk_paged``'s body with the head over every chunk position.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -288,48 +294,111 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
     return decode_step_ffn(params, cfg, token, cache, live, dense_ffn)
 
 
-def _chunk_paged_hidden(params, cfg: ModelConfig, batch, cache,
-                        block_tables, chunk_len, block_size: int, ffn,
-                        verify: bool, x=None, prefix_len: int = 0):
+@dataclasses.dataclass
+class Shard:
+    """One model shard of a paged step: its parameter tree, its config
+    and what it holds.  A head-sharded dense model's shard holds its kv
+    heads with their GQA groups of query heads, its MLP columns and rows
+    where split (``mlp_split``), its vocabulary rows [lo, hi) where split
+    (``vocab``; None: the whole table) and the norms whole, and its config
+    counts its heads; an unsharded model is one shard of its whole tree."""
+    params: Dict[str, Any]
+    cfg: ModelConfig
+    vocab: Optional[Tuple[int, int]] = None
+    mlp_split: bool = False
+
+
+def _sum(mesh, partials):
+    """The shards' partial results summed by ``mesh``; without a mesh (one
+    shard) the one result as it is."""
+    return list(partials) if mesh is None else mesh.all_reduce(partials)
+
+
+def _block_paged(shards: List[Shard], cfg: ModelConfig, i: int, x, attend,
+                 mesh, ffn):
+    """Layer ``i`` on every shard: each shard's attention over its heads
+    (``attend(i, shard index, layer params, shard config, normed x)``)
+    and its FFN part are partial sums that the mesh reduces; a whole FFN
+    runs on each shard alone.  ``x``: the residual rows, whole on each
+    shard.  One shard without a mesh is the unsharded layer, op for op."""
+    lps = [layer_params(s.params["blocks"], i) for s in shards]
+    h = _sum(mesh, [attend(i, j, lp["attn"], s.cfg,
+                           layers.apply_norm(lp["ln1"], cfg, xs))
+                    for j, (s, lp, xs) in enumerate(zip(shards, lps, x))])
+    x = [xs + hs for xs, hs in zip(x, h)]
+    m = [ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, xs))
+         for lp, xs in zip(lps, x)]
+    if shards[0].mlp_split:
+        m = _sum(mesh, m)
+    return [xs + ms for xs, ms in zip(x, m)]
+
+
+def _chunk_paged_hidden(shards: List[Shard], cfg: ModelConfig, tokens,
+                        caches, block_tables, chunk_len, *, block_size: int,
+                        mesh=None, ffn=dense_ffn, verify: bool = False,
+                        x=None, prefix_len: int = 0):
     """The paged-native chunk body shared by chunked prefill and
-    speculative verify: every layer writes the chunk's K/V rows into the
-    pools in place and attends through the block tables (``x`` and
-    ``prefix_len`` as in ``prefill_ffn``).  Returns the last layer's
-    hidden states (B, T, d) and the per-slot starts."""
+    speculative verify, over ``shards`` (``tokens``, ``caches``,
+    ``block_tables`` and ``chunk_len`` one entry a shard, on its device):
+    every layer writes the chunk's K/V rows of each shard's heads into its
+    pools in place and attends through the block tables.  ``x`` (one
+    entry a shard), when given, replaces the embedded tokens (the VLM's
+    image prefix and text), and its first ``prefix_len`` rows attend to
+    each other both ways.  Returns the last layer's hidden states (B, T,
+    d) and the per-slot starts, one entry a shard."""
     if x is None:
-        x = embed_tokens(params, cfg, batch)
-    start = torch.as_tensor(cache["len"], dtype=torch.int32,
-                            device=x.device).reshape(-1)
-    k_all, v_all = cache["k"], cache["v"]
+        x = layers.embed_tp(shards, cfg, tokens, mesh)
+    start = [torch.as_tensor(c["len"], dtype=torch.int32,
+                             device=xs.device).reshape(-1)
+             for c, xs in zip(caches, x)]
+
+    def attend(i, j, p, scfg, xn):
+        return layers.attention_chunk_paged(
+            p, scfg, xn, caches[j]["k"][i], caches[j]["v"][i],
+            block_tables[j], start[j], chunk_len[j], block_size=block_size,
+            window=cfg.sliding_window, prefix_len=prefix_len,
+            verify=verify)[0]
+
     for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        xn = layers.apply_norm(lp["ln1"], cfg, x)
-        h, _, _ = layers.attention_chunk_paged(
-            lp["attn"], cfg, xn, k_all[i], v_all[i], block_tables, start,
-            chunk_len, block_size=block_size, window=cfg.sliding_window,
-            prefix_len=prefix_len, verify=verify)
-        x = x + h
-        x = x + ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, x))
+        x = _block_paged(shards, cfg, i, x, attend, mesh, ffn)
     return x, start
+
+
+def prefill_chunk_paged_tp(shards: List[Shard], cfg: ModelConfig, tokens,
+                           caches, block_tables, chunk_len, *,
+                           block_size: int, mesh=None, ffn=dense_ffn,
+                           x=None, prefix_len: int = 0):
+    """``prefill_chunk_paged`` over ``shards``, its arguments one entry a
+    shard as in ``_chunk_paged_hidden``: each shard writes the chunk's
+    K/V rows of its heads into its pools.  Returns (logits at each slot's
+    last real token (B, V) on the first shard's device, ``len +
+    chunk_len``)."""
+    x, start = _chunk_paged_hidden(
+        shards, cfg, tokens, caches, block_tables, chunk_len,
+        block_size=block_size, mesh=mesh, ffn=ffn, x=x,
+        prefix_len=prefix_len)
+    h = [layers.apply_norm(s.params["ln_f"], cfg,
+                           layers.take_chunk_last(xs, cl)[:, None])[:, 0]
+         for s, xs, cl in zip(shards, x, chunk_len)]
+    return layers.unembed_tp(shards, cfg, h, mesh), start[0] + chunk_len[0]
 
 
 def prefill_chunk_paged_ffn(params, cfg: ModelConfig, batch, cache,
                             block_tables, chunk_len, block_size: int, ffn,
                             *, x=None, prefix_len: int = 0):
-    x, start = _chunk_paged_hidden(params, cfg, batch, cache, block_tables,
-                                   chunk_len, block_size, ffn, False, x,
-                                   prefix_len)
-    h = layers.take_chunk_last(x, chunk_len)
-    h = layers.apply_norm(params["ln_f"], cfg, h[:, None])[:, 0]
-    logits = logits_fn(params, cfg, h)
-    return logits, {"k": cache["k"], "v": cache["v"],
-                    "len": start + chunk_len}
+    logits, new_len = prefill_chunk_paged_tp(
+        [Shard(params, cfg)], cfg, [batch.get("tokens")], [cache],
+        [block_tables], [chunk_len], block_size=block_size, ffn=ffn,
+        x=None if x is None else [x], prefix_len=prefix_len)
+    return logits, {"k": cache["k"], "v": cache["v"], "len": new_len}
 
 
 def verify_step_paged_ffn(params, cfg: ModelConfig, batch, cache,
                           block_tables, chunk_len, block_size: int, ffn):
-    x, start = _chunk_paged_hidden(params, cfg, batch, cache, block_tables,
-                                   chunk_len, block_size, ffn, True)
+    (x,), (start,) = _chunk_paged_hidden(
+        [Shard(params, cfg)], cfg, [batch["tokens"]], [cache],
+        [block_tables], [chunk_len], block_size=block_size, ffn=ffn,
+        verify=True)
     h = layers.apply_norm(params["ln_f"], cfg, x)          # all T positions
     return logits_fn(params, cfg, h), {"k": cache["k"], "v": cache["v"],
                                        "len": start}
@@ -362,6 +431,39 @@ def verify_step_paged(params, cfg: ModelConfig, batch, cache, block_tables,
                                  chunk_len, block_size, dense_ffn)
 
 
+def decode_step_paged_tp(shards: List[Shard], cfg: ModelConfig, token,
+                         caches, block_tables, live, *, block_size: int,
+                         mesh=None, ffn=dense_ffn):
+    """``decode_step_paged`` over ``shards``: ``token``, ``caches`` (each
+    shard's pools and its copy of ``len``), ``block_tables`` and ``live``
+    hold one entry a shard, on the shard's device.  Returns (logits (B,
+    V) on the first shard's device, the live slots' ``len + 1``)."""
+    lens = [c["len"].to(torch.int32) for c in caches]
+    live = [lv.bool() for lv in live]
+    x = layers.embed_tp(shards, cfg, token, mesh)
+
+    def attend(i, j, p, scfg, xn):
+        return layers.attention_decode_paged(
+            p, scfg, xn, caches[j]["k"][i], caches[j]["v"][i],
+            block_tables[j], lens[j], live[j], block_size=block_size,
+            window=cfg.sliding_window)[0]
+
+    for i in range(cfg.num_layers):
+        x = _block_paged(shards, cfg, i, x, attend, mesh, ffn)
+    h = [layers.apply_norm(s.params["ln_f"], cfg, xs)
+         for s, xs in zip(shards, x)]
+    return (layers.unembed_tp(shards, cfg, h, mesh),
+            torch.where(live[0], lens[0] + 1, lens[0]))
+
+
+def decode_step_paged_ffn(params, cfg: ModelConfig, token, cache,
+                          block_tables, live, block_size: int, ffn):
+    logits, new_len = decode_step_paged_tp(
+        [Shard(params, cfg)], cfg, [token], [cache], [block_tables], [live],
+        block_size=block_size, ffn=ffn)
+    return logits, {"k": cache["k"], "v": cache["v"], "len": new_len}
+
+
 def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
                       live, *, block_size: int):
     """Paged-native fused decode: ``token`` (B,) one new token per slot,
@@ -369,20 +471,5 @@ def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
     K/V in place through ``block_tables`` and writes only each live slot's
     one new row (dead slots write to the trash page and keep their length).
     Returns (logits (B, V), cache with the live slots' ``len + 1``)."""
-    lens = cache["len"].to(torch.int32)
-    live = live.bool()
-    x = layers.embed(params["embed"], cfg, token).to(cfg.compute_dtype)
-    k_all, v_all = cache["k"], cache["v"]
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        xn = layers.apply_norm(lp["ln1"], cfg, x)
-        h, _, _ = layers.attention_decode_paged(
-            lp["attn"], cfg, xn, k_all[i], v_all[i], block_tables, lens,
-            live, block_size=block_size, window=cfg.sliding_window)
-        x = x + h
-        x = x + layers.mlp(lp["mlp"], cfg,
-                           layers.apply_norm(lp["ln2"], cfg, x))
-    h = layers.apply_norm(params["ln_f"], cfg, x)
-    logits = logits_fn(params, cfg, h)
-    return logits, {"k": k_all, "v": v_all,
-                    "len": torch.where(live, lens + 1, lens)}
+    return decode_step_paged_ffn(params, cfg, token, cache, block_tables,
+                                 live, block_size, dense_ffn)

@@ -32,6 +32,13 @@ engine (the port of the reference package's ``serving/arena.py``).
   ...)`` view for the dense-cache steps (the families without paged-native
   steps, ring layouts and the ``paged_native=False`` oracle), and
   ``append_rows`` writes the rows such a step produced back into the pages.
+* ``shard_devices`` splits every pool by kv head over model shards (a
+  head-sharded service, ``launch/steps.py`` ``paged_decode_builder``):
+  shard j holds heads ``[j * Hkv/n, (j + 1) * Hkv/n)`` of every pool on
+  its device (``shard_pages[j]``; ``pages`` is shard 0's), an int8 pool's
+  scales split with its values.  One host block table serves every shard;
+  copy-on-write and one-shot writes cover every shard, and the device
+  block table is kept once a distinct device.
 
 Host bookkeeping (free lists, block tables, refcounts, the idle LRU,
 occupancy) is numpy with the reference's semantics and counters.  Device
@@ -67,7 +74,8 @@ class KVArena:
     def __init__(self, cfg, init_cache: Callable, *, capacity: int,
                  max_seq_len: int, block_size: int = 32,
                  pool_blocks: Optional[int] = None, dtype=None,
-                 kv_dtype: str = "bf16", device=None):
+                 kv_dtype: str = "bf16", device=None,
+                 shard_devices: Optional[Sequence] = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if kv_dtype not in VALID_KV_DTYPES:
@@ -128,25 +136,27 @@ class KVArena:
             paged_shapes.append((tuple(a.shape), a.dtype))
 
         # -- device state ------------------------------------------------
-        P1 = self.pool_blocks + 1                 # +1 trash block
-        dev = self.device
-        self.pages: List[Any] = []
-        quantized: List[bool] = []
-        for (A0, _, _, *rest), dt in paged_shapes:
-            quant = (self.kv_dtype == "int8" and len(rest) >= 1
-                     and dt.is_floating_point)
-            quantized.append(quant)
-            if quant:
-                self.pages.append(QuantPages(
-                    torch.zeros((A0, P1, self.block_size, *rest),
-                                dtype=torch.int8, device=dev),
-                    torch.zeros((A0, P1, self.block_size, *rest[:-1]),
-                                dtype=torch.float32, device=dev)))
-            else:
-                self.pages.append(torch.zeros(
-                    (A0, P1, self.block_size, *rest), dtype=dt, device=dev))
+        self.shard_devices = ([self.device] if shard_devices is None
+                              else [torch.device(d) for d in shard_devices])
+        n = len(self.shard_devices)
+        if n > 1 and state_shapes:
+            raise ValueError("a head-sharded arena holds page pools only; "
+                             "this layout has per-slot state leaves")
+        for (_, _, _, *rest), _ in paged_shapes:
+            if n > 1 and (len(rest) != 2 or rest[0] % n):
+                raise ValueError(f"pool heads {rest[:1]} do not split over "
+                                 f"{n} shards")
         self._paged_shapes = paged_shapes
-        self._quantized = quantized
+        self._quantized = [self.kv_dtype == "int8" and len(rest) >= 1
+                           and dt.is_floating_point
+                           for (_, _, _, *rest), dt in paged_shapes]
+        self.shard_pages: List[List[Any]] = [
+            [self._new_pool(shape, dt, q, n, dev)
+             for (shape, dt), q in zip(paged_shapes, self._quantized)]
+            for dev in self.shard_devices]
+        self.pages: List[Any] = self.shard_pages[0]
+        dev = self.device
+        quantized = self._quantized
         self._views: Dict[int, List[torch.Tensor]] = {}  # dense_view buffers
         self.state: List[torch.Tensor] = [
             torch.zeros((A0, self.capacity, *rest), dtype=dt, device=dev)
@@ -162,7 +172,7 @@ class KVArena:
         self._free_blocks: List[int] = list(range(self.pool_blocks))
         self._slot_blocks: Dict[int, List[int]] = {}
         self._occ = np.zeros((self.capacity,), bool)
-        self._tables_dev: Optional[torch.Tensor] = None
+        self._tables_dev: Dict[torch.device, torch.Tensor] = {}
         self._occ_dev: Optional[torch.Tensor] = None
 
         # -- cross-slot block sharing (prefix cache) ---------------------
@@ -197,14 +207,47 @@ class KVArena:
             int(np.prod([A0, *rest])) * dt.itemsize
             for (A0, _, *rest), dt in state_shapes)
 
+    def _new_pool(self, shape, dt, quant: bool, n: int, dev):
+        """One shard's zeroed pool for a paged leaf of ``shape`` (layers,
+        1, S, ...): ``pool_blocks`` + 1 pages, its heads split ``n``
+        ways."""
+        A0, _, _, *rest = shape
+        if n > 1:
+            rest = [rest[0] // n, *rest[1:]]
+        pages = (A0, self.pool_blocks + 1, self.block_size, *rest)
+        if quant:
+            return QuantPages(
+                torch.zeros(pages, dtype=torch.int8, device=dev),
+                torch.zeros(pages[:-1], dtype=torch.float32, device=dev))
+        return torch.zeros(pages, dtype=dt, device=dev)
+
+    def full_pool_like(self):
+        """The first paged leaf's pool as one device would hold it
+        unsplit, on the meta device (a sharding rule's input)."""
+        (shape, dt), = self._paged_shapes[:1]
+        return self._new_pool(shape, dt, self._quantized[0], 1, "meta")
+
+    def _tensors_on(self, shard: int) -> List[torch.Tensor]:
+        out = []
+        for p in self.shard_pages[shard]:
+            out.extend((p.values, p.scales) if isinstance(p, QuantPages)
+                       else (p,))
+        return out
+
+    def shard_bytes(self, shard: int) -> int:
+        """Bytes of one shard's device tensors: its pools and scales, and
+        on the first shard the per-slot state and the lengths too; on the
+        meta device, what they would take."""
+        ts = self._tensors_on(shard) + ([self.lens, *self.state]
+                                        if shard == 0 else [])
+        return sum(t.numel() * t.element_size() for t in ts)
+
     def device_bytes(self) -> int:
-        """Bytes of the arena's device tensors (pools, scales, per-slot
-        state and lengths); on the meta device, what it would take."""
-        tensors = [self.lens, *self.state]
-        for p in self.pages:
-            tensors.extend((p.values, p.scales) if isinstance(p, QuantPages)
-                           else (p,))
-        return sum(t.numel() * t.element_size() for t in tensors)
+        """Bytes of the arena's device tensors (every shard's pools and
+        scales, per-slot state and lengths); on the meta device, what it
+        would take."""
+        return sum(self.shard_bytes(j)
+                   for j in range(len(self.shard_devices)))
 
     # ------------------------------------------------------------------
     # allocator surface
@@ -301,7 +344,7 @@ class KVArena:
         row[:n] = blocks
         self._block_tables[slot] = row
         self._occ[slot] = True
-        self._tables_dev = self._occ_dev = None
+        self._tables_dev, self._occ_dev = {}, None
         return slot
 
     def reset_len(self, slot: int) -> None:
@@ -339,7 +382,7 @@ class KVArena:
         self._block_tables[slot] = self.trash_block
         self._occ[slot] = False
         self._free_slots.append(slot)
-        self._tables_dev = self._occ_dev = None
+        self._tables_dev, self._occ_dev = {}, None
         self._enforce_retention()
 
     # ------------------------------------------------------------------
@@ -367,7 +410,7 @@ class KVArena:
         self._block_tables[slot] = self.trash_block
         self._occ[slot] = False
         self._free_slots.append(slot)
-        self._tables_dev = self._occ_dev = None
+        self._tables_dev, self._occ_dev = {}, None
         self.parks += 1
         self.parked_blocks += len(blocks)
         return blocks
@@ -447,15 +490,14 @@ class KVArena:
             blocks[blocks.index(phys)] = fresh
             self._block_tables[slot][logical] = fresh
             todo.append((phys, fresh))
-        src = torch.tensor([s for s, _ in todo], dtype=torch.long,
-                           device=self.device)
-        dst = torch.tensor([d for _, d in todo], dtype=torch.long,
-                           device=self.device)
-        for pool in self.pages:
-            for p in ((pool.values, pool.scales)
-                      if isinstance(pool, QuantPages) else (pool,)):
+        for j, dev in enumerate(self.shard_devices):
+            src = torch.tensor([s for s, _ in todo], dtype=torch.long,
+                               device=dev)
+            dst = torch.tensor([d for _, d in todo], dtype=torch.long,
+                               device=dev)
+            for p in self._tensors_on(j):
                 p[:, dst] = p[:, src]
-        self._tables_dev = None
+        self._tables_dev = {}
         for phys, _ in todo:
             self._release_block(phys)  # sole-ref cached sources go idle...
         self._enforce_retention()      # ...so the retention bound applies
@@ -486,13 +528,15 @@ class KVArena:
     def occupancy(self) -> np.ndarray:
         return self._occ.copy()
 
-    def device_block_tables(self) -> torch.Tensor:
-        """Device copy of the block table, re-uploaded only after a table
-        changes (alloc, free, park, copy-on-write)."""
-        if self._tables_dev is None:
-            self._tables_dev = torch.from_numpy(self._block_tables).to(
-                self.device)
-        return self._tables_dev
+    def device_block_tables(self, device=None) -> torch.Tensor:
+        """The block table on ``device`` (default the arena's), kept once
+        a distinct device and re-uploaded only after a table changes
+        (alloc, free, park, copy-on-write)."""
+        dev = self.device if device is None else torch.device(device)
+        if dev not in self._tables_dev:
+            self._tables_dev[dev] = torch.from_numpy(
+                self._block_tables).to(dev)
+        return self._tables_dev[dev]
 
     def device_occupancy(self) -> torch.Tensor:
         if self._occ_dev is None:
@@ -562,9 +606,8 @@ class KVArena:
         n_blocks = self.blocks_for(max(1, prompt_len))
         rows = n_blocks * self.block_size
         bt_row = torch.from_numpy(
-            self._block_tables[slot][:n_blocks].astype(np.int64)).to(
-            self.device)
-        pages, state = iter(self.pages), iter(self.state)
+            self._block_tables[slot][:n_blocks].astype(np.int64))
+        pages, state = iter(zip(*self.shard_pages)), iter(self.state)
         cache_len = None
         for key, tag in zip(self._keys, self._tags):
             leaf = cache[key]
@@ -572,21 +615,34 @@ class KVArena:
                 if cache_len is None:
                     cache_len = leaf.reshape(-1)[0]
             elif tag == _PAGED:
-                pool = next(pages)
+                pools = next(pages)
                 A0, _, _, *rest = leaf.shape
                 blocks = leaf[:, 0, :rows].reshape(A0, n_blocks,
                                                    self.block_size, *rest)
-                if isinstance(pool, QuantPages):
-                    qv, qs = quantize(blocks)
-                    pool.values[:, bt_row] = qv
-                    pool.scales[:, bt_row] = qs
-                else:
-                    pool[:, bt_row] = blocks.to(pool.dtype)
+                # shard j takes its kv heads' rows
+                parts = (blocks.chunk(len(pools), dim=3) if len(pools) > 1
+                         else (blocks,))
+                for heads, pool in zip(parts, pools):
+                    dev = (pool.values if isinstance(pool, QuantPages)
+                           else pool).device
+                    heads, bt = heads.to(dev), bt_row.to(dev)
+                    if isinstance(pool, QuantPages):
+                        qv, qs = quantize(heads)
+                        pool.values[:, bt] = qv
+                        pool.scales[:, bt] = qs
+                    else:
+                        pool[:, bt] = heads.to(pool.dtype)
             else:
                 st = next(state)
                 st[:, slot] = leaf[:, 0].to(st.dtype)
         self.lens[slot] = prompt_len if cache_len is None else cache_len
         return self.slot_bytes(prompt_len)
+
+    def _unsharded(self, what: str) -> None:
+        if len(self.shard_devices) > 1:
+            raise NotImplementedError(
+                f"{what} gathers whole pools; a head-sharded arena serves "
+                f"the paged-native steps only")
 
     def dense_view(self, pages, block_tables: torch.Tensor
                    ) -> List[torch.Tensor]:
@@ -596,6 +652,7 @@ class KVArena:
         are the arena's buffers for B rows, gathered into in place layer by
         layer: the next ``dense_view`` of B rows overwrites them, and no
         other copy of the pools is made."""
+        self._unsharded("dense_view")
         B = block_tables.shape[0]
         flat = block_tables.reshape(-1).long()
         views = self._views.get(B)
@@ -626,6 +683,7 @@ class KVArena:
         first ``valid_tokens`` (B,) (default all) are real.  Rows of dead
         slots and padding rows route to the trash block, the only place
         two rows can land on; an int8 pool quantizes the rows on write."""
+        self._unsharded("append_rows")
         cap = lens.shape[0]
         bs = self.block_size
         dev = lens.device

@@ -117,6 +117,7 @@ crash of this data plane) and returns them for resubmission.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -131,6 +132,7 @@ from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi, model_api
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.roofline import op_cost
 
 from . import kvcache
 from .admission import AdmissionController, AdmissionReject, ParkedEntry
@@ -317,7 +319,10 @@ class _GroupState:
 class ServiceRuntime:
     """One deployed service: params + plan + DP groups of decode slots.
 
-    ``params`` must lie on ``device`` (the card unless ``"cpu"``)."""
+    ``params`` must lie on ``device`` (the card unless ``"cpu"``).  A
+    ``paged_step_builder`` (``launch/steps.py`` ``paged_decode_builder``)
+    splits the service by heads over a mesh's model axis; built with the
+    shards of ``init_sharded``, it serves with ``params=None``."""
 
     def __init__(self, cfg: ModelConfig, params, plan: ParallelPlan, *,
                  sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
@@ -333,6 +338,7 @@ class ServiceRuntime:
                  preempt: bool = True,
                  draft_params=None, draft_cfg: Optional[ModelConfig] = None,
                  speculate: Optional[int] = None, device=None,
+                 paged_step_builder: Optional[Callable] = None,
                  tracer=None, metrics=None, obs_name: Optional[str] = None):
         if mode not in ("continuous", "sync"):
             raise ValueError(f"mode must be continuous|sync, got {mode!r}")
@@ -566,6 +572,21 @@ class ServiceRuntime:
                               if (mode == "continuous"
                                   and kvcache_impl == "paged"
                                   and self.chunked_prefill) else 1)
+
+        # -- model parallelism: a launcher's builder (``launch/steps.py``
+        # ``paged_decode_builder``) splits the service over a mesh's model
+        # axis; the paged decode and chunk steps then run shard by shard
+        # and the arena's pools split by kv head (None: one device)
+        # ``params=None``: the builder holds the shards alone (no device
+        # keeps the whole tree), which only chunked prefill can serve
+        if params is None and (paged_step_builder is None
+                               or not self.chunked_prefill):
+            raise ValueError(
+                "params=None serves a head-sharded runtime "
+                "(paged_step_builder with its shards) with chunked prefill "
+                "only: one-shot prefill runs the whole parameter tree")
+        self.sharded_step = (None if paged_step_builder is None
+                             else paged_step_builder(self))
 
     @property
     def slot_token_budget(self) -> int:
@@ -832,14 +853,25 @@ class ServiceRuntime:
                 self.admission_copy_bytes += kvcache.cache_bytes(state.cache)
         return results
 
+    def _new_arena(self, meta: bool = False) -> KVArena:
+        """A group's arena on the runtime's devices, or with ``meta`` one of
+        the same shapes that allocates nothing."""
+        sharded = self.sharded_step
+        devices = None if sharded is None else sharded.devices
+        if meta:
+            devices = None if devices is None else ["meta"] * len(devices)
+        return KVArena(
+            self.cfg, self.api.init_cache, capacity=self.plan.max_in_flight,
+            max_seq_len=self.max_seq_len, block_size=self.block_size,
+            pool_blocks=self.pool_blocks, kv_dtype=self.kv_dtype,
+            device="meta" if meta else self.device, shard_devices=devices)
+
     def _ensure_arena(self, state: _GroupState) -> KVArena:
         if state.arena is None:
-            state.arena = KVArena(
-                self.cfg, self.api.init_cache,
-                capacity=self.plan.max_in_flight,
-                max_seq_len=self.max_seq_len, block_size=self.block_size,
-                pool_blocks=self.pool_blocks, kv_dtype=self.kv_dtype,
-                device=self.device)
+            sharded = self.sharded_step
+            state.arena = self._new_arena()
+            if sharded is not None:
+                sharded.check_arena(state.arena)
             if self.prefix_cache_enabled:
                 state.prefix = RadixPrefixCache(
                     state.arena,
@@ -1174,6 +1206,11 @@ class ServiceRuntime:
         # chunk the image prefix ahead of it
         n_rows = toks.shape[1] + (cfg.prefix_len if embeddings is not None
                                   and cfg.family == "vlm" else 0)
+        if self.sharded_step is not None and not draft:
+            logits, new_len = self.sharded_step.chunk(
+                arena, sid, batch["tokens"], start, chunk_len)
+            arena.lens[sid] = new_len[0]
+            return logits
         if draft or self.paged_native:
             cache = arena.assemble(arena.pages, arena.slot_state(sid), start)
             logits, new_cache = api.prefill_chunk_paged(
@@ -1535,6 +1572,10 @@ class ServiceRuntime:
         api, cfg, params = ((self.draft_api, self.draft_cfg,
                              self.draft_params) if draft
                             else (self.api, self.cfg, self.params))
+        if self.sharded_step is not None and not draft:
+            logits, arena.lens = self.sharded_step.decode(arena, tokens,
+                                                          live)
+            return logits
         tables = arena.device_block_tables()
         if draft or self.paged_native:
             cache = arena.assemble(arena.pages, arena.state, arena.lens)
@@ -1552,6 +1593,48 @@ class ServiceRuntime:
             arena.merge_state(arena.state, new_state, live)
         arena.lens = new_cache["len"]
         return logits
+
+    def decode_cost_analysis(self, group: int = 0) -> Dict[str, Any]:
+        """FLOPs and bytes of the fused decode step at the group's current
+        arena shapes, counted by ``roofline/op_cost.py`` where the
+        reference asks XLA for the cost of a throwaway lowering.  The step
+        runs under ``FakeTensorMode`` on fake CPU copies of the
+        parameters, pools, lengths and block tables, with every slot live
+        (the reference's lowering feeds ``live`` all ones): nothing is
+        launched, allocated or written, the arena and the runtime's
+        counters stay as they were (the ``*_traces`` gauges stay 0), and
+        each kernel's work counts every slot at its table's full width, as
+        a static step's cost analysis does.  Returns op_cost's counts
+        (``"flops"``, ``"bytes accessed"``, per-kernel FLOPs, bytes and
+        calls) and, for a head-sharded step, the bytes its mesh reductions
+        move.  A group without an arena yet is priced at its arena's
+        shapes on the ``meta`` device."""
+        arena = self.groups[group].arena or self._new_arena(meta=True)
+        mode = op_cost.FakeTensorMode()
+        fake = lambda t: op_cost.fake_copy(t, mode)
+        rt, shadow = copy.copy(self), copy.copy(arena)
+        shadow.shard_pages = [fake(p) for p in arena.shard_pages]
+        shadow.pages = shadow.shard_pages[0]
+        shadow.state, shadow.lens = fake(arena.state), fake(arena.lens)
+        shadow._views = {}
+        cpu = torch.device("cpu")
+        shadow._tables_dev = {cpu: fake(arena.device_block_tables())}
+        shadow.device = cpu
+        mesh = None
+        if self.sharded_step is not None:
+            rt.sharded_step = sharded = copy.copy(self.sharded_step)
+            sharded.mesh = mesh = copy.copy(sharded.mesh)
+            sharded.devices = [cpu] * sharded.tp
+            sharded.shards = [dataclasses.replace(sh, params=fake(sh.params))
+                              for sh in sharded.shards]
+        else:
+            rt.params = fake(self.params)
+        with mode:
+            tokens = torch.zeros((arena.capacity,), dtype=torch.int32)
+            live = torch.ones((arena.capacity,), dtype=torch.bool)
+        with mode, torch.no_grad(), op_cost.count(mesh) as cost:
+            ServiceRuntime._paged_decode(rt, shadow, tokens, live)
+        return cost.to_dict()
 
     def _decode_group_paged(self, state: _GroupState) -> None:
         """(c) One fused decode step over every slot of the arena for the

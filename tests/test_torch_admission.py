@@ -29,6 +29,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -58,6 +59,10 @@ from repro_torch.serving.arena import KVArena
 from repro_torch.serving.batching import BSComposer, QueuedItem
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 from repro_torch.serving.sampler import SamplerConfig
+
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
 
 _CFG = toy_config()
 

@@ -18,6 +18,10 @@ from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import ops, ref
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

@@ -13,8 +13,13 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch.kernels import build
+
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 

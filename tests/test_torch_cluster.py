@@ -51,6 +51,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serving import engine as tengine
 from repro_torch.serving import failover as tfailover
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 _EXAMPLES = int(os.environ.get("FAULTS_EXAMPLES", "3"))
 _CFG = toy_config()
 # (core, faults, engine, failover) of each side

@@ -45,6 +45,10 @@ from repro_torch.kernels import (build, chunk_attention, decode_attention,
                                  ssd_scan)
 from repro_torch.kernels.quant import QuantPages, quantize
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 TOL = 1.6e-2
 LSE_TOL = 1e-3
 ROW_REL_TOL = 1e-2
@@ -166,6 +170,15 @@ PAGED_CHUNK_ODD.update({
 # zamba2-7b's shared attention (32 query heads on 32 kv heads, D = 112, an
 # instance of its own): a 128-row chunk from 0 and one from mid-page, a
 # ragged 13-row one with a dead slot, and GQA 8/2 with a prefix
+# the head-sharded step's shards: phase 3's 128-row bucket at 9 and 18
+# heads (minicpm-2b over 4 and 2 shards) and mistral-large-123b's 24/2 at
+# D = 128 (over 4)
+PAGED_CHUNK_ODD.update({
+    "tp4_minicpm_t128": ((1, 128, 9, 9, 64), [64], [128], 0),
+    "tp2_minicpm_t128": ((1, 128, 18, 18, 64), [64], [128], 0),
+    "tp4_mistral_t65": ((2, 65, 24, 2, 128), [37, 0], [65, 64], 0),
+})
+
 PAGED_CHUNK_ODD.update({
     "zamba_t128_d112": ((2, 128, 32, 32, 112), [0, 70], [128, 100], 0),
     "zamba_t13_d112": ((3, 13, 32, 32, 112), [5, 0, 200], [13, 0, 9], 0),
@@ -275,6 +288,13 @@ PAGED_DECODE_CASES = {
     **{f"g{G}_d112": ((6, Hq, Hkv, 112, 8, 32), EDGE_LENS)
        for G, Hq, Hkv in ((1, 16, 16), (3, 24, 8), (4, 32, 8))},
     "zamba_256_32_live": ((256, 32, 32, 112, 8, 32), _path_lens(256)),
+    # the head-sharded step's shards (--pjit-decode): minicpm-2b's 36
+    # heads over 4 and 2 shards, mistral-large-123b's 96 on 8 kv heads
+    # over 4 (G = 12 at D = 128)
+    "tp4_minicpm_512": ((512, 9, 9, 64, 8, 32), _path_lens(512)),
+    "tp2_minicpm_512": ((512, 18, 18, 64, 8, 32), _path_lens(512)),
+    "tp4_mistral_512": ((512, 24, 2, 128, 8, 32), _path_lens(512)),
+    "tp4_mistral_edges": ((6, 24, 2, 128, 8, 32), EDGE_LENS),
 }
 
 
@@ -968,3 +988,56 @@ def test_cuda_ssd_scan_autograd_matches_cpu(cuda_device):
             scale = w.abs().max().item()
             torch.testing.assert_close(g, w, atol=1e-3 * scale, rtol=1e-3,
                                        msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cuda_tp_wave_matches_the_unsharded_runtime(cuda_device, kv_dtype):
+    """A request wave at toy width on the card, unsharded and split by
+    heads over ``[cuda] * tp`` (``--pjit-decode``'s builder) at tp = 1, 2
+    and 4: tp = 1 gives the unsharded chains and launches exactly; at tp =
+    2 and 4 every kernel launch of the paged path is made tp times (once a
+    shard) and the first tokens are the unsharded run's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.allocator import ParallelPlan
+    from repro_torch.core.categories import Sensitivity, TaskCategory
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.steps import paged_decode_builder
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+
+    cfg = dataclasses.replace(get_config("minicpm-2b"), num_layers=2,
+                              d_model=256, num_heads=8, num_kv_heads=4,
+                              d_ff=512, vocab_size=1024)
+    params = transformer.init(0, cfg, device=cuda_device)
+    plan = ParallelPlan(service="toy", category=TaskCategory(
+        Sensitivity.FREQUENCY, False), bs=8, mf=2, kv_dtype=kv_dtype)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (6, 40, 70, 13, 100, 33, 9, 64)]
+
+    def run(tp=None):
+        builder = None if tp is None else paged_decode_builder(
+            meshlib.make_mesh((1, tp), ("data", "model"),
+                              [torch.device("cuda", 0)] * tp))
+        rt = ServiceRuntime(cfg, params, plan, device=cuda_device,
+                            max_seq_len=160, block_size=16,
+                            paged_step_builder=builder)
+        for rid, p in enumerate(prompts):
+            rt.submit(GenerationRequest(rid=rid, tokens=p, max_new_tokens=12,
+                                        stream=rid))
+        before = dict(paged_attention.launches)
+        toks = {r.rid: r.tokens.tolist() for r in rt.drain()}
+        return toks, {k: v - before[k]
+                      for k, v in paged_attention.launches.items()}
+
+    base, launches = run()
+    assert sum(launches.values()) > 0
+    assert run(1) == (base, launches)
+    for tp in (2, 4):
+        toks, grown = run(tp)
+        assert {k: tp * v for k, v in launches.items()} == grown
+        assert all(toks[r][0] == base[r][0] for r in base)
+

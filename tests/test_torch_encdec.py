@@ -37,6 +37,10 @@ from repro_torch.models.registry import model_api
 from repro_torch.serving.arena import KVArena
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

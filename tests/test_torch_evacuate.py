@@ -27,6 +27,7 @@ import itertools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from conftest import toy_config
 from repro.core.allocator import ParallelPlan as JPlan
@@ -44,6 +45,10 @@ from repro_torch.core.categories import Sensitivity, TaskCategory
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
 
 _CFG = toy_config()
 KW = dict(max_seq_len=48, block_size=8, prefill_chunk=16)

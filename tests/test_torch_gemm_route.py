@@ -12,6 +12,10 @@ import torch
 
 from repro_torch.kernels import grouped_matmul
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 BF16 = torch.bfloat16
 
 

@@ -51,6 +51,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import family_api
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 TOL = 1e-4
 # the reference's steps, jitted once: called eagerly, each call traces and
 # compiles its layer scans anew
@@ -60,17 +64,6 @@ J = {name: jax.jit(getattr(jhybrid, name), static_argnums=1,
                            ("decode_step", ("impl",)),
                            ("prefill_chunk_paged", ("block_size", "impl")),
                            ("decode_step_paged", ("block_size", "impl")))}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The toy's matmuls are a few microseconds of work: on a shared CPU a
-    pool of threads costs milliseconds each, so this module runs torch on
-    one thread and gives the pool back after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(a):

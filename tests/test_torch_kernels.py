@@ -21,6 +21,10 @@ from repro.kernels.decode_attention import (
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.quant import QuantPages, dequantize, quantize
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

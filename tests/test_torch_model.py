@@ -32,6 +32,10 @@ from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig, reduced
 from repro_torch.models.registry import model_api
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

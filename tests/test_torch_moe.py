@@ -43,6 +43,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serving.arena import KVArena
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 TOL = 1e-4
 ARCHS = ("mixtral-8x7b", "grok-1-314b")
 

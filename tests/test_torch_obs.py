@@ -49,6 +49,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 
 from conftest import toy_config
 from repro.core.allocator import ParallelPlan as JPlan
@@ -79,6 +80,10 @@ from repro_torch.serving.engine import (GenerationRequest, ServiceRuntime,
                                         StepStats)
 from repro_torch.simulator import engine as sim
 from repro_torch.simulator import workload
+
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
 
 _CFG = toy_config()
 KW = dict(max_seq_len=48, block_size=8)

@@ -52,6 +52,10 @@ from repro_torch.models.registry import model_api
 from repro_torch.serving.arena import KVArena
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 _CFG = toy_config(num_layers=1, d_model=32, num_heads=2, num_kv_heads=2,
                   head_dim=16, d_ff=64)
@@ -568,7 +572,8 @@ def test_knob_gate_raises_where_the_reference_raises(case):
     "core/cluster.py", "core/__init__.py", "core/faults.py",
     "serving/failover.py", "simulator/workload.py",
     "simulator/baselines.py", "simulator/engine.py", "obs/trace.py",
-    "obs/metrics.py", "obs/calibrate.py", "obs/__init__.py"])
+    "obs/metrics.py", "obs/calibrate.py", "obs/__init__.py",
+    "models/sharding.py"])
 def test_copied_module_diffs_clean_against_the_reference(module):
     port = (ROOT / "src/repro_torch" / module).read_text()
     assert port.replace("repro_torch", "repro") == (

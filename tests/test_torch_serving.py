@@ -13,6 +13,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from conftest import toy_config
 from repro.core.allocator import ParallelPlan as JPlan
@@ -32,6 +33,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serving.arena import KVArena
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 from repro_torch.serving.sampler import SamplerConfig
+
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
 
 
 def _mirror(cfg) -> ModelConfig:
@@ -187,10 +192,15 @@ def test_launcher_serves_on_cpu(kv, capsys):
 
 
 def test_launcher_names_roadmap_item_for_unported_flags(capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--device", "cpu", "--pjit-decode"])
-    assert e.value.code == 2
-    assert "ROADMAP.md Queue 1 item 13" in capsys.readouterr().err
+    # --pjit-decode is ported (item 13): it serves on the CPU's trivial
+    # (1, 1) service mesh, and no flag is refused as unported any more
+    assert serve._UNPORTED_FLAGS == ()
+    assert serve.main(["--device", "cpu", "--pjit-decode", "--requests",
+                       "4", "--max-new-tokens", "3", "--max-seq-len",
+                       "32"]) == 0
+    out = capsys.readouterr().out
+    assert "service mesh: {'data': 1, 'model': 1}" in out
+    assert "served 4/4 requests" in out
     # the multi-server control plane is ported (item 6): three servers
     # under a drawn fault schedule serve every request
     assert serve.main(["--device", "cpu", "--servers", "3", "--chaos-seed",

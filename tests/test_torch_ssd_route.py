@@ -15,6 +15,10 @@ import torch
 
 from repro_torch.kernels import ssd_scan
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 BF16 = torch.bfloat16
 
 

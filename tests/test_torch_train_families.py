@@ -37,6 +37,10 @@ from repro_torch.models.registry import model_api
 from repro_torch.training import train_step
 from repro_torch.training.tree import tree_leaves, tree_paths
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 TOL = 1e-5
 SSM = dict(ssm_state=16, ssm_headdim=16, ssm_chunk=8)
 FAMILIES = {

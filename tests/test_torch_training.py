@@ -45,6 +45,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.training import checkpoint, optimizer, train_step
 from repro_torch.training.tree import tree_leaves, tree_paths
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

@@ -50,6 +50,10 @@ from repro_torch.models import vlm
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
 
+# one intra-op thread: xdist runs six workers, each of which would
+# otherwise start a pool the size of the machine
+torch.set_num_threads(1)
+
 TOL = 1e-4
 PREFIX = 16
 # the reference's steps, jitted once: called eagerly, each call traces and
