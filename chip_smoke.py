@@ -9,16 +9,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's serving paths (minicpm-2b, mamba2-2.7b, whisper-large-v3
 and mixtral-8x7b, full width, random weights from a seed), its training
 path (minicpm-2b), its sync and dense-cache serving paths and its prefix
-cache (minicpm-2b) in nine phases, then its observability and crash
+cache (minicpm-2b) in phases 1-9, then its observability and crash
 evacuation (minicpm-2b) in a tenth, its stochastic sampling, deadline
 admission with parking and n-way forks (minicpm-2b) in an eleventh, its
 speculative decoding (minitron-4b, mixtral-8x7b) in a twelfth, its
 multi-server control plane with crash failover (minicpm-2b, minitron-4b)
 in a thirteenth, its VLM family (paligemma-3b) in a fourteenth, its
 hybrid family (zamba2-7b) in a fifteenth, the training of the MoE,
-SSM, audio, VLM and hybrid families in a sixteenth and head-sharded
+SSM, audio, VLM and hybrid families in a sixteenth, head-sharded
 paged serving (``--pjit-decode``; minicpm-2b, codeqwen1.5-7b) in a
-seventeenth; any failure exits non-zero.
+seventeenth and head-sharded serving of the SSM, audio and MoE families
+(mamba2-2.7b, whisper-large-v3, mixtral-8x7b) in an eighteenth; any
+failure exits non-zero.
 Every phase prints its wall time.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
@@ -133,9 +135,11 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    three decode steps of one slot, to 2**-5 of their norm (each path's
    distance from its plain versions on the card, the chain's own bf16
    noise, printed beside it), and the three chunk steps' logits identical
-   (#3 and #6 run one body); (d) phase 3's wave in sync mode;
+   (#3 and #6 run one body); (d) phase 3's wave in sync mode (16 of its
+   32 requests: the time limit);
 9. the prefix cache on minicpm-2b at full width and the plan's 512 slots
-   (``max_seq_len`` 256): 32 requests (of the wave's 64: the time limit),
+   (``max_seq_len`` 256): 32 requests (of the wave's 64: the time limit;
+   16 in the one-template pair),
    each a 150-token template (4 full
    pages and a 22-token partial tail) plus a tail of its own of 1-40
    tokens, 24 new tokens each (``profile_step.templated_wave``).  A donor
@@ -227,7 +231,8 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    ``--archs minicpm-2b,minitron-4b --draft-arch minitron-4b`` (every
    request served, minicpm-2b's non-speculative note, verify launches);
    (e) mixtral-8x7b at full width and 2 of 32 layers with a self-draft,
-   at its capacity factor 1.25 (the verify's drops and the splits
+   on phase 3's first 16 requests (the time limit), at its
+   capacity factor 1.25 (the verify's drops and the splits
    printed) and at 8 (no drops, (a) repeated, the splits printed, a
    1-layer draft's chains identical to the self-draft's); each run's
    tok/s, speculation counters, launches and peak memory printed;
@@ -276,7 +281,8 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    block over concat(h, h0) every 6 layers, 13 applications of 32/32
    heads at D = 112; 32,000-token vocabulary), random weights from seed
    1, 256-token slots: (a) phase 8 (c)'s native vs dense-view logits;
-   (b) phase 3's wave in int8 KV at the plan's 256 slots (tok/s,
+   (b) phase 3's wave (16 of 32 requests: the time limit) in int8 KV at the
+   plan's 256 slots (tok/s,
    launches, peak memory beside the static sum), then in bf16 KV and
    through the dense-view oracle at 128 slots (the oracle's gathered view
    does not fit beside a 256-slot bf16 arena) on its first 16 requests
@@ -296,13 +302,13 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
 17. head-sharded paged serving, the launcher's ``--pjit-decode`` on
    service meshes that list ``cuda:0`` tp times (``launch/steps.py``
    ``paged_decode_builder``): (a) minicpm-2b at its plan (512 slots, int8
-   K/V, the prefix cache at its default) on phase 3's first 16 requests,
+   K/V, the prefix cache at its default) on phase 3's first 8 requests,
    40 new tokens, at tp = 1 (its chains must be phase 3's exactly) and at
    tp = 4 (9 heads a shard: every paged kernel launched 4 times a layer a
    step, first tokens equal, each decode step's logits over the slots fed
    the same tokens held to phase 8 (c)'s 2**-5 of their norm, splits
    printed with their top-two gaps); (b) codeqwen1.5-7b (D = 128, bf16
-   K/V, random qkv biases, 32 slots) unsharded and at tp = 2 on 8
+   K/V, random qkv biases, 32 slots) unsharded and at tp = 2 on 4
    requests, held the same way, and across ``cuda:0`` and ``cuda:1``
    where the machine has two cards (else the cross-card copies are
    printed as unchecked); (d) each decode step's CUDA-event time beside
@@ -313,6 +319,36 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    their plain versions by ``check_rows``, the tp = 4 shapes timed beside
    their bounds, each timed decode record's work equal to
    ``roofline/op_cost.py``'s rule;
+18. head-sharded paged serving of the SSM, audio and MoE families on the
+   service mesh ``[cuda:0] * 4`` (numerics and launches, not speed
+   across cards), each family's shards drawn by ``init_sharded`` from
+   phases 4-6's seed, on the first 8 of phases 4-6's 32 requests: (a1)
+   each family at 2 layers (whisper 2 + 2), unsharded and at tp = 4 on the
+   same weights, 16 new tokens, held by ``compare_runs``: the MoE
+   router's inputs, call by call, to ``PARITY_TOL`` of their norm until
+   a request's routing splits, and the split at a router tie (its gap
+   under ``PARITY_TOL`` of the router logits' norm); every other request
+   (at least half, a quarter for the MoE family) with its first token
+   equal or split within one bf16 ulp, its final-chunk logits and each
+   decode step's logits while it is fed the same tokens to
+   ``PARITY_TOL`` of their norm, its first decode row always held; MoE
+   drops equal in every chunk before its request's routing split; (a2)
+   mamba2-2.7b and whisper-large-v3 at 128 slots and mixtral-8x7b at 16
+   layers and 512 slots, 16 new tokens: every kernel of the path
+   launched 4 times a layer a step (``TP_FAMILY_KERNELS``), first
+   tokens, logits, chains and MoE drops against phases 4-6's rows of the
+   same requests (recorded there), held as (a1) holds them for
+   whisper-large-v3 and measured for the others: at full depth on random
+   weights a rounding-level change moves mamba2's and mixtral's chains
+   as far (``--tp-floor``); (c) each tp = 4 step's
+   ``decode_cost_analysis`` against phases 4-6's: the kernels' FLOPs
+   equal, the matmuls' those plus what the 3 further shards repeat
+   (``repeated_flops``); (d) the launcher with ``--pjit-decode`` and
+   mamba2-2.7b on the card's (1, 1) mesh, refused before anything is
+   allocated (its plan's 512 slots of SSD state, 87 GB, exceed the card),
+   and a (1, 4) mesh's share shown to fit; (b) the kernels at the shards'
+   shapes, against their plain versions and timed beside their bounds
+   (``tp_family_kernel_cases``);
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -351,10 +387,17 @@ launch the SSD scan, the sync request #7 and the scan), as
 record's and printed beside it as ``train_families_launches`` (#7-#10
 must launch); every count is zeroed just before phase 17 and read after
 its launcher run (before (c)'s comparisons), added to the record's and
-printed as ``tp_launches`` (#1-#4 must launch).
+printed as ``tp_launches`` (#1-#4 must launch); every count is zeroed
+just before phase 18 and read after (d), before (b)'s comparisons, added
+to the record's and printed as ``tp_families_launches`` (#1-#5, #7, #9
+and #10 must launch).
 ``python3 chip_smoke.py --across-cards`` on a machine with four cards
-runs phase 17 across them instead (``across_cards``); ``python3
-chip_smoke.py --tp-witness`` runs only ``tp_kv_witness``.
+runs phases 17 and 18 across them instead (``across_cards``: the waves
+over cuda:0-3 against ``[cuda:0] * 4`` bit for bit, mistral-large-123b,
+and the three families at their full plans: mixtral-8x7b at all 32
+layers, mamba2-2.7b and whisper-large-v3 at 512 slots); ``python3
+chip_smoke.py --tp-witness`` runs only ``tp_kv_witness``, and ``python3
+chip_smoke.py --tp-floor`` only phase 4 and ``tp_floor``.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -1476,7 +1519,7 @@ def vlm_kernels(records):
 HYBRID_ARCH = "zamba2-7b"
 HYBRID_HEADS = dict(Hq=32, Hkv=32, D=112)
 HYBRID_MAX_SEQ = 256
-HYBRID_PAIR_REQUESTS = 16      # phase 15 (b)'s bf16 and oracle waves
+HYBRID_PAIR_REQUESTS = 16      # phase 15 (b)'s waves, int8's included
 # #3/#4 at phase 15's chunks: a 128-row bucket at 64 (phase 3's) and a
 # ragged 13-row one at 150
 HYBRID_CHUNKS = {"t128_at64": dict(B=1, T=128, start=[64], chunk_len=[128],
@@ -1722,6 +1765,8 @@ def wave_mamba2(n_requests=32, new_tokens=40):
     mem_weights = torch.cuda.memory_allocated()
     check(rt.plan.max_in_flight == 128 and rt.plan.sticky,
           f"unexpected mamba2-2.7b plan {rt.plan}")
+    decodes = record_decodes(rt, range(TP_FAMILY_REQUESTS))
+    final = keep_final_logits(rt)
     ssd_scan.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1756,10 +1801,13 @@ def wave_mamba2(n_requests=32, new_tokens=40):
           f"{mem_weights / 1e9:.2f}, after "
           f"{torch.cuda.memory_allocated() / 1e9:.2f}, peak {peak / 1e9:.2f}, "
           f"{prefix_counters(rt)}")
+    base = {"chains": {r.rid: np.asarray(r.tokens) for r in results},
+            "decodes": decodes, "final": final, "drops": None,
+            "cost": rt.decode_cost_analysis()}
     del rt, arena
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, base
 
 
 def wave_whisper(n_requests=32, new_tokens=40):
@@ -1776,6 +1824,8 @@ def wave_whisper(n_requests=32, new_tokens=40):
     mem_weights = torch.cuda.memory_allocated()
     check(rt.plan.max_in_flight == 128 and rt.kv_dtype == "int8",
           f"unexpected whisper-large-v3 plan {rt.plan}")
+    decodes = record_decodes(rt, range(TP_FAMILY_REQUESTS))
+    final = keep_final_logits(rt)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1815,10 +1865,13 @@ def wave_whisper(n_requests=32, new_tokens=40):
     print("phase 5 greedy tokens: " + json.dumps(
         [np.asarray(r.tokens).tolist() for r in
          sorted(results, key=lambda r: r.rid)]))
+    base = {"chains": {r.rid: np.asarray(r.tokens) for r in results},
+            "decodes": decodes, "final": final, "drops": None,
+            "cost": rt.decode_cost_analysis()}
     del rt, arena
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, base
 
 
 def wave_mixtral(n_requests=32, new_tokens=40):
@@ -1838,6 +1891,9 @@ def wave_mixtral(n_requests=32, new_tokens=40):
            cfg.moe_capacity_factor) == (16, 4096, 14336, 8, 1.25)
           and rt.plan.max_in_flight == 512 and rt.kv_dtype == "bf16",
           f"unexpected mixtral-8x7b wave {cfg} {rt.plan}")
+    decodes = record_decodes(rt, range(TP_FAMILY_REQUESTS))
+    final = keep_final_logits(rt)
+    chunk_drops = record_chunk_drops(rt)
     stats = moe.MOE_DROP_STATS
     stats.flush()
     drop0, assigned0 = stats.dropped, stats.assigned
@@ -1893,10 +1949,15 @@ def wave_mixtral(n_requests=32, new_tokens=40):
     print("phase 6 greedy tokens: " + json.dumps(
         [np.asarray(r.tokens).tolist() for r in
          sorted(results, key=lambda r: r.rid)]))
+    check(sum(chunk_drops.values()) == dropped,
+          "phase 6: the chunks' drops are not the wave's")
+    base = {"chains": {r.rid: np.asarray(r.tokens) for r in results},
+            "decodes": decodes, "final": final, "drops": chunk_drops,
+            "cost": rt.decode_cost_analysis()}
     del rt, arena
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, base
 
 
 # ---------------------------------------------------------------------------
@@ -2145,6 +2206,9 @@ def hold_logits_parity(label, cfg, params, chunks=(64, 64, 37), steps=3,
     return report
 
 
+SYNC_REQUESTS = 16             # phase 8 (d)'s wave: 16 of 32
+
+
 def wave_sync(n_requests=32, new_tokens=40):
     """Phase 8 (d): phase 3's wave in sync mode (run-to-completion
     batches, left-padded prompts, a dense bf16 cache a batch); returns its
@@ -2354,8 +2418,9 @@ def phase_templated():
     reset_launches()
     # (the bf16 pair, 39 s of drains, was cut for the script's time limit:
     # cow_exact still holds bf16 pools' copy-on-write; so were each
-    # pair's last 32 requests, 85 s of drains)
-    for kv, knob, templates, n in (("int8", -1, 1, 32), ("int8", 8, 2, 32)):
+    # pair's last 32 requests, 85 s of drains, and the one-template
+    # pair's 16 more)
+    for kv, knob, templates, n in (("int8", -1, 1, 16), ("int8", 8, 2, 32)):
         on, on_toks, on_lg = templated_run(kv, knob, params, templates, n)
         off, off_toks, off_lg = templated_run(kv, 0, params, templates, n)
         rels = sorted(rel(on_lg[r], off_lg[r]) for r in off_lg)
@@ -3009,6 +3074,7 @@ DRAFT_LAYERS = 4              # (b)'s small draft: the target's first blocks
 VERIFY_LENS = (1, 30, 32, 33, 64, 100, 150, 200)
 VERIFY_SLOTS = (0, 63, 64, 130, 255, 300, 411, 511)
 MOE_LAYERS = 2                # (e): mixtral-8x7b at full width, 2 of 32
+MOE_SPEC_REQUESTS = 16        # (e)'s waves: phase 3's first 16 of 32
 STOCH_SPEC_REQUESTS = 8       # (c)'s wave: the first 8 of phase 3's 32
 SPEC_WAVE_REQUESTS = 16       # (b)'s plain and self-draft waves
 
@@ -3162,13 +3228,13 @@ def router_margins(cfg, params, tokens, rows=SPEC_K + 1):
     from repro_torch.models import layers, moe
     per_call, mlp = [], moe.moe_mlp
 
-    def spy(p, c, x):
+    def spy(p, c, x, **kw):
         lg = layers.linear(x.float(), p["router"].float())
         top = lg.topk(c.experts_per_token + 1, dim=-1).values
         kth = top[..., -2]
         step = torch.exp2(torch.floor(torch.log2(kth.abs())) - 7)
         per_call.append(((kth - top[..., -1]) / step)[0])
-        return mlp(p, c, x)
+        return mlp(p, c, x, **kw)
 
     moe.moe_mlp = spy
     try:
@@ -3345,15 +3411,17 @@ def phase_moe_verify():
         if cf != full.moe_capacity_factor:
             r["verify"] = verify_vs_decode(cfg, params, f"{tag} (a)")
         plain, r["plain"] = spec_wave(f"{tag} plain", cfg, params,
+                                      n_requests=MOE_SPEC_REQUESTS,
                                       speculate=0)
         spec, r["self_draft"] = spec_wave(
             f"{tag} self-draft", cfg, params, draft_params=params,
-            draft_cfg=cfg)
+            draft_cfg=cfg, n_requests=MOE_SPEC_REQUESTS)
         check(r["self_draft"]["verify_launches"] > 0,
               f"{tag}: no verify launched")
         splits = r["self_draft"]["splits"] = chain_splits(cfg, params,
                                                           plain, spec)
-        print(f"phase 12 {tag}: {32 - len(splits)}/32 chains equal the "
+        print(f"phase 12 {tag}: {MOE_SPEC_REQUESTS - len(splits)}/"
+              f"{MOE_SPEC_REQUESTS} chains equal the "
               f"plain run's, verify drops "
               f"{r['self_draft']['moe_dropped_tokens']} (plain "
               f"{r['plain']['moe_dropped_tokens']}); splits (first "
@@ -3385,7 +3453,7 @@ def phase_moe_verify():
             dcfg, dparams = draft_view(cfg, params, 1)
             one, r["draft1"] = spec_wave(
                 f"{tag} 1-layer draft", cfg, params, draft_params=dparams,
-                draft_cfg=dcfg)
+                draft_cfg=dcfg, n_requests=MOE_SPEC_REQUESTS)
             same_chains(f"{tag} self-draft vs 1-layer draft", spec, one)
             del dparams
         del params
@@ -4157,7 +4225,7 @@ def phase_hybrid():
     launches = {}
     int8, rec["int8"] = family_wave(
         "phase 15", "(b) int8 KV, the plan's 256 slots", HYBRID_ARCH, params,
-        "int8", HYBRID_MAX_SEQ, 256)
+        "int8", HYBRID_MAX_SEQ, 256, n_requests=HYBRID_PAIR_REQUESTS)
     # bf16 and the oracle on the wave's first HYBRID_PAIR_REQUESTS (all 32
     # took 20 s more: cut for the script's time limit)
     bf16, rec["bf16"] = family_wave(
@@ -4758,13 +4826,637 @@ def phase_tp(phase3_toks):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 18: head-sharded paged serving of the MoE, SSM and audio families
+# ---------------------------------------------------------------------------
+
+TP_FAMILY_REQUESTS = 8         # the first 8 of phases 4-6's 32 requests
+TP_FAMILY_NEW = 16             # (a1)'s and (a2)'s new tokens
+# phase 18 (a1)'s depth: two layers (whisper: two encoder and two decoder
+# layers) carry every kernel and reduction of the path at full width,
+# with too little depth to amplify bf16 rounding; at full depth on random
+# weights a rounding-level change (mamba2-2.7b's plain SSD scan in place
+# of the kernel, unsharded) already moves the final-chunk logits by
+# 0.11-0.18 of their norm and splits every chain (``--tp-floor``)
+TP_PARITY_LAYERS = 2
+TP_FAMILIES = ("mamba2-2.7b", "whisper-large-v3", "mixtral-8x7b")
+# the archs whose full-depth wave (a2) stays inside ``PARITY_TOL`` of the
+# unsharded one and is held there (whisper-large-v3's final-chunk logits
+# 0.013-0.016 of their norm); mamba2-2.7b's 64 recurrent layers and
+# mixtral-8x7b's router carry a rounding-level change past it on random
+# weights (``--tp-floor``: the plain SSD scan for the kernel, unsharded,
+# moves mamba2's final-chunk logits 0.11-0.18 of their norm), so their
+# waves are measured and (a1) holds their path
+TP_WAVE_HELD = ("whisper-large-v3",)
+# each family's kernels on the head-sharded path, the launches each makes
+# a layer of one shard in a decode step and in a chunk (whisper's flash
+# attention also runs its encoder's layers once a request)
+TP_FAMILY_KERNELS = {
+    "mamba2-2.7b": {"ssd_scan": (0, 1)},
+    "whisper-large-v3": {"paged_decode_attention_quant": (1, 0),
+                         "decode_attention": (1, 0),
+                         "paged_chunk_prefill_attention_quant": (0, 1),
+                         "flash_attention": (0, 1)},
+    "mixtral-8x7b": {"paged_decode_attention": (1, 0),
+                     "paged_chunk_prefill_attention": (0, 1),
+                     "grouped_matmul": (3, 3)}}
+
+
+def record_decodes(rt, rids):
+    """Wraps ``rt``'s fused decode step: each step's logits row of every
+    live slot that serves one of the requests ``rids``, with the token it
+    was fed, by request: {rid: [(step, fed token, logits row)]}."""
+    out = {r: [] for r in rids}
+    decode, step = rt._paged_decode, [0]
+
+    def recorded(arena, tokens, live, **kw):
+        logits = decode(arena, tokens, live, **kw)
+        fed, on = tokens.cpu(), live.cpu()
+        for g in rt.groups.values():
+            for s in g.slots:
+                if g.arena is arena and s.req.rid in out and on[s.slot_id]:
+                    out[s.req.rid].append((step[0], int(fed[s.slot_id]),
+                                           logits[s.slot_id].clone()))
+        step[0] += 1
+        return logits
+
+    rt._paged_decode = recorded
+    return out
+
+
+def record_chunk_drops(rt):
+    """Wraps ``rt``'s chunk runner: the MoE drops of every prefill chunk,
+    by (rid, the chunk's first prompt position)."""
+    from repro_torch.models import moe
+    out, run = {}, rt._run_chunk
+
+    def recorded(arena, s, T):
+        stats = moe.MOE_DROP_STATS
+        stats.flush()
+        d0 = stats.dropped
+        logits, n_valid = run(arena, s, T)
+        stats.flush()
+        out[(s.req.rid, s.consumed - n_valid)] = stats.dropped - d0
+        return logits, n_valid
+
+    rt._run_chunk = recorded
+    return out
+
+
+def record_routing(rt, tp):
+    """Records the MoE router of ``rt``'s first ``TP_FAMILY_REQUESTS``
+    requests as the first of its ``tp`` shards (or its one tree) sees it:
+    for every FFN call, in order, its kind ("decode" or "prefill"), where
+    (the decode step, or the chunk's (rid, first prompt position)), its
+    layer, and for each recorded request its rows: the router's input
+    (f32, on the host), the top-k experts in the order the dispatch
+    claims them, the smallest gap between adjacent ones of its k + 1
+    largest router logits, and the router logits' norm.  Patches
+    ``moe.moe_ffn`` (which a head-sharded step calls once a shard, the
+    shards in turn, layer by layer) until ``restore()``; returns (log,
+    restore)."""
+    from repro_torch.models import layers, moe
+    rids = set(range(TP_FAMILY_REQUESTS))
+    log, where = [], {"calls": 0, "steps": 0}
+    ffn, decode, run = moe.moe_ffn, rt._paged_decode, rt._run_chunk
+
+    def logged(lp, cfg, x):
+        lead = where["calls"] % tp == 0
+        where["calls"] += 1
+        if lead:
+            k = cfg.experts_per_token
+            xs = (x if x.ndim == 2 else x[0]).float()
+            lg = layers.linear(xs, lp["moe"]["router"].float())
+            top = lg.topk(k + 1, dim=-1)
+            gap = (top.values[:, :-1] - top.values[:, 1:]).min(dim=-1).values
+            norm = lg.norm(dim=-1)
+            log.append({"kind": where["kind"], "at": where["at"],
+                        "layer": where["layer"],
+                        "rows": {r: (xs[sl].cpu(), top.indices[sl, :k].cpu(),
+                                     gap[sl].cpu(), norm[sl].cpu())
+                                 for r, sl in where["rows"].items()}})
+            where["layer"] += 1
+        return ffn(lp, cfg, x)
+
+    def stepped(arena, tokens, live, **kw):
+        on = live.cpu()
+        where.update(kind="decode", at=where["steps"], layer=0, rows={
+            s.req.rid: slice(s.slot_id, s.slot_id + 1)
+            for g in rt.groups.values() for s in g.slots
+            if g.arena is arena and s.req.rid in rids and on[s.slot_id]})
+        out = decode(arena, tokens, live, **kw)
+        where["steps"] += 1
+        return out
+
+    def chunked(arena, s, T):
+        where.update(kind="prefill", at=(s.req.rid, s.consumed), layer=0,
+                     rows={s.req.rid: slice(None)} if s.req.rid in rids
+                     else {})
+        return run(arena, s, T)
+
+    moe.moe_ffn = logged
+    rt._paged_decode, rt._run_chunk = stepped, chunked
+
+    def restore():
+        moe.moe_ffn = ffn
+    return log, restore
+
+
+def hold_routing(label, base, got, hold=True):
+    """Holds ``got``'s ``record_routing`` log to ``base``'s, call by call:
+    the router inputs of every request whose routing has not yet split,
+    stacked, to ``PARITY_TOL`` of their norm, so that attention and every
+    expert FFN before a request's split stay held; where a request's
+    ordered top-k first differs, the base's router gap there must be a
+    tie at that noise (``PARITY_TOL`` of the row's router-logit norm, a
+    fixed reading, not the two runs' difference).  Without ``hold`` all
+    only measured.  Returns ({rid: (kind, where, layer, router gap, its
+    bound)} of the first splits, {calls, rows, the worst call's share of
+    the limit})."""
+    import torch
+    check(len(base) == len(got) and all(
+        (a["kind"], a["at"], a["layer"], a["rows"].keys())
+        == (b["kind"], b["at"], b["layer"], b["rows"].keys())
+        for a, b in zip(base, got)),
+        f"{label}: the two runs' MoE calls differ")
+    split, calls, rows, worst = {}, 0, 0, 0.0
+    for a, b in zip(base, got):
+        held = [r for r in a["rows"] if r not in split]
+        if not held:
+            continue
+        xa = torch.cat([a["rows"][r][0] for r in held])
+        xb = torch.cat([b["rows"][r][0] for r in held])
+        share = ((xb - xa).norm() / (PARITY_TOL * xa.norm())).item()
+        check(share <= 1 or not hold, f"{label}: the router inputs of "
+              f"{a['kind']} {a['at']} layer {a['layer']} differ by {share} "
+              f"of the limit ({PARITY_TOL} of their norm)")
+        calls, rows, worst = calls + 1, rows + xa.shape[0], max(worst, share)
+        for r in held:
+            differ = (a["rows"][r][1] != b["rows"][r][1]).any(dim=-1)
+            if not differ.any():
+                continue
+            gap = a["rows"][r][2][differ].max().item()
+            bound = (PARITY_TOL * a["rows"][r][3][differ]).min().item()
+            check(gap <= bound or not hold, f"{label}: request {r}'s "
+                  f"routing split at {a['kind']} {a['at']} layer "
+                  f"{a['layer']} at a router gap {gap} above a tie ({bound})")
+            split[r] = (a["kind"], a["at"], a["layer"], round(gap, 6),
+                        round(bound, 6))
+    return split, {"calls": calls, "rows": rows,
+                   "worst_of_limit": round(worst, 4)}
+
+
+def hold_family_logits(label, base, got, hold=True, split=None):
+    """Holds each decode step of ``got`` (``record_decodes``'s) to the
+    same requests' decode steps in ``base`` as ``hold_tp_logits`` holds a
+    step: the rows whose fed tokens so far are the same in both runs,
+    and whose MoE routing has not split (``split``: {rid: the decode step
+    from which its routing differs}), ``PARITY_TOL`` of their norm
+    (without ``hold``, only measured).  Returns (steps compared, rows by
+    rid, the worst step's share of the limit, the worst single row's
+    share)."""
+    import torch
+    by_step, per_rid = {}, {}
+    split = split or {}
+    for rid, rows in got.items():
+        per_rid[rid] = 0
+        for k, (step, tok, lg) in enumerate(rows):
+            if k >= len(base[rid]) or base[rid][k][1] != tok \
+                    or step >= split.get(rid, float("inf")):
+                break
+            by_step.setdefault(step, []).append((base[rid][k][2], lg))
+            per_rid[rid] += 1
+    worst = worst_row = 0.0
+    for step, pairs in sorted(by_step.items()):
+        a = torch.stack([p[0] for p in pairs]).float()
+        b = torch.stack([p[1].to(a.device) for p in pairs]).float()
+        share = ((b - a).norm() / (PARITY_TOL * a.norm())).item()
+        check(share <= 1 or not hold, f"{label}: decode step {step}'s "
+              f"logits differ by {share} of the limit ({PARITY_TOL} of "
+              f"their norm)")
+        worst = max(worst, share)
+        worst_row = max(worst_row, ((b - a).norm(dim=1) / (
+            PARITY_TOL * a.norm(dim=1))).max().item())
+    return len(by_step), per_rid, worst, worst_row
+
+
+def family_splits(base_chains, base, got_chains):
+    """Where each chain of ``got_chains`` first leaves ``base_chains``'s,
+    with the base run's top-two logit gap there: {rid: (position, gap)}."""
+    out = {}
+    for rid, toks in got_chains.items():
+        want = base_chains[rid]
+        p = next((i for i, (a, b) in enumerate(zip(toks, want)) if a != b),
+                 None)
+        if p is None or p == 0:
+            continue
+        top = base[rid][p - 1][2].float().topk(2).values
+        out[rid] = (p, round((top[0] - top[1]).item(), 6))
+    return out
+
+
+def tp_family_runtime(arch, devices, n_requests, *, layers=None, bs=None,
+                      new_tokens=40):
+    """``arch`` at full width (``WAVE_LAYERS``' depth unless ``layers``,
+    which cuts an encoder-decoder's encoder to the same depth), at ``bs``
+    slots (``WAVE_BS``' unless given), its weights from seed 1: the whole
+    tree on ``devices`` when it is one device (unsharded), or drawn by
+    ``init_sharded`` straight into the shards of the service mesh over
+    the list ``devices`` (the same values); the first ``n_requests`` of
+    ``wave_runtime``'s 32 requests submitted.  Returns (cfg, runtime)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_step import (WAVE_BS, WAVE_LAYERS,
+                                                 wave_extras, wave_prompts)
+    from repro_torch.launch.serve import plan_for
+    from repro_torch.launch.steps import init_sharded, paged_decode_builder
+    from repro_torch.models.registry import model_api
+    from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers or WAVE_LAYERS.get(
+        arch, full.num_layers))
+    if layers and full.family == "audio":
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
+    plan = plan_for(full, -1, bs or WAVE_BS.get(arch), -1)
+    if not isinstance(devices, list):
+        rt = ServiceRuntime(cfg, model_api(cfg).init(1, cfg, devices), plan,
+                            device=devices)
+    else:
+        mesh = tp_mesh(devices)
+        rt = ServiceRuntime(cfg, None, plan, device=devices[0],
+                            paged_step_builder=paged_decode_builder(
+                                mesh, shards=init_sharded(1, cfg, mesh)))
+    for rid, (prompt, extras) in enumerate(zip(
+            wave_prompts(cfg.vocab_size, 32)[:n_requests],
+            wave_extras(cfg, 32)[:n_requests])):
+        rt.submit(GenerationRequest(rid=rid, tokens=prompt,
+                                    max_new_tokens=new_tokens, stream=rid,
+                                    extras=extras))
+    torch.cuda.synchronize()
+    return cfg, rt
+
+
+def run_steps(rt):
+    """Drains ``rt`` step by step; returns (chains by rid, wall s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = []
+    while rt.pending() or rt.in_flight():
+        results.extend(rt.step(max_wait_s=0.0).results)
+    torch.cuda.synchronize()
+    return {r.rid: np.asarray(r.tokens) for r in results}, \
+        time.perf_counter() - t0
+
+
+def repeated_flops(cfg, capacity: int) -> int:
+    """The matmul FLOPs a decode step repeats on every further shard of a
+    head-sharded family, a layer: the MoE router and its combine einsum
+    (one token a routing group at capacity C; the dispatch einsum
+    contracts that one row, counted as no FLOPs), Mamba-2's B and C
+    columns of in_proj; whisper none."""
+    if cfg.family == "moe":
+        C = max(1, int(cfg.moe_capacity_factor * cfg.experts_per_token
+                       / cfg.num_experts))
+        return 2 * capacity * cfg.d_model * cfg.num_experts * (1 + C)
+    if cfg.family == "ssm":
+        return 2 * capacity * cfg.d_model * 2 * cfg.ssm_ngroups \
+            * cfg.ssm_state
+    return 0
+
+
+def recorded_run(rt, moe_drops=False, routing=None):
+    """Drains ``rt`` with the first ``TP_FAMILY_REQUESTS`` requests' decode
+    rows, final-chunk logits, (``moe_drops``) chunk drops and (``routing``,
+    its shard count) MoE routing (``record_routing``) recorded; returns a
+    record like phases 4-6's, with the launches and wall."""
+    from repro_torch.kernels.ops import launch_counts
+    rec = {"decodes": record_decodes(rt, range(TP_FAMILY_REQUESTS)),
+           "final": keep_final_logits(rt),
+           "drops": record_chunk_drops(rt) if moe_drops else None,
+           "routing": None}
+    restore = None
+    if routing is not None:
+        rec["routing"], restore = record_routing(rt, routing)
+    c0 = launch_counts()
+    try:
+        rec["chains"], rec["wall"] = run_steps(rt)
+    finally:
+        if restore is not None:
+            restore()
+    rec["launches"] = {k: v - c0[k] for k, v in launch_counts().items()
+                       if v - c0[k]}
+    return rec
+
+
+def bf16_tie(row) -> bool:
+    """Whether a logits row's top two lie within one bf16 ulp of its top
+    logit: a tie that any rounding may break either way."""
+    import math
+    top = row.float().topk(2).values
+    e = math.frexp(top[0].item())[1]       # |top| in [2**(e-1), 2**e)
+    return (top[0] - top[1]).item() <= 2.0 ** (e - 8)
+
+
+def compare_runs(label, base, got, hold=True):
+    """``got`` against ``base`` (``recorded_run``'s records) on the same
+    requests.  A request whose MoE routing split in its prefill (at a tie,
+    its router inputs held up to there: ``hold_routing``) is held no
+    further.  Every other request: its first token equal, or split at a
+    bf16 tie (``bf16_tie`` of the base's final-chunk logits); its
+    final-chunk logits within ``PARITY_TOL`` of their norm; its decode
+    rows held step by step (``hold_family_logits``) until its fed tokens
+    or its routing part, its first decode row always.  MoE drops equal
+    chunk by chunk, for every chunk before its request's routing split.
+    Without ``hold`` all only measured.  At least half of the requests
+    (a quarter for the MoE family, whose router breaks near-ties
+    otherwise) must be held whole.  Returns a summary to print."""
+    rids = [r for r in got["chains"] if r in base["chains"]]
+    routed, router = {}, None
+    if got.get("routing") is not None:
+        routed, router = hold_routing(label, base["routing"], got["routing"],
+                                      hold)
+    whole = [r for r in rids if routed.get(r, ("decode",))[0] != "prefill"]
+    need = len(rids) // (4 if router is not None else 2)
+    check(len(whole) >= need or not hold, f"{label}: {len(whole)} of "
+          f"{len(rids)} requests held whole, under {need}: routing splits "
+          f"{routed}")
+    firsts = {r: (int(base["chains"][r][0]), int(got["chains"][r][0]),
+                  bf16_tie(base["final"][r])) for r in whole
+              if got["chains"][r][0] != base["chains"][r][0]}
+    check(all(t for _, _, t in firsts.values()) or not hold, f"{label}: "
+          f"first tokens split above a bf16 tie (base, got, tie): {firsts}")
+    final = {r: round(((got["final"][r].float() - base["final"][r].float())
+                       .norm() / base["final"][r].float().norm()).item(), 4)
+             for r in rids}
+    check(all(final[r] <= PARITY_TOL for r in whole) or not hold,
+          f"{label}: final-chunk logits differ from the base's by {final} "
+          f"of their norm, over {PARITY_TOL} (requests held: {whole})")
+    steps, per_rid, worst, worst_row = hold_family_logits(
+        label, base["decodes"], got["decodes"], hold,
+        {r: (0 if kind == "prefill" else at)
+         for r, (kind, at, _, _, _) in routed.items()})
+    # every held request whose first token agrees feeds it to its first
+    # decode step, on both runs; it is held unless its routing split there
+    first_rows = [r for r in whole if r not in firsts and got["decodes"][r]
+                  and (r not in routed
+                       or got["decodes"][r][0][0] < routed[r][1])]
+    check(all(per_rid[r] > 0 for r in first_rows) or not hold,
+          f"{label}: no decode row held for requests "
+          f"{[r for r in first_rows if not per_rid[r]]}")
+    out = {"held_whole": len(whole), "first_equal": int(sum(
+               got["chains"][r][0] == base["chains"][r][0] for r in rids)),
+           "first_ties": firsts, "routing_splits": routed, "router": router,
+           "final_chunk_rel": [final[r] for r in rids],
+           "steps_held": steps, "rows": sum(per_rid.values()),
+           "worst_step_of_limit": round(worst, 4),
+           "worst_row_of_limit": round(worst_row, 4),
+           "chains_equal": sum(np.array_equal(
+               got["chains"][r], base["chains"][r][:len(got["chains"][r])])
+               for r in rids),
+           "splits": family_splits(base["chains"], base["decodes"],
+                                   got["chains"])}
+    if got["drops"] is not None:
+        mine = {k: v for k, v in base["drops"].items() if k[0] in rids}
+        check(got["drops"].keys() == mine.keys(), f"{label}: chunks "
+              f"{sorted(got['drops'])} are not the base's {sorted(mine)}")
+        # a chunk from its request's routing split on routes otherwise
+        held = [k for k in mine
+                if routed.get(k[0], ("decode",))[0] != "prefill"
+                or k[1] < routed[k[0]][1][1]]
+        unequal = {k: (mine[k], got["drops"][k]) for k in held
+                   if got["drops"][k] != mine[k]}
+        check(not unequal or not hold, f"{label}: MoE drops of chunks "
+              f"(rid, start) differ (base, tp): {unequal}")
+        out["moe_drops"] = {"tp": sum(got["drops"].values()),
+                            "base": sum(mine.values()),
+                            "chunks_held": len(held),
+                            "chunks_equal": len(held) - len(unequal),
+                            "chunks": len(mine)}
+    return out
+
+
+def tp_family_parity(arch, card0):
+    """Phase 18 (a1): ``arch`` at full width and ``TP_PARITY_LAYERS``
+    layers, unsharded and at tp = 4 over ``[card0] * 4`` with the same
+    weights, on the first ``TP_FAMILY_REQUESTS`` requests, held by
+    ``compare_runs``: first tokens, final-chunk logits, each decode step's
+    logits and MoE drops, and the MoE router's inputs up to each
+    request's routing split."""
+    import torch
+    runs = []
+    for devices in (card0, [card0] * 4):
+        cfg, rt = tp_family_runtime(arch, devices, TP_FAMILY_REQUESTS,
+                                    layers=TP_PARITY_LAYERS,
+                                    new_tokens=TP_FAMILY_NEW)
+        moe = cfg.family == "moe"
+        runs.append(recorded_run(rt, moe_drops=moe, routing=(
+            (1 if devices is card0 else 4) if moe else None)))
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = compare_runs(f"{arch} {TP_PARITY_LAYERS} layers tp = 4", *runs)
+    print(f"phase 18 (a1) {arch} at {TP_PARITY_LAYERS} layers, unsharded "
+          f"and tp = 4 over [cuda:0] * 4: {json.dumps(out)}")
+    return out
+
+
+def tp_family_wave(arch, devices, base, new_tokens=TP_FAMILY_NEW):
+    """Phase 18 (a2): ``arch`` at phases 4-6's size over the mesh of
+    ``devices`` on the first ``TP_FAMILY_REQUESTS`` requests: every
+    kernel of the path launched ``tp`` times a layer a step; first
+    tokens, logits, chains and MoE drops against phases 4-6's rows of the
+    same requests (``base``), held by ``compare_runs`` for the archs of
+    ``TP_WAVE_HELD`` and measured for the others.  Returns (record,
+    runtime)."""
+    cfg, rt = tp_family_runtime(arch, devices, TP_FAMILY_REQUESTS,
+                                new_tokens=new_tokens)
+    tp = rt.sharded_step.tp
+    got = recorded_run(rt, moe_drops=cfg.family == "moe")
+    check(len(got["chains"]) == TP_FAMILY_REQUESTS and all(
+        len(t) == new_tokens and t.min() >= 0
+        and t.max() < cfg.vocab_size
+        for t in got["chains"].values()),
+          f"{arch} tp = {tp}: served {got['chains']}")
+    L = cfg.num_layers
+    for name, (per_decode, per_chunk) in TP_FAMILY_KERNELS[arch].items():
+        want = tp * L * (per_decode * rt.decode_steps
+                         + per_chunk * rt.prefill_chunk_calls)
+        if name == "flash_attention":
+            want += tp * cfg.encoder_layers * TP_FAMILY_REQUESTS
+        check(got["launches"].get(name, 0) == want,
+              f"{arch} tp = {tp}: {name} launched "
+              f"{got['launches'].get(name, 0)} times, not {want} ({tp} a "
+              f"layer a step)")
+    out = compare_runs(f"{arch} tp = {tp}", base, got,
+                       hold=arch in TP_WAVE_HELD)
+    arena = rt.groups[0].arena
+    shard_gb = [round(arena.shard_bytes(j) / 1e9, 3) for j in range(tp)]
+    print(f"phase 18 (a2) {arch} ({L} layers, {arena.capacity} slots, tp = "
+          f"{tp} over {[str(d) for d in devices]}): {rt.decode_steps} "
+          f"decode steps, {rt.prefill_chunk_calls} chunks in "
+          f"{got['wall']:.3f} s, launches {got['launches']}; against "
+          f"phases 4-6's rows: {json.dumps(out)}; mesh reductions "
+          f"{rt.sharded_step.mesh.reduce_calls} "
+          f"({rt.sharded_step.mesh.reduce_bytes / 1e9:.3f} GB); arena GB "
+          f"by shard {shard_gb}")
+    return out, rt
+
+
+def tp_floor(base, card0):
+    """``python3 chip_smoke.py --tp-floor``: the full-depth noise floor a
+    rounding-level change gives on random weights: mamba2-2.7b's first
+    ``TP_FAMILY_REQUESTS`` requests unsharded with the plain SSD scan
+    (``ref.ssd_chunked_ref``) in place of the kernel, measured against
+    phase 4's rows of the same requests (``base``) as phase 18 (a2)
+    measures the tp = 4 wave (which it runs too, at 40 new tokens)."""
+    import torch
+    from repro_torch.kernels import ref, ssd_scan
+    kernel = ssd_scan.ssd_scan
+    ssd_scan.ssd_scan = lambda x, dt, A, B, C, D=None, *, chunk=128, \
+        initial_state=None: ref.ssd_chunked_ref(
+            x, dt, A, B, C, D, chunk=chunk, initial_state=initial_state)
+    try:
+        _, rt = tp_family_runtime("mamba2-2.7b", card0, TP_FAMILY_REQUESTS)
+        got = recorded_run(rt)
+    finally:
+        ssd_scan.ssd_scan = kernel
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = compare_runs("mamba2-2.7b plain SSD scan", base, got, hold=False)
+    print(f"tp floor: mamba2-2.7b unsharded, the plain SSD scan in place "
+          f"of the kernel, against phase 4's rows: {json.dumps(out)}")
+    tp_family_wave("mamba2-2.7b", [card0] * 4, base, new_tokens=40)
+    return out
+
+
+def tp_family_kernel_cases():
+    """The kernels at the head shards' shapes at tp = 4 against their plain
+    versions (``check_rows`` and atol = rtol = TOL inside each case), timed
+    beside their bounds: #1/#3 at mixtral-8x7b's 8/2 heads (D = 128), #2/#4
+    at whisper-large-v3's 5/5 (D = 64), #5 and #7 at 5 heads, #9 at N =
+    3584 and K = 3584, #10 at 20 of mamba2-2.7b's 80 heads."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    rng = np.random.default_rng(18)
+    out = {}
+    lens = np.zeros(512, np.int64)
+    lens[:32] = np.linspace(6, 200, 32).astype(int) + 20
+    mixtral, whisper = dict(Hq=8, Hkv=2, D=128), dict(Hq=5, Hkv=5, D=64)
+    out["paged_decode_attention@mixtral_tp4"] = decode_case(
+        gen, rng, B=512, lens=lens, quant=False, timed=True, **mixtral)
+    out["paged_chunk_prefill_attention@mixtral_tp4"] = chunk_case(
+        gen, rng, B=1, T=64, start=[64], chunk_len=[64], prefix_len=0,
+        quant=False, timed=True, **mixtral)
+    out["paged_decode_attention_quant@whisper_tp4"] = decode_case(
+        gen, rng, B=128, lens=phase3_lens(128), quant=True, timed=True,
+        **whisper)
+    out["paged_chunk_prefill_attention_quant@whisper_tp4"] = chunk_case(
+        gen, rng, B=1, T=128, start=[64], chunk_len=[128], prefix_len=0,
+        quant=True, timed=True, **whisper)
+    cross = np.zeros(128, np.int64)
+    cross[:32] = 1500
+    out["decode_attention@whisper_tp4"] = dense_decode_case(
+        gen, B=128, S=1500, lens=cross, timed=True, **whisper)
+    out["flash_attention@whisper_encoder_tp4"] = flash_case(
+        gen, B=1, Lq=1500, Lk=1500, causal=False, timed=True, **whisper)
+    out["flash_attention@whisper_cross_chunk_tp4"] = flash_case(
+        gen, B=1, Lq=128, Lk=1500, causal=False, timed=True, **whisper)
+    torch.cuda.empty_cache()
+    out["grouped_matmul@mixtral_tp4_gate_up"] = gmm_case(
+        gen, E=8, C=512, K=4096, N=3584, timed=True, route="tma")
+    out["grouped_matmul@mixtral_tp4_down"] = gmm_case(
+        gen, E=8, C=512, K=3584, N=4096, timed=True, route="tma")
+    out["ssd_scan@mamba2_tp4"] = ssd_case(gen, Bb=1, L=128, H=20,
+                                          timed=True)
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        print(f"  phase 18 (b) {name}: "
+              + json.dumps({k: v for k, v in rec.items() if k != "work"}))
+    return out
+
+
+def phase_tp_families(bases):
+    """Phase 18: the MoE, SSM and audio families split by heads over the
+    one card's ``[cuda:0] * 4`` mesh (numerics and launches, not speed
+    across cards): (a1) each family at ``TP_PARITY_LAYERS`` layers,
+    unsharded and at tp = 4, held to ``PARITY_TOL``
+    (``tp_family_parity``); (a2) each family at phases 4-6's size and
+    depth on their first ``TP_FAMILY_REQUESTS`` requests
+    (``TP_FAMILY_NEW`` new tokens), every kernel launched 4 times a
+    layer a step, measured against phases 4-6's rows
+    (``tp_family_wave``); (c) each tp = 4 step's ``decode_cost_analysis``
+    against phases 4-6's unsharded one: the kernels' FLOPs equal, the
+    matmuls' those plus what the 3 further shards repeat
+    (``repeated_flops``); (d) the launcher with ``--pjit-decode`` and
+    mamba2-2.7b on the card's (1, 1) mesh, refused before anything is
+    allocated (its plan's 512 slots of SSD state, 87 GB, do not fit one
+    card; a (1, 4) mesh's share does); (b) the kernels at the shards'
+    shapes.  Every count is zeroed just before the phase and read after
+    (d), before (b)'s comparisons.  ``bases``: {arch: its phase 4-6
+    record}.  Returns the counts."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import serve
+    reset_launches()
+    card0 = torch.device("cuda", 0)
+    for arch in TP_FAMILIES:
+        t0 = time.perf_counter()
+        tp_family_parity(arch, card0)
+        _, rt = tp_family_wave(arch, [card0] * 4, bases[arch])
+        cost4 = rt.decode_cost_analysis()
+        cost1 = bases[arch]["cost"]
+        extra = 3 * rt.cfg.num_layers * repeated_flops(
+            rt.cfg, rt.groups[0].arena.capacity)
+        check(cost4["kernel_flops"] == cost1["kernel_flops"]
+              and cost4["aten_flops"] == cost1["aten_flops"] + extra,
+              f"phase 18 {arch}: tp = 4 FLOPs {cost4} are not tp = 1's "
+              f"{cost1} (+ {extra} repeated)")
+        print(f"phase 18 (c) {arch} decode_cost_analysis: tp = 1 "
+              f"{json.dumps(cost1)}; tp = 4 {json.dumps(cost4)}; kernel "
+              f"FLOPs equal, matmul FLOPs tp = 1's + {extra} repeated on "
+              f"the 3 further shards; {time.perf_counter() - t0:.1f} s")
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("phase 18 (d) the launcher with --pjit-decode, mamba2-2.7b:")
+    args = ["--pjit-decode", "--archs", "mamba2-2.7b", "--requests", "4",
+            "--max-new-tokens", "8"]
+    try:
+        why = f"served (exit {serve.main(args)})"
+    except RuntimeError as e:
+        why = str(e)
+    check(why.startswith("the run needs"), f"the launcher on one card's "
+          f"(1, 1) mesh and mamba2-2.7b's 87 GB plan: {why}")
+    print(f"  (1, 1) mesh: refused before allocating: {why}")
+    parsed = serve._parser().parse_args(args)
+    cp = serve.control_plane(["mamba2-2.7b"], 1)
+    four = meshlib.make_mesh((1, 4), ("data", "model"))
+    w, a = serve.footprint(parsed, cp, four)
+    check(w + a + serve.HEADROOM_BYTES
+          <= torch.cuda.get_device_properties(card0).total_memory,
+          f"a (1, 4) mesh's share {(w + a) / 1e9:.2f} GB does not fit")
+    print(f"  (1, 4) mesh: a card's share {w / 1e9:.3f} GB of weights and "
+          f"{a / 1e9:.3f} GB of arena fits (--across-cards serves it)")
+    counts = launch_counts()
+    print("phase 18 (b) the kernels at the shards' shapes:")
+    tp_family_kernel_cases()
+    return counts
+
+
 def across_cards():
     """``python3 chip_smoke.py --across-cards`` on a machine with four
     cards: phase 17's minicpm-2b wave at tp = 4 over cuda:0-3 against the
     same wave over ``[cuda:0] * 4`` (chains and logits), the launcher's
     (1, 4) service mesh, and mistral-large-123b (246 GB of bf16 weights)
     drawn shard by shard over the four cards by ``init_sharded`` and
-    served without the whole tree.  Returns the exit code."""
+    served without the whole tree; then the MoE, SSM and audio families
+    (``across_cards_families``).  Returns the exit code."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as meshlib
@@ -4836,7 +5528,96 @@ def across_cards():
           f"{dt:.2f} s, {rt.decode_steps} decode steps, "
           f"{rt.prefill_chunk_calls} chunks; peak GB by card {peaks()}; "
           f"{time.perf_counter() - t0:.1f} s with the draws")
+    del rt, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    across_cards_families(cards[:4])
     return 0
+
+
+def family_run(arch, devices, **kw):
+    """``tp_family_runtime``'s wave of ``arch`` over ``devices`` (its first
+    ``TP_FAMILY_REQUESTS`` requests) drained with every decode step
+    recorded; returns (chains, decode records, runtime)."""
+    cfg, rt = tp_family_runtime(arch, devices, TP_FAMILY_REQUESTS,
+                                new_tokens=TP_FAMILY_NEW, **kw)
+    rec = record_decodes(rt, range(TP_FAMILY_REQUESTS))
+    chains, wall = run_steps(rt)
+    check(len(chains) == TP_FAMILY_REQUESTS and all(
+        len(t) == TP_FAMILY_NEW and t.min() >= 0
+        and t.max() < cfg.vocab_size
+        for t in chains.values()), f"{arch} over {devices}: served {chains}")
+    rt.wall_s = wall
+    return chains, rec, rt
+
+
+def across_cards_families(cards):
+    """``--across-cards``, the MoE, SSM and audio families: (d) phase 18's
+    three waves over cuda:0-3 against the same waves over ``[cuda:0] * 4``
+    (chains and every recorded logits row bit for bit); (e) each family at
+    its full plan split over the four cards, mixtral-8x7b at all 32 layers
+    from ``init_sharded`` at phase 6's 512 slots, mamba2-2.7b and
+    whisper-large-v3 at their plans' 512 slots, each card's weights,
+    per-slot state and pool bytes and its peak memory; (f) the launcher
+    with ``--pjit-decode`` serving mamba2-2.7b on the (1, 4) mesh."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    card0 = cards[0]
+    for arch in TP_FAMILIES:
+        t0 = time.perf_counter()
+        runs = []
+        for devices in ([card0] * 4, cards):
+            chains, rec, rt = family_run(arch, devices)
+            runs.append((chains, rec, rt.wall_s, rt.decode_steps))
+            del rt
+            gc.collect()
+            torch.cuda.empty_cache()
+        (one, rec1, w1, n1), (four, rec4, w4, n4) = runs
+        same = all(np.array_equal(one[r], four[r]) for r in one)
+        rows = all(len(rec1[r]) == len(rec4[r]) and all(
+            a[1] == b[1] and torch.equal(a[2], b[2].to(a[2].device))
+            for a, b in zip(rec1[r], rec4[r])) for r in rec1)
+        check(same and rows, f"across cards, {arch}: cuda:0-3 is not "
+              f"[cuda:0] * 4 bit for bit (chains {same}, logits {rows})")
+        print(f"across cards (d) {arch} tp = 4 over cuda:0-3 against "
+              f"[cuda:0] * 4: chains and every decode row's logits equal bit "
+              f"for bit; wall {w4:.3f} vs {w1:.3f} s ({n4} decode steps); "
+              f"{time.perf_counter() - t0:.1f} s")
+    for arch, layers in (("mixtral-8x7b", 32), ("mamba2-2.7b", None),
+                         ("whisper-large-v3", None)):
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        t0 = time.perf_counter()
+        moe.MOE_DROP_STATS.flush()
+        chains, _, rt = family_run(arch, cards, layers=layers, bs=512)
+        arena = rt.groups[0].arena
+        weights = [sum(t.numel() * t.element_size()
+                       for t in tree_leaves(sh.params))
+                   for sh in rt.sharded_step.shards]
+        state = [sum(t.numel() * t.element_size() for t in st)
+                 for st in arena.shard_state]
+        pools = [arena.shard_bytes(j) - state[j]
+                 for j in range(len(cards))]
+        gb = lambda xs: [round(x / 1e9, 2) for x in xs]
+        print(f"across cards (e) {arch} at its full plan ({rt.cfg.num_layers}"
+              f" layers, {arena.capacity} slots, {rt.kv_dtype} K/V) over 4 "
+              f"cards: served {len(chains)}/{TP_FAMILY_REQUESTS}, "
+              f"{rt.decode_steps} decode steps, {rt.prefill_chunk_calls} "
+              f"chunks in {rt.wall_s:.2f} s; GB by card: weights "
+              f"{gb(weights)}, per-slot state {gb(state)}, pools and "
+              f"lengths {gb(pools)}, peak "
+              f"{gb(torch.cuda.max_memory_allocated(d) for d in cards)}; "
+              f"{time.perf_counter() - t0:.1f} s with the draws")
+        del rt, arena, chains
+        gc.collect()
+        torch.cuda.empty_cache()
+    rc = serve.main(["--pjit-decode", "--archs", "mamba2-2.7b",
+                     "--requests", "8", "--max-new-tokens", "8"])
+    check(rc == 0, f"the launcher, mamba2-2.7b on the (1, 4) mesh, exited "
+          f"{rc}")
+    print("across cards (f) the launcher with --pjit-decode, mamba2-2.7b's "
+          "512-slot plan on the (1, 4) mesh: exit 0")
 
 
 def small_input_check():
@@ -5534,6 +6315,10 @@ def main() -> int:
         tp_kv_witness(torch.device("cuda", 0))
         print(card)
         return 0
+    if sys.argv[1:] == ["--tp-floor"]:
+        tp_floor(wave_mamba2()[1], torch.device("cuda", 0))
+        print(card)
+        return 0
     for name, log in build.build_log.items():
         for kernel, line in ptxas_lines(log):
             print(f"  ptxas {name} {kernel}: {line}")
@@ -5579,16 +6364,18 @@ def main() -> int:
           f"agree ({same / total:.3f})")
     phase_time("phase 3")
     print("phase 4: request wave, mamba2-2.7b full width, 128 slots")
-    launches["ssd_scan"] = wave_mamba2()
+    bases = {}
+    launches["ssd_scan"], bases["mamba2-2.7b"] = wave_mamba2()
     phase_time("phase 4")
     print("phase 5: request wave, whisper-large-v3 full width, 128 slots")
-    whisper_launches = wave_whisper()
+    whisper_launches, bases["whisper-large-v3"] = wave_whisper()
     for name in ("flash_attention", "decode_attention"):
         launches[name] = whisper_launches[name]
     phase_time("phase 5")
     print("phase 6: request wave, mixtral-8x7b full width, 16 of 32 layers, "
           "512 slots")
-    launches["grouped_matmul"] = wave_mixtral()["grouped_matmul"]
+    mixtral_launches, bases["mixtral-8x7b"] = wave_mixtral()
+    launches["grouped_matmul"] = mixtral_launches["grouped_matmul"]
     gc.collect()
     torch.cuda.empty_cache()
     phase_time("phase 6")
@@ -5611,7 +6398,7 @@ def main() -> int:
           f"{same}/{sum(len(t) for t in oracle_toks.values())} positions "
           f"agree")
     logits_parity()
-    wave_sync()
+    wave_sync(SYNC_REQUESTS)
     phase_time("phase 8")
     print("phase 9: the prefix cache, minicpm-2b full width, 512 slots, "
           "64 requests sharing a 150-token template, 24 new each")
@@ -5665,6 +6452,21 @@ def main() -> int:
     for name in launches:
         launches[name] += tp_launches.get(name, 0)
     phase_time("phase 17")
+    print("phase 18: head-sharded paged serving of mamba2-2.7b, "
+          "whisper-large-v3 and mixtral-8x7b (16 of 32 layers) at tp = 4 "
+          "over [cuda:0] * 4")
+    tpf_launches = phase_tp_families(bases)
+    del bases
+    for name in ("paged_decode_attention", "paged_decode_attention_quant",
+                 "paged_chunk_prefill_attention",
+                 "paged_chunk_prefill_attention_quant", "decode_attention",
+                 "flash_attention", "grouped_matmul", "ssd_scan"):
+        check(tpf_launches[name] > 0, f"phase 18 never launched {name}")
+    for name in launches:
+        launches[name] += tpf_launches.get(name, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_time("phase 18")
     small_input_check()
     phase_time("small-input check")
 
@@ -5679,6 +6481,7 @@ def main() -> int:
                         "train_families_launches": family_launches.get(
                             name, 0),
                         "tp_launches": tp_launches.get(name, 0),
+                        "tp_families_launches": tpf_launches.get(name, 0),
                         **{k: rec[k] for k in RECORD_KEYS}})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
     check(len(kernels) == 10, f"expected ten kernels, got {len(kernels)}")

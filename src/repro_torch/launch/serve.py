@@ -131,7 +131,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import launch_counts
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.steps import (TP_ITEM, abstract_params,
-                                      init_sharded, paged_decode_builder,
+                                      init_sharded, leaf_split,
+                                      paged_decode_builder, state_split,
                                       tp_refusal)
 from repro_torch.models.registry import model_api
 from repro_torch.obs import (MetricsRegistry, Tracer, merge_telemetry,
@@ -208,24 +209,38 @@ def draft_compatible(cfg, draft_cfg) -> bool:
 
 def _arena_bytes(cfg, plan, args, kv_dtype: str, tp: int = 1) -> int:
     """One DP group's arena on the first device of ``tp`` model shards
-    (its pools split by kv head), built on the meta device (nothing
-    allocated)."""
+    (its pools split by kv head, its per-slot state by ``state_split``),
+    built on the meta device (nothing allocated)."""
     arena = KVArena(cfg, model_api(cfg).init_cache,
                     capacity=plan.max_in_flight, max_seq_len=args.max_seq_len,
                     block_size=args.block_size, kv_dtype=kv_dtype,
                     device="meta",
-                    shard_devices=["meta"] * tp if tp > 1 else None)
+                    shard_devices=["meta"] * tp if tp > 1 else None,
+                    state_split=lambda key: state_split(cfg, key))
     return arena.shard_bytes(0)
 
 
 def _shard_weight_bytes(cfg, mesh) -> int:
-    """Bytes of the first model shard's weights under the serving rules
-    (``param_specs(fsdp=False)``), from the abstract tree."""
+    """Bytes of the first model shard's weights as the head-sharded step
+    splits them (``steps.leaf_split`` over ``param_specs(fsdp=False)``),
+    from the abstract tree: a split leaf's split sections divided by the
+    shards, its whole ones and a whole leaf entire."""
     params = abstract_params(cfg)
     specs = dict(meshlib.tree_flatten_with_path(
         meshlib.param_specs(mesh, params, fsdp=False)))
-    return sum(meshlib.shard_bytes(mesh, p, specs[path])
-               for path, p in meshlib.tree_flatten_with_path(params))
+    tp = mesh.shape["model"]
+    total = 0
+    for path, p in meshlib.tree_flatten_with_path(params):
+        n = p.numel() * p.element_size()
+        split = leaf_split(cfg, path, specs[path]) if tp > 1 else None
+        if split is not None:
+            dim, sections = split
+            size = p.shape[dim]
+            part = sum(s // tp if cut else s for s, cut in
+                       (sections or ((size, True),)))
+            n = n // size * part
+        total += n
+    return total
 
 
 def service_mesh(device):
@@ -247,7 +262,8 @@ def footprint(args, cp=None, mesh=None) -> Tuple[int, int]:
     draft arena beside each group of a service that speculates.  With a
     service ``mesh`` of several model shards (``--pjit-decode``), the
     first card's share, the most any card holds: the first shard's
-    weights (``init_sharded`` draws no whole tree) and pools."""
+    weights (``init_sharded`` draws no whole tree), pools and per-slot
+    state."""
     arch_ids = [a.strip() for a in args.archs.split(",")]
     if cp is None:
         cp = control_plane(arch_ids, args.servers)

@@ -14,9 +14,9 @@ The port trains and prefills nothing sharded: the bundle's step is the
 whole step, and its spec trees say how the reference's pjit would place
 its arguments.
 
-``paged_decode_builder`` is the serving side: a dense service's paged
-decode and chunk steps split by heads over the ``model`` axis of a
-service mesh (EPARA's model-parallel mode, ``--pjit-decode``).
+``paged_decode_builder`` is the serving side: a dense, MoE, SSM or audio
+service's paged decode and chunk steps split by heads over the ``model``
+axis of a service mesh (EPARA's model-parallel mode, ``--pjit-decode``).
 """
 from __future__ import annotations
 
@@ -28,9 +28,10 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import config_for_shape, reduced
 from repro_torch.kernels.quant import QuantPages
-from repro_torch.models import layers, transformer
+from repro_torch.models import encdec, layers, moe, ssm, transformer
 from repro_torch.models.config import ModelConfig, SHAPES_BY_NAME, ShapeSpec
 from repro_torch.models.registry import model_api
+from repro_torch.serving.arena import Sections, take_shard
 from repro_torch.training.optimizer import get_optimizer
 from repro_torch.training.train_step import make_train_step
 
@@ -40,8 +41,9 @@ ADAFACTOR_THRESHOLD = 50e9     # params above this train with adafactor
 
 # what the head-sharded step does not cover yet, named by the ROADMAP.md
 # Queue 1 item that would port it
-TP_ITEM = "ROADMAP.md Queue 1 item 15 (tensor parallelism beyond the dense " \
-          "paged-native path)"
+TP_ITEM = ("ROADMAP.md Queue 1 item 15 (tensor parallelism, its second "
+           "part: the hybrid and VLM families, sync, the dense cache, "
+           "speculation, FSDP serving, head_dim splits)")
 
 
 def choose_optimizer(cfg: ModelConfig) -> str:
@@ -249,80 +251,138 @@ def _model_dim(spec) -> Optional[int]:
     return spec.index("model") if "model" in spec else None
 
 
-def _take(leaf, dim: int, s: int, n: int, sections=None):
-    """Shard ``s`` of ``n`` of ``leaf`` along ``dim``: one contiguous
-    block, or with ``sections`` (sizes along ``dim``) the s-th block of
-    every section, concatenated (a fused wqkv's q, k and v; a fused
-    gate|up's halves)."""
-    if sections is None:
-        size = leaf.shape[dim] // n
-        return leaf.narrow(dim, s * size, size)
-    parts, at = [], 0
-    for sec in sections:
-        size = sec // n
-        parts.append(leaf.narrow(dim, at + s * size, size))
-        at += sec
-    return torch.cat(parts, dim=dim)
+def _head_sharded(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s family registers head-sharded paged steps."""
+    return model_api(cfg).decode_step_paged_tp is not None
+
+
+def _ssm_sections(cfg: ModelConfig) -> Dict[str, Sections]:
+    """Mamba-2's fused leaves by section: in_proj's columns ``z | x | B |
+    C | dt`` and the conv's channels ``x | B | C``; z, x and dt split by
+    heads, B and C (``ssm_ngroups = 1``) whole on every shard.  (The
+    reference's rule cuts contiguous columns; splitting by section keeps
+    each shard's heads together, a deviation kept on purpose.)"""
+    H, di = cfg.ssm_nheads, cfg.d_inner
+    bc = ((cfg.ssm_ngroups * cfg.ssm_state, False),) * 2
+    return {"in_proj": ((di, True), (di, True), *bc, (H, True)),
+            "conv_w": ((di, True), *bc), "conv_b": ((di, True), *bc)}
+
+
+def leaf_split(cfg: ModelConfig, path, spec
+               ) -> Optional[Tuple[int, Optional[Sections]]]:
+    """How the head-sharded step splits one parameter leaf: (its dimension
+    counted from the right, its sections or None) or None (whole on every
+    shard).  The spec's model dimension, with a fused leaf split by
+    section: ``wqkv``/``bqkv`` by q, k and v heads, ``w_gateup`` by its
+    gate and up halves, Mamba-2's ``in_proj`` and conv as
+    ``_ssm_sections`` says; and Mamba-2's per-head leaves (``A_log``,
+    ``dt_bias``, ``D``, ``gate_ln``), which the reference's rules
+    replicate, by head."""
+    name = path[-1]
+    if cfg.family == "ssm":
+        fused = _ssm_sections(cfg)
+        if name in fused:
+            return -1, fused[name]
+        if name in ("A_log", "dt_bias", "D") or tuple(path[-2:]) == (
+                "gate_ln", "w"):
+            return -1, None
+    dim = _model_dim(spec)
+    if dim is None:
+        return None
+    hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    qkv = ((nq * hd, True), (nkv * hd, True), (nkv * hd, True))
+    fused = {"wqkv": qkv, "bqkv": qkv,
+             "w_gateup": ((cfg.d_ff, True), (cfg.d_ff, True))}
+    return dim - len(spec), fused.get(name)
+
+
+def state_split(cfg: ModelConfig, key: str) -> Tuple[int, Sections]:
+    """How the head-sharded step splits one per-slot state leaf of the
+    arena (``KVArena(state_split=...)``): (its dimension, its sections).
+    The SSD state ``(L, B, H, P, N)`` on H (the reference's
+    ``_paged_leaf_spec`` puts ``model`` on P: a deviation kept on purpose,
+    each shard scans its own heads); the conv tail ``(L, B, k-1, ch)`` by
+    ``_ssm_sections``' channels; the cross K/V and a window ring's K/V
+    ``(L, B, T, Hkv, D)`` on Hkv."""
+    if cfg.family == "ssm" and key == "ssd":
+        return 2, ((cfg.ssm_nheads, True),)
+    if cfg.family == "ssm" and key == "conv":
+        return 3, _ssm_sections(cfg)["conv_w"]
+    if key in ("cross_k", "cross_v", "k", "v"):
+        return 3, ((cfg.num_kv_heads, True),)
+    raise ValueError(f"{cfg.name}: no head split for the state leaf "
+                     f"{key!r} ({TP_ITEM})")
 
 
 @dataclasses.dataclass
 class _Plan:
-    """How a dense config splits over ``tp`` shards."""
+    """How a config splits over ``tp`` shards."""
     tp: int
     cfg_shard: ModelConfig
     vocab_split: bool
     mlp_split: bool
 
 
+# each family's attention and FFN subtrees, by their paths' prefixes
+_ATTENTION = {"dense": (("blocks", "attn"),), "moe": (("blocks", "attn"),),
+              "audio": (("enc_blocks", "attn"), ("dec_blocks", "self_attn"),
+                        ("dec_blocks", "cross_attn")), "ssm": ()}
+_FFN = {"dense": (("blocks", "mlp"),), "moe": (("blocks", "moe"),),
+        "audio": (("enc_blocks", "mlp"), ("dec_blocks", "mlp")),
+        "ssm": (("blocks", "out_proj"),)}
+
+
 def _split_plan(cfg: ModelConfig, pspecs, tp: int) -> _Plan:
     """Check the specs against what the head-sharded step can run and
     return the plan: attention split by whole kv heads (the GQA group of
-    kv head j, query heads [j*G, (j+1)*G), on j's shard), the MLP by its
-    hidden columns where the rule divides them, the vocabulary where it
-    divides it."""
-    blocks = pspecs["blocks"]
-    for name, spec in blocks["attn"].items():
-        want = len(spec) - (2 if name == "wo" else 1)
-        if tp > 1 and _model_dim(spec) != want:
-            raise ValueError(f"{cfg.name}: attn/{name} spec {spec} does not "
-                             f"split heads ({TP_ITEM})")
-    mlp = {n: _model_dim(s) for n, s in blocks["mlp"].items()}
-    split = {n: d is not None for n, d in mlp.items()}
-    if len(set(split.values())) > 1:
-        raise ValueError(f"{cfg.name}: the MLP's specs split some of its "
-                         f"leaves and not others: {blocks['mlp']} "
-                         f"({TP_ITEM})")
+    kv head j, query heads [j*G, (j+1)*G), on j's shard), the FFN (the
+    MLP, each expert, Mamba-2's ``out_proj``) by its hidden columns and
+    rows where the rule divides them, the vocabulary where it divides
+    it.  The MoE router stays whole."""
+    specs = meshlib.tree_flatten_with_path(pspecs)
+    for path, spec in specs:
+        if tp > 1 and tuple(path[:2]) in _ATTENTION[cfg.family]:
+            want = len(spec) - (2 if path[-1] == "wo" else 1)
+            if _model_dim(spec) != want:
+                raise ValueError(f"{cfg.name}: {'/'.join(path)} spec {spec} "
+                                 f"does not split heads ({TP_ITEM})")
+    ffn = {path: _model_dim(spec) is not None for path, spec in specs
+           if tuple(path[:2]) in _FFN[cfg.family] and path[-1] != "router"}
+    if len(set(ffn.values())) > 1:
+        raise ValueError(f"{cfg.name}: the FFN's specs split some of its "
+                         f"leaves and not others: {ffn} ({TP_ITEM})")
+    if cfg.family == "ssm" and tp > 1 and not all(ffn.values()):
+        raise ValueError(f"{cfg.name}: out_proj's rows do not split over "
+                         f"{tp} shards ({TP_ITEM})")
     embed = pspecs["embed"]
     vsplit = _model_dim(embed["embedding"]) is not None
     if "unembed" in embed and (_model_dim(embed["unembed"]) is not None) \
             != vsplit:
         raise ValueError(f"{cfg.name}: embedding and unembed split "
                          f"differently ({TP_ITEM})")
-    return _Plan(tp=tp, cfg_shard=dataclasses.replace(
+    cfg_shard = cfg if cfg.family == "ssm" else dataclasses.replace(
         cfg, num_heads=cfg.num_heads // tp,
-        num_kv_heads=cfg.num_kv_heads // tp),
-        vocab_split=vsplit, mlp_split=all(split.values()))
+        num_kv_heads=cfg.num_kv_heads // tp)
+    return _Plan(tp=tp, cfg_shard=cfg_shard, vocab_split=vsplit,
+                 mlp_split=all(ffn.values()))
 
 
 def shard_params(params, cfg: ModelConfig, pspecs, devices: List) -> List:
-    """Split a dense parameter tree into one tree a shard, on the shard's
-    device, by the spec tree: a leaf the spec replicates is the same
-    tensor on every shard on its device (no copy), a split leaf's block is
-    copied out.  The fused ``wqkv``/``bqkv`` split q, k and v by heads and
-    ``w_gateup`` its gate and up halves, never contiguous columns across
-    sections."""
+    """Split a parameter tree into one tree a shard, on the shard's
+    device, as ``leaf_split`` says for each leaf: a leaf kept whole is the
+    same tensor on every shard on its device (no copy), a split leaf's
+    part is copied out.  The fused ``wqkv``/``bqkv`` split q, k and v by
+    heads, ``w_gateup`` its gate and up halves and Mamba-2's ``in_proj``
+    and conv their sections, never contiguous columns across sections."""
     tp = len(devices)
-    hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    sections = {"wqkv": (nq * hd, nkv * hd, nkv * hd),
-                "bqkv": (nq * hd, nkv * hd, nkv * hd),
-                "w_gateup": (cfg.d_ff, cfg.d_ff)}
     specs = dict(meshlib.tree_flatten_with_path(pspecs))
 
     def build(s: int, dev):
         def leaf(path, t):
-            dim = _model_dim(specs[path])
-            if dim is not None:
-                t = _take(t, dim, s, tp, sections.get(path[-1])).contiguous()
+            split = leaf_split(cfg, path, specs[path]) if tp > 1 else None
+            if split is not None:
+                dim, sections = split
+                t = take_shard(t, t.ndim + dim, s, tp, sections).contiguous()
             return t.to(dev)
         return meshlib.tree_map_with_path(leaf, params)
 
@@ -332,21 +392,28 @@ def shard_params(params, cfg: ModelConfig, pspecs, devices: List) -> List:
 def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
                paged_native: bool, draft: bool) -> Optional[str]:
     """Why the head-sharded paged step cannot serve this service over
-    ``tp`` model shards, or None: it serves the dense family on the
-    paged-native continuous path, without a draft, over a ``tp`` that
-    divides the kv heads."""
+    ``tp`` model shards, or None: it serves the dense, MoE, SSM and audio
+    families on the paged-native continuous path (an SSM's state step: it
+    pages nothing), without a draft, over a ``tp`` that divides the kv
+    heads (the SSD heads)."""
     refuse = []
-    if cfg.family != "dense":
+    if not _head_sharded(cfg):
         refuse.append(f"the {cfg.family!r} family")
     if mode != "continuous":
         refuse.append(f"mode={mode!r}")
     if kvcache_impl != "paged":
         refuse.append("the dense cache")
-    elif not paged_native:
+    elif not paged_native and cfg.family != "ssm":
         refuse.append("the dense-view step")
     if draft:
         refuse.append("a draft model")
-    if cfg.num_kv_heads % tp:
+    if cfg.family == "ssm":
+        if cfg.ssm_nheads % tp:
+            refuse.append(f"{cfg.ssm_nheads} SSD heads over tp={tp}")
+        if tp > 1 and cfg.ssm_ngroups != 1:
+            refuse.append(f"{cfg.ssm_ngroups} SSD groups (B and C stay "
+                          f"whole on every shard at one group)")
+    elif _head_sharded(cfg) and cfg.num_kv_heads % tp:
         # the reference's rules would shard head_dim here, attention with
         # partial scores reduced over the shards: a deviation kept on
         # purpose, the step splits whole kv heads only
@@ -354,9 +421,9 @@ def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
                       f"step splits whole kv heads, not head_dim)")
     if not refuse:
         return None
-    return (f"{cfg.name}: the head-sharded paged step serves the dense "
-            f"family on the paged-native continuous path; not "
-            f"{', '.join(refuse)} ({TP_ITEM})")
+    return (f"{cfg.name}: the head-sharded paged step serves the dense, "
+            f"MoE, SSM and audio families on the paged-native continuous "
+            f"path; not {', '.join(refuse)} ({TP_ITEM})")
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -367,18 +434,19 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 class ShardedPagedStep:
-    """A dense service's paged-native decode and chunk steps, split by
-    heads over the model axis of ``mesh``: built by
+    """A service's paged-native decode and chunk steps (an SSM's state
+    steps), split by heads over the model axis of ``mesh``: built by
     ``paged_decode_builder`` for ``ServiceRuntime(paged_step_builder=...)``.
 
     The host loop, scheduler and block tables stay single.  Each shard
-    holds its heads' weights and its heads' page pools (the arena's
-    ``shard_pages``) on its device; ``transformer.decode_step_paged_tp``
-    and ``prefill_chunk_paged_tp`` run the shards one after another and
-    reduce the attention and MLP outputs through the mesh.  The host-fed
-    operands (tokens, lengths, the live mask, block tables) are copied to
-    each distinct device.  Every kernel launch of the unsharded step
-    becomes ``tp`` launches."""
+    holds its heads' weights, its heads' page pools (the arena's
+    ``shard_pages``) and its share of the per-slot state (``shard_state``)
+    on its device; the family's ``decode_step_paged_tp`` and
+    ``prefill_chunk_paged_tp`` run the shards one after another and reduce
+    the partial outputs through the mesh.  The host-fed operands (tokens,
+    lengths, the live mask, block tables, an audio request's frames) are
+    copied to each distinct device.  Every kernel launch of the unsharded
+    step becomes ``tp`` launches."""
 
     def __init__(self, runtime, mesh, *, shards: Optional[List] = None):
         cfg = runtime.cfg
@@ -401,6 +469,7 @@ class ShardedPagedStep:
             raise ValueError(f"the mesh's first device {self.devices[0]} is "
                              f"not the runtime's {runtime.device}")
         self.cfg = cfg
+        self.api = model_api(cfg)
         if (shards is None) == (runtime.params is None):
             raise ValueError("a head-sharded runtime takes its whole "
                              "parameter tree or its shards (init_sharded), "
@@ -425,14 +494,28 @@ class ShardedPagedStep:
     def tp(self) -> int:
         return self.plan.tp
 
+    def state_split(self, key: str):
+        """The arena's rule for a per-slot state leaf (``state_split``)."""
+        return state_split(self.cfg, key)
+
     def check_arena(self, arena) -> None:
         """The arena's pools split by kv head as ``_pool_sharding`` places
-        them over the mesh."""
-        spec = _pool_sharding(self.mesh, arena.full_pool_like())
-        vals = spec.values if isinstance(spec, QuantPages) else spec
-        if self.tp > 1 and _model_dim(vals) != len(vals) - 2:
-            raise ValueError(f"pool spec {vals} does not split kv heads "
-                             f"({TP_ITEM})")
+        them over the mesh, and its per-slot state by ``state_split``, each
+        shard's part on the shard's device."""
+        if arena.pages:
+            spec = _pool_sharding(self.mesh, arena.full_pool_like())
+            vals = spec.values if isinstance(spec, QuantPages) else spec
+            if self.tp > 1 and _model_dim(vals) != len(vals) - 2:
+                raise ValueError(f"pool spec {vals} does not split kv heads "
+                                 f"({TP_ITEM})")
+        want = [self.state_split(k) if self.tp > 1 else None
+                for k in arena.state_keys]
+        if arena._state_splits != want or len(arena.shard_state) != self.tp \
+                or not all(_same_device(t.device, d)
+                           for st, d in zip(arena.shard_state, self.devices)
+                           for t in st):
+            raise ValueError(f"the arena's per-slot state is not split by "
+                             f"head over {self.devices} ({TP_ITEM})")
 
     def _each(self, t: torch.Tensor) -> List[torch.Tensor]:
         """``t`` on every shard's device (one copy a distinct device)."""
@@ -443,35 +526,57 @@ class ShardedPagedStep:
         """One fused decode step over every slot; returns (logits
         (capacity, V) on the first device, the new lengths)."""
         tables = [arena.device_block_tables(d) for d in self.devices]
-        caches = [arena.assemble(pages, [], lens) for pages, lens in
-                  zip(arena.shard_pages, self._each(arena.lens))]
-        return transformer.decode_step_paged_tp(
+        caches = [arena.assemble(pages, state, lens) for pages, state, lens
+                  in zip(arena.shard_pages, arena.shard_state,
+                         self._each(arena.lens))]
+        return self.api.decode_step_paged_tp(
             self.shards, self.cfg, self._each(tokens), caches, tables,
             self._each(live), block_size=arena.block_size, mesh=self.mesh)
 
-    def chunk(self, arena, sid: int, tokens, start, chunk_len):
+    def chunk(self, arena, sid: int, tokens, start, chunk_len,
+              embeddings=None):
         """One chunk into slot ``sid`` (``tokens`` (1, T)) from ``start``;
-        returns (logits (1, V) on the first device, the new length)."""
+        an audio request's first chunk carries its frame ``embeddings``
+        (1, encoder_len, d).  Returns (logits (1, V) on the first device,
+        the new length)."""
         row = torch.from_numpy(arena._block_tables[sid:sid + 1])
-        caches = [arena.assemble(pages, [], st) for pages, st in
-                  zip(arena.shard_pages, self._each(start))]
-        return transformer.prefill_chunk_paged_tp(
+        caches = [arena.assemble(pages, arena.slot_state(sid, j), st)
+                  for j, (pages, st) in enumerate(zip(arena.shard_pages,
+                                                      self._each(start)))]
+        kw = {} if embeddings is None else {
+            "embeddings": self._each(embeddings)}
+        return self.api.prefill_chunk_paged_tp(
             self.shards, self.cfg, self._each(tokens), caches,
             self._each(row), self._each(chunk_len),
-            block_size=arena.block_size, mesh=self.mesh)
+            block_size=arena.block_size, mesh=self.mesh, **kw)
+
+
+def _stacks(cfg: ModelConfig):
+    """A family's stacked layer subtrees, each (name, the family's
+    ``init_block``, layers), in the order its ``init`` draws them, and its
+    norms (no draws)."""
+    if cfg.family == "audio":
+        return ((("enc_blocks", encdec.init_encoder_block,
+                  cfg.encoder_layers),
+                 ("dec_blocks", encdec.init_decoder_block, cfg.num_layers)),
+                ("ln_enc", "ln_f"))
+    block = {"dense": transformer.init_block, "moe": moe.init_block,
+             "ssm": ssm.init_mamba_block}[cfg.family]
+    return (("blocks", block, cfg.num_layers),), ("ln_f",)
 
 
 def init_sharded(seed: int, cfg: ModelConfig, mesh) -> List:
-    """A dense model's random weights from ``seed`` straight into one tree
-    a model shard of ``mesh``, on the shard's device: the values of
-    ``shard_params(transformer.init(seed, cfg, first device), ...)``, drawn
-    a layer at a time on the first device, so that no device ever holds
-    the whole tree (mistral-large-123b's 246 GB of bf16 weights split over
-    4 cards).  For ``ServiceRuntime(cfg, None, plan,
+    """A model's random weights from ``seed`` straight into one tree a
+    model shard of ``mesh``, on the shard's device: the values of
+    ``shard_params(<family>.init(seed, cfg, first device), ...)``, drawn a
+    layer at a time on the first device through the family's
+    ``init_block``, so that no device ever holds the whole tree
+    (mistral-large-123b's 246 GB or mixtral-8x7b's 93.4 GB of bf16 weights
+    split over 4 cards).  For ``ServiceRuntime(cfg, None, plan,
     paged_step_builder=paged_decode_builder(mesh, shards=...))``."""
-    if cfg.family != "dense":
-        raise ValueError(f"init_sharded draws the dense family's weights, "
-                         f"not {cfg.family!r} ({TP_ITEM})")
+    if not _head_sharded(cfg):
+        raise ValueError(f"init_sharded draws the head-sharded families' "
+                         f"weights, not {cfg.family!r} ({TP_ITEM})")
     devices = mesh.axis_devices("model")
     tp = len(devices)
     pspecs = meshlib.param_specs(mesh, abstract_params(cfg), fsdp=False)
@@ -482,28 +587,31 @@ def init_sharded(seed: int, cfg: ModelConfig, mesh) -> List:
     trees = [{"embed": t["embed"]} for t in shard_params(
         {"embed": embed}, cfg, {"embed": pspecs["embed"]}, devices)]
     del embed
-    blocks: List[Dict] = [{} for _ in devices]
-    # a layer's spec is the stacked leaf's without the layer axis
-    layer_specs = meshlib.tree_map_with_path(
-        lambda _, p: meshlib.P(*p[1:]), pspecs["blocks"])
-    for i in range(cfg.num_layers):
-        layer = shard_params(transformer.init_block(gen, cfg), cfg,
-                             layer_specs, devices)
-        for tree, part in zip(blocks, layer):
-            def put(path, t, tree=tree):
-                node = tree
-                for k in path[:-1]:
-                    node = node.setdefault(k, {})
-                if path[-1] not in node:
-                    node[path[-1]] = torch.empty(
-                        (cfg.num_layers, *t.shape), dtype=t.dtype,
-                        device=t.device)
-                node[path[-1]][i].copy_(t)
-            meshlib.tree_map_with_path(put, part)
-    ln_f = layers.init_norm(cfg, devices[0])
-    for tree, b, dev in zip(trees, blocks, devices):
-        tree["blocks"] = b
-        tree["ln_f"] = {k: v.to(dev) for k, v in ln_f.items()}
+    stacks, norms = _stacks(cfg)
+    for name, init_block, n in stacks:
+        blocks: List[Dict] = [{} for _ in devices]
+        # a layer's spec is the stacked leaf's without the layer axis
+        layer_specs = meshlib.tree_map_with_path(
+            lambda _, p: meshlib.P(*p[1:]), pspecs[name])
+        for i in range(n):
+            layer = shard_params(init_block(gen, cfg), cfg, layer_specs,
+                                 devices)
+            for tree, part in zip(blocks, layer):
+                def put(path, t, tree=tree):
+                    node = tree
+                    for k in path[:-1]:
+                        node = node.setdefault(k, {})
+                    if path[-1] not in node:
+                        node[path[-1]] = torch.empty(
+                            (n, *t.shape), dtype=t.dtype, device=t.device)
+                    node[path[-1]][i].copy_(t)
+                meshlib.tree_map_with_path(put, part)
+        for tree, b in zip(trees, blocks):
+            tree[name] = b
+    for norm in norms:
+        w = layers.init_norm(cfg, devices[0])
+        for tree, dev in zip(trees, devices):
+            tree[norm] = {k: v.to(dev) for k, v in w.items()}
     return trees
 
 
@@ -511,17 +619,18 @@ def paged_decode_builder(mesh, *, fsdp_params: bool = False,
                          shards: Optional[List] = None) -> Callable:
     """Builder for ``ServiceRuntime(paged_step_builder=...)``: the
     runtime's parameters split by ``param_specs(fsdp=False)`` on head
-    boundaries, the arena's pools by kv head over ``mesh``'s model
-    axis, and the paged decode and chunk steps run shard by shard.  The
-    reference's builder jits only the decode step; here the chunk step
-    runs sharded too, since it writes into the same per-shard pools.
-    Unlike the reference's ``builder(runtime, arena)``, the port's takes
-    the runtime alone: the runtime builds its arena after it, with the
-    pools split from the start, so no device ever holds the whole pool.
-    ``shards`` (``init_sharded``'s trees) serve a runtime made without
-    its whole tree (``params=None``).  ``fsdp_params`` keeps the
-    reference's signature: the step splits whole heads over the model axis
-    only, so ``True`` raises."""
+    boundaries (``leaf_split``), the arena's pools by kv head and its
+    per-slot state by ``state_split`` over ``mesh``'s model axis, and the
+    paged decode and chunk steps run shard by shard.  The reference's
+    builder jits only the decode step; here the chunk step runs sharded
+    too, since it writes into the same per-shard pools and state.  Unlike
+    the reference's ``builder(runtime, arena)``, the port's takes the
+    runtime alone: the runtime builds its arena after it, split from the
+    start, so no device ever holds the whole pool or state.  ``shards``
+    (``init_sharded``'s trees) serve a runtime made without its whole
+    tree (``params=None``).  ``fsdp_params`` keeps the reference's
+    signature: the step splits whole heads over the model axis only, so
+    ``True`` raises."""
     if fsdp_params:
         raise ValueError(f"the head-sharded step splits parameters over the "
                          f"model axis only; FSDP serving is not ported "

@@ -35,8 +35,9 @@ from repro_torch.kernels import ops
 
 from . import layers
 from .config import ModelConfig
-from .transformer import (layer_params, prefill_cache_rows,
-                          prefill_cache_size, stack_layers, unbind_layers)
+from .transformer import (Shard, layer_params, prefill_cache_rows,
+                          prefill_cache_size, shard_sum, stack_layers,
+                          unbind_layers)
 
 
 def init_encoder_block(gen: torch.Generator, cfg: ModelConfig):
@@ -78,17 +79,9 @@ def init(seed: int, cfg: ModelConfig, device=None):
 
 def encode(params, cfg: ModelConfig, frame_embeddings):
     """frame_embeddings (B, T, d), the stub frontend's output -> encoder
-    memory (B, T, d) in the compute dtype."""
-    B, T, d = frame_embeddings.shape
-    h = frame_embeddings.to(cfg.compute_dtype)
-    h = h + layers.sinusoidal_positions(T, d, h.device)[None].to(h.dtype)
-    for lp in unbind_layers(params["enc_blocks"], cfg.encoder_layers):
-        h = h + layers.attention(lp["attn"], cfg,
-                                 layers.apply_norm(lp["ln1"], cfg, h),
-                                 causal=False)
-        h = h + layers.mlp(lp["mlp"], cfg,
-                           layers.apply_norm(lp["ln2"], cfg, h))
-    return layers.apply_norm(params["ln_enc"], cfg, h)
+    memory (B, T, d) in the compute dtype: one shard of ``_encode_tp``."""
+    return _encode_tp([Shard(params, cfg)], cfg, [frame_embeddings],
+                      None)[0]
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):
@@ -150,8 +143,14 @@ def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Any], *,
 def _decoder_embed(params, cfg: ModelConfig, tokens, start):
     """Token embeddings (B, T, d) plus the sinusoids of their positions
     ``start + i`` (``start`` (B,))."""
-    B, T = tokens.shape
     x = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
+    return _add_positions(cfg, x, start)
+
+
+def _add_positions(cfg: ModelConfig, x, start):
+    """Embedded rows x (B, T, d) plus the sinusoids of their positions
+    ``start + i`` (``start`` (B,))."""
+    B, T = x.shape[:2]
     pos = (start[:, None] + torch.arange(T, device=x.device)[None])
     return x + layers.sinusoid_at(pos.reshape(-1), cfg.d_model).reshape(
         B, T, cfg.d_model).to(x.dtype)
@@ -299,6 +298,102 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
                                                         lens)}
 
 
+def _encode_tp(shards, cfg: ModelConfig, frames, mesh):
+    """The encoder over head shards (``transformer.Shard``s; ``frames``
+    one copy a shard, on its device): each shard's attention over its
+    heads and its MLP columns give partial sums that ``mesh`` reduces;
+    the LayerNorms run whole on every shard.  Returns the memory, one
+    copy a shard.  One shard without a mesh is the unsharded encoder
+    (``encode``); its layers are ``unbind_layers`` views, so training's
+    backward stacks each leaf's gradients once."""
+    h = []
+    for f in frames:
+        B, T, d = f.shape
+        hs = f.to(cfg.compute_dtype)
+        h.append(hs + layers.sinusoidal_positions(T, d, hs.device)[None].to(
+            hs.dtype))
+    per = [unbind_layers(s.params["enc_blocks"], cfg.encoder_layers)
+           for s in shards]
+    for i in range(cfg.encoder_layers):
+        lps = [p[i] for p in per]
+        a = shard_sum(mesh, [
+            layers.attention(lp["attn"], s.cfg,
+                             layers.apply_norm(lp["ln1"], cfg, hs),
+                             causal=False)
+            for s, lp, hs in zip(shards, lps, h)])
+        h = [hs + a_ for hs, a_ in zip(h, a)]
+        h = _mlp_tp(shards, cfg, lps, h, mesh)
+    return [layers.apply_norm(s.params["ln_enc"], cfg, hs)
+            for s, hs in zip(shards, h)]
+
+
+def _mlp_tp(shards, cfg: ModelConfig, lps, x, mesh):
+    """The residual rows ``x`` (one copy a shard) plus each shard's MLP
+    (its columns and rows, reduced by ``mesh``, or the whole MLP)."""
+    m = [layers.mlp(lp["mlp"], cfg, layers.apply_norm(lp["ln2"], cfg, xs))
+         for lp, xs in zip(lps, x)]
+    if shards[0].mlp_split:
+        m = shard_sum(mesh, m)
+    return [xs + ms for xs, ms in zip(x, m)]
+
+
+def _cross_decode(xp, cfg: ModelConfig, xn, ck, cv, cross_len):
+    """A decode token's cross-attention (B, d) over one layer's cross K/V
+    of ``cfg``'s heads (no q bias, as in the reference's decode step)."""
+    B = xn.shape[0]
+    q = layers.linear(xn, xp["wq"]).reshape(B, cfg.num_heads, cfg.head_dim)
+    c = ops.decode_attention(q, ck, cv, cross_len)
+    return layers.linear(c.reshape(B, -1), xp["wo"])
+
+
+def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
+                           block_tables, chunk_len, *, block_size: int,
+                           mesh=None, embeddings=None):
+    """``prefill_chunk_paged`` over head shards (``transformer.Shard``s),
+    its arguments one entry a shard, on the shard's device: ``caches``
+    each shard's pools of its kv heads and its heads' cross K/V state.  A
+    first chunk's ``embeddings`` (one copy a shard) run the encoder over
+    the shards (``_encode_tp``), and each shard projects its heads' cross
+    K/V from the memory into its state.  Self- and cross-attention and the
+    MLP give partial sums that ``mesh`` reduces.  Returns (logits at each
+    slot's last real token (B, V) on the first shard's device, ``len +
+    chunk_len``)."""
+    B = tokens[0].shape[0]
+    start = [torch.as_tensor(c["len"], dtype=torch.int32,
+                             device=t.device).reshape(-1).expand(B)
+             for c, t in zip(caches, tokens)]
+    x = [_add_positions(cfg, xs, st) for xs, st in
+         zip(layers.embed_tp(shards, cfg, tokens, mesh), start)]
+    memory = (None if embeddings is None
+              else _encode_tp(shards, cfg, embeddings, mesh))
+    for i in range(cfg.num_layers):
+        lps = [layer_params(s.params["dec_blocks"], i) for s in shards]
+        if memory is not None:      # project this layer's cross K/V once
+            for s, lp, mem, c in zip(shards, lps, memory, caches):
+                _project_cross(lp["cross_attn"], s.cfg, mem, c["cross_k"][i],
+                               c["cross_v"][i])
+        a = shard_sum(mesh, [layers.attention_chunk_paged(
+            lp["self_attn"], s.cfg, layers.apply_norm(lp["ln1"], cfg, xs),
+            c["k"][i], c["v"][i], bt, st, cl, block_size=block_size,
+            window=cfg.sliding_window, use_rope=False)[0]
+            for s, lp, xs, c, bt, st, cl in zip(
+                shards, lps, x, caches, block_tables, start, chunk_len)])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        a = shard_sum(mesh, [
+            _cross_chunk(lp["cross_attn"], s.cfg,
+                         layers.apply_norm(lp["ln_x"], cfg, xs),
+                         c["cross_k"][i], c["cross_v"][i])
+            for s, lp, xs, c in zip(shards, lps, x, caches)])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        x = _mlp_tp(shards, cfg, lps, x, mesh)
+    h = [layers.apply_norm(s.params["ln_f"], cfg,
+                           layers.take_chunk_last(xs, cl)[:, None])[:, 0]
+         for s, xs, cl in zip(shards, x, chunk_len)]
+    return (layers.unembed_tp(shards, cfg, h, mesh),
+            start[0] + torch.as_tensor(chunk_len[0], dtype=torch.int32,
+                                       device=start[0].device))
+
+
 def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
                         block_tables, *, chunk_len, block_size: int):
     """Paged-native chunked decoder prefill: append a right-padded chunk of
@@ -310,37 +405,46 @@ def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
     to the state's dtype, into ``cache["cross_k"]``/``["cross_v"]`` in
     place; later chunks read them.  Returns (logits at each slot's last
     real token (B, V), cache with ``len + chunk_len``)."""
-    tokens = batch["tokens"]
-    B = tokens.shape[0]
-    dev = tokens.device
-    start = torch.as_tensor(cache["len"], dtype=torch.int32,
-                            device=dev).reshape(-1).expand(B)
-    x = _decoder_embed(params, cfg, tokens, start)
-    first = "embeddings" in batch
-    memory = encode(params, cfg, batch["embeddings"]) if first else None
-    k_all, v_all = cache["k"], cache["v"]
-    ck_all, cv_all = cache["cross_k"], cache["cross_v"]
+    emb = batch.get("embeddings")
+    logits, new_len = prefill_chunk_paged_tp(
+        [Shard(params, cfg)], cfg, [batch["tokens"]], [cache],
+        [block_tables], [chunk_len], block_size=block_size,
+        embeddings=None if emb is None else [emb])
+    return logits, {**cache, "len": new_len}
+
+
+def decode_step_paged_tp(shards, cfg: ModelConfig, token, caches,
+                         block_tables, live, *, block_size: int, mesh=None):
+    """``decode_step_paged`` over head shards, its arguments one entry a
+    shard as in ``prefill_chunk_paged_tp``: each shard attends over its
+    kv heads' pools and cross K/V.  Returns (logits (B, V) on the first
+    shard's device, the live slots' ``len + 1``)."""
+    lens = [c["len"].to(torch.int32) for c in caches]
+    live = [lv.bool() for lv in live]
+    x = [xs + layers.sinusoid_at(ln, cfg.d_model).to(xs.dtype)
+         for xs, ln in zip(layers.embed_tp(shards, cfg, token, mesh), lens)]
+    cross_len = [torch.where(lv, c["cross_k"].shape[2], 0).to(torch.int32)
+                 for lv, c in zip(live, caches)]
     for i in range(cfg.num_layers):
-        lp = layer_params(params["dec_blocks"], i)
-        xp = lp["cross_attn"]
-        if first:                   # project this layer's cross K/V once
-            _project_cross(xp, cfg, memory, ck_all[i], cv_all[i])
-        xn = layers.apply_norm(lp["ln1"], cfg, x)
-        a, _, _ = layers.attention_chunk_paged(
-            lp["self_attn"], cfg, xn, k_all[i], v_all[i], block_tables,
-            start, chunk_len, block_size=block_size,
-            window=cfg.sliding_window, use_rope=False)
-        x = x + a
-        x = x + _cross_chunk(xp, cfg, layers.apply_norm(lp["ln_x"], cfg, x),
-                             ck_all[i], cv_all[i])
-        x = x + layers.mlp(lp["mlp"], cfg,
-                           layers.apply_norm(lp["ln2"], cfg, x))
-    h = layers.take_chunk_last(x, chunk_len)
-    h = layers.apply_norm(params["ln_f"], cfg, h[:, None])[:, 0]
-    return logits_fn(params, cfg, h), {
-        "k": k_all, "v": v_all, "cross_k": ck_all, "cross_v": cv_all,
-        "len": start + torch.as_tensor(chunk_len, dtype=torch.int32,
-                                       device=dev)}
+        lps = [layer_params(s.params["dec_blocks"], i) for s in shards]
+        a = shard_sum(mesh, [layers.attention_decode_paged(
+            lp["self_attn"], s.cfg, layers.apply_norm(lp["ln1"], cfg, xs),
+            c["k"][i], c["v"][i], bt, ln, lv, block_size=block_size,
+            window=cfg.sliding_window, use_rope=False)[0]
+            for s, lp, xs, c, bt, ln, lv in zip(
+                shards, lps, x, caches, block_tables, lens, live)])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        a = shard_sum(mesh, [
+            _cross_decode(lp["cross_attn"], s.cfg,
+                          layers.apply_norm(lp["ln_x"], cfg, xs),
+                          c["cross_k"][i], c["cross_v"][i], cl)
+            for s, lp, xs, c, cl in zip(shards, lps, x, caches, cross_len)])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        x = _mlp_tp(shards, cfg, lps, x, mesh)
+    h = [layers.apply_norm(s.params["ln_f"], cfg, xs)
+         for s, xs in zip(shards, x)]
+    return (layers.unembed_tp(shards, cfg, h, mesh),
+            torch.where(live[0], lens[0] + 1, lens[0]))
 
 
 def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
@@ -353,32 +457,7 @@ def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
     are thrown away, and the kernel skips their 7.68 MB of cross K/V a
     layer at whisper-large-v3's width) and keep their length.  Returns
     (logits (B, V), cache with the live slots' ``len + 1``)."""
-    B = token.shape[0]
-    lens = cache["len"].to(torch.int32)
-    live = live.bool()
-    x = layers.embed(params["embed"], cfg, token).to(cfg.compute_dtype)
-    x = x + layers.sinusoid_at(lens, cfg.d_model).to(x.dtype)
-    k_all, v_all = cache["k"], cache["v"]
-    ck_all, cv_all = cache["cross_k"], cache["cross_v"]
-    cross_len = torch.where(live, ck_all.shape[2], 0).to(torch.int32)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["dec_blocks"], i)
-        xp = lp["cross_attn"]
-        xn = layers.apply_norm(lp["ln1"], cfg, x)
-        a, _, _ = layers.attention_decode_paged(
-            lp["self_attn"], cfg, xn, k_all[i], v_all[i], block_tables,
-            lens, live, block_size=block_size, window=cfg.sliding_window,
-            use_rope=False)
-        x = x + a
-        xn = layers.apply_norm(lp["ln_x"], cfg, x)
-        # no q bias here, as in the reference's decode step
-        q = layers.linear(xn, xp["wq"]).reshape(B, cfg.num_heads,
-                                                cfg.head_dim)
-        c = ops.decode_attention(q, ck_all[i], cv_all[i], cross_len)
-        x = x + layers.linear(c.reshape(B, -1), xp["wo"])
-        x = x + layers.mlp(lp["mlp"], cfg,
-                           layers.apply_norm(lp["ln2"], cfg, x))
-    h = layers.apply_norm(params["ln_f"], cfg, x)
-    return logits_fn(params, cfg, h), {
-        "k": k_all, "v": v_all, "cross_k": ck_all, "cross_v": cv_all,
-        "len": torch.where(live, lens + 1, lens)}
+    logits, new_len = decode_step_paged_tp(
+        [Shard(params, cfg)], cfg, [token], [cache], [block_tables], [live],
+        block_size=block_size)
+    return logits, {**cache, "len": new_len}

@@ -22,6 +22,9 @@ expert GEMMs' gradients are grouped GEMMs again (``ops.grouped_matmul``).
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -141,6 +144,19 @@ def enable_drop_counter(on: bool = True) -> None:
     """Toggle drop accounting for every ``moe_mlp`` call after this one."""
     global _DROP_COUNTER_ENABLED
     _DROP_COUNTER_ENABLED = bool(on)
+
+
+@contextlib.contextmanager
+def drops_uncounted():
+    """``moe_mlp`` calls inside count no drops: a step traced on fake
+    tensors (a cost analysis), or a head-sharded step's shards after the
+    first, leave the counter as it was."""
+    global _DROP_COUNTER_ENABLED
+    was, _DROP_COUNTER_ENABLED = _DROP_COUNTER_ENABLED, False
+    try:
+        yield
+    finally:
+        _DROP_COUNTER_ENABLED = was
 
 
 MAX_ROUTING_GROUP = 2048
@@ -283,6 +299,43 @@ def moe_ffn(lp, cfg: ModelConfig, x):
     if x.ndim == 2:
         return _moe_mlp_single(lp["moe"], cfg, x)
     return moe_mlp(lp["moe"], cfg, x)[0]
+
+
+def _ffn_counted_once(tp: int):
+    """``moe_ffn`` for a head-sharded step over ``tp`` shards, which runs
+    it on each shard in turn, layer by layer: every shard routes the same
+    reduced rows alike and runs its experts' columns, and the calls of
+    the shards after the first count no drops, so a step counts them
+    once."""
+    calls = itertools.count()
+
+    def ffn(lp, cfg: ModelConfig, x):
+        if next(calls) % tp == 0:
+            return moe_ffn(lp, cfg, x)
+        with drops_uncounted():
+            return moe_ffn(lp, cfg, x)
+    return ffn
+
+
+def decode_step_paged_tp(shards, cfg: ModelConfig, token, caches,
+                         block_tables, live, *, block_size: int, mesh=None):
+    """``decode_step_paged`` over head shards (see
+    ``transformer.decode_step_paged_tp``): each shard's expert FFN gives a
+    partial ``w_down`` product of its columns, which the mesh reduces
+    once a layer."""
+    return transformer.decode_step_paged_tp(
+        shards, cfg, token, caches, block_tables, live,
+        block_size=block_size, mesh=mesh, ffn=_ffn_counted_once(len(shards)))
+
+
+def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
+                           block_tables, chunk_len, *, block_size: int,
+                           mesh=None):
+    """``prefill_chunk_paged`` over head shards (see
+    ``decode_step_paged_tp``)."""
+    return transformer.prefill_chunk_paged_tp(
+        shards, cfg, tokens, caches, block_tables, chunk_len,
+        block_size=block_size, mesh=mesh, ffn=_ffn_counted_once(len(shards)))
 
 
 def prefill(params, cfg: ModelConfig, batch, *, cache_size=None):

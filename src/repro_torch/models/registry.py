@@ -39,6 +39,13 @@ class ModelApi:
     # ``None`` for families without a paged-native chunk body: the serving
     # engine's speculation gate
     verify_step_paged: Optional[Callable] = None
+    # the head-sharded steps (``launch/steps.py`` ``ShardedPagedStep``):
+    # the decode and chunk steps over a list of ``transformer.Shard``s,
+    # their arguments one entry a shard, partial sums reduced by a mesh;
+    # ``None`` for families the sharded step does not serve (ROADMAP.md
+    # Queue 1 item 15)
+    decode_step_paged_tp: Optional[Callable] = None
+    prefill_chunk_paged_tp: Optional[Callable] = None
 
 
 _FAMILIES = {
@@ -48,16 +55,23 @@ _FAMILIES = {
                       decode_step_paged=transformer.decode_step_paged,
                       prefill_chunk_paged=transformer.prefill_chunk_paged,
                       verify_step_paged=transformer.verify_step_paged,
-                      forward_hidden=transformer.forward_hidden),
+                      forward_hidden=transformer.forward_hidden,
+                      decode_step_paged_tp=transformer.decode_step_paged_tp,
+                      prefill_chunk_paged_tp=(
+                          transformer.prefill_chunk_paged_tp)),
     "moe": ModelApi(moe.init, moe.logits_fn, moe.init_cache, moe.prefill,
                     moe.prefill_chunk, moe.decode_step,
                     decode_step_paged=moe.decode_step_paged,
                     prefill_chunk_paged=moe.prefill_chunk_paged,
                     verify_step_paged=moe.verify_step_paged,
-                    forward_hidden=moe.forward_hidden),
+                    forward_hidden=moe.forward_hidden,
+                    decode_step_paged_tp=moe.decode_step_paged_tp,
+                    prefill_chunk_paged_tp=moe.prefill_chunk_paged_tp),
     "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache, ssm.prefill,
                     ssm.prefill_chunk, ssm.decode_step,
-                    forward_hidden=ssm.forward_hidden),
+                    forward_hidden=ssm.forward_hidden,
+                    decode_step_paged_tp=ssm.decode_step_paged_tp,
+                    prefill_chunk_paged_tp=ssm.prefill_chunk_paged_tp),
     "hybrid": ModelApi(hybrid.init, hybrid.logits_fn, hybrid.init_cache,
                        hybrid.prefill, hybrid.prefill_chunk,
                        hybrid.decode_step,
@@ -69,7 +83,9 @@ _FAMILIES = {
                       encdec.decode_step,
                       decode_step_paged=encdec.decode_step_paged,
                       prefill_chunk_paged=encdec.prefill_chunk_paged,
-                      forward_hidden=encdec.forward_hidden),
+                      forward_hidden=encdec.forward_hidden,
+                      decode_step_paged_tp=encdec.decode_step_paged_tp,
+                      prefill_chunk_paged_tp=encdec.prefill_chunk_paged_tp),
     "vlm": ModelApi(vlm.init, vlm.logits_fn, vlm.init_cache, vlm.prefill,
                     vlm.prefill_chunk, vlm.decode_step,
                     decode_step_paged=vlm.decode_step_paged,

@@ -31,7 +31,7 @@ from repro_torch.kernels import ops
 
 from . import layers
 from .config import ModelConfig
-from .transformer import layer_params, stack_layers, unbind_layers
+from .transformer import Shard, layer_params, stack_layers, unbind_layers
 
 
 def conv_channels(cfg: ModelConfig) -> int:
@@ -109,20 +109,29 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
     }
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt):
-    di, G, N = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+def _heads(p) -> int:
+    """The SSD heads a layer's parameters hold: the model's, or a head
+    shard's (``A_log`` is one entry a head)."""
+    return p["A_log"].shape[-1]
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt, H: int):
+    """in_proj's output over ``H`` heads, its columns ``z | x | B | C |
+    dt`` (a head shard's: its heads' z, x and dt, B and C whole) -> z,
+    xBC and dt: views."""
+    di, G, N = H * cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
     z = zxbcdt[..., :di]
     xBC = zxbcdt[..., di:di + di + 2 * G * N]
     dt = zxbcdt[..., di + di + 2 * G * N:]
-    assert dt.shape[-1] == cfg.ssm_nheads
+    assert dt.shape[-1] == H
     return z, xBC, dt
 
 
-def _split_xbc(cfg: ModelConfig, xBC_conv):
+def _split_xbc(cfg: ModelConfig, xBC_conv, H: int):
     """(..., ch) -> x (..., H, P), B and C (..., G, N): views."""
-    di, G, N = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    di, G, N = H * cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
     lead = xBC_conv.shape[:-1]
-    xs = xBC_conv[..., :di].reshape(*lead, cfg.ssm_nheads, cfg.ssm_headdim)
+    xs = xBC_conv[..., :di].reshape(*lead, H, cfg.ssm_headdim)
     Bm = xBC_conv[..., di:di + G * N].reshape(*lead, G, N)
     Cm = xBC_conv[..., di + G * N:].reshape(*lead, G, N)
     return xs, Bm, Cm
@@ -133,6 +142,26 @@ def _gated_out(p, cfg: ModelConfig, y, z):
     y = layers.rms_norm(y * F.silu(z.float()).to(y.dtype),
                         p["gate_ln"]["w"], cfg.rms_eps)
     return layers.linear(y, p["out_proj"])
+
+
+def _gated_out_tp(lps, cfg: ModelConfig, ys, zs, mesh):
+    """``_gated_out`` over head shards (layer params ``lps``, the
+    mixer's ``ys`` and ``zs``, one a shard): the RMSNorm runs over the
+    whole ``d_inner``, so each shard's f32 sum of squares is reduced
+    before the scale (a shard normalizing its own heads would be wrong),
+    then each shard's ``out_proj`` rows give a partial product that the
+    mesh reduces.  One shard is ``_gated_out`` itself, op for op."""
+    if len(lps) == 1:
+        return [_gated_out(lps[0], cfg, ys[0], zs[0])]
+    g = [y * F.silu(z.float()).to(y.dtype) for y, z in zip(ys, zs)]
+    sq = mesh.all_reduce([(gs.float() * gs.float()).sum(-1, keepdim=True)
+                          for gs in g])
+    out = []
+    for lp, gs, ss in zip(lps, g, sq):
+        yn = gs.float() * torch.rsqrt(ss / cfg.d_inner + cfg.rms_eps)
+        yn = (yn * lp["gate_ln"]["w"].float()).to(gs.dtype)
+        out.append(layers.linear(yn, lp["out_proj"]))
+    return mesh.all_reduce(out)
 
 
 def _conv_step(p, conv_state, u_t):
@@ -164,8 +193,9 @@ def mamba_block(p, cfg: ModelConfig, x, *, initial_state=None,
     B, L, _ = x.shape
     k = cfg.ssm_conv_kernel
     xn = layers.apply_norm(p["ln"], cfg, x)
-    z, xBC, dt = _split_proj(cfg, layers.linear(xn, p["in_proj"]))
-    xs, Bm, Cm = _split_xbc(cfg, _causal_conv(p, xBC))
+    H = _heads(p)
+    z, xBC, dt = _split_proj(cfg, layers.linear(xn, p["in_proj"]), H)
+    xs, Bm, Cm = _split_xbc(cfg, _causal_conv(p, xBC), H)
     dt = F.softplus(dt.float() + p["dt_bias"][None, None])
     A = -torch.exp(p["A_log"])
     y, state = ops.ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk=cfg.ssm_chunk,
@@ -198,6 +228,40 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     return logits_fn(params, cfg, h), cache
 
 
+def _mixer_chunk(p, cfg: ModelConfig, x, conv_state, ssd_state,
+                 chunk_len):
+    """A layer's mixer over a right-padded chunk of ``chunk_len`` <= T
+    tokens, up to the gated norm: (y (B, T, H*P), z, conv_tail, ssd_state)
+    over the heads ``p`` holds (see ``mamba_block_chunk``)."""
+    B, T, _ = x.shape
+    k = cfg.ssm_conv_kernel
+    H = _heads(p)
+    xn = layers.apply_norm(p["ln"], cfg, x)
+    z, xBC, dt = _split_proj(cfg, layers.linear(xn, p["in_proj"]), H)
+    cl = torch.as_tensor(chunk_len, dtype=torch.long, device=x.device)
+    if cl.ndim == 0:
+        cl = cl.expand(B)
+    # causal conv primed with the carried (k-1)-deep raw tail: the sum of
+    # k shifted products, as the reference writes it
+    padded = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
+    y = sum(padded[:, i:i + T] * p["conv_w"][i][None, None]
+            for i in range(k))
+    xBC_conv = F.silu((y + p["conv_b"][None, None]).float()).to(xBC.dtype)
+    xs, Bm, Cm = _split_xbc(cfg, xBC_conv, H)
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None])
+    valid = torch.arange(T, device=x.device)[None] < cl[:, None]  # (B, T)
+    dt = torch.where(valid[..., None], dt, 0.0)
+    A = -torch.exp(p["A_log"])
+    y, state = ops.ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk=cfg.ssm_chunk,
+                            initial_state=ssd_state)
+    # new raw tail: the k-1 positions ending at the last real token (the
+    # conv_state prefix covers chunks shorter than the kernel)
+    idx = cl[:, None] + torch.arange(k - 1, device=x.device)[None]
+    tail = torch.gather(padded, 1,
+                        idx[..., None].expand(-1, -1, padded.shape[-1]))
+    return y.reshape(B, T, H * cfg.ssm_headdim), z, tail, state
+
+
 def mamba_block_chunk(p, cfg: ModelConfig, x, conv_state, ssd_state,
                       chunk_len):
     """Chunked-prefill mamba block: advance one layer's recurrent state by
@@ -208,33 +272,32 @@ def mamba_block_chunk(p, cfg: ModelConfig, x, conv_state, ssd_state,
     (dt = 0), and the new conv tail ends at the last real token, so the
     returned state equals running exactly ``chunk_len`` steps.  Returns
     (out (B, T, d), conv_tail, ssd_state); the inputs are not modified."""
-    B, T, _ = x.shape
-    k = cfg.ssm_conv_kernel
-    xn = layers.apply_norm(p["ln"], cfg, x)
-    z, xBC, dt = _split_proj(cfg, layers.linear(xn, p["in_proj"]))
-    cl = torch.as_tensor(chunk_len, dtype=torch.long, device=x.device)
-    if cl.ndim == 0:
-        cl = cl.expand(B)
-    # causal conv primed with the carried (k-1)-deep raw tail: the sum of
-    # k shifted products, as the reference writes it
-    padded = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
-    y = sum(padded[:, i:i + T] * p["conv_w"][i][None, None]
-            for i in range(k))
-    xBC_conv = F.silu((y + p["conv_b"][None, None]).float()).to(xBC.dtype)
-    xs, Bm, Cm = _split_xbc(cfg, xBC_conv)
-    dt = F.softplus(dt.float() + p["dt_bias"][None, None])
-    valid = torch.arange(T, device=x.device)[None] < cl[:, None]  # (B, T)
-    dt = torch.where(valid[..., None], dt, 0.0)
+    y, z, tail, state = _mixer_chunk(p, cfg, x, conv_state, ssd_state,
+                                     chunk_len)
+    return x + _gated_out(p, cfg, y, z), tail, state
+
+
+def _mixer_decode(p, cfg: ModelConfig, x_t, conv_state, ssd_state, live):
+    """A layer's mixer for one decode token per slot, up to the gated
+    norm: (y (B, H*P), z) over the heads ``p`` holds, the states updated
+    in place (see ``mamba_block_decode``)."""
+    B = x_t.shape[0]
+    H = _heads(p)
+    xn = layers.apply_norm(p["ln"], cfg, x_t[:, None])[:, 0]
+    z, xBC, dt = _split_proj(cfg, layers.linear(xn, p["in_proj"]), H)
+    xBC_conv, new_conv = _conv_step(p, conv_state, xBC)
+    if live is None:
+        conv_state.copy_(new_conv)
+    else:
+        conv_state.copy_(torch.where(live[:, None, None], new_conv,
+                                     conv_state))
+    xs, Bm, Cm = _split_xbc(cfg, xBC_conv, H)
+    dt = F.softplus(dt.float() + p["dt_bias"][None])
+    if live is not None:
+        dt = torch.where(live[:, None], dt, 0.0)
     A = -torch.exp(p["A_log"])
-    y, state = ops.ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk=cfg.ssm_chunk,
-                            initial_state=ssd_state)
-    out = x + _gated_out(p, cfg, y.reshape(B, T, cfg.d_inner), z)
-    # new raw tail: the k-1 positions ending at the last real token (the
-    # conv_state prefix covers chunks shorter than the kernel)
-    idx = cl[:, None] + torch.arange(k - 1, device=x.device)[None]
-    tail = torch.gather(padded, 1,
-                        idx[..., None].expand(-1, -1, padded.shape[-1]))
-    return out, tail, state
+    y, _ = ops.ssd_decode_step(ssd_state, xs, dt, A, Bm, Cm, p["D"])
+    return y.reshape(B, H * cfg.ssm_headdim), z
 
 
 def mamba_block_decode(p, cfg: ModelConfig, x_t, conv_state, ssd_state,
@@ -245,22 +308,41 @@ def mamba_block_decode(p, cfg: ModelConfig, x_t, conv_state, ssd_state,
     ``merge_state`` commit): their conv tail is not written, and their SSD
     step gets dt = 0, an identity step, as the chunk's padding rows do.
     Returns the block's output (B, d)."""
-    B = x_t.shape[0]
-    xn = layers.apply_norm(p["ln"], cfg, x_t[:, None])[:, 0]
-    z, xBC, dt = _split_proj(cfg, layers.linear(xn, p["in_proj"]))
-    xBC_conv, new_conv = _conv_step(p, conv_state, xBC)
-    if live is None:
-        conv_state.copy_(new_conv)
-    else:
-        conv_state.copy_(torch.where(live[:, None, None], new_conv,
-                                     conv_state))
-    xs, Bm, Cm = _split_xbc(cfg, xBC_conv)
-    dt = F.softplus(dt.float() + p["dt_bias"][None])
-    if live is not None:
-        dt = torch.where(live[:, None], dt, 0.0)
-    A = -torch.exp(p["A_log"])
-    y, _ = ops.ssd_decode_step(ssd_state, xs, dt, A, Bm, Cm, p["D"])
-    return x_t + _gated_out(p, cfg, y.reshape(B, cfg.d_inner), z)
+    y, z = _mixer_decode(p, cfg, x_t, conv_state, ssd_state, live)
+    return x_t + _gated_out(p, cfg, y, z)
+
+
+def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
+                           block_tables, chunk_len, *, block_size: int = 0,
+                           mesh=None):
+    """``prefill_chunk`` over SSD head shards (``transformer.Shard``s),
+    its arguments one entry a shard on the shard's device: ``caches``
+    each shard's ``{"conv", "ssd", "len"}`` state (its heads' SSD state,
+    its heads' conv channels and B and C whole), updated in place layer by
+    layer.  Each shard's mixer runs on its heads; the gated norm's sum of
+    squares and ``out_proj``'s partial products are reduced by ``mesh``
+    (``_gated_out_tp``).  ``block_tables`` and ``block_size`` are taken
+    for the paged steps' signature: an SSM pages nothing.  One shard
+    without a mesh is the unsharded ``prefill_chunk``, op for op.
+    Returns (logits at each slot's last real token (B, V) on the first
+    shard's device, ``len + chunk_len``)."""
+    x = layers.embed_tp(shards, cfg, tokens, mesh)
+    for i in range(cfg.num_layers):
+        lps = [layer_params(s.params["blocks"], i) for s in shards]
+        mixed = [_mixer_chunk(lp, cfg, xs, c["conv"][i], c["ssd"][i], cl)
+                 for lp, xs, c, cl in zip(lps, x, caches, chunk_len)]
+        for (_, _, tail, state), c in zip(mixed, caches):
+            c["conv"][i].copy_(tail)
+            c["ssd"][i].copy_(state)
+        out = _gated_out_tp(lps, cfg, [m[0] for m in mixed],
+                            [m[1] for m in mixed], mesh)
+        x = [xs + o for xs, o in zip(x, out)]
+    h = [layers.apply_norm(s.params["ln_f"], cfg,
+                           layers.take_chunk_last(xs, cl)[:, None])[:, 0]
+         for s, xs, cl in zip(shards, x, chunk_len)]
+    lens = caches[0]["len"]
+    return (layers.unembed_tp(shards, cfg, h, mesh),
+            lens + torch.as_tensor(chunk_len[0], device=lens.device))
 
 
 def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
@@ -269,21 +351,34 @@ def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
     (see ``mamba_block_chunk``), writing each layer's new state into
     ``cache`` in place.  Returns (logits at each slot's last real token
     (B, V), cache with ``len + chunk_len``)."""
-    tokens = batch["tokens"]
-    x = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
-    conv_all, ssd_all = cache["conv"], cache["ssd"]
+    logits, new_len = prefill_chunk_paged_tp(
+        [Shard(params, cfg)], cfg, [batch["tokens"]], [cache], [None],
+        [chunk_len])
+    return logits, {"conv": cache["conv"], "ssd": cache["ssd"],
+                    "len": new_len}
+
+
+def decode_step_paged_tp(shards, cfg: ModelConfig, token, caches,
+                         block_tables, live, *, block_size: int = 0,
+                         mesh=None):
+    """``decode_step`` over SSD head shards, its arguments one entry a
+    shard as in ``prefill_chunk_paged_tp``.  Returns (logits (B, V) on
+    the first shard's device, the live slots' ``len + 1``)."""
+    live = [None if lv is None else lv.bool() for lv in live]
+    x = layers.embed_tp(shards, cfg, token, mesh)
     for i in range(cfg.num_layers):
-        x, tail, state = mamba_block_chunk(
-            layer_params(params["blocks"], i), cfg, x, conv_all[i],
-            ssd_all[i], chunk_len)
-        conv_all[i].copy_(tail)
-        ssd_all[i].copy_(state)
-    h = layers.take_chunk_last(x, chunk_len)
-    h = layers.apply_norm(params["ln_f"], cfg, h[:, None])[:, 0]
-    return logits_fn(params, cfg, h), {
-        "conv": conv_all, "ssd": ssd_all,
-        "len": cache["len"] + torch.as_tensor(chunk_len,
-                                              device=x.device)}
+        lps = [layer_params(s.params["blocks"], i) for s in shards]
+        mixed = [_mixer_decode(lp, cfg, xs, c["conv"][i], c["ssd"][i], lv)
+                 for lp, xs, c, lv in zip(lps, x, caches, live)]
+        out = _gated_out_tp(lps, cfg, [m[0] for m in mixed],
+                            [m[1] for m in mixed], mesh)
+        x = [xs + o for xs, o in zip(x, out)]
+    h = [layers.apply_norm(s.params["ln_f"], cfg, xs[:, None])[:, 0]
+         for s, xs in zip(shards, x)]
+    lens = caches[0]["len"]
+    new_len = (lens + 1 if live[0] is None
+               else torch.where(live[0], lens + 1, lens))
+    return layers.unembed_tp(shards, cfg, h, mesh), new_len
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
@@ -291,13 +386,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
     updated in place; slots where ``live`` (B,) is False keep theirs and
     their length.  Returns (logits (B, V), cache with the live slots'
     ``len + 1``)."""
-    x = layers.embed(params["embed"], cfg, token).to(cfg.compute_dtype)
-    conv_all, ssd_all = cache["conv"], cache["ssd"]
-    for i in range(cfg.num_layers):
-        x = mamba_block_decode(layer_params(params["blocks"], i), cfg, x,
-                               conv_all[i], ssd_all[i], live)
-    h = layers.apply_norm(params["ln_f"], cfg, x[:, None])[:, 0]
-    lens = cache["len"]
-    new_len = lens + 1 if live is None else torch.where(live, lens + 1, lens)
-    return logits_fn(params, cfg, h), {"conv": conv_all, "ssd": ssd_all,
-                                       "len": new_len}
+    logits, new_len = decode_step_paged_tp(
+        [Shard(params, cfg)], cfg, [token], [cache], [None], [live])
+    return logits, {"conv": cache["conv"], "ssd": cache["ssd"],
+                    "len": new_len}

@@ -297,18 +297,21 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
 @dataclasses.dataclass
 class Shard:
     """One model shard of a paged step: its parameter tree, its config
-    and what it holds.  A head-sharded dense model's shard holds its kv
-    heads with their GQA groups of query heads, its MLP columns and rows
-    where split (``mlp_split``), its vocabulary rows [lo, hi) where split
-    (``vocab``; None: the whole table) and the norms whole, and its config
-    counts its heads; an unsharded model is one shard of its whole tree."""
+    and what it holds.  A head-sharded attention model's shard holds its
+    kv heads with their GQA groups of query heads, its FFN columns and rows
+    where split (``mlp_split``: the MLP's, or each expert's), its
+    vocabulary rows [lo, hi) where split (``vocab``; None: the whole
+    table) and the norms whole, and its config counts its heads.  An SSM
+    shard holds its SSD heads' columns and rows (its config is the whole
+    model's: the steps read a shard's head count from its parameters).  An
+    unsharded model is one shard of its whole tree."""
     params: Dict[str, Any]
     cfg: ModelConfig
     vocab: Optional[Tuple[int, int]] = None
     mlp_split: bool = False
 
 
-def _sum(mesh, partials):
+def shard_sum(mesh, partials):
     """The shards' partial results summed by ``mesh``; without a mesh (one
     shard) the one result as it is."""
     return list(partials) if mesh is None else mesh.all_reduce(partials)
@@ -322,14 +325,15 @@ def _block_paged(shards: List[Shard], cfg: ModelConfig, i: int, x, attend,
     runs on each shard alone.  ``x``: the residual rows, whole on each
     shard.  One shard without a mesh is the unsharded layer, op for op."""
     lps = [layer_params(s.params["blocks"], i) for s in shards]
-    h = _sum(mesh, [attend(i, j, lp["attn"], s.cfg,
-                           layers.apply_norm(lp["ln1"], cfg, xs))
-                    for j, (s, lp, xs) in enumerate(zip(shards, lps, x))])
+    h = shard_sum(mesh, [attend(i, j, lp["attn"], s.cfg,
+                                layers.apply_norm(lp["ln1"], cfg, xs))
+                         for j, (s, lp, xs) in enumerate(zip(shards, lps,
+                                                             x))])
     x = [xs + hs for xs, hs in zip(x, h)]
     m = [ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, xs))
          for lp, xs in zip(lps, x)]
     if shards[0].mlp_split:
-        m = _sum(mesh, m)
+        m = shard_sum(mesh, m)
     return [xs + ms for xs, ms in zip(x, m)]
 
 

@@ -36,8 +36,12 @@ engine (the port of the reference package's ``serving/arena.py``).
   head-sharded service, ``launch/steps.py`` ``paged_decode_builder``):
   shard j holds heads ``[j * Hkv/n, (j + 1) * Hkv/n)`` of every pool on
   its device (``shard_pages[j]``; ``pages`` is shard 0's), an int8 pool's
-  scales split with its values.  One host block table serves every shard;
-  copy-on-write and one-shot writes cover every shard, and the device
+  scales split with its values.  Per-slot state splits by ``state_split``
+  (the family's rule: the SSD state by head, the conv tail's x channels by
+  head with B and C whole on every shard, the cross K/V and a window ring
+  by kv head), shard j's on its device (``shard_state[j]``; ``state`` is
+  shard 0's).  One host block table serves every shard; copy-on-write,
+  one-shot writes and state resets cover every shard, and the device
   block table is kept once a distinct device.
 
 Host bookkeeping (free lists, block tables, refcounts, the idle LRU,
@@ -68,6 +72,29 @@ def _is_len_leaf(t: torch.Tensor) -> bool:
     return t.ndim <= 1 and not t.dtype.is_floating_point
 
 
+# how a leaf splits over n shards: the dimension, and its sections in
+# order, each (size, split): a split section gives shard s its s-th n-th,
+# a whole one goes to every shard entire (a fused projection's columns,
+# the SSM conv tail's x | B | C channels)
+Sections = Tuple[Tuple[int, bool], ...]
+
+
+def take_shard(t: torch.Tensor, dim: int, s: int, n: int,
+               sections: Optional[Sections] = None) -> torch.Tensor:
+    """Shard ``s`` of ``n`` of ``t`` along ``dim``: one contiguous block
+    (``sections`` None), or the sections' parts concatenated in order, a
+    split section's s-th block and a whole section entire.  A view when
+    it is one block."""
+    if sections is None:
+        sections = ((t.shape[dim], True),)
+    parts, at = [], 0
+    for size, split in sections:
+        part = size // n if split else size
+        parts.append(t.narrow(dim, at + (s * part if split else 0), part))
+        at += size
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
 class KVArena:
     """Fixed-capacity paged cache arena for one DP replica group."""
 
@@ -75,7 +102,9 @@ class KVArena:
                  max_seq_len: int, block_size: int = 32,
                  pool_blocks: Optional[int] = None, dtype=None,
                  kv_dtype: str = "bf16", device=None,
-                 shard_devices: Optional[Sequence] = None):
+                 shard_devices: Optional[Sequence] = None,
+                 state_split: Optional[Callable[[str], Tuple[
+                     int, Sections]]] = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if kv_dtype not in VALID_KV_DTYPES:
@@ -111,6 +140,7 @@ class KVArena:
         self._tags: List[str] = []
         paged_shapes: List[Tuple[Tuple[int, ...], torch.dtype]] = []
         state_shapes: List[Tuple[Tuple[int, ...], torch.dtype]] = []
+        state_keys: List[str] = []
         for key in self._keys:
             a, b = lo[key], below[key]
             if _is_len_leaf(a):
@@ -123,6 +153,7 @@ class KVArena:
                                      f"lacks a batch axis at 1")
                 self._tags.append(_STATE)
                 state_shapes.append((tuple(a.shape), a.dtype))
+                state_keys.append(key)
                 continue
             if grown != [2] or a.ndim < 3 or a.shape[1] != 1:
                 raise ValueError(
@@ -139,9 +170,13 @@ class KVArena:
         self.shard_devices = ([self.device] if shard_devices is None
                               else [torch.device(d) for d in shard_devices])
         n = len(self.shard_devices)
-        if n > 1 and state_shapes:
-            raise ValueError("a head-sharded arena holds page pools only; "
-                             "this layout has per-slot state leaves")
+        if n > 1 and state_shapes and state_split is None:
+            raise ValueError("a head-sharded arena with per-slot state "
+                             "leaves needs the family's state_split")
+        self.state_keys = state_keys
+        # each state leaf's (dim, sections) over the shards; None: whole
+        self._state_splits = [state_split(key) if n > 1 else None
+                              for key in state_keys]
         for (_, _, _, *rest), _ in paged_shapes:
             if n > 1 and (len(rest) != 2 or rest[0] % n):
                 raise ValueError(f"pool heads {rest[:1]} do not split over "
@@ -158,9 +193,12 @@ class KVArena:
         dev = self.device
         quantized = self._quantized
         self._views: Dict[int, List[torch.Tensor]] = {}  # dense_view buffers
-        self.state: List[torch.Tensor] = [
-            torch.zeros((A0, self.capacity, *rest), dtype=dt, device=dev)
-            for (A0, _, *rest), dt in state_shapes]
+        self.shard_state: List[List[torch.Tensor]] = [
+            [torch.zeros(self._state_shape(shape, split, n), dtype=dt,
+                         device=d)
+             for (shape, dt), split in zip(state_shapes, self._state_splits)]
+            for d in ([dev] if n == 1 else self.shard_devices)]
+        self.state: List[torch.Tensor] = self.shard_state[0]
         self.lens = torch.zeros((self.capacity,), dtype=torch.int32,
                                 device=dev)
 
@@ -202,10 +240,25 @@ class KVArena:
                 self.token_bytes += n + int(np.prod([A0, *rest[:-1]])) * 4
             else:
                 self.token_bytes += n * dt.itemsize
-        # and the fixed per-slot state footprint
+        # and the fixed per-slot state footprint (every shard's share)
         self.state_slot_bytes = sum(
             int(np.prod([A0, *rest])) * dt.itemsize
             for (A0, _, *rest), dt in state_shapes)
+
+    def _state_shape(self, shape, split, n: int) -> Tuple[int, ...]:
+        """One shard's state leaf of the (layers, 1, ...) ``shape`` at
+        ``capacity`` slots, split by ``split`` (dim, sections) or whole."""
+        full = (shape[0], self.capacity, *shape[2:])
+        if split is None:
+            return full
+        dim, sections = split
+        if sum(size for size, _ in sections) != full[dim] or any(
+                size % n for size, cut in sections if cut):
+            raise ValueError(f"state leaf {full} does not split over {n} "
+                             f"shards by {split}")
+        out = list(full)
+        out[dim] = sum(size // n if cut else size for size, cut in sections)
+        return tuple(out)
 
     def _new_pool(self, shape, dt, quant: bool, n: int, dev):
         """One shard's zeroed pool for a paged leaf of ``shape`` (layers,
@@ -235,11 +288,11 @@ class KVArena:
         return out
 
     def shard_bytes(self, shard: int) -> int:
-        """Bytes of one shard's device tensors: its pools and scales, and
-        on the first shard the per-slot state and the lengths too; on the
-        meta device, what they would take."""
-        ts = self._tensors_on(shard) + ([self.lens, *self.state]
-                                        if shard == 0 else [])
+        """Bytes of one shard's device tensors: its pools and scales, its
+        share of the per-slot state, and on the first shard the lengths
+        too; on the meta device, what they would take."""
+        ts = (self._tensors_on(shard) + list(self.shard_state[shard])
+              + ([self.lens] if shard == 0 else []))
         return sum(t.numel() * t.element_size() for t in ts)
 
     def device_bytes(self) -> int:
@@ -562,16 +615,17 @@ class KVArena:
     # ------------------------------------------------------------------
     # per-slot state
     # ------------------------------------------------------------------
-    def slot_state(self, slot: int) -> List[torch.Tensor]:
-        """Views ``(layers, 1, ...)`` of one slot's state rows: a step that
-        writes into them writes into the arena."""
-        return [s[:, slot:slot + 1] for s in self.state]
+    def slot_state(self, slot: int, shard: int = 0) -> List[torch.Tensor]:
+        """Views ``(layers, 1, ...)`` of one slot's state rows on
+        ``shard``: a step that writes into them writes into the arena."""
+        return [s[:, slot:slot + 1] for s in self.shard_state[shard]]
 
     def zero_state(self, slot: int) -> None:
-        """Fresh state for a slot's first chunk, so a reused slot does not
-        carry its previous tenant's recurrence."""
-        for s in self.state:
-            s[:, slot].zero_()
+        """Fresh state for a slot's first chunk, on every shard, so a
+        reused slot does not carry its previous tenant's recurrence."""
+        for state in self.shard_state:
+            for s in state:
+                s[:, slot].zero_()
 
     # ------------------------------------------------------------------
     # cache dict <-> pools and state
@@ -607,7 +661,8 @@ class KVArena:
         rows = n_blocks * self.block_size
         bt_row = torch.from_numpy(
             self._block_tables[slot][:n_blocks].astype(np.int64))
-        pages, state = iter(zip(*self.shard_pages)), iter(self.state)
+        pages = iter(zip(*self.shard_pages))
+        state = iter(zip(zip(*self.shard_state), self._state_splits))
         cache_len = None
         for key, tag in zip(self._keys, self._tags):
             leaf = cache[key]
@@ -633,8 +688,12 @@ class KVArena:
                     else:
                         pool[:, bt] = heads.to(pool.dtype)
             else:
-                st = next(state)
-                st[:, slot] = leaf[:, 0].to(st.dtype)
+                shards, split = next(state)
+                for j, st in enumerate(shards):
+                    part = (leaf if split is None else
+                            take_shard(leaf, split[0], j, len(shards),
+                                       split[1]))
+                    st[:, slot] = part[:, 0].to(st.device, st.dtype)
         self.lens[slot] = prompt_len if cache_len is None else cache_len
         return self.slot_bytes(prompt_len)
 
@@ -712,6 +771,7 @@ class KVArena:
         The port's steps write their state in place and keep dead slots'
         rows themselves, so a leaf they return as the arena's own tensor is
         already committed; any other is copied in under the mask."""
+        self._unsharded("merge_state")
         for old, new in zip(state, state_new):
             if new is old:
                 continue

@@ -864,7 +864,8 @@ class ServiceRuntime:
             self.cfg, self.api.init_cache, capacity=self.plan.max_in_flight,
             max_seq_len=self.max_seq_len, block_size=self.block_size,
             pool_blocks=self.pool_blocks, kv_dtype=self.kv_dtype,
-            device="meta" if meta else self.device, shard_devices=devices)
+            device="meta" if meta else self.device, shard_devices=devices,
+            state_split=None if sharded is None else sharded.state_split)
 
     def _ensure_arena(self, state: _GroupState) -> KVArena:
         if state.arena is None:
@@ -1208,7 +1209,8 @@ class ServiceRuntime:
                                   and cfg.family == "vlm" else 0)
         if self.sharded_step is not None and not draft:
             logits, new_len = self.sharded_step.chunk(
-                arena, sid, batch["tokens"], start, chunk_len)
+                arena, sid, batch["tokens"], start, chunk_len,
+                embeddings=embeddings)
             arena.lens[sid] = new_len[0]
             return logits
         if draft or self.paged_native:
@@ -1615,7 +1617,8 @@ class ServiceRuntime:
         rt, shadow = copy.copy(self), copy.copy(arena)
         shadow.shard_pages = [fake(p) for p in arena.shard_pages]
         shadow.pages = shadow.shard_pages[0]
-        shadow.state, shadow.lens = fake(arena.state), fake(arena.lens)
+        shadow.shard_state = [fake(st) for st in arena.shard_state]
+        shadow.state, shadow.lens = shadow.shard_state[0], fake(arena.lens)
         shadow._views = {}
         cpu = torch.device("cpu")
         shadow._tables_dev = {cpu: fake(arena.device_block_tables())}
@@ -1632,7 +1635,8 @@ class ServiceRuntime:
         with mode:
             tokens = torch.zeros((arena.capacity,), dtype=torch.int32)
             live = torch.ones((arena.capacity,), dtype=torch.bool)
-        with mode, torch.no_grad(), op_cost.count(mesh) as cost:
+        with mode, torch.no_grad(), moe.drops_uncounted(), \
+                op_cost.count(mesh) as cost:
             ServiceRuntime._paged_decode(rt, shadow, tokens, live)
         return cost.to_dict()
 

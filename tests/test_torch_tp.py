@@ -258,58 +258,86 @@ def test_templated_wave_copies_on_write_in_every_shard(reference):
         torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
 
 
-def test_refusals_name_their_item():
+def _refusal_dense(**kw):
     params = transformer.init(0, _CFG, "cpu")
-    plan = ParallelPlan(service="t", category=LAT, bs=2)
-    cases = {"mode='sync'": dict(mode="sync"),
-             "the dense-view step": dict(paged_native=False),
-             "the dense cache": dict(kvcache_impl="dense"),
-             "a draft model": dict(draft_params=params, draft_cfg=_CFG)}
-    for what, kw in cases.items():
-        with pytest.raises(ValueError, match=ITEM) as e:
-            ServiceRuntime(_CFG, params, plan, device="cpu",
-                           paged_step_builder=steps.paged_decode_builder(
-                               _mesh(2)), **KW, **kw)
-        assert what in str(e.value)
-    ssm = ModelConfig(**dataclasses.asdict(toy_config(
-        family="ssm", ssm_state=4, ssm_headdim=16)))
+    if kw.pop("draft", False):
+        kw.update(draft_params=params, draft_cfg=_CFG)
+    return _CFG, params, _mesh(kw.pop("tp", 2)), kw
+
+
+def _refusal_family(arch):
+    from repro_torch.configs import get_config, reduced
     from repro_torch.models.registry import model_api
-    with pytest.raises(ValueError, match="'ssm' family"):
-        ServiceRuntime(ssm, model_api(ssm).init(0, ssm, "cpu"), plan,
-                       device="cpu",
-                       paged_step_builder=steps.paged_decode_builder(
-                           _mesh(2)), **KW)
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32",
+                              param_dtype="float32")
+    return cfg, model_api(cfg).init(0, cfg, "cpu"), _mesh(2), {}
+
+
+# each refused case: (its setup, the words its refusal names)
+REFUSALS = {
+    "sync": (lambda: _refusal_dense(mode="sync"), "mode='sync'"),
+    "dense_view": (lambda: _refusal_dense(paged_native=False),
+                   "the dense-view step"),
+    "dense_cache": (lambda: _refusal_dense(kvcache_impl="dense"),
+                    "the dense cache"),
+    "draft": (lambda: _refusal_dense(draft=True), "a draft model"),
+    "hybrid": (lambda: _refusal_family("zamba2-7b"), "'hybrid' family"),
+    "vlm": (lambda: _refusal_family("paligemma-3b"), "'vlm' family"),
     # 4 kv heads over 3 shards: the reference's rule would cut head_dim
     # (its pool spec puts ``model`` on D); the port refuses on purpose
-    with pytest.raises(ValueError, match="not head_dim"):
-        ServiceRuntime(_CFG, params, plan, device="cpu",
-                       paged_step_builder=steps.paged_decode_builder(
-                           _mesh(3)), **KW)
-    # FSDP serving: the reference's flag, refused rather than ignored
-    with pytest.raises(ValueError, match=ITEM):
-        steps.paged_decode_builder(_mesh(2), fsdp_params=True)
-    pool = torch.empty((2, 9, 8, 4, 48), device="meta")
-    assert tuple(steps._paged_leaf_spec(_fake(3), pool)) == \
-        (None, None, None, None, "model")
-    assert tuple(steps._paged_leaf_spec(_fake(2), pool)) == \
-        (None, None, None, "model", None)
+    "head_dim": (lambda: _refusal_dense(tp=3), "not head_dim"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS) + ["fsdp"])
+def test_refusals_name_their_item(case):
+    if case == "fsdp":
+        # FSDP serving: the reference's flag, refused rather than ignored
+        with pytest.raises(ValueError, match=ITEM):
+            steps.paged_decode_builder(_mesh(2), fsdp_params=True)
+        pool = torch.empty((2, 9, 8, 4, 48), device="meta")
+        assert tuple(steps._paged_leaf_spec(_fake(3), pool)) == \
+            (None, None, None, None, "model")
+        assert tuple(steps._paged_leaf_spec(_fake(2), pool)) == \
+            (None, None, None, "model", None)
+        return
+    setup, what = REFUSALS[case]
+    cfg, params, mesh, kw = setup()
+    plan = ParallelPlan(service="t", category=LAT, bs=2)
+    with pytest.raises(ValueError, match=ITEM) as e:
+        ServiceRuntime(cfg, params, plan, device="cpu",
+                       paged_step_builder=steps.paged_decode_builder(mesh),
+                       **{**KW, "max_seq_len": 32, **kw})
+    assert what in str(e.value)
 
 
 def _fake(tp):
     return meshlib.make_mesh((1, tp), ("data", "model"))
 
 
+@pytest.mark.parametrize("archs", [
+    "minicpm-2b,minitron-4b", "mamba2-2.7b", "whisper-large-v3",
+    "mixtral-8x7b", "zamba2-7b", "paligemma-3b"])
 def test_launcher_serves_with_pjit_decode_and_refuses_other_families(
-        capsys):
-    assert serve.main(["--device", "cpu", "--pjit-decode", "--requests",
-                       "4", "--max-new-tokens", "3", "--max-seq-len", "32",
-                       "--archs", "minicpm-2b,minitron-4b"]) == 0
+        capsys, archs):
+    n = 4 if archs == "minicpm-2b,minitron-4b" else 2
+    argv = ["--device", "cpu", "--pjit-decode", "--requests", str(n),
+            "--max-new-tokens", "3", "--max-seq-len", "32", "--archs",
+            archs]
+    if archs in ("zamba2-7b", "paligemma-3b"):
+        # the hybrid and VLM families stay refused, before any allocation
+        with pytest.raises(ValueError, match=ITEM):
+            serve.main(argv)
+        return
+    assert serve.main(argv) == 0
     out = capsys.readouterr().out
     assert "service mesh: {'data': 1, 'model': 1}" in out
-    assert "served 4/4 requests" in out
-    with pytest.raises(ValueError, match=ITEM):
-        serve.main(["--device", "cpu", "--pjit-decode", "--archs",
-                    "minicpm-2b,mamba2-2.7b"])
+    if archs == "mixtral-8x7b":
+        # the control plane places it on no server (its plan needs 16
+        # GPUs, over a server's 4), as without --pjit-decode
+        assert "placements: []" in out and f"served 0/{n} requests" in out
+    else:
+        assert f"served {n}/{n} requests" in out
 
 
 def test_decode_cost_analysis_counts_without_touching_anything(reference):
