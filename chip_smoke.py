@@ -18,9 +18,10 @@ in a thirteenth, its VLM family (paligemma-3b) in a fourteenth, its
 hybrid family (zamba2-7b) in a fifteenth, the training of the MoE,
 SSM, audio, VLM and hybrid families in a sixteenth, head-sharded
 paged serving (``--pjit-decode``; minicpm-2b, codeqwen1.5-7b) in a
-seventeenth and head-sharded serving of the SSM, audio and MoE families
-(mamba2-2.7b, whisper-large-v3, mixtral-8x7b) in an eighteenth; any
-failure exits non-zero.
+seventeenth, head-sharded serving of the SSM, audio, MoE, hybrid and VLM
+families (mamba2-2.7b, whisper-large-v3, mixtral-8x7b, zamba2-7b,
+paligemma-3b) in an eighteenth and the four examples
+(``examples/torch_*.py``) in a nineteenth; any failure exits non-zero.
 Every phase prints its wall time.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
@@ -348,7 +349,29 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    allocated (its plan's 512 slots of SSD state, 87 GB, exceed the card),
    and a (1, 4) mesh's share shown to fit; (b) the kernels at the shards'
    shapes, against their plain versions and timed beside their bounds
-   (``tp_family_kernel_cases``);
+   (``tp_family_kernel_cases``).  Then the hybrid and VLM families
+   (``TP_NEW_FAMILIES``): zamba2-7b at tp = 4 (8 query and 8 kv heads and
+   28 SSD heads a shard, int8 pools, the plan's 256 slots) and
+   paligemma-3b at tp = 2 and 4 (its one kv head's pool replicated on
+   every shard, bf16, the plan's 512 slots), each on the first 8 requests
+   of phase 15's (16) and 14's (32) waves: (a1) at 2 layers (zamba2 with
+   its shared block applied after each: two applications), unsharded and
+   at each tp on the same weights, held by
+   ``compare_runs``, and (c) each tp step's ``decode_cost_analysis``
+   against the unsharded one's (the replicated K/V projection and the B
+   and C columns counted once a further shard); (a2) at full depth (81
+   and 18 layers), every kernel launched tp times a layer (zamba2's
+   attention kernels: an application) a step, the chains measured
+   against phases 15's and 14's (``chain_agreement``); (d) the launcher
+   with ``--pjit-decode`` and paligemma-3b; (b) #1 and #3 at paligemma's
+   shard shapes (4 and 2 query heads on 1 kv head at D = 256, the first
+   chunk with its 256-row prefix), #2, #4 and #10 at zamba2's;
+19. the four examples through the port on the card, each ``main`` with
+   ``--device cuda`` (their reduced configs, head dim 64:
+   ``ops.card_config``): the quickstart, the §4.3 case study,
+   serve_cluster at ``--requests 9 --chaos`` and train_small at
+   ``--steps 20``, each checked on what it prints (every rid served or
+   verdicted, the loss falling, the checkpoint read back);
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -390,12 +413,15 @@ its launcher run (before (c)'s comparisons), added to the record's and
 printed as ``tp_launches`` (#1-#4 must launch); every count is zeroed
 just before phase 18 and read after (d), before (b)'s comparisons, added
 to the record's and printed as ``tp_families_launches`` (#1-#5, #7, #9
-and #10 must launch).
+and #10 must launch); every count is zeroed just before phase 19 and
+read just after it, added to the record's and printed as
+``examples_launches`` (#1-#4, #7, #8 and #10 must launch).
 ``python3 chip_smoke.py --across-cards`` on a machine with four cards
 runs phases 17 and 18 across them instead (``across_cards``: the waves
-over cuda:0-3 against ``[cuda:0] * 4`` bit for bit, mistral-large-123b,
-and the three families at their full plans: mixtral-8x7b at all 32
-layers, mamba2-2.7b and whisper-large-v3 at 512 slots); ``python3
+over cuda:0-3 against ``[cuda:0] * 4`` bit for bit, the five families'
+among them, mistral-large-123b, and four families at their full plans:
+mixtral-8x7b at all 32 layers, mamba2-2.7b and whisper-large-v3 at 512
+slots, zamba2-7b at 256); ``python3
 chip_smoke.py --tp-witness`` runs only ``tp_kv_witness``, and ``python3
 chip_smoke.py --tp-floor`` only phase 4 and ``tp_floor``.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
@@ -3999,6 +4025,7 @@ def phase_vlm():
     wave = lambda label, kv, **kw: family_wave(
         "phase 14", label, VLM_ARCH, params, kv, VLM_MAX_SEQ, 512, **kw)
     bf16, rec["bf16"] = wave("(b) bf16 KV, 512 slots", "bf16")
+    FAMILY_CHAINS[VLM_ARCH] = bf16
     int8, rec["int8"] = wave("(b) int8 KV, 512 slots", "int8")
     oracle, rec["oracle"] = wave("(b) dense-view oracle, bf16 KV, 512 "
                                  "slots", "bf16", paged_native=False)
@@ -4226,6 +4253,7 @@ def phase_hybrid():
     int8, rec["int8"] = family_wave(
         "phase 15", "(b) int8 KV, the plan's 256 slots", HYBRID_ARCH, params,
         "int8", HYBRID_MAX_SEQ, 256, n_requests=HYBRID_PAIR_REQUESTS)
+    FAMILY_CHAINS[HYBRID_ARCH] = int8
     # bf16 and the oracle on the wave's first HYBRID_PAIR_REQUESTS (all 32
     # took 20 s more: cut for the script's time limit)
     bf16, rec["bf16"] = family_wave(
@@ -4827,7 +4855,8 @@ def phase_tp(phase3_toks):
 
 
 # ---------------------------------------------------------------------------
-# phase 18: head-sharded paged serving of the MoE, SSM and audio families
+# phase 18: head-sharded paged serving of the MoE, SSM, audio, hybrid and
+# VLM families
 # ---------------------------------------------------------------------------
 
 TP_FAMILY_REQUESTS = 8         # the first 8 of phases 4-6's 32 requests
@@ -4859,7 +4888,39 @@ TP_FAMILY_KERNELS = {
                          "flash_attention": (0, 1)},
     "mixtral-8x7b": {"paged_decode_attention": (1, 0),
                      "paged_chunk_prefill_attention": (0, 1),
-                     "grouped_matmul": (3, 3)}}
+                     "grouped_matmul": (3, 3)},
+    # the shared block's launches are counted by application
+    # (``kernel_layers``), the SSD scan's by mamba layer
+    "zamba2-7b": {"paged_decode_attention_quant": (1, 0),
+                  "paged_chunk_prefill_attention_quant": (0, 1),
+                  "ssd_scan": (0, 1)},
+    "paligemma-3b": {"paged_decode_attention": (1, 0),
+                     "paged_chunk_prefill_attention": (0, 1)}}
+# phase 18's hybrid and VLM families: each one's tp values (paligemma-3b's
+# one kv head replicated on every shard), its parity depth (a1) with any
+# other change to its config there, and the wave size its prompts are
+# spread over (phases 14's and 15's waves, whose chains (a2) is measured
+# against).  zamba2-7b's shared block follows every 6th mamba layer, so
+# at 2 layers it would run no attention: its parity pair applies the
+# block after each of its 2 layers (two applications, each with its own
+# pools); at 7 layers (one application and a tail) its final-chunk
+# logits already part 0.026-0.046 of their norm on random weights
+TP_NEW_FAMILIES = {"zamba2-7b": dict(tps=(4,), layers=TP_PARITY_LAYERS,
+                                     over={"attn_every": 1}, spread=16),
+                   "paligemma-3b": dict(tps=(2, 4), layers=TP_PARITY_LAYERS,
+                                        over={}, spread=32)}
+# phases 14's bf16 and 15's int8 chains, by arch: phase 18 (a2)'s
+# full-depth diagnostic
+FAMILY_CHAINS = {}
+
+
+def kernel_layers(cfg, name: str) -> int:
+    """The layers of ``cfg`` a kernel of ``TP_FAMILY_KERNELS`` runs in:
+    the hybrid's attention kernels once an application of its shared
+    block, every other kernel once a layer."""
+    if cfg.family == "hybrid" and "attention" in name:
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
 
 
 def record_decodes(rt, rids):
@@ -5056,19 +5117,22 @@ def family_splits(base_chains, base, got_chains):
 
 
 def tp_family_runtime(arch, devices, n_requests, *, layers=None, bs=None,
-                      new_tokens=40):
+                      new_tokens=40, spread=32, over=None):
     """``arch`` at full width (``WAVE_LAYERS``' depth unless ``layers``,
     which cuts an encoder-decoder's encoder to the same depth), at ``bs``
-    slots (``WAVE_BS``' unless given), its weights from seed 1: the whole
-    tree on ``devices`` when it is one device (unsharded), or drawn by
+    slots (``WAVE_BS``' unless given) of ``WAVE_MAX_SEQ_LEN``'s tokens
+    where that names it, its weights from seed 1: the whole tree on
+    ``devices`` when it is one device (unsharded), or drawn by
     ``init_sharded`` straight into the shards of the service mesh over
     the list ``devices`` (the same values); the first ``n_requests`` of
-    ``wave_runtime``'s 32 requests submitted.  Returns (cfg, runtime)."""
+    ``wave_runtime``'s ``spread`` requests submitted.  ``over`` replaces
+    other fields of the config.  Returns (cfg, runtime)."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.profile_step import (WAVE_BS, WAVE_LAYERS,
+                                                 WAVE_MAX_SEQ_LEN,
                                                  wave_extras, wave_prompts)
     from repro_torch.launch.serve import plan_for
     from repro_torch.launch.steps import init_sharded, paged_decode_builder
@@ -5079,18 +5143,22 @@ def tp_family_runtime(arch, devices, n_requests, *, layers=None, bs=None,
         arch, full.num_layers))
     if layers and full.family == "audio":
         cfg = dataclasses.replace(cfg, encoder_layers=layers)
+    cfg = dataclasses.replace(cfg, **(over or {}))
     plan = plan_for(full, -1, bs or WAVE_BS.get(arch), -1)
+    kw = ({"max_seq_len": WAVE_MAX_SEQ_LEN[arch]}
+          if arch in WAVE_MAX_SEQ_LEN else {})
     if not isinstance(devices, list):
         rt = ServiceRuntime(cfg, model_api(cfg).init(1, cfg, devices), plan,
-                            device=devices)
+                            device=devices, **kw)
     else:
         mesh = tp_mesh(devices)
         rt = ServiceRuntime(cfg, None, plan, device=devices[0],
                             paged_step_builder=paged_decode_builder(
-                                mesh, shards=init_sharded(1, cfg, mesh)))
+                                mesh, shards=init_sharded(1, cfg, mesh)),
+                            **kw)
     for rid, (prompt, extras) in enumerate(zip(
-            wave_prompts(cfg.vocab_size, 32)[:n_requests],
-            wave_extras(cfg, 32)[:n_requests])):
+            wave_prompts(cfg.vocab_size, spread)[:n_requests],
+            wave_extras(cfg, spread)[:n_requests])):
         rt.submit(GenerationRequest(rid=rid, tokens=prompt,
                                     max_new_tokens=new_tokens, stream=rid,
                                     extras=extras))
@@ -5111,19 +5179,24 @@ def run_steps(rt):
         time.perf_counter() - t0
 
 
-def repeated_flops(cfg, capacity: int) -> int:
+def repeated_flops(cfg, capacity: int, tp: int = 4) -> int:
     """The matmul FLOPs a decode step repeats on every further shard of a
     head-sharded family, a layer: the MoE router and its combine einsum
     (one token a routing group at capacity C; the dispatch einsum
     contracts that one row, counted as no FLOPs), Mamba-2's B and C
-    columns of in_proj; whisper none."""
+    columns of in_proj (the SSM's and the hybrid's mamba layers), the K
+    and V projections of a kv head replicated over the ``tp`` shards
+    (paligemma-3b's one); whisper none."""
     if cfg.family == "moe":
         C = max(1, int(cfg.moe_capacity_factor * cfg.experts_per_token
                        / cfg.num_experts))
         return 2 * capacity * cfg.d_model * cfg.num_experts * (1 + C)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return 2 * capacity * cfg.d_model * 2 * cfg.ssm_ngroups \
             * cfg.ssm_state
+    if cfg.num_kv_heads % tp:
+        return 2 * (2 * capacity * cfg.d_model * cfg.num_kv_heads
+                    * cfg.head_dim)
     return 0
 
 
@@ -5238,41 +5311,70 @@ def compare_runs(label, base, got, hold=True):
     return out
 
 
-def tp_family_parity(arch, card0):
-    """Phase 18 (a1): ``arch`` at full width and ``TP_PARITY_LAYERS``
-    layers, unsharded and at tp = 4 over ``[card0] * 4`` with the same
-    weights, on the first ``TP_FAMILY_REQUESTS`` requests, held by
-    ``compare_runs``: first tokens, final-chunk logits, each decode step's
-    logits and MoE drops, and the MoE router's inputs up to each
-    request's routing split."""
+def tp_family_parity(arch, card0, tps=(4,), layers=TP_PARITY_LAYERS,
+                     spread=32, cost=False, over=None):
+    """Phase 18 (a1): ``arch`` at full width and ``layers`` layers,
+    unsharded and at each tp of ``tps`` over ``[card0] * tp`` with the
+    same weights, on the first ``TP_FAMILY_REQUESTS`` requests (of a
+    ``spread``-request wave; ``over``: other config changes), held by
+    ``compare_runs``: first tokens,
+    final-chunk logits, each decode step's logits and MoE drops, and the
+    MoE router's inputs up to each request's routing split.  With
+    ``cost``, (c): each tp step's ``decode_cost_analysis`` against the
+    unsharded one's: the kernels' FLOPs equal, the matmuls' those plus
+    what the tp - 1 further shards repeat (``repeated_flops``).  Returns
+    {tp: comparison}."""
     import torch
-    runs = []
-    for devices in (card0, [card0] * 4):
+    runs, costs = [], []
+    for devices in (card0, *[[card0] * tp for tp in tps]):
         cfg, rt = tp_family_runtime(arch, devices, TP_FAMILY_REQUESTS,
-                                    layers=TP_PARITY_LAYERS,
-                                    new_tokens=TP_FAMILY_NEW)
+                                    layers=layers, new_tokens=TP_FAMILY_NEW,
+                                    spread=spread, over=over)
         moe = cfg.family == "moe"
-        runs.append(recorded_run(rt, moe_drops=moe, routing=(
-            (1 if devices is card0 else 4) if moe else None)))
+        tp = 1 if devices is card0 else len(devices)
+        runs.append(recorded_run(rt, moe_drops=moe,
+                                 routing=tp if moe else None))
+        if cost:
+            costs.append((tp, rt.decode_cost_analysis(),
+                          rt.groups[0].arena.capacity))
         del rt
         gc.collect()
         torch.cuda.empty_cache()
-    out = compare_runs(f"{arch} {TP_PARITY_LAYERS} layers tp = 4", *runs)
-    print(f"phase 18 (a1) {arch} at {TP_PARITY_LAYERS} layers, unsharded "
-          f"and tp = 4 over [cuda:0] * 4: {json.dumps(out)}")
-    return out
+    outs = {}
+    for tp, got in zip(tps, runs[1:]):
+        outs[tp] = compare_runs(f"{arch} {layers} layers tp = {tp}",
+                                runs[0], got)
+        print(f"phase 18 (a1) {arch} at {layers} layers, unsharded and tp "
+              f"= {tp} over [cuda:0] * {tp}: {json.dumps(outs[tp])}")
+    if cost:
+        _, cost1, cap = costs[0]
+        for tp, cost_tp, _ in costs[1:]:
+            extra = (tp - 1) * layers * repeated_flops(cfg, cap, tp)
+            check(cost_tp["kernel_flops"] == cost1["kernel_flops"]
+                  and cost_tp["aten_flops"] == cost1["aten_flops"] + extra,
+                  f"phase 18 {arch}: tp = {tp} FLOPs {cost_tp} are not tp "
+                  f"= 1's {cost1} (+ {extra} repeated)")
+            print(f"phase 18 (c) {arch} at {layers} layers "
+                  f"decode_cost_analysis: tp = 1 {json.dumps(cost1)}; tp = "
+                  f"{tp} {json.dumps(cost_tp)}; kernel FLOPs equal, matmul "
+                  f"FLOPs tp = 1's + {extra} repeated on the {tp - 1} "
+                  f"further shards")
+    return outs
 
 
-def tp_family_wave(arch, devices, base, new_tokens=TP_FAMILY_NEW):
-    """Phase 18 (a2): ``arch`` at phases 4-6's size over the mesh of
-    ``devices`` on the first ``TP_FAMILY_REQUESTS`` requests: every
-    kernel of the path launched ``tp`` times a layer a step; first
-    tokens, logits, chains and MoE drops against phases 4-6's rows of the
-    same requests (``base``), held by ``compare_runs`` for the archs of
-    ``TP_WAVE_HELD`` and measured for the others.  Returns (record,
-    runtime)."""
+def tp_family_wave(arch, devices, base, new_tokens=TP_FAMILY_NEW,
+                   spread=32):
+    """Phase 18 (a2): ``arch`` at phases 4-6's (14's, 15's) size over the
+    mesh of ``devices`` on the first ``TP_FAMILY_REQUESTS`` requests (of
+    a ``spread``-request wave): every kernel of the path launched ``tp``
+    times a layer (an application of the hybrid's shared block) a step;
+    first tokens, logits, chains and MoE drops against phases 4-6's rows
+    of the same requests (``base``), held by ``compare_runs`` for the
+    archs of ``TP_WAVE_HELD`` and measured for the others; with ``base``
+    None, the chains against ``FAMILY_CHAINS`` (phases 14's and 15's),
+    measured (``chain_agreement``).  Returns (record, runtime)."""
     cfg, rt = tp_family_runtime(arch, devices, TP_FAMILY_REQUESTS,
-                                new_tokens=new_tokens)
+                                new_tokens=new_tokens, spread=spread)
     tp = rt.sharded_step.tp
     got = recorded_run(rt, moe_drops=cfg.family == "moe")
     check(len(got["chains"]) == TP_FAMILY_REQUESTS and all(
@@ -5281,28 +5383,51 @@ def tp_family_wave(arch, devices, base, new_tokens=TP_FAMILY_NEW):
         for t in got["chains"].values()),
           f"{arch} tp = {tp}: served {got['chains']}")
     L = cfg.num_layers
+    per_layer = {}
     for name, (per_decode, per_chunk) in TP_FAMILY_KERNELS[arch].items():
-        want = tp * L * (per_decode * rt.decode_steps
-                         + per_chunk * rt.prefill_chunk_calls)
+        calls = (per_decode * rt.decode_steps
+                 + per_chunk * rt.prefill_chunk_calls)
+        want = tp * kernel_layers(cfg, name) * calls
         if name == "flash_attention":
             want += tp * cfg.encoder_layers * TP_FAMILY_REQUESTS
-        check(got["launches"].get(name, 0) == want,
-              f"{arch} tp = {tp}: {name} launched "
-              f"{got['launches'].get(name, 0)} times, not {want} ({tp} a "
-              f"layer a step)")
-    out = compare_runs(f"{arch} tp = {tp}", base, got,
-                       hold=arch in TP_WAVE_HELD)
+        have = got["launches"].get(name, 0)
+        check(have == want, f"{arch} tp = {tp}: {name} launched {have} "
+              f"times, not {want} ({tp} a layer a step)")
+        if calls:
+            per_layer[name] = have / (kernel_layers(cfg, name) * calls)
+    print(f"phase 18 (a2) {arch} tp = {tp}: launches a layer a step (a "
+          f"decode step or a chunk) by kernel: {json.dumps(per_layer)}")
+    out = (compare_runs(f"{arch} tp = {tp}", base, got,
+                        hold=arch in TP_WAVE_HELD) if base is not None
+           else chain_agreement(got["chains"], FAMILY_CHAINS.get(arch)))
     arena = rt.groups[0].arena
     shard_gb = [round(arena.shard_bytes(j) / 1e9, 3) for j in range(tp)]
     print(f"phase 18 (a2) {arch} ({L} layers, {arena.capacity} slots, tp = "
           f"{tp} over {[str(d) for d in devices]}): {rt.decode_steps} "
           f"decode steps, {rt.prefill_chunk_calls} chunks in "
           f"{got['wall']:.3f} s, launches {got['launches']}; against "
-          f"phases 4-6's rows: {json.dumps(out)}; mesh reductions "
+          f"phases {'4-6' if base is not None else '14-15'}'s rows: "
+          f"{json.dumps(out)}; mesh reductions "
           f"{rt.sharded_step.mesh.reduce_calls} "
           f"({rt.sharded_step.mesh.reduce_bytes / 1e9:.3f} GB); arena GB "
           f"by shard {shard_gb}")
     return out, rt
+
+
+def chain_agreement(chains, base):
+    """``chains`` (rid -> tokens) against ``base``'s same requests (longer
+    chains compared on ``chains``' length), measured: first tokens equal,
+    chains equal, and where each split first."""
+    if base is None:
+        return {"base": None}
+    rids = [r for r in chains if r in base]
+    split = {r: int(np.argmax(chains[r] != base[r][:len(chains[r])]))
+             for r in rids
+             if not np.array_equal(chains[r], base[r][:len(chains[r])])}
+    return {"requests": len(rids),
+            "first_equal": sum(int(chains[r][0] == base[r][0])
+                               for r in rids),
+            "chains_equal": len(rids) - len(split), "splits_at": split}
 
 
 def tp_floor(base, card0):
@@ -5338,7 +5463,10 @@ def tp_family_kernel_cases():
     versions (``check_rows`` and atol = rtol = TOL inside each case), timed
     beside their bounds: #1/#3 at mixtral-8x7b's 8/2 heads (D = 128), #2/#4
     at whisper-large-v3's 5/5 (D = 64), #5 and #7 at 5 heads, #9 at N =
-    3584 and K = 3584, #10 at 20 of mamba2-2.7b's 80 heads."""
+    3584 and K = 3584, #10 at 20 of mamba2-2.7b's 80 heads; #1 and #3
+    (the 256-row prefix chunk) at paligemma-3b's 4 and 2 query heads on
+    its one kv head (D = 256, tp = 2 and 4), #2/#4 at zamba2-7b's 8/8
+    (D = 112) and #10 at 28 of its 112 heads (P = N = 64)."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(18)
@@ -5374,6 +5502,31 @@ def tp_family_kernel_cases():
     out["ssd_scan@mamba2_tp4"] = ssd_case(gen, Bb=1, L=128, H=20,
                                           timed=True)
     torch.cuda.empty_cache()
+    # paligemma-3b's shards: its one kv head whole on each, 4 (tp = 2) or
+    # 2 (tp = 4) of its 8 query heads, at phase 14's 512 slots and chunks
+    for tp in (2, 4):
+        heads = dict(VLM_HEADS, Hq=VLM_HEADS["Hq"] // tp)
+        out[f"paged_decode_attention@paligemma_tp{tp}"] = decode_case(
+            gen, rng, B=512, lens=vlm_lens(), quant=False, timed=True,
+            nblk=VLM_MAX_SEQ // 32, **heads)
+        out[f"paged_chunk_prefill_attention@paligemma_tp{tp}_first_t288"] = \
+            chunk_case(gen, rng, quant=False, timed=True,
+                       nblk=VLM_MAX_SEQ // 32, **heads,
+                       **VLM_CHUNKS["first_t288"])
+    torch.cuda.empty_cache()
+    # zamba2-7b's shards at tp = 4: 8 query on 8 kv heads (D = 112) in
+    # int8 pools at the plan's 256 slots, 28 of its 112 SSD heads
+    heads = dict(HYBRID_HEADS, Hq=8, Hkv=8)
+    out["paged_decode_attention_quant@zamba2_tp4"] = decode_case(
+        gen, rng, B=256, lens=phase3_lens(256), quant=True, timed=True,
+        nblk=HYBRID_MAX_SEQ // 32, **heads)
+    out["paged_chunk_prefill_attention_quant@zamba2_tp4_t128_at64"] = \
+        chunk_case(gen, rng, quant=True, timed=True,
+                   nblk=HYBRID_MAX_SEQ // 32, **heads,
+                   **HYBRID_CHUNKS["t128_at64"])
+    out["ssd_scan@zamba2_tp4"] = ssd_case(gen, Bb=1, L=128, H=28, P=64, G=1,
+                                          N=64, timed=True)
+    torch.cuda.empty_cache()
     for name, rec in out.items():
         print(f"  phase 18 (b) {name}: "
               + json.dumps({k: v for k, v in rec.items() if k != "work"}))
@@ -5381,10 +5534,12 @@ def tp_family_kernel_cases():
 
 
 def phase_tp_families(bases):
-    """Phase 18: the MoE, SSM and audio families split by heads over the
-    one card's ``[cuda:0] * 4`` mesh (numerics and launches, not speed
-    across cards): (a1) each family at ``TP_PARITY_LAYERS`` layers,
-    unsharded and at tp = 4, held to ``PARITY_TOL``
+    """Phase 18: the MoE, SSM, audio, hybrid and VLM families split by
+    heads over the one card's ``[cuda:0] * tp`` meshes (numerics and
+    launches, not speed across cards); the hybrid and VLM families run
+    after the others, as the module docstring says.  (a1) Each of the
+    others at ``TP_PARITY_LAYERS`` layers, unsharded and at tp = 4, held
+    to ``PARITY_TOL``
     (``tp_family_parity``); (a2) each family at phases 4-6's size and
     depth on their first ``TP_FAMILY_REQUESTS`` requests
     (``TP_FAMILY_NEW`` new tokens), every kernel launched 4 times a
@@ -5424,6 +5579,27 @@ def phase_tp_families(bases):
         del rt
         gc.collect()
         torch.cuda.empty_cache()
+    for arch, spec in TP_NEW_FAMILIES.items():
+        t0 = time.perf_counter()
+        tp_family_parity(arch, card0, tps=spec["tps"],
+                         layers=spec["layers"], spread=spec["spread"],
+                         cost=True, over=spec["over"])
+        for tp in spec["tps"]:
+            _, rt = tp_family_wave(arch, [card0] * tp, None,
+                                   spread=spec["spread"])
+            del rt
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"phase 18 {arch}: {time.perf_counter() - t0:.1f} s")
+    print("phase 18 (d) the launcher with --pjit-decode, paligemma-3b on "
+          "the card's (1, 1) mesh:")
+    rc = serve.main(["--pjit-decode", "--archs", "paligemma-3b",
+                     "--max-seq-len", "512", "--requests", "4",
+                     "--max-new-tokens", "8"])
+    check(rc == 0, f"the launcher, paligemma-3b with --pjit-decode, "
+          f"exited {rc}")
+    gc.collect()
+    torch.cuda.empty_cache()
     print("phase 18 (d) the launcher with --pjit-decode, mamba2-2.7b:")
     args = ["--pjit-decode", "--archs", "mamba2-2.7b", "--requests", "4",
             "--max-new-tokens", "8"]
@@ -5449,14 +5625,95 @@ def phase_tp_families(bases):
     return counts
 
 
+# phase 19: the examples, through the port on the card
+# ---------------------------------------------------------------------------
+
+def load_example(name):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name, argv):
+    """``examples/<name>.py``'s ``main(argv)`` in this process, what it
+    prints captured and printed; returns (exit code, the lines)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = load_example(name).main(argv)
+    print(buf.getvalue(), end="")
+    return rc, buf.getvalue().splitlines()
+
+
+def phase_examples():
+    """Phase 19: the four examples as a user runs them, each ``main``
+    called in this process with ``--device cuda`` (their reduced configs,
+    head dim 64 on the card: ``ops.card_config``): the quickstart (six
+    routed requests, each served with 4 tokens), the §4.3 case study
+    (three HCI interactions, 4 tokens each), serve_cluster at ``--requests
+    9 --chaos`` (a server crashed mid-burst and restarted; every rid
+    served or verdicted) and train_small at ``--steps 20`` (the loss
+    falls; the checkpoint, written to a temporary directory, is read back
+    and its loss on the first batch is below the untrained weights').
+    Every count is zeroed just before the phase and read just after it.
+    Returns the counts."""
+    import re
+    import tempfile
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    reset_launches()
+    t0 = time.perf_counter()
+    rc, lines = run_example("torch_quickstart", ["--device", "cuda"])
+    served = [ln for ln in lines if re.match(r"\s+req\d", ln)]
+    check(rc == 0 and len(served) == 6 and lines[-1] == "done."
+          and all(len(re.findall(r"\d+\)", ln.split("tokens=")[1]
+                                 .split("]")[0])) == 4 for ln in served),
+          f"phase 19 quickstart: exit {rc}, {served}")
+    rc, lines = run_example("torch_llm_case_study", ["--device", "cuda"])
+    talks = [ln for ln in lines if "interaction" in ln and "decode [" in ln]
+    check(rc == 0 and len(talks) == 3 and lines[-1] == "done.",
+          f"phase 19 case study: exit {rc}, {talks}")
+    rc, lines = run_example("torch_serve_cluster",
+                            ["--device", "cuda", "--requests", "9",
+                             "--chaos"])
+    text = "\n".join(lines)
+    check(rc == 0 and "accounted 9/9" in text and "chaos: crash" in text,
+          f"phase 19 serve_cluster --chaos: exit {rc}")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, lines = run_example("torch_train_small",
+                                ["--device", "cuda", "--steps", "20",
+                                 "--checkpoint", f"{tmp}/small"])
+    text = "\n".join(lines)
+    loss = re.search(r"final loss ([\d.]+) \(first ([\d.]+)\)", text)
+    back = re.search(r"step (\d+), \d+ leaves; eval loss ([\d.]+) "
+                     r"restored \(untrained ([\d.]+)\)", text)
+    check(rc == 0 and loss and float(loss.group(1)) < float(loss.group(2))
+          and back and int(back.group(1)) == 20
+          and float(back.group(2)) < float(back.group(3)),
+          f"phase 19 train_small: exit {rc}, {loss and loss.groups()}, "
+          f"{back and back.groups()}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    grown = {k: v for k, v in counts.items() if v}
+    print(f"phase 19 launches: {json.dumps(grown)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def across_cards():
     """``python3 chip_smoke.py --across-cards`` on a machine with four
     cards: phase 17's minicpm-2b wave at tp = 4 over cuda:0-3 against the
     same wave over ``[cuda:0] * 4`` (chains and logits), the launcher's
     (1, 4) service mesh, and mistral-large-123b (246 GB of bf16 weights)
     drawn shard by shard over the four cards by ``init_sharded`` and
-    served without the whole tree; then the MoE, SSM and audio families
-    (``across_cards_families``).  Returns the exit code."""
+    served without the whole tree; then the MoE, SSM, audio, hybrid and
+    VLM families (``across_cards_families``).  Returns the exit code."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as meshlib
@@ -5551,24 +5808,34 @@ def family_run(arch, devices, **kw):
     return chains, rec, rt
 
 
-def across_cards_families(cards):
-    """``--across-cards``, the MoE, SSM and audio families: (d) phase 18's
-    three waves over cuda:0-3 against the same waves over ``[cuda:0] * 4``
-    (chains and every recorded logits row bit for bit); (e) each family at
-    its full plan split over the four cards, mixtral-8x7b at all 32 layers
-    from ``init_sharded`` at phase 6's 512 slots, mamba2-2.7b and
-    whisper-large-v3 at their plans' 512 slots, each card's weights,
-    per-slot state and pool bytes and its peak memory; (f) the launcher
-    with ``--pjit-decode`` serving mamba2-2.7b on the (1, 4) mesh."""
+# each family's full plan over four cards (``across_cards_families`` (e)):
+# its layers (None: all) and slots
+FULL_PLANS = {"mixtral-8x7b": (32, 512), "mamba2-2.7b": (None, 512),
+              "whisper-large-v3": (None, 512), "zamba2-7b": (None, 256)}
+
+
+def across_cards_families(cards, archs=None):
+    """``--across-cards``, the MoE, SSM, audio, hybrid and VLM families
+    (``archs``, default all five): (d) phase 18's waves at tp = 4 over
+    cuda:0-3 against the same waves over ``[cuda:0] * 4`` (chains and
+    every recorded logits row bit for bit); (e) each family of
+    ``FULL_PLANS`` at its full plan split over the four cards,
+    mixtral-8x7b at all 32 layers from ``init_sharded`` at phase 6's 512
+    slots, mamba2-2.7b and whisper-large-v3 at their plans' 512 slots,
+    zamba2-7b at its plan's 256, each card's weights, per-slot state and
+    pool bytes and its peak memory; (f) the launcher with
+    ``--pjit-decode`` serving mamba2-2.7b on the (1, 4) mesh."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import moe
     card0 = cards[0]
-    for arch in TP_FAMILIES:
+    archs = archs or (*TP_FAMILIES, *TP_NEW_FAMILIES)
+    spread = lambda a: TP_NEW_FAMILIES.get(a, {}).get("spread", 32)
+    for arch in archs:
         t0 = time.perf_counter()
         runs = []
         for devices in ([card0] * 4, cards):
-            chains, rec, rt = family_run(arch, devices)
+            chains, rec, rt = family_run(arch, devices, spread=spread(arch))
             runs.append((chains, rec, rt.wall_s, rt.decode_steps))
             del rt
             gc.collect()
@@ -5584,13 +5851,15 @@ def across_cards_families(cards):
               f"[cuda:0] * 4: chains and every decode row's logits equal bit "
               f"for bit; wall {w4:.3f} vs {w1:.3f} s ({n4} decode steps); "
               f"{time.perf_counter() - t0:.1f} s")
-    for arch, layers in (("mixtral-8x7b", 32), ("mamba2-2.7b", None),
-                         ("whisper-large-v3", None)):
+    for arch, (layers, slots) in FULL_PLANS.items():
+        if arch not in archs:
+            continue
         for d in cards:
             torch.cuda.reset_peak_memory_stats(d)
         t0 = time.perf_counter()
         moe.MOE_DROP_STATS.flush()
-        chains, _, rt = family_run(arch, cards, layers=layers, bs=512)
+        chains, _, rt = family_run(arch, cards, layers=layers, bs=slots,
+                                   spread=spread(arch))
         arena = rt.groups[0].arena
         weights = [sum(t.numel() * t.element_size()
                        for t in tree_leaves(sh.params))
@@ -5612,6 +5881,8 @@ def across_cards_families(cards):
         del rt, arena, chains
         gc.collect()
         torch.cuda.empty_cache()
+    if "mamba2-2.7b" not in archs:
+        return
     rc = serve.main(["--pjit-decode", "--archs", "mamba2-2.7b",
                      "--requests", "8", "--max-new-tokens", "8"])
     check(rc == 0, f"the launcher, mamba2-2.7b on the (1, 4) mesh, exited "
@@ -6467,6 +6738,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_time("phase 18")
+    print("phase 19: the four examples on the card (quickstart, the §4.3 "
+          "case study, serve_cluster --chaos, train_small)")
+    example_launches = phase_examples()
+    for name in ("paged_decode_attention", "paged_decode_attention_quant",
+                 "paged_chunk_prefill_attention",
+                 "paged_chunk_prefill_attention_quant", "flash_attention",
+                 "flash_attention_bwd", "ssd_scan"):
+        check(example_launches[name] > 0, f"phase 19 never launched {name}")
+    for name in launches:
+        launches[name] += example_launches.get(name, 0)
+    phase_time("phase 19")
     small_input_check()
     phase_time("small-input check")
 
@@ -6482,6 +6764,7 @@ def main() -> int:
                             name, 0),
                         "tp_launches": tp_launches.get(name, 0),
                         "tp_families_launches": tpf_launches.get(name, 0),
+                        "examples_launches": example_launches.get(name, 0),
                         **{k: rec[k] for k in RECORD_KEYS}})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
     check(len(kernels) == 10, f"expected ten kernels, got {len(kernels)}")

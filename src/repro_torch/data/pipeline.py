@@ -1,10 +1,10 @@
-"""Deterministic synthetic token streams for training: a copy of the
-reference's ``TokenPipeline`` (``repro/data/pipeline.py``), numpy only, so
-the same seed gives the same batches bit for bit.
+"""Data pipeline: deterministic synthetic token streams for training and
+request generators for serving.
 
 Synthetic text is a structured Markov-ish mixture (not uniform noise) so
-training loss actually decreases: each document draws a latent "topic"
-that biases a per-position transition rule.
+training loss actually decreases and overfitting tests are meaningful:
+each document draws a latent "topic" vector that biases a per-position
+transition rule.
 """
 from __future__ import annotations
 
@@ -57,3 +57,27 @@ class TokenPipeline:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:
             yield self.batch()
+
+
+@dataclasses.dataclass
+class RequestStream:
+    """Poisson / Gamma request arrivals for serving tests (per-service).
+
+    ``burstiness`` > 1 gives Gamma inter-arrivals with CV^2 = burstiness —
+    the paper's 'abrupt or uneven' edge arrivals."""
+    rate: float                 # requests / sec
+    horizon_s: float
+    seed: int = 0
+    burstiness: float = 1.0
+
+    def arrival_times(self) -> np.ndarray:
+        rng = np.random.default_rng(self.seed)
+        n_expect = max(4, int(self.rate * self.horizon_s * 2))
+        if self.burstiness <= 1.0:
+            gaps = rng.exponential(1.0 / self.rate, size=n_expect)
+        else:
+            shape = 1.0 / self.burstiness
+            scale = 1.0 / (self.rate * shape)
+            gaps = rng.gamma(shape, scale, size=n_expect)
+        times = np.cumsum(gaps)
+        return times[times < self.horizon_s]

@@ -15,6 +15,7 @@ plain SSD scan, and the grouped GEMM again for dX and dW.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Dict, Optional
 
@@ -42,6 +43,17 @@ def launch_counts() -> Dict[str, int]:
 def reset_launches() -> None:
     for mod in _KERNEL_MODULES:
         mod.reset_launches()
+
+
+def card_config(cfg, device):
+    """``cfg`` as the card's attention kernels serve it: on a CUDA device a
+    head dim that is none of their widths (``paged_attention.HEAD_DIMS``;
+    the reduced configs' 32) rises to the narrowest width above it, the
+    head counts and everything else kept; on the CPU ``cfg`` as it is."""
+    if torch.device(device).type != "cuda" or cfg.head_dim in pa.HEAD_DIMS:
+        return cfg
+    width = min(d for d in pa.HEAD_DIMS if d > cfg.head_dim)
+    return dataclasses.replace(cfg, head_dim=width)
 
 
 # the observer of kernel calls, or None: ``roofline/op_cost.py`` installs

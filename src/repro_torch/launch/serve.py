@@ -137,7 +137,7 @@ from repro_torch.launch.steps import (TP_ITEM, abstract_params,
 from repro_torch.models.registry import model_api
 from repro_torch.obs import (MetricsRegistry, Tracer, merge_telemetry,
                              telemetry_from_runtime, write_calibration)
-from repro_torch.serving.arena import KVArena
+from repro_torch.serving.arena import KVArena, shard_size
 from repro_torch.serving.engine import (PREFIX_CACHEABLE_FAMILIES,
                                         EparaServingEngine,
                                         GenerationRequest, ServiceRuntime)
@@ -236,9 +236,7 @@ def _shard_weight_bytes(cfg, mesh) -> int:
         if split is not None:
             dim, sections = split
             size = p.shape[dim]
-            part = sum(s // tp if cut else s for s, cut in
-                       (sections or ((size, True),)))
-            n = n // size * part
+            n = n // size * shard_size(sections or ((size, True),), tp)
         total += n
     return total
 

@@ -14,9 +14,10 @@ The port trains and prefills nothing sharded: the bundle's step is the
 whole step, and its spec trees say how the reference's pjit would place
 its arguments.
 
-``paged_decode_builder`` is the serving side: a dense, MoE, SSM or audio
-service's paged decode and chunk steps split by heads over the ``model``
-axis of a service mesh (EPARA's model-parallel mode, ``--pjit-decode``).
+``paged_decode_builder`` is the serving side: a service's paged decode
+and chunk steps (any of the six families) split by heads over the
+``model`` axis of a service mesh (EPARA's model-parallel mode,
+``--pjit-decode``).
 """
 from __future__ import annotations
 
@@ -28,10 +29,11 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import config_for_shape, reduced
 from repro_torch.kernels.quant import QuantPages
-from repro_torch.models import encdec, layers, moe, ssm, transformer
+from repro_torch.models import encdec, hybrid, layers, moe, ssm, transformer
 from repro_torch.models.config import ModelConfig, SHAPES_BY_NAME, ShapeSpec
 from repro_torch.models.registry import model_api
-from repro_torch.serving.arena import Sections, take_shard
+from repro_torch.serving.arena import (Sections, pool_sections,
+                                       sections_fit, take_shard)
 from repro_torch.training.optimizer import get_optimizer
 from repro_torch.training.train_step import make_train_step
 
@@ -42,8 +44,8 @@ ADAFACTOR_THRESHOLD = 50e9     # params above this train with adafactor
 # what the head-sharded step does not cover yet, named by the ROADMAP.md
 # Queue 1 item that would port it
 TP_ITEM = ("ROADMAP.md Queue 1 item 15 (tensor parallelism, its second "
-           "part: the hybrid and VLM families, sync, the dense cache, "
-           "speculation, FSDP serving, head_dim splits)")
+           "part: sync, the dense cache, speculation, FSDP serving, "
+           "head_dim splits)")
 
 
 def choose_optimizer(cfg: ModelConfig) -> str:
@@ -256,6 +258,18 @@ def _head_sharded(cfg: ModelConfig) -> bool:
     return model_api(cfg).decode_step_paged_tp is not None
 
 
+def _mamba_leaf(cfg: ModelConfig, path) -> bool:
+    """Whether ``path`` is a Mamba-2 layer's leaf: an SSM's ``blocks`` or
+    the hybrid's ``mamba`` stack."""
+    return (cfg.family, path[0]) in (("ssm", "blocks"), ("hybrid", "mamba"))
+
+
+def _kv_replicated(cfg: ModelConfig, tp: int) -> bool:
+    """Whether ``tp`` shards hold fewer kv heads than there are shards,
+    each kv head then whole on ``tp / num_kv_heads`` of them."""
+    return tp > 1 and cfg.num_kv_heads % tp != 0
+
+
 def _ssm_sections(cfg: ModelConfig) -> Dict[str, Sections]:
     """Mamba-2's fused leaves by section: in_proj's columns ``z | x | B |
     C | dt`` and the conv's channels ``x | B | C``; z, x and dt split by
@@ -277,9 +291,12 @@ def leaf_split(cfg: ModelConfig, path, spec
     gate and up halves, Mamba-2's ``in_proj`` and conv as
     ``_ssm_sections`` says; and Mamba-2's per-head leaves (``A_log``,
     ``dt_bias``, ``D``, ``gate_ln``), which the reference's rules
-    replicate, by head."""
+    replicate, by head.  The k and v columns split by kv head, and where
+    there are fewer kv heads than shards each shard takes its kv head's
+    whole (``pool_sections``: the Megatron rule, where the reference's
+    would cut head_dim)."""
     name = path[-1]
-    if cfg.family == "ssm":
+    if _mamba_leaf(cfg, path):
         fused = _ssm_sections(cfg)
         if name in fused:
             return -1, fused[name]
@@ -290,9 +307,10 @@ def leaf_split(cfg: ModelConfig, path, spec
     if dim is None:
         return None
     hd, nq, nkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    qkv = ((nq * hd, True), (nkv * hd, True), (nkv * hd, True))
-    fused = {"wqkv": qkv, "bqkv": qkv,
-             "w_gateup": ((cfg.d_ff, True), (cfg.d_ff, True))}
+    kv = ((nkv * hd, nkv),)
+    qkv = ((nq * hd, True), *kv, *kv)
+    fused = {"wqkv": qkv, "bqkv": qkv, "wk": kv, "wv": kv, "bk": kv,
+             "bv": kv, "w_gateup": ((cfg.d_ff, True), (cfg.d_ff, True))}
     return dim - len(spec), fused.get(name)
 
 
@@ -302,14 +320,16 @@ def state_split(cfg: ModelConfig, key: str) -> Tuple[int, Sections]:
     The SSD state ``(L, B, H, P, N)`` on H (the reference's
     ``_paged_leaf_spec`` puts ``model`` on P: a deviation kept on purpose,
     each shard scans its own heads); the conv tail ``(L, B, k-1, ch)`` by
-    ``_ssm_sections``' channels; the cross K/V and a window ring's K/V
-    ``(L, B, T, Hkv, D)`` on Hkv."""
-    if cfg.family == "ssm" and key == "ssd":
+    ``_ssm_sections``' channels (an SSM's or the hybrid's); the cross K/V
+    and a window ring's K/V ``(L, B, T, Hkv, D)`` on Hkv, as the pools
+    split."""
+    mamba = cfg.family in ("ssm", "hybrid")
+    if mamba and key == "ssd":
         return 2, ((cfg.ssm_nheads, True),)
-    if cfg.family == "ssm" and key == "conv":
+    if mamba and key == "conv":
         return 3, _ssm_sections(cfg)["conv_w"]
     if key in ("cross_k", "cross_v", "k", "v"):
-        return 3, ((cfg.num_kv_heads, True),)
+        return 3, pool_sections(cfg.num_kv_heads)
     raise ValueError(f"{cfg.name}: no head split for the state leaf "
                      f"{key!r} ({TP_ITEM})")
 
@@ -326,19 +346,26 @@ class _Plan:
 # each family's attention and FFN subtrees, by their paths' prefixes
 _ATTENTION = {"dense": (("blocks", "attn"),), "moe": (("blocks", "attn"),),
               "audio": (("enc_blocks", "attn"), ("dec_blocks", "self_attn"),
-                        ("dec_blocks", "cross_attn")), "ssm": ()}
+                        ("dec_blocks", "cross_attn")), "ssm": (),
+              "hybrid": (("shared", "attn"),), "vlm": (("blocks", "attn"),)}
 _FFN = {"dense": (("blocks", "mlp"),), "moe": (("blocks", "moe"),),
         "audio": (("enc_blocks", "mlp"), ("dec_blocks", "mlp")),
-        "ssm": (("blocks", "out_proj"),)}
+        "ssm": (("blocks", "out_proj"),),
+        "hybrid": (("shared", "mlp"), ("mamba", "out_proj")),
+        "vlm": (("blocks", "mlp"),)}
 
 
 def _split_plan(cfg: ModelConfig, pspecs, tp: int) -> _Plan:
     """Check the specs against what the head-sharded step can run and
     return the plan: attention split by whole kv heads (the GQA group of
-    kv head j, query heads [j*G, (j+1)*G), on j's shard), the FFN (the
-    MLP, each expert, Mamba-2's ``out_proj``) by its hidden columns and
-    rows where the rule divides them, the vocabulary where it divides
-    it.  The MoE router stays whole."""
+    kv head j, query heads [j*G, (j+1)*G), on j's shard; with fewer kv
+    heads than shards, the query heads split evenly and each shard holds
+    its kv head whole), the FFN (the MLP, each expert, Mamba-2's
+    ``out_proj``) by its hidden columns and rows where the rule divides
+    them, the vocabulary where it divides it.  The MoE router stays
+    whole.  A Mamba-2 layer's config is the whole model's (its steps read
+    a shard's SSD heads from its parameters); the hybrid's shard config
+    counts its attention heads."""
     specs = meshlib.tree_flatten_with_path(pspecs)
     for path, spec in specs:
         if tp > 1 and tuple(path[:2]) in _ATTENTION[cfg.family]:
@@ -351,7 +378,8 @@ def _split_plan(cfg: ModelConfig, pspecs, tp: int) -> _Plan:
     if len(set(ffn.values())) > 1:
         raise ValueError(f"{cfg.name}: the FFN's specs split some of its "
                          f"leaves and not others: {ffn} ({TP_ITEM})")
-    if cfg.family == "ssm" and tp > 1 and not all(ffn.values()):
+    if cfg.family in ("ssm", "hybrid") and tp > 1 and not all(
+            ffn[p] for p in ffn if _mamba_leaf(cfg, p)):
         raise ValueError(f"{cfg.name}: out_proj's rows do not split over "
                          f"{tp} shards ({TP_ITEM})")
     embed = pspecs["embed"]
@@ -360,9 +388,10 @@ def _split_plan(cfg: ModelConfig, pspecs, tp: int) -> _Plan:
             != vsplit:
         raise ValueError(f"{cfg.name}: embedding and unembed split "
                          f"differently ({TP_ITEM})")
+    kv_parts = min(cfg.num_kv_heads, tp)
     cfg_shard = cfg if cfg.family == "ssm" else dataclasses.replace(
         cfg, num_heads=cfg.num_heads // tp,
-        num_kv_heads=cfg.num_kv_heads // tp)
+        num_kv_heads=cfg.num_kv_heads // kv_parts)
     return _Plan(tp=tp, cfg_shard=cfg_shard, vocab_split=vsplit,
                  mlp_split=all(ffn.values()))
 
@@ -392,10 +421,12 @@ def shard_params(params, cfg: ModelConfig, pspecs, devices: List) -> List:
 def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
                paged_native: bool, draft: bool) -> Optional[str]:
     """Why the head-sharded paged step cannot serve this service over
-    ``tp`` model shards, or None: it serves the dense, MoE, SSM and audio
-    families on the paged-native continuous path (an SSM's state step: it
-    pages nothing), without a draft, over a ``tp`` that divides the kv
-    heads (the SSD heads)."""
+    ``tp`` model shards, or None: it serves every family on the
+    paged-native continuous path (an SSM's state step: it pages nothing),
+    without a draft, over a ``tp`` that divides the SSD heads and either
+    divides the kv heads or is a multiple of them that divides the query
+    heads (each kv head then replicated on ``tp / num_kv_heads`` shards,
+    the Megatron rule)."""
     refuse = []
     if not _head_sharded(cfg):
         refuse.append(f"the {cfg.family!r} family")
@@ -407,23 +438,26 @@ def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
         refuse.append("the dense-view step")
     if draft:
         refuse.append("a draft model")
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm_nheads % tp:
             refuse.append(f"{cfg.ssm_nheads} SSD heads over tp={tp}")
         if tp > 1 and cfg.ssm_ngroups != 1:
             refuse.append(f"{cfg.ssm_ngroups} SSD groups (B and C stay "
                           f"whole on every shard at one group)")
-    elif _head_sharded(cfg) and cfg.num_kv_heads % tp:
+    if cfg.family != "ssm" and (not sections_fit(
+            pool_sections(cfg.num_kv_heads), tp) or cfg.num_heads % tp):
         # the reference's rules would shard head_dim here, attention with
         # partial scores reduced over the shards: a deviation kept on
-        # purpose, the step splits whole kv heads only
-        refuse.append(f"{cfg.num_kv_heads} kv heads over tp={tp} (the "
-                      f"step splits whole kv heads, not head_dim)")
+        # purpose, the step splits whole kv heads only (or replicates
+        # them, where tp is a multiple of them)
+        refuse.append(f"{cfg.num_kv_heads} kv heads and {cfg.num_heads} "
+                      f"query heads over tp={tp} (the step splits or "
+                      f"replicates whole kv heads, not head_dim)")
     if not refuse:
         return None
-    return (f"{cfg.name}: the head-sharded paged step serves the dense, "
-            f"MoE, SSM and audio families on the paged-native continuous "
-            f"path; not {', '.join(refuse)} ({TP_ITEM})")
+    return (f"{cfg.name}: the head-sharded paged step serves every family "
+            f"on the paged-native continuous path; not {', '.join(refuse)} "
+            f"({TP_ITEM})")
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -444,9 +478,9 @@ class ShardedPagedStep:
     on its device; the family's ``decode_step_paged_tp`` and
     ``prefill_chunk_paged_tp`` run the shards one after another and reduce
     the partial outputs through the mesh.  The host-fed operands (tokens,
-    lengths, the live mask, block tables, an audio request's frames) are
-    copied to each distinct device.  Every kernel launch of the unsharded
-    step becomes ``tp`` launches."""
+    lengths, the live mask, block tables, an audio request's frames, a
+    VLM request's image rows) are copied to each distinct device.  Every
+    kernel launch of the unsharded step becomes ``tp`` launches."""
 
     def __init__(self, runtime, mesh, *, shards: Optional[List] = None):
         cfg = runtime.cfg
@@ -500,9 +534,11 @@ class ShardedPagedStep:
 
     def check_arena(self, arena) -> None:
         """The arena's pools split by kv head as ``_pool_sharding`` places
-        them over the mesh, and its per-slot state by ``state_split``, each
+        them over the mesh (with fewer kv heads than shards, where that
+        rule would cut head_dim, each kv head's pool whole on its shards:
+        ``pool_sections``), and its per-slot state by ``state_split``, each
         shard's part on the shard's device."""
-        if arena.pages:
+        if arena.pages and not _kv_replicated(self.cfg, self.tp):
             spec = _pool_sharding(self.mesh, arena.full_pool_like())
             vals = spec.values if isinstance(spec, QuantPages) else spec
             if self.tp > 1 and _model_dim(vals) != len(vals) - 2:
@@ -537,8 +573,9 @@ class ShardedPagedStep:
               embeddings=None):
         """One chunk into slot ``sid`` (``tokens`` (1, T)) from ``start``;
         an audio request's first chunk carries its frame ``embeddings``
-        (1, encoder_len, d).  Returns (logits (1, V) on the first device,
-        the new length)."""
+        (1, encoder_len, d), a VLM request's its image rows (1,
+        prefix_len, d), to every shard.  Returns (logits (1, V) on the
+        first device, the new length)."""
         row = torch.from_numpy(arena._block_tables[sid:sid + 1])
         caches = [arena.assemble(pages, arena.slot_state(sid, j), st)
                   for j, (pages, st) in enumerate(zip(arena.shard_pages,
@@ -560,8 +597,11 @@ def _stacks(cfg: ModelConfig):
                   cfg.encoder_layers),
                  ("dec_blocks", encdec.init_decoder_block, cfg.num_layers)),
                 ("ln_enc", "ln_f"))
+    if cfg.family == "hybrid":
+        return (("mamba", ssm.init_mamba_block, cfg.num_layers),), ("ln_f",)
     block = {"dense": transformer.init_block, "moe": moe.init_block,
-             "ssm": ssm.init_mamba_block}[cfg.family]
+             "ssm": ssm.init_mamba_block,
+             "vlm": transformer.init_block}[cfg.family]
     return (("blocks", block, cfg.num_layers),), ("ln_f",)
 
 
@@ -594,8 +634,10 @@ def init_sharded(seed: int, cfg: ModelConfig, mesh) -> List:
         layer_specs = meshlib.tree_map_with_path(
             lambda _, p: meshlib.P(*p[1:]), pspecs[name])
         for i in range(n):
-            layer = shard_params(init_block(gen, cfg), cfg, layer_specs,
-                                 devices)
+            # under the stack's name, so that the rules see its paths
+            layer = [t[name] for t in shard_params(
+                {name: init_block(gen, cfg)}, cfg, {name: layer_specs},
+                devices)]
             for tree, part in zip(blocks, layer):
                 def put(path, t, tree=tree):
                     node = tree
@@ -608,6 +650,12 @@ def init_sharded(seed: int, cfg: ModelConfig, mesh) -> List:
                 meshlib.tree_map_with_path(put, part)
         for tree, b in zip(trees, blocks):
             tree[name] = b
+    if cfg.family == "hybrid":
+        # the shared block, one weight set, drawn after the mamba stack
+        for tree, part in zip(trees, shard_params(
+                {"shared": hybrid.init_shared_block(gen, cfg)}, cfg,
+                {"shared": pspecs["shared"]}, devices)):
+            tree["shared"] = part["shared"]
     for norm in norms:
         w = layers.init_norm(cfg, devices[0])
         for tree, dev in zip(trees, devices):

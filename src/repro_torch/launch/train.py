@@ -93,14 +93,11 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def train_steps(argv=None) -> Iterator[Dict[str, Any]]:
-    """Sets up as the flags say and trains, yielding each step's ``loss``,
-    ``grad_norm``, ``step_s`` (host wall seconds, ending in a read of the
-    loss), ``launches`` (each kernel's launches in the step) and
-    ``static_bytes`` (the weights and the optimizer state).  Saves the
-    checkpoint after the last step."""
+def config_for(argv=None):
+    """The model config the flags ``argv`` train: the full config, its
+    reduced variant with ``--d-model`` and ``--layers`` applied, or the
+    full config cut to ``--layers``."""
     args = _parser().parse_args(argv)
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         over = {}
@@ -111,9 +108,21 @@ def train_steps(argv=None) -> Iterator[Dict[str, Any]]:
                         vocab_size=4096)
         if args.layers:
             over["num_layers"] = args.layers
-        cfg = reduced(cfg, **over)
-    elif args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        return reduced(cfg, **over)
+    if args.layers:
+        return dataclasses.replace(cfg, num_layers=args.layers)
+    return cfg
+
+
+def train_steps(argv=None) -> Iterator[Dict[str, Any]]:
+    """Sets up as the flags say and trains, yielding each step's ``loss``,
+    ``grad_norm``, ``step_s`` (host wall seconds, ending in a read of the
+    loss), ``launches`` (each kernel's launches in the step) and
+    ``static_bytes`` (the weights and the optimizer state).  Saves the
+    checkpoint after the last step."""
+    args = _parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = config_for(argv)
     params = model_api(cfg).init(0, cfg, device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"

@@ -23,6 +23,16 @@ at zamba2-7b's 256 slots), and the K/V it is given, dense or paged, in
 place too.  The paged decode step writes only live slots' state and
 rows.  ``forward_hidden`` is the training forward: the mamba layers
 checkpointed, the shared block's applications not, as in the reference.
+
+The paged steps run over a list of ``transformer.Shard``s
+(``decode_step_paged_tp``, ``prefill_chunk_paged_tp``): one shard, the
+whole tree, unsharded; ``tp`` head shards for the head-sharded step
+(``launch/steps.py`` ``paged_decode_builder``).  A shard holds its SSD
+heads of every mamba layer (split as ``ssm.py``'s, the gated norm's sum
+of squares reduced over the shards), its attention heads and MLP columns
+of the shared block, and each application's pools of its kv heads.  The
+residual rows and h0 are whole on every shard, so the shared block's
+input norm over concat(h, h0) needs no reduction.
 """
 from __future__ import annotations
 
@@ -35,7 +45,8 @@ from repro_torch.device import resolve_device
 
 from . import layers, ssm, transformer
 from .config import ModelConfig
-from .transformer import layer_params, stack_layers, unbind_layers
+from .transformer import (Shard, layer_params, shard_sum, stack_layers,
+                          unbind_layers)
 
 
 def _n_apps(cfg: ModelConfig) -> int:
@@ -130,32 +141,6 @@ def _shared_chunk(shared, cfg: ModelConfig, h, h0, k_cache, v_cache,
     a, _, _ = layers.attention_chunk(shared["attn"], cfg, xn, k_cache,
                                      v_cache, cache_len, chunk_len,
                                      window=window)
-    return _mlp_residual(shared, cfg, h + a)
-
-
-def _shared_decode_paged(shared, cfg: ModelConfig, h_t, h0_t, k_pages,
-                         v_pages, block_tables, lens, live, *, block_size,
-                         window):
-    """Paged-native ``_shared_decode``: the application's K/V stream
-    through the block table; only live slots' new rows are written."""
-    xcat = torch.cat([h_t, h0_t], dim=-1)
-    xn = layers.apply_norm(shared["ln_a"], cfg, xcat[:, None])[:, 0]
-    a, _, _ = layers.attention_decode_paged(
-        shared["attn"], cfg, xn, k_pages, v_pages, block_tables, lens, live,
-        block_size=block_size, window=window)
-    h_t = h_t + a
-    xn = layers.apply_norm(shared["ln_m"], cfg, h_t[:, None])[:, 0]
-    return h_t + layers.mlp(shared["mlp"], cfg, xn)
-
-
-def _shared_chunk_paged(shared, cfg: ModelConfig, h, h0, k_pages, v_pages,
-                        block_tables, cache_len, chunk_len, *, block_size,
-                        window):
-    """Paged-native ``_shared_chunk``."""
-    xn = layers.apply_norm(shared["ln_a"], cfg, torch.cat([h, h0], dim=-1))
-    a, _, _ = layers.attention_chunk_paged(
-        shared["attn"], cfg, xn, k_pages, v_pages, block_tables, cache_len,
-        chunk_len, block_size=block_size, window=window)
     return _mlp_residual(shared, cfg, h + a)
 
 
@@ -316,21 +301,10 @@ def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
     (B, nblk), from the per-slot offsets ``cache["len"]``, in place.
     Returns (logits at each slot's last real token (B, V), cache with
     ``len + chunk_len``)."""
-    h0 = _embed(params, cfg, batch["tokens"])
-    start = torch.as_tensor(cache["len"], dtype=torch.int32,
-                            device=h0.device).reshape(-1)
-    k_all, v_all = cache["attn_k"], cache["attn_v"]
-
-    def shared_fn(g, h):
-        return _shared_chunk_paged(params["shared"], cfg, h, h0, k_all[g],
-                                   v_all[g], block_tables, start, chunk_len,
-                                   block_size=block_size,
-                                   window=cfg.sliding_window)
-
-    h = _run_layers(cfg, h0, _chunk_mamba(params, cfg, cache, chunk_len),
-                    shared_fn)
-    logits = _head(params, cfg, layers.take_chunk_last(h, chunk_len))
-    return logits, {**cache, "len": start + chunk_len}
+    logits, new_len = prefill_chunk_paged_tp(
+        [Shard(params, cfg)], cfg, [batch["tokens"]], [cache],
+        [block_tables], [chunk_len], block_size=block_size)
+    return logits, {**cache, "len": new_len}
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
@@ -358,6 +332,105 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
         else torch.where(live, new_len, lens)}
 
 
+def _mamba_tp(shards, cfg: ModelConfig, i: int, x, mixer, mesh):
+    """Mamba layer ``i`` on every shard: each shard's mixer over its SSD
+    heads (``mixer(i, shard index, layer params, x)`` -> (y, z)), then the
+    gated norm and ``out_proj`` reduced over the shards
+    (``ssm._gated_out_tp``)."""
+    lps = [layer_params(s.params["mamba"], i) for s in shards]
+    mixed = [mixer(i, j, lp, xs) for j, (lp, xs) in enumerate(zip(lps, x))]
+    out = ssm._gated_out_tp(lps, cfg, [m[0] for m in mixed],
+                            [m[1] for m in mixed], mesh)
+    return [xs + o for xs, o in zip(x, out)]
+
+
+def _shared_tp(shards, cfg: ModelConfig, g: int, h, h0, attend, mesh):
+    """Application ``g`` of the shared block on every shard: each shard's
+    attention over its heads (``attend(g, shard index, attention params,
+    shard config, normed concat(h, h0))``) and its MLP part are partial
+    sums that the mesh reduces; a whole MLP runs on each shard alone."""
+    sps = [s.params["shared"] for s in shards]
+    a = shard_sum(mesh, [
+        attend(g, j, sp["attn"], s.cfg, layers.apply_norm(
+            sp["ln_a"], cfg, torch.cat([hs, h0s], dim=-1)))
+        for j, (s, sp, hs, h0s) in enumerate(zip(shards, sps, h, h0))])
+    h = [hs + a_ for hs, a_ in zip(h, a)]
+    m = [layers.mlp(sp["mlp"], cfg, layers.apply_norm(sp["ln_m"], cfg, hs))
+         for sp, hs in zip(sps, h)]
+    if shards[0].mlp_split:
+        m = shard_sum(mesh, m)
+    return [hs + ms for hs, ms in zip(h, m)]
+
+
+def _run_layers_tp(shards, cfg: ModelConfig, h0, mixer, attend, mesh):
+    """``_run_layers`` over shards: every row list one entry a shard."""
+    return _run_layers(
+        cfg, h0, lambda i, h: _mamba_tp(shards, cfg, i, h, mixer, mesh),
+        lambda g, h: _shared_tp(shards, cfg, g, h, h0, attend, mesh))
+
+
+def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
+                           block_tables, chunk_len, *, block_size: int,
+                           mesh=None):
+    """``prefill_chunk_paged`` over ``shards``, its arguments one entry a
+    shard on the shard's device: ``caches`` each shard's ``{"conv",
+    "ssd", "attn_k", "attn_v", "len"}`` (its SSD heads' state and conv
+    channels, B and C whole; its kv heads' pools of every application),
+    updated in place.  One shard without a mesh is the unsharded step, op
+    for op.  Returns (logits at each slot's last real token (B, V) on the
+    first shard's device, ``len + chunk_len``)."""
+    h0 = layers.embed_tp(shards, cfg, tokens, mesh)
+    start = [torch.as_tensor(c["len"], dtype=torch.int32,
+                             device=xs.device).reshape(-1)
+             for c, xs in zip(caches, h0)]
+
+    def mixer(i, j, lp, x):
+        c = caches[j]
+        y, z, tail, state = ssm._mixer_chunk(lp, cfg, x, c["conv"][i],
+                                             c["ssd"][i], chunk_len[j])
+        c["conv"][i].copy_(tail)
+        c["ssd"][i].copy_(state)
+        return y, z
+
+    def attend(g, j, p, scfg, xn):
+        return layers.attention_chunk_paged(
+            p, scfg, xn, caches[j]["attn_k"][g], caches[j]["attn_v"][g],
+            block_tables[j], start[j], chunk_len[j], block_size=block_size,
+            window=cfg.sliding_window)[0]
+
+    h = _run_layers_tp(shards, cfg, h0, mixer, attend, mesh)
+    last = [layers.apply_norm(s.params["ln_f"], cfg,
+                              layers.take_chunk_last(hs, cl)[:, None])[:, 0]
+            for s, hs, cl in zip(shards, h, chunk_len)]
+    return layers.unembed_tp(shards, cfg, last, mesh), start[0] + chunk_len[0]
+
+
+def decode_step_paged_tp(shards, cfg: ModelConfig, token, caches,
+                         block_tables, live, *, block_size: int, mesh=None):
+    """``decode_step_paged`` over ``shards``, its arguments one entry a
+    shard as in ``prefill_chunk_paged_tp``.  Returns (logits (B, V) on
+    the first shard's device, the live slots' ``len + 1``)."""
+    lens = [c["len"].to(torch.int32) for c in caches]
+    live = [lv.bool() for lv in live]
+    h0 = layers.embed_tp(shards, cfg, token, mesh)
+
+    def mixer(i, j, lp, x):
+        return ssm._mixer_decode(lp, cfg, x, caches[j]["conv"][i],
+                                 caches[j]["ssd"][i], live[j])
+
+    def attend(g, j, p, scfg, xn):
+        return layers.attention_decode_paged(
+            p, scfg, xn, caches[j]["attn_k"][g], caches[j]["attn_v"][g],
+            block_tables[j], lens[j], live[j], block_size=block_size,
+            window=cfg.sliding_window)[0]
+
+    h = _run_layers_tp(shards, cfg, h0, mixer, attend, mesh)
+    last = [layers.apply_norm(s.params["ln_f"], cfg, hs)
+            for s, hs in zip(shards, h)]
+    return (layers.unembed_tp(shards, cfg, last, mesh),
+            torch.where(live[0], lens[0] + 1, lens[0]))
+
+
 def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
                       live, *, block_size: int):
     """Paged-native fused decode: ``token`` (B,) one new token a slot,
@@ -366,18 +439,7 @@ def decode_step_paged(params, cfg: ModelConfig, token, cache, block_tables,
     through ``block_tables`` and writes one new row a live slot (dead slots
     write to the trash page and keep their state and length).  Returns
     (logits (B, V), cache with the live slots' ``len + 1``)."""
-    h0 = _embed(params, cfg, token)
-    lens = cache["len"].to(torch.int32)
-    live = live.bool()
-    k_all, v_all = cache["attn_k"], cache["attn_v"]
-
-    def shared_fn(g, h):
-        return _shared_decode_paged(params["shared"], cfg, h, h0, k_all[g],
-                                    v_all[g], block_tables, lens, live,
-                                    block_size=block_size,
-                                    window=cfg.sliding_window)
-
-    h = _run_layers(cfg, h0, _decode_mamba(params, cfg, cache, live),
-                    shared_fn)
-    return _head(params, cfg, h), {
-        **cache, "len": torch.where(live, lens + 1, lens)}
+    logits, new_len = decode_step_paged_tp(
+        [Shard(params, cfg)], cfg, [token], [cache], [block_tables], [live],
+        block_size=block_size)
+    return logits, {**cache, "len": new_len}

@@ -41,9 +41,8 @@ class ModelApi:
     verify_step_paged: Optional[Callable] = None
     # the head-sharded steps (``launch/steps.py`` ``ShardedPagedStep``):
     # the decode and chunk steps over a list of ``transformer.Shard``s,
-    # their arguments one entry a shard, partial sums reduced by a mesh;
-    # ``None`` for families the sharded step does not serve (ROADMAP.md
-    # Queue 1 item 15)
+    # their arguments one entry a shard, partial sums reduced by a mesh
+    # (every family registers them)
     decode_step_paged_tp: Optional[Callable] = None
     prefill_chunk_paged_tp: Optional[Callable] = None
 
@@ -77,7 +76,9 @@ _FAMILIES = {
                        hybrid.decode_step,
                        decode_step_paged=hybrid.decode_step_paged,
                        prefill_chunk_paged=hybrid.prefill_chunk_paged,
-                       forward_hidden=hybrid.forward_hidden),
+                       forward_hidden=hybrid.forward_hidden,
+                       decode_step_paged_tp=hybrid.decode_step_paged_tp,
+                       prefill_chunk_paged_tp=hybrid.prefill_chunk_paged_tp),
     "audio": ModelApi(encdec.init, encdec.logits_fn, encdec.init_cache,
                       encdec.prefill, encdec.prefill_chunk,
                       encdec.decode_step,
@@ -90,7 +91,9 @@ _FAMILIES = {
                     vlm.prefill_chunk, vlm.decode_step,
                     decode_step_paged=vlm.decode_step_paged,
                     prefill_chunk_paged=vlm.prefill_chunk_paged,
-                    forward_hidden=vlm.forward_hidden),
+                    forward_hidden=vlm.forward_hidden,
+                    decode_step_paged_tp=vlm.decode_step_paged_tp,
+                    prefill_chunk_paged_tp=vlm.prefill_chunk_paged_tp),
 }
 
 def family_api(family: str) -> ModelApi:

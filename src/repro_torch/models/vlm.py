@@ -14,7 +14,9 @@ whole prefix with the first text bucket (prefix rows attend to later
 prefix rows, so the prefix cannot span a chunk boundary): it writes
 ``chunk_len + prefix_len`` cache rows.  Later chunks are plain causal
 appends.  After prefill every cached position is visible to a new token,
-so decode is the dense decoder's, paged or not.  The training forward
+so decode is the dense decoder's, paged or not, sharded or not.  The
+head-sharded chunk step (``prefill_chunk_paged_tp``) hands the first
+chunk's image rows to every shard.  The training forward
 ``forward_hidden`` returns the hidden states of the whole prefix + text
 sequence; the loss reads the text rows only (``training/train_step.py``).
 """
@@ -32,6 +34,7 @@ logits_fn = transformer.logits_fn
 init_cache = transformer.init_cache
 decode_step = transformer.decode_step
 decode_step_paged = transformer.decode_step_paged
+decode_step_paged_tp = transformer.decode_step_paged_tp
 
 
 def _concat_inputs(params, cfg: ModelConfig, batch):
@@ -83,13 +86,37 @@ def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
                                          prefix_len=prefix)
 
 
+def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
+                           block_tables, chunk_len, *, block_size: int,
+                           mesh=None, embeddings=None):
+    """``transformer.prefill_chunk_paged_tp`` over ``shards``, its
+    arguments one entry a shard on the shard's device.  The first chunk
+    carries the image rows ``embeddings`` (one (B, prefix_len, d) entry a
+    shard): every shard puts them ahead of its embedded tokens, attends
+    over the whole prefix both ways and writes ``chunk_len + prefix_len``
+    rows of its kv heads.  Later chunks are plain causal appends."""
+    if embeddings is None:
+        return transformer.prefill_chunk_paged_tp(
+            shards, cfg, tokens, caches, block_tables, chunk_len,
+            block_size=block_size, mesh=mesh)
+    tok = layers.embed_tp(shards, cfg, tokens, mesh)
+    x = [torch.cat([torch.as_tensor(e, device=t.device).to(
+        cfg.compute_dtype), t], dim=1) for e, t in zip(embeddings, tok)]
+    return transformer.prefill_chunk_paged_tp(
+        shards, cfg, tokens, caches, block_tables,
+        [cl + cfg.prefix_len for cl in chunk_len], block_size=block_size,
+        mesh=mesh, x=x, prefix_len=cfg.prefix_len)
+
+
 def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
                         block_tables, *, chunk_len, block_size: int):
     """Paged-native chunked prefill (``transformer.prefill_chunk_paged``):
     every written row, prefix and text alike, lands in the page pools
     through the block tables; the first chunk writes ``chunk_len +
     prefix_len`` rows."""
-    x, prefix, eff = _chunk_inputs(params, cfg, batch, chunk_len)
-    return transformer.prefill_chunk_paged_ffn(
-        params, cfg, batch, cache, block_tables, eff, block_size,
-        transformer.dense_ffn, x=x, prefix_len=prefix)
+    emb = batch.get("embeddings")
+    logits, new_len = prefill_chunk_paged_tp(
+        [transformer.Shard(params, cfg)], cfg, [batch["tokens"]], [cache],
+        [block_tables], [chunk_len], block_size=block_size,
+        embeddings=None if emb is None else [emb])
+    return logits, {"k": cache["k"], "v": cache["v"], "len": new_len}

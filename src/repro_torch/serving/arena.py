@@ -36,10 +36,12 @@ engine (the port of the reference package's ``serving/arena.py``).
   head-sharded service, ``launch/steps.py`` ``paged_decode_builder``):
   shard j holds heads ``[j * Hkv/n, (j + 1) * Hkv/n)`` of every pool on
   its device (``shard_pages[j]``; ``pages`` is shard 0's), an int8 pool's
-  scales split with its values.  Per-slot state splits by ``state_split``
-  (the family's rule: the SSD state by head, the conv tail's x channels by
-  head with B and C whole on every shard, the cross K/V and a window ring
-  by kv head), shard j's on its device (``shard_state[j]``; ``state`` is
+  scales split with its values; with fewer kv heads than shards, head
+  ``j * Hkv // n``, each head's pool whole on ``n / Hkv`` shards
+  (``pool_sections``), written and copied on each.  Per-slot state
+  splits by ``state_split`` (the family's rule: the SSD state by head,
+  the conv tail's x channels by head with B and C whole on every shard,
+  the cross K/V and a window ring by kv head), shard j's on its device (``shard_state[j]``; ``state`` is
   shard 0's).  One host block table serves every shard; copy-on-write,
   one-shot writes and state resets cover every shard, and the device
   block table is kept once a distinct device.
@@ -55,7 +57,8 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -73,26 +76,58 @@ def _is_len_leaf(t: torch.Tensor) -> bool:
 
 
 # how a leaf splits over n shards: the dimension, and its sections in
-# order, each (size, split): a split section gives shard s its s-th n-th,
-# a whole one goes to every shard entire (a fused projection's columns,
-# the SSM conv tail's x | B | C channels)
-Sections = Tuple[Tuple[int, bool], ...]
+# order, each (size, split).  ``split`` True: shard s takes the section's
+# s-th n-th; False: every shard takes it entire (a fused projection's
+# columns, the SSM conv tail's x | B | C channels); an int k (the kv
+# heads): the section cut into min(k, n) parts, shard s taking part
+# s * parts // n, so that k >= n heads split as True does and k < n heads
+# are each replicated on n / k shards (the Megatron rule for fewer kv
+# heads than shards)
+Sections = Tuple[Tuple[int, Union[bool, int]], ...]
+
+
+def section_parts(split: Union[bool, int], n: int) -> int:
+    """How many parts a section of ``Sections`` is cut into over ``n``
+    shards."""
+    if split is True or split is False:
+        return n if split else 1
+    return min(int(split), n)
+
+
+def sections_fit(sections: Sections, n: int) -> bool:
+    """Whether every section cuts evenly over ``n`` shards: its size by
+    its parts, and the shards by the parts (each part on as many
+    shards)."""
+    return all(size % m == 0 and n % m == 0 for size, m in
+               ((size, section_parts(split, n)) for size, split in sections))
+
+
+def shard_size(sections: Sections, n: int) -> int:
+    """The size one shard takes of the sections."""
+    return sum(size // section_parts(split, n) for size, split in sections)
 
 
 def take_shard(t: torch.Tensor, dim: int, s: int, n: int,
                sections: Optional[Sections] = None) -> torch.Tensor:
     """Shard ``s`` of ``n`` of ``t`` along ``dim``: one contiguous block
     (``sections`` None), or the sections' parts concatenated in order, a
-    split section's s-th block and a whole section entire.  A view when
-    it is one block."""
+    split section's s-th block, a whole section entire and a replicated
+    one's part ``s * parts // n``.  A view when it is one block."""
     if sections is None:
         sections = ((t.shape[dim], True),)
     parts, at = [], 0
     for size, split in sections:
-        part = size // n if split else size
-        parts.append(t.narrow(dim, at + (s * part if split else 0), part))
+        m = section_parts(split, n)
+        part = size // m
+        parts.append(t.narrow(dim, at + (s * m // n) * part, part))
         at += size
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def pool_sections(num_kv_heads: int) -> Sections:
+    """A page pool's kv-head axis over the shards: split by kv head, each
+    head replicated where there are fewer heads than shards."""
+    return ((num_kv_heads, num_kv_heads),)
 
 
 class KVArena:
@@ -178,7 +213,8 @@ class KVArena:
         self._state_splits = [state_split(key) if n > 1 else None
                               for key in state_keys]
         for (_, _, _, *rest), _ in paged_shapes:
-            if n > 1 and (len(rest) != 2 or rest[0] % n):
+            if n > 1 and (len(rest) != 2 or not sections_fit(
+                    pool_sections(rest[0]), n)):
                 raise ValueError(f"pool heads {rest[:1]} do not split over "
                                  f"{n} shards")
         self._paged_shapes = paged_shapes
@@ -252,12 +288,12 @@ class KVArena:
         if split is None:
             return full
         dim, sections = split
-        if sum(size for size, _ in sections) != full[dim] or any(
-                size % n for size, cut in sections if cut):
+        if sum(size for size, _ in sections) != full[dim] or \
+                not sections_fit(sections, n):
             raise ValueError(f"state leaf {full} does not split over {n} "
                              f"shards by {split}")
         out = list(full)
-        out[dim] = sum(size // n if cut else size for size, cut in sections)
+        out[dim] = shard_size(sections, n)
         return tuple(out)
 
     def _new_pool(self, shape, dt, quant: bool, n: int, dev):
@@ -266,7 +302,7 @@ class KVArena:
         ways."""
         A0, _, _, *rest = shape
         if n > 1:
-            rest = [rest[0] // n, *rest[1:]]
+            rest = [shard_size(pool_sections(rest[0]), n), *rest[1:]]
         pages = (A0, self.pool_blocks + 1, self.block_size, *rest)
         if quant:
             return QuantPages(
@@ -674,9 +710,11 @@ class KVArena:
                 A0, _, _, *rest = leaf.shape
                 blocks = leaf[:, 0, :rows].reshape(A0, n_blocks,
                                                    self.block_size, *rest)
-                # shard j takes its kv heads' rows
-                parts = (blocks.chunk(len(pools), dim=3) if len(pools) > 1
-                         else (blocks,))
+                # shard j takes its kv heads' rows (a replicated head's
+                # rows on each of its shards)
+                parts = [take_shard(blocks, 3, j, len(pools),
+                                    pool_sections(rest[0]))
+                         for j in range(len(pools))]
                 for heads, pool in zip(parts, pools):
                     dev = (pool.values if isinstance(pool, QuantPages)
                            else pool).device

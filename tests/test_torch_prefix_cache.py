@@ -573,7 +573,7 @@ def test_knob_gate_raises_where_the_reference_raises(case):
     "serving/failover.py", "simulator/workload.py",
     "simulator/baselines.py", "simulator/engine.py", "obs/trace.py",
     "obs/metrics.py", "obs/calibrate.py", "obs/__init__.py",
-    "models/sharding.py"])
+    "models/sharding.py", "data/pipeline.py"])
 def test_copied_module_diffs_clean_against_the_reference(module):
     port = (ROOT / "src/repro_torch" / module).read_text()
     assert port.replace("repro_torch", "repro") == (

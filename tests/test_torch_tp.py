@@ -265,12 +265,12 @@ def _refusal_dense(**kw):
     return _CFG, params, _mesh(kw.pop("tp", 2)), kw
 
 
-def _refusal_family(arch):
+def _refusal_family(arch, tp=2):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.registry import model_api
     cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32",
                               param_dtype="float32")
-    return cfg, model_api(cfg).init(0, cfg, "cpu"), _mesh(2), {}
+    return cfg, model_api(cfg).init(0, cfg, "cpu"), _mesh(tp), {}
 
 
 # each refused case: (its setup, the words its refusal names)
@@ -281,8 +281,13 @@ REFUSALS = {
     "dense_cache": (lambda: _refusal_dense(kvcache_impl="dense"),
                     "the dense cache"),
     "draft": (lambda: _refusal_dense(draft=True), "a draft model"),
-    "hybrid": (lambda: _refusal_family("zamba2-7b"), "'hybrid' family"),
-    "vlm": (lambda: _refusal_family("paligemma-3b"), "'vlm' family"),
+    # reduced zamba2-7b's 16 SSD heads (and 4 kv heads) over 3 shards
+    "hybrid": (lambda: _refusal_family("zamba2-7b", 3),
+               "16 SSD heads over tp=3"),
+    # reduced paligemma-3b's one kv head would replicate on 3 shards, but
+    # its 4 query heads do not split over them
+    "vlm": (lambda: _refusal_family("paligemma-3b", 3),
+            "1 kv heads and 4 query heads over tp=3"),
     # 4 kv heads over 3 shards: the reference's rule would cut head_dim
     # (its pool spec puts ``model`` on D); the port refuses on purpose
     "head_dim": (lambda: _refusal_dense(tp=3), "not head_dim"),
@@ -324,11 +329,6 @@ def test_launcher_serves_with_pjit_decode_and_refuses_other_families(
     argv = ["--device", "cpu", "--pjit-decode", "--requests", str(n),
             "--max-new-tokens", "3", "--max-seq-len", "32", "--archs",
             archs]
-    if archs in ("zamba2-7b", "paligemma-3b"):
-        # the hybrid and VLM families stay refused, before any allocation
-        with pytest.raises(ValueError, match=ITEM):
-            serve.main(argv)
-        return
     assert serve.main(argv) == 0
     out = capsys.readouterr().out
     assert "service mesh: {'data': 1, 'model': 1}" in out
