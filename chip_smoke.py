@@ -20,8 +20,10 @@ SSM, audio, VLM and hybrid families in a sixteenth, head-sharded
 paged serving (``--pjit-decode``; minicpm-2b, codeqwen1.5-7b) in a
 seventeenth, head-sharded serving of the SSM, audio, MoE, hybrid and VLM
 families (mamba2-2.7b, whisper-large-v3, mixtral-8x7b, zamba2-7b,
-paligemma-3b) in an eighteenth and the four examples
-(``examples/torch_*.py``) in a nineteenth; any failure exits non-zero.
+paligemma-3b) in an eighteenth, the four examples
+(``examples/torch_*.py``) in a nineteenth and head-sharded speculation,
+ring layouts and the dense-view oracle (minitron-4b, mixtral-8x7b,
+minicpm-2b) in a twentieth; any failure exits non-zero.
 Every phase prints its wall time.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
@@ -372,6 +374,27 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    serve_cluster at ``--requests 9 --chaos`` and train_small at
    ``--steps 20``, each checked on what it prints (every rid served or
    verdicted, the loss falling, the checkpoint read back);
+20. speculation, the ring and the dense-view oracle split by heads over
+   ``[cuda:0] * tp``: (a1) minitron-4b at full width and 2 layers with a
+   self-draft through its shards (k = 4, phase 12's 512-slot plan) at tp
+   = 2 and 4 against tp = 1 on 8 requests, every verify launch's logits
+   held by ``check_rows`` at ``PARITY_TOL``, chains equal or split under
+   the pair's logit difference; (a2) all 32 layers at tp = 4 on the first
+   8 of phase 12 (b)'s 16 requests, its verify launches, accepted tokens
+   a launch and draft steps printed beside phase 12 (b)'s self-draft and
+   its chains against them, splits held under phase 12 (a)'s limit; (b)
+   mixtral-8x7b at ``--max-seq-len`` 4352, over its 4096-token window
+   (the ring: one-shot prefill (#7) and the dense-view decode step (#5)
+   on every shard), 8 requests, request 0 a 4200-token prompt: (b1) 2
+   layers at tp = 4
+   against tp = 1, held by ``compare_runs``, (b2) 16 layers at tp = 4,
+   served and first tokens; (c) minicpm-2b at 2 layers through the
+   ``paged_native=False`` oracle (#5, #6) at tp = 4 against the native
+   tp = 4 step; (d) every kernel of these paths launched exactly tp times
+   a layer a step, the ring's ``decode_cost_analysis`` at tp = 4 equal in
+   kernel FLOPs to tp = 1's, and #3 at the verify shape, #5 over the ring
+   and #7 in the one-shot prefill at the tp = 4 shards' shapes, against
+   their plain versions and timed beside their bounds and SDPA;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -415,13 +438,21 @@ just before phase 18 and read after (d), before (b)'s comparisons, added
 to the record's and printed as ``tp_families_launches`` (#1-#5, #7, #9
 and #10 must launch); every count is zeroed just before phase 19 and
 read just after it, added to the record's and printed as
-``examples_launches`` (#1-#4, #7, #8 and #10 must launch).
+``examples_launches`` (#1-#4, #7, #8 and #10 must launch); every count
+is zeroed just before phase 20 and read after (c), before (d)'s kernel
+comparisons, added to the record's and printed as ``tp_paths_launches``
+(#1, #3, #5, #6, #7 and #9 must launch, each exactly tp times a layer a
+step of its path).
 ``python3 chip_smoke.py --across-cards`` on a machine with four cards
 runs phases 17 and 18 across them instead (``across_cards``: the waves
 over cuda:0-3 against ``[cuda:0] * 4`` bit for bit, the five families'
-among them, mistral-large-123b, and four families at their full plans:
-mixtral-8x7b at all 32 layers, mamba2-2.7b and whisper-large-v3 at 512
-slots, zamba2-7b at 256); ``python3
+among them, mistral-large-123b, plain and with a self-draft,
+mixtral-8x7b at all 32 layers at ``--max-seq-len`` 8192, past its
+window, and four families at their full plans: mixtral-8x7b at all 32
+layers, mamba2-2.7b and whisper-large-v3 at 512 slots, zamba2-7b at
+256); ``python3 chip_smoke.py --across-cards-paths`` runs only
+``across_cards_paths`` (mistral-large-123b plain and with its
+self-draft, mixtral-8x7b's ring at 32 layers); ``python3
 chip_smoke.py --tp-witness`` runs only ``tp_kv_witness``, and ``python3
 chip_smoke.py --tp-floor`` only phase 4 and ``tp_floor``.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
@@ -832,10 +863,15 @@ def flash_case(gen, *, B, Lq, Lk, Hq, Hkv, D, timed, **mask):
         + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, 4 * D * pairs)
     qt, kt, vt = sdpa_layout(q, k, v)
-    # a prefix needs SDPA's boolean mask; plain causal its own flag
+    # a prefix or a window needs SDPA's boolean mask; plain causal its
+    # own flag
     pos = torch.arange(Lk, device="cuda")
     vis = (pos[None] <= pos[:Lq, None]) | (pos[None] < prefix)
-    sdpa = (dict(attn_mask=vis) if prefix else dict(is_causal=causal))
+    window = mask.get("window")
+    if window is not None:
+        vis = vis & (pos[None] > pos[:Lq, None] - window)
+    sdpa = (dict(attn_mask=vis) if prefix or window is not None
+            else dict(is_causal=causal))
     rec.update({"ms": graph_ms(run), "host_paced_ms": time_ms(run),
                 "plain_ms": time_ms(plain, iters=2, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by,
@@ -859,8 +895,10 @@ def visible_pairs(Lq, Lk, causal, mask):
     where it has one."""
     if not causal:
         return Lq * Lk
-    check(Lq == Lk and set(mask) <= {"causal", "prefix_len"},
+    check(Lq == Lk and set(mask) <= {"causal", "prefix_len", "window"},
           "only unmasked or causal square cases are timed")
+    if mask.get("window") is not None:
+        return sum(min(i + 1, mask["window"]) for i in range(Lq))
     prefix = mask.get("prefix_len", 0)
     return sum(min(Lk, max(i + 1, prefix)) for i in range(Lq))
 
@@ -3516,6 +3554,7 @@ def phase_speculative():
     selfd, rec["self_draft"] = spec_wave(
         "(b) self-draft", cfg, params, n_requests=SPEC_WAVE_REQUESTS,
         draft_params=params, draft_cfg=cfg)
+    SPEC_CHAINS["self_draft"] = selfd
     # the 4-layer draft on the wave's first STOCH_SPEC_REQUESTS requests
     # (the whole wave took 18.3 s: cut for the script's time limit)
     dcfg, dparams = draft_view(cfg, params, DRAFT_LAYERS)
@@ -4912,6 +4951,8 @@ TP_NEW_FAMILIES = {"zamba2-7b": dict(tps=(4,), layers=TP_PARITY_LAYERS,
 # phases 14's bf16 and 15's int8 chains, by arch: phase 18 (a2)'s
 # full-depth diagnostic
 FAMILY_CHAINS = {}
+# phase 12 (b)'s chains by run ("self_draft"): phase 20 (a2)'s tp = 1
+SPEC_CHAINS = {}
 
 
 def kernel_layers(cfg, name: str) -> int:
@@ -4972,7 +5013,8 @@ def record_routing(rt, tp):
     layer, and for each recorded request its rows: the router's input
     (f32, on the host), the top-k experts in the order the dispatch
     claims them, the smallest gap between adjacent ones of its k + 1
-    largest router logits, and the router logits' norm.  Patches
+    largest router logits, and the router logits' norm.  A one-shot
+    prefill is recorded as a chunk from position 0.  Patches
     ``moe.moe_ffn`` (which a head-sharded step calls once a shard, the
     shards in turn, layer by layer) until ``restore()``; returns (log,
     restore)."""
@@ -4980,6 +5022,7 @@ def record_routing(rt, tp):
     rids = set(range(TP_FAMILY_REQUESTS))
     log, where = [], {"calls": 0, "steps": 0}
     ffn, decode, run = moe.moe_ffn, rt._paged_decode, rt._run_chunk
+    admit = rt._admit_one
 
     def logged(lp, cfg, x):
         lead = where["calls"] % tp == 0
@@ -5015,23 +5058,31 @@ def record_routing(rt, tp):
                      else {})
         return run(arena, s, T)
 
+    def admitted(req, *a, **kw):
+        where.update(kind="prefill", at=(req.rid, 0), layer=0,
+                     rows={req.rid: slice(None)} if req.rid in rids else {})
+        return admit(req, *a, **kw)
+
     moe.moe_ffn = logged
     rt._paged_decode, rt._run_chunk = stepped, chunked
+    rt._admit_one = admitted
 
     def restore():
         moe.moe_ffn = ffn
     return log, restore
 
 
-def hold_routing(label, base, got, hold=True):
+def hold_routing(label, base, got, hold=True, fed=None):
     """Holds ``got``'s ``record_routing`` log to ``base``'s, call by call:
     the router inputs of every request whose routing has not yet split,
     stacked, to ``PARITY_TOL`` of their norm, so that attention and every
     expert FFN before a request's split stay held; where a request's
     ordered top-k first differs, the base's router gap there must be a
     tie at that noise (``PARITY_TOL`` of the row's router-logit norm, a
-    fixed reading, not the two runs' difference).  Without ``hold`` all
-    only measured.  Returns ({rid: (kind, where, layer, router gap, its
+    fixed reading, not the two runs' difference).  A request whose fed
+    tokens part (``fed``: {rid: the first decode step fed another token})
+    is held no further from that step.  Without ``hold`` all only
+    measured.  Returns ({rid: (kind, where, layer, router gap, its
     bound)} of the first splits, {calls, rows, the worst call's share of
     the limit})."""
     import torch
@@ -5041,8 +5092,10 @@ def hold_routing(label, base, got, hold=True):
         for a, b in zip(base, got)),
         f"{label}: the two runs' MoE calls differ")
     split, calls, rows, worst = {}, 0, 0, 0.0
+    fed = fed or {}
     for a, b in zip(base, got):
-        held = [r for r in a["rows"] if r not in split]
+        held = [r for r in a["rows"] if r not in split and not (
+            a["kind"] == "decode" and a["at"] >= fed.get(r, float("inf")))]
         if not held:
             continue
         xa = torch.cat([a["rows"][r][0] for r in held])
@@ -5249,8 +5302,16 @@ def compare_runs(label, base, got, hold=True):
     rids = [r for r in got["chains"] if r in base["chains"]]
     routed, router = {}, None
     if got.get("routing") is not None:
+        # the first decode step each request was fed another token
+        fed = {}
+        for r in rids:
+            for a, b in zip(base["decodes"].get(r, []),
+                            got["decodes"].get(r, [])):
+                if a[1] != b[1]:
+                    fed[r] = a[0]
+                    break
         routed, router = hold_routing(label, base["routing"], got["routing"],
-                                      hold)
+                                      hold, fed)
     whole = [r for r in rids if routed.get(r, ("decode",))[0] != "prefill"]
     need = len(rids) // (4 if router is not None else 2)
     check(len(whole) >= need or not hold, f"{label}: {len(whole)} of "
@@ -5706,21 +5767,496 @@ def phase_examples():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 20: speculation, the ring and the dense-view oracle split by heads
+# ---------------------------------------------------------------------------
+
+TP_SPEC_PAIR_REQUESTS = 8      # (a1): the first 8 of phase 12 (b)'s 16
+TP_SPEC_PAIR_NEW = 16
+# (a2)'s wave: the first 8 of phase 12 (b)'s 16 requests (all 16 took
+# 49.2 s at tp = 4: cut for the script's time limit)
+TP_SPEC_WAVE_REQUESTS = 8
+RING_ARCH = "mixtral-8x7b"
+RING_MAX_SEQ = 4352            # above mixtral-8x7b's 4096-token window
+RING_LONG = 4200               # request 0's prompt: past the window
+RING_REQUESTS = 8              # request 0 and the wave's first 7
+RING_BS = 8                    # one slot a request: 0.268 GB of ring K/V
+RING_DEPTH = 16                # (b2)'s layers, as phase 6's
+ACROSS_RING_SEQ = 8192         # --across-cards (h): mixtral-8x7b's ring
+ACROSS_RING_LONG = 8000
+ACROSS_RING_BS = 64
+ORACLE_BS = 64
+# the kernels of phase 20's paths timed at the tp = 4 shards' shapes
+# (PERF.md): #3 at minitron-4b's verify (6 query on 2 kv heads), #5 over
+# mixtral-8x7b's full 4096-row ring and #7 in its one-shot prefill past
+# the window (8 query on 2 kv heads)
+TP_PATH_SHAPES = {"verify": dict(Hq=6, Hkv=2, D=128),
+                  "ring": dict(Hq=8, Hkv=2, D=128)}
+
+
+def tp_spec_runtime(cfg, devices, n_requests, new_tokens):
+    """minitron-4b's ``cfg`` at phase 12's plan (512 slots, bf16 K/V,
+    k = SPEC_K) over the service mesh of ``devices``, weights from seed 1
+    by ``init_sharded`` (the values of ``transformer.init(1, cfg)``), a
+    self-draft through the same shards, phase 12 (b)'s first
+    ``n_requests`` requests submitted.  The verify logits of every
+    speculating slot, its fed tokens and slot ids, and the draft's chunk
+    calls are recorded on the runtime (``verify_log``,
+    ``draft_chunks``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_step import wave_prompts
+    from repro_torch.launch.serve import plan_for
+    from repro_torch.launch.steps import init_sharded, paged_decode_builder
+    from repro_torch.serving.engine import (SELF_DRAFT, GenerationRequest,
+                                            ServiceRuntime)
+    mesh = tp_mesh(devices)
+    rt = ServiceRuntime(cfg, None, plan_for(get_config(cfg.name)),
+                        device=devices[0], draft_params=SELF_DRAFT,
+                        paged_step_builder=paged_decode_builder(
+                            mesh, shards=init_sharded(1, cfg, mesh)))
+    check(rt.speculate_k == SPEC_K and rt.sharded_draft is rt.sharded_step,
+          f"phase 20 (a): {cfg.name} does not speculate through its shards")
+    rt.verify_log, rt.draft_chunks = [], [0]
+    verify, chunk = rt.sharded_step.verify, rt._chunk_step
+
+    def logged(arena, tokens, chunk_len):
+        logits, lens = verify(arena, tokens, chunk_len)
+        rows = chunk_len.nonzero()[:, 0]
+        rt.verify_log.append((rows.cpu(), tokens[rows].cpu(),
+                              logits[rows].clone()))
+        return logits, lens
+
+    def counted(arena, sid, toks, n_valid, *, draft=False, **kw):
+        rt.draft_chunks[0] += int(draft)
+        return chunk(arena, sid, toks, n_valid, draft=draft, **kw)
+
+    rt.sharded_step.verify, rt._chunk_step = logged, counted
+    for rid, prompt in enumerate(wave_prompts(cfg.vocab_size)[:n_requests]):
+        rt.submit(GenerationRequest(rid=rid, tokens=prompt,
+                                    max_new_tokens=new_tokens, stream=rid))
+    return rt
+
+
+def tp_spec_run(cfg, devices, n_requests, new_tokens):
+    """Drains ``tp_spec_runtime``; returns (chains, record, runtime), the
+    record with phase 12 (b)'s counters and the launches."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    rt = tp_spec_runtime(cfg, devices, n_requests, new_tokens)
+    c0 = launch_counts()
+    chains, wall = run_steps(rt)
+    check(len(chains) == n_requests and all(
+        len(t) == new_tokens and t.min() >= 0 and t.max() < cfg.vocab_size
+        for t in chains.values()), f"phase 20 (a) served {chains}")
+    ver = rt.verify_launches
+    rec = {"tp": len(devices), "wall_s": wall,
+           "decode_steps": rt.decode_steps,
+           "prefill_chunks": rt.prefill_chunk_calls,
+           "draft_chunks": rt.draft_chunks[0],
+           "verify_launches": ver, "accepted_tokens": rt.accepted_tokens,
+           "accepted_per_launch": rt.accepted_tokens / ver if ver else 0.0,
+           "draft_steps": rt.draft_steps, "spec_degraded": rt.spec_degraded,
+           "launches": {k: v - c0[k] for k, v in launch_counts().items()
+                        if v - c0[k]},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(ver > 0, f"phase 20 (a) tp = {len(devices)}: no verify launch")
+    L, tp = cfg.num_layers, len(devices)
+    want = {"paged_decode_attention": tp * L * (rt.decode_steps
+                                                + rt.draft_steps),
+            "paged_chunk_prefill_attention": tp * L * (
+                rt.prefill_chunk_calls + rt.draft_chunks[0] + ver)}
+    have = {k: rec["launches"].get(k, 0) for k in want}
+    check(have == want, f"phase 20 (a) tp = {tp}: launches {have} are not "
+          f"{tp} a layer a step {want}")
+    return chains, rec, rt
+
+
+def hold_verify_logits(label, base, got):
+    """Holds each verify launch of ``got`` to ``base``'s (each
+    ``tp_spec_runtime``'s ``verify_log``) with ``check_rows`` at
+    ``PARITY_TOL`` of each fed position's norm, over the speculating slots
+    whose fed rows so far are the same in both runs, while both runs
+    launch for the same slots.  Returns (launches held, rows, the largest
+    absolute logit difference held: the noise a split must lie under)."""
+    same, n, rows, worst = {}, 0, 0, 0.0
+    for (ra, ta, la), (rb, tb, lb) in zip(base, got):
+        if not torch_equal(ra, rb):
+            break
+        keep = []
+        for j, slot in enumerate(ra.tolist()):
+            same[slot] = same.get(slot, True) and bool((ta[j] == tb[j]).all())
+            if same[slot]:
+                keep.append(j)
+        if not keep:
+            continue
+        a, b = la[keep].float(), lb[keep].float()
+        check_rows(f"{label} verify launch {n}", b, a, rel=PARITY_TOL)
+        n, rows = n + 1, rows + len(keep)
+        worst = max(worst, (b - a).abs().max().item())
+    check(n > 0, f"{label}: no verify launch held")
+    return n, rows, worst
+
+
+def torch_equal(a, b):
+    import torch
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_spec_tp(spec_rec):
+    """Phase 20 (a): minitron-4b at full width with a self-draft through
+    its shards (k = SPEC_K).  (a1) 2 layers at tp = 2 and 4 against tp =
+    1 (the mesh [cuda:0]): verify logits held, chains equal or split where
+    tp = 1's top-two gap lies under the pair's measured logit difference.
+    (a2) All 32 layers at tp = 4 on the first ``TP_SPEC_WAVE_REQUESTS``
+    of phase 12 (b)'s requests: the counters beside phase 12 (b)'s
+    self-draft (tp = 1, the same weights) and its chains, splits counted
+    with their gaps and held under its limit as phase 12 (b) holds
+    them.  Returns (the records, the launches of (a2))."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_step import wave_prompts
+    from repro_torch.models import transformer
+    card0 = torch.device("cuda", 0)
+    full = get_config(SPEC_ARCH)
+    cfg = dataclasses.replace(full, num_layers=2)
+    out = {}
+    base, base_rec, rt = tp_spec_run(cfg, [card0], TP_SPEC_PAIR_REQUESTS,
+                                     TP_SPEC_PAIR_NEW)
+    base_log, params = rt.verify_log, rt.sharded_step.shards[0].params
+    del rt
+    for tp in (2, 4):
+        got, rec, rt = tp_spec_run(cfg, [card0] * tp, TP_SPEC_PAIR_REQUESTS,
+                                   TP_SPEC_PAIR_NEW)
+        held = hold_verify_logits(f"phase 20 (a1) tp = {tp}", base_log,
+                                  rt.verify_log)
+        splits = chain_splits(cfg, params, base, got, wave_prompts(
+            cfg.vocab_size)[:TP_SPEC_PAIR_REQUESTS])
+        check(all(s["gap"] < held[2] for s in splits),
+              f"phase 20 (a1) tp = {tp}: a chain splits where tp = 1's "
+              f"top-two gap is not under {held[2]}: {splits}")
+        out[f"pair_tp{tp}"] = {**rec, "verify_held": held[:2],
+                               "verify_max_abs_diff": held[2],
+                               "splits": splits}
+        print(f"phase 20 (a1) {SPEC_ARCH} 2 layers, self-draft k = "
+              f"{SPEC_K}, tp = {tp} over [cuda:0] * {tp} against tp = 1: "
+              f"verify logits held on {held[0]} launches ({held[1]} rows), "
+              f"largest difference {held[2]:.5f}; "
+              f"{TP_SPEC_PAIR_REQUESTS - len(splits)}/"
+              f"{TP_SPEC_PAIR_REQUESTS} chains equal, splits {splits}; tp "
+              f"= 1 {json.dumps(base_rec)}; tp = {tp} {json.dumps(rec)}")
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, base_log
+    torch.cuda.reset_peak_memory_stats()
+    chains, rec, rt = tp_spec_run(full, [card0] * 4, TP_SPEC_WAVE_REQUESTS,
+                                  40)
+    launches = rec["launches"]
+    shard_gb = [round(rt.groups[0].draft.shard_bytes(j) / 1e9, 3)
+                for j in range(4)]
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = spec_rec["self_draft"]
+    keys = ("verify_launches", "accepted_tokens", "accepted_per_launch",
+            "draft_steps", "decode_steps", "wall_s")
+    selfd = {r: SPEC_CHAINS["self_draft"][r] for r in chains}
+    params = transformer.init(1, full, "cuda")
+    splits = chain_splits(full, params, selfd, chains)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    limit = spec_rec["verify"]["max_abs_diff"]
+    under = sum(sp["gap"] < limit for sp in splits)
+    check(under == len(splits), f"phase 20 (a2): a chain splits from phase "
+          f"12 (b)'s where its top-two gap is not under {limit}: {splits}")
+    out["wave_tp4"] = {**rec, "splits": splits,
+                       "draft_arena_gb_by_shard": shard_gb,
+                       "tp1_16_requests": {k: one[k] for k in keys}}
+    n = TP_SPEC_WAVE_REQUESTS
+    print(f"phase 20 (a2) {SPEC_ARCH} {full.num_layers} layers, self-draft "
+          f"k = {SPEC_K}, {n} requests, tp = 4 over [cuda:0] * 4: "
+          + ", ".join(f"{k} {rec[k]:.4g}" for k in keys)
+          + f" (phase 12 (b)'s tp = 1 on {SPEC_WAVE_REQUESTS}: "
+          + ", ".join(f"{k} {one[k]:.4g}" for k in keys)
+          + f"); {n - len(splits)}/{n} chains equal phase 12 (b)'s "
+          f"self-draft's; splits (phase 12 (b)'s from its plain run: "
+          f"{len(one['splits'])}/{SPEC_WAVE_REQUESTS}), {under} under its "
+          f"limit "
+          f"{limit}: {splits}; draft arena GB by shard {shard_gb}")
+    return out, launches
+
+
+def ring_runtime(layers, devices, routing=False):
+    """mixtral-8x7b at full width and ``layers`` layers over the service
+    mesh of ``devices`` at ``RING_MAX_SEQ`` tokens a slot, above its
+    4096-token window: the ring layout (per-slot K/V of the window, split
+    by kv head), one-shot prefill and the dense-view decode step.  Weights
+    from seed 1 (``init_sharded``), ``RING_BS`` slots, request 0 a
+    ``RING_LONG``-token prompt (seed 4) and the wave's first 7 after it,
+    40 new tokens each.  The decode rows and one-shot logits recorded as
+    ``recorded_run`` records them, and with ``routing`` the MoE router
+    (``record_routing``).  Returns (cfg, runtime, record)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_step import wave_prompts
+    from repro_torch.launch.serve import plan_for
+    from repro_torch.launch.steps import init_sharded, paged_decode_builder
+    from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+    full = get_config(RING_ARCH)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    mesh = tp_mesh(devices)
+    rt = ServiceRuntime(cfg, None, plan_for(full, -1, RING_BS, -1),
+                        device=devices[0], max_seq_len=RING_MAX_SEQ,
+                        paged_step_builder=paged_decode_builder(
+                            mesh, shards=init_sharded(1, cfg, mesh)))
+    check(rt.ring_fallback and rt.sharded_step.dense
+          and not rt.chunked_prefill,
+          "phase 20 (b): mixtral-8x7b is not on the ring layout")
+    prompts = [np.random.default_rng(4).integers(
+        0, cfg.vocab_size, RING_LONG).astype(np.int32)]
+    prompts += wave_prompts(cfg.vocab_size)[:RING_REQUESTS - 1]
+    rec = {"decodes": record_decodes(rt, range(RING_REQUESTS)),
+           "final": keep_oneshot_logits(rt), "drops": None, "routing": None}
+    if routing:
+        rec["routing"], rec["restore"] = record_routing(rt, len(devices))
+    for rid, prompt in enumerate(prompts):
+        rt.submit(GenerationRequest(rid=rid, tokens=prompt,
+                                    max_new_tokens=40, stream=rid))
+    torch.cuda.synchronize()
+    return cfg, rt, rec
+
+
+def keep_oneshot_logits(rt):
+    """Wraps ``rt``'s one-shot admissions through its sharded step to keep
+    each request's prefill logits; returns the dict they go into."""
+    final, cur = {}, [None]
+    admit, prefill = rt._admit_one, rt.sharded_step.prefill
+
+    def admitted(req, *a, **kw):
+        cur[0] = req.rid
+        return admit(req, *a, **kw)
+
+    def prefilled(batch, cache_size):
+        logits, caches = prefill(batch, cache_size)
+        final[cur[0]] = logits[0].clone()
+        return logits, caches
+
+    rt._admit_one, rt.sharded_step.prefill = admitted, prefilled
+    return final
+
+
+def ring_run(layers, devices, routing=False):
+    """Drains ``ring_runtime``: (record with chains, wall and launches,
+    runtime); every kernel of the path launched ``tp`` times a layer a
+    step (#7 a one-shot prefill, #5 a decode step, #9 three times each)."""
+    from repro_torch.kernels.ops import launch_counts
+    cfg, rt, rec = ring_runtime(layers, devices, routing)
+    c0 = launch_counts()
+    try:
+        rec["chains"], rec["wall"] = run_steps(rt)
+    finally:
+        if "restore" in rec:
+            rec.pop("restore")()
+    rec["launches"] = {k: v - c0[k] for k, v in launch_counts().items()
+                       if v - c0[k]}
+    check(len(rec["chains"]) == RING_REQUESTS and all(
+        len(t) == 40 and t.min() >= 0 and t.max() < cfg.vocab_size
+        for t in rec["chains"].values()),
+          f"phase 20 (b) served {rec['chains']}")
+    tp, L = len(devices), cfg.num_layers
+    n1, n2 = rt.oneshot_prefills, rt.decode_steps
+    want = {"flash_attention": tp * L * n1, "decode_attention": tp * L * n2,
+            "grouped_matmul": 3 * tp * L * (n1 + n2)}
+    have = {k: rec["launches"].get(k, 0) for k in want}
+    check(n1 == RING_REQUESTS and have == want,
+          f"phase 20 (b) tp = {tp}: launches {have} are not {tp} a layer a "
+          f"step {want} ({n1} one-shot prefills)")
+    return rec, rt
+
+
+def phase_ring_tp():
+    """Phase 20 (b): mixtral-8x7b past its window split by heads.  (b1) 2
+    layers at tp = 4 against tp = 1 (the mesh [cuda:0]), held by
+    ``compare_runs`` (the one-shot logits, first tokens, decode rows and
+    the router's inputs); the dense-view step's ``decode_cost_analysis``
+    at tp = 4 against tp = 1's (kernel FLOPs equal).  (b2) ``RING_DEPTH``
+    layers at tp = 4: served, first tokens, launches and the ring's bytes
+    a shard (at depth a rounding-level change splits mixtral's chains:
+    phase 18, ``--tp-floor``; a tp = 1 run beside it was cut for the
+    script's time limit).  Returns (records, the launches of (b1) and
+    (b2) at tp = 4)."""
+    import torch
+    card0 = torch.device("cuda", 0)
+    runs, costs = {}, {}
+    for tp in (1, 4):
+        rec, rt = ring_run(TP_PARITY_LAYERS, [card0] * tp, routing=True)
+        costs[tp] = rt.decode_cost_analysis()
+        rec["decode_steps"] = rt.decode_steps
+        runs[tp] = rec
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = dict(runs[4]["launches"])
+    cmp = compare_runs(f"phase 20 (b1) {RING_ARCH} {TP_PARITY_LAYERS} "
+                       f"layers tp = 4", runs[1], runs[4])
+    out = {"b1": {"compare": cmp,
+                  "wall_s": [runs[1]["wall"], runs[4]["wall"]],
+                  "decode_steps": runs[4]["decode_steps"],
+                  "launches_tp4": runs[4]["launches"]}}
+    print(f"phase 20 (b1) {RING_ARCH} {TP_PARITY_LAYERS} layers at "
+          f"--max-seq-len {RING_MAX_SEQ} (request 0 a {RING_LONG}-token "
+          f"prompt), {RING_BS} slots, tp = 4 over [cuda:0] * 4 against tp "
+          f"= 1, held: {json.dumps(out['b1'])}")
+    check(costs[4]["kernel_flops"] == costs[1]["kernel_flops"]
+          and costs[4]["kernel_calls"]["decode_attention"]
+          == 4 * costs[1]["kernel_calls"]["decode_attention"],
+          f"phase 20 (d) the ring's dense-view step at tp = 4 {costs[4]} is "
+          f"not tp = 1's {costs[1]} split")
+    print(f"phase 20 (d) decode_cost_analysis of (b)'s dense-view step at "
+          f"{TP_PARITY_LAYERS} layers: tp = 1 {json.dumps(costs[1])}; tp = 4 "
+          f"{json.dumps(costs[4])}; kernel FLOPs equal")
+    del runs
+    rec, rt = ring_run(RING_DEPTH, [card0] * 4)
+    arena = rt.groups[0].arena
+    out["b2"] = {"served": len(rec["chains"]),
+                 "first_tokens": [int(rec["chains"][r][0])
+                                  for r in sorted(rec["chains"])],
+                 "wall_s": rec["wall"], "decode_steps": rt.decode_steps,
+                 "oneshot_prefills": rt.oneshot_prefills,
+                 "launches": rec["launches"],
+                 "ring_gb_by_shard": [round(arena.shard_bytes(j) / 1e9, 3)
+                                      for j in range(4)]}
+    for k, v in rec["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"phase 20 (b2) {RING_ARCH} {RING_DEPTH} layers, tp = 4 over "
+          f"[cuda:0] * 4: {json.dumps(out['b2'])}")
+    del rt, arena
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_oracle_tp():
+    """Phase 20 (c): minicpm-2b at 2 layers, bf16 K/V, ``ORACLE_BS``
+    slots, tp = 4 over [cuda:0] * 4, the ``paged_native=False`` oracle
+    (dense views of each shard's pools, #5 and #6) against the native
+    step (#1 and #3), held by ``compare_runs``.  Returns (record, the
+    oracle's launches)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_step import wave_prompts
+    from repro_torch.launch.serve import plan_for
+    from repro_torch.launch.steps import init_sharded, paged_decode_builder
+    from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
+    card0 = torch.device("cuda", 0)
+    full = get_config("minicpm-2b")
+    cfg = dataclasses.replace(full, num_layers=TP_PARITY_LAYERS)
+    runs, rts = {}, {}
+    for native in (True, False):
+        mesh = tp_mesh([card0] * 4)
+        rt = ServiceRuntime(cfg, None, plan_for(full, "bf16", ORACLE_BS, 0),
+                            device=card0, paged_native=native,
+                            paged_step_builder=paged_decode_builder(
+                                mesh, shards=init_sharded(1, cfg, mesh)))
+        check(rt.sharded_step.dense != native, "phase 20 (c): the oracle "
+              "is not on the dense-view step")
+        for rid, p in enumerate(wave_prompts(cfg.vocab_size)[
+                :TP_FAMILY_REQUESTS]):
+            rt.submit(GenerationRequest(rid=rid, tokens=p,
+                                        max_new_tokens=TP_FAMILY_NEW,
+                                        stream=rid))
+        runs[native] = recorded_run(rt)
+        runs[native]["steps"] = (rt.decode_steps, rt.prefill_chunk_calls)
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    steps, chunks = runs[False]["steps"]
+    L, tp = cfg.num_layers, 4
+    want = {"decode_attention": tp * L * steps,
+            "chunk_prefill_attention": tp * L * chunks}
+    have = {k: runs[False]["launches"].get(k, 0) for k in want}
+    check(have == want, f"phase 20 (c): the oracle's launches {have} are "
+          f"not {tp} a layer a step {want}")
+    cmp = compare_runs("phase 20 (c) minicpm-2b oracle tp = 4", runs[True],
+                       runs[False])
+    identical = all(torch.equal(runs[True]["final"][r],
+                                runs[False]["final"][r])
+                    for r in runs[True]["final"])
+    print(f"phase 20 (c) minicpm-2b {L} layers, bf16, {ORACLE_BS} slots, tp "
+          f"= 4: the paged_native=False oracle against the native step: "
+          f"{json.dumps(cmp)}; final-chunk logits identical: {identical}; "
+          f"oracle launches {json.dumps(runs[False]['launches'])}")
+    return cmp, runs[False]["launches"]
+
+
+def tp_path_kernel_cases():
+    """#3, #5 and #7 at phase 20's tp = 4 shard shapes against their plain
+    versions (held inside each case), timed beside their bounds and SDPA:
+    #3 at the verify launch (``verify_cases``' 512 slots, T = 5, 32
+    speculating), #5 over a full 4096-row ring of ``RING_BS`` slots, #7
+    over a ``RING_LONG``-row prompt with the 4096 window."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    rng = np.random.default_rng(20)
+    T = SPEC_K + 1
+    start = rng.integers(0, 256 - T + 1, 512)
+    spec = np.zeros(512, np.int32)
+    spec[::16] = T
+    out = {"paged_chunk_prefill_attention@minitron_tp4_verify": chunk_case(
+        gen, rng, B=512, T=T, start=start, chunk_len=spec, prefix_len=0,
+        quant=False, timed=True, **TP_PATH_SHAPES["verify"])}
+    ring = TP_PATH_SHAPES["ring"]
+    out["decode_attention@mixtral_tp4_ring"] = dense_decode_case(
+        gen, B=RING_BS, S=4096, lens=np.full(RING_BS, 4096), timed=True,
+        **ring)
+    out["flash_attention@mixtral_tp4_oneshot"] = flash_case(
+        gen, B=1, Lq=RING_LONG, Lk=RING_LONG, causal=True, window=4096,
+        timed=True, **ring)
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        print(f"  phase 20 (d) {name}: "
+              + json.dumps({k: v for k, v in rec.items() if k != "work"}))
+    return out
+
+
+def phase_tp_paths(spec_rec):
+    """Phase 20: (a) speculation, (b) the ring and (c) the dense-view
+    oracle split by heads over ``[cuda:0] * tp``; (d) every kernel of
+    their paths launched ``tp`` times a layer a step (held in each part),
+    the ring's ``decode_cost_analysis``, and #3, #5 and #7 at the shards'
+    shapes.  Every count is zeroed just before the phase and read after
+    (c), before (d)'s kernel comparisons.  Returns the counts."""
+    from repro_torch.kernels.ops import launch_counts
+    reset_launches()
+    rec = {"spec": phase_spec_tp(spec_rec)[0]}
+    rec["ring"] = phase_ring_tp()[0]
+    rec["oracle"] = phase_oracle_tp()[0]
+    counts = launch_counts()
+    print("phase 20 (d) the kernels at the shards' shapes:")
+    tp_path_kernel_cases()
+    return counts
+
+
 def across_cards():
     """``python3 chip_smoke.py --across-cards`` on a machine with four
     cards: phase 17's minicpm-2b wave at tp = 4 over cuda:0-3 against the
     same wave over ``[cuda:0] * 4`` (chains and logits), the launcher's
-    (1, 4) service mesh, and mistral-large-123b (246 GB of bf16 weights)
+    (1, 4) service mesh, mistral-large-123b (246 GB of bf16 weights)
     drawn shard by shard over the four cards by ``init_sharded`` and
-    served without the whole tree; then the MoE, SSM, audio, hybrid and
-    VLM families (``across_cards_families``).  Returns the exit code."""
+    served without the whole tree, plain and with a self-draft, and
+    mixtral-8x7b at all 32 layers past its window
+    (``across_cards_paths``); then the MoE, SSM, audio, hybrid and VLM
+    families (``across_cards_families``).  Returns the exit code."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import serve
-    from repro_torch.launch.profile_step import wave_prompts
-    from repro_torch.launch.steps import init_sharded, paged_decode_builder
-    from repro_torch.serving.engine import GenerationRequest, ServiceRuntime
     cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     check(len(cards) >= 4, f"--across-cards needs 4 cards, found {len(cards)}")
     peaks = lambda: [round(torch.cuda.max_memory_allocated(d) / 1e9, 2)
@@ -5756,40 +6292,120 @@ def across_cards():
           "mesh: exit 0")
     gc.collect()
     torch.cuda.empty_cache()
+    across_cards_paths(cards[:4])
+    across_cards_families(cards[:4])
+    return 0
+
+
+def across_cards_paths(cards):
+    """``--across-cards`` (c), (g) and (h), and all of
+    ``--across-cards-paths``: (c) mistral-large-123b (246 GB of bf16
+    weights) drawn shard by shard over the four cards by ``init_sharded``
+    and served without the whole tree, 4 requests at 32 slots; (g) the
+    same shards with a self-draft through them (k = 4, its draft arena
+    split over the cards): served, verify launches, accepted tokens a
+    launch, draft steps, peak memory by card; (h) mixtral-8x7b at all 32
+    layers over the four cards at ``--max-seq-len`` 8192, over its
+    4096-token window (the ring: one-shot prefill and the dense-view
+    step), ``ACROSS_RING_BS`` slots, request 0 an ``ACROSS_RING_LONG``-token
+    prompt and the wave's first 7 after it: served, the ring's bytes and
+    peak memory by card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import serve
+    from repro_torch.launch.profile_step import wave_prompts
+    from repro_torch.launch.steps import init_sharded, paged_decode_builder
+    from repro_torch.serving.engine import (SELF_DRAFT, GenerationRequest,
+                                            ServiceRuntime)
+    peaks = lambda: [round(torch.cuda.max_memory_allocated(d) / 1e9, 2)
+                     for d in cards]
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
     cfg = get_config("mistral-large-123b")
-    mesh = meshlib.make_mesh((1, 4), ("data", "model"), cards[:4])
+    mesh = meshlib.make_mesh((1, 4), ("data", "model"), cards)
     t0 = time.perf_counter()
     shards = init_sharded(1, cfg, mesh)
     held_gb = [round(torch.cuda.memory_allocated(d) / 1e9, 2)
                for d in cards]
-    rt = ServiceRuntime(cfg, None, serve.plan_for(cfg, bs=32),
-                        device=cards[0],
-                        paged_step_builder=paged_decode_builder(
-                            mesh, shards=shards))
-    for rid, p in enumerate(wave_prompts(cfg.vocab_size)[:4]):
-        rt.submit(GenerationRequest(rid=rid, tokens=p, max_new_tokens=16,
-                                    stream=rid))
-    t1 = time.perf_counter()
-    results = rt.drain()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t1
-    toks = [r.tokens.tolist() for r in results]
-    check(len(results) == 4 and all(
-        len(t) == 16 and min(t) >= 0 and max(t) < cfg.vocab_size
-        for t in toks), f"mistral-large-123b served {toks}")
-    print(f"across cards (c) mistral-large-123b over 4 cards "
-          f"(init_sharded, no whole tree), 32 slots, bf16 K/V: weights GB "
-          f"by card {held_gb}; 4 requests, {sum(map(len, toks))} tokens in "
-          f"{dt:.2f} s, {rt.decode_steps} decode steps, "
-          f"{rt.prefill_chunk_calls} chunks; peak GB by card {peaks()}; "
-          f"{time.perf_counter() - t0:.1f} s with the draws")
-    del rt, shards
+    for label, kw in (("(c)", {}), ("(g)", {"draft_params": SELF_DRAFT})):
+        rt = ServiceRuntime(cfg, None, serve.plan_for(cfg, bs=32),
+                            device=cards[0],
+                            paged_step_builder=paged_decode_builder(
+                                mesh, shards=shards), **kw)
+        new = 16 if not kw else 32
+        for rid, p in enumerate(wave_prompts(cfg.vocab_size)[:4]):
+            rt.submit(GenerationRequest(rid=rid, tokens=p,
+                                        max_new_tokens=new, stream=rid))
+        t1 = time.perf_counter()
+        results = rt.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        toks = [r.tokens.tolist() for r in results]
+        check(len(results) == 4 and all(
+            len(t) == new and min(t) >= 0 and max(t) < cfg.vocab_size
+            for t in toks), f"mistral-large-123b {label} served {toks}")
+        ver = rt.verify_launches
+        spec = "" if not kw else (
+            f"self-draft k = {rt.speculate_k}: {ver} verify launches, "
+            f"{rt.accepted_tokens} tokens accepted "
+            f"({rt.accepted_tokens / max(ver, 1):.2f}/launch), "
+            f"{rt.draft_steps} draft steps, {rt.spec_degraded} degraded, "
+            f"draft arena GB by card "
+            f"{[round(rt.groups[0].draft.shard_bytes(j) / 1e9, 3) for j in range(4)]}; ")
+        if kw:
+            check(ver > 0 and rt.sharded_draft is rt.sharded_step,
+                  "mistral-large-123b (g): the self-draft did not verify")
+        print(f"across cards {label} mistral-large-123b over 4 cards "
+              f"(init_sharded, no whole tree), 32 slots, bf16 K/V: weights "
+              f"GB by card {held_gb}; served {len(results)}/4, "
+              f"{sum(map(len, toks))} tokens in {dt:.2f} s, "
+              f"{rt.decode_steps} decode steps, {rt.prefill_chunk_calls} "
+              f"chunks; {spec}peak GB by card {peaks()}; "
+              f"{time.perf_counter() - t0:.1f} s with the draws")
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    del shards
     gc.collect()
     torch.cuda.empty_cache()
-    across_cards_families(cards[:4])
-    return 0
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    full = get_config(RING_ARCH)
+    cfg = dataclasses.replace(full, num_layers=full.num_layers)
+    rt = ServiceRuntime(cfg, None, serve.plan_for(full, -1, ACROSS_RING_BS,
+                                                  -1),
+                        device=cards[0], max_seq_len=ACROSS_RING_SEQ,
+                        paged_step_builder=paged_decode_builder(
+                            mesh, shards=init_sharded(1, cfg, mesh)))
+    check(rt.ring_fallback and rt.sharded_step.dense,
+          "mixtral-8x7b (h) is not on the ring layout")
+    prompts = [np.random.default_rng(4).integers(
+        0, cfg.vocab_size, ACROSS_RING_LONG).astype(np.int32)]
+    prompts += wave_prompts(cfg.vocab_size)[:RING_REQUESTS - 1]
+    for rid, p in enumerate(prompts):
+        rt.submit(GenerationRequest(rid=rid, tokens=p, max_new_tokens=40,
+                                    stream=rid))
+    chains, wall = run_steps(rt)
+    check(len(chains) == RING_REQUESTS and all(
+        len(t) == 40 and t.min() >= 0 and t.max() < cfg.vocab_size
+        for t in chains.values()), f"mixtral-8x7b (h) served {chains}")
+    arena = rt.groups[0].arena
+    print(f"across cards (h) mixtral-8x7b, all {cfg.num_layers} layers, over "
+          f"4 cards at --max-seq-len {ACROSS_RING_SEQ} (request 0 a "
+          f"{ACROSS_RING_LONG}-token prompt), {arena.capacity} slots: served "
+          f"{len(chains)}/{RING_REQUESTS}, {rt.oneshot_prefills} one-shot "
+          f"prefills, {rt.decode_steps} decode steps in {wall:.2f} s; ring "
+          f"GB by card {[round(arena.shard_bytes(j) / 1e9, 3) for j in range(4)]}"
+          f" ({arena.shard_bytes(0) / arena.capacity / 1e9:.4f} a slot); "
+          f"peak GB by card {peaks()}; {time.perf_counter() - t0:.1f} s "
+          f"with the draws")
+    del rt, arena
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def family_run(arch, devices, **kw):
@@ -6582,6 +7198,13 @@ def main() -> int:
         rc = across_cards()
         print(card)
         return rc
+    if sys.argv[1:] == ["--across-cards-paths"]:
+        cards = [torch.device("cuda", i) for i in range(4)]
+        check(torch.cuda.device_count() >= 4, "--across-cards-paths needs 4 "
+              "cards")
+        across_cards_paths(cards)
+        print(card)
+        return 0
     if sys.argv[1:] == ["--tp-witness"]:
         tp_kv_witness(torch.device("cuda", 0))
         print(card)
@@ -6749,6 +7372,18 @@ def main() -> int:
     for name in launches:
         launches[name] += example_launches.get(name, 0)
     phase_time("phase 19")
+    print("phase 20: speculation, the ring and the dense-view oracle split "
+          "by heads (--pjit-decode): minitron-4b with a self-draft at tp = "
+          "2 and 4, mixtral-8x7b past its window at tp = 4, minicpm-2b's "
+          "oracle at tp = 4, over [cuda:0] * tp")
+    paths_launches = phase_tp_paths(spec_rec)
+    for name in ("paged_decode_attention", "paged_chunk_prefill_attention",
+                 "decode_attention", "chunk_prefill_attention",
+                 "flash_attention", "grouped_matmul"):
+        check(paths_launches[name] > 0, f"phase 20 never launched {name}")
+    for name in launches:
+        launches[name] += paths_launches.get(name, 0)
+    phase_time("phase 20")
     small_input_check()
     phase_time("small-input check")
 
@@ -6765,6 +7400,7 @@ def main() -> int:
                         "tp_launches": tp_launches.get(name, 0),
                         "tp_families_launches": tpf_launches.get(name, 0),
                         "examples_launches": example_launches.get(name, 0),
+                        "tp_paths_launches": paths_launches.get(name, 0),
                         **{k: rec[k] for k in RECORD_KEYS}})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
     check(len(kernels) == 10, f"expected ten kernels, got {len(kernels)}")

@@ -100,6 +100,23 @@ the degraded slots:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --archs minicpm-2b,minitron-4b --draft-arch minitron-4b
 
+``--pjit-decode`` splits every service by heads over the service mesh
+(1, device count), EPARA's model-parallel mode (``launch/steps.py``
+``ShardedPagedStep``); over several cards each draws and holds its shards
+alone (``init_sharded``).  It serves the paged-native decode and chunk
+steps of all six families, and for the dense and MoE families also a
+draft (a self-draft shares its service's shards and splits its draft
+arena; a draft of another arch runs whole on the first card), the
+dense-view step (a ring layout, as mixtral-8x7b's past its 4096-token
+window) and ``--no-chunked-prefill``'s one-shot prefill.  It refuses,
+before allocating, ``--mode sync``, ``--kvcache-impl dense``, head counts
+that would split head_dim, more than one SSD group, and a draft, the
+dense-view step or one-shot prefill of the other families (ROADMAP.md
+Queue 1 item 15):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --pjit-decode --archs minitron-4b --draft-arch minitron-4b
+
 ``--trace-out``, ``--metrics-out`` and ``--calibrate-out`` write the run's
 spans (Chrome trace-event JSON), metrics (Prometheus text, or a JSONL
 snapshot for a ``.jsonl`` path) and simulator calibration (JSON), through
@@ -130,7 +147,7 @@ from repro_torch.core.faults import (FaultInjector, FaultSpec,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import launch_counts
 from repro_torch.launch import mesh as meshlib
-from repro_torch.launch.steps import (TP_ITEM, abstract_params,
+from repro_torch.launch.steps import (abstract_params,
                                       init_sharded, leaf_split,
                                       paged_decode_builder, state_split,
                                       tp_refusal)
@@ -139,7 +156,7 @@ from repro_torch.obs import (MetricsRegistry, Tracer, merge_telemetry,
                              telemetry_from_runtime, write_calibration)
 from repro_torch.serving.arena import KVArena, shard_size
 from repro_torch.serving.engine import (PREFIX_CACHEABLE_FAMILIES,
-                                        EparaServingEngine,
+                                        SELF_DRAFT, EparaServingEngine,
                                         GenerationRequest, ServiceRuntime)
 from repro_torch.serving.failover import ClusterSupervisor, RetryPolicy
 
@@ -207,6 +224,14 @@ def draft_compatible(cfg, draft_cfg) -> bool:
             and cfg.family in PREFIX_CACHEABLE_FAMILIES)
 
 
+def self_drafts(svc: str, args, tp: int) -> bool:
+    """Whether ``svc``'s draft runs through its own head-sharded step
+    (``SELF_DRAFT``): over several model shards, a draft of the service's
+    own arch shares its shards; a draft of another arch runs whole on the
+    first card."""
+    return tp > 1 and args.draft_arch == svc
+
+
 def _arena_bytes(cfg, plan, args, kv_dtype: str, tp: int = 1) -> int:
     """One DP group's arena on the first device of ``tp`` model shards
     (its pools split by kv head, its per-slot state by ``state_split``),
@@ -261,17 +286,23 @@ def footprint(args, cp=None, mesh=None) -> Tuple[int, int]:
     service ``mesh`` of several model shards (``--pjit-decode``), the
     first card's share, the most any card holds: the first shard's
     weights (``init_sharded`` draws no whole tree), pools and per-slot
-    state."""
+    state, a self-draft's arena split as its service's (``self_drafts``)
+    and a draft of another arch whole, weights and arena."""
     arch_ids = [a.strip() for a in args.archs.split(",")]
     if cp is None:
         cp = control_plane(arch_ids, args.servers)
     tp = 1 if mesh is None else mesh.shape["model"]
     archs = set(arch_ids) | ({args.draft_arch} if args.draft_arch else set())
-    weights = (sum(get_config(a).param_count() * 2 for a in archs)
-               if tp == 1 else
-               sum(_shard_weight_bytes(get_config(a), mesh)
-                   for a in arch_ids))
     draft = get_config(args.draft_arch) if args.draft_arch else None
+    placed = sorted({svc for svc, sid in cp.placements if sid >= 0})
+    if tp == 1:
+        weights = sum(get_config(a).param_count() * 2 for a in archs)
+    else:
+        weights = sum(_shard_weight_bytes(get_config(a), mesh)
+                      for a in arch_ids)
+        if any(draft_compatible(get_config(svc), draft)
+               and not self_drafts(svc, args, tp) for svc in placed):
+            weights += draft.param_count() * 2
     arenas = 0
     if args.mode == "continuous" and args.kvcache_impl == "paged":
         for svc, sid in sorted(set(cp.placements)):
@@ -282,7 +313,9 @@ def footprint(args, cp=None, mesh=None) -> Tuple[int, int]:
                                  tp)
             if draft_compatible(full, draft) \
                     and plan.resolved_speculate(True) > 0:
-                group += _arena_bytes(draft, plan, args, "bf16")
+                group += _arena_bytes(
+                    draft, plan, args, "bf16",
+                    tp if self_drafts(svc, args, tp) else 1)
             arenas += group * max(1, plan.dp)
     return weights, arenas
 
@@ -291,11 +324,6 @@ def _refuse_what_tp_cannot_serve(args, cfgs, cp, mesh, draft_cfg) -> None:
     """Raise before anything is allocated when ``--pjit-decode`` would put
     a placed service on a path the head-sharded step does not serve."""
     tp = mesh.shape["model"]
-    if tp > 1 and args.no_chunked_prefill:
-        raise ValueError(
-            f"--pjit-decode over {tp} model shards: --no-chunked-prefill's "
-            f"one-shot prefill runs the whole parameter tree, which no card "
-            f"holds ({TP_ITEM})")
     budget = -(-args.max_seq_len // args.block_size) * args.block_size
     for svc in sorted({s for s, sid in cp.placements if sid >= 0}):
         cfg = cfgs[svc]
@@ -307,7 +335,8 @@ def _refuse_what_tp_cannot_serve(args, cfgs, cp, mesh, draft_cfg) -> None:
                           and args.kvcache_impl == "paged"
                           and model_api(cfg).decode_step_paged is not None
                           and not ring),
-            draft=draft_compatible(cfg, draft_cfg))
+            draft=draft_compatible(cfg, draft_cfg),
+            chunked_prefill=not (args.no_chunked_prefill or ring))
         if why is not None:
             raise ValueError(f"--pjit-decode: {why}")
 
@@ -342,7 +371,8 @@ def _refuse_what_does_not_fit(args, arch_ids, cp, have: int,
     first card's share over a service ``mesh``)."""
     tp = 1 if mesh is None else mesh.shape["model"]
     for a in arch_ids + ([args.draft_arch] if args.draft_arch else []):
-        need = (get_config(a).param_count() * 2 if tp == 1
+        need = (get_config(a).param_count() * 2
+                if tp == 1 or a not in arch_ids
                 else _shard_weight_bytes(get_config(a), mesh))
         if need > have:
             smoke = ("chip_smoke.py serves it at 16 of its 32 layers, "
@@ -468,10 +498,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="placement attempts per request before a dead "
                          "avenue draws an explicit FAILED verdict")
     ap.add_argument("--pjit-decode", action="store_true",
-                    help="serve each dense service split by heads over the "
+                    help="serve each service split by heads over the "
                          "service mesh (1, device count): the paged decode "
-                         "and chunk steps run shard by shard (EPARA's "
-                         "model-parallel mode)")
+                         "and chunk steps, and for the dense and MoE "
+                         "families speculation's verify and draft, the "
+                         "dense-view step and one-shot prefill, run shard "
+                         "by shard (EPARA's model-parallel mode)")
     return ap
 
 
@@ -590,16 +622,27 @@ def main(argv=None) -> int:
     def sharded_of(arch, cfg):
         """(None, a builder over the arch's shards) over several model
         shards: each card draws and holds its shards alone."""
-        if arch not in weights:
-            weights[arch] = init_sharded(
+        key = ("shards", arch)
+        if key not in weights:
+            weights[key] = init_sharded(
                 zlib.crc32(arch.encode()) + args.seed, cfg, mesh)
-        return None, paged_decode_builder(mesh, shards=weights[arch])
+        return None, paged_decode_builder(mesh, shards=weights[key])
 
-    draft_cfg = draft_params = None
+    tp = 1 if mesh is None else mesh.shape["model"]
+    draft_cfg = None
     if args.draft_arch:
         full = get_config(args.draft_arch)
         draft_cfg = full if device.type == "cuda" else reduced(full)
-        draft_params = params_of(args.draft_arch, draft_cfg)
+
+    def draft_of(svc):
+        """(draft_params, draft_cfg) of a compatible service: over several
+        model shards, a self-draft shares the service's shards
+        (``SELF_DRAFT``: ``params_of`` would draw a whole tree that no
+        card holds); otherwise the draft arch's whole tree."""
+        if self_drafts(svc, args, tp):
+            return SELF_DRAFT, None
+        return params_of(args.draft_arch, draft_cfg), draft_cfg
+
     for svc, sid in placements:
         if sid < 0:
             continue
@@ -611,8 +654,8 @@ def main(argv=None) -> int:
             print(f"  note: {svc} incompatible with draft "
                   f"{args.draft_arch} (family/vocab) — non-speculative")
         params, builder = ((params_of(svc, cfg), step_builder)
-                           if mesh is None or mesh.shape["model"] == 1
-                           else sharded_of(svc, cfg))
+                           if tp == 1 else sharded_of(svc, cfg))
+        draft_params, dcfg = draft_of(svc) if compat else (None, None)
         engines[sid].deploy(svc, ServiceRuntime(
             cfg, params, plans[svc], mode=args.mode,
             kvcache_impl=args.kvcache_impl, max_seq_len=args.max_seq_len,
@@ -620,8 +663,7 @@ def main(argv=None) -> int:
             chunked_prefill=False if args.no_chunked_prefill else None,
             prefill_chunk=(args.prefill_chunk or None),
             preempt=not args.no_preempt, device=device,
-            draft_params=draft_params if compat else None,
-            draft_cfg=draft_cfg if compat else None,
+            draft_params=draft_params, draft_cfg=dcfg,
             paged_step_builder=builder, tracer=tracer, metrics=metrics))
 
     # drive requests through handler -> engine, supervised: the supervisor

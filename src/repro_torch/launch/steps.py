@@ -15,9 +15,10 @@ whole step, and its spec trees say how the reference's pjit would place
 its arguments.
 
 ``paged_decode_builder`` is the serving side: a service's paged decode
-and chunk steps (any of the six families) split by heads over the
-``model`` axis of a service mesh (EPARA's model-parallel mode,
-``--pjit-decode``).
+and chunk steps (any of the six families), and the dense and MoE
+families' speculative verify, dense-view step and one-shot prefill,
+split by heads over the ``model`` axis of a service mesh (EPARA's
+model-parallel mode, ``--pjit-decode``).
 """
 from __future__ import annotations
 
@@ -41,11 +42,12 @@ from . import mesh as meshlib
 
 ADAFACTOR_THRESHOLD = 50e9     # params above this train with adafactor
 
-# what the head-sharded step does not cover yet, named by the ROADMAP.md
+# what the head-sharded step does not cover, named by the ROADMAP.md
 # Queue 1 item that would port it
-TP_ITEM = ("ROADMAP.md Queue 1 item 15 (tensor parallelism, its second "
-           "part: sync, the dense cache, speculation, FSDP serving, "
-           "head_dim splits)")
+TP_ITEM = ("ROADMAP.md Queue 1 item 15 (tensor parallelism, what stays "
+           "refused: sync, the dense cache, FSDP serving, head_dim splits, "
+           "more than one SSD group, and speculation, the dense-view step "
+           "and one-shot prefill of the families other than dense and MoE)")
 
 
 def choose_optimizer(cfg: ModelConfig) -> str:
@@ -419,14 +421,18 @@ def shard_params(params, cfg: ModelConfig, pspecs, devices: List) -> List:
 
 
 def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
-               paged_native: bool, draft: bool) -> Optional[str]:
+               paged_native: bool, draft: bool,
+               chunked_prefill: bool = True) -> Optional[str]:
     """Why the head-sharded paged step cannot serve this service over
     ``tp`` model shards, or None: it serves every family on the
-    paged-native continuous path (an SSM's state step: it pages nothing),
-    without a draft, over a ``tp`` that divides the SSD heads and either
-    divides the kv heads or is a multiple of them that divides the query
-    heads (each kv head then replicated on ``tp / num_kv_heads`` shards,
-    the Megatron rule)."""
+    paged-native continuous path with chunked prefill (an SSM's state
+    step: it pages nothing), and the dense and MoE families also with a
+    draft (speculation), on the dense-view step (a ring layout, the
+    ``paged_native=False`` oracle) and with one-shot prefill, over a
+    ``tp`` that divides the SSD heads and either divides the kv heads or
+    is a multiple of them that divides the query heads (each kv head then
+    replicated on ``tp / num_kv_heads`` shards, the Megatron rule)."""
+    api = model_api(cfg)
     refuse = []
     if not _head_sharded(cfg):
         refuse.append(f"the {cfg.family!r} family")
@@ -434,10 +440,13 @@ def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
         refuse.append(f"mode={mode!r}")
     if kvcache_impl != "paged":
         refuse.append("the dense cache")
-    elif not paged_native and cfg.family != "ssm":
-        refuse.append("the dense-view step")
-    if draft:
-        refuse.append("a draft model")
+    elif not paged_native and cfg.family != "ssm" \
+            and api.decode_step_tp is None:
+        refuse.append(f"the dense-view step of the {cfg.family!r} family")
+    if draft and api.verify_step_paged_tp is None:
+        refuse.append(f"a draft model for the {cfg.family!r} family")
+    if not chunked_prefill and api.prefill_tp is None:
+        refuse.append(f"one-shot prefill of the {cfg.family!r} family")
     if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm_nheads % tp:
             refuse.append(f"{cfg.ssm_nheads} SSD heads over tp={tp}")
@@ -456,8 +465,9 @@ def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
     if not refuse:
         return None
     return (f"{cfg.name}: the head-sharded paged step serves every family "
-            f"on the paged-native continuous path; not {', '.join(refuse)} "
-            f"({TP_ITEM})")
+            f"on the paged-native continuous path, and the dense and MoE "
+            f"families with a draft, the dense-view step and one-shot "
+            f"prefill; not {', '.join(refuse)} ({TP_ITEM})")
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -468,19 +478,27 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 class ShardedPagedStep:
-    """A service's paged-native decode and chunk steps (an SSM's state
-    steps), split by heads over the model axis of ``mesh``: built by
+    """A service's decode and chunk steps (paged-native, an SSM's state
+    steps, or the dense-view step of a ring layout or the
+    ``paged_native=False`` oracle), speculation's verify and one-shot
+    prefill, split by heads over the model axis of ``mesh``: built by
     ``paged_decode_builder`` for ``ServiceRuntime(paged_step_builder=...)``.
 
     The host loop, scheduler and block tables stay single.  Each shard
     holds its heads' weights, its heads' page pools (the arena's
     ``shard_pages``) and its share of the per-slot state (``shard_state``)
-    on its device; the family's ``decode_step_paged_tp`` and
-    ``prefill_chunk_paged_tp`` run the shards one after another and reduce
-    the partial outputs through the mesh.  The host-fed operands (tokens,
-    lengths, the live mask, block tables, an audio request's frames, a
-    VLM request's image rows) are copied to each distinct device.  Every
-    kernel launch of the unsharded step becomes ``tp`` launches."""
+    on its device; the family's ``*_tp`` steps run the shards one after
+    another and reduce the partial outputs through the mesh.  The
+    dense-view step gathers each shard's view of its pools
+    (``arena.dense_view(..., shard=j)``), runs ``decode_step_tp`` or
+    ``prefill_chunk_tp`` over them and writes the new rows back into each
+    shard's pools; a ring's K/V is per-slot state, split and written in
+    place.  A self-draft runs through the target's step (the same shard
+    trees) over a draft arena split as the target's (``draft=True``:
+    always paged-native).  The host-fed operands (tokens, lengths, the
+    live mask, block tables, an audio request's frames, a VLM request's
+    image rows) are copied to each distinct device.  Every kernel launch
+    of the unsharded step becomes ``tp`` launches."""
 
     def __init__(self, runtime, mesh, *, shards: Optional[List] = None):
         cfg = runtime.cfg
@@ -488,7 +506,8 @@ class ShardedPagedStep:
                          mode=runtime.mode,
                          kvcache_impl=runtime.kvcache_impl,
                          paged_native=runtime.paged_native,
-                         draft=runtime.draft_params is not None)
+                         draft=runtime.speculate_k > 0,
+                         chunked_prefill=runtime.chunked_prefill)
         if why is not None:
             raise ValueError(why)
         for ax, n in mesh.shape.items():
@@ -504,6 +523,9 @@ class ShardedPagedStep:
                              f"not the runtime's {runtime.device}")
         self.cfg = cfg
         self.api = model_api(cfg)
+        # the target's decode and chunk steps gather dense views: a ring
+        # layout or the oracle (an SSM's state step pages nothing)
+        self.dense = not runtime.paged_native and cfg.family != "ssm"
         if (shards is None) == (runtime.params is None):
             raise ValueError("a head-sharded runtime takes its whole "
                              "parameter tree or its shards (init_sharded), "
@@ -558,34 +580,89 @@ class ShardedPagedStep:
         copies: Dict[torch.device, torch.Tensor] = {}
         return [copies.setdefault(d, t.to(d)) for d in self.devices]
 
-    def decode(self, arena, tokens, live):
+    def decode(self, arena, tokens, live, *, draft: bool = False):
         """One fused decode step over every slot; returns (logits
-        (capacity, V) on the first device, the new lengths)."""
+        (capacity, V) on the first device, the new lengths).  The
+        dense-view step (not for a draft) gathers each shard's view, runs
+        the dense step over it and writes each live slot's new row back
+        into the shard's pools."""
         tables = [arena.device_block_tables(d) for d in self.devices]
-        caches = [arena.assemble(pages, state, lens) for pages, state, lens
-                  in zip(arena.shard_pages, arena.shard_state,
-                         self._each(arena.lens))]
-        return self.api.decode_step_paged_tp(
-            self.shards, self.cfg, self._each(tokens), caches, tables,
-            self._each(live), block_size=arena.block_size, mesh=self.mesh)
+        lens, live = self._each(arena.lens), self._each(live)
+        tokens = self._each(tokens)
+        if draft or not self.dense:
+            caches = [arena.assemble(pages, state, n) for pages, state, n
+                      in zip(arena.shard_pages, arena.shard_state, lens)]
+            return self.api.decode_step_paged_tp(
+                self.shards, self.cfg, tokens, caches, tables, live,
+                block_size=arena.block_size, mesh=self.mesh)
+        views = [arena.dense_view(pages, t, j) for j, (pages, t)
+                 in enumerate(zip(arena.shard_pages, tables))]
+        caches = [arena.assemble(v, state, n) for v, state, n
+                  in zip(views, arena.shard_state, lens)]
+        logits, new_len = self.api.decode_step_tp(
+            self.shards, self.cfg, tokens, caches, live, mesh=self.mesh)
+        for j, (pages, v, n, lv, t, c) in enumerate(zip(
+                arena.shard_pages, views, lens, live, tables, caches)):
+            arena.append_rows(pages, v, n, lv, t)
+            arena.merge_state(arena.shard_state[j],
+                              arena.disassemble(c)[1], lv)
+        return logits, new_len
 
     def chunk(self, arena, sid: int, tokens, start, chunk_len,
-              embeddings=None):
+              embeddings=None, *, draft: bool = False):
         """One chunk into slot ``sid`` (``tokens`` (1, T)) from ``start``;
         an audio request's first chunk carries its frame ``embeddings``
         (1, encoder_len, d), a VLM request's its image rows (1,
-        prefix_len, d), to every shard.  Returns (logits (1, V) on the
-        first device, the new length)."""
+        prefix_len, d), to every shard.  The dense-view step (not for a
+        draft) runs the dense chunk over each shard's view of the slot and
+        appends the chunk's rows to the shard's pools.  Returns (logits
+        (1, V) on the first device, the new length)."""
         row = torch.from_numpy(arena._block_tables[sid:sid + 1])
-        caches = [arena.assemble(pages, arena.slot_state(sid, j), st)
-                  for j, (pages, st) in enumerate(zip(arena.shard_pages,
-                                                      self._each(start)))]
-        kw = {} if embeddings is None else {
-            "embeddings": self._each(embeddings)}
-        return self.api.prefill_chunk_paged_tp(
-            self.shards, self.cfg, self._each(tokens), caches,
-            self._each(row), self._each(chunk_len),
-            block_size=arena.block_size, mesh=self.mesh, **kw)
+        starts, rows = self._each(start), self._each(row)
+        tokens, chunk_len = self._each(tokens), self._each(chunk_len)
+        if draft or not self.dense:
+            caches = [arena.assemble(pages, arena.slot_state(sid, j), st)
+                      for j, (pages, st) in enumerate(zip(arena.shard_pages,
+                                                          starts))]
+            kw = {} if embeddings is None else {
+                "embeddings": self._each(embeddings)}
+            return self.api.prefill_chunk_paged_tp(
+                self.shards, self.cfg, tokens, caches, rows, chunk_len,
+                block_size=arena.block_size, mesh=self.mesh, **kw)
+        views = [arena.dense_view(pages, r, j) for j, (pages, r)
+                 in enumerate(zip(arena.shard_pages, rows))]
+        caches = [arena.assemble(v, arena.slot_state(sid, j), st)
+                  for j, (v, st) in enumerate(zip(views, starts))]
+        logits, new_len = self.api.prefill_chunk_tp(
+            self.shards, self.cfg, tokens, caches, chunk_len, mesh=self.mesh)
+        for pages, v, st, cl, r in zip(arena.shard_pages, views, starts,
+                                       chunk_len, rows):
+            arena.append_rows(pages, v, st, torch.ones(
+                (1,), dtype=torch.bool, device=st.device), r,
+                n_tokens=tokens[0].shape[1], valid_tokens=cl)
+        return logits, new_len
+
+    def verify(self, arena, tokens, chunk_len):
+        """Speculative decoding's fused verify over every slot: ``tokens``
+        (capacity, T) fed rows, ``chunk_len`` (capacity,) T or 0; every
+        shard writes its heads' rows into its pools.  Returns (logits
+        (capacity, T, V) on the first device, the lengths unchanged)."""
+        tables = [arena.device_block_tables(d) for d in self.devices]
+        caches = [arena.assemble(pages, state, n) for pages, state, n
+                  in zip(arena.shard_pages, arena.shard_state,
+                         self._each(arena.lens))]
+        return self.api.verify_step_paged_tp(
+            self.shards, self.cfg, self._each(tokens), caches, tables,
+            self._each(chunk_len), block_size=arena.block_size,
+            mesh=self.mesh)
+
+    def prefill(self, batch, cache_size: int):
+        """One-shot prefill of ``batch["tokens"]`` (1, L): returns (logits
+        (1, V) on the first device, one cache a shard of its kv heads'
+        rows, for ``arena.write_prefill``)."""
+        return self.api.prefill_tp(self.shards, self.cfg,
+                                   self._each(batch["tokens"]), cache_size,
+                                   mesh=self.mesh)
 
 
 def _stacks(cfg: ModelConfig):

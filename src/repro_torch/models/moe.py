@@ -338,6 +338,43 @@ def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
         block_size=block_size, mesh=mesh, ffn=_ffn_counted_once(len(shards)))
 
 
+def verify_step_paged_tp(shards, cfg: ModelConfig, tokens, caches,
+                         block_tables, chunk_len, *, block_size: int,
+                         mesh=None):
+    """``verify_step_paged`` over head shards (see
+    ``decode_step_paged_tp``): the router stays whole on every shard, so
+    each routes a slot's T rows alike."""
+    return transformer.verify_step_paged_tp(
+        shards, cfg, tokens, caches, block_tables, chunk_len,
+        block_size=block_size, mesh=mesh, ffn=_ffn_counted_once(len(shards)))
+
+
+def decode_step_tp(shards, cfg: ModelConfig, token, caches, live, *,
+                   mesh=None):
+    """``decode_step`` over head shards' dense caches (see
+    ``transformer.decode_step_tp`` and ``decode_step_paged_tp``)."""
+    return transformer.decode_step_tp(
+        shards, cfg, token, caches, live, mesh=mesh,
+        ffn=_ffn_counted_once(len(shards)))
+
+
+def prefill_chunk_tp(shards, cfg: ModelConfig, tokens, caches, chunk_len,
+                     *, mesh=None):
+    """``prefill_chunk`` over head shards' dense caches (see
+    ``decode_step_paged_tp``)."""
+    return transformer.prefill_chunk_tp(
+        shards, cfg, tokens, caches, chunk_len, mesh=mesh,
+        ffn=_ffn_counted_once(len(shards)))
+
+
+def prefill_tp(shards, cfg: ModelConfig, tokens, cache_size, *, mesh=None):
+    """One-shot prefill over head shards (see ``transformer.prefill_tp``):
+    each prompt is one routing group, routed alike on every shard."""
+    return transformer.prefill_tp(shards, cfg, tokens, cache_size,
+                                  mesh=mesh,
+                                  ffn=_ffn_counted_once(len(shards)))
+
+
 def prefill(params, cfg: ModelConfig, batch, *, cache_size=None):
     """One-shot prefill (see ``transformer.prefill``): each prompt is one
     routing group, so expert capacity scales with the prompt."""

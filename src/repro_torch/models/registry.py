@@ -45,6 +45,14 @@ class ModelApi:
     # (every family registers them)
     decode_step_paged_tp: Optional[Callable] = None
     prefill_chunk_paged_tp: Optional[Callable] = None
+    # the head-sharded verify, the dense decode and chunk steps over each
+    # shard's dense view or window ring, and the one-shot prefill that
+    # returns each shard's K/V (the dense and MoE families: speculation,
+    # the dense-view oracle and ring layouts under ``ShardedPagedStep``)
+    verify_step_paged_tp: Optional[Callable] = None
+    decode_step_tp: Optional[Callable] = None
+    prefill_chunk_tp: Optional[Callable] = None
+    prefill_tp: Optional[Callable] = None
 
 
 _FAMILIES = {
@@ -57,7 +65,11 @@ _FAMILIES = {
                       forward_hidden=transformer.forward_hidden,
                       decode_step_paged_tp=transformer.decode_step_paged_tp,
                       prefill_chunk_paged_tp=(
-                          transformer.prefill_chunk_paged_tp)),
+                          transformer.prefill_chunk_paged_tp),
+                      verify_step_paged_tp=transformer.verify_step_paged_tp,
+                      decode_step_tp=transformer.decode_step_tp,
+                      prefill_chunk_tp=transformer.prefill_chunk_tp,
+                      prefill_tp=transformer.prefill_tp),
     "moe": ModelApi(moe.init, moe.logits_fn, moe.init_cache, moe.prefill,
                     moe.prefill_chunk, moe.decode_step,
                     decode_step_paged=moe.decode_step_paged,
@@ -65,7 +77,11 @@ _FAMILIES = {
                     verify_step_paged=moe.verify_step_paged,
                     forward_hidden=moe.forward_hidden,
                     decode_step_paged_tp=moe.decode_step_paged_tp,
-                    prefill_chunk_paged_tp=moe.prefill_chunk_paged_tp),
+                    prefill_chunk_paged_tp=moe.prefill_chunk_paged_tp,
+                    verify_step_paged_tp=moe.verify_step_paged_tp,
+                    decode_step_tp=moe.decode_step_tp,
+                    prefill_chunk_tp=moe.prefill_chunk_tp,
+                    prefill_tp=moe.prefill_tp),
     "ssm": ModelApi(ssm.init, ssm.logits_fn, ssm.init_cache, ssm.prefill,
                     ssm.prefill_chunk, ssm.decode_step,
                     forward_hidden=ssm.forward_hidden,

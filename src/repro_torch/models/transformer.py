@@ -22,10 +22,13 @@ place of the MLP: ``prefill_ffn``, ``prefill_chunk_ffn``,
 ``decode_step_paged_ffn`` take the block's FFN as ``ffn(layer params,
 cfg, x)``.
 
-The paged-native steps run one layer loop over a list of ``Shard``s:
-one shard, the whole tree, for an unsharded model; ``tp`` head shards
-whose partial attention and FFN outputs a mesh reduces for the
-head-sharded step (``launch/steps.py`` ``paged_decode_builder``).
+Every serving step runs one layer loop over a list of ``Shard``s (the
+``*_tp`` functions): one shard, the whole tree, for an unsharded model;
+``tp`` head shards whose partial attention and FFN outputs a mesh
+reduces for the head-sharded step (``launch/steps.py``
+``paged_decode_builder``): the paged-native decode, chunk and verify
+steps, and the dense ``decode_step_tp``, ``prefill_chunk_tp`` and
+one-shot ``prefill_tp`` (the dense-view oracle and ring layouts).
 
 ``verify_step_paged`` is speculative decoding's one fused verify pass:
 ``prefill_chunk_paged``'s body with the head over every chunk position.
@@ -187,34 +190,52 @@ def embed_tokens(params, cfg: ModelConfig, batch):
         cfg.compute_dtype)
 
 
+def prefill_tp(shards: List["Shard"], cfg: ModelConfig, tokens, cache_size,
+               *, mesh=None, ffn=dense_ffn, x=None, prefix_len: int = 0):
+    """One-shot prefill over ``shards`` (``tokens``, and ``x`` when
+    given, one entry a shard on its device): every layer's attention over
+    each shard's heads is a partial output the mesh reduces, as in the
+    paged steps.  Returns (logits at the last position (B, V) on the
+    first shard's device, one new dense cache a shard holding its kv
+    heads' rows, laid out by ``prefill_cache_rows``, with ``len`` L)."""
+    if x is None:
+        x = layers.embed_tp(shards, cfg, tokens, mesh)
+    B, L = x[0].shape[:2]
+    cache_size = prefill_cache_size(cfg, L, cache_size)
+    positions = [torch.arange(L, device=xs.device)[None] for xs in x]
+    k_all = [torch.empty((cfg.num_layers, B, cache_size, s.cfg.num_kv_heads,
+                          cfg.head_dim), dtype=xs.dtype, device=xs.device)
+             for s, xs in zip(shards, x)]
+    v_all = [torch.empty_like(k) for k in k_all]
+
+    def attend(i, j, p, scfg, xn):
+        h, (k, v) = layers.attention_with_kv(
+            p, scfg, xn, positions=positions[j], causal=True,
+            window=cfg.sliding_window, prefix_len=prefix_len)
+        k, v = prefill_cache_rows(k, v, cache_size)
+        k_all[j][i].copy_(k)
+        v_all[j][i].copy_(v)
+        return h
+
+    for i in range(cfg.num_layers):
+        x = _block_paged(shards, cfg, i, x, attend, mesh, ffn)
+    h = [layers.apply_norm(s.params["ln_f"], cfg, xs[:, -1])
+         for s, xs in zip(shards, x)]
+    return layers.unembed_tp(shards, cfg, h, mesh), [
+        {"k": k, "v": v, "len": torch.tensor(L, dtype=torch.int32,
+                                              device=k.device)}
+        for k, v in zip(k_all, v_all)]
+
+
 def prefill_ffn(params, cfg: ModelConfig, batch, cache_size, ffn, *,
                 x=None, prefix_len: int = 0):
     """The one-shot prefill body; ``x`` (B, L, d), when given, replaces
     the embedded tokens (the VLM's image prefix and text), and its first
     ``prefix_len`` rows attend to each other both ways."""
-    if x is None:
-        x = embed_tokens(params, cfg, batch)
-    B, L = x.shape[:2]
-    cache_size = prefill_cache_size(cfg, L, cache_size)
-    positions = torch.arange(L, device=x.device)[None]
-    shape = (cfg.num_layers, B, cache_size, cfg.num_kv_heads, cfg.head_dim)
-    k_all = torch.empty(shape, dtype=x.dtype, device=x.device)
-    v_all = torch.empty_like(k_all)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        h, (k, v) = layers.attention_with_kv(
-            lp["attn"], cfg, layers.apply_norm(lp["ln1"], cfg, x),
-            positions=positions, causal=True, window=cfg.sliding_window,
-            prefix_len=prefix_len)
-        x = x + h
-        x = x + ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, x))
-        k, v = prefill_cache_rows(k, v, cache_size)
-        k_all[i].copy_(k)
-        v_all[i].copy_(v)
-    h = layers.apply_norm(params["ln_f"], cfg, x[:, -1])
-    return logits_fn(params, cfg, h), {
-        "k": k_all, "v": v_all,
-        "len": torch.tensor(L, dtype=torch.int32, device=x.device)}
+    logits, (cache,) = prefill_tp(
+        [Shard(params, cfg)], cfg, [batch.get("tokens")], cache_size,
+        ffn=ffn, x=None if x is None else [x], prefix_len=prefix_len)
+    return logits, cache
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -225,28 +246,43 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     return prefill_ffn(params, cfg, batch, cache_size, dense_ffn)
 
 
+def prefill_chunk_tp(shards: List["Shard"], cfg: ModelConfig, tokens,
+                     caches, chunk_len, *, mesh=None, ffn=dense_ffn, x=None,
+                     prefix_len: int = 0):
+    """The dense-cache chunk over ``shards`` (``tokens``, ``caches``,
+    ``chunk_len`` and ``x`` one entry a shard): each shard writes the
+    chunk's K/V rows of its heads into its dense cache (its gathered
+    dense view) in place and attends over it.  Returns (logits at each
+    slot's last real token (B, V) on the first shard's device, ``len +
+    chunk_len``)."""
+    if x is None:
+        x = layers.embed_tp(shards, cfg, tokens, mesh)
+    start = [c["len"] for c in caches]
+
+    def attend(i, j, p, scfg, xn):
+        return layers.attention_chunk(
+            p, scfg, xn, caches[j]["k"][i], caches[j]["v"][i], start[j],
+            chunk_len[j], window=cfg.sliding_window,
+            prefix_len=prefix_len)[0]
+
+    for i in range(cfg.num_layers):
+        x = _block_paged(shards, cfg, i, x, attend, mesh, ffn)
+    h = [layers.apply_norm(s.params["ln_f"], cfg,
+                           layers.take_chunk_last(xs, cl))
+         for s, xs, cl in zip(shards, x, chunk_len)]
+    return layers.unembed_tp(shards, cfg, h, mesh), start[0] + \
+        torch.as_tensor(chunk_len[0], dtype=torch.int32, device=x[0].device)
+
+
 def prefill_chunk_ffn(params, cfg: ModelConfig, batch, cache, chunk_len,
                       ffn, *, x=None, prefix_len: int = 0):
     """The dense-cache chunk body; ``x`` and ``prefix_len`` as in
     ``prefill_ffn``, with ``chunk_len`` counting the rows of ``x``."""
-    if x is None:
-        x = embed_tokens(params, cfg, batch)
-    start = cache["len"]
-    k_all, v_all = cache["k"], cache["v"]
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        h, _, _ = layers.attention_chunk(
-            lp["attn"], cfg, layers.apply_norm(lp["ln1"], cfg, x), k_all[i],
-            v_all[i], start, chunk_len, window=cfg.sliding_window,
-            prefix_len=prefix_len)
-        x = x + h
-        x = x + ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, x))
-    h = layers.take_chunk_last(x, chunk_len)
-    h = layers.apply_norm(params["ln_f"], cfg, h)
-    return logits_fn(params, cfg, h), {
-        "k": k_all, "v": v_all,
-        "len": start + torch.as_tensor(chunk_len, dtype=torch.int32,
-                                       device=x.device)}
+    logits, new_len = prefill_chunk_tp(
+        [Shard(params, cfg)], cfg, [batch.get("tokens")], [cache],
+        [chunk_len], ffn=ffn, x=None if x is None else [x],
+        prefix_len=prefix_len)
+    return logits, {"k": cache["k"], "v": cache["v"], "len": new_len}
 
 
 def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
@@ -261,27 +297,40 @@ def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
                              dense_ffn)
 
 
-def decode_step_ffn(params, cfg: ModelConfig, token, cache, live, ffn):
-    lens = cache["len"]
-    new_len = lens + 1
-    x = layers.embed(params["embed"], cfg, token).to(cfg.compute_dtype)
-    k_all, v_all = cache["k"], cache["v"]
-    S, window = k_all.shape[2], cfg.sliding_window
+def decode_step_tp(shards: List["Shard"], cfg: ModelConfig, token, caches,
+                   live, *, mesh=None, ffn=dense_ffn):
+    """``decode_step`` over ``shards``: ``token``, ``caches`` (each
+    shard's dense cache of its kv heads, a gathered dense view or a
+    window ring, with its copy of ``len``) and ``live`` (None or (B,))
+    one entry a shard.  Each shard writes its heads' new row in place.
+    Returns (logits (B, V) on the first shard's device, the new lengths,
+    kept where a slot is not live)."""
+    lens = [c["len"] for c in caches]
+    new_len = [n + 1 for n in lens]
+    x = layers.embed_tp(shards, cfg, token, mesh)
+    S, window = caches[0]["k"].shape[2], cfg.sliding_window
     # a ring of exactly the window holds only visible keys: no mask needed
     eff_window = None if (window is None or S <= window) else window
-    live = None if live is None else live.bool()
+    live = [None if lv is None else lv.bool() for lv in live]
+
+    def attend(i, j, p, scfg, xn):
+        return layers.attention_decode(
+            p, scfg, xn, caches[j]["k"][i], caches[j]["v"][i], new_len[j],
+            window=eff_window, live=live[j])[0]
+
     for i in range(cfg.num_layers):
-        lp = layer_params(params["blocks"], i)
-        h, _, _ = layers.attention_decode(
-            lp["attn"], cfg, layers.apply_norm(lp["ln1"], cfg, x), k_all[i],
-            v_all[i], new_len, window=eff_window, live=live)
-        x = x + h
-        x = x + ffn(lp, cfg, layers.apply_norm(lp["ln2"], cfg, x))
-    h = layers.apply_norm(params["ln_f"], cfg, x)
-    return logits_fn(params, cfg, h), {
-        "k": k_all, "v": v_all,
-        "len": new_len if live is None else torch.where(live, new_len,
-                                                        lens)}
+        x = _block_paged(shards, cfg, i, x, attend, mesh, ffn)
+    h = [layers.apply_norm(s.params["ln_f"], cfg, xs)
+         for s, xs in zip(shards, x)]
+    return layers.unembed_tp(shards, cfg, h, mesh), (
+        new_len[0] if live[0] is None
+        else torch.where(live[0], new_len[0], lens[0]))
+
+
+def decode_step_ffn(params, cfg: ModelConfig, token, cache, live, ffn):
+    logits, new_len = decode_step_tp([Shard(params, cfg)], cfg, [token],
+                                     [cache], [live], ffn=ffn)
+    return logits, {"k": cache["k"], "v": cache["v"], "len": new_len}
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
@@ -397,15 +446,28 @@ def prefill_chunk_paged_ffn(params, cfg: ModelConfig, batch, cache,
     return logits, {"k": cache["k"], "v": cache["v"], "len": new_len}
 
 
+def verify_step_paged_tp(shards: List[Shard], cfg: ModelConfig, tokens,
+                         caches, block_tables, chunk_len, *,
+                         block_size: int, mesh=None, ffn=dense_ffn):
+    """``verify_step_paged`` over ``shards``, its arguments one entry a
+    shard as in ``_chunk_paged_hidden`` (``chunk_len`` (B,) on each):
+    each shard writes the fed rows of its heads into its pools.  The head
+    runs over all T positions.  Returns (logits (B, T, V) on the first
+    shard's device, ``len`` unchanged)."""
+    x, start = _chunk_paged_hidden(
+        shards, cfg, tokens, caches, block_tables, chunk_len,
+        block_size=block_size, mesh=mesh, ffn=ffn, verify=True)
+    h = [layers.apply_norm(s.params["ln_f"], cfg, xs)      # all T positions
+         for s, xs in zip(shards, x)]
+    return layers.unembed_tp(shards, cfg, h, mesh), start[0]
+
+
 def verify_step_paged_ffn(params, cfg: ModelConfig, batch, cache,
                           block_tables, chunk_len, block_size: int, ffn):
-    (x,), (start,) = _chunk_paged_hidden(
+    logits, start = verify_step_paged_tp(
         [Shard(params, cfg)], cfg, [batch["tokens"]], [cache],
-        [block_tables], [chunk_len], block_size=block_size, ffn=ffn,
-        verify=True)
-    h = layers.apply_norm(params["ln_f"], cfg, x)          # all T positions
-    return logits_fn(params, cfg, h), {"k": cache["k"], "v": cache["v"],
-                                       "len": start}
+        [block_tables], [chunk_len], block_size=block_size, ffn=ffn)
+    return logits, {"k": cache["k"], "v": cache["v"], "len": start}
 
 
 def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,

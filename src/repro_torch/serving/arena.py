@@ -38,7 +38,9 @@ engine (the port of the reference package's ``serving/arena.py``).
   its device (``shard_pages[j]``; ``pages`` is shard 0's), an int8 pool's
   scales split with its values; with fewer kv heads than shards, head
   ``j * Hkv // n``, each head's pool whole on ``n / Hkv`` shards
-  (``pool_sections``), written and copied on each.  Per-slot state
+  (``pool_sections``), written and copied on each.  ``dense_view``,
+  ``append_rows`` and ``merge_state`` act on one shard's pools and state
+  a call, and ``write_prefill`` takes one cache a shard.  Per-slot state
   splits by ``state_split`` (the family's rule: the SSD state by head,
   the conv tail's x channels by head with B and C whole on every shard,
   the cross K/V and a window ring by kv head), shard j's on its device (``shard_state[j]``; ``state`` is
@@ -228,7 +230,8 @@ class KVArena:
         self.pages: List[Any] = self.shard_pages[0]
         dev = self.device
         quantized = self._quantized
-        self._views: Dict[int, List[torch.Tensor]] = {}  # dense_view buffers
+        # dense_view buffers by (rows, shard)
+        self._views: Dict[Tuple[int, int], List[torch.Tensor]] = {}
         self.shard_state: List[List[torch.Tensor]] = [
             [torch.zeros(self._state_shape(shape, split, n), dtype=dt,
                          device=d)
@@ -683,16 +686,21 @@ class KVArena:
     # ------------------------------------------------------------------
     # one-shot admission and the dense-view steps
     # ------------------------------------------------------------------
-    def write_prefill(self, slot: int, cache: Dict[str, Any],
-                      prompt_len: int) -> int:
+    def write_prefill(self, slot: int, cache, prompt_len: int) -> int:
         """Scatter one freshly prefilled single-request cache (batch 1, its
         sequence axis at least the prompt's blocks) into the slot's pages
-        and state row, in place.  Only the blocks the prompt occupies are
-        written (quantized on write for an int8 pool); positions past the
-        prompt are garbage until a step reaches them, and the per-slot
-        length masks them everywhere.  The slot's length becomes the
-        cache's own ``len``.  Returns the bytes written (admission-copy
-        accounting)."""
+        and state row, in place: a whole cache, which each shard takes its
+        heads of, or a list of one cache a shard, each already its shard's
+        heads on its device (a head-sharded one-shot prefill).  Only the
+        blocks the prompt occupies are written (quantized on write for an
+        int8 pool); positions past the prompt are garbage until a step
+        reaches them, and the per-slot length masks them everywhere.  The
+        slot's length becomes the cache's own ``len``.  Returns the bytes
+        written (admission-copy accounting)."""
+        n = len(self.shard_devices)
+        caches = cache if isinstance(cache, list) else None
+        if caches is not None and len(caches) != n:
+            raise ValueError(f"{len(caches)} shard caches for {n} shards")
         n_blocks = self.blocks_for(max(1, prompt_len))
         rows = n_blocks * self.block_size
         bt_row = torch.from_numpy(
@@ -701,21 +709,22 @@ class KVArena:
         state = iter(zip(zip(*self.shard_state), self._state_splits))
         cache_len = None
         for key, tag in zip(self._keys, self._tags):
-            leaf = cache[key]
+            # shard j's leaf: its own, or the whole leaf it takes a part of
+            leaves = ([c[key] for c in caches] if caches is not None
+                      else [cache[key]] * n)
             if tag == _LEN:
                 if cache_len is None:
-                    cache_len = leaf.reshape(-1)[0]
+                    cache_len = leaves[0].reshape(-1)[0]
             elif tag == _PAGED:
-                pools = next(pages)
-                A0, _, _, *rest = leaf.shape
-                blocks = leaf[:, 0, :rows].reshape(A0, n_blocks,
-                                                   self.block_size, *rest)
-                # shard j takes its kv heads' rows (a replicated head's
-                # rows on each of its shards)
-                parts = [take_shard(blocks, 3, j, len(pools),
-                                    pool_sections(rest[0]))
-                         for j in range(len(pools))]
-                for heads, pool in zip(parts, pools):
+                for j, (leaf, pool) in enumerate(zip(leaves, next(pages))):
+                    A0, _, _, *rest = leaf.shape
+                    heads = leaf[:, 0, :rows].reshape(
+                        A0, n_blocks, self.block_size, *rest)
+                    if caches is None:
+                        # shard j takes its kv heads' rows (a replicated
+                        # head's rows on each of its shards)
+                        heads = take_shard(heads, 3, j, n,
+                                           pool_sections(rest[0]))
                     dev = (pool.values if isinstance(pool, QuantPages)
                            else pool).device
                     heads, bt = heads.to(dev), bt_row.to(dev)
@@ -727,37 +736,34 @@ class KVArena:
                         pool[:, bt] = heads.to(pool.dtype)
             else:
                 shards, split = next(state)
-                for j, st in enumerate(shards):
-                    part = (leaf if split is None else
-                            take_shard(leaf, split[0], j, len(shards),
-                                       split[1]))
+                for j, (leaf, st) in enumerate(zip(leaves, shards)):
+                    part = (leaf if split is None or caches is not None else
+                            take_shard(leaf, split[0], j, n, split[1]))
                     st[:, slot] = part[:, 0].to(st.device, st.dtype)
         self.lens[slot] = prompt_len if cache_len is None else cache_len
         return self.slot_bytes(prompt_len)
 
-    def _unsharded(self, what: str) -> None:
-        if len(self.shard_devices) > 1:
-            raise NotImplementedError(
-                f"{what} gathers whole pools; a head-sharded arena serves "
-                f"the paged-native steps only")
-
-    def dense_view(self, pages, block_tables: torch.Tensor
+    def dense_view(self, pages, block_tables: torch.Tensor, shard: int = 0
                    ) -> List[torch.Tensor]:
-        """Gather each page pool through ``block_tables`` (B, nblk) into a
-        contiguous ``(layers, B, slot_tokens, ...)`` view in the leaf's own
-        dtype; an int8 pool's values and scales are dequantized.  The views
-        are the arena's buffers for B rows, gathered into in place layer by
-        layer: the next ``dense_view`` of B rows overwrites them, and no
-        other copy of the pools is made."""
-        self._unsharded("dense_view")
+        """Gather each page pool of ``pages`` (shard ``shard``'s, on its
+        device) through ``block_tables`` (B, nblk) into a contiguous
+        ``(layers, B, slot_tokens, ...)`` view of the shard's heads in the
+        leaf's own dtype; an int8 pool's values and scales are dequantized.
+        The views are the arena's buffers for B rows of that shard,
+        gathered into in place layer by layer: the next ``dense_view`` of
+        B rows of the shard overwrites them, and no other copy of the
+        pools is made."""
         B = block_tables.shape[0]
         flat = block_tables.reshape(-1).long()
-        views = self._views.get(B)
+        views = self._views.get((B, shard))
         if views is None:
-            views = [torch.empty((A0, B, self.slot_tokens, *rest), dtype=dt,
-                                 device=self.device)
-                     for (A0, _, _, *rest), dt in self._paged_shapes]
-            self._views[B] = views
+            views = []
+            for pool, (_, dt) in zip(pages, self._paged_shapes):
+                vals = pool.values if isinstance(pool, QuantPages) else pool
+                A0, _, _, *rest = vals.shape
+                views.append(torch.empty((A0, B, self.slot_tokens, *rest),
+                                         dtype=dt, device=vals.device))
+            self._views[(B, shard)] = views
         for pool, view in zip(pages, views):
             for layer in range(view.shape[0]):
                 out = view[layer].view(flat.shape[0], self.block_size,
@@ -779,8 +785,9 @@ class KVArena:
         consecutive rows per slot starting at ``lens`` (B,), of which the
         first ``valid_tokens`` (B,) (default all) are real.  Rows of dead
         slots and padding rows route to the trash block, the only place
-        two rows can land on; an int8 pool quantizes the rows on write."""
-        self._unsharded("append_rows")
+        two rows can land on; an int8 pool quantizes the rows on write.
+        On a head-sharded arena, one call a shard: its pools, its dense
+        view and its copies of the operands, on its device."""
         cap = lens.shape[0]
         bs = self.block_size
         dev = lens.device
@@ -808,11 +815,11 @@ class KVArena:
         """Commit a step's per-slot state for the live slots only, in place.
         The port's steps write their state in place and keep dead slots'
         rows themselves, so a leaf they return as the arena's own tensor is
-        already committed; any other is copied in under the mask."""
-        self._unsharded("merge_state")
+        already committed; any other is copied in under the mask.  On a
+        head-sharded arena, one call a shard (``shard_state[j]``)."""
         for old, new in zip(state, state_new):
             if new is old:
                 continue
-            mask = live.bool().reshape(1, self.capacity,
-                                       *([1] * (old.ndim - 2)))
+            mask = live.bool().to(old.device).reshape(
+                1, self.capacity, *([1] * (old.ndim - 2)))
             old.copy_(torch.where(mask, new.to(old.dtype), old))

@@ -111,6 +111,10 @@ target's own greedy chain whatever the draft (the plain engine's on the
 CPU; on the card the verify kernel rounds bf16 otherwise than the decode
 kernel, so a chain can take the other of two tied top logits);
 stochastic output is a pure function of the counter streams.
+``draft_params=SELF_DRAFT`` makes the target its own draft; a
+head-sharded target then runs its self-draft through its own sharded
+step over a draft arena split as its own (a draft of another config runs
+whole on the runtime's device).
 
 ``evacuate`` strips every queued, in-flight and parked request out (a
 crash of this data plane) and returns them for resubmission.
@@ -154,6 +158,9 @@ PREFIX_CACHEABLE_FAMILIES = ("dense", "moe")
 # by the config field that counts the rows: the audio encoder's frames and
 # the VLM's image prefix
 _EMBEDDING_ROWS = {"audio": "encoder_len", "vlm": "prefix_len"}
+# ``draft_params=SELF_DRAFT``: the target's own weights are the draft (a
+# head-sharded runtime made with ``params=None`` has no whole tree to pass)
+SELF_DRAFT = "target"
 
 
 @dataclasses.dataclass
@@ -322,7 +329,9 @@ class ServiceRuntime:
     ``params`` must lie on ``device`` (the card unless ``"cpu"``).  A
     ``paged_step_builder`` (``launch/steps.py`` ``paged_decode_builder``)
     splits the service by heads over a mesh's model axis; built with the
-    shards of ``init_sharded``, it serves with ``params=None``."""
+    shards of ``init_sharded``, it serves with ``params=None``.
+    ``draft_params=SELF_DRAFT`` (``draft_cfg`` None or ``cfg``) makes the
+    target its own draft."""
 
     def __init__(self, cfg: ModelConfig, params, plan: ParallelPlan, *,
                  sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
@@ -355,6 +364,14 @@ class ServiceRuntime:
                 "native dtype")
         self.api: ModelApi = model_api(cfg)
         self.device = resolve_device(device)
+        named_self = draft_params is SELF_DRAFT
+        if named_self:
+            if draft_cfg not in (None, cfg):
+                raise ValueError("a self-draft's draft_cfg is the target's")
+            draft_cfg, draft_params = cfg, params
+        self_draft = named_self or (
+            draft_params is not None and draft_params is params
+            and draft_cfg == cfg)
         for name, tree in (("params", params), ("draft_params", draft_params)):
             if tree is None:
                 continue
@@ -514,9 +531,9 @@ class ServiceRuntime:
         # all k+1 in one fused verify launch.  Greedy acceptance emits the
         # target's own argmax chain; stochastic acceptance is exact
         # leave-one-out rejection sampling (serving/sampler.py)
-        if (draft_params is None) != (draft_cfg is None):
+        if (draft_params is None) != (draft_cfg is None) and not named_self:
             raise ValueError("draft_params and draft_cfg come together")
-        have_draft = draft_params is not None
+        have_draft = draft_cfg is not None
         knob_k = (plan.resolved_speculate(have_draft) if speculate is None
                   else int(speculate))
         if knob_k > 0 and not have_draft:
@@ -578,15 +595,22 @@ class ServiceRuntime:
         # axis; the paged decode and chunk steps then run shard by shard
         # and the arena's pools split by kv head (None: one device)
         # ``params=None``: the builder holds the shards alone (no device
-        # keeps the whole tree), which only chunked prefill can serve
-        if params is None and (paged_step_builder is None
-                               or not self.chunked_prefill):
+        # keeps the whole tree)
+        if params is None and paged_step_builder is None:
             raise ValueError(
                 "params=None serves a head-sharded runtime "
-                "(paged_step_builder with its shards) with chunked prefill "
-                "only: one-shot prefill runs the whole parameter tree")
+                "(paged_step_builder with its shards) only")
         self.sharded_step = (None if paged_step_builder is None
                              else paged_step_builder(self))
+        # the step that runs the draft: a head-sharded target's own for its
+        # self-draft (the same shard trees, a draft arena split alike);
+        # None: the draft runs whole on the runtime's device
+        self.sharded_draft = (self.sharded_step
+                              if have_draft and self_draft else None)
+        if have_draft and self.sharded_draft is None \
+                and draft_params is None:
+            raise ValueError("a draft of another config than a head-sharded "
+                             "target's runs whole: pass its draft_params")
 
     @property
     def slot_token_budget(self) -> int:
@@ -917,8 +941,12 @@ class ServiceRuntime:
         self._obs_admitted(req, group, "prefill", oneshot=True)
         t0 = time.perf_counter()
         batch = self._build_batch([req], self._pad_prompts([req]))
-        logits, cache = self.api.prefill(self.params, self.cfg, batch,
-                                         cache_size=cache_size)
+        if self.sharded_step is not None:
+            # one cache a shard, each of its kv heads (write_prefill)
+            logits, cache = self.sharded_step.prefill(batch, cache_size)
+        else:
+            logits, cache = self.api.prefill(self.params, self.cfg, batch,
+                                             cache_size=cache_size)
         first = int(self._sample(logits, [self._req_seed(req)], [0], [0])[0])
         t1 = time.perf_counter()
         self.oneshot_prefills += 1
@@ -1186,11 +1214,12 @@ class ServiceRuntime:
         """One chunk into slot ``sid`` of ``arena`` from the slot's length
         on: ``toks`` (1, T), the first ``n_valid`` real.  The target model,
         or with ``draft`` the draft model over its own arena (always
-        paged-native).  Paged-native: the step writes the chunk's K/V rows
-        into the pools through the slot's block-table row.  Otherwise: the
-        slot's dense view is gathered, the family's dense
-        ``prefill_chunk`` runs on it, and the rows it wrote go back to the
-        pages (``append_rows``).  Either way the slot's state rows are
+        paged-native), through the sharded step where there is one (the
+        draft's: ``sharded_draft``).  Paged-native: the step writes the
+        chunk's K/V rows into the pools through the slot's block-table
+        row.  Otherwise: the slot's dense view is gathered, the family's
+        dense ``prefill_chunk`` runs on it, and the rows it wrote go back
+        to the pages (``append_rows``).  Either way the slot's state rows are
         written in place and its length advances.  Returns the chunk's
         logits."""
         api, cfg, params = ((self.draft_api, self.draft_cfg,
@@ -1207,10 +1236,11 @@ class ServiceRuntime:
         # chunk the image prefix ahead of it
         n_rows = toks.shape[1] + (cfg.prefix_len if embeddings is not None
                                   and cfg.family == "vlm" else 0)
-        if self.sharded_step is not None and not draft:
-            logits, new_len = self.sharded_step.chunk(
+        step = self.sharded_draft if draft else self.sharded_step
+        if step is not None:
+            logits, new_len = step.chunk(
                 arena, sid, batch["tokens"], start, chunk_len,
-                embeddings=embeddings)
+                embeddings=embeddings, draft=draft)
             arena.lens[sid] = new_len[0]
             return logits
         if draft or self.paged_native:
@@ -1337,12 +1367,18 @@ class ServiceRuntime:
     def _ensure_draft(self, state: _GroupState) -> KVArena:
         if state.draft is None:
             # the draft's K/V keeps the native precision: int8 would change
-            # which tokens are proposed from run to run
+            # which tokens are proposed from run to run; a sharded draft's
+            # pools split by kv head as the target's
+            step = self.sharded_draft
             state.draft = KVArena(
                 self.draft_cfg, self.draft_api.init_cache,
                 capacity=self.plan.max_in_flight,
                 max_seq_len=self.max_seq_len, block_size=self.block_size,
-                kv_dtype="bf16", device=self.device)
+                kv_dtype="bf16", device=self.device,
+                shard_devices=None if step is None else step.devices,
+                state_split=None if step is None else step.state_split)
+            if step is not None:
+                step.check_arena(state.draft)
         return state.draft
 
     def _enable_spec(self, state: _GroupState, s: _Slot) -> None:
@@ -1472,12 +1508,16 @@ class ServiceRuntime:
                 self.admission_copy_bytes += (copied * arena.block_size
                                               * arena.token_bytes)
         tv0 = tr.clock() if tr.enabled else 0.0
-        cache = arena.assemble(arena.pages, arena.state, arena.lens)
-        logits, _ = self.api.verify_step_paged(
-            self.params, self.cfg, {"tokens": torch.from_numpy(vtok).to(dev)},
-            cache, arena.device_block_tables(),
-            chunk_len=torch.where(live_dev, k + 1, 0).to(torch.int32),
-            block_size=arena.block_size)
+        vtok_dev = torch.from_numpy(vtok).to(dev)
+        vlen = torch.where(live_dev, k + 1, 0).to(torch.int32)
+        if self.sharded_step is not None:
+            logits, _ = self.sharded_step.verify(arena, vtok_dev, vlen)
+        else:
+            cache = arena.assemble(arena.pages, arena.state, arena.lens)
+            logits, _ = self.api.verify_step_paged(
+                self.params, self.cfg, {"tokens": vtok_dev}, cache,
+                arena.device_block_tables(), chunk_len=vlen,
+                block_size=arena.block_size)
         out, n_emit = speculative_verify(
             logits[rows_dev], torch.stack(dlogits, dim=1),
             torch.from_numpy(drafts[rows]).to(dev), self._key, seeds[rows],
@@ -1565,8 +1605,9 @@ class ServiceRuntime:
                       draft: bool = False):
         """One fused decode step over every slot of ``arena``: the target
         model, or with ``draft`` the draft model over its arena (always
-        paged-native).  Paged-native: attention reads the pools in place
-        and writes each live slot's new row.  Otherwise: the dense view of
+        paged-native), through the sharded step where there is one.
+        Paged-native: attention reads the pools in place and writes each
+        live slot's new row.  Otherwise: the dense view of
         every slot is gathered, the family's dense ``decode_step`` runs on
         it (dense decode attention), and each live slot's new row goes back
         to its pages.  Both commit only live slots: dead slots keep their
@@ -1574,9 +1615,9 @@ class ServiceRuntime:
         api, cfg, params = ((self.draft_api, self.draft_cfg,
                              self.draft_params) if draft
                             else (self.api, self.cfg, self.params))
-        if self.sharded_step is not None and not draft:
-            logits, arena.lens = self.sharded_step.decode(arena, tokens,
-                                                          live)
+        step = self.sharded_draft if draft else self.sharded_step
+        if step is not None:
+            logits, arena.lens = step.decode(arena, tokens, live, draft=draft)
             return logits
         tables = arena.device_block_tables()
         if draft or self.paged_native:

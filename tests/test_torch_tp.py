@@ -273,14 +273,14 @@ def _refusal_family(arch, tp=2):
     return cfg, model_api(cfg).init(0, cfg, "cpu"), _mesh(tp), {}
 
 
-# each refused case: (its setup, the words its refusal names)
+# each case: (its setup, the words its refusal names, or None where the
+# head-sharded step now serves it)
 REFUSALS = {
     "sync": (lambda: _refusal_dense(mode="sync"), "mode='sync'"),
-    "dense_view": (lambda: _refusal_dense(paged_native=False),
-                   "the dense-view step"),
+    "dense_view": (lambda: _refusal_dense(paged_native=False), None),
     "dense_cache": (lambda: _refusal_dense(kvcache_impl="dense"),
                     "the dense cache"),
-    "draft": (lambda: _refusal_dense(draft=True), "a draft model"),
+    "draft": (lambda: _refusal_dense(draft=True), None),
     # reduced zamba2-7b's 16 SSD heads (and 4 kv heads) over 3 shards
     "hybrid": (lambda: _refusal_family("zamba2-7b", 3),
                "16 SSD heads over tp=3"),
@@ -309,10 +309,23 @@ def test_refusals_name_their_item(case):
     setup, what = REFUSALS[case]
     cfg, params, mesh, kw = setup()
     plan = ParallelPlan(service="t", category=LAT, bs=2)
+    build = lambda: ServiceRuntime(
+        cfg, params, plan, device="cpu",
+        paged_step_builder=steps.paged_decode_builder(mesh),
+        **{**KW, "max_seq_len": 32, **kw})
+    if what is None:
+        # a draft and the dense-view step are served over the shards
+        assert steps.tp_refusal(
+            cfg, 2, mode="continuous", kvcache_impl="paged",
+            paged_native=kw.get("paged_native", True),
+            draft="draft_params" in kw) is None
+        rt = build()
+        assert rt.sharded_step.tp == 2
+        assert (rt.speculate_k > 0) == ("draft_params" in kw)
+        assert rt.sharded_step.dense == (case == "dense_view")
+        return
     with pytest.raises(ValueError, match=ITEM) as e:
-        ServiceRuntime(cfg, params, plan, device="cpu",
-                       paged_step_builder=steps.paged_decode_builder(mesh),
-                       **{**KW, "max_seq_len": 32, **kw})
+        build()
     assert what in str(e.value)
 
 
@@ -377,8 +390,9 @@ def test_decode_cost_analysis_counts_without_touching_anything(reference):
 def test_init_sharded_serves_without_the_whole_tree():
     """``init_sharded`` draws the shards a layer at a time: the values of
     splitting ``transformer.init``'s tree, and a runtime given only them
-    (``params=None``) serves the whole tree's chains; one-shot prefill,
-    which needs the whole tree, is refused."""
+    (``params=None``) serves the whole tree's chains, with chunked
+    prefill and with one-shot prefill (``prefill_tp``: each shard's K/V
+    heads written into its pools)."""
     cfg = dataclasses.replace(_CFG, fused_projections=True, qkv_bias=True)
     whole = transformer.init(4, cfg, "cpu")
     mesh = _mesh(2)
@@ -399,21 +413,26 @@ def test_init_sharded_serves_without_the_whole_tree():
         rt.submit(GenerationRequest(rid=r["rid"], tokens=np.asarray(
             r["tokens"], np.int32), max_new_tokens=r["n"]))
     assert {r.rid: list(r.tokens) for r in rt.drain()} == base
-    with pytest.raises(ValueError, match="one-shot prefill"):
-        ServiceRuntime(cfg, None, ParallelPlan(
-            service="t", category=LAT, bs=4), device="cpu",
-            chunked_prefill=False,
-            paged_step_builder=steps.paged_decode_builder(mesh,
-                                                          shards=shards),
-            **KW)
+    _, base1, _ = _serve(cfg, whole, _requests(3), chunked_prefill=False)
+    rt = ServiceRuntime(cfg, None, ParallelPlan(
+        service="t", category=LAT, bs=4), device="cpu",
+        chunked_prefill=False,
+        paged_step_builder=steps.paged_decode_builder(mesh, shards=shards),
+        **KW)
+    for r in _requests(3):
+        rt.submit(GenerationRequest(rid=r["rid"], tokens=np.asarray(
+            r["tokens"], np.int32), max_new_tokens=r["n"]))
+    assert {r.rid: list(r.tokens) for r in rt.drain()} == base1
+    assert rt.oneshot_prefills == len(base1)
 
 
 def test_launcher_sizes_a_card_by_its_share_of_the_shards():
     """Over a service mesh of 4 model shards the launcher's footprint is
     the first card's share: a quarter of mistral-large-123b's 245 GB of
     weights (its vocabulary and heads split 4 ways), no whole tree; and
-    ``--no-chunked-prefill`` (one-shot prefill runs the whole tree) is
-    refused before anything is allocated."""
+    ``--no-chunked-prefill`` (one-shot prefill split by heads) passes the
+    refusal check, where ``--mode sync`` is refused before anything is
+    allocated."""
     mesh = meshlib.make_mesh((1, 4), ("data", "model"))
     args = serve._parser().parse_args(["--archs", "minicpm-2b",
                                        "--pjit-decode"])
@@ -429,8 +448,10 @@ def test_launcher_sizes_a_card_by_its_share_of_the_shards():
     big = get_config("mistral-large-123b")
     assert serve._shard_weight_bytes(big, mesh) == pytest.approx(
         big.param_count() * 2 / 4, rel=1e-3)
-    bad = serve._parser().parse_args(["--pjit-decode",
-                                      "--no-chunked-prefill"])
-    with pytest.raises(ValueError, match="one-shot prefill"):
-        serve._refuse_what_tp_cannot_serve(
-            bad, {"minicpm-2b": get_config("minicpm-2b")}, cp, mesh, None)
+    cfgs = {"minicpm-2b": get_config("minicpm-2b")}
+    oneshot = serve._parser().parse_args(["--pjit-decode",
+                                          "--no-chunked-prefill"])
+    serve._refuse_what_tp_cannot_serve(oneshot, cfgs, cp, mesh, None)
+    bad = serve._parser().parse_args(["--pjit-decode", "--mode", "sync"])
+    with pytest.raises(ValueError, match=ITEM):
+        serve._refuse_what_tp_cannot_serve(bad, cfgs, cp, mesh, None)
