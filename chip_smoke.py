@@ -393,8 +393,9 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    tp = 4 step; (d) every kernel of these paths launched exactly tp times
    a layer a step, the ring's ``decode_cost_analysis`` at tp = 4 equal in
    kernel FLOPs to tp = 1's, and #3 at the verify shape, #5 over the ring
-   and #7 in the one-shot prefill at the tp = 4 shards' shapes, against
-   their plain versions and timed beside their bounds and SDPA;
+   (and the unsharded ring beside it) and #7 in the one-shot prefill at
+   the tp = 4 shards' shapes, against their plain versions and timed
+   beside their bounds and SDPA;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -453,8 +454,13 @@ layers, mamba2-2.7b and whisper-large-v3 at 512 slots, zamba2-7b at
 256); ``python3 chip_smoke.py --across-cards-paths`` runs only
 ``across_cards_paths`` (mistral-large-123b plain and with its
 self-draft, mixtral-8x7b's ring at 32 layers); ``python3
-chip_smoke.py --tp-witness`` runs only ``tp_kv_witness``, and ``python3
-chip_smoke.py --tp-floor`` only phase 4 and ``tp_floor``.
+chip_smoke.py --tp-witness`` runs only ``tp_kv_witness``, ``python3
+chip_smoke.py --tp-floor`` only phase 4 and ``tp_floor``, and ``python3
+chip_smoke.py --decode-attention [TREE]`` only #5 at every shape
+``PERF.md`` records for it (``decode_attention_alone``; with TREE,
+another checkout's #5 on the same inputs).  Every #5 case prints its
+split count (``decode_attention.plan_splits``), and a timed one whose
+bytes fit the 50 MB L2 also its ``cold_ms``.
 The last two lines are the card (``nvidia-smi``'s name and power limit)
 and ``{"ok": true, "device": ...}``; the line before them is the kernels'
 JSON record.  Without a card, or without the repository around it, the
@@ -462,6 +468,7 @@ script fails before printing any result.
 """
 import contextlib
 import gc
+import itertools
 import json
 import statistics
 import subprocess
@@ -485,6 +492,10 @@ SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
                "src/repro_torch/kernels/csrc/chunk_attention.cu",
            "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu"}
 SSD_STATE_TOL = 1e-3
+# a timed case whose bytes fit the card's 50 MB L2 is also timed cold:
+# launches cycle through copies of its caches that together exceed 100 MB
+L2_BYTES = 50e6
+COLD_BYTES = 100e6
 LSE_TOL = 1e-3
 ROW_REL_TOL = 1e-2
 ROW_FLOOR = 1e-5
@@ -1003,7 +1014,13 @@ def training_kernels(gen):
 
 def dense_decode_case(gen, *, B, S, Hq, Hkv, D, lens, timed, window=None):
     """Dense decode attention against the plain version, on caches laid
-    out as the model's cross K/V state (B, S, Hkv, D)."""
+    out as the model's cross K/V state (B, S, Hkv, D): one launch a call
+    whatever its split count (``decode_attention.plan_splits``), every
+    (slot, head) row held to its norm, empty slots zeros, repeats
+    bit-identical.  Timed cases also carry SDPA's time on the same caches,
+    the bound and its share, and, where the bytes the call reads fit the
+    50 MB L2, ``cold_ms``: launches that cycle through enough copies of
+    the caches (over 100 MB) that each finds its own copy evicted."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention, ref
@@ -1013,7 +1030,10 @@ def dense_decode_case(gen, *, B, S, Hq, Hkv, D, lens, timed, window=None):
     cl = torch.as_tensor(np.asarray(lens, np.int32)).cuda()
     run = lambda: decode_attention.decode_attention(q, k, v, cl,
                                                     window=window)
+    before = decode_attention.launches["decode_attention"]
     out = run()
+    check(decode_attention.launches["decode_attention"] == before + 1,
+          "decode_attention: a call is not one launch")
     want = ref.decode_attention_ref(q.float(), k.float(), v.float(), cl,
                                     window=window)
     torch.cuda.synchronize()
@@ -1023,9 +1043,12 @@ def dense_decode_case(gen, *, B, S, Hq, Hkv, D, lens, timed, window=None):
           "is not zero")
     check(torch.equal(out, run()), "decode_attention: repeated launches "
           "differ")
+    nsplit, split_len = decode_attention.plan_splits(
+        B, Hkv, S, D, decode_attention.sm_count(q.device))
     # every (slot, head) row held to its own norm
-    rec = {"max_abs_err": err, **check_rows("out", out.reshape(1, -1, D),
-                                            want.reshape(1, -1, D))}
+    rec = {"max_abs_err": err, "splits": nsplit, "split_len": split_len,
+           **check_rows("out", out.reshape(1, -1, D),
+                        want.reshape(1, -1, D))}
     if not timed:
         return rec
     check(window is None, "only unwindowed cases are timed")
@@ -1048,7 +1071,104 @@ def dense_decode_case(gen, *, B, S, Hq, Hkv, D, lens, timed, window=None):
                 "library_ms": graph_ms(
                     lambda: F.scaled_dot_product_attention(
                         q[:, :, None], kt, vt, attn_mask=mask))})
+    rec["bound_share"] = b_ms / rec["ms"]
+    del kt, vt
+    if nbytes < L2_BYTES:
+        rec["cold_ms"], rec["cold_copies"] = cold_decode_ms(
+            decode_attention, q, k, v, cl, nbytes)
+        rec["cold_bound_share"] = b_ms / rec["cold_ms"]
     return rec
+
+
+def cold_decode_ms(module, q, k, v, cl, nbytes):
+    """``graph_ms`` of ``module.decode_attention`` over launches that cycle
+    through copies of the caches, together over COLD_BYTES, so that each
+    launch finds the ``nbytes`` it reads evicted from the L2; and the
+    number of copies."""
+    copies = int(-(-COLD_BYTES // nbytes)) + 1
+    kc = [k.clone() for _ in range(copies)]
+    vc = [v.clone() for _ in range(copies)]
+    order = itertools.cycle(range(copies))
+
+    def cold():
+        i = next(order)
+        module.decode_attention(q, kc[i], vc[i], cl)
+
+    return graph_ms(cold, iters=copies * -(-20 // copies)), copies
+
+
+def decode_shapes():
+    """#5 at every shape PERF.md records for it: (B, S, Hq, Hkv, D,
+    lengths).  The ring over 4096 keys at its tp = 4 shard and at tp = 1,
+    paligemma-3b's dense view (512 slots, 32 live at 262-496), whisper's
+    cross-attention at its tp = 4 shard, zamba2-7b's dense view (phase 3's
+    lengths), whisper's cross-attention at tp = 1 with 32 and 128 live."""
+    cross = np.zeros(128, np.int64)
+    cross[:32] = 1500
+    return {"ring_tp4": (RING_BS, 4096, 8, 2, 128, np.full(RING_BS, 4096)),
+            "ring_tp1": (RING_BS, 4096, 32, 8, 128, np.full(RING_BS, 4096)),
+            "paligemma": (512, VLM_MAX_SEQ, 8, 1, 256, vlm_lens()),
+            "whisper_tp4": (128, 1500, 5, 5, 64, cross),
+            "zamba2": (128, HYBRID_MAX_SEQ, 32, 32, 112, phase3_lens(128)),
+            "whisper_tp1": (128, 1500, 20, 20, 64, cross),
+            "whisper_all_live": (128, 1500, 20, 20, 64, np.full(128, 1500))}
+
+
+def decode_attention_alone(other):
+    """``python3 chip_smoke.py --decode-attention [TREE]``: #5 alone, at
+    ``decode_shapes``.  Without TREE each shape runs ``dense_decode_case``
+    (held against the plain version, timed warm and cold beside SDPA and
+    its bound), then its kernels' device times a call under torch.profiler
+    (the split kernel and, with splits, the merge).  With TREE, another
+    checkout's #5 (its ``src`` is imported instead of this one's: unpack the
+    parent under a git-ignored directory) is timed warm and cold on the
+    same inputs; run parent, this, this, parent in one call to compare."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build, decode_attention
+    t0 = time.perf_counter()
+    build.library("decode_attention")
+    print(f"#5 build: {time.perf_counter() - t0:.1f} s ({build.BUILD_ROOT})")
+    for kernel, line in ptxas_lines(build.build_log.get("decode_attention",
+                                                        "")):
+        print(f"  ptxas decode_attention {kernel}: {line}")
+    for name, (B, S, Hq, Hkv, D, lens) in decode_shapes().items():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(33)
+        if other:
+            rand = lambda *s: torch.randn(*s, generator=gen,
+                                          device="cuda").to(torch.bfloat16)
+            q, k, v = rand(B, Hq, D), rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+            cl = torch.as_tensor(np.asarray(lens, np.int32)).cuda()
+            keys = int(np.minimum(lens, S).sum())
+            nbytes = (int((lens > 0).sum()) * Hq * D * 2 + B * 4
+                      + q.numel() * 2 + 2 * keys * Hkv * D * 2)
+            rec = {"ms": graph_ms(lambda: decode_attention.decode_attention(
+                q, k, v, cl))}
+            if nbytes < L2_BYTES:
+                rec["cold_ms"] = cold_decode_ms(decode_attention, q, k, v, cl,
+                                                nbytes)[0]
+        else:
+            rec = dense_decode_case(gen, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D,
+                                    lens=lens, timed=True)
+            rand = lambda *s: torch.randn(*s, generator=gen,
+                                          device="cuda").to(torch.bfloat16)
+            q, k, v = rand(B, Hq, D), rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+            cl = torch.as_tensor(np.asarray(lens, np.int32)).cuda()
+            decode_attention.decode_attention(q, k, v, cl)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    decode_attention.decode_attention(q, k, v, cl)
+                torch.cuda.synchronize()
+            rec["kernel_us"] = {}
+            for e in prof.key_averages():
+                kern = re.search(r"(\w+_kernel)", e.key)
+                if kern and e.device_time_total > 0:
+                    rec["kernel_us"][kern[1]] = e.device_time_total / e.count
+        print(f"  #5 {name}: {json.dumps(rec)}", flush=True)
+        torch.cuda.empty_cache()
 
 
 def whisper_kernels(gen):
@@ -1104,8 +1224,23 @@ def whisper_kernels(gen):
     gqa = dense_decode_case(gen, B=16, S=700, Hq=32, Hkv=8, D=128,
                             lens=np.linspace(0, 700, 16).astype(int),
                             window=100, timed=False)
+    # keys split over warps: window edges inside splits (8 of 256 keys),
+    # lengths one below, at and one above split boundaries
+    edge = dense_decode_case(gen, B=4, S=2048, Hq=16, Hkv=4, D=64,
+                             lens=[2048, 1000, 700, 0], window=300,
+                             timed=False)
+    L = edge["split_len"]
+    bounds = dense_decode_case(gen, B=6, S=2048, Hq=16, Hkv=4, D=64,
+                               lens=[L - 1, L, L + 1, 2 * L - 1, 2 * L + 1,
+                                     0], timed=False)
+    check(edge["splits"] > 2, f"the split cases do not split: {edge}")
+    print(f"  decode_attention, split cases: window edges {edge}, "
+          f"boundaries {bounds}")
     rec["max_abs_err"] = max(rec["max_abs_err"], full["max_abs_err"],
-                             gqa["max_abs_err"])
+                             gqa["max_abs_err"], edge["max_abs_err"],
+                             bounds["max_abs_err"])
+    rec["all_live"] = vlm_record(full)
+    rec["ptxas"] = ptxas_record("decode_attention")
     records["decode_attention"] = rec
     torch.cuda.empty_cache()
     return records
@@ -1494,7 +1629,8 @@ def vlm_lens(B=512):
 
 
 def vlm_record(r):
-    out = {k: r[k] for k in VLM_KEYS if k in r}
+    out = {k: r[k] for k in VLM_KEYS + ("splits", "cold_ms",
+                                        "cold_bound_share") if k in r}
     out["bound_share"] = r["bound_ms"] / r["ms"]
     return out
 
@@ -6200,8 +6336,9 @@ def tp_path_kernel_cases():
     """#3, #5 and #7 at phase 20's tp = 4 shard shapes against their plain
     versions (held inside each case), timed beside their bounds and SDPA:
     #3 at the verify launch (``verify_cases``' 512 slots, T = 5, 32
-    speculating), #5 over a full 4096-row ring of ``RING_BS`` slots, #7
-    over a ``RING_LONG``-row prompt with the 4096 window."""
+    speculating), #5 over a full 4096-row ring of ``RING_BS`` slots (and
+    the unsharded ring's 32 on 8 heads beside it), #7 over a
+    ``RING_LONG``-row prompt with the 4096 window."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
@@ -6217,6 +6354,10 @@ def tp_path_kernel_cases():
     out["decode_attention@mixtral_tp4_ring"] = dense_decode_case(
         gen, B=RING_BS, S=4096, lens=np.full(RING_BS, 4096), timed=True,
         **ring)
+    # the unsharded ring (32 query on 8 kv heads), beside the shard's
+    out["decode_attention@mixtral_tp1_ring"] = dense_decode_case(
+        gen, B=RING_BS, S=4096, lens=np.full(RING_BS, 4096), timed=True,
+        Hq=4 * ring["Hq"], Hkv=4 * ring["Hkv"], D=ring["D"])
     out["flash_attention@mixtral_tp4_oneshot"] = flash_case(
         gen, B=1, Lq=RING_LONG, Lk=RING_LONG, causal=True, window=4096,
         timed=True, **ring)
@@ -7181,6 +7322,8 @@ def main() -> int:
         print(f"chip_smoke: {src / 'repro_torch'} is missing: run from a "
               f"checkout of the repository", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--decode-attention"] and len(sys.argv) == 3:
+        src = Path(sys.argv[2]).resolve() / "src"     # another checkout's #5
     sys.path.insert(0, str(src))
     from repro_torch.kernels import build, paged_attention
 
@@ -7190,6 +7333,10 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    if sys.argv[1:2] == ["--decode-attention"]:
+        decode_attention_alone(sys.argv[2:])
+        print(card)
+        return 0
     t0 = time.perf_counter()
     build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s "

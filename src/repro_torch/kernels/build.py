@@ -6,8 +6,11 @@ with a plain C interface (loaded by ``ctypes``), under
 by a hash of the source, every header in ``csrc/`` (``*.cuh``, which the
 sources include) and the flags: an unchanged source is built once per
 checkout, and an edited header rebuilds every source.  All sources start
-compiling together.  Nothing here runs when the module is imported; a
-failed build raises.
+compiling together, and each runs its optimization and ``ptxas`` passes
+in parallel (``--split-compile=0``: a thread per core), so that the
+longest, ``paged_attention.cu`` with its many instances, no longer sets
+the build's wall time alone.  Nothing here runs when the module is
+imported; a failed build raises.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 SOURCES = ("paged_attention", "ssd_scan", "flash_attention",
            "flash_attention_bwd", "decode_attention", "chunk_attention",
            "grouped_matmul")

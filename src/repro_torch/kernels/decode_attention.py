@@ -2,10 +2,25 @@
 (``csrc/decode_attention.cu``).
 
 ``decode_attention`` checks device, dtype, shape and layout, allocates its
-output with ``torch.empty``, launches on the current stream without
-synchronising, raises if the launch reports a CUDA error, and adds one to
-``launches["decode_attention"]``.  It takes CUDA tensors only: the CPU path
-is ``ops``' dispatch to the plain version in ``ref``.
+output (and, with more than one split, its f32 workspace) with
+``torch.empty``, launches on the current stream without synchronising,
+raises if a launch reports a CUDA error, and adds one to
+``launches["decode_attention"]`` per call, however many kernels the call
+runs (the split kernel, then the merge when there are splits).  It takes
+CUDA tensors only: the CPU path is ``ops``' dispatch to the plain version
+in ``ref``.
+
+Each (slot, kv head) item's keys are split over warps.  ``plan_splits``
+picks the count from the shapes alone (B * Hkv, S, D and the card's SM
+count, read once per device from ``torch.cuda.get_device_properties``),
+never from ``cache_len``, so a call is free of host syncs and can be
+captured in a CUDA graph: one split where B * Hkv already gives the card
+``FILL_PER_SM`` items an SM; otherwise enough splits to reach
+``ITEMS_PER_SM`` items an SM, each a whole number of ``TILE``-key tiles
+and at least ``SPLIT_BYTES`` of K and V, so that a split is worth its
+merge.  Splits past a slot's length cost a warp one load on the card, so
+the planner can afford more of them than the live slots need.  With one
+split the kernel writes the rows itself and no workspace is allocated.
 
 Layouts are the reference package's: q (B, Hq, D) bf16 contiguous; the
 caches (B, S, Hkv, D) bf16, read in place with their batch, sequence and
@@ -25,6 +40,10 @@ from . import build
 KERNELS = ("decode_attention",)
 HEAD_DIMS = (64, 112, 128, 256)
 MAX_GROUP = 16
+TILE = 32              # a split is a whole number of 32-key tiles
+FILL_PER_SM = 16       # (slot, kv head) items an SM: one split fills the card
+ITEMS_PER_SM = 32      # (slot, kv head, split) items an SM splits aim for
+SPLIT_BYTES = 65536    # the fewest bytes of K and V a split streams
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -37,6 +56,36 @@ def reset_launches() -> None:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _fn = None
+_sms: Dict[int, int] = {}          # SM count by device index
+
+
+def plan_splits(B: int, Hkv: int, S: int, D: int, sms: int):
+    """(nsplit, split_len): ``nsplit`` splits of ``split_len`` keys cover
+    [0, S), the last possibly short; with nsplit > 1, ``split_len`` is a
+    whole number of ``TILE``s and at least ``SPLIT_BYTES`` of K and V, and
+    with nsplit = 1 it is S (at least 1).  A pure function of the shapes
+    and the SM count: the slots' lengths are not read, so splits past a
+    short slot's keys are skipped on the card."""
+    S1 = max(int(S), 1)
+    items = B * Hkv
+    if items >= FILL_PER_SM * sms:
+        return 1, S1
+    min_keys = -(-max(SPLIT_BYTES // (4 * D), 1) // TILE) * TILE
+    want = -(-ITEMS_PER_SM * sms // max(items, 1))
+    n = max(1, min(want, S1 // min_keys))
+    if n == 1:
+        return 1, S1
+    per = -(-S1 // n)
+    split_len = -(-per // TILE) * TILE
+    return -(-S1 // split_len), split_len
+
+
+def sm_count(dev: torch.device) -> int:
+    """The device's SM count, read once."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def _entry():
@@ -45,7 +94,8 @@ def _entry():
     global _fn
     if _fn is None:
         fn = build.library("decode_attention").decode_attention_dense
-        fn.argtypes = [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I, _F, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 5 + [_LL] * 6 + [_I, _F, _I, _I] \
+            + [_P] * 3
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -100,10 +150,19 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     if B == 0:
         return out
     scale = float(softmax_scale if softmax_scale is not None else D ** -0.5)
+    nsplit, split_len = plan_splits(B, Hkv, S, D, sm_count(dev))
+    ws_acc = ws_ml = None
+    if nsplit > 1:
+        ws_acc = torch.empty(B * Hq * nsplit * D, dtype=torch.float32,
+                             device=dev)
+        ws_ml = torch.empty(B * Hq * nsplit * 2, dtype=torch.float32,
+                            device=dev)
     args = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             cache_len.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, D,
             *k_cache.stride()[:3], *v_cache.stride()[:3],
-            -1 if window is None else int(window), scale]
+            -1 if window is None else int(window), scale, nsplit, split_len,
+            None if ws_acc is None else ws_acc.data_ptr(),
+            None if ws_ml is None else ws_ml.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry()(*args, stream)

@@ -155,6 +155,54 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len, *,
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
+def decode_attention_split_ref(q, k_cache, v_cache, cache_len, *,
+                               nsplit: int, split_len: int,
+                               window: Optional[int] = None,
+                               softmax_scale=None):
+    """``decode_attention_ref`` computed as the CUDA kernel orders it: the
+    keys in ``nsplit`` splits of ``split_len`` (``plan_splits``), a partial
+    state (m, l, acc) per split over its visible keys, then the splits that
+    overlap a slot's visible range merged in ascending split order and
+    finalized as acc / max(l, 1e-37) (zeros where no key is visible).  In
+    float32; only the tests use it."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    cache_len = per_slot(cache_len, B, q.device)
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * scale
+    kpos = torch.arange(S, device=q.device)[None]
+    valid = kpos < cache_len[:, None]
+    if window is not None:
+        valid = valid & (kpos >= cache_len[:, None] - window)
+    v = v_cache.float()
+    parts = []                            # per split: (seen, m, l, acc)
+    for i in range(nsplit):
+        lo, hi = i * split_len, min((i + 1) * split_len, S)
+        ok = valid[:, lo:hi]                                   # (B, n)
+        sc = torch.where(ok[:, None, None], s[..., lo:hi], NEG_INF)
+        m_s = sc.amax(-1)
+        p = torch.where(ok[:, None, None], torch.exp(sc - m_s[..., None]),
+                        0.0)
+        parts.append((ok.any(-1)[:, None, None], m_s, p.sum(-1),
+                      torch.einsum("bhgs,bshd->bhgd", p, v[:, lo:hi])))
+    # the merge: the largest m of the splits that see a key, then their
+    # sums rescaled to it, in ascending split order
+    m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
+    for seen, m_s, _, _ in parts:
+        m = torch.where(seen, torch.maximum(m, m_s), m)
+    l = torch.zeros(B, Hkv, G, device=q.device)
+    acc = torch.zeros(B, Hkv, G, D, device=q.device)
+    for seen, m_s, l_s, acc_s in parts:
+        f = torch.where(seen, torch.exp(m_s - m), 0.0)
+        l = l + l_s * f
+        acc = acc + acc_s * f[..., None]
+    out = acc / l.clamp_min(1e-37)[..., None]
+    out = torch.where(valid.any(-1)[:, None, None, None], out, 0.0)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
 def chunk_attention_ref(q, k_cache, v_cache, start, chunk_len, *,
                         prefix_len: int = 0, softmax_scale=None):
     """Chunked-prefill attention: T query rows at absolute positions

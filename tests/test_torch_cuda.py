@@ -23,7 +23,7 @@ routes (TMA with wgmma, and mma.sync), each case checking the route it
 takes; its float32 instance to atol = rtol = 1e-3 (f32 sums over up to
 14,336 terms in another order).  The paged chunk kernels are also held
 at every row to 1e-2 of that row's norm plus 1e-5 an element, and the
-paged decode kernels at every (slot, head) row the same way.
+paged and dense decode kernels at every (slot, head) row the same way.
 The dense chunked-prefill kernel's bf16 output is held to its plain
 version on the same bf16 inputs with atol = rtol = 1.6e-2 and, at every
 row, to 1e-2 of that row's norm plus 1e-5 an element.
@@ -508,35 +508,78 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case):
     _assert_rows_close("out", out, want)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["cross", "gqa_window", "d128", "d256",
-                                  "d112", "d112_gqa_window"])
-def test_cuda_decode_attention_matches_plain(cuda_device, case):
-    """Ragged lengths with empty slots (zeros), a window, GQA, and each
-    head dim, against caches sliced from a wider tensor."""
-    B, S, Hq, Hkv, D, window = {
-        "cross": (8, 1500, 20, 20, 64, None),
-        "gqa_window": (6, 300, 32, 4, 128, 40),
-        "d128": (5, 77, 16, 16, 128, None),
-        "d256": (4, 90, 16, 2, 256, None),
-        "d112": (6, 300, 32, 32, 112, None),
-        "d112_gqa_window": (5, 120, 16, 4, 112, 50)}[case]
-    gen = torch.Generator(device=cuda_device)
-    gen.manual_seed(3)
-    q = torch.randn(B, Hq, D, generator=gen, device=cuda_device).to(
-        torch.bfloat16)
+DENSE_DECODE_CASES = {
+    # id: (B, S, Hq, Hkv, D, window, lengths); lengths None: linspace(0, S)
+    "cross": (8, 1500, 20, 20, 64, None, None),
+    "gqa_window": (6, 300, 32, 4, 128, 40, None),
+    "d128": (5, 77, 16, 16, 128, None, None),
+    "d256": (4, 90, 16, 2, 256, None, None),
+    "d112": (6, 300, 32, 32, 112, None, None),
+    "d112_gqa_window": (5, 120, 16, 4, 112, 50, None),
+    # mixtral's ring at its tp = 4 shard (32 splits of 128 keys)
+    "ring_tp4": (8, 4096, 8, 2, 128, 4096, None),
+    # paligemma-3b's MQA dense view at ragged lengths (8 splits of 64 keys)
+    "vlm_mqa": (16, 512, 8, 1, 256, None, None),
+    # window edges at 1748 and 700, inside splits of 256 keys
+    "window_edge_in_split": (4, 2048, 16, 4, 64, 300, [2048, 1000, 700, 0]),
+    # one below, at and one above the first two split boundaries
+    "split_boundaries": (6, 1024, 16, 1, 112, None, "boundaries"),
+}
+
+
+def _dense_decode_case(dev, case, seed):
+    """A case's inputs (caches sliced from a wider tensor) and its launch."""
+    B, S, Hq, Hkv, D, window, lens = DENSE_DECODE_CASES[case]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn(B, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
     kv = torch.randn(B, S, 2, Hkv, D, generator=gen,
-                     device=cuda_device).to(torch.bfloat16)
+                     device=dev).to(torch.bfloat16)
     k, v = kv[:, :, 0], kv[:, :, 1]
-    lens = torch.linspace(0, S, B, device=cuda_device).to(torch.int32)
+    if lens is None:
+        lens = torch.linspace(0, S, B, device=dev).to(torch.int32)
+    else:
+        if lens == "boundaries":
+            nsplit, L = decode_attention.plan_splits(
+                B, Hkv, S, D, decode_attention.sm_count(dev))
+            assert nsplit > 2
+            lens = [L - 1, L, L + 1, 2 * L - 1, 2 * L + 1, 0]
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    run = lambda: decode_attention.decode_attention(q, k, v, lens,
+                                                    window=window)
+    return run, (q, k, v, lens, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DENSE_DECODE_CASES))
+def test_cuda_decode_attention_matches_plain(cuda_device, case):
+    """Ragged lengths with empty slots (zeros), a window, GQA and MQA, each
+    head dim, the ring's and paligemma's shard shapes (keys split over
+    warps, merged), a window's edge inside a split and lengths at split
+    boundaries, against caches sliced from a wider tensor.  One launch a
+    call, whatever the split count; every (slot, head) row held to its
+    norm."""
+    run, (q, k, v, lens, window) = _dense_decode_case(cuda_device, case, 3)
     before = decode_attention.launches["decode_attention"]
-    out = decode_attention.decode_attention(q, k, v, lens, window=window)
+    out = run()
     want = ref.decode_attention_ref(q.float(), k.float(), v.float(), lens,
                                     window=window)
     torch.cuda.synchronize()
     assert decode_attention.launches["decode_attention"] == before + 1
     torch.testing.assert_close(out.float(), want, atol=TOL, rtol=TOL)
+    D = out.shape[-1]
+    _assert_rows_close("out", out.reshape(1, -1, D), want.reshape(1, -1, D))
     assert not out[lens == 0].any()
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_is_bit_reproducible(cuda_device):
+    """Repeated launches give bit-identical outputs on split shapes: each
+    split has one owner warp and the merge a fixed order (no atomics)."""
+    for case in ("ring_tp4", "vlm_mqa", "window_edge_in_split", "cross"):
+        run, _ = _dense_decode_case(cuda_device, case, 23)
+        first = run()
+        assert all(torch.equal(first, run()) for _ in range(3))
 
 
 GMM_CASES = {                       # (E, C, K, N, extra K, extra N)
