@@ -21,9 +21,13 @@ paged serving (``--pjit-decode``; minicpm-2b, codeqwen1.5-7b) in a
 seventeenth, head-sharded serving of the SSM, audio, MoE, hybrid and VLM
 families (mamba2-2.7b, whisper-large-v3, mixtral-8x7b, zamba2-7b,
 paligemma-3b) in an eighteenth, the four examples
-(``examples/torch_*.py``) in a nineteenth and head-sharded speculation,
+(``examples/torch_*.py``) in a nineteenth, head-sharded speculation,
 ring layouts and the dense-view oracle (minitron-4b, mixtral-8x7b,
-minicpm-2b) in a twentieth; any failure exits non-zero.
+minicpm-2b) in a twentieth and head-sharded one-shot prefill and the
+dense-view oracle of the SSM, audio, VLM and hybrid families
+(mamba2-2.7b, whisper-large-v3, paligemma-3b, zamba2-7b) in a
+twenty-first, which runs right after the eighteenth, on the weights it
+kept; any failure exits non-zero.
 Every phase prints its wall time.  The serving
 phases run at the launcher's defaults, the prefix cache among them at the
 category's retention (minicpm-2b, a frequency service, keeps the whole
@@ -253,7 +257,7 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    int8 KV) and minitron-4b (latency, bf16 KV) at full width, 128 slots
    each (``plan_for(full, bs=128)``), each placed on all three servers of
    the port's ``EdgeCloudControlPlane`` at demand 4.0, 24 requests a
-   service (phase 3's prompts of 6-200 tokens, 24 new tokens, entry
+   service (phase 3's prompts of 6-200 tokens, 16 new tokens, entry
    servers from seed 13) through the port's ``ClusterSupervisor`` with
    ``RetryPolicy(base_timeout_s=4.0)`` on its logical clock, failure-free
    and under ``CLUSTER_FAULTS`` (two dropped handoffs, a straggler, a
@@ -327,7 +331,7 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    across cards), each family's shards drawn by ``init_sharded`` from
    phases 4-6's seed, on the first 8 of phases 4-6's 32 requests: (a1)
    each family at 2 layers (whisper 2 + 2), unsharded and at tp = 4 on the
-   same weights, 16 new tokens, held by ``compare_runs``: the MoE
+   same weights, 8 new tokens, held by ``compare_runs``: the MoE
    router's inputs, call by call, to ``PARITY_TOL`` of their norm until
    a request's routing splits, and the split at a router tie (its gap
    under ``PARITY_TOL`` of the router logits' norm); every other request
@@ -337,7 +341,7 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    ``PARITY_TOL`` of their norm, its first decode row always held; MoE
    drops equal in every chunk before its request's routing split; (a2)
    mamba2-2.7b and whisper-large-v3 at 128 slots and mixtral-8x7b at 16
-   layers and 512 slots, 16 new tokens: every kernel of the path
+   layers and 512 slots, 8 new tokens: every kernel of the path
    launched 4 times a layer a step (``TP_FAMILY_KERNELS``), first
    tokens, logits, chains and MoE drops against phases 4-6's rows of the
    same requests (recorded there), held as (a1) holds them for
@@ -396,6 +400,30 @@ pool; mixtral-8x7b, a latency service, a quarter), and print its counters:
    (and the unsharded ring beside it) and #7 in the one-shot prefill at
    the tp = 4 shards' shapes, against their plain versions and timed
    beside their bounds and SDPA;
+21. (run right after phase 18, on the trees phase 18 drew and kept for
+   it: mixtral-8x7b's runs there come first, so that its 47 GB of weights
+   meet none of them) one-shot prefill (``--no-chunked-prefill``) and
+   the dense-view oracle split by heads over ``[cuda:0] * 4`` for
+   mamba2-2.7b, whisper-large-v3, paligemma-3b and zamba2-7b, in that
+   order (each family's trees freed after it): (a1) 2 layers (whisper's
+   encoder too; zamba2's shared block after both) with one-shot prefill
+   at tp = 4 against tp = 1 (the whole tree through a one-shard mesh) on
+   8 requests of 8 new tokens, held by ``compare_runs`` at ``PARITY_TOL``
+   (the one-shot logits, first tokens, decode rows); (b) for whisper,
+   paligemma and zamba2, the same 2 layers at tp = 4, bf16, 64 slots,
+   through the ``paged_native=False`` oracle (dense views, #5 and #6)
+   against the native step, held by ``compare_runs``, and the requests
+   whose final-chunk logits are identical printed; (a2) the full depth
+   at tp = 4 with one-shot prefill at phases 4's, 5's, 14's and 15's
+   slots (128, 128, 512 and 256), 4 requests of 8 new tokens: their
+   chains, measured against phase 18 (a2)'s, and each shard's arena;
+   every kernel of each path launched exactly tp times a layer a step;
+   (c) #5 and #6 over (b)'s dense views, #7 over a 200-row one-shot
+   prompt and #10 over the same prompt at the new shard shapes (whisper
+   5/5 at D = 64 and its cross-attention over 1500 frames, zamba2 8/8 at
+   D = 112 and 28 SSD heads, paligemma 4/1 and 2/1 at D = 256 with its
+   256-row prefix, mamba2 20 SSD heads), against their plain versions
+   and timed beside their bounds and SDPA;
 
 and a small-input check of each model's logits on the card against the
 same model on the CPU (the plain versions): the paged steps, and the
@@ -443,7 +471,10 @@ read just after it, added to the record's and printed as
 is zeroed just before phase 20 and read after (c), before (d)'s kernel
 comparisons, added to the record's and printed as ``tp_paths_launches``
 (#1, #3, #5, #6, #7 and #9 must launch, each exactly tp times a layer a
-step of its path).
+step of its path); every count is zeroed just before phase 21 and read
+after (b), before (c)'s kernel comparisons, added to the record's and
+printed as ``tp_oneshot_launches`` (#1, #2, #5, #6, #7 and #10 must
+launch, each exactly tp times a layer a step of its path).
 ``python3 chip_smoke.py --across-cards`` on a machine with four cards
 runs phases 17 and 18 across them instead (``across_cards``: the waves
 over cuda:0-3 against ``[cuda:0] * 4`` bit for bit, the five families'
@@ -453,7 +484,10 @@ window, and four families at their full plans: mixtral-8x7b at all 32
 layers, mamba2-2.7b and whisper-large-v3 at 512 slots, zamba2-7b at
 256); ``python3 chip_smoke.py --across-cards-paths`` runs only
 ``across_cards_paths`` (mistral-large-123b plain and with its
-self-draft, mixtral-8x7b's ring at 32 layers); ``python3
+self-draft, mixtral-8x7b's ring at 32 layers, and mamba2-2.7b's and
+whisper-large-v3's 512-slot plans with one-shot prefill, each card's
+per-slot state and peak memory), ``python3 chip_smoke.py
+--across-cards-oneshot`` only the last (``across_cards_oneshot``); ``python3
 chip_smoke.py --tp-witness`` runs only ``tp_kv_witness``, ``python3
 chip_smoke.py --tp-floor`` only phase 4 and ``tp_floor``, and ``python3
 chip_smoke.py --decode-attention [TREE]`` only #5 at every shape
@@ -3781,7 +3815,7 @@ CLUSTER_ARCHS = ("minicpm-2b", "minitron-4b")   # frequency int8, latency bf16
 CLUSTER_SERVERS = 3
 CLUSTER_SLOTS = 128             # plan_for(full, bs=128), as phases 4-5
 CLUSTER_REQUESTS = 24           # a service
-CLUSTER_NEW = 24
+CLUSTER_NEW = 16               # cut from 24 for the script's limit
 CLUSTER_TIMEOUT_S = 4.0
 # (at_s, kind, sid, keyword arguments): all five kinds
 CLUSTER_FAULTS = ((1.0, "drop_offload", 1, dict(count=2)),
@@ -5035,7 +5069,8 @@ def phase_tp(phase3_toks):
 # ---------------------------------------------------------------------------
 
 TP_FAMILY_REQUESTS = 8         # the first 8 of phases 4-6's 32 requests
-TP_FAMILY_NEW = 16             # (a1)'s and (a2)'s new tokens
+TP_FAMILY_NEW = 8              # (a1)'s and (a2)'s new tokens (cut from
+#                                16 for the script's limit)
 # phase 18 (a1)'s depth: two layers (whisper: two encoder and two decoder
 # layers) carry every kernel and reduction of the path at full width,
 # with too little depth to amplify bf16 rounding; at full depth on random
@@ -5043,7 +5078,8 @@ TP_FAMILY_NEW = 16             # (a1)'s and (a2)'s new tokens
 # of the kernel, unsharded) already moves the final-chunk logits by
 # 0.11-0.18 of their norm and splits every chain (``--tp-floor``)
 TP_PARITY_LAYERS = 2
-TP_FAMILIES = ("mamba2-2.7b", "whisper-large-v3", "mixtral-8x7b")
+# mixtral-8x7b first: its 47 GB of weights before phase 21's kept trees
+TP_FAMILIES = ("mixtral-8x7b", "mamba2-2.7b", "whisper-large-v3")
 # the archs whose full-depth wave (a2) stays inside ``PARITY_TOL`` of the
 # unsharded one and is held there (whisper-large-v3's final-chunk logits
 # 0.013-0.016 of their norm); mamba2-2.7b's 64 recurrent layers and
@@ -5087,6 +5123,12 @@ TP_NEW_FAMILIES = {"zamba2-7b": dict(tps=(4,), layers=TP_PARITY_LAYERS,
 # phases 14's bf16 and 15's int8 chains, by arch: phase 18 (a2)'s
 # full-depth diagnostic
 FAMILY_CHAINS = {}
+# phase 18's weights of phase 21's families, by ``tree_key``: the whole
+# 2-layer trees of (a1), its tp = 4 shards and (a2)'s full-depth tp = 4
+# shards, which phase 21 (run right after phase 18) serves again; and
+# (a2)'s chains by arch, which phase 21 (a2) measures its chains against
+TP_TREES = {}
+TP_WAVE_CHAINS = {}
 # phase 12 (b)'s chains by run ("self_draft"): phase 20 (a2)'s tp = 1
 SPEC_CHAINS = {}
 
@@ -5305,24 +5347,63 @@ def family_splits(base_chains, base, got_chains):
     return out
 
 
+def tree_key(cfg, devices):
+    """``TP_TREES``' key of ``cfg``'s weights on ``devices``: the whole
+    tree on one device (a list of one among them), or the shards over
+    the list ``devices``."""
+    if isinstance(devices, list) and len(devices) > 1:
+        return cfg, tuple(str(d) for d in devices)
+    return cfg, str(devices[0] if isinstance(devices, list) else devices)
+
+
+# the waves' request extras (``wave_extras``, seed 1: whisper's 32 x 1500
+# frames take about half a second to draw), by their shape and wave size
+WAVE_EXTRAS = {}
+
+
+def wave_extras_of(cfg, spread):
+    """``wave_extras(cfg, spread)``, drawn once a shape."""
+    from repro_torch.launch.profile_step import wave_extras
+    key = (cfg.family, cfg.encoder_len, cfg.prefix_len, cfg.d_model, spread)
+    if key not in WAVE_EXTRAS:
+        WAVE_EXTRAS[key] = wave_extras(cfg, spread)
+    return WAVE_EXTRAS[key]
+
+
+def drawn(key, draw, keep):
+    """``TP_TREES[key]`` where phase 18 kept it, else ``draw()``, kept
+    there with ``keep``."""
+    if key in TP_TREES:
+        return TP_TREES[key]
+    tree = draw()
+    if keep:
+        TP_TREES[key] = tree
+    return tree
+
+
 def tp_family_runtime(arch, devices, n_requests, *, layers=None, bs=None,
-                      new_tokens=40, spread=32, over=None):
+                      new_tokens=40, spread=32, over=None, kv=-1,
+                      keep=False, **rt_kw):
     """``arch`` at full width (``WAVE_LAYERS``' depth unless ``layers``,
     which cuts an encoder-decoder's encoder to the same depth), at ``bs``
     slots (``WAVE_BS``' unless given) of ``WAVE_MAX_SEQ_LEN``'s tokens
-    where that names it, its weights from seed 1: the whole tree on
-    ``devices`` when it is one device (unsharded), or drawn by
-    ``init_sharded`` straight into the shards of the service mesh over
+    where that names it, K/V of ``kv`` (-1: the plan's), its weights from
+    seed 1: the whole tree on ``devices`` when it is one device
+    (unsharded) or a list of one (through the builder over it), or drawn
+    by ``init_sharded`` straight into the shards of the service mesh over
     the list ``devices`` (the same values); the first ``n_requests`` of
     ``wave_runtime``'s ``spread`` requests submitted.  ``over`` replaces
-    other fields of the config.  Returns (cfg, runtime)."""
+    other fields of the config, ``rt_kw`` are the runtime's other knobs
+    (``chunked_prefill``, ``paged_native``).  The weights are phase 18's
+    where it kept them in ``TP_TREES`` (``keep``: keep these).  Returns
+    (cfg, runtime)."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.profile_step import (WAVE_BS, WAVE_LAYERS,
                                                  WAVE_MAX_SEQ_LEN,
-                                                 wave_extras, wave_prompts)
+                                                 wave_prompts)
     from repro_torch.launch.serve import plan_for
     from repro_torch.launch.steps import init_sharded, paged_decode_builder
     from repro_torch.models.registry import model_api
@@ -5333,21 +5414,27 @@ def tp_family_runtime(arch, devices, n_requests, *, layers=None, bs=None,
     if layers and full.family == "audio":
         cfg = dataclasses.replace(cfg, encoder_layers=layers)
     cfg = dataclasses.replace(cfg, **(over or {}))
-    plan = plan_for(full, -1, bs or WAVE_BS.get(arch), -1)
+    plan = plan_for(full, kv, bs or WAVE_BS.get(arch), -1)
     kw = ({"max_seq_len": WAVE_MAX_SEQ_LEN[arch]}
           if arch in WAVE_MAX_SEQ_LEN else {})
-    if not isinstance(devices, list):
-        rt = ServiceRuntime(cfg, model_api(cfg).init(1, cfg, devices), plan,
-                            device=devices, **kw)
+    kw.update(rt_kw)
+    key = tree_key(cfg, devices)
+    if not isinstance(devices, list) or len(devices) == 1:
+        dev = devices[0] if isinstance(devices, list) else devices
+        params = drawn(key, lambda: model_api(cfg).init(1, cfg, dev), keep)
+        builder = (paged_decode_builder(tp_mesh(devices))
+                   if isinstance(devices, list) else None)
+        rt = ServiceRuntime(cfg, params, plan, device=dev,
+                            paged_step_builder=builder, **kw)
     else:
         mesh = tp_mesh(devices)
+        shards = drawn(key, lambda: init_sharded(1, cfg, mesh), keep)
         rt = ServiceRuntime(cfg, None, plan, device=devices[0],
                             paged_step_builder=paged_decode_builder(
-                                mesh, shards=init_sharded(1, cfg, mesh)),
-                            **kw)
+                                mesh, shards=shards), **kw)
     for rid, (prompt, extras) in enumerate(zip(
             wave_prompts(cfg.vocab_size, spread)[:n_requests],
-            wave_extras(cfg, spread)[:n_requests])):
+            wave_extras_of(cfg, spread)[:n_requests])):
         rt.submit(GenerationRequest(rid=rid, tokens=prompt,
                                     max_new_tokens=new_tokens, stream=rid,
                                     extras=extras))
@@ -5389,14 +5476,17 @@ def repeated_flops(cfg, capacity: int, tp: int = 4) -> int:
     return 0
 
 
-def recorded_run(rt, moe_drops=False, routing=None):
-    """Drains ``rt`` with the first ``TP_FAMILY_REQUESTS`` requests' decode
-    rows, final-chunk logits, (``moe_drops``) chunk drops and (``routing``,
-    its shard count) MoE routing (``record_routing``) recorded; returns a
+def recorded_run(rt, moe_drops=False, routing=None,
+                 n_requests=TP_FAMILY_REQUESTS, oneshot=False):
+    """Drains ``rt`` with the first ``n_requests`` requests' decode rows,
+    final-chunk logits (``oneshot``: one-shot prefill logits, through
+    its sharded step), (``moe_drops``) chunk drops and (``routing``, its
+    shard count) MoE routing (``record_routing``) recorded; returns a
     record like phases 4-6's, with the launches and wall."""
     from repro_torch.kernels.ops import launch_counts
-    rec = {"decodes": record_decodes(rt, range(TP_FAMILY_REQUESTS)),
-           "final": keep_final_logits(rt),
+    rec = {"decodes": record_decodes(rt, range(n_requests)),
+           "final": (keep_oneshot_logits(rt) if oneshot
+                     else keep_final_logits(rt)),
            "drops": record_chunk_drops(rt) if moe_drops else None,
            "routing": None}
     restore = None
@@ -5509,12 +5599,12 @@ def compare_runs(label, base, got, hold=True):
 
 
 def tp_family_parity(arch, card0, tps=(4,), layers=TP_PARITY_LAYERS,
-                     spread=32, cost=False, over=None):
+                     spread=32, cost=False, over=None, keep=False):
     """Phase 18 (a1): ``arch`` at full width and ``layers`` layers,
     unsharded and at each tp of ``tps`` over ``[card0] * tp`` with the
     same weights, on the first ``TP_FAMILY_REQUESTS`` requests (of a
-    ``spread``-request wave; ``over``: other config changes), held by
-    ``compare_runs``: first tokens,
+    ``spread``-request wave; ``over``: other config changes; ``keep``:
+    the trees kept for phase 21), held by ``compare_runs``: first tokens,
     final-chunk logits, each decode step's logits and MoE drops, and the
     MoE router's inputs up to each request's routing split.  With
     ``cost``, (c): each tp step's ``decode_cost_analysis`` against the
@@ -5526,7 +5616,7 @@ def tp_family_parity(arch, card0, tps=(4,), layers=TP_PARITY_LAYERS,
     for devices in (card0, *[[card0] * tp for tp in tps]):
         cfg, rt = tp_family_runtime(arch, devices, TP_FAMILY_REQUESTS,
                                     layers=layers, new_tokens=TP_FAMILY_NEW,
-                                    spread=spread, over=over)
+                                    spread=spread, over=over, keep=keep)
         moe = cfg.family == "moe"
         tp = 1 if devices is card0 else len(devices)
         runs.append(recorded_run(rt, moe_drops=moe,
@@ -5560,7 +5650,7 @@ def tp_family_parity(arch, card0, tps=(4,), layers=TP_PARITY_LAYERS,
 
 
 def tp_family_wave(arch, devices, base, new_tokens=TP_FAMILY_NEW,
-                   spread=32):
+                   spread=32, keep=False):
     """Phase 18 (a2): ``arch`` at phases 4-6's (14's, 15's) size over the
     mesh of ``devices`` on the first ``TP_FAMILY_REQUESTS`` requests (of
     a ``spread``-request wave): every kernel of the path launched ``tp``
@@ -5569,29 +5659,25 @@ def tp_family_wave(arch, devices, base, new_tokens=TP_FAMILY_NEW,
     of the same requests (``base``), held by ``compare_runs`` for the
     archs of ``TP_WAVE_HELD`` and measured for the others; with ``base``
     None, the chains against ``FAMILY_CHAINS`` (phases 14's and 15's),
-    measured (``chain_agreement``).  Returns (record, runtime)."""
+    measured (``chain_agreement``); ``keep``: the trees kept for phase
+    21, and the chains in ``TP_WAVE_CHAINS``.  Returns (record,
+    runtime)."""
     cfg, rt = tp_family_runtime(arch, devices, TP_FAMILY_REQUESTS,
-                                new_tokens=new_tokens, spread=spread)
+                                new_tokens=new_tokens, spread=spread,
+                                keep=keep)
     tp = rt.sharded_step.tp
     got = recorded_run(rt, moe_drops=cfg.family == "moe")
+    if keep:
+        TP_WAVE_CHAINS[arch] = got["chains"]
     check(len(got["chains"]) == TP_FAMILY_REQUESTS and all(
         len(t) == new_tokens and t.min() >= 0
         and t.max() < cfg.vocab_size
         for t in got["chains"].values()),
           f"{arch} tp = {tp}: served {got['chains']}")
     L = cfg.num_layers
-    per_layer = {}
-    for name, (per_decode, per_chunk) in TP_FAMILY_KERNELS[arch].items():
-        calls = (per_decode * rt.decode_steps
-                 + per_chunk * rt.prefill_chunk_calls)
-        want = tp * kernel_layers(cfg, name) * calls
-        if name == "flash_attention":
-            want += tp * cfg.encoder_layers * TP_FAMILY_REQUESTS
-        have = got["launches"].get(name, 0)
-        check(have == want, f"{arch} tp = {tp}: {name} launched {have} "
-              f"times, not {want} ({tp} a layer a step)")
-        if calls:
-            per_layer[name] = have / (kernel_layers(cfg, name) * calls)
+    per_layer = hold_launches(f"{arch} tp = {tp}", cfg, rt, got["launches"],
+                              TP_FAMILY_KERNELS[arch],
+                              rt.prefill_chunk_calls, TP_FAMILY_REQUESTS)
     print(f"phase 18 (a2) {arch} tp = {tp}: launches a layer a step (a "
           f"decode step or a chunk) by kernel: {json.dumps(per_layer)}")
     out = (compare_runs(f"{arch} tp = {tp}", base, got,
@@ -5759,8 +5845,9 @@ def phase_tp_families(bases):
     card0 = torch.device("cuda", 0)
     for arch in TP_FAMILIES:
         t0 = time.perf_counter()
-        tp_family_parity(arch, card0)
-        _, rt = tp_family_wave(arch, [card0] * 4, bases[arch])
+        keep = arch in ONESHOT_TP
+        tp_family_parity(arch, card0, keep=keep)
+        _, rt = tp_family_wave(arch, [card0] * 4, bases[arch], keep=keep)
         cost4 = rt.decode_cost_analysis()
         cost1 = bases[arch]["cost"]
         extra = 3 * rt.cfg.num_layers * repeated_flops(
@@ -5780,10 +5867,10 @@ def phase_tp_families(bases):
         t0 = time.perf_counter()
         tp_family_parity(arch, card0, tps=spec["tps"],
                          layers=spec["layers"], spread=spec["spread"],
-                         cost=True, over=spec["over"])
+                         cost=True, over=spec["over"], keep=True)
         for tp in spec["tps"]:
             _, rt = tp_family_wave(arch, [card0] * tp, None,
-                                   spread=spec["spread"])
+                                   spread=spec["spread"], keep=tp == 4)
             del rt
             gc.collect()
             torch.cuda.empty_cache()
@@ -5822,6 +5909,275 @@ def phase_tp_families(bases):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 21: one-shot prefill and the dense-view step split by heads for the
+# SSM, audio, hybrid and VLM families
+# ---------------------------------------------------------------------------
+
+# phase 21's families in the order it serves them, each one's kept trees
+# freed after it (zamba2-7b's 45 GB arena last, beside its own weights
+# alone)
+ONESHOT_TP = ("mamba2-2.7b", "whisper-large-v3", "paligemma-3b",
+              "zamba2-7b")
+ONESHOT_REQUESTS = 4           # (a2)'s requests at full depth, and (b)'s
+ONESHOT_PROMPT = 200           # (c)'s one-shot rows: the wave's longest
+# each family's kernels on the one-shot path: the launches a layer of one
+# shard makes in a decode step and in a one-shot prefill (whisper's flash
+# attention: its decoder's causal self-attention and its
+# cross-attention, and its encoder's layers once a request besides)
+ONESHOT_KERNELS = {
+    "mamba2-2.7b": {"ssd_scan": (0, 1)},
+    "whisper-large-v3": {"paged_decode_attention_quant": (1, 0),
+                         "decode_attention": (1, 0),
+                         "flash_attention": (0, 2)},
+    "zamba2-7b": {"paged_decode_attention_quant": (1, 0),
+                  "flash_attention": (0, 1), "ssd_scan": (0, 1)},
+    "paligemma-3b": {"paged_decode_attention": (1, 0),
+                     "flash_attention": (0, 1)}}
+# the dense-view oracle's, bf16: a decode step and a chunk (whisper's
+# dense decode also over its cross K/V, its flash attention the chunk's
+# cross-attention and its encoder's layers once a request)
+ORACLE_KERNELS = {
+    "whisper-large-v3": {"decode_attention": (2, 0),
+                         "chunk_prefill_attention": (0, 1),
+                         "flash_attention": (0, 1)},
+    "zamba2-7b": {"decode_attention": (1, 0),
+                  "chunk_prefill_attention": (0, 1), "ssd_scan": (0, 1)},
+    "paligemma-3b": {"decode_attention": (1, 0),
+                     "chunk_prefill_attention": (0, 1)}}
+
+
+def hold_launches(label, cfg, rt, launches, table, prefills, requests):
+    """Every kernel of ``table`` ({name: (a decode step's, a prefill's)
+    launches a layer of one shard}) launched exactly tp times that a
+    layer a step (whisper's flash attention also tp times its encoder's
+    layers for each of the ``requests``); ``prefills``: one-shot prefills
+    or chunks.  Returns the launches a layer a step by kernel."""
+    tp = rt.sharded_step.tp
+    per_layer = {}
+    for name, (per_decode, per_prefill) in table.items():
+        calls = per_decode * rt.decode_steps + per_prefill * prefills
+        encoder = (tp * cfg.encoder_layers * requests
+                   if name == "flash_attention" and cfg.family == "audio"
+                   else 0)
+        want = tp * kernel_layers(cfg, name) * calls + encoder
+        have = launches.get(name, 0)
+        check(have == want, f"{label}: {name} launched {have} times, not "
+              f"{want} ({tp} a layer a step)")
+        if calls:
+            per_layer[name] = (have - encoder) / (kernel_layers(cfg, name)
+                                                  * calls)
+    return per_layer
+
+
+def oneshot_family(arch, card0):
+    """Phase 21 (a) and (b) for ``arch``, on phase 18's trees.  (a1) 2
+    layers (whisper: its encoder too; zamba2: the shared block after both
+    layers) with one-shot prefill at tp = 4 against tp = 1 (the whole
+    tree through a one-shard mesh), held by ``compare_runs`` at
+    ``PARITY_TOL``; (b) for the families with attention, the same 2
+    layers at tp = 4 in bf16 at ``ORACLE_BS`` slots through the
+    ``paged_native=False`` oracle (dense views, #5 and #6) against the
+    native step, held by ``compare_runs``, the final-chunk logits
+    compared bit for bit; (a2) the full depth at tp = 4, one-shot,
+    ``ONESHOT_REQUESTS`` requests of ``TP_FAMILY_NEW`` new tokens: their
+    chains, measured against phase 18 (a2)'s chunked ones.  Every
+    kernel of each path launched exactly tp times a layer a step.
+    Returns (record, the launches of the tp = 4 runs)."""
+    import torch
+    spec = TP_NEW_FAMILIES.get(arch, {})
+    over, spread = spec.get("over"), spec.get("spread", 32)
+    launches, out = {}, {}
+
+    def add(rec):
+        for k, v in rec["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    def served(cfg, rt, rec, n):
+        check(len(rec["chains"]) == n and all(
+            len(t) == TP_FAMILY_NEW and t.min() >= 0
+            and t.max() < cfg.vocab_size for t in rec["chains"].values()),
+              f"phase 21 {arch}: served {rec['chains']}")
+
+    runs, t0 = {}, time.perf_counter()
+    for tp in (1, 4):
+        cfg, rt = tp_family_runtime(
+            arch, [card0] * tp, TP_FAMILY_REQUESTS, layers=TP_PARITY_LAYERS,
+            new_tokens=TP_FAMILY_NEW, spread=spread, over=over,
+            chunked_prefill=False)
+        check(not rt.chunked_prefill and rt.sharded_step.tp == tp,
+              f"phase 21 (a1) {arch}: not one-shot at tp = {tp}")
+        runs[tp] = recorded_run(rt, oneshot=True)
+        served(cfg, rt, runs[tp], TP_FAMILY_REQUESTS)
+        if tp == 4:
+            add(runs[4])
+            out["a1_per_layer"] = hold_launches(
+                f"phase 21 (a1) {arch}", cfg, rt, runs[4]["launches"],
+                ONESHOT_KERNELS[arch], rt.oneshot_prefills,
+                rt.oneshot_prefills)
+        del rt
+        gc.collect()
+    out["a1"] = compare_runs(f"phase 21 (a1) {arch} one-shot tp = 4",
+                             runs[1], runs[4])
+    out["a1"]["wall_s"] = [runs[1]["wall"], runs[4]["wall"]]
+    print(f"phase 21 (a1) {arch} {TP_PARITY_LAYERS} layers, one-shot "
+          f"prefill, tp = 4 over [cuda:0] * 4 against tp = 1, held: "
+          f"{json.dumps(out['a1'])}; launches a layer a step "
+          f"{json.dumps(out['a1_per_layer'])}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del runs
+    if arch in ORACLE_KERNELS:
+        runs, t0 = {}, time.perf_counter()
+        for native in (True, False):
+            cfg, rt = tp_family_runtime(
+                arch, [card0] * 4, ONESHOT_REQUESTS,
+                layers=TP_PARITY_LAYERS, new_tokens=TP_FAMILY_NEW,
+                spread=spread, over=over, kv="bf16", bs=ORACLE_BS,
+                paged_native=native)
+            check(rt.sharded_step.dense != native, f"phase 21 (b) {arch}: "
+                  f"the oracle is not on the dense-view step")
+            runs[native] = recorded_run(rt, n_requests=ONESHOT_REQUESTS)
+            served(cfg, rt, runs[native], ONESHOT_REQUESTS)
+            if not native:
+                add(runs[False])
+                out["b_per_layer"] = hold_launches(
+                    f"phase 21 (b) {arch}", cfg, rt, runs[False]["launches"],
+                    ORACLE_KERNELS[arch], rt.prefill_chunk_calls,
+                    ONESHOT_REQUESTS)
+            del rt
+            gc.collect()
+        out["b"] = compare_runs(f"phase 21 (b) {arch} oracle tp = 4",
+                                runs[True], runs[False])
+        out["b"]["final_identical"] = [
+            r for r in runs[True]["final"] if torch.equal(
+                runs[True]["final"][r], runs[False]["final"][r])]
+        print(f"phase 21 (b) {arch} {TP_PARITY_LAYERS} layers, bf16, "
+              f"{ORACLE_BS} slots, tp = 4: the paged_native=False oracle "
+              f"against the native step: {json.dumps(out['b'])}; requests "
+              f"whose final-chunk logits are identical: "
+              f"{out['b']['final_identical']} of "
+              f"{sorted(runs[True]['final'])}; launches a layer a step "
+              f"{json.dumps(out['b_per_layer'])}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del runs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, rt = tp_family_runtime(arch, [card0] * 4, ONESHOT_REQUESTS,
+                                new_tokens=TP_FAMILY_NEW, spread=spread,
+                                chunked_prefill=False)
+    rec = recorded_run(rt, n_requests=ONESHOT_REQUESTS, oneshot=True)
+    served(cfg, rt, rec, ONESHOT_REQUESTS)
+    add(rec)
+    arena = rt.groups[0].arena
+    out["a2"] = {
+        "layers": cfg.num_layers, "slots": arena.capacity,
+        "kv": rt.kv_dtype, "oneshot_prefills": rt.oneshot_prefills,
+        "decode_steps": rt.decode_steps, "wall_s": rec["wall"],
+        "per_layer": hold_launches(f"phase 21 (a2) {arch}", cfg, rt,
+                                   rec["launches"], ONESHOT_KERNELS[arch],
+                                   rt.oneshot_prefills,
+                                   rt.oneshot_prefills),
+        "chains": {r: rec["chains"][r].tolist()
+                   for r in sorted(rec["chains"])},
+        "against_phase_18": chain_agreement(rec["chains"],
+                                            TP_WAVE_CHAINS.get(arch)),
+        "arena_gb_by_shard": [round(arena.shard_bytes(j) / 1e9, 3)
+                              for j in range(4)]}
+    print(f"phase 21 (a2) {arch} at full depth, one-shot prefill, tp = 4 "
+          f"over [cuda:0] * 4: {json.dumps(out['a2'])}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del rt, arena
+    for key in [k for k in TP_TREES if k[0].name == arch]:
+        del TP_TREES[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def oneshot_kernel_cases():
+    """#5, #6, #7 and #10 at phase 21's shard shapes against their plain
+    versions (held inside each case, ``check_rows`` among them), timed by
+    CUDA-graph replay beside their bounds and SDPA: #5 and #6 over (b)'s
+    dense views (``ORACLE_BS`` slots) at whisper-large-v3's 5/5 heads (D =
+    64), zamba2-7b's 8/8 (D = 112) and paligemma-3b's 4/1 and 2/1 (D =
+    256, tp = 2 and 4; its first chunk with the 256-row prefix); #7 over
+    a ``ONESHOT_PROMPT``-row prompt: whisper's causal self-attention and
+    its cross-attention over 1500 frames at 5 heads, zamba2's shared
+    block at 8 heads, paligemma's prefix-LM at 4/1 and 2/1; #10 over the
+    same prompt at mamba2-2.7b's 20 heads and zamba2-7b's 28 (tp = 4)."""
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    out = {}
+    L = ONESHOT_PROMPT
+    shapes = {"whisper_tp4": (dict(Hq=5, Hkv=5, D=64), 256),
+              "zamba2_tp4": (dict(Hq=8, Hkv=8, D=112), HYBRID_MAX_SEQ),
+              "paligemma_tp2": (dict(VLM_HEADS, Hq=4), VLM_MAX_SEQ),
+              "paligemma_tp4": (dict(VLM_HEADS, Hq=2), VLM_MAX_SEQ)}
+    for name, (heads, S) in shapes.items():
+        vlm = name.startswith("paligemma")
+        lens = vlm_lens(ORACLE_BS) if vlm else phase3_lens(ORACLE_BS)
+        out[f"decode_attention@{name}_view"] = dense_decode_case(
+            gen, B=ORACLE_BS, S=S, lens=lens, timed=True, **heads)
+        chunk = (dict(VLM_CHUNKS["first_t288"]) if vlm
+                 else dict(HYBRID_CHUNKS["t128_at64"]))
+        out[f"chunk_prefill_attention@{name}_view"] = dense_chunk_case(
+            gen, S=S, timed=True, **heads, **chunk)
+        if vlm:
+            P = VLM_CHUNKS["first_t288"]["prefix_len"]
+            out[f"flash_attention@{name}_oneshot"] = flash_case(
+                gen, B=1, Lq=P + L, Lk=P + L, causal=True, prefix_len=P,
+                timed=True, **heads)
+        else:
+            out[f"flash_attention@{name}_oneshot"] = flash_case(
+                gen, B=1, Lq=L, Lk=L, causal=True, timed=True, **heads)
+        torch.cuda.empty_cache()
+    out["flash_attention@whisper_tp4_cross_oneshot"] = flash_case(
+        gen, B=1, Lq=L, Lk=1500, causal=False, timed=True,
+        **shapes["whisper_tp4"][0])
+    for arch, tag in (("mamba2-2.7b", "mamba2_tp4"),
+                      ("zamba2-7b", "zamba2_tp4")):
+        cfg = get_config(arch)
+        out[f"ssd_scan@{tag}_oneshot"] = ssd_case(
+            gen, Bb=1, L=L, H=cfg.ssm_nheads // 4, P=cfg.ssm_headdim,
+            G=cfg.ssm_ngroups, N=cfg.ssm_state, chunk=cfg.ssm_chunk,
+            timed=True)
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        print(f"  phase 21 (c) {name}: "
+              + json.dumps({k: v for k, v in rec.items() if k != "work"}))
+    return out
+
+
+def phase_oneshot_tp():
+    """Phase 21, run right after phase 18 on its kept trees: for each of
+    ``ONESHOT_TP``, one-shot prefill split by heads (a1) at 2 layers
+    against tp = 1 and (a2) at full depth, and (b) the dense-view oracle
+    against the native step (``oneshot_family``); then (c) #5, #6, #7
+    and #10 at the new shard shapes (``oneshot_kernel_cases``).  Every
+    count is zeroed just before the phase and read after (b), before
+    (c)'s kernel comparisons.  Returns the counts."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    reset_launches()
+    card0 = torch.device("cuda", 0)
+    for arch in ONESHOT_TP:
+        t0 = time.perf_counter()
+        oneshot_family(arch, card0)
+        print(f"phase 21 {arch}: {time.perf_counter() - t0:.1f} s")
+    TP_TREES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    print("phase 21 (c) the kernels at the shards' shapes:")
+    t0 = time.perf_counter()
+    oneshot_kernel_cases()
+    print(f"phase 21 (c): {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 19: the examples, through the port on the card
 # ---------------------------------------------------------------------------
 
@@ -6440,7 +6796,8 @@ def across_cards():
 
 def across_cards_paths(cards):
     """``--across-cards`` (c), (g) and (h), and all of
-    ``--across-cards-paths``: (c) mistral-large-123b (246 GB of bf16
+    ``--across-cards-paths`` ((i): ``across_cards_oneshot``): (c)
+    mistral-large-123b (246 GB of bf16
     weights) drawn shard by shard over the four cards by ``init_sharded``
     and served without the whole tree, 4 requests at 32 slots; (g) the
     same shards with a self-draft through them (k = 4, its draft arena
@@ -6547,6 +6904,40 @@ def across_cards_paths(cards):
     del rt, arena
     gc.collect()
     torch.cuda.empty_cache()
+    across_cards_oneshot(cards)
+
+
+def across_cards_oneshot(cards):
+    """``--across-cards-paths`` (i): mamba2-2.7b's and whisper-large-v3's
+    plans at their 512 slots (87 GB and 126 GB of per-slot state, which
+    one card cannot hold) with one-shot prefill (``--no-chunked-prefill``)
+    split by heads over the four cards, from ``init_sharded``: served,
+    each card's per-slot state and peak memory."""
+    import torch
+    for arch in ("mamba2-2.7b", "whisper-large-v3"):
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        t0 = time.perf_counter()
+        chains, _, rt = family_run(arch, cards, bs=FULL_PLANS[arch][1],
+                                   chunked_prefill=False)
+        arena = rt.groups[0].arena
+        check(rt.oneshot_prefills == TP_FAMILY_REQUESTS
+              and rt.prefill_chunk_calls == 0,
+              f"across cards (i) {arch}: {rt.oneshot_prefills} one-shot "
+              f"prefills, {rt.prefill_chunk_calls} chunks")
+        state = [sum(t.numel() * t.element_size() for t in st)
+                 for st in arena.shard_state]
+        gb = lambda xs: [round(x / 1e9, 2) for x in xs]
+        print(f"across cards (i) {arch} at its plan's {arena.capacity} "
+              f"slots, one-shot prefill, over 4 cards: served "
+              f"{len(chains)}/{TP_FAMILY_REQUESTS}, {rt.oneshot_prefills} "
+              f"one-shot prefills, {rt.decode_steps} decode steps in "
+              f"{rt.wall_s:.2f} s; GB by card: per-slot state {gb(state)}, "
+              f"peak {gb(torch.cuda.max_memory_allocated(d) for d in cards)}"
+              f"; {time.perf_counter() - t0:.1f} s with the draws")
+        del rt, arena, chains
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def family_run(arch, devices, **kw):
@@ -7345,11 +7736,11 @@ def main() -> int:
         rc = across_cards()
         print(card)
         return rc
-    if sys.argv[1:] == ["--across-cards-paths"]:
+    if sys.argv[1:] in (["--across-cards-paths"], ["--across-cards-oneshot"]):
         cards = [torch.device("cuda", i) for i in range(4)]
-        check(torch.cuda.device_count() >= 4, "--across-cards-paths needs 4 "
-              "cards")
-        across_cards_paths(cards)
+        check(torch.cuda.device_count() >= 4, f"{sys.argv[1]} needs 4 cards")
+        (across_cards_paths if sys.argv[1] == "--across-cards-paths"
+         else across_cards_oneshot)(cards)
         print(card)
         return 0
     if sys.argv[1:] == ["--tp-witness"]:
@@ -7508,6 +7899,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_time("phase 18")
+    print("phase 21 (run after phase 18, on its kept trees): one-shot "
+          "prefill and the dense-view oracle split by heads "
+          "(--pjit-decode) for mamba2-2.7b, whisper-large-v3, "
+          "paligemma-3b and zamba2-7b at tp = 4 over [cuda:0] * 4")
+    oneshot_launches = phase_oneshot_tp()
+    for name in ("paged_decode_attention", "paged_decode_attention_quant",
+                 "decode_attention", "chunk_prefill_attention",
+                 "flash_attention", "ssd_scan"):
+        check(oneshot_launches[name] > 0, f"phase 21 never launched {name}")
+    for name in launches:
+        launches[name] += oneshot_launches.get(name, 0)
+    phase_time("phase 21")
     print("phase 19: the four examples on the card (quickstart, the §4.3 "
           "case study, serve_cluster --chaos, train_small)")
     example_launches = phase_examples()
@@ -7548,6 +7951,8 @@ def main() -> int:
                         "tp_families_launches": tpf_launches.get(name, 0),
                         "examples_launches": example_launches.get(name, 0),
                         "tp_paths_launches": paths_launches.get(name, 0),
+                        "tp_oneshot_launches": oneshot_launches.get(name,
+                                                                    0),
                         **{k: rec[k] for k in RECORD_KEYS}})
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s, build included")
     check(len(kernels) == 10, f"expected ten kernels, got {len(kernels)}")

@@ -103,19 +103,23 @@ the degraded slots:
 ``--pjit-decode`` splits every service by heads over the service mesh
 (1, device count), EPARA's model-parallel mode (``launch/steps.py``
 ``ShardedPagedStep``); over several cards each draws and holds its shards
-alone (``init_sharded``).  It serves the paged-native decode and chunk
-steps of all six families, and for the dense and MoE families also a
-draft (a self-draft shares its service's shards and splits its draft
-arena; a draft of another arch runs whole on the first card), the
-dense-view step (a ring layout, as mixtral-8x7b's past its 4096-token
-window) and ``--no-chunked-prefill``'s one-shot prefill.  It refuses,
-before allocating, ``--mode sync``, ``--kvcache-impl dense``, head counts
-that would split head_dim, more than one SSD group, and a draft, the
-dense-view step or one-shot prefill of the other families (ROADMAP.md
-Queue 1 item 15):
+alone (``init_sharded``).  It serves the paged continuous path of all six
+families: the paged-native decode and chunk steps, the dense-view step (a
+ring layout, as mixtral-8x7b's past its 4096-token window) and
+``--no-chunked-prefill``'s one-shot prefill (an audio request's frames
+and a VLM request's image rows reach every shard), and for the dense and
+MoE families also a draft (a self-draft shares its service's shards and
+splits its draft arena; a draft of another arch runs whole on the first
+card).  As in the reference, whose builder wraps the paged decode step
+alone, ``--mode sync`` and ``--kvcache-impl dense`` run each service
+whole on the first card: the launcher draws whole trees and prints a
+line saying so.  It refuses, before allocating, head counts that would
+split head_dim and more than one SSD group (ROADMAP.md Queue 1 item 15):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --pjit-decode --archs minitron-4b --draft-arch minitron-4b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --pjit-decode --no-chunked-prefill --archs whisper-large-v3
 
 ``--trace-out``, ``--metrics-out`` and ``--calibrate-out`` write the run's
 spans (Chrome trace-event JSON), metrics (Prometheus text, or a JSONL
@@ -154,6 +158,7 @@ from repro_torch.launch.steps import (abstract_params,
 from repro_torch.models.registry import model_api
 from repro_torch.obs import (MetricsRegistry, Tracer, merge_telemetry,
                              telemetry_from_runtime, write_calibration)
+from repro_torch.serving import kvcache
 from repro_torch.serving.arena import KVArena, shard_size
 from repro_torch.serving.engine import (PREFIX_CACHEABLE_FAMILIES,
                                         SELF_DRAFT, EparaServingEngine,
@@ -266,6 +271,22 @@ def _shard_weight_bytes(cfg, mesh) -> int:
     return total
 
 
+def runs_whole(args) -> bool:
+    """Whether ``args``' services run whole on one device whatever the
+    service mesh: sync and the dense cache, which the head-sharded step
+    does not split (the runtime builds it on the paged continuous path
+    only, as the reference's engine calls its builder there alone)."""
+    return args.mode != "continuous" or args.kvcache_impl != "paged"
+
+
+def _dense_cache_bytes(cfg, plan, args) -> int:
+    """One DP group's dense cache (sync batches, the dense engine's merged
+    batch) at the plan's batch and ``--max-seq-len``, built on the meta
+    device."""
+    return kvcache.cache_bytes(model_api(cfg).init_cache(
+        cfg, plan.max_in_flight, args.max_seq_len, device="meta"))
+
+
 def service_mesh(device):
     """``--pjit-decode``'s service mesh: (1, device count) over the card's
     devices, as the reference builds (1, jax.device_count()), or (1, 1) on
@@ -287,7 +308,9 @@ def footprint(args, cp=None, mesh=None) -> Tuple[int, int]:
     first card's share, the most any card holds: the first shard's
     weights (``init_sharded`` draws no whole tree), pools and per-slot
     state, a self-draft's arena split as its service's (``self_drafts``)
-    and a draft of another arch whole, weights and arena."""
+    and a draft of another arch whole, weights and arena.  A sync or
+    dense-cache service (``runs_whole``) holds its whole weights and its
+    dense caches, one a DP group, on the first card."""
     arch_ids = [a.strip() for a in args.archs.split(",")]
     if cp is None:
         cp = control_plane(arch_ids, args.servers)
@@ -295,7 +318,7 @@ def footprint(args, cp=None, mesh=None) -> Tuple[int, int]:
     archs = set(arch_ids) | ({args.draft_arch} if args.draft_arch else set())
     draft = get_config(args.draft_arch) if args.draft_arch else None
     placed = sorted({svc for svc, sid in cp.placements if sid >= 0})
-    if tp == 1:
+    if tp == 1 or runs_whole(args):
         weights = sum(get_config(a).param_count() * 2 for a in archs)
     else:
         weights = sum(_shard_weight_bytes(get_config(a), mesh)
@@ -304,19 +327,19 @@ def footprint(args, cp=None, mesh=None) -> Tuple[int, int]:
                and not self_drafts(svc, args, tp) for svc in placed):
             weights += draft.param_count() * 2
     arenas = 0
-    if args.mode == "continuous" and args.kvcache_impl == "paged":
-        for svc, sid in sorted(set(cp.placements)):
-            if sid < 0:
-                continue
-            full, plan = get_config(svc), deployed_plan(cp, svc, args)
-            group = _arena_bytes(full, plan, args, plan.resolved_kv_dtype(),
-                                 tp)
-            if draft_compatible(full, draft) \
-                    and plan.resolved_speculate(True) > 0:
-                group += _arena_bytes(
-                    draft, plan, args, "bf16",
-                    tp if self_drafts(svc, args, tp) else 1)
-            arenas += group * max(1, plan.dp)
+    for svc, sid in sorted(set(cp.placements)):
+        if sid < 0:
+            continue
+        full, plan = get_config(svc), deployed_plan(cp, svc, args)
+        if runs_whole(args):
+            arenas += _dense_cache_bytes(full, plan, args) * max(1, plan.dp)
+            continue
+        group = _arena_bytes(full, plan, args, plan.resolved_kv_dtype(), tp)
+        if draft_compatible(full, draft) \
+                and plan.resolved_speculate(True) > 0:
+            group += _arena_bytes(draft, plan, args, "bf16",
+                                  tp if self_drafts(svc, args, tp) else 1)
+        arenas += group * max(1, plan.dp)
     return weights, arenas
 
 
@@ -324,19 +347,11 @@ def _refuse_what_tp_cannot_serve(args, cfgs, cp, mesh, draft_cfg) -> None:
     """Raise before anything is allocated when ``--pjit-decode`` would put
     a placed service on a path the head-sharded step does not serve."""
     tp = mesh.shape["model"]
-    budget = -(-args.max_seq_len // args.block_size) * args.block_size
     for svc in sorted({s for s, sid in cp.placements if sid >= 0}):
         cfg = cfgs[svc]
-        ring = (cfg.sliding_window is not None
-                and cfg.sliding_window < budget)
-        why = tp_refusal(
-            cfg, tp, mode=args.mode, kvcache_impl=args.kvcache_impl,
-            paged_native=(args.mode == "continuous"
-                          and args.kvcache_impl == "paged"
-                          and model_api(cfg).decode_step_paged is not None
-                          and not ring),
-            draft=draft_compatible(cfg, draft_cfg),
-            chunked_prefill=not (args.no_chunked_prefill or ring))
+        why = tp_refusal(cfg, tp, mode=args.mode,
+                         kvcache_impl=args.kvcache_impl,
+                         draft=draft_compatible(cfg, draft_cfg))
         if why is not None:
             raise ValueError(f"--pjit-decode: {why}")
 
@@ -369,7 +384,7 @@ def _refuse_what_does_not_fit(args, arch_ids, cp, have: int,
     """Raise before anything is allocated when the weights of an arch, or
     the whole run with ``HEADROOM_BYTES``, exceed the card's memory (the
     first card's share over a service ``mesh``)."""
-    tp = 1 if mesh is None else mesh.shape["model"]
+    tp = 1 if mesh is None or runs_whole(args) else mesh.shape["model"]
     for a in arch_ids + ([args.draft_arch] if args.draft_arch else []):
         need = (get_config(a).param_count() * 2
                 if tp == 1 or a not in arch_ids
@@ -500,10 +515,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--pjit-decode", action="store_true",
                     help="serve each service split by heads over the "
                          "service mesh (1, device count): the paged decode "
-                         "and chunk steps, and for the dense and MoE "
-                         "families speculation's verify and draft, the "
-                         "dense-view step and one-shot prefill, run shard "
-                         "by shard (EPARA's model-parallel mode)")
+                         "and chunk steps, the dense-view step and one-shot "
+                         "prefill, and for the dense and MoE families "
+                         "speculation's verify and draft, run shard by "
+                         "shard (EPARA's model-parallel mode); --mode sync "
+                         "and --kvcache-impl dense run whole on the first "
+                         "device")
     return ap
 
 
@@ -602,6 +619,11 @@ def main(argv=None) -> int:
     if mesh is not None:
         print(f"service mesh: {dict(mesh.shape)} over "
               f"{[str(d) for d in mesh.devices]} (tp={mesh.shape['model']})")
+        if runs_whole(args):
+            print(f"  note: --mode {args.mode} --kvcache-impl "
+                  f"{args.kvcache_impl}: each service runs whole on "
+                  f"{mesh.devices[0]} (the head-sharded step splits the "
+                  f"paged continuous path only)")
 
     # data plane: one engine per server
     engines = {s.sid: EparaServingEngine() for s in cp.servers}
@@ -629,6 +651,7 @@ def main(argv=None) -> int:
         return None, paged_decode_builder(mesh, shards=weights[key])
 
     tp = 1 if mesh is None else mesh.shape["model"]
+    split = tp > 1 and not runs_whole(args)
     draft_cfg = None
     if args.draft_arch:
         full = get_config(args.draft_arch)
@@ -653,8 +676,8 @@ def main(argv=None) -> int:
         if draft_cfg is not None and not compat and args.speculate <= 0:
             print(f"  note: {svc} incompatible with draft "
                   f"{args.draft_arch} (family/vocab) — non-speculative")
-        params, builder = ((params_of(svc, cfg), step_builder)
-                           if tp == 1 else sharded_of(svc, cfg))
+        params, builder = (sharded_of(svc, cfg) if split
+                           else (params_of(svc, cfg), step_builder))
         draft_params, dcfg = draft_of(svc) if compat else (None, None)
         engines[sid].deploy(svc, ServiceRuntime(
             cfg, params, plans[svc], mode=args.mode,

@@ -15,10 +15,12 @@ whole step, and its spec trees say how the reference's pjit would place
 its arguments.
 
 ``paged_decode_builder`` is the serving side: a service's paged decode
-and chunk steps (any of the six families), and the dense and MoE
-families' speculative verify, dense-view step and one-shot prefill,
-split by heads over the ``model`` axis of a service mesh (EPARA's
-model-parallel mode, ``--pjit-decode``).
+and chunk steps, dense-view step and one-shot prefill (any of the six
+families), and the dense and MoE families' speculative verify, split by
+heads over the ``model`` axis of a service mesh (EPARA's model-parallel
+mode, ``--pjit-decode``).  Sync and dense-cache services run whole on the
+mesh's first device, as the reference's builder is never called on those
+paths.
 """
 from __future__ import annotations
 
@@ -42,12 +44,12 @@ from . import mesh as meshlib
 
 ADAFACTOR_THRESHOLD = 50e9     # params above this train with adafactor
 
-# what the head-sharded step does not cover, named by the ROADMAP.md
-# Queue 1 item that would port it
+# what the head-sharded step refuses on purpose, named by the ROADMAP.md
+# Queue 1 item that ported it
 TP_ITEM = ("ROADMAP.md Queue 1 item 15 (tensor parallelism, what stays "
-           "refused: sync, the dense cache, FSDP serving, head_dim splits, "
-           "more than one SSD group, and speculation, the dense-view step "
-           "and one-shot prefill of the families other than dense and MoE)")
+           "refused on purpose: head_dim splits, more than one SSD group, "
+           "and a draft outside the dense and MoE families, which the "
+           "reference's speculation gate refuses too)")
 
 
 def choose_optimizer(cfg: ModelConfig) -> str:
@@ -421,32 +423,23 @@ def shard_params(params, cfg: ModelConfig, pspecs, devices: List) -> List:
 
 
 def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
-               paged_native: bool, draft: bool,
-               chunked_prefill: bool = True) -> Optional[str]:
-    """Why the head-sharded paged step cannot serve this service over
-    ``tp`` model shards, or None: it serves every family on the
-    paged-native continuous path with chunked prefill (an SSM's state
-    step: it pages nothing), and the dense and MoE families also with a
-    draft (speculation), on the dense-view step (a ring layout, the
-    ``paged_native=False`` oracle) and with one-shot prefill, over a
-    ``tp`` that divides the SSD heads and either divides the kv heads or
-    is a multiple of them that divides the query heads (each kv head then
-    replicated on ``tp / num_kv_heads`` shards, the Megatron rule)."""
-    api = model_api(cfg)
+               draft: bool) -> Optional[str]:
+    """Why the head-sharded step cannot serve this service over ``tp``
+    model shards, or None.  It serves every family on the paged
+    continuous path, paged-native or over dense views (a ring layout, the
+    ``paged_native=False`` oracle), with chunked or one-shot prefill, and
+    the dense and MoE families also with a draft, over a ``tp`` that
+    divides the SSD heads and either divides the kv heads or is a
+    multiple of them that divides the query heads (each kv head then
+    replicated on ``tp / num_kv_heads`` shards, the Megatron rule).  A
+    sync or dense-cache service runs whole on the mesh's first device
+    (``ServiceRuntime`` builds no sharded step there): nothing to
+    refuse."""
+    if mode != "continuous" or kvcache_impl != "paged":
+        return None
     refuse = []
-    if not _head_sharded(cfg):
-        refuse.append(f"the {cfg.family!r} family")
-    if mode != "continuous":
-        refuse.append(f"mode={mode!r}")
-    if kvcache_impl != "paged":
-        refuse.append("the dense cache")
-    elif not paged_native and cfg.family != "ssm" \
-            and api.decode_step_tp is None:
-        refuse.append(f"the dense-view step of the {cfg.family!r} family")
-    if draft and api.verify_step_paged_tp is None:
+    if draft and model_api(cfg).verify_step_paged_tp is None:
         refuse.append(f"a draft model for the {cfg.family!r} family")
-    if not chunked_prefill and api.prefill_tp is None:
-        refuse.append(f"one-shot prefill of the {cfg.family!r} family")
     if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm_nheads % tp:
             refuse.append(f"{cfg.ssm_nheads} SSD heads over tp={tp}")
@@ -464,10 +457,9 @@ def tp_refusal(cfg: ModelConfig, tp: int, *, mode: str, kvcache_impl: str,
                       f"replicates whole kv heads, not head_dim)")
     if not refuse:
         return None
-    return (f"{cfg.name}: the head-sharded paged step serves every family "
-            f"on the paged-native continuous path, and the dense and MoE "
-            f"families with a draft, the dense-view step and one-shot "
-            f"prefill; not {', '.join(refuse)} ({TP_ITEM})")
+    return (f"{cfg.name}: the head-sharded step serves every family's "
+            f"paged paths, and the dense and MoE families with a draft; "
+            f"not {', '.join(refuse)} ({TP_ITEM})")
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -482,7 +474,8 @@ class ShardedPagedStep:
     steps, or the dense-view step of a ring layout or the
     ``paged_native=False`` oracle), speculation's verify and one-shot
     prefill, split by heads over the model axis of ``mesh``: built by
-    ``paged_decode_builder`` for ``ServiceRuntime(paged_step_builder=...)``.
+    ``paged_decode_builder`` for ``ServiceRuntime(paged_step_builder=...)``
+    on the paged continuous path.
 
     The host loop, scheduler and block tables stay single.  Each shard
     holds its heads' weights, its heads' page pools (the arena's
@@ -500,14 +493,13 @@ class ShardedPagedStep:
     image rows) are copied to each distinct device.  Every kernel launch
     of the unsharded step becomes ``tp`` launches."""
 
-    def __init__(self, runtime, mesh, *, shards: Optional[List] = None):
+    def __init__(self, runtime, mesh, *, shards: Optional[List] = None,
+                 fsdp_params: bool = False):
         cfg = runtime.cfg
         why = tp_refusal(cfg, mesh.shape.get("model", 1),
                          mode=runtime.mode,
                          kvcache_impl=runtime.kvcache_impl,
-                         paged_native=runtime.paged_native,
-                         draft=runtime.speculate_k > 0,
-                         chunked_prefill=runtime.chunked_prefill)
+                         draft=runtime.speculate_k > 0)
         if why is not None:
             raise ValueError(why)
         for ax, n in mesh.shape.items():
@@ -531,7 +523,9 @@ class ShardedPagedStep:
                              "parameter tree or its shards (init_sharded), "
                              "one of the two")
         whole = runtime.params if shards is None else abstract_params(cfg)
-        pspecs = meshlib.param_specs(mesh, whole, fsdp=False)
+        # the reference's FSDP rule puts rows on the batch axes, all 1
+        # here (checked above): it places nothing differently
+        pspecs = meshlib.param_specs(mesh, whole, fsdp=fsdp_params)
         self.plan = _split_plan(cfg, pspecs, len(self.devices))
         shard_trees = (shard_params(runtime.params, cfg, pspecs, self.devices)
                        if shards is None else shards)
@@ -620,12 +614,12 @@ class ShardedPagedStep:
         row = torch.from_numpy(arena._block_tables[sid:sid + 1])
         starts, rows = self._each(start), self._each(row)
         tokens, chunk_len = self._each(tokens), self._each(chunk_len)
+        kw = {} if embeddings is None else {
+            "embeddings": self._each(embeddings)}
         if draft or not self.dense:
             caches = [arena.assemble(pages, arena.slot_state(sid, j), st)
                       for j, (pages, st) in enumerate(zip(arena.shard_pages,
                                                           starts))]
-            kw = {} if embeddings is None else {
-                "embeddings": self._each(embeddings)}
             return self.api.prefill_chunk_paged_tp(
                 self.shards, self.cfg, tokens, caches, rows, chunk_len,
                 block_size=arena.block_size, mesh=self.mesh, **kw)
@@ -634,12 +628,16 @@ class ShardedPagedStep:
         caches = [arena.assemble(v, arena.slot_state(sid, j), st)
                   for j, (v, st) in enumerate(zip(views, starts))]
         logits, new_len = self.api.prefill_chunk_tp(
-            self.shards, self.cfg, tokens, caches, chunk_len, mesh=self.mesh)
-        for pages, v, st, cl, r in zip(arena.shard_pages, views, starts,
-                                       chunk_len, rows):
+            self.shards, self.cfg, tokens, caches, chunk_len, mesh=self.mesh,
+            **kw)
+        # rows the chunk wrote: a VLM's first chunk also its image prefix
+        n_rows = tokens[0].shape[1] + (
+            self.cfg.prefix_len if embeddings is not None
+            and self.cfg.family == "vlm" else 0)
+        for pages, v, st, r in zip(arena.shard_pages, views, starts, rows):
             arena.append_rows(pages, v, st, torch.ones(
                 (1,), dtype=torch.bool, device=st.device), r,
-                n_tokens=tokens[0].shape[1], valid_tokens=cl)
+                n_tokens=n_rows, valid_tokens=new_len.to(st.device) - st)
         return logits, new_len
 
     def verify(self, arena, tokens, chunk_len):
@@ -657,12 +655,16 @@ class ShardedPagedStep:
             mesh=self.mesh)
 
     def prefill(self, batch, cache_size: int):
-        """One-shot prefill of ``batch["tokens"]`` (1, L): returns (logits
-        (1, V) on the first device, one cache a shard of its kv heads'
-        rows, for ``arena.write_prefill``)."""
+        """One-shot prefill of ``batch["tokens"]`` (1, L), and of an audio
+        request's frames or a VLM request's image rows
+        (``batch["embeddings"]``), which reach every shard: returns
+        (logits (1, V) on the first device, one cache a shard of its
+        heads' rows and state, for ``arena.write_prefill``)."""
+        kw = {} if "embeddings" not in batch else {
+            "embeddings": self._each(batch["embeddings"])}
         return self.api.prefill_tp(self.shards, self.cfg,
                                    self._each(batch["tokens"]), cache_size,
-                                   mesh=self.mesh)
+                                   mesh=self.mesh, **kw)
 
 
 def _stacks(cfg: ModelConfig):
@@ -743,25 +745,24 @@ def init_sharded(seed: int, cfg: ModelConfig, mesh) -> List:
 def paged_decode_builder(mesh, *, fsdp_params: bool = False,
                          shards: Optional[List] = None) -> Callable:
     """Builder for ``ServiceRuntime(paged_step_builder=...)``: the
-    runtime's parameters split by ``param_specs(fsdp=False)`` on head
-    boundaries (``leaf_split``), the arena's pools by kv head and its
+    runtime's parameters split by ``param_specs(fsdp=fsdp_params)`` on
+    head boundaries (``leaf_split``), the arena's pools by kv head and its
     per-slot state by ``state_split`` over ``mesh``'s model axis, and the
     paged decode and chunk steps run shard by shard.  The reference's
-    builder jits only the decode step; here the chunk step runs sharded
-    too, since it writes into the same per-shard pools and state.  Unlike
-    the reference's ``builder(runtime, arena)``, the port's takes the
-    runtime alone: the runtime builds its arena after it, split from the
-    start, so no device ever holds the whole pool or state.  ``shards``
-    (``init_sharded``'s trees) serve a runtime made without its whole
-    tree (``params=None``).  ``fsdp_params`` keeps the reference's
-    signature: the step splits whole heads over the model axis only, so
-    ``True`` raises."""
-    if fsdp_params:
-        raise ValueError(f"the head-sharded step splits parameters over the "
-                         f"model axis only; FSDP serving is not ported "
-                         f"({TP_ITEM})")
+    builder jits only the decode step; here the chunk step and one-shot
+    prefill run sharded too, since they write into the same per-shard
+    pools and state.  Unlike the reference's ``builder(runtime, arena)``,
+    the port's takes the runtime alone: the runtime builds its arena after
+    it, split from the start, so no device ever holds the whole pool or
+    state.  The runtime calls it on the paged continuous path only (sync
+    and the dense cache run whole), as the reference's engine does.
+    ``shards`` (``init_sharded``'s trees) serve a runtime made without its
+    whole tree (``params=None``).  ``fsdp_params``, the reference's flag,
+    puts FSDP rows on the mesh's batch axes, which a service mesh holds
+    at 1: the specs, and so the split, are the same."""
 
     def builder(runtime):
-        return ShardedPagedStep(runtime, mesh, shards=shards)
+        return ShardedPagedStep(runtime, mesh, shards=shards,
+                                fsdp_params=fsdp_params)
 
     return builder

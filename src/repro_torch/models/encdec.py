@@ -22,6 +22,9 @@ Ported: ``init``, ``encode``, ``logits_fn``, ``init_cache``, ``prefill``,
 ``prefill_chunk``, ``decode_step``, ``prefill_chunk_paged``,
 ``decode_step_paged`` and the training forward ``forward_hidden`` (the
 encoder once, each decoder layer checkpointed, as in the reference).
+Each serving step is its ``*_tp`` function over one shard, the whole
+tree; ``tp`` head shards run the head-sharded step (``launch/steps.py``
+``paged_decode_builder``), the frames reaching every shard.
 """
 from __future__ import annotations
 
@@ -176,6 +179,52 @@ def _cross_chunk(xp, cfg: ModelConfig, xn, ck, cv):
     return layers.linear(c.reshape(B, T, -1), xp["wo"])
 
 
+def prefill_tp(shards, cfg: ModelConfig, tokens, cache_size, *, mesh=None,
+               embeddings):
+    """One-shot prefill over head shards (``transformer.Shard``s;
+    ``tokens`` and the frame ``embeddings`` one copy a shard, on its
+    device): the encoder runs over the shards (``_encode_tp``), then the
+    decoder, each shard's self- and cross-attention over its heads and
+    its MLP part partial sums that ``mesh`` reduces.  One shard without a
+    mesh is the unsharded ``prefill``, op for op.  Returns (logits at the
+    last position (B, V) on the first shard's device, one new dense cache
+    a shard: its kv heads' decoder K/V of ``cache_size`` rows (see
+    ``transformer.prefill_cache_rows``) and cross K/V, with ``len`` L)."""
+    memory = _encode_tp(shards, cfg, embeddings, mesh)
+    B, L = tokens[0].shape
+    cache_size = prefill_cache_size(cfg, L, cache_size)
+    x = [_add_positions(cfg, xs, torch.zeros((B,), dtype=torch.int32,
+                                             device=xs.device))
+         for xs in layers.embed_tp(shards, cfg, tokens, mesh)]
+    caches = [init_cache(s.cfg, B, cache_size, dtype=xs.dtype,
+                         device=xs.device) for s, xs in zip(shards, x)]
+    for i in range(cfg.num_layers):
+        lps = [layer_params(s.params["dec_blocks"], i) for s in shards]
+        self_kv = [layers.attention_with_kv(
+            lp["self_attn"], s.cfg, layers.apply_norm(lp["ln1"], cfg, xs),
+            causal=True, window=cfg.sliding_window, use_rope=False)
+            for s, lp, xs in zip(shards, lps, x)]
+        a = shard_sum(mesh, [h for h, _ in self_kv])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        cross_kv = [layers.attention_with_kv(
+            lp["cross_attn"], s.cfg, layers.apply_norm(lp["ln_x"], cfg, xs),
+            causal=False, kv_x=mem, use_rope=False)
+            for s, lp, xs, mem in zip(shards, lps, x, memory)]
+        a = shard_sum(mesh, [h for h, _ in cross_kv])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        x = _mlp_tp(shards, cfg, lps, x, mesh)
+        for c, (_, (k, v)), (_, (ck, cv)) in zip(caches, self_kv, cross_kv):
+            k, v = prefill_cache_rows(k, v, cache_size)
+            for name, t in (("k", k), ("v", v), ("cross_k", ck),
+                            ("cross_v", cv)):
+                c[name][i].copy_(t)
+    h = [layers.apply_norm(s.params["ln_f"], cfg, xs[:, -1])
+         for s, xs in zip(shards, x)]
+    for c, xs in zip(caches, x):
+        c["len"] = torch.tensor(L, dtype=torch.int32, device=xs.device)
+    return layers.unembed_tp(shards, cfg, h, mesh), caches
+
+
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
             cache_size=None):
     """One-shot prefill: encode ``batch["embeddings"]`` (B, encoder_len, d),
@@ -183,33 +232,56 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     at the last position (B, V), a new dense cache: decoder K/V of
     ``cache_size`` rows (see ``transformer.prefill_cache_rows``), each
     layer's cross K/V, and the shared scalar ``len`` L)."""
-    memory = encode(params, cfg, batch["embeddings"])
-    tokens = batch["tokens"]
-    B, L = tokens.shape
-    dev = tokens.device
-    cache_size = prefill_cache_size(cfg, L, cache_size)
-    x = _decoder_embed(params, cfg, tokens,
-                       torch.zeros((B,), dtype=torch.int32, device=dev))
-    cache = init_cache(cfg, B, cache_size, dtype=x.dtype, device=dev)
+    logits, (cache,) = prefill_tp(
+        [Shard(params, cfg)], cfg, [batch["tokens"]], cache_size,
+        embeddings=[batch["embeddings"]])
+    return logits, cache
+
+
+def prefill_chunk_tp(shards, cfg: ModelConfig, tokens, caches, chunk_len, *,
+                     mesh=None, embeddings=None):
+    """The dense-cache chunk over head shards, its arguments one entry a
+    shard on the shard's device: ``caches`` each shard's dense cache of
+    its kv heads (its gathered dense view) and its heads' cross K/V,
+    written in place.  A first chunk's ``embeddings`` (one copy a shard)
+    run the encoder over the shards, and each shard projects its heads'
+    cross K/V from the memory into its cache.  Returns (logits at each
+    slot's last real token (B, V) on the first shard's device, ``len +
+    chunk_len``)."""
+    B = tokens[0].shape[0]
+    start = [torch.as_tensor(c["len"], dtype=torch.int32,
+                             device=t.device).expand(B)
+             for c, t in zip(caches, tokens)]
+    x = [_add_positions(cfg, xs, st) for xs, st in
+         zip(layers.embed_tp(shards, cfg, tokens, mesh), start)]
+    memory = (None if embeddings is None
+              else _encode_tp(shards, cfg, embeddings, mesh))
     for i in range(cfg.num_layers):
-        lp = layer_params(params["dec_blocks"], i)
-        h, (k, v) = layers.attention_with_kv(
-            lp["self_attn"], cfg, layers.apply_norm(lp["ln1"], cfg, x),
-            causal=True, window=cfg.sliding_window, use_rope=False)
-        x = x + h
-        h, (ck, cv) = layers.attention_with_kv(
-            lp["cross_attn"], cfg, layers.apply_norm(lp["ln_x"], cfg, x),
-            causal=False, kv_x=memory, use_rope=False)
-        x = x + h
-        x = x + layers.mlp(lp["mlp"], cfg,
-                           layers.apply_norm(lp["ln2"], cfg, x))
-        k, v = prefill_cache_rows(k, v, cache_size)
-        for name, t in (("k", k), ("v", v), ("cross_k", ck),
-                        ("cross_v", cv)):
-            cache[name][i].copy_(t)
-    h = layers.apply_norm(params["ln_f"], cfg, x[:, -1])
-    cache["len"] = torch.tensor(L, dtype=torch.int32, device=dev)
-    return logits_fn(params, cfg, h), cache
+        lps = [layer_params(s.params["dec_blocks"], i) for s in shards]
+        if memory is not None:      # project this layer's cross K/V once
+            for s, lp, mem, c in zip(shards, lps, memory, caches):
+                _project_cross(lp["cross_attn"], s.cfg, mem, c["cross_k"][i],
+                               c["cross_v"][i])
+        a = shard_sum(mesh, [layers.attention_chunk(
+            lp["self_attn"], s.cfg, layers.apply_norm(lp["ln1"], cfg, xs),
+            c["k"][i], c["v"][i], st, cl, window=cfg.sliding_window,
+            use_rope=False)[0]
+            for s, lp, xs, c, st, cl in zip(shards, lps, x, caches, start,
+                                            chunk_len)])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        a = shard_sum(mesh, [
+            _cross_chunk(lp["cross_attn"], s.cfg,
+                         layers.apply_norm(lp["ln_x"], cfg, xs),
+                         c["cross_k"][i], c["cross_v"][i])
+            for s, lp, xs, c in zip(shards, lps, x, caches)])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        x = _mlp_tp(shards, cfg, lps, x, mesh)
+    h = [layers.apply_norm(s.params["ln_f"], cfg,
+                           layers.take_chunk_last(xs, cl))
+         for s, xs, cl in zip(shards, x, chunk_len)]
+    return layers.unembed_tp(shards, cfg, h, mesh), caches[0]["len"] + \
+        torch.as_tensor(chunk_len[0], dtype=torch.int32,
+                        device=x[0].device)
 
 
 def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
@@ -220,36 +292,56 @@ def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
     self-attention appends the chunk like ``transformer.prefill_chunk``,
     one launch of the dense chunk kernel a layer.  Returns (logits at each
     slot's last real token (B, V), cache with ``len + chunk_len``)."""
-    tokens = batch["tokens"]
-    B = tokens.shape[0]
-    dev = tokens.device
-    start = torch.as_tensor(cache["len"], dtype=torch.int32,
-                            device=dev).expand(B)
-    x = _decoder_embed(params, cfg, tokens, start)
-    first = "embeddings" in batch
-    memory = encode(params, cfg, batch["embeddings"]) if first else None
-    k_all, v_all = cache["k"], cache["v"]
-    ck_all, cv_all = cache["cross_k"], cache["cross_v"]
+    emb = batch.get("embeddings")
+    logits, new_len = prefill_chunk_tp(
+        [Shard(params, cfg)], cfg, [batch["tokens"]], [cache], [chunk_len],
+        embeddings=None if emb is None else [emb])
+    return logits, {**cache, "len": new_len}
+
+
+def decode_step_tp(shards, cfg: ModelConfig, token, caches, live, *,
+                   mesh=None):
+    """``decode_step`` over head shards: ``token``, ``caches`` (each
+    shard's dense cache of its kv heads, a gathered dense view, and its
+    heads' cross K/V, with its copy of ``len``) and ``live`` (None or
+    (B,)) one entry a shard.  Each shard writes its heads' new row in
+    place.  Returns (logits (B, V) on the first shard's device, the new
+    lengths, kept where a slot is not live)."""
+    B = token[0].shape[0]
+    lens = [c["len"] for c in caches]
+    new_len = [n + 1 for n in lens]
+    x = [xs + layers.sinusoid_at(torch.as_tensor(n, device=xs.device).expand(
+        B), cfg.d_model).to(xs.dtype)
+        for xs, n in zip(layers.embed_tp(shards, cfg, token, mesh), lens)]
+    S, window = caches[0]["k"].shape[2], cfg.sliding_window
+    eff_window = None if (window is None or S <= window) else window
+    live = [None if lv is None else lv.bool() for lv in live]
+    cross_len = []
+    for c, lv, xs in zip(caches, live, x):
+        cl = torch.full((B,), c["cross_k"].shape[2], dtype=torch.int32,
+                        device=xs.device)
+        cross_len.append(cl if lv is None else torch.where(lv, cl, 0))
     for i in range(cfg.num_layers):
-        lp = layer_params(params["dec_blocks"], i)
-        xp = lp["cross_attn"]
-        if first:                   # project this layer's cross K/V once
-            _project_cross(xp, cfg, memory, ck_all[i], cv_all[i])
-        a, _, _ = layers.attention_chunk(
-            lp["self_attn"], cfg, layers.apply_norm(lp["ln1"], cfg, x),
-            k_all[i], v_all[i], start, chunk_len, window=cfg.sliding_window,
-            use_rope=False)
-        x = x + a
-        x = x + _cross_chunk(xp, cfg, layers.apply_norm(lp["ln_x"], cfg, x),
-                             ck_all[i], cv_all[i])
-        x = x + layers.mlp(lp["mlp"], cfg,
-                           layers.apply_norm(lp["ln2"], cfg, x))
-    h = layers.take_chunk_last(x, chunk_len)
-    h = layers.apply_norm(params["ln_f"], cfg, h)
-    return logits_fn(params, cfg, h), {
-        "k": k_all, "v": v_all, "cross_k": ck_all, "cross_v": cv_all,
-        "len": cache["len"] + torch.as_tensor(chunk_len, dtype=torch.int32,
-                                              device=dev)}
+        lps = [layer_params(s.params["dec_blocks"], i) for s in shards]
+        a = shard_sum(mesh, [layers.attention_decode(
+            lp["self_attn"], s.cfg, layers.apply_norm(lp["ln1"], cfg, xs),
+            c["k"][i], c["v"][i], nl, window=eff_window, use_rope=False,
+            live=lv)[0]
+            for s, lp, xs, c, nl, lv in zip(shards, lps, x, caches, new_len,
+                                            live)])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        a = shard_sum(mesh, [
+            _cross_decode(lp["cross_attn"], s.cfg,
+                          layers.apply_norm(lp["ln_x"], cfg, xs),
+                          c["cross_k"][i], c["cross_v"][i], cl)
+            for s, lp, xs, c, cl in zip(shards, lps, x, caches, cross_len)])
+        x = [xs + a_ for xs, a_ in zip(x, a)]
+        x = _mlp_tp(shards, cfg, lps, x, mesh)
+    h = [layers.apply_norm(s.params["ln_f"], cfg, xs)
+         for s, xs in zip(shards, x)]
+    return layers.unembed_tp(shards, cfg, h, mesh), (
+        new_len[0] if live[0] is None
+        else torch.where(live[0], new_len[0], lens[0]))
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
@@ -259,43 +351,9 @@ def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
     all ``encoder_len`` of its cross K/V rows.  Where ``live`` (B,) is
     False a slot's cache and length are kept and it attends to nothing on
     either side.  Returns (logits (B, V), cache with ``len + 1``)."""
-    B = token.shape[0]
-    dev = token.device
-    lens = cache["len"]
-    new_len = lens + 1
-    x = layers.embed(params["embed"], cfg, token).to(cfg.compute_dtype)
-    x = x + layers.sinusoid_at(torch.as_tensor(lens, device=dev).expand(B),
-                               cfg.d_model).to(x.dtype)
-    k_all, v_all = cache["k"], cache["v"]
-    ck_all, cv_all = cache["cross_k"], cache["cross_v"]
-    S, window = k_all.shape[2], cfg.sliding_window
-    eff_window = None if (window is None or S <= window) else window
-    cross_len = torch.full((B,), ck_all.shape[2], dtype=torch.int32,
-                           device=dev)
-    if live is not None:
-        live = live.bool()
-        cross_len = torch.where(live, cross_len, 0)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["dec_blocks"], i)
-        xp = lp["cross_attn"]
-        a, _, _ = layers.attention_decode(
-            lp["self_attn"], cfg, layers.apply_norm(lp["ln1"], cfg, x),
-            k_all[i], v_all[i], new_len, window=eff_window, use_rope=False,
-            live=live)
-        x = x + a
-        xn = layers.apply_norm(lp["ln_x"], cfg, x)
-        # no q bias here, as in the reference's decode step
-        q = layers.linear(xn, xp["wq"]).reshape(B, cfg.num_heads,
-                                                cfg.head_dim)
-        c = ops.decode_attention(q, ck_all[i], cv_all[i], cross_len)
-        x = x + layers.linear(c.reshape(B, -1), xp["wo"])
-        x = x + layers.mlp(lp["mlp"], cfg,
-                           layers.apply_norm(lp["ln2"], cfg, x))
-    h = layers.apply_norm(params["ln_f"], cfg, x)
-    return logits_fn(params, cfg, h), {
-        "k": k_all, "v": v_all, "cross_k": ck_all, "cross_v": cv_all,
-        "len": new_len if live is None else torch.where(live, new_len,
-                                                        lens)}
+    logits, new_len = decode_step_tp([Shard(params, cfg)], cfg, [token],
+                                     [cache], [live])
+    return logits, {**cache, "len": new_len}
 
 
 def _encode_tp(shards, cfg: ModelConfig, frames, mesh):

@@ -24,13 +24,16 @@ place too.  The paged decode step writes only live slots' state and
 rows.  ``forward_hidden`` is the training forward: the mamba layers
 checkpointed, the shared block's applications not, as in the reference.
 
-The paged steps run over a list of ``transformer.Shard``s
-(``decode_step_paged_tp``, ``prefill_chunk_paged_tp``): one shard, the
+Every serving step runs over a list of ``transformer.Shard``s (its
+``*_tp`` function: the one-shot ``prefill_tp``, the dense
+``prefill_chunk_tp`` and ``decode_step_tp``, the paged
+``prefill_chunk_paged_tp`` and ``decode_step_paged_tp``): one shard, the
 whole tree, unsharded; ``tp`` head shards for the head-sharded step
 (``launch/steps.py`` ``paged_decode_builder``).  A shard holds its SSD
 heads of every mamba layer (split as ``ssm.py``'s, the gated norm's sum
 of squares reduced over the shards), its attention heads and MLP columns
-of the shared block, and each application's pools of its kv heads.  The
+of the shared block, and each application's pools (or dense K/V) of its
+kv heads.  The
 residual rows and h0 are whole on every shard, so the shared block's
 input norm over concat(h, h0) needs no reduction.
 """
@@ -117,33 +120,6 @@ def _shared_forward(shared, cfg: ModelConfig, h, h0, *, positions, window):
     return _mlp_residual(shared, cfg, h + a), kv
 
 
-def _shared_decode(shared, cfg: ModelConfig, h_t, h0_t, k_cache, v_cache,
-                   cache_len, *, window, live=None):
-    """One decode token (B, d) through the shared block against one
-    application's dense caches (B, S, Hkv, D), written in place."""
-    S = k_cache.shape[1]
-    eff_window = None if (window is None or S <= window) else window
-    xcat = torch.cat([h_t, h0_t], dim=-1)
-    xn = layers.apply_norm(shared["ln_a"], cfg, xcat[:, None])[:, 0]
-    a, _, _ = layers.attention_decode(shared["attn"], cfg, xn, k_cache,
-                                      v_cache, cache_len, window=eff_window,
-                                      live=live)
-    h_t = h_t + a
-    xn = layers.apply_norm(shared["ln_m"], cfg, h_t[:, None])[:, 0]
-    return h_t + layers.mlp(shared["mlp"], cfg, xn)
-
-
-def _shared_chunk(shared, cfg: ModelConfig, h, h0, k_cache, v_cache,
-                  cache_len, chunk_len, *, window):
-    """Chunked-prefill pass through the shared block (the multi-token
-    sibling of ``_shared_decode``)."""
-    xn = layers.apply_norm(shared["ln_a"], cfg, torch.cat([h, h0], dim=-1))
-    a, _, _ = layers.attention_chunk(shared["attn"], cfg, xn, k_cache,
-                                     v_cache, cache_len, chunk_len,
-                                     window=window)
-    return _mlp_residual(shared, cfg, h + a)
-
-
 # ---------------------------------------------------------------------------
 # model API
 # ---------------------------------------------------------------------------
@@ -200,138 +176,6 @@ def _embed(params, cfg: ModelConfig, tokens):
     return layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
 
 
-def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
-            cache_size=None):
-    """One-shot prefill of ``batch["tokens"]`` (B, L): every mamba layer is
-    one SSD scan over the prompt, every application one flash attention.
-    Returns (logits at the last position (B, V), a new cache: each layer's
-    conv tail and SSD state, each application's K/V in ``cache_size`` rows
-    (``transformer.prefill_cache_rows``: zero-padded, or for a window the
-    ring of its last rows) and the shared scalar ``len`` L)."""
-    tokens = batch["tokens"]
-    B, L = tokens.shape
-    h0 = _embed(params, cfg, tokens)
-    kv_size = transformer.prefill_cache_size(cfg, L, cache_size)
-    cache = init_cache(cfg, B, kv_size, dtype=h0.dtype, device=h0.device)
-    positions = torch.arange(L, device=h0.device)[None]
-
-    def mamba_fn(i, h):
-        h, (tail, state) = ssm.mamba_block(layer_params(params["mamba"], i),
-                                           cfg, h, return_state=True)
-        cache["conv"][i].copy_(tail)
-        cache["ssd"][i].copy_(state)
-        return h
-
-    def shared_fn(g, h):
-        h, (k, v) = _shared_forward(params["shared"], cfg, h, h0,
-                                    positions=positions,
-                                    window=cfg.sliding_window)
-        k, v = transformer.prefill_cache_rows(k, v, kv_size)
-        cache["attn_k"][g].copy_(k)
-        cache["attn_v"][g].copy_(v)
-        return h
-
-    h = _run_layers(cfg, h0, mamba_fn, shared_fn)
-    h = layers.apply_norm(params["ln_f"], cfg, h[:, -1])
-    cache["len"] = torch.tensor(L, dtype=torch.int32, device=h0.device)
-    return logits_fn(params, cfg, h), cache
-
-
-def _chunk_mamba(params, cfg: ModelConfig, cache, chunk_len):
-    """The chunk steps' mamba layer: advance layer i's conv tail and SSD
-    state by the chunk (``ssm.mamba_block_chunk``), written in place."""
-    conv_all, ssd_all = cache["conv"], cache["ssd"]
-
-    def mamba_fn(i, h):
-        h, tail, state = ssm.mamba_block_chunk(
-            layer_params(params["mamba"], i), cfg, h, conv_all[i],
-            ssd_all[i], chunk_len)
-        conv_all[i].copy_(tail)
-        ssd_all[i].copy_(state)
-        return h
-    return mamba_fn
-
-
-def _decode_mamba(params, cfg: ModelConfig, cache, live):
-    """The decode steps' mamba layer: one token through layer i, its state
-    updated in place where ``live`` (every slot when ``None``)."""
-    conv_all, ssd_all = cache["conv"], cache["ssd"]
-
-    def mamba_fn(i, h):
-        return ssm.mamba_block_decode(layer_params(params["mamba"], i), cfg,
-                                      h, conv_all[i], ssd_all[i], live)
-    return mamba_fn
-
-
-def _head(params, cfg: ModelConfig, h):
-    """The final norm and the unembedding of (B, d) rows."""
-    h = layers.apply_norm(params["ln_f"], cfg, h[:, None])[:, 0]
-    return logits_fn(params, cfg, h)
-
-
-def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
-    """Chunked prefill against a dense cache: a right-padded chunk of
-    ``chunk_len`` <= T tokens (``batch["tokens"]`` (B, T)) advances every
-    mamba layer's state in place (``ssm.mamba_block_chunk``) and each
-    application appends its K/V rows to its own cache at ``cache["len"]``
-    (scalar or (B,)), in place.  Returns (logits at each slot's last real
-    token (B, V), cache with ``len + chunk_len``)."""
-    h0 = _embed(params, cfg, batch["tokens"])
-    start = cache["len"]
-    k_all, v_all = cache["attn_k"], cache["attn_v"]
-
-    def shared_fn(g, h):
-        return _shared_chunk(params["shared"], cfg, h, h0, k_all[g],
-                             v_all[g], start, chunk_len,
-                             window=cfg.sliding_window)
-
-    h = _run_layers(cfg, h0, _chunk_mamba(params, cfg, cache, chunk_len),
-                    shared_fn)
-    logits = _head(params, cfg, layers.take_chunk_last(h, chunk_len))
-    return logits, {**cache, "len": start + torch.as_tensor(
-        chunk_len, dtype=torch.int32, device=h0.device)}
-
-
-def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
-                        block_tables, *, chunk_len, block_size: int):
-    """Paged-native chunked prefill: the mamba state advances as in
-    ``prefill_chunk`` (per-slot state is never paged); each application
-    scatters its chunk K/V rows straight into its page pools
-    ``cache["attn_k"][g]``/``cache["attn_v"][g]`` through ``block_tables``
-    (B, nblk), from the per-slot offsets ``cache["len"]``, in place.
-    Returns (logits at each slot's last real token (B, V), cache with
-    ``len + chunk_len``)."""
-    logits, new_len = prefill_chunk_paged_tp(
-        [Shard(params, cfg)], cfg, [batch["tokens"]], [cache],
-        [block_tables], [chunk_len], block_size=block_size)
-    return logits, {**cache, "len": new_len}
-
-
-def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
-    """Fused decode against a dense cache: ``token`` (B,) one new token a
-    slot, written at ring slot ``len % S`` of each application's cache; the
-    state and the caches are updated in place.  Where ``live`` (B,) is
-    False a slot keeps its state, its rows and its length (the reference's
-    ``merge_state`` commit).  Returns (logits (B, V), cache with the live
-    slots' ``len + 1``)."""
-    h0 = _embed(params, cfg, token)
-    lens = cache["len"]
-    new_len = lens + 1
-    live = None if live is None else live.bool()
-    k_all, v_all = cache["attn_k"], cache["attn_v"]
-
-    def shared_fn(g, h):
-        return _shared_decode(params["shared"], cfg, h, h0, k_all[g],
-                              v_all[g], new_len, window=cfg.sliding_window,
-                              live=live)
-
-    h = _run_layers(cfg, h0, _decode_mamba(params, cfg, cache, live),
-                    shared_fn)
-    return _head(params, cfg, h), {
-        **cache, "len": new_len if live is None
-        else torch.where(live, new_len, lens)}
-
-
 def _mamba_tp(shards, cfg: ModelConfig, i: int, x, mixer, mesh):
     """Mamba layer ``i`` on every shard: each shard's mixer over its SSD
     heads (``mixer(i, shard index, layer params, x)`` -> (y, z)), then the
@@ -369,6 +213,132 @@ def _run_layers_tp(shards, cfg: ModelConfig, h0, mixer, attend, mesh):
         lambda g, h: _shared_tp(shards, cfg, g, h, h0, attend, mesh))
 
 
+def _chunk_mixer(caches, chunk_len, cfg: ModelConfig):
+    """The chunk steps' mixer: shard j's heads of mamba layer i advanced
+    by the chunk (``ssm._mixer_chunk``), its state written in place."""
+    def mixer(i, j, lp, x):
+        c = caches[j]
+        y, z, tail, state = ssm._mixer_chunk(lp, cfg, x, c["conv"][i],
+                                             c["ssd"][i], chunk_len[j])
+        c["conv"][i].copy_(tail)
+        c["ssd"][i].copy_(state)
+        return y, z
+    return mixer
+
+
+def _decode_mixer(caches, live, cfg: ModelConfig):
+    """The decode steps' mixer: one token through shard j's heads of
+    mamba layer i, its state updated in place where ``live[j]`` (every
+    slot when ``None``)."""
+    def mixer(i, j, lp, x):
+        return ssm._mixer_decode(lp, cfg, x, caches[j]["conv"][i],
+                                 caches[j]["ssd"][i], live[j])
+    return mixer
+
+
+def _shard_cache(cfg: ModelConfig, shard, B: int, S: int, dtype, device):
+    """A new dense cache of one shard: its SSD heads' state
+    (``ssm.state_cache``) and each application's K/V of its kv heads, S
+    rows."""
+    H = ssm._heads(layer_params(shard.params["mamba"], 0))
+    cache = ssm.state_cache(cfg, B, H, dtype, device)
+    shape = (_n_apps(cfg), B, S, shard.cfg.num_kv_heads, cfg.head_dim)
+    cache["attn_k"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache["attn_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
+
+
+def prefill_tp(shards, cfg: ModelConfig, tokens, cache_size, *, mesh=None):
+    """One-shot prefill over ``shards`` (``tokens`` one copy a shard, on
+    its device): every mamba layer is one SSD scan over the prompt a
+    shard, over its heads, every application one flash attention a shard
+    over its heads, the partial sums reduced by ``mesh``.  One shard
+    without a mesh is the unsharded ``prefill``, op for op.  Returns
+    (logits at the last position (B, V) on the first shard's device, one
+    new cache a shard: its SSD heads' conv tail and state, each
+    application's K/V of its kv heads in ``cache_size`` rows
+    (``transformer.prefill_cache_rows``), with ``len`` L)."""
+    h0 = layers.embed_tp(shards, cfg, tokens, mesh)
+    B, L = h0[0].shape[:2]
+    kv_size = transformer.prefill_cache_size(cfg, L, cache_size)
+    caches = [_shard_cache(cfg, s, B, kv_size, hs.dtype, hs.device)
+              for s, hs in zip(shards, h0)]
+    positions = [torch.arange(L, device=hs.device)[None] for hs in h0]
+
+    def mixer(i, j, lp, x):
+        y, z, tail, state = ssm._mixer_full(lp, cfg, x)
+        caches[j]["conv"][i].copy_(tail)
+        caches[j]["ssd"][i].copy_(state)
+        return y, z
+
+    def attend(g, j, p, scfg, xn):
+        a, (k, v) = layers.attention_with_kv(
+            p, scfg, xn, positions=positions[j], causal=True,
+            window=cfg.sliding_window)
+        k, v = transformer.prefill_cache_rows(k, v, kv_size)
+        caches[j]["attn_k"][g].copy_(k)
+        caches[j]["attn_v"][g].copy_(v)
+        return a
+
+    h = _run_layers_tp(shards, cfg, h0, mixer, attend, mesh)
+    last = [layers.apply_norm(s.params["ln_f"], cfg, hs[:, -1])
+            for s, hs in zip(shards, h)]
+    for c in caches:
+        c["len"].fill_(L)
+    return layers.unembed_tp(shards, cfg, last, mesh), caches
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            cache_size=None):
+    """One-shot prefill of ``batch["tokens"]`` (B, L): every mamba layer is
+    one SSD scan over the prompt, every application one flash attention.
+    Returns (logits at the last position (B, V), a new cache: each layer's
+    conv tail and SSD state, each application's K/V in ``cache_size`` rows
+    (``transformer.prefill_cache_rows``: zero-padded, or for a window the
+    ring of its last rows) and the shared scalar ``len`` L)."""
+    logits, (cache,) = prefill_tp([Shard(params, cfg)], cfg,
+                                  [batch["tokens"]], cache_size)
+    return logits, cache
+
+
+def prefill_chunk_tp(shards, cfg: ModelConfig, tokens, caches, chunk_len, *,
+                     mesh=None):
+    """The dense-cache chunk over ``shards``, its arguments one entry a
+    shard on the shard's device: ``caches`` each shard's state of its SSD
+    heads and each application's dense K/V of its kv heads (its gathered
+    dense view), all written in place.  Returns (logits at each slot's
+    last real token (B, V) on the first shard's device, ``len +
+    chunk_len``)."""
+    h0 = layers.embed_tp(shards, cfg, tokens, mesh)
+    start = [c["len"] for c in caches]
+
+    def attend(g, j, p, scfg, xn):
+        return layers.attention_chunk(
+            p, scfg, xn, caches[j]["attn_k"][g], caches[j]["attn_v"][g],
+            start[j], chunk_len[j], window=cfg.sliding_window)[0]
+
+    h = _run_layers_tp(shards, cfg, h0, _chunk_mixer(caches, chunk_len, cfg),
+                       attend, mesh)
+    last = [layers.apply_norm(s.params["ln_f"], cfg,
+                              layers.take_chunk_last(hs, cl)[:, None])[:, 0]
+            for s, hs, cl in zip(shards, h, chunk_len)]
+    return layers.unembed_tp(shards, cfg, last, mesh), start[0] + \
+        torch.as_tensor(chunk_len[0], dtype=torch.int32, device=h0[0].device)
+
+
+def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
+    """Chunked prefill against a dense cache: a right-padded chunk of
+    ``chunk_len`` <= T tokens (``batch["tokens"]`` (B, T)) advances every
+    mamba layer's state in place (``ssm._mixer_chunk``) and each
+    application appends its K/V rows to its own cache at ``cache["len"]``
+    (scalar or (B,)), in place.  Returns (logits at each slot's last real
+    token (B, V), cache with ``len + chunk_len``)."""
+    logits, new_len = prefill_chunk_tp([Shard(params, cfg)], cfg,
+                                       [batch["tokens"]], [cache],
+                                       [chunk_len])
+    return logits, {**cache, "len": new_len}
+
+
 def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
                            block_tables, chunk_len, *, block_size: int,
                            mesh=None):
@@ -384,25 +354,76 @@ def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
                              device=xs.device).reshape(-1)
              for c, xs in zip(caches, h0)]
 
-    def mixer(i, j, lp, x):
-        c = caches[j]
-        y, z, tail, state = ssm._mixer_chunk(lp, cfg, x, c["conv"][i],
-                                             c["ssd"][i], chunk_len[j])
-        c["conv"][i].copy_(tail)
-        c["ssd"][i].copy_(state)
-        return y, z
-
     def attend(g, j, p, scfg, xn):
         return layers.attention_chunk_paged(
             p, scfg, xn, caches[j]["attn_k"][g], caches[j]["attn_v"][g],
             block_tables[j], start[j], chunk_len[j], block_size=block_size,
             window=cfg.sliding_window)[0]
 
-    h = _run_layers_tp(shards, cfg, h0, mixer, attend, mesh)
+    h = _run_layers_tp(shards, cfg, h0, _chunk_mixer(caches, chunk_len, cfg),
+                       attend, mesh)
     last = [layers.apply_norm(s.params["ln_f"], cfg,
                               layers.take_chunk_last(hs, cl)[:, None])[:, 0]
             for s, hs, cl in zip(shards, h, chunk_len)]
     return layers.unembed_tp(shards, cfg, last, mesh), start[0] + chunk_len[0]
+
+
+def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,
+                        block_tables, *, chunk_len, block_size: int):
+    """Paged-native chunked prefill: the mamba state advances as in
+    ``prefill_chunk`` (per-slot state is never paged); each application
+    scatters its chunk K/V rows straight into its page pools
+    ``cache["attn_k"][g]``/``cache["attn_v"][g]`` through ``block_tables``
+    (B, nblk), from the per-slot offsets ``cache["len"]``, in place.
+    Returns (logits at each slot's last real token (B, V), cache with
+    ``len + chunk_len``)."""
+    logits, new_len = prefill_chunk_paged_tp(
+        [Shard(params, cfg)], cfg, [batch["tokens"]], [cache],
+        [block_tables], [chunk_len], block_size=block_size)
+    return logits, {**cache, "len": new_len}
+
+
+def decode_step_tp(shards, cfg: ModelConfig, token, caches, live, *,
+                   mesh=None):
+    """``decode_step`` over ``shards``: ``token``, ``caches`` (each
+    shard's state of its SSD heads and each application's dense K/V of
+    its kv heads, a gathered dense view or a window ring, with its copy
+    of ``len``) and ``live`` (None or (B,)) one entry a shard.  Each
+    shard writes its heads' state and new rows in place.  Returns (logits
+    (B, V) on the first shard's device, the new lengths, kept where a
+    slot is not live)."""
+    lens = [c["len"] for c in caches]
+    new_len = [n + 1 for n in lens]
+    live = [None if lv is None else lv.bool() for lv in live]
+    h0 = layers.embed_tp(shards, cfg, token, mesh)
+    S, window = caches[0]["attn_k"].shape[2], cfg.sliding_window
+    # a ring of exactly the window holds only visible keys: no mask needed
+    eff_window = None if (window is None or S <= window) else window
+
+    def attend(g, j, p, scfg, xn):
+        return layers.attention_decode(
+            p, scfg, xn, caches[j]["attn_k"][g], caches[j]["attn_v"][g],
+            new_len[j], window=eff_window, live=live[j])[0]
+
+    h = _run_layers_tp(shards, cfg, h0, _decode_mixer(caches, live, cfg),
+                       attend, mesh)
+    last = [layers.apply_norm(s.params["ln_f"], cfg, hs)
+            for s, hs in zip(shards, h)]
+    return layers.unembed_tp(shards, cfg, last, mesh), (
+        new_len[0] if live[0] is None
+        else torch.where(live[0], new_len[0], lens[0]))
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, *, live=None):
+    """Fused decode against a dense cache: ``token`` (B,) one new token a
+    slot, written at ring slot ``len % S`` of each application's cache; the
+    state and the caches are updated in place.  Where ``live`` (B,) is
+    False a slot keeps its state, its rows and its length (the reference's
+    ``merge_state`` commit).  Returns (logits (B, V), cache with the live
+    slots' ``len + 1``)."""
+    logits, new_len = decode_step_tp([Shard(params, cfg)], cfg, [token],
+                                     [cache], [live])
+    return logits, {**cache, "len": new_len}
 
 
 def decode_step_paged_tp(shards, cfg: ModelConfig, token, caches,
@@ -414,17 +435,14 @@ def decode_step_paged_tp(shards, cfg: ModelConfig, token, caches,
     live = [lv.bool() for lv in live]
     h0 = layers.embed_tp(shards, cfg, token, mesh)
 
-    def mixer(i, j, lp, x):
-        return ssm._mixer_decode(lp, cfg, x, caches[j]["conv"][i],
-                                 caches[j]["ssd"][i], live[j])
-
     def attend(g, j, p, scfg, xn):
         return layers.attention_decode_paged(
             p, scfg, xn, caches[j]["attn_k"][g], caches[j]["attn_v"][g],
             block_tables[j], lens[j], live[j], block_size=block_size,
             window=cfg.sliding_window)[0]
 
-    h = _run_layers_tp(shards, cfg, h0, mixer, attend, mesh)
+    h = _run_layers_tp(shards, cfg, h0, _decode_mixer(caches, live, cfg),
+                       attend, mesh)
     last = [layers.apply_norm(s.params["ln_f"], cfg, hs)
             for s, hs in zip(shards, h)]
     return (layers.unembed_tp(shards, cfg, last, mesh),

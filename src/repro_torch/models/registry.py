@@ -45,10 +45,11 @@ class ModelApi:
     # (every family registers them)
     decode_step_paged_tp: Optional[Callable] = None
     prefill_chunk_paged_tp: Optional[Callable] = None
-    # the head-sharded verify, the dense decode and chunk steps over each
-    # shard's dense view or window ring, and the one-shot prefill that
-    # returns each shard's K/V (the dense and MoE families: speculation,
-    # the dense-view oracle and ring layouts under ``ShardedPagedStep``)
+    # the head-sharded verify (the dense and MoE families: speculation),
+    # the dense decode and chunk steps over each shard's dense view or
+    # window ring (every family with attention: the dense-view oracle and
+    # ring layouts), and the one-shot prefill that returns each shard's
+    # cache (every family), under ``ShardedPagedStep``
     verify_step_paged_tp: Optional[Callable] = None
     decode_step_tp: Optional[Callable] = None
     prefill_chunk_tp: Optional[Callable] = None
@@ -86,7 +87,8 @@ _FAMILIES = {
                     ssm.prefill_chunk, ssm.decode_step,
                     forward_hidden=ssm.forward_hidden,
                     decode_step_paged_tp=ssm.decode_step_paged_tp,
-                    prefill_chunk_paged_tp=ssm.prefill_chunk_paged_tp),
+                    prefill_chunk_paged_tp=ssm.prefill_chunk_paged_tp,
+                    prefill_tp=ssm.prefill_tp),
     "hybrid": ModelApi(hybrid.init, hybrid.logits_fn, hybrid.init_cache,
                        hybrid.prefill, hybrid.prefill_chunk,
                        hybrid.decode_step,
@@ -94,7 +96,10 @@ _FAMILIES = {
                        prefill_chunk_paged=hybrid.prefill_chunk_paged,
                        forward_hidden=hybrid.forward_hidden,
                        decode_step_paged_tp=hybrid.decode_step_paged_tp,
-                       prefill_chunk_paged_tp=hybrid.prefill_chunk_paged_tp),
+                       prefill_chunk_paged_tp=hybrid.prefill_chunk_paged_tp,
+                       decode_step_tp=hybrid.decode_step_tp,
+                       prefill_chunk_tp=hybrid.prefill_chunk_tp,
+                       prefill_tp=hybrid.prefill_tp),
     "audio": ModelApi(encdec.init, encdec.logits_fn, encdec.init_cache,
                       encdec.prefill, encdec.prefill_chunk,
                       encdec.decode_step,
@@ -102,14 +107,20 @@ _FAMILIES = {
                       prefill_chunk_paged=encdec.prefill_chunk_paged,
                       forward_hidden=encdec.forward_hidden,
                       decode_step_paged_tp=encdec.decode_step_paged_tp,
-                      prefill_chunk_paged_tp=encdec.prefill_chunk_paged_tp),
+                      prefill_chunk_paged_tp=encdec.prefill_chunk_paged_tp,
+                      decode_step_tp=encdec.decode_step_tp,
+                      prefill_chunk_tp=encdec.prefill_chunk_tp,
+                      prefill_tp=encdec.prefill_tp),
     "vlm": ModelApi(vlm.init, vlm.logits_fn, vlm.init_cache, vlm.prefill,
                     vlm.prefill_chunk, vlm.decode_step,
                     decode_step_paged=vlm.decode_step_paged,
                     prefill_chunk_paged=vlm.prefill_chunk_paged,
                     forward_hidden=vlm.forward_hidden,
                     decode_step_paged_tp=vlm.decode_step_paged_tp,
-                    prefill_chunk_paged_tp=vlm.prefill_chunk_paged_tp),
+                    prefill_chunk_paged_tp=vlm.prefill_chunk_paged_tp,
+                    decode_step_tp=vlm.decode_step_tp,
+                    prefill_chunk_tp=vlm.prefill_chunk_tp,
+                    prefill_tp=vlm.prefill_tp),
 }
 
 def family_api(family: str) -> ModelApi:

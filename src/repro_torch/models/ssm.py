@@ -13,9 +13,11 @@ Unlike the reference's functional carry, ``prefill_chunk`` and
 ``decode_step`` update ``cache["conv"]`` and ``cache["ssd"]`` IN PLACE,
 layer by layer, and return the same tensors: the carry would materialise a
 second full state stack (21.5 GB at 128 slots of mamba2-2.7b).  The
-one-shot ``prefill`` (``mamba_block`` over the whole prompt, one SSD scan
-launch a layer) builds a new cache.  ``forward_hidden`` is the
-training forward: ``mamba_block`` a layer, each checkpointed when
+one-shot ``prefill`` (the mixer over the whole prompt, one SSD scan
+launch a layer) builds a new cache.  Each serving step is its ``*_tp``
+function over one shard, the whole tree; ``tp`` SSD head shards run the
+head-sharded step (``launch/steps.py`` ``paged_decode_builder``).
+``forward_hidden`` is the training forward: ``mamba_block`` a layer, each checkpointed when
 training, the scan's gradient through ``ops.ssd_scan``'s recompute.
 """
 from __future__ import annotations
@@ -95,17 +97,24 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
                device=None) -> Dict[str, Any]:
     """Per-slot state only: nothing grows with ``max_len``, so the serving
     arena (which probes this on the ``meta`` device) pages nothing."""
-    dev = resolve_device(device)
-    dtype = dtype or cfg.compute_dtype
-    k, ch = cfg.ssm_conv_kernel, conv_channels(cfg)
-    H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
+    return state_cache(cfg, batch_size, cfg.ssm_nheads,
+                       dtype or cfg.compute_dtype, resolve_device(device))
+
+
+def state_cache(cfg: ModelConfig, batch_size: int, H: int, dtype,
+                device) -> Dict[str, Any]:
+    """Zero state of ``H`` SSD heads (the model's, or a head shard's): the
+    conv tail over those heads' x channels and B and C whole, and their
+    f32 SSD state."""
+    k, P, N = cfg.ssm_conv_kernel, cfg.ssm_headdim, cfg.ssm_state
+    ch = H * P + 2 * cfg.ssm_ngroups * N
     Lyr = cfg.num_layers
     return {
         "conv": torch.zeros((Lyr, batch_size, k - 1, ch), dtype=dtype,
-                            device=dev),
+                            device=device),
         "ssd": torch.zeros((Lyr, batch_size, H, P, N), dtype=torch.float32,
-                           device=dev),
-        "len": torch.zeros((), dtype=torch.int32, device=dev),
+                           device=device),
+        "len": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
@@ -183,13 +192,10 @@ def _causal_conv(p, u):
     return F.silu((y + p["conv_b"][None, None]).float()).to(u.dtype)
 
 
-def mamba_block(p, cfg: ModelConfig, x, *, initial_state=None,
-                return_state: bool = False):
-    """x: (B, L, d) -> x + the block's output (B, L, d), through one SSD
-    scan over the whole sequence (the ``ssd_scan`` kernel on the card).
-    With ``return_state`` also the state a decode continues from: the raw
-    pre-conv tail (B, k-1, ch) of the last k-1 positions (zeros in front
-    when L < k-1) and the SSD state (B, H, P, N) f32."""
+def _mixer_full(p, cfg: ModelConfig, x, initial_state=None):
+    """A layer's mixer over a whole sequence, up to the gated norm: (y
+    (B, L, H*P), z, the raw pre-conv tail, the SSD state) over the heads
+    ``p`` holds (see ``mamba_block``)."""
     B, L, _ = x.shape
     k = cfg.ssm_conv_kernel
     xn = layers.apply_norm(p["ln"], cfg, x)
@@ -200,12 +206,54 @@ def mamba_block(p, cfg: ModelConfig, x, *, initial_state=None,
     A = -torch.exp(p["A_log"])
     y, state = ops.ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk=cfg.ssm_chunk,
                             initial_state=initial_state)
-    out = x + _gated_out(p, cfg, y.reshape(B, L, cfg.d_inner), z)
-    if not return_state:
-        return out
     tail = xBC[:, -(k - 1):] if L >= k - 1 else F.pad(
         xBC, (0, 0, k - 1 - L, 0))
-    return out, (tail, state)
+    return y.reshape(B, L, H * cfg.ssm_headdim), z, tail, state
+
+
+def mamba_block(p, cfg: ModelConfig, x, *, initial_state=None,
+                return_state: bool = False):
+    """x: (B, L, d) -> x + the block's output (B, L, d), through one SSD
+    scan over the whole sequence (the ``ssd_scan`` kernel on the card).
+    With ``return_state`` also the state a decode continues from: the raw
+    pre-conv tail (B, k-1, ch) of the last k-1 positions (zeros in front
+    when L < k-1) and the SSD state (B, H, P, N) f32."""
+    y, z, tail, state = _mixer_full(p, cfg, x, initial_state)
+    out = x + _gated_out(p, cfg, y, z)
+    return (out, (tail, state)) if return_state else out
+
+
+def prefill_tp(shards, cfg: ModelConfig, tokens, cache_size=None, *,
+               mesh=None):
+    """One-shot prefill over SSD head shards (``transformer.Shard``s;
+    ``tokens`` one copy a shard, on its device): each shard's mixer runs
+    its heads over the whole prompt (one SSD scan a layer a shard), B and
+    C whole on every shard; the gated norm's sum of squares and
+    ``out_proj``'s partial products are reduced by ``mesh``
+    (``_gated_out_tp``).  ``cache_size`` is taken for the common
+    signature: the state does not grow.  One shard without a mesh is the
+    unsharded ``prefill``, op for op.  Returns (logits at the last
+    position (B, V) on the first shard's device, one new cache a shard:
+    its heads' conv channels (B and C whole) and SSD state, as
+    ``steps.state_split`` splits them, with ``len`` L)."""
+    x = layers.embed_tp(shards, cfg, tokens, mesh)
+    B, L = x[0].shape[:2]
+    caches = [state_cache(cfg, B, _heads(layer_params(s.params["blocks"], 0)),
+                          xs.dtype, xs.device) for s, xs in zip(shards, x)]
+    for i in range(cfg.num_layers):
+        lps = [layer_params(s.params["blocks"], i) for s in shards]
+        mixed = [_mixer_full(lp, cfg, xs) for lp, xs in zip(lps, x)]
+        for (_, _, tail, state), c in zip(mixed, caches):
+            c["conv"][i].copy_(tail)
+            c["ssd"][i].copy_(state)
+        out = _gated_out_tp(lps, cfg, [m[0] for m in mixed],
+                            [m[1] for m in mixed], mesh)
+        x = [xs + o for xs, o in zip(x, out)]
+    h = [layers.apply_norm(s.params["ln_f"], cfg, xs[:, -1])
+         for s, xs in zip(shards, x)]
+    for c in caches:
+        c["len"].fill_(L)
+    return layers.unembed_tp(shards, cfg, h, mesh), caches
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -214,25 +262,21 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     accepted for the common signature: the state does not grow).  Returns
     (logits at the last position (B, V), a new cache with each layer's conv
     tail and SSD state and the shared scalar ``len`` L)."""
-    tokens = batch["tokens"]
-    B, L = tokens.shape
-    x = layers.embed(params["embed"], cfg, tokens).to(cfg.compute_dtype)
-    cache = init_cache(cfg, B, L, dtype=x.dtype, device=x.device)
-    for i in range(cfg.num_layers):
-        x, (tail, state) = mamba_block(layer_params(params["blocks"], i),
-                                       cfg, x, return_state=True)
-        cache["conv"][i].copy_(tail)
-        cache["ssd"][i].copy_(state)
-    h = layers.apply_norm(params["ln_f"], cfg, x[:, -1])
-    cache["len"] = torch.tensor(L, dtype=torch.int32, device=x.device)
-    return logits_fn(params, cfg, h), cache
+    logits, (cache,) = prefill_tp([Shard(params, cfg)], cfg,
+                                  [batch["tokens"]], cache_size)
+    return logits, cache
 
 
 def _mixer_chunk(p, cfg: ModelConfig, x, conv_state, ssd_state,
                  chunk_len):
     """A layer's mixer over a right-padded chunk of ``chunk_len`` <= T
-    tokens, up to the gated norm: (y (B, T, H*P), z, conv_tail, ssd_state)
-    over the heads ``p`` holds (see ``mamba_block_chunk``)."""
+    tokens, up to the gated norm, over the heads ``p`` holds: advances the
+    layer's recurrent state by the chunk.  x: (B, T, d); conv_state: (B,
+    k-1, ch) raw pre-conv tail; ssd_state: (B, H, P, N) f32.  Padding rows
+    past ``chunk_len`` are identity steps (dt = 0), and the new conv tail
+    ends at the last real token, so the returned state equals running
+    exactly ``chunk_len`` steps.  Returns (y (B, T, H*P), z, conv_tail,
+    ssd_state); the inputs are not modified."""
     B, T, _ = x.shape
     k = cfg.ssm_conv_kernel
     H = _heads(p)
@@ -264,14 +308,9 @@ def _mixer_chunk(p, cfg: ModelConfig, x, conv_state, ssd_state,
 
 def mamba_block_chunk(p, cfg: ModelConfig, x, conv_state, ssd_state,
                       chunk_len):
-    """Chunked-prefill mamba block: advance one layer's recurrent state by
-    a right-padded chunk of ``chunk_len`` <= T tokens.
-
-    x: (B, T, d); conv_state: (B, k-1, ch) raw pre-conv tail; ssd_state:
-    (B, H, P, N) f32.  Padding rows past ``chunk_len`` are identity steps
-    (dt = 0), and the new conv tail ends at the last real token, so the
-    returned state equals running exactly ``chunk_len`` steps.  Returns
-    (out (B, T, d), conv_tail, ssd_state); the inputs are not modified."""
+    """Chunked-prefill mamba block: x + the block's output (B, T, d) over
+    a right-padded chunk (``_mixer_chunk``), and the new conv tail and SSD
+    state.  Returns (out, conv_tail, ssd_state)."""
     y, z, tail, state = _mixer_chunk(p, cfg, x, conv_state, ssd_state,
                                      chunk_len)
     return x + _gated_out(p, cfg, y, z), tail, state
@@ -279,8 +318,12 @@ def mamba_block_chunk(p, cfg: ModelConfig, x, conv_state, ssd_state,
 
 def _mixer_decode(p, cfg: ModelConfig, x_t, conv_state, ssd_state, live):
     """A layer's mixer for one decode token per slot, up to the gated
-    norm: (y (B, H*P), z) over the heads ``p`` holds, the states updated
-    in place (see ``mamba_block_decode``)."""
+    norm, over the heads ``p`` holds.  x_t: (B, d); conv_state: (B, k-1,
+    ch) and ssd_state: (B, H, P, N) f32, both updated IN PLACE.  Slots
+    where ``live`` (B,) is False keep both states unchanged (the
+    reference's ``merge_state`` commit): their conv tail is not written,
+    and their SSD step gets dt = 0, an identity step, as the chunk's
+    padding rows do.  Returns (y (B, H*P), z)."""
     B = x_t.shape[0]
     H = _heads(p)
     xn = layers.apply_norm(p["ln"], cfg, x_t[:, None])[:, 0]
@@ -298,18 +341,6 @@ def _mixer_decode(p, cfg: ModelConfig, x_t, conv_state, ssd_state, live):
     A = -torch.exp(p["A_log"])
     y, _ = ops.ssd_decode_step(ssd_state, xs, dt, A, Bm, Cm, p["D"])
     return y.reshape(B, H * cfg.ssm_headdim), z
-
-
-def mamba_block_decode(p, cfg: ModelConfig, x_t, conv_state, ssd_state,
-                       live=None):
-    """One decode token per slot.  x_t: (B, d); conv_state: (B, k-1, ch)
-    and ssd_state: (B, H, P, N) f32, both updated IN PLACE.  Slots where
-    ``live`` (B,) is False keep both states unchanged (the reference's
-    ``merge_state`` commit): their conv tail is not written, and their SSD
-    step gets dt = 0, an identity step, as the chunk's padding rows do.
-    Returns the block's output (B, d)."""
-    y, z = _mixer_decode(p, cfg, x_t, conv_state, ssd_state, live)
-    return x_t + _gated_out(p, cfg, y, z)
 
 
 def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
@@ -348,7 +379,7 @@ def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
 def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
     """Chunked prefill: advance the conv/SSD state by one right-padded
     chunk ``batch["tokens"]`` (B, T) of ``chunk_len`` real tokens per slot
-    (see ``mamba_block_chunk``), writing each layer's new state into
+    (see ``_mixer_chunk``), writing each layer's new state into
     ``cache`` in place.  Returns (logits at each slot's last real token
     (B, V), cache with ``len + chunk_len``)."""
     logits, new_len = prefill_chunk_paged_tp(

@@ -15,8 +15,9 @@ prefix rows, so the prefix cannot span a chunk boundary): it writes
 ``chunk_len + prefix_len`` cache rows.  Later chunks are plain causal
 appends.  After prefill every cached position is visible to a new token,
 so decode is the dense decoder's, paged or not, sharded or not.  The
-head-sharded chunk step (``prefill_chunk_paged_tp``) hands the first
-chunk's image rows to every shard.  The training forward
+head-sharded one-shot prefill and chunk steps (``prefill_tp``,
+``prefill_chunk_tp``, ``prefill_chunk_paged_tp``) hand the image rows to
+every shard; the unsharded steps are their one-shard calls.  The training forward
 ``forward_hidden`` returns the hidden states of the whole prefix + text
 sequence; the loss reads the text rows only (``training/train_step.py``).
 """
@@ -35,6 +36,7 @@ init_cache = transformer.init_cache
 decode_step = transformer.decode_step
 decode_step_paged = transformer.decode_step_paged
 decode_step_paged_tp = transformer.decode_step_paged_tp
+decode_step_tp = transformer.decode_step_tp
 
 
 def _concat_inputs(params, cfg: ModelConfig, batch):
@@ -56,13 +58,29 @@ def forward_hidden(params, cfg: ModelConfig, batch: Dict[str, Any], *,
                                   train=train, prefix_len=cfg.prefix_len)
 
 
-def _chunk_inputs(params, cfg: ModelConfig, batch, chunk_len):
-    """A chunk's input rows, its prefix and the cache rows it writes: the
-    first chunk (the one with ``embeddings``) carries the prefix."""
-    if "embeddings" in batch:
-        return (_concat_inputs(params, cfg, batch), cfg.prefix_len,
-                chunk_len + cfg.prefix_len)
-    return transformer.embed_tokens(params, cfg, batch), 0, chunk_len
+def _inputs_tp(shards, cfg: ModelConfig, tokens, mesh, embeddings):
+    """The image rows ahead of the embedded text on every shard (one
+    (B, prefix_len, d) entry of ``embeddings`` a shard), in the compute
+    dtype: (B, prefix_len + T, d) a shard."""
+    tok = layers.embed_tp(shards, cfg, tokens, mesh)
+    return [torch.cat([torch.as_tensor(e, device=t.device).to(
+        cfg.compute_dtype), t], dim=1) for e, t in zip(embeddings, tok)]
+
+
+def prefill_tp(shards, cfg: ModelConfig, tokens, cache_size, *, mesh=None,
+               embeddings):
+    """``transformer.prefill_tp`` over ``shards`` behind the image rows
+    ``embeddings`` (one entry a shard, on its device): every shard attends
+    over the whole prefix both ways and keeps the rows of its kv heads (a
+    replicated kv head's on each of its shards).  ``cache_size`` counts
+    text tokens; the prefix rides along.  Returns (logits at the last
+    position (B, V) on the first shard's device, one dense cache a shard
+    whose ``len`` counts the prefix)."""
+    return transformer.prefill_tp(
+        shards, cfg, tokens,
+        cache_size + cfg.prefix_len if cache_size else None, mesh=mesh,
+        x=_inputs_tp(shards, cfg, tokens, mesh, embeddings),
+        prefix_len=cfg.prefix_len)
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -71,19 +89,38 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     Callers budget ``cache_size`` in text tokens; the prefix rides along.
     Returns (logits at the last position, a dense cache whose ``len``
     counts the prefix)."""
-    x = _concat_inputs(params, cfg, batch)
-    return transformer.prefill_ffn(
-        params, cfg, batch, cache_size + cfg.prefix_len if cache_size
-        else None, transformer.dense_ffn, x=x, prefix_len=cfg.prefix_len)
+    logits, (cache,) = prefill_tp(
+        [transformer.Shard(params, cfg)], cfg, [batch["tokens"]],
+        cache_size, embeddings=[batch["embeddings"]])
+    return logits, cache
+
+
+def prefill_chunk_tp(shards, cfg: ModelConfig, tokens, caches, chunk_len, *,
+                     mesh=None, embeddings=None):
+    """``transformer.prefill_chunk_tp`` over ``shards``, its arguments one
+    entry a shard on the shard's device: a first chunk's image rows
+    ``embeddings`` go ahead of every shard's embedded tokens, and it
+    writes ``chunk_len + prefix_len`` rows of each shard's kv heads into
+    the shard's dense cache (its gathered dense view).  Later chunks are
+    plain causal appends."""
+    if embeddings is None:
+        return transformer.prefill_chunk_tp(shards, cfg, tokens, caches,
+                                            chunk_len, mesh=mesh)
+    return transformer.prefill_chunk_tp(
+        shards, cfg, tokens, caches,
+        [cl + cfg.prefix_len for cl in chunk_len], mesh=mesh,
+        x=_inputs_tp(shards, cfg, tokens, mesh, embeddings),
+        prefix_len=cfg.prefix_len)
 
 
 def prefill_chunk(params, cfg: ModelConfig, batch, cache, *, chunk_len):
     """Chunked prefill against a dense cache (``transformer.prefill_chunk``);
     the first chunk writes ``chunk_len + prefix_len`` rows."""
-    x, prefix, eff = _chunk_inputs(params, cfg, batch, chunk_len)
-    return transformer.prefill_chunk_ffn(params, cfg, batch, cache, eff,
-                                         transformer.dense_ffn, x=x,
-                                         prefix_len=prefix)
+    emb = batch.get("embeddings")
+    logits, new_len = prefill_chunk_tp(
+        [transformer.Shard(params, cfg)], cfg, [batch["tokens"]], [cache],
+        [chunk_len], embeddings=None if emb is None else [emb])
+    return logits, {"k": cache["k"], "v": cache["v"], "len": new_len}
 
 
 def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
@@ -99,13 +136,11 @@ def prefill_chunk_paged_tp(shards, cfg: ModelConfig, tokens, caches,
         return transformer.prefill_chunk_paged_tp(
             shards, cfg, tokens, caches, block_tables, chunk_len,
             block_size=block_size, mesh=mesh)
-    tok = layers.embed_tp(shards, cfg, tokens, mesh)
-    x = [torch.cat([torch.as_tensor(e, device=t.device).to(
-        cfg.compute_dtype), t], dim=1) for e, t in zip(embeddings, tok)]
     return transformer.prefill_chunk_paged_tp(
         shards, cfg, tokens, caches, block_tables,
         [cl + cfg.prefix_len for cl in chunk_len], block_size=block_size,
-        mesh=mesh, x=x, prefix_len=cfg.prefix_len)
+        mesh=mesh, x=_inputs_tp(shards, cfg, tokens, mesh, embeddings),
+        prefix_len=cfg.prefix_len)
 
 
 def prefill_chunk_paged(params, cfg: ModelConfig, batch, cache,

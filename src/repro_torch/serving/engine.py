@@ -328,7 +328,8 @@ class ServiceRuntime:
 
     ``params`` must lie on ``device`` (the card unless ``"cpu"``).  A
     ``paged_step_builder`` (``launch/steps.py`` ``paged_decode_builder``)
-    splits the service by heads over a mesh's model axis; built with the
+    splits the service by heads over a mesh's model axis on the paged
+    continuous path (sync and the dense cache run whole); built with the
     shards of ``init_sharded``, it serves with ``params=None``.
     ``draft_params=SELF_DRAFT`` (``draft_cfg`` None or ``cfg``) makes the
     target its own draft."""
@@ -593,15 +594,22 @@ class ServiceRuntime:
         # -- model parallelism: a launcher's builder (``launch/steps.py``
         # ``paged_decode_builder``) splits the service over a mesh's model
         # axis; the paged decode and chunk steps then run shard by shard
-        # and the arena's pools split by kv head (None: one device)
+        # and the arena's pools split by kv head (None: one device).  As
+        # in the reference, whose builder wraps the paged decode step
+        # alone, only the paged continuous path builds it: sync and the
+        # dense cache run whole on the runtime's device.
         # ``params=None``: the builder holds the shards alone (no device
         # keeps the whole tree)
-        if params is None and paged_step_builder is None:
+        paged_loop = mode == "continuous" and kvcache_impl == "paged"
+        if params is None and (paged_step_builder is None
+                               or not paged_loop):
             raise ValueError(
                 "params=None serves a head-sharded runtime "
-                "(paged_step_builder with its shards) only")
-        self.sharded_step = (None if paged_step_builder is None
-                             else paged_step_builder(self))
+                "(paged_step_builder with its shards, on the paged "
+                "continuous path) only")
+        self.sharded_step = (paged_step_builder(self)
+                             if paged_step_builder is not None
+                             and paged_loop else None)
         # the step that runs the draft: a head-sharded target's own for its
         # self-draft (the same shard trees, a draft arena split alike);
         # None: the draft runs whole on the runtime's device

@@ -274,12 +274,14 @@ def _refusal_family(arch, tp=2):
 
 
 # each case: (its setup, the words its refusal names, or None where the
-# head-sharded step now serves it)
+# head-sharded step now serves it, or where the service runs whole)
 REFUSALS = {
-    "sync": (lambda: _refusal_dense(mode="sync"), "mode='sync'"),
+    # sync and the dense cache run whole on the mesh's first device: the
+    # runtime builds no sharded step there, as the reference's engine
+    # calls its builder on the paged continuous path alone
+    "sync": (lambda: _refusal_dense(mode="sync"), None),
     "dense_view": (lambda: _refusal_dense(paged_native=False), None),
-    "dense_cache": (lambda: _refusal_dense(kvcache_impl="dense"),
-                    "the dense cache"),
+    "dense_cache": (lambda: _refusal_dense(kvcache_impl="dense"), None),
     "draft": (lambda: _refusal_dense(draft=True), None),
     # reduced zamba2-7b's 16 SSD heads (and 4 kv heads) over 3 shards
     "hybrid": (lambda: _refusal_family("zamba2-7b", 3),
@@ -294,17 +296,93 @@ REFUSALS = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS) + ["fsdp"])
+def _fsdp_specs_and_chains_match():
+    """``paged_decode_builder(fsdp_params=True)``, the reference's flag:
+    on a service mesh (its batch axis 1) the FSDP rule places nothing
+    differently for any config, and the runtime's chains and every
+    decode step's logits are bit-identical to ``fsdp_params=False``'s."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    for arch in ARCH_IDS:
+        params = steps.abstract_params(get_config(arch))
+        for tp in (2, 4):
+            assert meshlib.param_specs(_fake(tp), params, fsdp=True) == \
+                meshlib.param_specs(_fake(tp), params, fsdp=False), arch
+    params = transformer.init(0, _CFG, "cpu")
+    runs = []
+    for fsdp in (False, True):
+        rt = ServiceRuntime(_CFG, params, ParallelPlan(
+            service="t", category=LAT, bs=4), device="cpu",
+            paged_step_builder=steps.paged_decode_builder(
+                _mesh(2), fsdp_params=fsdp), **KW)
+        log = []
+        decode = rt._paged_decode
+
+        def recorded(*a, decode=decode, log=log, **k):
+            log.append(decode(*a, **k))
+            return log[-1]
+
+        rt._paged_decode = recorded
+        for r in _requests(4):
+            rt.submit(GenerationRequest(rid=r["rid"], tokens=np.asarray(
+                r["tokens"], np.int32), max_new_tokens=r["n"]))
+        runs.append(({r.rid: list(r.tokens) for r in rt.drain()}, log))
+    (base, base_log), (got, log) = runs
+    assert got == base and len(log) == len(base_log) > 0
+    assert all(torch.equal(a, b) for a, b in zip(log, base_log))
+
+
+# each path of the paged continuous loop, and the two that run whole:
+# (mode, kvcache_impl, the entry points the head-sharded step calls)
+PATHS = {"paged_native": ("continuous", "paged", ("decode_step_paged_tp",
+                                                  "prefill_chunk_paged_tp")),
+         "dense_view": ("continuous", "paged", ("decode_step_tp",
+                                                "prefill_chunk_tp")),
+         "oneshot": ("continuous", "paged", ("prefill_tp",)),
+         "sync": ("sync", "paged", ()),
+         "dense_cache": ("continuous", "dense", ())}
+
+
+def _every_config_is_served_on_every_path():
+    """Every config of ``configs/`` at tp 1, 2 and 4 on each path: no
+    refusal, the family registers the path's head-sharded entry points
+    (the SSM's state step stands for its dense view), and its split plan
+    holds; a draft is refused only outside the dense and MoE families."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models.registry import model_api
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        api = model_api(cfg)
+        params = steps.abstract_params(cfg)
+        for tp in (1, 2, 4):
+            steps._split_plan(cfg, meshlib.param_specs(
+                _fake(tp), params, fsdp=False), tp)
+            for path, (mode, impl, entries) in PATHS.items():
+                assert steps.tp_refusal(cfg, tp, mode=mode,
+                                        kvcache_impl=impl,
+                                        draft=False) is None, (arch, path)
+                if path == "dense_view" and cfg.family == "ssm":
+                    continue
+                assert all(getattr(api, e) is not None for e in entries), \
+                    (arch, path)
+            why = steps.tp_refusal(cfg, tp, mode="continuous",
+                                   kvcache_impl="paged", draft=True)
+            assert (why is None) == (cfg.family in ("dense", "moe")), arch
+            assert why is None or ("a draft model" in why and ITEM in why)
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS) + ["fsdp",
+                                                     "every_config"])
 def test_refusals_name_their_item(case):
     if case == "fsdp":
-        # FSDP serving: the reference's flag, refused rather than ignored
-        with pytest.raises(ValueError, match=ITEM):
-            steps.paged_decode_builder(_mesh(2), fsdp_params=True)
+        _fsdp_specs_and_chains_match()
         pool = torch.empty((2, 9, 8, 4, 48), device="meta")
         assert tuple(steps._paged_leaf_spec(_fake(3), pool)) == \
             (None, None, None, None, "model")
         assert tuple(steps._paged_leaf_spec(_fake(2), pool)) == \
             (None, None, None, "model", None)
+        return
+    if case == "every_config":
+        _every_config_is_served_on_every_path()
         return
     setup, what = REFUSALS[case]
     cfg, params, mesh, kw = setup()
@@ -314,12 +392,16 @@ def test_refusals_name_their_item(case):
         paged_step_builder=steps.paged_decode_builder(mesh),
         **{**KW, "max_seq_len": 32, **kw})
     if what is None:
-        # a draft and the dense-view step are served over the shards
-        assert steps.tp_refusal(
-            cfg, 2, mode="continuous", kvcache_impl="paged",
-            paged_native=kw.get("paged_native", True),
-            draft="draft_params" in kw) is None
+        mode = kw.get("mode", "continuous")
+        impl = kw.get("kvcache_impl", "paged")
+        assert steps.tp_refusal(cfg, 2, mode=mode, kvcache_impl=impl,
+                                draft="draft_params" in kw) is None
         rt = build()
+        if (mode, impl) != ("continuous", "paged"):
+            # served whole on the runtime's device: no sharded step
+            assert rt.sharded_step is None and rt.params is params
+            return
+        # a draft and the dense-view step are served over the shards
         assert rt.sharded_step.tp == 2
         assert (rt.speculate_k > 0) == ("draft_params" in kw)
         assert rt.sharded_step.dense == (case == "dense_view")
@@ -431,8 +513,8 @@ def test_launcher_sizes_a_card_by_its_share_of_the_shards():
     the first card's share: a quarter of mistral-large-123b's 245 GB of
     weights (its vocabulary and heads split 4 ways), no whole tree; and
     ``--no-chunked-prefill`` (one-shot prefill split by heads) passes the
-    refusal check, where ``--mode sync`` is refused before anything is
-    allocated."""
+    refusal check, and so does ``--mode sync``, which runs whole on the
+    first card: its whole weights and its dense cache count there."""
     mesh = meshlib.make_mesh((1, 4), ("data", "model"))
     args = serve._parser().parse_args(["--archs", "minicpm-2b",
                                        "--pjit-decode"])
@@ -452,6 +534,11 @@ def test_launcher_sizes_a_card_by_its_share_of_the_shards():
     oneshot = serve._parser().parse_args(["--pjit-decode",
                                           "--no-chunked-prefill"])
     serve._refuse_what_tp_cannot_serve(oneshot, cfgs, cp, mesh, None)
-    bad = serve._parser().parse_args(["--pjit-decode", "--mode", "sync"])
-    with pytest.raises(ValueError, match=ITEM):
-        serve._refuse_what_tp_cannot_serve(bad, cfgs, cp, mesh, None)
+    # sync runs whole on the first card: its whole weights and its dense
+    # cache at the plan's 512 slots and --max-seq-len count there
+    sync = serve._parser().parse_args(["--pjit-decode", "--mode", "sync"])
+    serve._refuse_what_tp_cannot_serve(sync, cfgs, cp, mesh, None)
+    weights, cache = serve.footprint(sync, cp, mesh)
+    assert weights == get_config("minicpm-2b").param_count() * 2
+    assert cache == serve.footprint(sync, cp)[1] == 512 * 256 * (
+        40 * 2 * 36 * 64 * 2)
